@@ -12,13 +12,22 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 2. build: compiles ``tpu_slu_torch/csrc/*.cu`` with nvcc;
 3. K1 (the shared-stream bi-GRU kernel) against its plain PyTorch version
    on the card, over parts, pools, odd and even T, B and H = 128; the front
-   end's convs on the card against an f64 conv on the CPU (f32, not TF32);
+   end's convs and their gradients on the card against an f64 conv on the
+   CPU (f32, not TF32);
 4. golden decode: the committed toy checkpoint ``tests/assets/golden`` decodes
    its six wavs exactly on the card, five K1 launches per call;
 5. flagship slice: ``decode_intents`` at the width of
    ``experiments/no_unfreezing.cfg`` with seeded random weights at B = 1 and
    16, logits held against the same model on the CPU, then warm timings of
-   ``predict_intents`` and of K1 alone against its plain version.
+   ``predict_intents`` and of K1 alone against its plain version;
+6. flagship train step at the width of ``experiments/no_pretraining.cfg``:
+   K2 (train forward) and K3 (backward) against their plain versions at the
+   flagship layer shapes; the pooled eval path's gradients against autograd
+   of the plain version; one whole train step on the card against the CPU
+   plain path; ``Trainer(model, config).train(dataset)`` over seeded
+   synthetic batches of B = 64 with 4 K2, 1 K1 and 5 K3 launches per step,
+   then ``Trainer.test``; warm timings of the train step and of K2 and K3
+   against their plain versions.
 
 The last lines are the card's name and power limit, one JSON object on the
 kernels, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -44,6 +53,19 @@ CONV_RTOL = 1e-5  # f32 conv vs f64, of the largest output; TF32 (10-bit mantiss
 GOLDEN = os.path.join(HERE, "tests", "assets", "golden")
 K1_SOURCE = "tpu_slu_torch/csrc/bigru_shared_fwd.cu"
 K1_REPLACES = "tpu_slu/ops/pallas_gru.py:771"
+K2_SOURCE = "tpu_slu_torch/csrc/bigru_trainpool_fwd.cu"
+K2_REPLACES = "tpu_slu/ops/pallas_gru.py:1146"
+K3_SOURCE = "tpu_slu_torch/csrc/bigru_shared_bwd.cu"
+K3_REPLACES = "tpu_slu/ops/pallas_gru.py:1293"
+# K3 vs plain, of each tensor's largest element: f32 sums over up to 25,600 rows, another order
+GRAD_TOL = 1e-4
+STEP_LOSS_ATOL = 1e-4  # one train step, card vs CPU: loss
+STEP_GRAD_TOL = 1e-3  # ... each gradient, of its tensor's largest element (errors compound over 5 layers)
+STEP_PARAM_ATOL = 1e-5  # ... parameters after masked Adam from equal gradients
+# the flagship's bi-GRU layers: name, part width, parts, T at 4 s of audio
+ENC_SHAPES = [("phone_rnn0", 60, 1, 400), ("phone_rnn1", 128, 2, 200),
+              ("word_rnn0", 128, 2, 100), ("word_rnn1", 128, 2, 50)]
+INTENT_SHAPE = ("intent_rnn0", 256, 1, 25)
 
 
 def smi() -> str:
@@ -86,6 +108,262 @@ def k1_case(rng, n_parts, d, T, B, H, dev):
     parts = tuple(torch.from_numpy(rng.standard_normal((T, B, d)).astype("float32")).to(dev)
                   for _ in range(n_parts))
     return params, parts
+
+
+def same_zeros(g, r) -> bool:
+    """The dropout zero pattern of ``g`` is ``r``'s: a window dropped whole
+    is exactly 0 in both. A sum of kept values may cancel to exactly 0 in one
+    version only, so such a position may differ if both are within 1e-6 of 0."""
+    import torch
+
+    differ = (g == 0) != (r == 0)
+    return not differ.any() or torch.maximum(g.abs(), r.abs())[differ].max().item() <= 1e-6
+
+
+def rel_err(g, r) -> float:
+    """Largest |g - r| over the largest |r|."""
+    return (g - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
+
+
+def in_turns(plain_fn, kernel_fn, rounds: int = 2) -> tuple[float, float]:
+    """Median ms of the kernel and of its plain version, timed in turns."""
+    plain, kern = [], []
+    for _ in range(rounds):  # plain, kernel, kernel, plain, ...
+        plain.append(cuda_ms(plain_fn, reps=1, warmup=0))
+        kern.append(cuda_ms(kernel_fn, reps=10, warmup=1))
+        kern.append(cuda_ms(kernel_fn, reps=10, warmup=0))
+        plain.append(cuda_ms(plain_fn, reps=1, warmup=0))
+    return statistics.median(kern), statistics.median(plain)
+
+
+class Batches:
+    """A dataset in the port Trainer's format: ``.loader`` yields batches."""
+
+    def __init__(self, batches):
+        self.loader = batches
+
+
+def synthetic_batches(rng, n: int, B: int, values_per_slot) -> list[dict]:
+    """Seeded 4 s waveforms and slot labels, in the loader's batch format."""
+    import numpy as np
+
+    T = 4 * 16000
+    return [{"x": (0.1 * rng.standard_normal((B, T))).astype(np.float32),
+             "y_intent": np.stack([rng.integers(0, v, B) for v in values_per_slot], 1),
+             "w": np.ones(B, np.float32), "len": np.full(B, T, np.int64)} for _ in range(n)]
+
+
+def phase_train(dev, card: str, rng) -> tuple[list[dict], int]:
+    """Phase 6: the flagship train step. Returns K2's and K3's JSON entries
+    and K1's launches in ``Trainer.train``."""
+    import numpy as np
+    import torch
+
+    from tpu_slu_torch.models.flagship import TRAIN_CFG, flagship_model
+    from tpu_slu_torch.ops.bigru_shared import (
+        _shift_hp,
+        bigru_shared,
+        bigru_shared_bwd,
+        bigru_shared_bwd_reference,
+        bigru_shared_reference,
+        bigru_trainpool,
+        bigru_trainpool_reference,
+    )
+    from tpu_slu_torch.training import MaskedAdam, Trainer
+
+    # 6.1 K2 against its plain version at the encoder layers' shapes, and an odd T
+    k2_err = 0.0
+    for name, d, n_parts, T in ENC_SHAPES + [("odd T", 128, 2, 199)]:
+        for B in (1, 16, 64):
+            params, parts = k1_case(rng, n_parts, d, T, B, 128, dev)
+            seed = int(rng.integers(2**32))
+            before = bigru_trainpool.launches
+            got = bigru_trainpool(params, parts, pool=2, drop_p=0.5, seed=seed)
+            torch.cuda.synchronize()
+            assert bigru_trainpool.launches == before + 1, "K2 launch counter did not advance"
+            ref = bigru_trainpool_reference(params, parts, pool=2, drop_p=0.5, seed=seed)
+            err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+            k2_err = max(k2_err, err)
+            for what, g, r in zip(("hp_f", "hp_b", "pooled_f", "pooled_b"), got, ref):
+                if g.shape != r.shape or not torch.allclose(g, r, atol=ATOL, rtol=RTOL):
+                    raise AssertionError(f"K2 {name} T={T} B={B}: {what} disagrees with its plain "
+                                         f"version (max abs {err:.3g})")
+            for g, r in zip(got[2:], ref[2:]):
+                if not same_zeros(g, r):
+                    raise AssertionError(f"K2 {name} T={T} B={B}: dropout zero pattern differs")
+            print(f"[k2] {name:10s} T={T:3d} B={B:2d} D={n_parts * d:3d} drop 0.5 pool 2: "
+                  f"max abs err {err:.3g}, zero pattern equal")
+    print(f"[k2] within atol {ATOL} rtol {RTOL}, zero patterns equal; max abs err {k2_err:.3g}")
+
+    # 6.2 K3 against its plain version: fused mode (encoder), plain mode (intent)
+    def k3_case(d, n_parts, T, B, fused):
+        params, parts = k1_case(rng, n_parts, d, T, B, 128, dev)
+        if fused:
+            seed = int(rng.integers(2**32))
+            hp_f, hp_b, o_f, _ = bigru_trainpool(params, parts, pool=2, drop_p=0.5, seed=seed)
+            kw = {"pool": 2, "drop_p": 0.5, "seed": seed}
+        else:
+            o_f, o_b = bigru_shared(params, parts)[:2]
+            hp_f, hp_b = _shift_hp(o_f, o_b)
+            kw = {}
+        dy = [torch.from_numpy(rng.standard_normal(tuple(o_f.shape)).astype(np.float32)).to(dev)
+              for _ in range(2)]
+        return params, parts, hp_f, hp_b, dy, kw
+
+    k3_err = 0.0
+    for name, d, n_parts, T in ENC_SHAPES + [INTENT_SHAPE]:
+        fused = name != INTENT_SHAPE[0]
+        for B in (16, 64):
+            params, parts, hp_f, hp_b, dy, kw = k3_case(d, n_parts, T, B, fused)
+            before = bigru_shared_bwd.launches
+            dxs, grads = bigru_shared_bwd(params, parts, hp_f, hp_b, *dy, **kw)
+            torch.cuda.synchronize()
+            assert bigru_shared_bwd.launches == before + 1, "K3 launch counter did not advance"
+            rdxs, rgrads = bigru_shared_bwd_reference(params, parts, hp_f, hp_b, *dy, **kw)
+            pairs = [(f"dx{i}", g, r) for i, (g, r) in enumerate(zip(dxs, rdxs))]
+            pairs += [(f"{dd}.{n}", grads[dd][n], rgrads[dd][n]) for dd in grads for n in grads[dd]]
+            worst = 0.0
+            for what, g, r in pairs:
+                e = rel_err(g, r)
+                worst = max(worst, e)
+                k3_err = max(k3_err, (g - r).abs().max().item())
+                if g.shape != r.shape or not e <= GRAD_TOL:
+                    raise AssertionError(f"K3 {name} T={T} B={B}: {what} off its plain version by "
+                                         f"{e:.3g} of its largest element")
+            print(f"[k3] {name:11s} T={T:3d} B={B:2d} {'fused' if fused else 'plain'}: dX, dW, db "
+                  f"within {worst:.3g} of each largest element")
+    print(f"[k3] within {GRAD_TOL} of each tensor's largest element; max abs err {k3_err:.3g}")
+
+    # 6.3 the repaired eval path: gradients through the pooled K1 call
+    for method in ("avg", "max"):
+        params, parts = k1_case(rng, 2, 128, 200, 16, 128, dev)
+        leaves = [({dd: {n: t.clone().requires_grad_() for n, t in params[dd].items()} for dd in params},
+                   [p.clone().requires_grad_() for p in parts]) for _ in range(2)]
+        out = bigru_shared(*leaves[0], pool=2, pool_method=method)[:2]
+        if out[0].grad_fn is None:
+            raise AssertionError("bigru_shared on CUDA with grad on returned a detached result")
+        ref = bigru_shared_reference(*leaves[1], pool=2, pool_method=method)
+        cot = [torch.from_numpy(rng.standard_normal(tuple(r.shape)).astype(np.float32)).to(dev)
+               for r in ref]
+        torch.autograd.backward(out, cot)
+        torch.autograd.backward(ref, cot)
+        (kp, kx), (rp, rx) = leaves
+        worst = max(rel_err(a.grad, b.grad) for a, b in
+                    list(zip(kx, rx)) + [(kp[dd][n], rp[dd][n]) for dd in kp for n in kp[dd]])
+        if not worst <= GRAD_TOL:
+            raise AssertionError(f"pooled eval path ({method}): gradients off autograd of the plain "
+                                 f"version by {worst:.3g}")
+        print(f"[grad] eval path pool 2/{method} under autograd on the card: every gradient within "
+              f"{worst:.3g} of autograd of the plain version")
+
+    # 6.4 one whole train step, card against the CPU plain path, B = 16
+    cpu_model = flagship_model(cfg=TRAIN_CFG, intent_rnn_drop=[0.0]).train()
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    b16 = synthetic_batches(rng, 1, 16, cpu_model.values_per_slot)[0]
+    grads = {}
+    for model, where, label in ((cpu_model, torch.device("cpu"), "cpu"), (card_model, dev, "card")):
+        batch = {k: torch.from_numpy(v).to(where) for k, v in b16.items()}
+        model.zero_grad(set_to_none=True)
+        loss, _ = model.loss(batch["x"], batch["y_intent"], train=True, weights=batch["w"],
+                             lengths=batch["len"], generator=torch.Generator().manual_seed(5))
+        loss.backward()
+        grads[label] = (loss.item(), {n: p.grad for n, p in model.named_parameters()})
+    (l_cpu, g_cpu), (l_card, g_card) = grads["cpu"], grads["card"]
+    if not abs(l_card - l_cpu) <= STEP_LOSS_ATOL:
+        raise AssertionError(f"train step loss: card {l_card} vs CPU {l_cpu}")
+    worst = 0.0
+    for n, g in g_cpu.items():
+        if g is None:  # the encoder's phoneme/word heads take no part in the SLU loss
+            assert g_card[n] is None, n
+            continue
+        e = rel_err(g_card[n].cpu(), g)
+        worst = max(worst, e)
+        if not e <= STEP_GRAD_TOL:
+            raise AssertionError(f"train step: gradient of {n} off the CPU's by {e:.3g} of its largest")
+    # masked Adam from equal gradients: the first Adam step is lr * g / (|g| + eps),
+    # ~lr * sign(g), so f32 noise on a near-zero gradient flips an update. How
+    # many would differ from each side's own gradients is counted, not held.
+    lr = cpu_model.config.training_lr
+    flips = sum(int(((g_card[n].cpu() / (g_card[n].cpu().abs() + 1e-8) - g / (g.abs() + 1e-8)).abs()
+                     * lr > STEP_PARAM_ATOL).sum()) for n, g in g_cpu.items() if g is not None)
+    n_params = sum(p.numel() for p in cpu_model.parameters())
+    for n, p in cpu_model.named_parameters():
+        p.grad = None if g_card[n] is None else g_card[n].cpu()
+    for model in (cpu_model, card_model):
+        opt = MaskedAdam(model.named_parameters(), lr)
+        opt.set_mask(model.trainable_mask())
+        opt.step()
+    card_params = dict(card_model.named_parameters())
+    p_err = max((card_params[n].detach().cpu() - p.detach()).abs().max().item()
+                for n, p in cpu_model.named_parameters())
+    if not p_err <= STEP_PARAM_ATOL:
+        raise AssertionError(f"masked Adam: card vs CPU parameters off by {p_err:.3g}")
+    print(f"[step] flagship train step B=16, 4 s audio, card vs CPU: loss {l_card:.6f} vs {l_cpu:.6f} "
+          f"(atol {STEP_LOSS_ATOL}); every gradient within {worst:.3g} of its largest element "
+          f"(limit {STEP_GRAD_TOL}); params after masked Adam from equal gradients within {p_err:.3g} "
+          f"(atol {STEP_PARAM_ATOL}); from each side's own gradients {flips} of {n_params} would "
+          f"differ by more than {STEP_PARAM_ATOL}")
+    del cpu_model, card_model, grads, g_cpu, g_card, card_params
+
+    # 6.5 the main path: Trainer.train over seeded batches of B = 64
+    model = flagship_model(dev, cfg=TRAIN_CFG, seed=1)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        model.config.folder = tmp
+        trainer = Trainer(model, model.config, generator=torch.Generator().manual_seed(7))
+        B = model.config.training_batch_size
+        data = Batches(synthetic_batches(rng, 3, B, model.values_per_slot))
+        bigru_shared.launches = bigru_trainpool.launches = bigru_shared_bwd.launches = 0
+        acc, loss = trainer.train(data)
+        torch.cuda.synchronize()
+        launches = {"K1": bigru_shared.launches, "K2": bigru_trainpool.launches,
+                    "K3": bigru_shared_bwd.launches}
+        steps = len(data.loader)
+        if launches != {"K1": steps, "K2": 4 * steps, "K3": 5 * steps}:
+            raise AssertionError(f"Trainer.train over {steps} steps launched {launches}; want 1 K1, "
+                                 "4 K2 and 5 K3 per step")
+        if not (np.isfinite(loss) and np.isfinite(acc)):
+            raise AssertionError(f"Trainer.train: loss {loss}, acc {acc}")
+        with open(os.path.join(tmp, "training", "log.csv")) as f:
+            header = f.readline().strip()
+        if not header.startswith(",intent_loss,intent_acc,set,examples_per_sec,steps"):
+            raise AssertionError(f"log.csv header {header!r}")
+        t_acc, t_loss = trainer.test(data)
+        if not (np.isfinite(t_loss) and np.isfinite(t_acc)):
+            raise AssertionError(f"Trainer.test: loss {t_loss}, acc {t_acc}")
+        print(f"[train] Trainer.train at no_pretraining.cfg width, B={B}, {steps} steps: loss {loss:.4f} "
+              f"acc {acc:.3f}; launches {launches}; log.csv {header}; Trainer.test loss {t_loss:.4f}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 6.6 timings
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.loader[0].items()}
+    step_ms = cuda_ms(lambda: trainer.train_step(batch), reps=10, warmup=2)
+    print(f"[time] warm train step B={B}, 4 s audio (forward, backward, masked Adam): median "
+          f"{step_ms:.3f} ms of 10 (CUDA events) on {card}")
+    k2_ms = k2_plain = k3_ms = k3_plain = 0.0
+    for name, d, n_parts, T in ENC_SHAPES + [INTENT_SHAPE]:
+        fused = name != INTENT_SHAPE[0]
+        params, parts, hp_f, hp_b, dy, kw = k3_case(d, n_parts, T, B, fused)
+        if fused:
+            kw2 = {"pool": 2, "drop_p": 0.5, "seed": kw["seed"]}
+            a, b = in_turns(lambda: bigru_trainpool_reference(params, parts, **kw2),
+                            lambda: bigru_trainpool(params, parts, **kw2))
+            k2_ms, k2_plain = k2_ms + a, k2_plain + b
+            print(f"[time] K2 {name:11s} B={B} T={T:3d}: kernel {a:.4f} ms, plain {b:.3f} ms")
+        a, b = in_turns(lambda: bigru_shared_bwd_reference(params, parts, hp_f, hp_b, *dy, **kw),
+                        lambda: bigru_shared_bwd(params, parts, hp_f, hp_b, *dy, **kw))
+        k3_ms, k3_plain = k3_ms + a, k3_plain + b
+        print(f"[time] K3 {name:11s} B={B} T={T:3d} {'fused' if fused else 'plain'}: kernel {a:.4f} ms, "
+              f"plain {b:.3f} ms")
+    print(f"[time] K2 four encoder layers B={B}: kernel {k2_ms:.4f} ms, plain {k2_plain:.3f} ms; "
+          f"K3 five layers: kernel {k3_ms:.4f} ms, plain {k3_plain:.3f} ms on {card}")
+    return [
+        {"name": "bigru_trainpool_fwd", "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
+         "launches": launches["K2"], "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain},
+        {"name": "bigru_shared_bwd", "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
+         "launches": launches["K3"], "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain},
+    ], launches["K1"]
 
 
 def main() -> None:
@@ -175,6 +453,28 @@ def main() -> None:
                                  f"> {CONV_RTOL} x {scale:.3g}")
         print(f"[conv] {name}: port conv1d max abs err {err:.3g} vs f64 (limit {CONV_RTOL} x max "
               f"{scale:.3g}); F.conv1d at torch's TF32 default {lib_err:.3g}")
+        # the gradients too: the port's conv1d, and torch.cudnn_convolution as it comes
+        cot = torch.from_numpy(rng.standard_normal(tuple(ref.shape))).float()
+        x64, w64 = xs.double().requires_grad_(), ws.double().requires_grad_()
+        F.conv1d(x64, w64, stride=stride, padding=pad).backward(cot.double())
+        errs = {}
+        for how in ("port", "cudnn_convolution"):
+            xg, wg = xd.clone().requires_grad_(), wd.clone().requires_grad_()
+            if how == "port":
+                out = conv1d(xg, wg, stride=stride, padding=pad)
+            else:
+                out = torch.cudnn_convolution(xg[:, :, None, :], wg[:, :, None, :], (0, pad), (1, stride),
+                                              (1, 1), 1, False, False, False)[:, :, 0, :]
+                if out.grad_fn is None:
+                    raise AssertionError("torch.cudnn_convolution has no autograd formula here")
+            out.backward(cot.to(dev))
+            errs[how] = max(rel_err(g.grad.double().cpu(), r.grad) for g, r in ((xg, x64), (wg, w64)))
+        if not errs["port"] <= CONV_RTOL:
+            raise AssertionError(f"{name}: port's conv1d gradients off f64 by {errs['port']:.3g} of the "
+                                 f"largest element > {CONV_RTOL}")
+        print(f"[conv] {name}: input and weight gradients vs f64, of the largest element: port conv1d "
+              f"{errs['port']:.3g} (limit {CONV_RTOL}); torch.cudnn_convolution(allow_tf32=False) at "
+              f"torch's TF32 default {errs['cudnn_convolution']:.3g}")
 
     # 4. golden decode on the card
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -254,13 +554,8 @@ def main() -> None:
             err = max((g - r).abs().max().item() for g, r in zip(got, ref))
             max_err = max(max_err, err)
             assert all(torch.allclose(g, r, atol=ATOL, rtol=RTOL) for g, r in zip(got, ref)), err
-            plain, kern = [], []
-            for _ in range(3):  # in turns: plain, kernel, kernel, plain, ...
-                plain.append(cuda_ms(lambda: bigru_shared_reference(params, parts, pool=pool), reps=1, warmup=0))
-                kern.append(cuda_ms(lambda: bigru_shared(params, parts, pool=pool), reps=10, warmup=1))
-                kern.append(cuda_ms(lambda: bigru_shared(params, parts, pool=pool), reps=10, warmup=0))
-                plain.append(cuda_ms(lambda: bigru_shared_reference(params, parts, pool=pool), reps=1, warmup=0))
-            k_ms, p_ms = statistics.median(kern), statistics.median(plain)
+            k_ms, p_ms = in_turns(lambda: bigru_shared_reference(params, parts, pool=pool),
+                                  lambda: bigru_shared(params, parts, pool=pool), rounds=3)
             totals[B][0] += k_ms
             totals[B][1] += p_ms
             print(f"[time] K1 {name:11s} B={B:2d} D={n_parts * d:3d} T={T:3d} pool={pool}: "
@@ -268,12 +563,15 @@ def main() -> None:
         print(f"[time] K1 five flagship layers B={B:2d}: kernel {totals[B][0]:.4f} ms, "
               f"plain {totals[B][1]:.3f} ms on {card}")
 
+    # 6. flagship train step
+    train_kernels, k1_train_launches = phase_train(dev, card, rng)
+
     print(card)
     print(json.dumps({"kernels": [{
         "name": "bigru_shared_fwd", "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
-        "launches": launches, "max_abs_err": max_err,
+        "launches": k1_train_launches, "launches_decode": launches, "max_abs_err": max_err,
         "ms": totals[16][0], "plain_ms": totals[16][1],
-    }]}))
+    }] + train_kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 

@@ -11,8 +11,16 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_slu_torch.ops.bigru_shared import bigru_shared, bigru_shared_reference
+from tpu_slu_torch.ops.bigru_shared import (
+    bigru_shared,
+    bigru_shared_bwd,
+    bigru_shared_bwd_reference,
+    bigru_shared_reference,
+    bigru_trainpool,
+    bigru_trainpool_reference,
+)
 from tpu_slu_torch.ops.conv import conv1d
+from tpu_slu_torch.ops.dropout import DIR_SALT_B, DIR_SALT_F, keep_mask, keep_threshold
 
 POOLS = [(1, "avg"), (2, "avg"), (2, "max")]
 
@@ -81,6 +89,170 @@ def test_conv1d_is_f32_at_torchs_default_tf32(dev, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 1, 64000, 80, 401, 80, 200), (4, 80, 400, 60, 5, 1, 2)])
+def test_conv1d_backward_is_f32_at_torchs_default_tf32(dev, shape):
+    """Input and weight gradients within 1e-5 of an f64 CPU reference,
+    relative to the largest element (TF32 would be ~1e-3 off)."""
+    B, cin, T, cout, K, stride, pad = shape
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((B, cin, T)).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(-0.1, 0.1, (cout, cin, K)).astype(np.float32))
+    b = torch.from_numpy(rng.uniform(-0.1, 0.1, cout).astype(np.float32))
+    T_out = (T + 2 * pad - K) // stride + 1
+    cot = torch.from_numpy(rng.standard_normal((B, cout, T_out)).astype(np.float32))
+    leaves64 = [t.double().requires_grad_() for t in (x, w, b)]
+    torch.nn.functional.conv1d(*leaves64, stride=stride, padding=pad).backward(cot.double())
+    leaves = [t.to(dev).requires_grad_() for t in (x, w, b)]
+    conv1d(*leaves, stride=stride, padding=pad).backward(cot.to(dev))
+    for name, got, ref in zip(("x", "weight", "bias"), leaves, leaves64):
+        err = (got.grad.double().cpu() - ref.grad).abs().max().item()
+        assert err <= 1e-5 * ref.grad.abs().max().item(), (name, err)
+
+
+def assert_same_zeros(g, r):
+    """The dropout zero pattern of ``g`` is ``r``'s: a window the mask drops
+    whole is exactly 0 in both. Among millions of outputs a sum of kept
+    values may also cancel to exactly 0 in one version and not in the other,
+    so such a position may differ if both values are within 1e-6 of 0."""
+    differ = (g == 0) != (r == 0)
+    assert not differ.any() or torch.maximum(g.abs(), r.abs())[differ].max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 2, 25, 400])
+@pytest.mark.parametrize("H", [16, 128])
+@pytest.mark.parametrize("B", [1, 3, 64, 300])
+def test_k2_matches_plain(dev, B, H, T):
+    """Pooled outputs and hp within 1e-4 (f32 sums in another order); the
+    dropout zero pattern equal to the plain version's, element for element."""
+    dims = (60,) if T == 400 else (H, H)
+    params, parts = k1_inputs(5, dims, T, B, H, dev)
+    for pool, p in ((2, 0.5), (1, 0.5), (2, 0.0)):
+        before = bigru_trainpool.launches
+        got = bigru_trainpool(params, parts, pool=pool, drop_p=p, seed=12345 + B)
+        torch.cuda.synchronize()
+        assert bigru_trainpool.launches == before + 1
+        ref = bigru_trainpool_reference(params, parts, pool=pool, drop_p=p, seed=12345 + B)
+        for g, r in zip(got, ref):
+            assert g.shape == r.shape
+            torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+        for g, r in zip(got[2:], ref[2:]):
+            assert_same_zeros(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 7, 2**32 - 1])
+def test_k2_mask_is_the_hash_bit_for_bit(dev, seed):
+    """pool 1: K2's output is its undropped output, zeroed exactly where
+    keep_mask drops and scaled by 1/(1-p) elsewhere, bit for bit."""
+    T, B, H, p = 33, 70, 128, 0.3
+    params, parts = k1_inputs(6, (128, 128), T, B, H, dev)
+    _, _, o_f, o_b = bigru_trainpool(params, parts, pool=1, drop_p=p, seed=seed)
+    _, _, h_f, h_b = bigru_trainpool(params, parts, pool=1, drop_p=0.0, seed=seed)
+    for out, h, salt in ((o_f, h_f, DIR_SALT_F), (o_b, h_b, DIR_SALT_B)):
+        keep = keep_mask(seed, salt, 0, (T, B, H), keep_threshold(p), dev)
+        assert torch.equal(out, torch.where(keep, h * (1.0 / (1.0 - p)), 0.0))
+
+
+def _bwd_case(seed, dims, T, B, H, dev, fused):
+    params, parts = k1_inputs(seed, dims, T, B, H, dev)
+    rng = np.random.default_rng(seed + 1)
+    if fused:
+        hp_f, hp_b, o_f, _ = bigru_trainpool_reference(params, parts, pool=2, drop_p=0.5, seed=seed)
+        kw = {"pool": 2, "drop_p": 0.5, "seed": seed}
+    else:
+        o_f, o_b = bigru_shared_reference(params, parts)
+        hp_f = torch.cat([torch.zeros_like(o_f[:1]), o_f[:-1]])
+        hp_b = torch.cat([o_b[1:], torch.zeros_like(o_b[:1])])
+        kw = {}
+    dy = [torch.from_numpy(rng.standard_normal(tuple(o_f.shape)).astype(np.float32)).to(dev)
+          for _ in range(2)]
+    return params, parts, hp_f, hp_b, dy, kw
+
+
+def _assert_grads_close(got, ref, tol=1e-4):
+    """Each tensor within ``tol`` of its largest element: f32 sums over up to
+    T*B rows, in another order."""
+    (dxs, grads), (rdxs, rgrads) = got, ref
+    pairs = list(zip(dxs, rdxs)) + [(grads[d][n], rgrads[d][n]) for d in grads for n in grads[d]]
+    for g, r in pairs:
+        assert g.shape == r.shape
+        assert (g - r).abs().max().item() <= tol * max(r.abs().max().item(), 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 2, 25, 400])
+@pytest.mark.parametrize("H", [16, 128])
+@pytest.mark.parametrize("B", [1, 3, 64, 300])
+def test_k3_matches_plain(dev, B, H, T):
+    dims = (60,) if T == 400 else (H, H)
+    for fused in (True, False):
+        params, parts, hp_f, hp_b, dy, kw = _bwd_case(8, dims, T, B, H, dev, fused)
+        before = bigru_shared_bwd.launches
+        got = bigru_shared_bwd(params, parts, hp_f, hp_b, *dy, **kw)
+        torch.cuda.synchronize()
+        assert bigru_shared_bwd.launches == before + 1
+        _assert_grads_close(got, bigru_shared_bwd_reference(params, parts, hp_f, hp_b, *dy, **kw))
+
+
+@pytest.mark.cuda
+def test_k3_weight_gradients_are_deterministic(dev):
+    params, parts, hp_f, hp_b, dy, kw = _bwd_case(9, (128, 128), 200, 64, 128, dev, True)
+    a = bigru_shared_bwd(params, parts, hp_f, hp_b, *dy, **kw)
+    b = bigru_shared_bwd(params, parts, hp_f, hp_b, *dy, **kw)
+    for x, y in zip(a[0], b[0]):
+        assert torch.equal(x, y)
+    for d in a[1]:
+        for n in a[1][d]:
+            assert torch.equal(a[1][d][n], b[1][d][n]), (d, n)
+
+
+def _leaves(params, parts):
+    return ({d: {n: t.clone().requires_grad_() for n, t in params[d].items()} for d in params},
+            [p.clone().requires_grad_() for p in parts])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kwargs", [{"pool": 2}, {"pool": 2, "pool_method": "max"}, {},
+                                    {"train": True},
+                                    {"train": True, "pool": 2, "drop_p": 0.5, "seed": 3}])
+def test_layer_gradients_match_autograd_of_the_plain_version(dev, kwargs):
+    """Through the autograd Functions (eval pooled: the repaired path; train
+    unpooled; train pooled with dropout) against torch autograd of the plain
+    forward on the same card."""
+    T, B, H, dims = 37, 5, 128, (128, 128)
+    params, parts = k1_inputs(10, dims, T, B, H, dev)
+    tp, tx = _leaves(params, parts)
+    out = bigru_shared(tp, tx, **kwargs)
+    assert out[0].grad_fn is not None
+    rp, rx = _leaves(params, parts)
+    if "seed" in kwargs:
+        ref = bigru_trainpool_reference(rp, rx, pool=2, drop_p=0.5, seed=3)[2:]
+    else:
+        ref = bigru_shared_reference(rp, rx, pool=kwargs.get("pool", 1),
+                                     pool_method=kwargs.get("pool_method", "avg"))
+    rng = np.random.default_rng(11)
+    cot = [torch.from_numpy(rng.standard_normal(tuple(r.shape)).astype(np.float32)).to(dev)
+           for r in ref]
+    torch.autograd.backward(out[:2], cot)
+    torch.autograd.backward(ref, cot)
+    pairs = list(zip(tx, rx)) + [(tp[d][n], rp[d][n]) for d in tp for n in tp[d]]
+    for g, r in pairs:
+        assert (g.grad - r.grad).abs().max().item() <= 1e-4 * r.grad.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_decode_under_inference_mode_launches_k1_only(dev):
+    params, parts = k1_inputs(12, (60,), 25, 2, 128, dev)
+    counts = (bigru_shared.launches, bigru_trainpool.launches, bigru_shared_bwd.launches)
+    with torch.inference_mode():
+        out = bigru_shared(params, parts, pool=2)
+    assert out[0].grad_fn is None
+    assert (bigru_shared.launches, bigru_trainpool.launches, bigru_shared_bwd.launches) == (
+        counts[0] + 1, counts[1], counts[2])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("fault", ["float64", "noncontiguous", "h_not_multiple_of_4", "cpu_weight", "shape"])
 def test_k1_rejects_what_it_does_not_take(dev, fault):
     H = 10 if fault == "h_not_multiple_of_4" else 8
@@ -97,3 +269,29 @@ def test_k1_rejects_what_it_does_not_take(dev, fault):
     with pytest.raises((TypeError, ValueError)):
         bigru_shared(params, parts)
     assert bigru_shared.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["float64", "noncontiguous", "cpu_tensor", "shape"])
+@pytest.mark.parametrize("kernel", ["k2", "k3"])
+def test_k2_k3_reject_what_they_do_not_take(dev, kernel, fault):
+    params, parts, hp_f, hp_b, dy, kw = _bwd_case(13, (8,), 9, 2, 8, dev, True)
+    if fault == "float64":
+        parts = [p.double() for p in parts]
+    elif fault == "noncontiguous":
+        parts = [p.transpose(0, 1).contiguous().transpose(0, 1) for p in parts]
+    elif fault == "cpu_tensor" and kernel == "k2":
+        params["fwd"]["bias_hh"] = params["fwd"]["bias_hh"].cpu()
+    elif fault == "cpu_tensor":
+        hp_f = hp_f.cpu()
+    elif kernel == "k2":  # a part of another T than the first
+        parts = [parts[0], parts[0][:-1].contiguous()]
+    else:
+        dy[0] = dy[0][:-1].contiguous()
+    counts = (bigru_trainpool.launches, bigru_shared_bwd.launches)
+    with pytest.raises((TypeError, ValueError)):
+        if kernel == "k2":
+            bigru_trainpool(params, parts, **kw)
+        else:
+            bigru_shared_bwd(params, parts, hp_f, hp_b, *dy, **kw)
+    assert (bigru_trainpool.launches, bigru_shared_bwd.launches) == counts

@@ -1,4 +1,4 @@
-"""The PyTorch port decodes without jax, pandas or ``tpu_slu.data``.
+"""The PyTorch port decodes and trains without jax, pandas or ``tpu_slu.data``.
 
 Checked in a fresh interpreter: this test process has imported jax already.
 """
@@ -30,6 +30,15 @@ try:
         case = json.load(f)["expected"][0]
     wav, _ = read_wav(os.path.join(golden, case["wav"]))
     decoded = model.decode_intents(wav)[0]
+    # one train step of the port's Trainer on loader-format batches
+    import numpy as np
+    from tpu_slu_torch.training import Trainer
+    batch = {"x": np.stack([wav[:4000], wav[-4000:]]), "y_intent": np.zeros((2, 3), np.int64),
+             "w": np.ones(2, np.float32), "len": np.full(2, 4000)}
+    class Data:
+        loader = [batch]
+    acc, loss = Trainer(model, config).train(Data())
+    assert np.isfinite(loss)
 finally:
     shutil.rmtree(tmp)
 loaded = sorted(m for m in sys.modules

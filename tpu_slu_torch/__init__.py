@@ -9,6 +9,9 @@ standard-library config reader.
     model = load_trained_model(config, device="cuda")
     signal, fs = read_wav("test.wav")
     model.decode_intents(signal)   # -> [["activate", "lights", "kitchen"]]
+
+Training of the fixed-slot model is in ``tpu_slu_torch.training``
+(``Trainer(model, config).train(dataset)``).
 """
 
 from tpu_slu.config import Config, read_config

@@ -1,0 +1,299 @@
+// Pieces shared by the bi-GRU kernels (K1 bigru_shared_fwd.cu, K2
+// bigru_trainpool_fwd.cu, K3 bigru_shared_bwd.cu): the tiled input
+// projection, the forward recurrence (eval, or train with h_prev residuals,
+// hash dropout and the ceil avg-pool), the dropout hash and the choice of
+// batch tile. Everything is f32 with f32 accumulation. Included by each
+// source; the anonymous namespace gives each its own copy.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTile = 64;  // GEMM output tile (rows and columns)
+constexpr int kTK = 16;    // GEMM depth tile
+
+__device__ __forceinline__ float sigmoid_(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// Pitch in floats of a W_hh row in the forward recurrence's shared memory:
+// 32k + 4, so that the 128-bit row loads of a step are free of bank conflicts.
+__host__ __device__ inline int whh_pitch(int H) { return (H + 31) / 32 * 32 + 4; }
+
+// Dropout keep decision of the fused train path at natural (t, b, h):
+// `_keep_mask` of tpu_slu/ops/pallas_gru.py, bit for bit (two rounds of a
+// murmur-style finaliser, top 24 bits against thresh = round((1-p) 2^24)).
+__device__ __forceinline__ bool keep_hash(uint32_t seed, uint32_t salt, uint32_t t, uint32_t b,
+                                          uint32_t h, uint32_t thresh) {
+  uint32_t x = (seed ^ salt) + t * 0x9E3779B1u + b * 0x85EBCA77u + h * 0xC2B2AE3Du;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    x ^= x >> 16;
+    x *= 0x7FEB352Du;
+    x ^= x >> 15;
+    x *= 0x846CA68Bu;
+  }
+  x ^= x >> 16;
+  return (x >> 8) < thresh;
+}
+
+constexpr uint32_t kSaltF = 0x9E3779B9u;
+constexpr uint32_t kSaltB = 0x7F4A7C15u;
+constexpr uint32_t kKeepAll = 1u << 24;  // thresh for p = 0: every element kept
+
+// gi[dir][m][n] = sum_p sum_k x_p[m][k] * W_ih[dir][n][off_p + k] + b_ih[dir][n]
+// over m = t*B + b < M = T*B and n < N = 3H. W_ih is (3H, d1 + d2) row-major
+// (torch layout), so both operands are contiguous along k. blockIdx.z is
+// the direction; a launch with gridDim.z == 1 uses only the _f operands.
+__global__ void __launch_bounds__(256) gi_proj_kernel(
+    const float* __restrict__ x1, int d1, const float* __restrict__ x2, int d2,
+    const float* __restrict__ wih_f, const float* __restrict__ bih_f,
+    const float* __restrict__ wih_b, const float* __restrict__ bih_b,
+    float* __restrict__ gi, int M, int N) {
+  __shared__ float xs[kTK][kTile + 1];
+  __shared__ float ws[kTK][kTile + 1];
+  const int dir = blockIdx.z;
+  const float* __restrict__ w = dir == 0 ? wih_f : wih_b;
+  const float* __restrict__ bias = dir == 0 ? bih_f : bih_b;
+  const int K = d1 + d2;
+  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  float acc[4][4] = {};
+  for (int p = 0; p < 2; ++p) {
+    const float* __restrict__ x = p == 0 ? x1 : x2;
+    const int dp = p == 0 ? d1 : d2;
+    const int off = p == 0 ? 0 : d1;
+    for (int k0 = 0; k0 < dp; k0 += kTK) {
+      for (int e = tid; e < kTile * kTK; e += 256) {
+        const int r = e / kTK, kk = e % kTK, k = k0 + kk;
+        const int m = m0 + r, n = n0 + r;
+        xs[kk][r] = (m < M && k < dp) ? x[(size_t)m * dp + k] : 0.0f;
+        ws[kk][r] = (n < N && k < dp) ? w[(size_t)n * K + off + k] : 0.0f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kTK; ++kk) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = xs[kk][ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = ws[kk][tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+  }
+  float* __restrict__ out = gi + (size_t)dir * M * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty + 16 * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n < N) out[(size_t)m * N + n] = acc[i][j] + bias[n];
+    }
+  }
+}
+
+// Launches gi_proj_kernel over both directions (ndir = 2) or the _f
+// operands alone (ndir = 1).
+inline cudaError_t launch_gi_proj(const float* x1, int d1, const float* x2, int d2,
+                                  const float* w_f, const float* b_f, const float* w_b,
+                                  const float* b_b, float* out, int M, int N, int ndir,
+                                  cudaStream_t st) {
+  dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile, ndir);
+  gi_proj_kernel<<<grid, 256, 0, st>>>(x1, d1, x2, d2, w_f, b_f, w_b, b_b, out, M, N);
+  return cudaGetLastError();
+}
+
+// Forward recurrence. One CTA per (batch tile of NB rows, direction);
+// blockDim.x >= 3H. Thread j < 3H owns gate column j of the recurrent
+// product and reads its W_hh row and h with 128-bit loads; h and the pool
+// accumulator live in shared memory. The ceil pool runs in the epilogue of
+// each step, so outputs are written at the pooled rate only.
+//
+// TRAIN = false (K1): eval; avg or max pool.
+// TRAIN = true (K2): also stores each direction's previous-step h at natural
+// t into hp (zero at the start of that direction's walk), and drops h at
+// the full frame rate (kept: h / (1 - p); `keep_hash` on the natural t, the
+// GLOBAL batch row and h) before the avg pool.
+template <int NB, bool TRAIN>
+__global__ void bigru_rec_kernel(
+    const float* __restrict__ gi,  // (2, T, B, 3H)
+    const float* __restrict__ whh_f, const float* __restrict__ bhh_f,
+    const float* __restrict__ whh_b, const float* __restrict__ bhh_b,
+    float* __restrict__ out_f, float* __restrict__ out_b,  // (ceil(T/pool), B, H)
+    float* __restrict__ hp_f, float* __restrict__ hp_b,    // (T, B, H), TRAIN only
+    int T, int B, int H, int pool, int pool_max, uint32_t seed, uint32_t thresh,
+    float inv_keep) {
+  extern __shared__ __align__(16) float smem[];
+  const int H3 = 3 * H, HP = whh_pitch(H);
+  float* w_s = smem;                // [3H][HP]
+  float* h_s = w_s + H3 * HP;       // [NB][H]
+  float* gh_s = h_s + NB * H;       // [NB][3H]
+  float* pacc_s = gh_s + NB * H3;   // [NB][H]
+
+  const int dir = blockIdx.y;
+  const int b0 = blockIdx.x * NB;
+  const int nb = min(NB, B - b0);
+  const float* __restrict__ whh = dir == 0 ? whh_f : whh_b;
+  const float* __restrict__ bhh = dir == 0 ? bhh_f : bhh_b;
+  const float* __restrict__ gid = gi + (size_t)dir * T * B * H3;
+  float* __restrict__ out = dir == 0 ? out_f : out_b;
+  float* __restrict__ hp = dir == 0 ? hp_f : hp_b;
+  const uint32_t salt = dir == 0 ? kSaltF : kSaltB;
+  const bool drop = TRAIN && thresh < kKeepAll;
+  const int tid = threadIdx.x, nt = blockDim.x;
+
+  for (int e = tid; e < H3 * H; e += nt) w_s[(e / H) * HP + e % H] = whh[e];
+  for (int e = tid; e < NB * H; e += nt) h_s[e] = 0.0f;
+  const float bj = tid < H3 ? bhh[tid] : 0.0f;
+  __syncthreads();
+
+  // gate-phase elements per thread: NB*H <= kIt * nt because nt >= 3H
+  constexpr int kIt = (NB + 2) / 3;
+  const int H4 = H / 4;
+  for (int s = 0; s < T; ++s) {
+    const int t = dir == 0 ? s : T - 1 - s;
+    const float* __restrict__ git = gid + ((size_t)t * B + b0) * H3;
+    float gr[kIt], gz[kIt], gn[kIt];
+#pragma unroll
+    for (int it = 0; it < kIt; ++it) {
+      const int e = tid + it * nt;
+      if (e < nb * H) {
+        const float* g = git + (e / H) * H3 + e % H;
+        gr[it] = g[0];
+        gz[it] = g[H];
+        gn[it] = g[2 * H];
+      }
+    }
+    if (tid < H3) {
+      float acc[NB];
+#pragma unroll
+      for (int b = 0; b < NB; ++b) acc[b] = bj;
+      const float4* wrow = reinterpret_cast<const float4*>(w_s + tid * HP);
+#pragma unroll 4
+      for (int k4 = 0; k4 < H4; ++k4) {
+        const float4 w = wrow[k4];
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          const float4 h = reinterpret_cast<const float4*>(h_s + b * H)[k4];
+          acc[b] = fmaf(h.x, w.x, acc[b]);
+          acc[b] = fmaf(h.y, w.y, acc[b]);
+          acc[b] = fmaf(h.z, w.z, acc[b]);
+          acc[b] = fmaf(h.w, w.w, acc[b]);
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        if (b < nb) gh_s[b * H3 + tid] = acc[b];
+    }
+    __syncthreads();
+    const int wi = t / pool;
+    const int cnt = min(pool, T - wi * pool);  // rows of this window inside [0, T)
+    const int r = t - wi * pool;
+    const bool first = dir == 0 ? r == 0 : r == cnt - 1;
+    const bool last = dir == 0 ? r == cnt - 1 : r == 0;
+#pragma unroll
+    for (int it = 0; it < kIt; ++it) {
+      const int e = tid + it * nt;
+      if (e < nb * H) {
+        const int b = e / H, i = e % H;
+        const float* gh = gh_s + b * H3;
+        const float rg = sigmoid_(gr[it] + gh[i]);
+        const float zg = sigmoid_(gz[it] + gh[H + i]);
+        const float ng = tanhf(gn[it] + rg * gh[2 * H + i]);
+        const float hprev = h_s[e];
+        const float hn = ng + zg * (hprev - ng);
+        h_s[e] = hn;
+        float v = hn;
+        if (TRAIN) {
+          hp[((size_t)t * B + b0 + b) * H + i] = hprev;
+          if (drop) v = keep_hash(seed, salt, t, b0 + b, i, thresh) ? hn * inv_keep : 0.0f;
+        }
+        float a = v;
+        if (!first) a = pool_max ? fmaxf(pacc_s[e], v) : pacc_s[e] + v;
+        if (last) {
+          out[((size_t)wi * B + b0 + b) * H + i] = pool_max ? a : a / (float)cnt;
+        } else {
+          pacc_s[e] = a;
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <int NB, bool TRAIN>
+cudaError_t launch_rec(const float* gi, const float* whh_f, const float* bhh_f,
+                       const float* whh_b, const float* bhh_b, float* out_f, float* out_b,
+                       float* hp_f, float* hp_b, int T, int B, int H, int pool, int pool_max,
+                       uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t st) {
+  const size_t smem =
+      sizeof(float) * ((size_t)3 * H * whh_pitch(H) + (size_t)NB * H * 5);
+  cudaError_t err = cudaFuncSetAttribute(
+      bigru_rec_kernel<NB, TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int threads = (3 * H + 31) / 32 * 32;
+  dim3 grid((B + NB - 1) / NB, 2);
+  bigru_rec_kernel<NB, TRAIN><<<grid, threads, smem, st>>>(
+      gi, whh_f, bhh_f, whh_b, bhh_b, out_f, out_b, hp_f, hp_b, T, B, H, pool, pool_max, seed,
+      thresh, inv_keep);
+  return cudaGetLastError();
+}
+
+// The smallest batch tile of 1, 2, 4 or 8 rows whose 2 * ceil(B / tile) CTAs
+// (one per tile and direction) fit in one wave of the card's SMs: a serial
+// step's time grows with the rows a CTA carries, and the CTAs run side by side.
+inline cudaError_t pick_batch_tile(int B, int* nb) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  *nb = 8;
+  for (int cand = 1; cand < 8; cand *= 2) {
+    if (2 * ((B + cand - 1) / cand) <= sms) {
+      *nb = cand;
+      break;
+    }
+  }
+  return cudaSuccess;
+}
+
+// Input projection, then the recurrence at the batch tile pick_batch_tile chooses.
+template <bool TRAIN>
+cudaError_t bigru_forward(const float* x1, int d1, const float* x2, int d2, const float* wih_f,
+                          const float* bih_f, const float* whh_f, const float* bhh_f,
+                          const float* wih_b, const float* bih_b, const float* whh_b,
+                          const float* bhh_b, float* gi_scratch, float* out_f, float* out_b,
+                          float* hp_f, float* hp_b, int T, int B, int H, int pool, int pool_max,
+                          uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t st) {
+  cudaError_t err = launch_gi_proj(x1, d1, x2, d2, wih_f, bih_f, wih_b, bih_b, gi_scratch,
+                                   T * B, 3 * H, 2, st);
+  if (err != cudaSuccess) return err;
+  int nb = 8;
+  err = pick_batch_tile(B, &nb);
+  if (err != cudaSuccess) return err;
+#define TSL_REC(NBV)                                                                       \
+  launch_rec<NBV, TRAIN>(gi_scratch, whh_f, bhh_f, whh_b, bhh_b, out_f, out_b, hp_f, hp_b, T, \
+                         B, H, pool, pool_max, seed, thresh, inv_keep, st)
+  switch (nb) {
+    case 1:
+      return TSL_REC(1);
+    case 2:
+      return TSL_REC(2);
+    case 4:
+      return TSL_REC(4);
+    default:
+      return TSL_REC(8);
+  }
+#undef TSL_REC
+}
+
+}  // namespace

@@ -1,0 +1,461 @@
+// Shared-stream bidirectional GRU layer, BACKWARD (K3), for sm_90a.
+//
+// Replaces the TPU kernel `_mk_shared_bwd_kernel` in
+// tpu_slu/ops/pallas_gru.py:1293 (reached through `_shared_bwd_call`): the
+// VJP of K1's unpooled forward (plain mode: full-rate cotangents) and of
+// K2's train forward (fused mode: POOLED cotangents, expanded here by the
+// window count and the keep mask regenerated from the layer's seed). It
+// takes the layer's parts, the h_prev residuals of both directions at
+// natural t, the cotangents and the weights, and returns dX (summed over
+// both directions, split at the parts' column offsets), dW_ih, dW_hh,
+// db_ih and db_hh of both directions, in torch layout.
+//
+// The TPU kernel walks time blocks on a sequential grid and carries dh and
+// the dW sums in VMEM from block to block. CUDA blocks run in no order, so
+// the work is cut into three phases instead:
+//   1. Gates (parallel over T): gi = x W_ih^T + b_ih and gh = hp W_hh^T +
+//      b_hh for all T (K1's tiled projection), then the gate tensor
+//      [gh_n r(1-r), z, n, r] (2, T, B, 4H) and, in fused mode, the
+//      expanded dY (2, T, B, H). The logistic sigmoid, as K1 and K2 use.
+//   2. The serial dh chain: one CTA per (batch tile, direction), W_hh
+//      resident in shared memory (192 KiB at H = 128). The forward
+//      direction's gradient walks t = T-1..0, the backward direction's t =
+//      0..T-1; each step is dh <- dgh W_hh + dh z and writes dgi and dgh =
+//      [dgi_rz, dgi_n r] (2, T, B, 3H), over the phase-1 buffers.
+//   3. Products (parallel): dX = sum_dir dgi W_ih; dW_ih = dgi^T x and
+//      dW_hh = dgh^T hp, with db as the product with a column of ones.
+//      Hand-written tiled f32 GEMMs; the dW reduction over T*B rows is
+//      split into a fixed number of row chunks, each written to its own
+//      slot, then summed in a fixed order: no float atomics, so repeated
+//      runs agree bit for bit.
+//
+// What bounds it on this card: the serial chain of 2T steps (T per
+// direction, side by side) of (NB, 3H) x (3H, H) products, latency-bound as
+// K1's forward; then the GEMM FLOPs of phases 1 and 3, which simple f32
+// tiles (no tensor cores) run far below the card's peak. On an H100 SXM
+// (700 W) at the flagship's five layers and B = 64 the GEMMs take most of
+// the time: the dW phase alone ~4.3 ms at ~5 TFLOP/s, the chains ~1.9 ms.
+// The dW phase has few CTAs (2 directions x output tiles x at most
+// kMaxSplit row chunks), each looping over thousands of rows.
+// What the design does about it: everything without a serial dependence
+// (gate math and transcendentals, the cotangent expansion and the mask
+// hash, every product but dh's) leaves the chain, which keeps only the
+// recurrent product and a few multiplies per element per step.
+
+#include <algorithm>
+
+#include "bigru_common.cuh"
+
+namespace {
+
+constexpr int kMaxSplit = 8;  // row chunks of the dW reduction, at most
+
+// Phase 1b: gates[dir][m] = [gh_n r (1-r), z, n, r] from gi and gh; in
+// fused mode also dyx[dir][m] = keep * dY_pool[dir][t / pool] / cnt / (1-p).
+__global__ void bwd_gates_kernel(const float* __restrict__ gi, const float* __restrict__ gh,
+                                 float* __restrict__ gates, const float* __restrict__ dyp_f,
+                                 const float* __restrict__ dyp_b, float* __restrict__ dyx,
+                                 int T, int B, int H, int pool, int fused, uint32_t seed,
+                                 uint32_t thresh, float inv_keep) {
+  const size_t M = (size_t)T * B;
+  const size_t total = 2 * M * H;
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const int i = (int)(e % H);
+    const size_t row = e / H;  // dir * M + m
+    const int dir = (int)(row / M);
+    const int m = (int)(row % M);
+    const float* gir = gi + row * 3 * H;
+    const float* ghr = gh + row * 3 * H;
+    const float r = sigmoid_(gir[i] + ghr[i]);
+    const float z = sigmoid_(gir[H + i] + ghr[H + i]);
+    const float ghn = ghr[2 * H + i];
+    const float n = tanhf(gir[2 * H + i] + r * ghn);
+    float* g = gates + row * 4 * H;
+    g[i] = ghn * r * (1.0f - r);
+    g[H + i] = z;
+    g[2 * H + i] = n;
+    g[3 * H + i] = r;
+    if (fused) {
+      const int t = m / B, b = m % B;
+      const int wi = t / pool;
+      const int cnt = min(pool, T - wi * pool);
+      const float* dyp = dir == 0 ? dyp_f : dyp_b;
+      float d = dyp[((size_t)wi * B + b) * H + i] / (float)cnt;
+      if (thresh < kKeepAll)
+        d = keep_hash(seed, dir == 0 ? kSaltF : kSaltB, t, b, i, thresh) ? d * inv_keep : 0.0f;
+      dyx[e] = d;
+    }
+  }
+}
+
+// Phase 2: one CTA per (batch tile of NB rows, direction), blockDim.x >= 3H.
+// Thread e < NB*H (kIt per thread) owns element (b, i) of dh through all T
+// steps and keeps its carry in registers; thread tid < 3H owns output
+// column j = tid % H of the group g = tid / H of W_hh's rows in the
+// recurrent product dgh W_hh, and the three groups' partial sums meet in
+// shared memory.
+template <int NB>
+__global__ void bwd_chain_kernel(const float* __restrict__ gates,
+                                 const float* __restrict__ hp_f, const float* __restrict__ hp_b,
+                                 const float* __restrict__ dy_f, const float* __restrict__ dy_b,
+                                 const float* __restrict__ whh_f, const float* __restrict__ whh_b,
+                                 float* __restrict__ dgi, float* __restrict__ dgh, int T, int B,
+                                 int H) {
+  extern __shared__ __align__(16) float smem[];
+  const int H3 = 3 * H;
+  float* w_s = smem;                // [3H][H], torch layout
+  float* dgh_s = w_s + H3 * H;      // [NB][3H]
+  float* part_s = dgh_s + NB * H3;  // [3][NB][H]
+
+  const int dir = blockIdx.y;
+  const int b0 = blockIdx.x * NB;
+  const int nb = min(NB, B - b0);
+  const size_t M = (size_t)T * B;
+  const float* __restrict__ whh = dir == 0 ? whh_f : whh_b;
+  const float* __restrict__ hp = dir == 0 ? hp_f : hp_b;
+  const float* __restrict__ dy = dir == 0 ? dy_f : dy_b;
+  const float* __restrict__ gd = gates + dir * M * 4 * H;
+  float* __restrict__ dgi_d = dgi + dir * M * H3;
+  float* __restrict__ dgh_d = dgh + dir * M * H3;
+  const int tid = threadIdx.x, nt = blockDim.x;
+
+  for (int e = tid; e < H3 * H; e += nt) w_s[e] = whh[e];
+  constexpr int kIt = (NB + 2) / 3;
+  float dh[kIt];
+#pragma unroll
+  for (int it = 0; it < kIt; ++it) dh[it] = 0.0f;
+  const int g = tid / H, j = tid % H;
+  __syncthreads();
+
+  for (int s = 0; s < T; ++s) {
+    const int t = dir == 0 ? T - 1 - s : s;
+#pragma unroll
+    for (int it = 0; it < kIt; ++it) {
+      const int e = tid + it * nt;
+      if (e < nb * H) {
+        const int b = e / H, i = e % H;
+        const size_t row = (size_t)t * B + b0 + b;
+        const float* gr = gd + row * 4 * H;
+        const float rfac = gr[i], z = gr[H + i], n = gr[2 * H + i], r = gr[3 * H + i];
+        const float d = dh[it] + dy[row * H + i];
+        const float h_prev = hp[row * H + i];
+        const float dn = d * (1.0f - z) * (1.0f - n * n);
+        const float dz = d * (h_prev - n) * z * (1.0f - z);
+        const float dr = dn * rfac;
+        const float dnr = dn * r;
+        float* o = dgi_d + row * H3;
+        o[i] = dr;
+        o[H + i] = dz;
+        o[2 * H + i] = dn;
+        o = dgh_d + row * H3;
+        o[i] = dr;
+        o[H + i] = dz;
+        o[2 * H + i] = dnr;
+        float* sd = dgh_s + b * H3;
+        sd[i] = dr;
+        sd[H + i] = dz;
+        sd[2 * H + i] = dnr;
+        dh[it] = d * z;
+      }
+    }
+    __syncthreads();
+    if (tid < H3) {
+      float acc[NB];
+#pragma unroll
+      for (int b = 0; b < NB; ++b) acc[b] = 0.0f;
+      const float* wcol = w_s + (size_t)g * H * H + j;
+      const float* dg = dgh_s + g * H;
+#pragma unroll 4
+      for (int k = 0; k < H; ++k) {
+        const float wv = wcol[(size_t)k * H];
+#pragma unroll
+        for (int b = 0; b < NB; ++b) acc[b] = fmaf(dg[b * H3 + k], wv, acc[b]);
+      }
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        if (b < nb) part_s[(g * NB + b) * H + j] = acc[b];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int it = 0; it < kIt; ++it) {
+      const int e = tid + it * nt;
+      if (e < nb * H) {
+        const int b = e / H, i = e % H;
+        dh[it] += part_s[b * H + i] + part_s[(NB + b) * H + i] + part_s[(2 * NB + b) * H + i];
+      }
+    }
+  }
+}
+
+template <int NB>
+cudaError_t launch_chain(const float* gates, const float* hp_f, const float* hp_b,
+                         const float* dy_f, const float* dy_b, const float* whh_f,
+                         const float* whh_b, float* dgi, float* dgh, int T, int B, int H,
+                         cudaStream_t st) {
+  const size_t smem = sizeof(float) * ((size_t)3 * H * H + (size_t)NB * 3 * H + (size_t)3 * NB * H);
+  cudaError_t err = cudaFuncSetAttribute(bwd_chain_kernel<NB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int threads = (3 * H + 31) / 32 * 32;
+  dim3 grid((B + NB - 1) / NB, 2);
+  bwd_chain_kernel<NB><<<grid, threads, smem, st>>>(gates, hp_f, hp_b, dy_f, dy_b, whh_f, whh_b,
+                                                    dgi, dgh, T, B, H);
+  return cudaGetLastError();
+}
+
+// Phase 3a: dx[m][n] = sum_dir sum_k dgi[dir][m][k] * W_ih_dir[k][n] over
+// k < 3H, for n < D = d1 + d2; column n goes to dx1 (n < d1) or dx2.
+__global__ void __launch_bounds__(256) bwd_dx_kernel(
+    const float* __restrict__ dgi, const float* __restrict__ wih_f,
+    const float* __restrict__ wih_b, float* __restrict__ dx1, int d1, float* __restrict__ dx2,
+    int d2, int M, int H3) {
+  __shared__ float as[kTK][kTile + 1];
+  __shared__ float ws[kTK][kTile + 1];
+  const int D = d1 + d2;
+  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  float acc[4][4] = {};
+  for (int dir = 0; dir < 2; ++dir) {
+    const float* __restrict__ A = dgi + (size_t)dir * M * H3;
+    const float* __restrict__ W = dir == 0 ? wih_f : wih_b;
+    for (int k0 = 0; k0 < H3; k0 += kTK) {
+      for (int e = tid; e < kTile * kTK; e += 256) {
+        const int r = e / kTK, kk = e % kTK;
+        const int m = m0 + r, k = k0 + kk;
+        as[kk][r] = (m < M && k < H3) ? A[(size_t)m * H3 + k] : 0.0f;
+        const int kw = k0 + e / kTile, c = e % kTile, n = n0 + c;
+        ws[e / kTile][c] = (kw < H3 && n < D) ? W[(size_t)kw * D + n] : 0.0f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kTK; ++kk) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = as[kk][ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = ws[kk][tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty + 16 * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n < d1) {
+        dx1[(size_t)m * d1 + n] = acc[i][j];
+      } else if (n < D) {
+        dx2[(size_t)m * d2 + n - d1] = acc[i][j];
+      }
+    }
+  }
+}
+
+// Phase 3b: partial[split][dir][i][n] = sum over the split's rows m of
+// A[dir][m][i] * X_dir[m][n], for i < 3H and n <= Dx = d1 + d2, where
+// X_dir = [x1 | x2 | 1] (x*_f for dir 0, x*_b for dir 1): the last column
+// gives the bias gradient. Rows are summed in order inside a CTA.
+__global__ void __launch_bounds__(256) bwd_dw_kernel(
+    const float* __restrict__ A, int H3, const float* __restrict__ x1_f,
+    const float* __restrict__ x2_f, const float* __restrict__ x1_b,
+    const float* __restrict__ x2_b, int d1, int d2, float* __restrict__ partial, int M,
+    int chunk) {
+  __shared__ float as[kTK][kTile + 1];
+  __shared__ float xs[kTK][kTile + 1];
+  const int dir = blockIdx.z % 2, split = blockIdx.z / 2;
+  const int Dx = d1 + d2, NC = Dx + 1;
+  const int i0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+  const int mb = split * chunk, me = min(M, mb + chunk);
+  const float* __restrict__ Ad = A + (size_t)dir * M * H3;
+  const float* __restrict__ x1 = dir == 0 ? x1_f : x1_b;
+  const float* __restrict__ x2 = dir == 0 ? x2_f : x2_b;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  float acc[4][4] = {};
+  for (int m0 = mb; m0 < me; m0 += kTK) {
+    for (int e = tid; e < kTile * kTK; e += 256) {
+      const int kk = e / kTile, c = e % kTile, m = m0 + kk;
+      const int i = i0 + c, n = n0 + c;
+      as[kk][c] = (m < me && i < H3) ? Ad[(size_t)m * H3 + i] : 0.0f;
+      float xv = 0.0f;
+      if (m < me) {
+        if (n < d1) {
+          xv = x1[(size_t)m * d1 + n];
+        } else if (n < Dx) {
+          xv = x2[(size_t)m * d2 + n - d1];
+        } else if (n == Dx) {
+          xv = 1.0f;
+        }
+      }
+      xs[kk][c] = xv;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kTK; ++kk) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = as[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = xs[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  float* __restrict__ out = partial + (size_t)(split * 2 + dir) * H3 * NC;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = i0 + ty + 16 * i;
+    if (r >= H3) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n < NC) out[(size_t)r * NC + n] = acc[i][j];
+    }
+  }
+}
+
+// Phase 3c: sums the splits' partials in split order into dW (3H, Dx) and
+// db (3H) of each direction.
+__global__ void bwd_dw_reduce_kernel(const float* __restrict__ partial, int S, int H3, int Dx,
+                                     float* __restrict__ dw_f, float* __restrict__ db_f,
+                                     float* __restrict__ dw_b, float* __restrict__ db_b) {
+  const int NC = Dx + 1;
+  const size_t per_dir = (size_t)H3 * NC;
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < 2 * per_dir;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const int dir = (int)(e / per_dir);
+    const size_t rem = e % per_dir;
+    const int i = (int)(rem / NC), n = (int)(rem % NC);
+    float s = 0.0f;
+    for (int sp = 0; sp < S; ++sp) s += partial[(size_t)(sp * 2 + dir) * per_dir + rem];
+    if (n < Dx) {
+      (dir == 0 ? dw_f : dw_b)[(size_t)i * Dx + n] = s;
+    } else {
+      (dir == 0 ? db_f : db_b)[i] = s;
+    }
+  }
+}
+
+inline int grid_for(size_t total, int sms) {
+  const size_t blocks = (total + 255) / 256;
+  return (int)(blocks < (size_t)sms * 8 ? blocks : (size_t)sms * 8);
+}
+
+// dW and db of both directions: the split row-chunk GEMM, then the reduction.
+cudaError_t weight_grads(const float* A, int H3, const float* x1_f, const float* x2_f,
+                         const float* x1_b, const float* x2_b, int d1, int d2, float* partial,
+                         float* dw_f, float* db_f, float* dw_b, float* db_b, int M, int sms,
+                         cudaStream_t st) {
+  const int Dx = d1 + d2;
+  const int tiles = 2 * ((H3 + kTile - 1) / kTile) * ((Dx + 1 + kTile - 1) / kTile);
+  // enough row chunks to give every SM a CTA, each of at least 256 rows
+  int S = (sms + tiles - 1) / tiles;
+  S = std::max(1, std::min(S, std::min(kMaxSplit, (M + 255) / 256)));
+  const int chunk = ((M + S - 1) / S + kTK - 1) / kTK * kTK;
+  S = (M + chunk - 1) / chunk;
+  dim3 grid((Dx + 1 + kTile - 1) / kTile, (H3 + kTile - 1) / kTile, 2 * S);
+  bwd_dw_kernel<<<grid, 256, 0, st>>>(A, H3, x1_f, x2_f, x1_b, x2_b, d1, d2, partial, M, chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bwd_dw_reduce_kernel<<<grid_for((size_t)2 * H3 * (Dx + 1), sms), 256, 0, st>>>(
+      partial, S, H3, Dx, dw_f, db_f, dw_b, db_b);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Floats of the `partial` workspace tsl_bigru_shared_bwd needs for an input
+// width D and hidden width H.
+long long tsl_bigru_shared_bwd_partial_floats(int D, int H) {
+  return (long long)kMaxSplit * 2 * 3 * H * ((D > H ? D : H) + 1);
+}
+
+// Backward of one bidirectional GRU layer. Parts, weights and layouts as
+// tsl_bigru_shared_fwd; hp_f and hp_b (T, B, H) are the h_prev residuals at
+// natural t. Plain mode (fused = 0): dy_f and dy_b are full-rate (T, B, H)
+// cotangents. Fused mode: they are POOLED (ceil(T/pool), B, H) cotangents of
+// K2's output, expanded with its avg pool and its keep mask (seed, thresh,
+// inv_keep as tsl_bigru_trainpool_fwd). Outputs: dx1 (T, B, d1), dx2 (T, B,
+// d2; null when d2 = 0), and dW_ih (3H, D), db_ih, dW_hh (3H, H), db_hh of
+// each direction, all overwritten. Scratch: buf_a and buf_b 2*T*B*3H floats
+// each, gates 2*T*B*4H, dyx 2*T*B*H (fused mode only), partial as
+// tsl_bigru_shared_bwd_partial_floats. H must be a multiple of 4. Returns
+// cudaSuccess (0) or the first launch error; does not synchronise.
+int tsl_bigru_shared_bwd(
+    const float* x1, int d1, const float* x2, int d2,
+    const float* hp_f, const float* hp_b, const float* dy_f, const float* dy_b,
+    const float* wih_f, const float* bih_f, const float* whh_f, const float* bhh_f,
+    const float* wih_b, const float* bih_b, const float* whh_b, const float* bhh_b,
+    float* dx1, float* dx2,
+    float* dwih_f, float* dbih_f, float* dwhh_f, float* dbhh_f,
+    float* dwih_b, float* dbih_b, float* dwhh_b, float* dbhh_b,
+    float* buf_a, float* buf_b, float* gates, float* dyx, float* partial,
+    int T, int B, int H, int pool, int fused, unsigned int seed, unsigned int thresh,
+    float inv_keep, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int M = T * B, H3 = 3 * H;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+
+  // 1. gates (and the expanded cotangent)
+  err = launch_gi_proj(x1, d1, x2, d2, wih_f, bih_f, wih_b, bih_b, buf_a, M, H3, 2, st);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_gi_proj(hp_f, H, nullptr, 0, whh_f, bhh_f, nullptr, nullptr, buf_b, M, H3, 1, st);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_gi_proj(hp_b, H, nullptr, 0, whh_b, bhh_b, nullptr, nullptr,
+                       buf_b + (size_t)M * H3, M, H3, 1, st);
+  if (err != cudaSuccess) return (int)err;
+  bwd_gates_kernel<<<grid_for((size_t)2 * M * H, sms), 256, 0, st>>>(
+      buf_a, buf_b, gates, dy_f, dy_b, dyx, T, B, H, pool, fused, seed, thresh, inv_keep);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  // 2. the serial dh chain; dgi and dgh overwrite gi and gh
+  const float* cf = fused ? dyx : dy_f;
+  const float* cb = fused ? dyx + (size_t)M * H : dy_b;
+  int nb = 8;
+  err = pick_batch_tile(B, &nb);
+  if (err != cudaSuccess) return (int)err;
+  switch (nb) {
+    case 1:
+      err = launch_chain<1>(gates, hp_f, hp_b, cf, cb, whh_f, whh_b, buf_a, buf_b, T, B, H, st);
+      break;
+    case 2:
+      err = launch_chain<2>(gates, hp_f, hp_b, cf, cb, whh_f, whh_b, buf_a, buf_b, T, B, H, st);
+      break;
+    case 4:
+      err = launch_chain<4>(gates, hp_f, hp_b, cf, cb, whh_f, whh_b, buf_a, buf_b, T, B, H, st);
+      break;
+    default:
+      err = launch_chain<8>(gates, hp_f, hp_b, cf, cb, whh_f, whh_b, buf_a, buf_b, T, B, H, st);
+  }
+  if (err != cudaSuccess) return (int)err;
+
+  // 3. products
+  dim3 xgrid((d1 + d2 + kTile - 1) / kTile, (M + kTile - 1) / kTile);
+  bwd_dx_kernel<<<xgrid, 256, 0, st>>>(buf_a, wih_f, wih_b, dx1, d1, dx2, d2, M, H3);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = weight_grads(buf_a, H3, x1, x2, x1, x2, d1, d2, partial, dwih_f, dbih_f, dwih_b, dbih_b,
+                     M, sms, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)weight_grads(buf_b, H3, hp_f, nullptr, hp_b, nullptr, H, 0, partial, dwhh_f,
+                           dbhh_f, dwhh_b, dbhh_b, M, sms, st);
+}
+
+}  // extern "C"

@@ -1,0 +1,54 @@
+// Shared-stream bidirectional GRU layer, TRAIN forward with fused dropout
+// and ceil avg-pool (K2), for sm_90a.
+//
+// Replaces the TPU kernel `_mk_trainpool_fwd_kernel` in
+// tpu_slu/ops/pallas_gru.py:1146 (reached through `_trainpool_fwd_call` and
+// `_shared_trainpool_core_for`). Same function: K1's forward over one
+// natural-order stream of 1 or 2 parts, plus, in the epilogue of each step,
+//   * the previous-step h of each direction stored at natural t (hp_f[t] =
+//     h_f[t-1], hp_b[t] = h_b[t+1], zero where the walk starts): the
+//     residuals K3 (bigru_shared_bwd.cu) recomputes the gates from;
+//   * dropout at the full frame rate (kept: h / (1 - p)), with the keep
+//     mask of `_keep_mask` computed in device code from a per-layer uint32
+//     seed on the natural (t, b, h) coordinates, b the global batch row, so
+//     that K3 regenerates it bit for bit and nothing is stored;
+//   * the ceil-mode avg pool of the dropped h, dividing a trailing partial
+//     window by its in-range count (torch semantics), so the layer's outputs
+//     are written at the pooled rate only.
+// Any T is taken as it is: the TPU kernel's padding to its time block has
+// no counterpart here.
+//
+// What bounds it on this card: as K1, the serial T-step chain of (B, H) x
+// (H, 3H) products, latency-bound at the small batch tiles it runs; the
+// extra work per step (one store of h_prev, the hash) is a few integer and
+// memory operations per element, off the recurrent product.
+//
+// What the design does about it: it is K1's recurrence with its TRAIN flag
+// set (`bigru_rec_kernel<NB, true>` in bigru_common.cuh): the input
+// projection leaves the chain as one tiled product for all T, W_hh stays in
+// shared memory for all T steps, and the batch tile is the smallest that
+// keeps the CTAs in one wave. f32 throughout.
+
+#include "bigru_common.cuh"
+
+extern "C" {
+
+// Train forward of one bidirectional GRU layer. Arguments as
+// tsl_bigru_shared_fwd, plus hp_f and hp_b (T*B*H floats each), the uint32
+// dropout seed, thresh = round((1 - p) * 2^24) (2^24 keeps every element)
+// and inv_keep = 1 / (1 - p). The pool is always avg; pool = 1 leaves the
+// outputs at full rate. Returns cudaSuccess (0) or the first launch error;
+// does not synchronise.
+int tsl_bigru_trainpool_fwd(
+    const float* x1, int d1, const float* x2, int d2,
+    const float* wih_f, const float* bih_f, const float* whh_f, const float* bhh_f,
+    const float* wih_b, const float* bih_b, const float* whh_b, const float* bhh_b,
+    float* gi_scratch, float* hp_f, float* hp_b, float* out_f, float* out_b,
+    int T, int B, int H, int pool, unsigned int seed, unsigned int thresh, float inv_keep,
+    void* stream) {
+  return (int)bigru_forward<true>(x1, d1, x2, d2, wih_f, bih_f, whh_f, bhh_f, wih_b, bih_b,
+                                  whh_b, bhh_b, gi_scratch, out_f, out_b, hp_f, hp_b, T, B, H,
+                                  pool, 0, seed, thresh, inv_keep, (cudaStream_t)stream);
+}
+
+}  // extern "C"

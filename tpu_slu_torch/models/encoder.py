@@ -1,6 +1,7 @@
 """ASR pre-training encoder: SincNet/conv front end + hierarchical bi-GRUs.
 
-Port of the eval path of ``tpu_slu/models/encoder.py``. The architecture is a
+Port of the eval and train paths of ``tpu_slu/models/encoder.py`` (the
+exact-shape ones: the length-exact path is not ported). The architecture is a
 flat list of :class:`LayerSpec` whose ``index`` fields follow the reference
 ``PretrainedModel``'s ``nn.ModuleList`` construction order, so the
 :class:`PretrainedModel` module's ``state_dict`` keys (e.g.
@@ -232,7 +233,7 @@ def make_layers(specs, gen: torch.Generator) -> nn.ModuleList:
 
 
 # ---------------------------------------------------------------------------
-# Apply (eval, exact-shape path)
+# Apply (exact-shape path)
 # ---------------------------------------------------------------------------
 
 
@@ -248,10 +249,68 @@ def parts_to_btc(parts: PartsTM) -> torch.Tensor:
     return h.transpose(0, 1)
 
 
-def apply_stack(layers: nn.ModuleList, specs, out):
+def draw_seed(generator: torch.Generator) -> int:
+    """A fresh uint32 dropout seed for one layer, drawn on the host."""
+    return int(torch.randint(0, 2**32, (1,), generator=generator, dtype=torch.int64))
+
+
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout with a Bernoulli keep mask drawn from ``generator``
+    on the generator's device (so a card run and a CPU run with equal
+    generators drop the same elements): ``where(keep, x / (1 - p), 0)``."""
+    if generator is None:
+        raise ValueError(f"dropout of rate {p} in training needs a generator")
+    keep = torch.rand(x.shape, generator=generator, device=generator.device) < 1.0 - p
+    return torch.where(keep.to(x.device), x / (1.0 - p), 0.0)
+
+
+def _gru_block(layer, tail, out, *, train: bool, generator):
+    """One bi-GRU block ([gru] + ``tail``, the trailing [select, dropout,
+    downsample] when present) over part streams; returns the next parts.
+
+    Eval: a ceil avg/max downsample fuses into the layer (K1). Train: a ceil
+    avg downsample and the block's dropout fuse into the layer (K2 forward,
+    K3 backward) with a fresh uint32 seed from ``generator`` (seed 0 without
+    a generator, allowed only when the rate is 0); otherwise the layer
+    returns full-rate streams (K1, K3) and the dropout (a Bernoulli mask from
+    ``generator``) and the downsample follow it.
+    """
+    drop_p, method, factor = 0.0, "none", 1
+    if tail:
+        drop_p = tail[1].h[0]
+        method, factor = tail[2].h
+    if train:
+        want_pool = factor > 1 and method == "avg"
+        seed = None
+        if want_pool:
+            if generator is not None:
+                seed = draw_seed(generator)
+            elif drop_p == 0.0:
+                seed = 0
+        h_f, h_b, pooled = bigru_shared(layer.params(), out, train=True,
+                                        pool=factor if want_pool else 1, drop_p=drop_p,
+                                        seed=seed)
+    else:
+        fused = factor > 1 and method in ("avg", "max")
+        h_f, h_b, pooled = bigru_shared(layer.params(), out, pool=factor if fused else 1,
+                                        pool_method=method if fused else "avg")
+    parts = [h_f, h_b]
+    if train and drop_p > 0.0 and not pooled:
+        h = dropout(torch.cat(parts, dim=-1), drop_p, generator)
+        parts = [h[..., :h_f.shape[-1]], h[..., h_f.shape[-1]:]]
+    if factor > 1 and not pooled:
+        parts = [downsample(p, method, factor, time_axis=0) for p in parts]
+    return PartsTM(p.contiguous() for p in parts)
+
+
+def apply_stack(layers: nn.ModuleList, specs, out, *, train: bool = False,
+                generator: torch.Generator | None = None):
     """Run a LayerSpec stack. Conv specs take (B, C, T); a GRU takes
     time-major parts (or (B, T, C), which it turns time-major); the rest of
-    the RNN specs take (B, T, C). Returns a tensor or a :class:`PartsTM`."""
+    the RNN specs take (B, T, C). Returns a tensor or a :class:`PartsTM`.
+
+    ``train`` applies dropout, its masks and seeds drawn from ``generator``
+    in layer order (needed whenever a rate is above 0)."""
     specs = list(specs)
     idx = 0
     while idx < len(specs):
@@ -263,19 +322,12 @@ def apply_stack(layers: nn.ModuleList, specs, out):
                 out = PartsTM((out.transpose(0, 1).contiguous(),))
             # RNN blocks are [gru, select, dropout, downsample] (rnn_block_specs):
             # consume the trailing three so that the downsample fuses into the layer
-            method, factor = "none", 1
-            if [s.kind for s in specs[idx:idx + 3]] == ["select", "dropout", "downsample"]:
-                method, factor = specs[idx + 2].h
+            tail = specs[idx:idx + 3]
+            if [s.kind for s in tail] == ["select", "dropout", "downsample"]:
                 idx += 3
-            fused = factor > 1 and method in ("avg", "max")
-            h_f, h_b, _ = bigru_shared(
-                layer.params(), out, pool=factor if fused else 1,
-                pool_method=method if fused else "avg",
-            )
-            parts = [h_f, h_b]
-            if factor > 1 and not fused:
-                parts = [downsample(p, method, factor, time_axis=0).contiguous() for p in parts]
-            out = PartsTM(parts)
+            else:
+                tail = []
+            out = _gru_block(layer, tail, out, train=train, generator=generator)
             continue
         if isinstance(out, PartsTM):
             out = parts_to_btc(out)
@@ -291,8 +343,11 @@ def apply_stack(layers: nn.ModuleList, specs, out):
             out = max_pool1d_ceil(out, spec.h[0])
         elif spec.kind == "act":
             out = leaky_relu(out, 0.2) if spec.h[0] == "leaky_relu" else torch.relu(out)
-        elif spec.kind in ("dropout", "select"):
-            pass  # dropout is the identity in eval; the GRU returns its sequence
+        elif spec.kind == "dropout":
+            if train and spec.h[0] > 0.0:
+                out = dropout(out, spec.h[0], generator)
+        elif spec.kind == "select":
+            pass  # the GRU returns its sequence
         elif spec.kind == "ncl2nlc":
             out = PartsTM((out.permute(2, 0, 1).contiguous(),))  # (B, C, T) -> (T, B, C)
         elif spec.kind == "downsample":
@@ -303,12 +358,15 @@ def apply_stack(layers: nn.ModuleList, specs, out):
     return out
 
 
-def encoder_features(encoder: "PretrainedModel", x: torch.Tensor) -> torch.Tensor:
+def encoder_features(encoder: "PretrainedModel", x: torch.Tensor, *, train: bool = False,
+                     generator: torch.Generator | None = None) -> torch.Tensor:
     """(B, T) waveform -> (B, T/word_ds, word_feat_dim) word-rate features
-    (reference ``PretrainedModel.compute_features``)."""
+    (reference ``PretrainedModel.compute_features``); ``train`` as
+    :func:`apply_stack`."""
     arch = encoder.arch
-    out = apply_stack(encoder.phoneme_layers, arch.phoneme_layers, x[:, None, :])
-    out = apply_stack(encoder.word_layers, arch.word_layers, out)
+    out = apply_stack(encoder.phoneme_layers, arch.phoneme_layers, x[:, None, :], train=train,
+                      generator=generator)
+    out = apply_stack(encoder.word_layers, arch.word_layers, out, train=train, generator=generator)
     return parts_to_btc(out) if isinstance(out, PartsTM) else out
 
 

@@ -1,6 +1,7 @@
 """The flagship fixed-slot model at full width, with seeded random weights.
 
-The topology of ``experiments/no_unfreezing.cfg``: sinc conv of 80 filters
+The topology of ``experiments/no_unfreezing.cfg`` (and of
+``no_pretraining.cfg``, which trains it from scratch): sinc conv of 80 filters
 and 401 taps at stride 80, two 5-tap convs of 60 channels, four bi-GRU
 layers of H = 128 each followed by a ceil avg-pool of 2, and an intent
 bi-GRU of H = 128. Its slots are shaped as Fluent Speech Commands' are
@@ -15,13 +16,20 @@ import os
 from tpu_slu.config import read_config
 from tpu_slu_torch.models.slu import Model
 
-FLAGSHIP_CFG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-                            "experiments", "no_unfreezing.cfg")
+_EXPERIMENTS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+                            "experiments")
+FLAGSHIP_CFG = os.path.join(_EXPERIMENTS, "no_unfreezing.cfg")
+# the same widths, trained from scratch: every layer trains from step 1
+TRAIN_CFG = os.path.join(_EXPERIMENTS, "no_pretraining.cfg")
 
 
-def flagship_model(device="cpu", seed: int = 0) -> Model:
-    """The flagship ``Model`` in eval mode on ``device``; needs no file but the cfg."""
-    config = read_config(FLAGSHIP_CFG, make_dirs=False)
+def flagship_model(device="cpu", seed: int = 0, cfg: str = FLAGSHIP_CFG, **overrides) -> Model:
+    """The flagship ``Model`` of ``cfg`` in eval mode on ``device``; needs no
+    file but the cfg (no pretrained encoder is loaded). ``overrides`` set
+    config attributes before the model is built (``intent_rnn_drop=[0.0]``)."""
+    config = read_config(cfg, make_dirs=False)
+    for k, v in overrides.items():
+        setattr(config, k, v)
     Model.attach_vocab(config, {
         "seq2seq": False,
         "Sy_intent": {"action": {f"a{i}": i for i in range(6)},

@@ -1,7 +1,8 @@
 """End-to-end SLU model, fixed-slot intent head: encoder + bi-GRU + Linear + max over time.
 
 Port of the fixed-slot part of ``tpu_slu/models/slu.py`` on the exact-shape
-decode path (``Model.decode_intents`` without ``lengths``/``bucket``). The
+paths: decode (``Model.decode_intents`` without ``lengths``/``bucket``) and
+the train surface (``Model.forward``, the loss, the ULMFiT trainable mask). The
 :class:`Model` module's ``state_dict`` keys are the reference ``Model``'s
 (``pretrained_model.*``, ``intent_layers.*``).
 """
@@ -60,13 +61,15 @@ class IntentArch:
 
 
 def intent_logits(layers: nn.ModuleList, arch: IntentArch, feats: torch.Tensor,
-                  frame_mask: torch.Tensor | None = None) -> torch.Tensor:
+                  frame_mask: torch.Tensor | None = None, *, train: bool = False,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
     """feats (B, T, C) encoder features -> (B, sum(values_per_slot)) logits.
 
     ``frame_mask`` (B, T_out) marks frames that come from real audio; the
-    others are left out of the max over time.
+    others are left out of the max over time. ``train`` applies dropout
+    (masks from ``generator``), as :func:`~tpu_slu_torch.models.encoder.apply_stack`.
     """
-    out = apply_stack(layers, arch.layers, feats)
+    out = apply_stack(layers, arch.layers, feats, train=train, generator=generator)
     if isinstance(out, PartsTM):
         out = parts_to_btc(out)
     lin = layers[arch.linear_index]
@@ -87,9 +90,56 @@ def frame_mask_from_lengths(encoder_arch, lengths: torch.Tensor, t_frames: int,
     return torch.arange(t_frames, device=lengths.device)[None, :] < n[:, None]
 
 
+def intent_loss_acc(logits: torch.Tensor, y_intent: torch.Tensor, values_per_slot,
+                    weights: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-slot cross-entropy summed over slots, and the all-slots-correct
+    accuracy, both as means over the examples weighted by ``weights`` (B,)
+    (1 for a real example, 0 for batch padding; all ones by default)."""
+    w = logits.new_ones(logits.shape[0]) if weights is None else weights.to(logits.dtype)
+    denom = torch.clamp(w.sum(), min=1.0)
+    loss = logits.new_zeros(())
+    correct = None
+    for slot, sub in enumerate(logits.split(list(values_per_slot), dim=1)):
+        y = y_intent[:, slot:slot + 1].long()
+        nll = -torch.gather(F.log_softmax(sub, dim=-1), 1, y)[:, 0]
+        loss = loss + (nll * w).sum() / denom
+        ok = sub.argmax(dim=1) == y[:, 0]
+        correct = ok if correct is None else correct & ok
+    return loss, (correct.to(w.dtype) * w).sum() / denom
+
+
 def intent_predictions(logits: torch.Tensor, values_per_slot) -> torch.Tensor:
     """Per-slot argmax -> (B, num_slots) int64."""
     return torch.stack([s.argmax(dim=1) for s in logits.split(list(values_per_slot), dim=1)], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# ULMFiT unfreezing schedule -> trainable masks
+# ---------------------------------------------------------------------------
+
+PARAM_KINDS = ("sinc", "conv", "gru")
+
+
+def walk_unfrozen(arch, unfreezing_type: int, count: int) -> set:
+    """The (group, index) layers with parameters that are unfrozen once the
+    reference's walk, from the end of ``word_layers`` backwards (and on
+    through ``phoneme_layers`` for type 2), has unfrozen ``count`` of them."""
+    unfrozen: set = set()
+    if unfreezing_type == 0 or count <= 0:
+        return unfrozen
+    groups = ["word_layers"] + (["phoneme_layers"] if unfreezing_type == 2 else [])
+    for group in groups:
+        for spec in reversed(getattr(arch, group)):
+            if spec.kind in PARAM_KINDS:
+                unfrozen.add((group, spec.index))
+                if len(unfrozen) == count:
+                    return unfrozen
+    return unfrozen
+
+
+def num_walkable(arch, unfreezing_type: int) -> int:
+    groups = ["word_layers"] + (["phoneme_layers"] if unfreezing_type == 2 else [])
+    return sum(1 for g in groups for s in getattr(arch, g) if s.kind in PARAM_KINDS)
 
 
 class Model(nn.Module):
@@ -98,6 +148,11 @@ class Model(nn.Module):
     Weights are drawn from a ``torch.Generator`` seeded with ``seed`` (the
     config's seed by default) in the reference's distributions; they differ
     from the JAX package's draws for the same seed.
+
+    Freezing follows the JAX package: every parameter keeps
+    ``requires_grad``, and :meth:`trainable_mask` gives the 0/1 mask of the
+    ULMFiT schedule that the optimizer applies
+    (:class:`~tpu_slu_torch.training.optim.MaskedAdam`).
     """
 
     def __init__(self, config, seed: int | None = None, load_pretrained: bool = True):
@@ -106,6 +161,11 @@ class Model(nn.Module):
             raise NotImplementedError("the seq2seq head is not ported yet")
         self.config = config
         self.Sy_intent = config.require("Sy_intent")
+        self.unfreezing_type = config.unfreezing_type
+        self.unfreezing_index = config.starting_unfreezing_index
+        self._unfrozen_count = 0
+        self._frozen_base = config.pretraining_type != 0
+        self._generator = torch.Generator().manual_seed(config.seed)  # forward(training=True)
         gen = torch.Generator().manual_seed(config.seed if seed is None else seed)
         self.pretrained_model = PretrainedModel(config, generator=gen)
         self.encoder_arch = self.pretrained_model.arch
@@ -145,6 +205,79 @@ class Model(nn.Module):
         self.load_state_dict(params_from_jax(read_npz(path)), strict=True)
         return self
 
+    @property
+    def device(self) -> torch.device:
+        """The device the model's parameters lie on."""
+        return self.intent_layers[self.intent_arch.linear_index].weight.device
+
+    def loss(self, x: torch.Tensor, y_intent: torch.Tensor, *, train: bool,
+             weights: torch.Tensor | None = None, lengths: torch.Tensor | None = None,
+             generator: torch.Generator | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """(loss, acc) of a batch on the model's device: the JAX Trainer's
+        loss (``trainer.py:280-297``). ``lengths`` (B,) sample counts leave
+        the frames of batch padding out of the max over time when the
+        config's ``mask_padding`` is on; ``weights`` (B,) weight the mean."""
+        feats = encoder_features(self.pretrained_model, x, train=train, generator=generator)
+        fm = None
+        if getattr(self.config, "mask_padding", True) and lengths is not None:
+            t_out = frames_through(self.intent_arch.layers, feats.shape[1])
+            fm = frame_mask_from_lengths(self.encoder_arch, lengths, t_out, self.intent_arch)
+        logits = intent_logits(self.intent_layers, self.intent_arch, feats, frame_mask=fm,
+                               train=train, generator=generator)
+        return intent_loss_acc(logits, y_intent, self.values_per_slot, weights)
+
+    def forward(self, x, y_intent, training: bool = False, *, weights=None, lengths=None,
+                generator: torch.Generator | None = None):
+        """(loss, acc) for a batch (reference ``Model.forward``). ``training``
+        applies dropout, its masks and seeds drawn from ``generator`` (the
+        model's own, seeded with the config's seed, by default)."""
+        dev = self.device
+
+        def put(a, dtype):
+            return None if a is None else torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a,
+                                                          dtype=dtype, device=dev)
+
+        x = put(x, torch.float32)
+        return self.loss(x, put(y_intent, torch.int64), train=training,
+                         weights=put(weights, torch.float32), lengths=put(lengths, torch.int64),
+                         generator=(generator or self._generator) if training else None)
+
+    # -- freezing (reference models.py:738-795) -------------------------------
+
+    def freeze_all_layers(self):
+        self._frozen_base = True
+        self._unfrozen_count = 0
+
+    def unfreeze_one_layer(self):
+        """Advance the ULMFiT schedule by one epoch."""
+        if self.unfreezing_type == 0:
+            return
+        total = num_walkable(self.encoder_arch, self.unfreezing_type)
+        self._unfrozen_count = min(self.unfreezing_index, total)
+        if self.unfreezing_index <= total:
+            self.unfreezing_index += 1
+
+    def trainable_mask(self) -> dict[str, float]:
+        """Parameter name -> 1.0 (trains now) or 0.0 (frozen). The encoder's
+        ``phoneme_linear`` and ``word_linear`` and the head always train."""
+        unfrozen = walk_unfrozen(self.encoder_arch, self.unfreezing_type, self._unfrozen_count)
+        mask = {}
+        for name, _ in self.named_parameters():
+            parts = name.split(".")
+            frozen = (self._frozen_base and parts[0] == "pretrained_model"
+                      and parts[1] in ("phoneme_layers", "word_layers")
+                      and (parts[1], int(parts[2])) not in unfrozen)
+            mask[name] = 0.0 if frozen else 1.0
+        return mask
+
+    def print_frozen(self):
+        unfrozen = walk_unfrozen(self.encoder_arch, self.unfreezing_type, self._unfrozen_count)
+        for group in ("phoneme_layers", "word_layers"):
+            for spec in getattr(self.encoder_arch, group):
+                if spec.kind in PARAM_KINDS:
+                    on = not self._frozen_base or (group, spec.index) in unfrozen
+                    print(f"{spec.name}: {'unfrozen' if on else 'frozen'}")
+
     @torch.inference_mode()
     def predict_intents(self, x, bucket: bool = False, lengths=None):
         """Waveform(s) (T,) or (B, T) -> (logits (B, S), per-slot predictions (B, 3)).
@@ -153,7 +286,7 @@ class Model(nn.Module):
         """
         if bucket or lengths is not None:
             raise NotImplementedError("the length-exact path (lengths=, bucket=True) is not ported yet")
-        dev = self.intent_layers[self.intent_arch.linear_index].weight.device
+        dev = self.device
         x = torch.as_tensor(np.asarray(x, np.float32) if not torch.is_tensor(x) else x,
                             dtype=torch.float32, device=dev)
         if x.dim() == 1:

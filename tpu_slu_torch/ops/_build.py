@@ -1,9 +1,10 @@
 """Build ``tpu_slu_torch/csrc/*.cu`` with plain ``nvcc`` and load it with ctypes.
 
 The library exposes plain ``extern "C"`` entry points, so the build needs no
-PyTorch headers and takes seconds. It runs at first use (the first CUDA
-call), never at import, and is rebuilt whenever a hash of the sources
-changes: the hash is part of the library's file name under ``build/``.
+PyTorch headers and takes seconds: one ``nvcc -c`` per source, all started
+together, then one link. It runs at first use (the first CUDA call), never
+at import, and is rebuilt whenever a hash of the sources changes: the hash
+is part of the library's file name under ``build/``.
 """
 
 from __future__ import annotations
@@ -26,9 +27,16 @@ _lib = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
+_F = ctypes.c_float
 # name -> (restype, argtypes); every pointer and the stream are c_void_p
 _SIGNATURES = {
     "tsl_bigru_shared_fwd": (_I, [_P, _I, _P, _I] + [_P] * 8 + [_P] * 3 + [_I] * 5 + [_P]),
+    "tsl_bigru_trainpool_fwd": (_I, [_P, _I, _P, _I] + [_P] * 8 + [_P] * 5 + [_I] * 4
+                                + [_U, _U, _F, _P]),
+    "tsl_bigru_shared_bwd": (_I, [_P, _I, _P, _I] + [_P] * 4 + [_P] * 8 + [_P] * 2 + [_P] * 8
+                             + [_P] * 5 + [_I] * 5 + [_U, _U, _F, _P]),
+    "tsl_bigru_shared_bwd_partial_floats": (ctypes.c_longlong, [_I, _I]),
     "tsl_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -63,14 +71,29 @@ def build(verbose: bool = False) -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           *(["-Xptxas", "-v"] if verbose else []), "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
+    nvcc = _nvcc()
+    procs = []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
+               *(["-Xptxas", "-v"] if verbose else []), "-o", obj, src]
+        procs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                                 text=True)))
+    results = [(cmd, obj, p, *p.communicate()) for cmd, obj, p in procs]
+    try:
+        for cmd, _, p, _, err in results:
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{err}")
+            if verbose:
+                print(err, end="")
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *[obj for _, obj, *_ in results]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    finally:
+        for _, obj, *_ in results:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, out)
     return out
 

@@ -1,15 +1,26 @@
-"""Shared-stream bidirectional GRU layer (eval forward): wrapper, plain version.
+"""Shared-stream bidirectional GRU layer: kernels' wrappers, plain versions, autograd.
 
-Port of the eval path of ``bigru_apply_shared`` in ``tpu_slu/ops/pallas_gru.py``.
-Both directions read ONE natural-order time-major stream made of 1 or 2 part
-streams ``(T, B, D_p)`` (the previous layer's ``h_f`` and ``h_b``, or the conv
-stack's output), so no flipped copy and no channel concat is ever made. An
-optional ceil-mode avg/max pool is fused into the layer, and the outputs come
-out at the pooled rate.
+Port of ``bigru_apply_shared`` in ``tpu_slu/ops/pallas_gru.py`` and of the
+three kernels under it. Both directions read ONE natural-order time-major
+stream made of 1 or 2 part streams ``(T, B, D_p)`` (the previous layer's
+``h_f`` and ``h_b``, or the conv stack's output), so no flipped copy and no
+channel concat is ever made. A following ceil-mode pool (and, in training,
+dropout) is fused into the layer, and the outputs come out at the pooled
+rate.
 
-On a CUDA tensor :func:`bigru_shared` launches the hand-written kernel in
-``tpu_slu_torch/csrc/bigru_shared_fwd.cu``; on a CPU tensor it runs
-:func:`bigru_shared_reference`, the same function in plain PyTorch.
+Each kernel has a wrapper, which launches it on a CUDA tensor and runs its
+plain PyTorch version on a CPU tensor, and keeps a count of its launches:
+
+* K1, eval/unpooled forward: :func:`bigru_shared_fwd`, counted on
+  ``bigru_shared.launches`` (``csrc/bigru_shared_fwd.cu``);
+* K2, train forward with hash dropout and avg pool: :func:`bigru_trainpool`
+  (``csrc/bigru_trainpool_fwd.cu``);
+* K3, the backward of both: :func:`bigru_shared_bwd`
+  (``csrc/bigru_shared_bwd.cu``).
+
+:func:`bigru_shared` routes a call as the JAX function does, through
+``torch.autograd.Function`` s whose forward and backward are those wrappers
+whenever a gradient is needed, on either device.
 """
 
 from __future__ import annotations
@@ -18,9 +29,11 @@ import torch
 
 from tpu_slu_torch.ops import _build
 from tpu_slu_torch.ops.conv import downsample
+from tpu_slu_torch.ops.dropout import DIR_SALT_B, DIR_SALT_F, keep_mask, keep_threshold
 from tpu_slu_torch.ops.gru import gru_direction
 
 _DIRS = ("fwd", "bwd")
+_SALTS = {"fwd": DIR_SALT_F, "bwd": DIR_SALT_B}
 _NAMES = ("weight_ih", "bias_ih", "weight_hh", "bias_hh")
 
 
@@ -35,8 +48,44 @@ def _check_args(parts, pool: int, pool_method: str) -> tuple:
     return parts
 
 
+def _check_drop(drop_p: float, seed) -> None:
+    if not 0.0 <= drop_p < 1.0:
+        raise ValueError(f"drop_p must be in [0, 1), got {drop_p}")
+    if seed is None or not 0 <= int(seed) < 2**32:
+        raise ValueError(f"the fused train path needs a uint32 seed, got {seed!r}")
+
+
+def _weights(params: dict) -> tuple:
+    return tuple(params[d][n] for d in _DIRS for n in _NAMES)
+
+
+def _params(weights) -> dict:
+    return {d: dict(zip(_NAMES, weights[4 * k:4 * k + 4])) for k, d in enumerate(_DIRS)}
+
+
+def _input_projection(p: dict, parts) -> torch.Tensor:
+    gi, off = p["bias_ih"], 0
+    for x in parts:
+        d = x.shape[-1]
+        gi = gi + torch.matmul(x, p["weight_ih"][:, off:off + d].t())
+        off += d
+    return gi
+
+
+def _shift_hp(h_f: torch.Tensor, h_b: torch.Tensor) -> tuple:
+    """Each direction's previous-step h at natural t: h_f[t-1] and h_b[t+1],
+    zero where the direction's walk starts."""
+    zero = h_f.new_zeros((1, *h_f.shape[1:]))
+    return torch.cat([zero, h_f[:-1]]), torch.cat([h_b[1:], zero])
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (CPU tensors)
+# ---------------------------------------------------------------------------
+
+
 def bigru_shared_reference(params: dict, parts, *, pool: int = 1, pool_method: str = "avg"):
-    """The layer in plain PyTorch: a Python loop over t with ``torch.mm``.
+    """The eval layer in plain PyTorch: a Python loop over t with ``torch.mm``.
 
     ``params``: ``{"fwd": d, "bwd": d}`` with ``d`` holding ``weight_ih``
     (3H, D), ``weight_hh`` (3H, H), ``bias_ih`` and ``bias_hh`` (3H,), torch
@@ -47,83 +96,398 @@ def bigru_shared_reference(params: dict, parts, *, pool: int = 1, pool_method: s
     outs = []
     for name in _DIRS:
         p = params[name]
-        gi, off = p["bias_ih"], 0
-        for x in parts:
-            d = x.shape[-1]
-            gi = gi + torch.matmul(x, p["weight_ih"][:, off:off + d].t())
-            off += d
-        h = gru_direction(gi, p["weight_hh"], p["bias_hh"], reverse=name == "bwd")
+        h = gru_direction(_input_projection(p, parts), p["weight_hh"], p["bias_hh"],
+                          reverse=name == "bwd")
         outs.append(downsample(h, pool_method, pool, time_axis=0))
     return outs[0], outs[1]
 
 
-def _check_cuda(params: dict, parts: tuple) -> tuple[int, int, int]:
+def bigru_trainpool_reference(params: dict, parts, *, pool: int, drop_p: float, seed: int):
+    """K2's function in plain PyTorch: the train forward, dropout on h at the
+    full frame rate (kept: ``h * (1 / (1 - p))``, :func:`keep_mask` of
+    ``seed``), then the ceil avg-pool. Returns ``(hp_f, hp_b, pooled_f,
+    pooled_b)``: ``hp_*`` (T, B, H) is each direction's previous-step h at
+    natural t, zero where its walk starts; ``pooled_*`` is (ceil(T/pool), B, H).
+    """
+    parts = _check_args(parts, pool, "avg")
+    _check_drop(drop_p, seed)
+    T, B = parts[0].shape[:2]
+    hs = {}
+    for name in _DIRS:
+        p = params[name]
+        hs[name] = gru_direction(_input_projection(p, parts), p["weight_hh"], p["bias_hh"],
+                                 reverse=name == "bwd")
+    hp_f, hp_b = _shift_hp(hs["fwd"], hs["bwd"])
+    pooled = []
+    for name in _DIRS:
+        h = hs[name]
+        if drop_p > 0.0:
+            keep = keep_mask(seed, _SALTS[name], 0, h.shape, keep_threshold(drop_p), h.device)
+            h = torch.where(keep, h * (1.0 / (1.0 - drop_p)), 0.0)
+        pooled.append(downsample(h, "avg", pool, time_axis=0))
+    return hp_f, hp_b, pooled[0], pooled[1]
+
+
+def expand_pooled_cotangent(dy: torch.Tensor, T: int, *, pool: int, drop_p: float, seed,
+                            dir_salt: int) -> torch.Tensor:
+    """The VJP of K2's dropout + ceil avg-pool: a pooled (ceil(T/pool), B, H)
+    cotangent -> the full-rate (T, B, H) one. Divided by each window's
+    in-range count, broadcast over the window, cut at T, and masked with the
+    keep mask regenerated from ``seed``."""
+    B, H = dy.shape[1:]
+    cnt = torch.clamp(T - pool * torch.arange(dy.shape[0], device=dy.device), max=pool)
+    d = (dy / cnt[:, None, None].to(dy.dtype)).repeat_interleave(pool, dim=0)[:T]
+    if drop_p > 0.0:
+        keep = keep_mask(seed, dir_salt, 0, (T, B, H), keep_threshold(drop_p), dy.device)
+        d = torch.where(keep, d * (1.0 / (1.0 - drop_p)), 0.0)
+    return d
+
+
+def bigru_shared_bwd_reference(params: dict, parts, hp_f, hp_b, dy_f, dy_b, *, pool: int = 1,
+                               drop_p: float = 0.0, seed=None):
+    """K3's function in plain PyTorch, written out as the kernel computes it
+    (``pallas_gru.py:1361-1441``): the gates recomputed from x and h_prev,
+    the serial dh chain of each direction, then dX and the weight gradients.
+
+    Plain mode (``pool == 1`` and ``drop_p == 0``): ``dy_*`` are full-rate
+    (T, B, H) cotangents of the unpooled forward. Fused mode: they are the
+    POOLED cotangents of :func:`bigru_trainpool_reference`, expanded by
+    :func:`expand_pooled_cotangent`. Returns ``(dxs, grads)``: one (T, B, D_p)
+    gradient per part, and ``{"fwd": {...}, "bwd": {...}}`` keyed like
+    ``params``.
+    """
+    parts = _check_args(parts, pool, "avg")
+    fused = pool > 1 or drop_p > 0.0
+    if fused:
+        _check_drop(drop_p, seed)
+    T, B = parts[0].shape[:2]
+    x = torch.cat(parts, dim=-1).reshape(T * B, -1)
+    dx = 0.0
+    grads = {}
+    for name, hp, dy in (("fwd", hp_f, dy_f), ("bwd", hp_b, dy_b)):
+        p = params[name]
+        H = p["weight_hh"].shape[1]
+        if fused:
+            dy = expand_pooled_cotangent(dy, T, pool=pool, drop_p=drop_p, seed=seed,
+                                         dir_salt=_SALTS[name])
+        gi = _input_projection(p, parts)
+        gh = torch.matmul(hp, p["weight_hh"].t()) + p["bias_hh"]
+        rz = torch.sigmoid(gi[..., :2 * H] + gh[..., :2 * H])
+        r, z = rz[..., :H], rz[..., H:]
+        gh_n = gh[..., 2 * H:]
+        n = torch.tanh(gi[..., 2 * H:] + r * gh_n)
+        rfac = gh_n * r * (1.0 - r)
+        dgi = torch.empty_like(gi)
+        dh = hp.new_zeros((B, H))
+        for t in (range(T - 1, -1, -1) if name == "fwd" else range(T)):
+            d = dh + dy[t]
+            dn = d * (1.0 - z[t]) * (1.0 - n[t] * n[t])
+            dz = d * (hp[t] - n[t]) * z[t] * (1.0 - z[t])
+            dr = dn * rfac[t]
+            dgi[t] = torch.cat([dr, dz, dn], dim=-1)
+            dh = torch.matmul(torch.cat([dr, dz, dn * r[t]], dim=-1), p["weight_hh"]) + d * z[t]
+        dgh = torch.cat([dgi[..., :2 * H], dgi[..., 2 * H:] * r], dim=-1).reshape(T * B, 3 * H)
+        dgi = dgi.reshape(T * B, 3 * H)
+        dx = dx + torch.matmul(dgi, p["weight_ih"])
+        grads[name] = {"weight_ih": torch.matmul(dgi.t(), x), "bias_ih": dgi.sum(0),
+                       "weight_hh": torch.matmul(dgh.t(), hp.reshape(T * B, H)),
+                       "bias_hh": dgh.sum(0)}
+    dxs = torch.split(dx.reshape(T, B, -1), [x.shape[-1] for x in parts], dim=-1)
+    return tuple(d.contiguous() for d in dxs), grads
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_cuda(what: str, params: dict, parts: tuple, extra=()) -> tuple[int, int, int]:
     dev = parts[0].device
     T, B = parts[0].shape[:2]
     tensors = [(f"part {i}", x) for i, x in enumerate(parts)]
     tensors += [(f"{d}.{n}", params[d][n]) for d in _DIRS for n in _NAMES]
+    tensors += list(extra)
     for name, x in tensors:
         if x.device != dev:
-            raise ValueError(f"bigru_shared: {name} is on {x.device}, part 0 on {dev}")
+            raise ValueError(f"{what}: {name} is on {x.device}, part 0 on {dev}")
         if x.dtype != torch.float32:
-            raise TypeError(f"bigru_shared: {name} is {x.dtype}; the kernel takes float32")
+            raise TypeError(f"{what}: {name} is {x.dtype}; the kernel takes float32")
         if not x.is_contiguous():
-            raise ValueError(f"bigru_shared: {name} is not contiguous")
+            raise ValueError(f"{what}: {name} is not contiguous")
     for i, x in enumerate(parts):
         if x.dim() != 3 or tuple(x.shape[:2]) != (T, B):
-            raise ValueError(f"bigru_shared: part {i} has shape {tuple(x.shape)}, want ({T}, {B}, D)")
+            raise ValueError(f"{what}: part {i} has shape {tuple(x.shape)}, want ({T}, {B}, D)")
     D = sum(x.shape[-1] for x in parts)
     H = params["fwd"]["weight_hh"].shape[-1]
     want = {"weight_ih": (3 * H, D), "weight_hh": (3 * H, H), "bias_ih": (3 * H,), "bias_hh": (3 * H,)}
     for d in _DIRS:
         for n, shape in want.items():
             if tuple(params[d][n].shape) != shape:
-                raise ValueError(
-                    f"bigru_shared: {d}.{n} has shape {tuple(params[d][n].shape)}, want {shape}"
-                )
+                raise ValueError(f"{what}: {d}.{n} has shape {tuple(params[d][n].shape)}, want {shape}")
     if T < 1 or B < 1 or H % 4 != 0:
-        raise ValueError(f"bigru_shared: kernel needs T, B >= 1 and H % 4 == 0 (T={T}, B={B}, H={H})")
-    if 2 * T * B * 3 * H >= 2**31:
-        raise ValueError(f"bigru_shared: T*B*H too large for the kernel's int indexing (T={T}, B={B}, H={H})")
+        raise ValueError(f"{what}: kernel needs T, B >= 1 and H % 4 == 0 (T={T}, B={B}, H={H})")
+    if 2 * T * B * 4 * H >= 2**31 or T * B * max(D, H) >= 2**31:
+        raise ValueError(f"{what}: T*B*H too large for the kernel's int indexing (T={T}, B={B}, H={H})")
     return T, B, H
 
 
-def bigru_shared(params: dict, parts, *, pool: int = 1, pool_method: str = "avg"):
-    """One bidirectional GRU layer over time-major part streams.
+def _device_of(parts) -> torch.device:
+    dev = parts[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"bigru_shared runs on cpu or cuda tensors, not {dev}")
+    return dev
 
-    Same contract as the JAX ``bigru_apply_shared`` eval path: returns
-    ``(h_f, h_b, pooled)`` with ``h_f``/``h_b`` of shape
-    ``(ceil(T/pool), B, H)`` in natural time order and ``pooled`` true when
-    the pool ran inside the layer. CPU tensors take the plain version; CUDA
-    tensors launch the kernel on the current stream without synchronising,
-    and anything the kernel does not take raises.
+
+def _ptrs(params: dict) -> list[int]:
+    return [params[d][n].data_ptr() for d in _DIRS for n in _NAMES]
+
+
+def _part_ptrs(parts) -> list:
+    x2 = parts[1] if len(parts) == 2 else None
+    return [parts[0].data_ptr(), parts[0].shape[-1],
+            None if x2 is None else x2.data_ptr(), 0 if x2 is None else x2.shape[-1]]
+
+
+def bigru_shared_fwd(params: dict, parts, *, pool: int = 1, pool_method: str = "avg"):
+    """K1: the eval forward, ``(h_f, h_b)`` of shape (ceil(T/pool), B, H).
+
+    CPU tensors take :func:`bigru_shared_reference`; CUDA tensors launch the
+    kernel on the current stream without synchronising, and anything the
+    kernel does not take raises. Records no autograd graph on CUDA.
     """
     parts = _check_args(parts, pool, pool_method)
-    if parts[0].device.type == "cpu":
-        h_f, h_b = bigru_shared_reference(params, parts, pool=pool, pool_method=pool_method)
-        return h_f, h_b, pool > 1
-    if parts[0].device.type != "cuda":
-        raise ValueError(f"bigru_shared runs on cpu or cuda tensors, not {parts[0].device}")
-    T, B, H = _check_cuda(params, parts)
+    if _device_of(parts).type == "cpu":
+        return bigru_shared_reference(params, parts, pool=pool, pool_method=pool_method)
+    T, B, H = _check_cuda("bigru_shared_fwd", params, parts)
     lib = _build.library()
-    To = -(-T // pool)
     dev = parts[0].device
+    To = -(-T // pool)
     gi = torch.empty((2, T, B, 3 * H), device=dev, dtype=torch.float32)
     h_f = torch.empty((To, B, H), device=dev, dtype=torch.float32)
     h_b = torch.empty((To, B, H), device=dev, dtype=torch.float32)
-    x2 = parts[1] if len(parts) == 2 else None
-    f, b = params["fwd"], params["bwd"]
     err = lib.tsl_bigru_shared_fwd(
-        parts[0].data_ptr(), parts[0].shape[-1],
-        None if x2 is None else x2.data_ptr(), 0 if x2 is None else x2.shape[-1],
-        *[f[n].data_ptr() for n in _NAMES], *[b[n].data_ptr() for n in _NAMES],
-        gi.data_ptr(), h_f.data_ptr(), h_b.data_ptr(),
-        T, B, H, pool, int(pool_method == "max"),
-        torch.cuda.current_stream(dev).cuda_stream,
+        *_part_ptrs(parts), *_ptrs(params), gi.data_ptr(), h_f.data_ptr(), h_b.data_ptr(),
+        T, B, H, pool, int(pool_method == "max"), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, f"bigru_shared_fwd (T={T}, B={B}, H={H}, pool={pool})")
     bigru_shared.launches += 1
-    return h_f, h_b, pool > 1
+    return h_f, h_b
 
 
-bigru_shared.launches = 0  # wrapper calls that launched the kernel
+def bigru_trainpool(params: dict, parts, *, pool: int, drop_p: float, seed: int):
+    """K2: ``(hp_f, hp_b, pooled_f, pooled_b)`` as :func:`bigru_trainpool_reference`.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel on the
+    current stream without synchronising. Records no autograd graph on CUDA.
+    """
+    parts = _check_args(parts, pool, "avg")
+    _check_drop(drop_p, seed)
+    if _device_of(parts).type == "cpu":
+        return bigru_trainpool_reference(params, parts, pool=pool, drop_p=drop_p, seed=seed)
+    T, B, H = _check_cuda("bigru_trainpool", params, parts)
+    lib = _build.library()
+    dev = parts[0].device
+    To = -(-T // pool)
+    gi = torch.empty((2, T, B, 3 * H), device=dev, dtype=torch.float32)
+    hp_f, hp_b = (torch.empty((T, B, H), device=dev, dtype=torch.float32) for _ in range(2))
+    p_f, p_b = (torch.empty((To, B, H), device=dev, dtype=torch.float32) for _ in range(2))
+    err = lib.tsl_bigru_trainpool_fwd(
+        *_part_ptrs(parts), *_ptrs(params), gi.data_ptr(), hp_f.data_ptr(), hp_b.data_ptr(),
+        p_f.data_ptr(), p_b.data_ptr(), T, B, H, pool, int(seed), keep_threshold(drop_p),
+        1.0 / (1.0 - drop_p), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, f"bigru_trainpool (T={T}, B={B}, H={H}, pool={pool}, p={drop_p})")
+    bigru_trainpool.launches += 1
+    return hp_f, hp_b, p_f, p_b
+
+
+bigru_trainpool.launches = 0  # wrapper calls that launched K2
+
+
+def bigru_shared_bwd(params: dict, parts, hp_f, hp_b, dy_f, dy_b, *, pool: int = 1,
+                     drop_p: float = 0.0, seed=None):
+    """K3: ``(dxs, grads)`` as :func:`bigru_shared_bwd_reference`.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel on the
+    current stream without synchronising. The weight gradients are summed in
+    a fixed order, so repeated calls on one card agree bit for bit.
+    """
+    parts = _check_args(parts, pool, "avg")
+    fused = pool > 1 or drop_p > 0.0
+    if fused:
+        _check_drop(drop_p, seed)
+    if _device_of(parts).type == "cpu":
+        return bigru_shared_bwd_reference(params, parts, hp_f, hp_b, dy_f, dy_b, pool=pool,
+                                          drop_p=drop_p, seed=seed)
+    T, B = parts[0].shape[:2]
+    H = params["fwd"]["weight_hh"].shape[-1]
+    To = -(-T // pool) if fused else T
+    extra = [("hp_f", hp_f), ("hp_b", hp_b), ("dy_f", dy_f), ("dy_b", dy_b)]
+    _check_cuda("bigru_shared_bwd", params, parts, extra)
+    for name, x, shape in (("hp_f", hp_f, (T, B, H)), ("hp_b", hp_b, (T, B, H)),
+                           ("dy_f", dy_f, (To, B, H)), ("dy_b", dy_b, (To, B, H))):
+        if tuple(x.shape) != shape:
+            raise ValueError(f"bigru_shared_bwd: {name} has shape {tuple(x.shape)}, want {shape}")
+    lib = _build.library()
+    dev = parts[0].device
+
+    def empty(*shape):
+        return torch.empty(shape, device=dev, dtype=torch.float32)
+
+    dxs = [empty(T, B, x.shape[-1]) for x in parts]
+    D = sum(x.shape[-1] for x in parts)
+    grads = {d: {"weight_ih": empty(3 * H, D), "bias_ih": empty(3 * H),
+                 "weight_hh": empty(3 * H, H), "bias_hh": empty(3 * H)} for d in _DIRS}
+    buf_a, buf_b = empty(2, T, B, 3 * H), empty(2, T, B, 3 * H)
+    gates = empty(2, T, B, 4 * H)
+    dyx = empty(2, T, B, H) if fused else None
+    partial = empty(lib.tsl_bigru_shared_bwd_partial_floats(D, H))
+    err = lib.tsl_bigru_shared_bwd(
+        *_part_ptrs(parts), hp_f.data_ptr(), hp_b.data_ptr(), dy_f.data_ptr(), dy_b.data_ptr(),
+        *_ptrs(params), dxs[0].data_ptr(), dxs[1].data_ptr() if len(dxs) == 2 else None,
+        *[grads[d][n].data_ptr() for d in _DIRS for n in _NAMES],
+        buf_a.data_ptr(), buf_b.data_ptr(), gates.data_ptr(),
+        None if dyx is None else dyx.data_ptr(), partial.data_ptr(),
+        T, B, H, pool, int(fused), int(seed or 0), keep_threshold(drop_p),
+        1.0 / (1.0 - drop_p), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, f"bigru_shared_bwd (T={T}, B={B}, H={H}, pool={pool}, p={drop_p})")
+    bigru_shared_bwd.launches += 1
+    return tuple(dxs), grads
+
+
+bigru_shared_bwd.launches = 0  # wrapper calls that launched K3
+
+
+# ---------------------------------------------------------------------------
+# Autograd (pallas_gru.py:1540-1690)
+# ---------------------------------------------------------------------------
+
+
+def _grad_outputs(dxs, grads) -> tuple:
+    return (*dxs, *[grads[d][n] for d in _DIRS for n in _NAMES])
+
+
+class _TrainCore(torch.autograd.Function):
+    """Unpooled train core (``_shared_train_core_for``): K1 forward at full
+    rate; backward K3 in plain mode, h_prev made by shifting the outputs."""
+
+    @staticmethod
+    def forward(ctx, n_parts, *args):
+        parts, weights = args[:n_parts], args[n_parts:]
+        h_f, h_b = bigru_shared_fwd(_params(weights), parts)
+        ctx.n_parts = n_parts
+        ctx.save_for_backward(*args, h_f, h_b)
+        return h_f, h_b
+
+    @staticmethod
+    def backward(ctx, dy_f, dy_b):
+        saved = ctx.saved_tensors
+        parts, weights, (h_f, h_b) = saved[:ctx.n_parts], saved[ctx.n_parts:-2], saved[-2:]
+        hp_f, hp_b = _shift_hp(h_f, h_b)
+        dxs, grads = bigru_shared_bwd(_params(weights), parts, hp_f, hp_b,
+                                      dy_f.contiguous(), dy_b.contiguous())
+        return (None, *_grad_outputs(dxs, grads))
+
+
+class _TrainPoolCore(torch.autograd.Function):
+    """Fused train core (``_shared_trainpool_core_for``): K2 forward (dropout
+    + ceil avg-pool, h_prev residuals); backward K3 in fused mode on the
+    POOLED cotangents. The seed gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, n_parts, pool, drop_p, seed, *args):
+        parts, weights = args[:n_parts], args[n_parts:]
+        hp_f, hp_b, p_f, p_b = bigru_trainpool(_params(weights), parts, pool=pool,
+                                               drop_p=drop_p, seed=seed)
+        ctx.n_parts, ctx.pool, ctx.drop_p, ctx.seed = n_parts, pool, drop_p, seed
+        ctx.save_for_backward(*args, hp_f, hp_b)
+        return p_f, p_b
+
+    @staticmethod
+    def backward(ctx, dy_f, dy_b):
+        saved = ctx.saved_tensors
+        parts, weights, (hp_f, hp_b) = saved[:ctx.n_parts], saved[ctx.n_parts:-2], saved[-2:]
+        dxs, grads = bigru_shared_bwd(_params(weights), parts, hp_f, hp_b, dy_f.contiguous(),
+                                      dy_b.contiguous(), pool=ctx.pool, drop_p=ctx.drop_p,
+                                      seed=ctx.seed)
+        return (None, None, None, None, *_grad_outputs(dxs, grads))
+
+
+class _PooledEvalCore(torch.autograd.Function):
+    """Pooled eval path with exact gradients on demand
+    (``_shared_pooled_core_for``): K1 forward at the pooled rate; the
+    backward recomputes the full-rate forward through K1, takes the VJP of
+    the ceil pool, and runs K3 in plain mode."""
+
+    @staticmethod
+    def forward(ctx, n_parts, pool, pool_method, *args):
+        parts, weights = args[:n_parts], args[n_parts:]
+        ctx.n_parts, ctx.pool, ctx.pool_method = n_parts, pool, pool_method
+        ctx.save_for_backward(*args)
+        return bigru_shared_fwd(_params(weights), parts, pool=pool, pool_method=pool_method)
+
+    @staticmethod
+    def backward(ctx, dy_f, dy_b):
+        saved = ctx.saved_tensors
+        parts, weights = saved[:ctx.n_parts], saved[ctx.n_parts:]
+        params = _params(weights)
+        h_f, h_b = bigru_shared_fwd(params, parts)
+        with torch.enable_grad():
+            full = [h.detach().requires_grad_() for h in (h_f, h_b)]
+            pooled = [downsample(h, ctx.pool_method, ctx.pool, time_axis=0) for h in full]
+            df, db = torch.autograd.grad(pooled, full, (dy_f, dy_b))
+        hp_f, hp_b = _shift_hp(h_f, h_b)
+        dxs, grads = bigru_shared_bwd(params, parts, hp_f, hp_b, df.contiguous(), db.contiguous())
+        return (None, None, None, *_grad_outputs(dxs, grads))
+
+
+def bigru_shared(params: dict, parts, *, train: bool = False, pool: int = 1,
+                 pool_method: str = "avg", drop_p: float = 0.0, seed=None):
+    """One bidirectional GRU layer over time-major part streams.
+
+    Same contract as the JAX ``bigru_apply_shared``; returns ``(h_f, h_b,
+    pooled)`` in natural time order:
+
+    * ``train`` with ``pool > 1`` or ``drop_p > 0``, ``pool_method == "avg"``
+      and a uint32 ``seed``: the fused train path (K2 forward, K3 backward).
+      Dropout at the full frame rate and the ceil avg-pool run inside the
+      layer; outputs are (ceil(T/pool), B, H) and ``pooled`` is True. The
+      caller applies neither again.
+    * ``train`` otherwise: full-rate (T, B, H) outputs (K1 forward, K3
+      backward); ``pooled`` is False and the caller applies dropout and pool.
+    * eval: the pool (avg or max) fuses into K1 when ``pool > 1``; outputs are
+      (ceil(T/pool), B, H) and ``pooled`` is ``pool > 1``. When a gradient is
+      needed it stays exact: the backward recomputes the full-rate forward.
+
+    Whenever grad mode is on and a part or a weight requires grad, the call
+    goes through an autograd Function whose forward and backward are the
+    kernels' wrappers; otherwise the forward wrapper is called alone, as
+    decode under ``torch.inference_mode()`` does.
+    """
+    parts = _check_args(parts, pool, pool_method)
+    _device_of(parts)
+    weights = _weights(params)
+    needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (*parts, *weights))
+    n = len(parts)
+    if train and seed is not None and pool_method == "avg" and (pool > 1 or drop_p > 0.0):
+        _check_drop(drop_p, seed)
+        if needs_grad:
+            p_f, p_b = _TrainPoolCore.apply(n, pool, float(drop_p), int(seed), *parts, *weights)
+        else:
+            p_f, p_b = bigru_trainpool(params, parts, pool=pool, drop_p=drop_p, seed=seed)[2:]
+        return p_f, p_b, True
+    if train or pool == 1:
+        if needs_grad:
+            h_f, h_b = _TrainCore.apply(n, *parts, *weights)
+        else:
+            h_f, h_b = bigru_shared_fwd(params, parts)
+        return h_f, h_b, False
+    if needs_grad:
+        h_f, h_b = _PooledEvalCore.apply(n, pool, pool_method, *parts, *weights)
+    else:
+        h_f, h_b = bigru_shared_fwd(params, parts, pool=pool, pool_method=pool_method)
+    return h_f, h_b, True
+
+
+bigru_shared.launches = 0  # wrapper calls that launched K1 (bigru_shared_fwd)

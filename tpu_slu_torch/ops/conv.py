@@ -10,18 +10,43 @@ import torch
 import torch.nn.functional as F
 
 
+class _CudnnConv1dF32(torch.autograd.Function):
+    """cuDNN conv of (B, Cin, 1, T) by (Cout, Cin, 1, K) with TF32 off in the
+    forward and in both gradients. ``torch.cudnn_convolution`` takes the flag
+    for its forward only; its backward would follow the process-wide
+    ``cudnn.allow_tf32`` (True by default), so the backward is written here."""
+
+    @staticmethod
+    def forward(ctx, x4, w4, stride: int, padding: int):
+        ctx.save_for_backward(x4, w4)
+        ctx.stride, ctx.padding = stride, padding
+        return torch.cudnn_convolution(
+            x4, w4, (0, padding), (1, stride), (1, 1), 1,
+            torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic, False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x4, w4 = ctx.saved_tensors
+        with torch.backends.cudnn.flags(enabled=True, benchmark=torch.backends.cudnn.benchmark,
+                                        deterministic=torch.backends.cudnn.deterministic,
+                                        allow_tf32=False):
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                grad.contiguous(), x4, w4, None, (1, ctx.stride), (0, ctx.padding), (1, 1),
+                False, (0, 0), 1, (ctx.needs_input_grad[0], ctx.needs_input_grad[1], False))
+        return dx, dw, None, None
+
+
 def conv1d(x, kernel, bias=None, stride: int = 1, padding: int = 0):
     """x (B, Cin, T), kernel (Cout, Cin, K) -> (B, Cout, T_out), in f32.
 
-    On a CUDA tensor the conv goes to cuDNN with TF32 off for this call alone
-    (``F.conv1d`` would follow the process-wide ``cudnn.allow_tf32``, True by
-    default), as a (B, Cin, 1, T) conv the way ``F.conv1d`` hands it over.
+    On a CUDA tensor the conv goes to cuDNN with TF32 off for this call alone,
+    forward and backward (``F.conv1d`` would follow the process-wide
+    ``cudnn.allow_tf32``, True by default), as a (B, Cin, 1, T) conv the way
+    ``F.conv1d`` hands it over.
     """
     if x.device.type != "cuda":
         return F.conv1d(x, kernel, bias, stride=stride, padding=padding)
-    out = torch.cudnn_convolution(
-        x[:, :, None, :], kernel[:, :, None, :], (0, padding), (1, stride), (1, 1), 1,
-        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic, False)[:, :, 0, :]
+    out = _CudnnConv1dF32.apply(x[:, :, None, :], kernel[:, :, None, :], stride, padding)[:, :, 0, :]
     return out if bias is None else out + bias[:, None]
 
 

@@ -49,7 +49,7 @@ def sinc_filters(filt_b1: torch.Tensor, filt_band: torch.Tensor, filt_dim: int, 
         return 2.0 * cut[:, None] * y
 
     band_pass = low_pass(end) - low_pass(beg)
-    band_pass = band_pass / band_pass.max(dim=1, keepdim=True).values
+    band_pass = band_pass / band_pass.amax(dim=1, keepdim=True)  # ties split the gradient, as jnp.max
     n = torch.linspace(0.0, float(N), N, dtype=torch.float32, device=dev)
     window = 0.54 - 0.46 * torch.cos(2.0 * math.pi * n / N)
     return band_pass * window
