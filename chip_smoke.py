@@ -27,7 +27,26 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    plain path; ``Trainer(model, config).train(dataset)`` over seeded
    synthetic batches of B = 64 with 4 K2, 1 K1 and 5 K3 launches per step,
    then ``Trainer.test``; warm timings of the train step and of K2 and K3
-   against their plain versions.
+   against their plain versions;
+7. length-exact decode and serving at the width of ``no_unfreezing.cfg``:
+   K4f (the length-masked bi-GRU) against its plain version at the five
+   layer shapes, B = 8, seeded mixed lengths with exact zeros past each; a
+   ``predict_intents(lengths=)`` of an (8, 4 s) padded batch against each
+   example's exact-shape decode (the K1 path), 5 K4f and 0 K1 launches a
+   call; an ``IntentServer(max_batch=8)`` answering 32 seeded requests of
+   1.0-4.0 s from 8 threads, each answer equal to its exact-shape decode,
+   5 K4f launches per device call; ``make_http_server`` on the golden
+   checkpoint decoding every golden wav; warm timings of K4f, of the exact
+   decode against the exact-shape B = 8 decode, and the served latency.
+
+Beside each kernel's time the script prints its plain version's, a cuDNN
+``torch.nn.GRU`` call's where one computes the same function (timed as a
+yardstick only: forward at the unpooled shapes for K1, on packed rows for
+K4f, the backward for K3; none for K2, whose dropout and pool are fused),
+and its bound: the larger of the f32 operations over 67 TFLOP/s and the
+bytes over 3.35 TB/s (each input read once, each output written once),
+ignoring the serial chain. At the end it checks that no module of JAX or
+of the JAX package was loaded.
 
 The last lines are the card's name and power limit, one JSON object on the
 kernels, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -66,6 +85,15 @@ STEP_PARAM_ATOL = 1e-5  # ... parameters after masked Adam from equal gradients
 ENC_SHAPES = [("phone_rnn0", 60, 1, 400), ("phone_rnn1", 128, 2, 200),
               ("word_rnn0", 128, 2, 100), ("word_rnn1", 128, 2, 50)]
 INTENT_SHAPE = ("intent_rnn0", 256, 1, 25)
+K4F_SOURCE = "tpu_slu_torch/csrc/bigru_masked_fwd.cu"
+K4F_REPLACES = "tpu_slu/ops/pallas_gru.py:323"
+EXACT_LOGIT_ATOL = 1e-4  # length-exact (K4f) vs exact-shape (K1) decode on the card, same weights
+SERVE_BATCH = 8  # the IntentServer's max_batch: a served batch is (8, 4 s bucket)
+# the card's published peaks at 700 W (NVIDIA H100 SXM data sheet): f32 outside the
+# tensor cores, and HBM3
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+GATE_OPS = 20  # f32 operations per gate element and direction: 2 sigmoids, a tanh, ~8 adds and products
 
 
 def smi() -> str:
@@ -118,6 +146,81 @@ def same_zeros(g, r) -> bool:
 
     differ = (g == 0) != (r == 0)
     return not differ.any() or torch.maximum(g.abs(), r.abs())[differ].max().item() <= 1e-6
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time in ms the card could take: the larger of the
+    operations over the f32 peak and the bytes over the memory rate; and
+    which of the two binds. Ignores the serial chain of the recurrence."""
+    t_ops, t_bytes = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def gru_weight_floats(D: int, H: int) -> int:
+    return 2 * (3 * H * D + 3 * H * H + 6 * H)
+
+
+def gru_fwd_work(rows: int, D: int, H: int, in_floats: int, out_floats: int) -> tuple[float, float]:
+    """FLOPs and bytes of a bi-GRU forward over ``rows`` (t, b) rows of
+    width D: per row and direction the input projection and the recurrent
+    product (2 * 3H * (D + H)) and the gate math (GATE_OPS per element);
+    each input read once, each output written once, f32."""
+    flops = 2 * rows * (2 * 3 * H * (D + H) + GATE_OPS * H)
+    return flops, 4 * (in_floats + gru_weight_floats(D, H) + out_floats)
+
+
+def cudnn_gru_ms(D: int, T: int, B: int, H: int, dev, lengths=None, backward=False) -> float:
+    """Median ms of one cuDNN ``torch.nn.GRU(bidirectional=True)`` call at
+    (T, B, D), a yardstick the port never calls; with ``lengths``, over
+    ``pack_padded_sequence`` of the rows with n_b > 0 (it takes no empty
+    row); ``backward``: the backward alone, input and weight gradients. Its
+    input comes from a generator of its own, so that the phases' seeded data
+    do not depend on which yardsticks ran."""
+    import numpy as np
+    import torch
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    gru = torch.nn.GRU(D, H, bidirectional=True).to(dev)
+    x = np.random.default_rng(T * B + D).standard_normal((T, B, D)).astype("float32")
+    x = torch.from_numpy(x).to(dev)
+    if backward:
+        x.requires_grad_()
+        out, _ = gru(x)
+        cot = torch.randn_like(out)
+        return cuda_ms(lambda: out.backward(cot, retain_graph=True), reps=10, warmup=2)
+    if lengths is not None:
+        keep = [b for b, n in enumerate(lengths) if n > 0]
+        x = pack_padded_sequence(x[:, keep], torch.tensor([lengths[b] for b in keep]),
+                                 enforce_sorted=False)
+    with torch.inference_mode():
+        return cuda_ms(lambda: gru(x), reps=20, warmup=3)
+
+
+def profile_calls(fn, what: str, card: str, reps: int = 10, top: int = 8) -> None:
+    """Trace ``reps`` warm calls with ``torch.profiler``: device busy time a
+    call, the device's idle share of the traced wall time, and the kernels
+    that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kernels) / reps / 1e3
+    launches = sum(e.count for e in kernels) / reps
+    print(f"[profile] {what}: traced wall {wall:.3f} ms a call, device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / wall:.3f}, {launches:.0f} kernel launches a call, on {card}")
+    for e in kernels[:top]:
+        print(f"[profile]   {e.self_device_time_total / reps / 1e3:8.4f} ms  {e.count / reps:5.1f} "
+              f"launches  {e.key[:80]}")
 
 
 def rel_err(g, r) -> float:
@@ -257,7 +360,7 @@ def phase_train(dev, card: str, rng) -> tuple[list[dict], int]:
               f"{worst:.3g} of autograd of the plain version")
 
     # 6.4 one whole train step, card against the CPU plain path, B = 16
-    cpu_model = flagship_model(cfg=TRAIN_CFG, intent_rnn_drop=[0.0]).train()
+    cpu_model = flagship_model("cpu", cfg=TRAIN_CFG, intent_rnn_drop=[0.0]).train()
     card_model = copy.deepcopy(cpu_model).to(dev)
     b16 = synthetic_batches(rng, 1, 16, cpu_model.values_per_slot)[0]
     grads = {}
@@ -341,29 +444,217 @@ def phase_train(dev, card: str, rng) -> tuple[list[dict], int]:
     step_ms = cuda_ms(lambda: trainer.train_step(batch), reps=10, warmup=2)
     print(f"[time] warm train step B={B}, 4 s audio (forward, backward, masked Adam): median "
           f"{step_ms:.3f} ms of 10 (CUDA events) on {card}")
-    k2_ms = k2_plain = k3_ms = k3_plain = 0.0
+    k2_ms = k2_plain = k3_ms = k3_plain = k3_lib = 0.0
+    k2_work, k3_work = [0.0, 0.0], [0.0, 0.0]  # FLOPs, bytes
+    H = 128
     for name, d, n_parts, T in ENC_SHAPES + [INTENT_SHAPE]:
         fused = name != INTENT_SHAPE[0]
+        D, To = n_parts * d, -(-T // 2) if fused else T
         params, parts, hp_f, hp_b, dy, kw = k3_case(d, n_parts, T, B, fused)
         if fused:
             kw2 = {"pool": 2, "drop_p": 0.5, "seed": kw["seed"]}
             a, b = in_turns(lambda: bigru_trainpool_reference(params, parts, **kw2),
                             lambda: bigru_trainpool(params, parts, **kw2))
             k2_ms, k2_plain = k2_ms + a, k2_plain + b
-            print(f"[time] K2 {name:11s} B={B} T={T:3d}: kernel {a:.4f} ms, plain {b:.3f} ms")
+            # in: x; out: the pooled outputs and h_prev of both directions
+            w = gru_fwd_work(T * B, D, H, T * B * D, 2 * To * B * H + 2 * T * B * H)
+            k2_work = [k2_work[0] + w[0], k2_work[1] + w[1]]
+            print(f"[time] K2 {name:11s} B={B} T={T:3d}: kernel {a:.4f} ms, plain {b:.3f} ms, "
+                  f"bound {bound(*w)[0]:.4f} ms ({bound(*w)[1]})")
         a, b = in_turns(lambda: bigru_shared_bwd_reference(params, parts, hp_f, hp_b, *dy, **kw),
                         lambda: bigru_shared_bwd(params, parts, hp_f, hp_b, *dy, **kw))
-        k3_ms, k3_plain = k3_ms + a, k3_plain + b
+        lib = cudnn_gru_ms(D, T, B, H, dev, backward=True)
+        k3_ms, k3_plain, k3_lib = k3_ms + a, k3_plain + b, k3_lib + lib
+        # per row and direction: gi and gh recomputed, the dh chain, dX, dW_ih, dW_hh
+        # (2 * 3H * (3D + 3H)) and the gate derivatives; in: x, h_prev, dy, weights;
+        # out: dX and the weight gradients
+        w = (2 * T * B * (2 * 3 * H * (3 * D + 3 * H) + 2 * GATE_OPS * H),
+             4 * (2 * T * B * D + 2 * T * B * H + 2 * To * B * H + 2 * gru_weight_floats(D, H)))
+        k3_work = [k3_work[0] + w[0], k3_work[1] + w[1]]
         print(f"[time] K3 {name:11s} B={B} T={T:3d} {'fused' if fused else 'plain'}: kernel {a:.4f} ms, "
-              f"plain {b:.3f} ms")
-    print(f"[time] K2 four encoder layers B={B}: kernel {k2_ms:.4f} ms, plain {k2_plain:.3f} ms; "
-          f"K3 five layers: kernel {k3_ms:.4f} ms, plain {k3_plain:.3f} ms on {card}")
+              f"plain {b:.3f} ms, cuDNN nn.GRU backward {lib:.4f} ms, bound {bound(*w)[0]:.4f} ms "
+              f"({bound(*w)[1]})")
+    (k2_bound, k2_by), (k3_bound, k3_by) = bound(*k2_work), bound(*k3_work)
+    print(f"[time] K2 four encoder layers B={B}: kernel {k2_ms:.4f} ms, plain {k2_plain:.3f} ms, "
+          f"bound {k2_bound:.4f} ms ({k2_by}); K3 five layers: kernel {k3_ms:.4f} ms, plain "
+          f"{k3_plain:.3f} ms, cuDNN nn.GRU backward {k3_lib:.4f} ms, bound {k3_bound:.4f} ms "
+          f"({k3_by}) on {card}")
     return [
         {"name": "bigru_trainpool_fwd", "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
-         "launches": launches["K2"], "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain},
+         "launches": launches["K2"], "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
+         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
         {"name": "bigru_shared_bwd", "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
-         "launches": launches["K3"], "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain},
+         "launches": launches["K3"], "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain,
+         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": k3_lib},
     ], launches["K1"]
+
+
+def phase_serve(dev, card: str, rng, golden, expected) -> dict:
+    """Phase 7: length-exact decode and the micro-batching server. Returns
+    K4f's JSON entry; its launches are those of the served run."""
+    import concurrent.futures as cf
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from tpu_slu_torch.models.flagship import flagship_model
+    from tpu_slu_torch.ops.bigru_masked import bigru_masked, bigru_masked_reference
+    from tpu_slu_torch.ops.bigru_shared import bigru_shared
+    from tpu_slu_torch.serving import IntentServer, make_http_server
+
+    H = 128
+    # 7.1 K4f against its plain version at the five flagship layer shapes, B = 8,
+    # seeded mixed lengths (each set holds T and 0); timings in turns
+    k4_err = k4_ms = k4_plain = k4_lib = 0.0
+    k4_work = [0.0, 0.0]
+    for name, d, n_parts, T in ENC_SHAPES + [INTENT_SHAPE]:
+        D, B = n_parts * d, SERVE_BATCH
+        params, parts = k1_case(rng, 1, D, T, B, H, dev)
+        x = parts[0].transpose(0, 1).contiguous()
+        lengths = rng.integers(1, T + 1, B)
+        lengths[0], lengths[-1] = T, 0
+        n = torch.from_numpy(lengths).to(dev)
+        before = bigru_masked.launches
+        with torch.inference_mode():
+            got = bigru_masked(params, x, n)
+        torch.cuda.synchronize()
+        assert bigru_masked.launches == before + 1, "K4f launch counter did not advance"
+        ref = bigru_masked_reference(params, x, n)
+        err = (got - ref).abs().max().item()
+        k4_err = max(k4_err, err)
+        if got.shape != ref.shape or not rel_err(got, ref) <= ATOL:
+            raise AssertionError(f"K4f {name} T={T}: off its plain version by {rel_err(got, ref):.3g} "
+                                 f"of the largest element (limit {ATOL})")
+        tail = torch.arange(T, device=dev)[None, :] >= n[:, None]
+        if not (got[tail] == 0).all():
+            raise AssertionError(f"K4f {name} T={T}: a frame past its row's length is not 0")
+        with torch.inference_mode():
+            a, b = in_turns(lambda: bigru_masked_reference(params, x, n),
+                            lambda: bigru_masked(params, x, n))
+        lib = cudnn_gru_ms(D, T, B, H, dev, lengths=lengths.tolist())
+        rows = int(lengths.sum())
+        # the valid rows' work; in: their x; out: all of (B, T, 2H), zeros included
+        w = gru_fwd_work(rows, D, H, rows * D, B * T * 2 * H)
+        k4_work = [k4_work[0] + w[0], k4_work[1] + w[1]]
+        k4_ms, k4_plain, k4_lib = k4_ms + a, k4_plain + b, k4_lib + lib
+        print(f"[k4f] {name:11s} B={B} T={T:3d} D={D:3d} lengths {lengths.tolist()}: max abs err "
+              f"{err:.3g} (rel {rel_err(got, ref):.3g}), zeros past each length; kernel {a:.4f} ms, "
+              f"plain {b:.3f} ms, cuDNN nn.GRU on packed rows {lib:.4f} ms, bound "
+              f"{bound(*w)[0]:.4f} ms ({bound(*w)[1]})")
+    k4_bound, k4_by = bound(*k4_work)
+    print(f"[time] K4f five flagship layers B={SERVE_BATCH}: kernel {k4_ms:.4f} ms, plain "
+          f"{k4_plain:.3f} ms, cuDNN nn.GRU {k4_lib:.4f} ms, bound {k4_bound:.4f} ms ({k4_by}); "
+          f"within {ATOL} of each largest element, max abs err {k4_err:.3g} on {card}")
+
+    # 7.2 a length-exact decode of (8, 4 s bucket) against each example's exact-shape
+    # decode (the K1 path) on the card
+    model = flagship_model(dev)
+    n_samples = rng.integers(16000, 64001, SERVE_BATCH)
+    n_samples[0] = 64000
+    waves = [(0.1 * rng.standard_normal(int(t))).astype(np.float32) for t in n_samples]
+    x = np.zeros((SERVE_BATCH, 64000), np.float32)
+    for i, w in enumerate(waves):
+        x[i, :len(w)] = w
+    bigru_masked.launches = bigru_shared.launches = 0
+    logits, preds = model.predict_intents(x, lengths=n_samples)
+    torch.cuda.synchronize()
+    if (bigru_masked.launches, bigru_shared.launches) != (5, 0):
+        raise AssertionError(f"length-exact decode launched K4f {bigru_masked.launches} and K1 "
+                             f"{bigru_shared.launches} times; want 5 and 0")
+    worst = 0.0
+    for i, w in enumerate(waves):
+        alone, alone_preds = model.predict_intents(w)
+        e = (logits[i] - alone[0]).abs().max().item()
+        worst = max(worst, e)
+        if not (torch.isfinite(logits[i]).all() and e <= EXACT_LOGIT_ATOL
+                and torch.equal(preds[i], alone_preds[0])):
+            raise AssertionError(f"length-exact row {i} ({len(w)} samples): logits off its exact-shape "
+                                 f"decode by {e:.3g} (atol {EXACT_LOGIT_ATOL}) or predictions differ")
+    print(f"[exact] flagship predict_intents(lengths=) at ({SERVE_BATCH}, 64000), lengths "
+          f"{n_samples.tolist()}: 5 K4f, 0 K1 launches; each row within {worst:.3g} of its "
+          f"exact-shape decode (atol {EXACT_LOGIT_ATOL}), predictions equal")
+    xd, nd = torch.from_numpy(x).to(dev), torch.from_numpy(n_samples).to(dev)
+    full = torch.from_numpy((0.1 * rng.standard_normal((SERVE_BATCH, 64000))).astype(np.float32)).to(dev)
+    exact_ms = cuda_ms(lambda: model.predict_intents(xd, lengths=nd), reps=30, warmup=5)
+    shape_ms = cuda_ms(lambda: model.predict_intents(full), reps=30, warmup=5)
+    print(f"[time] warm length-exact predict_intents ({SERVE_BATCH}, 4 s bucket): median "
+          f"{exact_ms:.3f} ms of 30; exact-shape predict_intents B={SERVE_BATCH}, 4 s: median "
+          f"{shape_ms:.3f} ms of 30 (CUDA events) on {card}")
+    profile_calls(lambda: model.predict_intents(xd, lengths=nd), f"length-exact predict_intents "
+                  f"({SERVE_BATCH}, 4 s bucket)", card)
+    profile_calls(lambda: model.predict_intents(full), f"exact-shape predict_intents B={SERVE_BATCH}, 4 s",
+                  card)
+
+    # 7.3 the main path: an IntentServer answering 32 seeded requests of 1.0-4.0 s from 8 threads
+    reqs = [(0.1 * rng.standard_normal(int(t))).astype(np.float32)
+            for t in rng.integers(16000, 64001, 32)]
+    server = IntentServer(model, max_batch=SERVE_BATCH)
+    try:
+        server.warmup()
+        server.batch_sizes.clear()
+        bigru_masked.launches = bigru_shared.launches = 0
+
+        def ask(chunk):
+            out = []
+            for i in chunk:
+                t0 = time.perf_counter()
+                out.append((i, server.decode(reqs[i]), (time.perf_counter() - t0) * 1e3))
+            return out
+
+        with cf.ThreadPoolExecutor(8) as pool:
+            answers = [a for part in pool.map(ask, [range(k, 32, 8) for k in range(8)]) for a in part]
+        torch.cuda.synchronize()
+        k4_launches, k1_launches = bigru_masked.launches, bigru_shared.launches
+        sizes = dict(server.batch_sizes)
+    finally:
+        server.close()
+    calls = sum(sizes.values())
+    if k4_launches != 5 * calls or k1_launches != 0:
+        raise AssertionError(f"served run: {calls} device calls launched K4f {k4_launches} and K1 "
+                             f"{k1_launches} times; want 5 per call and 0")
+    if sum(k * v for k, v in sizes.items()) != 32 or max(sizes) < 2:
+        raise AssertionError(f"served run: device calls by requests carried {sizes}")
+    for i, got, _ in answers:
+        want = model.decode_intents(reqs[i])[0]
+        if got != want:
+            raise AssertionError(f"served request {i} ({len(reqs[i])} samples): {got}, exact-shape {want}")
+    lat = sorted(ms for *_, ms in answers)
+    p50, p90 = lat[len(lat) // 2], lat[int(0.9 * len(lat))]
+    print(f"[serve] IntentServer(max_batch={SERVE_BATCH}) after warmup: 32 requests of 1.0-4.0 s from 8 "
+          f"threads in {calls} device calls (by requests carried: {sizes}); K4f launches {k4_launches}, K1 "
+          f"{k1_launches}; every answer equals its exact-shape decode")
+    print(f"[time] served latency (submit to answer, host clock): p50 {p50:.3f} ms, p90 {p90:.3f} ms, "
+          f"max {lat[-1]:.3f} ms on {card}")
+
+    # 7.4 HTTP on the golden checkpoint
+    server = IntentServer(golden, max_batch=SERVE_BATCH)
+    httpd = make_http_server(server, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        with urllib.request.urlopen(f"{base}/healthz", timeout=60) as r:
+            assert json.loads(r.read()) == {"ok": True}
+        for case in expected:
+            with open(os.path.join(GOLDEN, case["wav"]), "rb") as f:
+                req = urllib.request.Request(f"{base}/decode", data=f.read())
+            with urllib.request.urlopen(req, timeout=120) as r:
+                got = json.loads(r.read())["intents"]
+            want = [case["action"], case["object"], case["location"]]
+            if got != want:
+                raise AssertionError(f"HTTP /decode {case['wav']}: {got}, want {want}")
+        print(f"[http] make_http_server on the golden checkpoint: /healthz ok; {len(expected)} golden "
+              f"wavs POSTed to /decode, each decoded to its expected intents")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+        thread.join(timeout=10)
+    return {"name": "bigru_masked_fwd", "route": "cuda", "source": K4F_SOURCE, "replaces": K4F_REPLACES,
+            "launches": k4_launches, "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain,
+            "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": k4_lib}
 
 
 def main() -> None:
@@ -506,7 +797,7 @@ def main() -> None:
         print(f"[golden] {case['wav']}: {decoded} exact, K1 launches +{launched}")
 
     # 5. flagship slice at no_unfreezing.cfg widths, seeded random weights
-    cpu_model = flagship_model()
+    cpu_model = flagship_model("cpu")
     model = copy.deepcopy(cpu_model).to(dev)
     x = (0.1 * np.random.default_rng(1).standard_normal((16, 4 * 16000))).astype(np.float32)
     batches = {1: x[:1], 16: x}
@@ -545,7 +836,8 @@ def main() -> None:
     shapes = [("phone_rnn0", 60, 1, 400, 2), ("phone_rnn1", 128, 2, 200, 2),
               ("word_rnn0", 128, 2, 100, 2), ("word_rnn1", 128, 2, 50, 2),
               ("intent_rnn0", 256, 1, 25, 1)]
-    totals = {B: [0.0, 0.0] for B in batches}
+    totals = {B: [0.0, 0.0, 0.0] for B in batches}  # kernel, plain, cuDNN nn.GRU
+    k1_work = [0.0, 0.0]  # FLOPs and bytes at B = 16
     for B in batches:
         for name, d, n_parts, T, pool in shapes:
             params, parts = k1_case(rng, n_parts, d, T, B, 128, dev)
@@ -556,22 +848,36 @@ def main() -> None:
             assert all(torch.allclose(g, r, atol=ATOL, rtol=RTOL) for g, r in zip(got, ref)), err
             k_ms, p_ms = in_turns(lambda: bigru_shared_reference(params, parts, pool=pool),
                                   lambda: bigru_shared(params, parts, pool=pool), rounds=3)
-            totals[B][0] += k_ms
-            totals[B][1] += p_ms
-            print(f"[time] K1 {name:11s} B={B:2d} D={n_parts * d:3d} T={T:3d} pool={pool}: "
-                  f"kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, max abs err {err:.3g}")
+            D = n_parts * d
+            lib_ms = cudnn_gru_ms(D, T, B, 128, dev)  # unpooled: cuDNN fuses no pool
+            w = gru_fwd_work(T * B, D, 128, T * B * D, 2 * -(-T // pool) * B * 128)
+            if B == 16:
+                k1_work = [k1_work[0] + w[0], k1_work[1] + w[1]]
+            for i, v in enumerate((k_ms, p_ms, lib_ms)):
+                totals[B][i] += v
+            print(f"[time] K1 {name:11s} B={B:2d} D={D:3d} T={T:3d} pool={pool}: kernel {k_ms:.4f} ms, "
+                  f"plain {p_ms:.3f} ms, cuDNN nn.GRU {lib_ms:.4f} ms, bound {bound(*w)[0]:.4f} ms "
+                  f"({bound(*w)[1]}), max abs err {err:.3g}")
         print(f"[time] K1 five flagship layers B={B:2d}: kernel {totals[B][0]:.4f} ms, "
-              f"plain {totals[B][1]:.3f} ms on {card}")
+              f"plain {totals[B][1]:.3f} ms, cuDNN nn.GRU {totals[B][2]:.4f} ms on {card}")
+    k1_bound, k1_by = bound(*k1_work)
 
     # 6. flagship train step
     train_kernels, k1_train_launches = phase_train(dev, card, rng)
 
+    # 7. length-exact decode and serving
+    k4f = phase_serve(dev, card, rng, golden, expected)
+
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_slu"))
+    if loaded:
+        raise AssertionError(f"the port loaded modules of JAX or of the JAX package: {loaded}")
     print(card)
     print(json.dumps({"kernels": [{
         "name": "bigru_shared_fwd", "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
         "launches": k1_train_launches, "launches_decode": launches, "max_abs_err": max_err,
-        "ms": totals[16][0], "plain_ms": totals[16][1],
-    }] + train_kernels}))
+        "ms": totals[16][0], "plain_ms": totals[16][1], "bound_ms": k1_bound, "bound_by": k1_by,
+        "library_ms": totals[16][2],
+    }] + train_kernels + [k4f]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 

@@ -11,10 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_slu_torch.ops.bigru_masked import bigru_masked, bigru_masked_reference
 from tpu_slu_torch.ops.bigru_shared import (
     bigru_shared,
     bigru_shared_bwd,
     bigru_shared_bwd_reference,
+    bigru_shared_fwd,
     bigru_shared_reference,
     bigru_trainpool,
     bigru_trainpool_reference,
@@ -295,3 +297,177 @@ def test_k2_k3_reject_what_they_do_not_take(dev, kernel, fault):
         else:
             bigru_shared_bwd(params, parts, hp_f, hp_b, *dy, **kw)
     assert (bigru_trainpool.launches, bigru_shared_bwd.launches) == counts
+
+
+# ---------------------------------------------------------------------------
+# K4f: the length-masked bi-GRU forward
+# ---------------------------------------------------------------------------
+
+
+def k4_inputs(seed, B, T, D, H, dev):
+    """Random K4f inputs: params and x (B, T, D) on ``dev``, and length
+    vectors that hold T and (where B > 1) 0 in each; B = 1 gets both, one at a time."""
+    params, parts = k1_inputs(seed, (D,), T, B, H, dev)
+    x = parts[0].transpose(0, 1).contiguous()
+    rng = np.random.default_rng(seed + 100)
+    if B == 1:
+        lengths = [[T], [0], [int(rng.integers(0, T + 1))]]
+    else:
+        n = rng.integers(0, T + 1, B)
+        n[0], n[-1] = T, 0
+        lengths = [list(n)]
+    return params, x, [torch.tensor(n, device=dev) for n in lengths]
+
+
+def _rel_close(g, r, tol=1e-4):
+    """Within ``tol`` of the reference's largest element: f32 sums in another order."""
+    return (g - r).abs().max().item() <= tol * max(r.abs().max().item(), 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 2, 25, 400])
+@pytest.mark.parametrize("H", [16, 128])
+@pytest.mark.parametrize("B", [1, 3, 8, 64])
+def test_k4f_matches_plain(dev, B, H, T):
+    D = 60 if T == 400 else 2 * H
+    params, x, lengths = k4_inputs(20, B, T, D, H, dev)
+    for n in lengths:
+        before = bigru_masked.launches
+        with torch.inference_mode():
+            got = bigru_masked(params, x, n)
+        torch.cuda.synchronize()
+        assert bigru_masked.launches == before + 1
+        ref = bigru_masked_reference(params, x, n)
+        assert got.shape == ref.shape == (B, T, 2 * H)
+        assert _rel_close(got, ref), (got - ref).abs().max().item()
+        for b, nb in enumerate(n.tolist()):  # exact zeros past each row's length
+            assert (got[b, nb:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_k4f_rows_equal_their_example_alone(dev):
+    """Each row of a padded batch equals K4f on that example alone at
+    T = n_b, and K1 on it (the exact-shape layer), within 1e-4."""
+    params, x, (n,) = k4_inputs(21, 8, 50, 128, 128, dev)
+    with torch.inference_mode():
+        got = bigru_masked(params, x, n)
+        for b, nb in enumerate(n.tolist()):
+            if nb == 0:
+                continue
+            xb = x[b:b + 1, :nb].contiguous()
+            alone = bigru_masked(params, xb, torch.tensor([nb], device=dev))[0]
+            h_f, h_b = bigru_shared_fwd(params, (xb.transpose(0, 1).contiguous(),))
+            k1 = torch.cat([h_f, h_b], dim=-1)[:, 0]
+            assert _rel_close(got[b, :nb], alone) and _rel_close(got[b, :nb], k1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["float64", "noncontiguous", "cpu_weight", "shape", "h_not_multiple_of_4",
+                                   "n_too_long", "n_negative", "n_on_cpu", "n_float", "n_shape"])
+def test_k4f_rejects_what_it_does_not_take(dev, fault):
+    H = 10 if fault == "h_not_multiple_of_4" else 8
+    params, x, (n,) = k4_inputs(22, 3, 9, 6, H, dev)
+    if fault == "float64":
+        x = x.double()
+    elif fault == "noncontiguous":
+        x = x.transpose(0, 1).contiguous().transpose(0, 1)
+    elif fault == "cpu_weight":
+        params["bwd"]["weight_ih"] = params["bwd"]["weight_ih"].cpu()
+    elif fault == "shape":
+        params["fwd"]["weight_ih"] = params["fwd"]["weight_ih"][:, :-1].contiguous()
+    elif fault == "n_too_long":
+        n = n.clone()
+        n[1] = 10
+    elif fault == "n_negative":
+        n = n.clone()
+        n[1] = -1
+    elif fault == "n_on_cpu":
+        n = n.cpu()
+    elif fault == "n_float":
+        n = n.float()
+    elif fault == "n_shape":
+        n = n[:2]
+    before = bigru_masked.launches
+    with pytest.raises((TypeError, ValueError)):
+        bigru_masked(params, x, n)
+    assert bigru_masked.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf", ["x", "weight"])
+def test_k4f_refuses_a_call_that_needs_its_backward(dev, leaf):
+    params, x, (n,) = k4_inputs(23, 3, 9, 8, 8, dev)
+    if leaf == "x":
+        x.requires_grad_()
+    else:
+        params["fwd"]["weight_hh"].requires_grad_()
+    before = bigru_masked.launches
+    with pytest.raises(NotImplementedError, match="K4b"):
+        bigru_masked(params, x, n)
+    with torch.no_grad():
+        out = bigru_masked(params, x, n)
+    assert out.grad_fn is None and bigru_masked.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_k1_and_k2_unchanged_beside_k4f(dev):
+    """K1 and K2 give the same bits and launch once each, before and after K4f runs."""
+    params, parts = k1_inputs(24, (128, 128), 50, 8, 128, dev)
+    x = torch.cat(parts, dim=-1).transpose(0, 1).contiguous()
+    n = torch.tensor([50, 3, 0, 17, 50, 1, 49, 25], device=dev)
+
+    def k1_k2():
+        counts = (bigru_shared.launches, bigru_trainpool.launches)
+        with torch.inference_mode():
+            out = (*bigru_shared(params, parts, pool=2)[:2],
+                   *bigru_trainpool(params, parts, pool=2, drop_p=0.5, seed=9))
+        assert (bigru_shared.launches, bigru_trainpool.launches) == (counts[0] + 1, counts[1] + 1)
+        return out
+
+    first = k1_k2()
+    counts = (bigru_shared.launches, bigru_trainpool.launches, bigru_shared_bwd.launches)
+    with torch.inference_mode():
+        bigru_masked(params, x, n)
+    assert (bigru_shared.launches, bigru_trainpool.launches, bigru_shared_bwd.launches) == counts
+    for a, b in zip(first, k1_k2()):
+        assert torch.equal(a, b)
+    ref = bigru_shared_reference(params, parts, pool=2)
+    assert all(_rel_close(a, r) for a, r in zip(first[:2], ref))
+
+
+@pytest.mark.cuda
+def test_length_exact_decode_runs_k4f_only(dev, tmp_path):
+    """The golden model's length-exact decode on the card: 5 K4f and no K1
+    launches a call, logits within 1e-4 of the CPU's, the golden wavs exact."""
+    import json
+    import os
+    import shutil
+
+    from tpu_slu_torch import read_config
+    from tpu_slu_torch.data.audio import read_wav
+    from tpu_slu_torch.serving import load_trained_model
+
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets", "golden")
+    folder = tmp_path / "exp"
+    with open(os.path.join(golden, "experiment.cfg.template")) as f:
+        (tmp_path / "exp.cfg").write_text(f.read().replace("__GOLDEN_FOLDER__", str(folder)))
+    config = read_config(str(tmp_path / "exp.cfg"))
+    for name in ("model_state.npz", "vocab.json"):
+        shutil.copyfile(os.path.join(golden, name), folder / "training" / name)
+    card, cpu = load_trained_model(config, device=dev), load_trained_model(config, device="cpu")
+    with open(os.path.join(golden, "expected.json")) as f:
+        cases = json.load(f)["expected"]
+    waves = [read_wav(os.path.join(golden, c["wav"]))[0] for c in cases]
+    T = max(len(w) for w in waves)
+    x = np.zeros((len(waves) + 2, T), np.float32)
+    for i, w in enumerate(waves):
+        x[i, :len(w)] = w
+    n = [len(w) for w in waves] + [0, 0]
+    counts = (bigru_masked.launches, bigru_shared.launches)
+    logits, _ = card.predict_intents(x, lengths=n)
+    torch.cuda.synchronize()
+    assert (bigru_masked.launches - counts[0], bigru_shared.launches - counts[1]) == (5, 0)
+    ref, _ = cpu.predict_intents(x, lengths=n)
+    assert torch.isfinite(logits).all() and (logits.cpu() - ref).abs().max().item() <= 1e-4
+    decoded = card.decode_intents(x, lengths=n)
+    assert decoded[:len(cases)] == [[c["action"], c["object"], c["location"]] for c in cases]

@@ -1,4 +1,4 @@
-"""The PyTorch port decodes and trains without jax, pandas or ``tpu_slu.data``.
+"""The PyTorch port decodes, serves and trains without jax, pandas or any ``tpu_slu`` module.
 
 Checked in a fresh interpreter: this test process has imported jax already.
 """
@@ -25,11 +25,18 @@ try:
     config = read_config(os.path.join(tmp, "exp.cfg"))
     for name in ("model_state.npz", "vocab.json"):
         shutil.copyfile(os.path.join(golden, name), os.path.join(folder, "training", name))
-    model = load_trained_model(config)
+    model = load_trained_model(config, device="cpu")
     with open(os.path.join(golden, "expected.json")) as f:
         case = json.load(f)["expected"][0]
     wav, _ = read_wav(os.path.join(golden, case["wav"]))
     decoded = model.decode_intents(wav)[0]
+    # one request through the micro-batching server
+    from tpu_slu_torch.serving import IntentServer
+    server = IntentServer(model, max_batch=2)
+    try:
+        served = server.decode(wav)
+    finally:
+        server.close()
     # one train step of the port's Trainer on loader-format batches
     import numpy as np
     from tpu_slu_torch.training import Trainer
@@ -41,21 +48,19 @@ try:
     assert np.isfinite(loss)
 finally:
     shutil.rmtree(tmp)
-loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "pandas") or m.startswith("tpu_slu.data"))
-tpu_slu_mods = sorted(m for m in sys.modules if m.split(".")[0] == "tpu_slu")
-print(json.dumps({"decoded": decoded, "want": [case["action"], case["object"], case["location"]],
-                  "forbidden": loaded, "tpu_slu": tpu_slu_mods}))
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pandas", "tpu_slu"))
+print(json.dumps({"decoded": decoded, "served": served,
+                  "want": [case["action"], case["object"], case["location"]], "forbidden": loaded}))
 """
 
 
 def test_port_imports_neither_jax_nor_pandas():
+    """Nor ``tpu_slu`` or any module under it: the port keeps its own copies."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env, capture_output=True,
                          text=True, timeout=300, check=True).stdout
     import json
 
     result = json.loads(out.strip().splitlines()[-1])
-    assert result["decoded"] == result["want"]
+    assert result["decoded"] == result["served"] == result["want"]
     assert result["forbidden"] == []
-    assert result["tpu_slu"] == ["tpu_slu", "tpu_slu.config"]

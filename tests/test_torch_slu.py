@@ -88,12 +88,15 @@ def test_predict_intents_matches_jax(pair, interpret, rng, B, T):
     assert tmodel.decode_intents(x) == jmodel.decode_intents(x)
 
 
-def test_length_exact_path_is_not_ported(pair):
+def test_length_exact_path_is_not_ported(pair, rng):
+    """``lengths=`` and ``bucket=True`` take the length-exact path and agree
+    with the exact-shape decode of the same waveform."""
     tmodel = pair[2]
-    with pytest.raises(NotImplementedError):
-        tmodel.predict_intents(np.zeros((1, 4000), np.float32), lengths=[4000])
-    with pytest.raises(NotImplementedError):
-        tmodel.predict_intents(np.zeros((1, 4000), np.float32), bucket=True)
+    x = wave(rng, 1, 4000)
+    exact, _ = tmodel.predict_intents(x)
+    for kw in ({"lengths": [4000]}, {"bucket": True}):
+        logits, _ = tmodel.predict_intents(x, **kw)
+        torch.testing.assert_close(logits, exact, rtol=0, atol=1e-5)
 
 
 def test_params_from_jax_tree_and_export_agree(pair):
@@ -119,7 +122,7 @@ def test_params_from_jax_tree_and_export_agree(pair):
 
 def test_flagship_model_has_the_reference_layout():
     """The random-weight flagship has the JAX model's keys and shapes at that cfg."""
-    tmodel = flagship_model()
+    tmodel = flagship_model("cpu")
     jmodel = jslu.Model(copy.deepcopy(tmodel.config), seed=0, load_pretrained=False)
     exported = export_model_state_dict(jmodel.params, jmodel.encoder_arch, jmodel.intent_arch)
     state = tmodel.state_dict()
@@ -196,7 +199,7 @@ def golden_model(tmp_path_factory):
     config, folder = _golden_folder(tmp_path_factory)
     shutil.copyfile(os.path.join(GOLDEN, "model_state.npz"),
                     os.path.join(folder, "training", "model_state.npz"))
-    return load_trained_model(config)
+    return load_trained_model(config, device="cpu")
 
 
 def _golden_cases():
@@ -215,7 +218,7 @@ def test_golden_loads_from_reference_pth(golden_model, tmp_path_factory):
     """A reference-layout ``model_state.pth`` loads like the ``.npz``."""
     config, folder = _golden_folder(tmp_path_factory, "golden_pth")
     torch.save(golden_model.state_dict(), os.path.join(folder, "training", "model_state.pth"))
-    model = load_trained_model(config)
+    model = load_trained_model(config, device="cpu")
     wav, _ = read_wav(os.path.join(GOLDEN, _golden_cases()[0]["wav"]))
     torch.testing.assert_close(model.predict_intents(wav)[0], golden_model.predict_intents(wav)[0],
                                rtol=0, atol=0)

@@ -1,7 +1,8 @@
 """ASR pre-training encoder: SincNet/conv front end + hierarchical bi-GRUs.
 
-Port of the eval and train paths of ``tpu_slu/models/encoder.py`` (the
-exact-shape ones: the length-exact path is not ported). The architecture is a
+Port of the eval and train paths of ``tpu_slu/models/encoder.py``, at the
+input's exact shape and length-exact over a padded batch (``lengths=``,
+:func:`_apply_stack_masked`). The architecture is a
 flat list of :class:`LayerSpec` whose ``index`` fields follow the reference
 ``PretrainedModel``'s ``nn.ModuleList`` construction order, so the
 :class:`PretrainedModel` module's ``state_dict`` keys (e.g.
@@ -21,8 +22,16 @@ import torch
 from torch import nn
 from torch.nn.utils import skip_init
 
+from tpu_slu_torch.ops.bigru_masked import bigru_masked
 from tpu_slu_torch.ops.bigru_shared import bigru_shared
-from tpu_slu_torch.ops.conv import conv1d, downsample, leaky_relu, max_pool1d_ceil
+from tpu_slu_torch.ops.conv import (
+    conv1d,
+    downsample,
+    leaky_relu,
+    masked_avg_pool1d_ceil,
+    masked_max_pool1d_ceil,
+    max_pool1d_ceil,
+)
 from tpu_slu_torch.ops.sinc import mel_init, sinc_conv
 
 
@@ -303,14 +312,75 @@ def _gru_block(layer, tail, out, *, train: bool, generator):
     return PartsTM(p.contiguous() for p in parts)
 
 
+def zero_time_tail(out: torch.Tensor, n: torch.Tensor, time_axis: int) -> torch.Tensor:
+    """Zero frames >= n_b along ``time_axis`` (1 or 2) of a (B, ., .) tensor."""
+    valid = torch.arange(out.shape[time_axis], device=out.device)[None, :] < n[:, None]
+    return torch.where(valid[:, None, :] if time_axis == 2 else valid[:, :, None], out, 0.0)
+
+
+def _apply_stack_masked(layers: nn.ModuleList, specs, out, n: torch.Tensor, *, train: bool,
+                        generator: torch.Generator | None):
+    """The length-exact branch of :func:`apply_stack` (the JAX
+    ``_apply_stack`` with ``n``): every op computes as if each example were
+    cropped to its own ``n_b`` valid samples (before the convs) or frames
+    (after them). Conv tails are zeroed, the ceil pools take the
+    per-example partial-window divisor, and each bi-GRU runs K4f
+    (:func:`bigru_masked`); the shared-stream chain is not taken. Conv specs
+    take (B, C, T), RNN specs (B, T, C); returns (B, T, C). The counts
+    follow :func:`frames_through`, spec by spec, with ``//`` flooring on
+    int64 tensors as JAX's does (a row with n_b = 0 stays at 0 frames)."""
+    if isinstance(out, PartsTM):
+        out = parts_to_btc(out)
+    for spec in specs:
+        layer = layers[spec.index]
+        n_in, n = n, frames_through((spec,), n)
+        if spec.kind == "sinc":
+            _, filt_dim, fs, stride, pad = spec.h
+            out = zero_time_tail(sinc_conv(layer.filt_b1, layer.filt_band, out, filt_dim, fs, stride, pad),
+                                 n, 2)
+        elif spec.kind == "conv":
+            _, _, _, stride, pad = spec.h
+            out = zero_time_tail(conv1d(out, layer.weight, layer.bias, stride=stride, padding=pad), n, 2)
+        elif spec.kind == "abs":
+            out = out.abs()
+        elif spec.kind == "pool":
+            out = masked_max_pool1d_ceil(out, spec.h[0], n_in)
+        elif spec.kind == "act":
+            out = leaky_relu(out, 0.2) if spec.h[0] == "leaky_relu" else torch.relu(out)
+        elif spec.kind == "dropout":
+            if train and spec.h[0] > 0.0:
+                out = dropout(out, spec.h[0], generator)
+        elif spec.kind == "ncl2nlc":
+            out = out.transpose(1, 2)  # (B, C, T) -> (B, T, C)
+        elif spec.kind == "gru":
+            out = bigru_masked(layer.params(), out.contiguous(), n)
+        elif spec.kind == "select":
+            pass  # the GRU returns its sequence
+        elif spec.kind == "downsample":
+            method, factor = spec.h
+            if factor > 1 and method == "none":
+                out = out[:, ::factor]
+            elif factor > 1:
+                pool = masked_max_pool1d_ceil if method == "max" else masked_avg_pool1d_ceil
+                out = pool(out.transpose(1, 2), factor, n_in).transpose(1, 2)
+        else:
+            raise ValueError(spec.kind)
+    return out
+
+
 def apply_stack(layers: nn.ModuleList, specs, out, *, train: bool = False,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, n: torch.Tensor | None = None):
     """Run a LayerSpec stack. Conv specs take (B, C, T); a GRU takes
     time-major parts (or (B, T, C), which it turns time-major); the rest of
     the RNN specs take (B, T, C). Returns a tensor or a :class:`PartsTM`.
 
     ``train`` applies dropout, its masks and seeds drawn from ``generator``
-    in layer order (needed whenever a rate is above 0)."""
+    in layer order (needed whenever a rate is above 0). ``n`` (B,) int64
+    valid counts of ``out`` select the length-exact branch
+    (:func:`_apply_stack_masked`); the counts of its output are
+    ``frames_through(specs, n)``."""
+    if n is not None:
+        return _apply_stack_masked(layers, specs, out, n, train=train, generator=generator)
     specs = list(specs)
     idx = 0
     while idx < len(specs):
@@ -359,14 +429,22 @@ def apply_stack(layers: nn.ModuleList, specs, out, *, train: bool = False,
 
 
 def encoder_features(encoder: "PretrainedModel", x: torch.Tensor, *, train: bool = False,
-                     generator: torch.Generator | None = None) -> torch.Tensor:
+                     generator: torch.Generator | None = None,
+                     lengths: torch.Tensor | None = None) -> torch.Tensor:
     """(B, T) waveform -> (B, T/word_ds, word_feat_dim) word-rate features
     (reference ``PretrainedModel.compute_features``); ``train`` as
-    :func:`apply_stack`."""
+    :func:`apply_stack`.
+
+    ``lengths`` (B,) int64 sample counts select the length-exact path: row
+    b's features equal, frame for frame, those of the example alone at
+    T = lengths_b, and its frames past ``arch.num_frames(lengths_b)`` are 0.
+    """
     arch = encoder.arch
     out = apply_stack(encoder.phoneme_layers, arch.phoneme_layers, x[:, None, :], train=train,
-                      generator=generator)
-    out = apply_stack(encoder.word_layers, arch.word_layers, out, train=train, generator=generator)
+                      generator=generator, n=lengths)
+    n = None if lengths is None else frames_through(arch.phoneme_layers, lengths)
+    out = apply_stack(encoder.word_layers, arch.word_layers, out, train=train, generator=generator,
+                      n=n)
     return parts_to_btc(out) if isinstance(out, PartsTM) else out
 
 

@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import os
 
-from tpu_slu.config import read_config
+from tpu_slu_torch.config import read_config
+from tpu_slu_torch.device import entry_device
 from tpu_slu_torch.models.slu import Model
 
 _EXPERIMENTS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -23,10 +24,12 @@ FLAGSHIP_CFG = os.path.join(_EXPERIMENTS, "no_unfreezing.cfg")
 TRAIN_CFG = os.path.join(_EXPERIMENTS, "no_pretraining.cfg")
 
 
-def flagship_model(device="cpu", seed: int = 0, cfg: str = FLAGSHIP_CFG, **overrides) -> Model:
-    """The flagship ``Model`` of ``cfg`` in eval mode on ``device``; needs no
-    file but the cfg (no pretrained encoder is loaded). ``overrides`` set
-    config attributes before the model is built (``intent_rnn_drop=[0.0]``)."""
+def flagship_model(device=None, seed: int = 0, cfg: str = FLAGSHIP_CFG, **overrides) -> Model:
+    """The flagship ``Model`` of ``cfg`` in eval mode on ``device`` (the GPU
+    by default; raises without one); needs no file but the cfg (no
+    pretrained encoder is loaded). ``overrides`` set config attributes
+    before the model is built (``intent_rnn_drop=[0.0]``)."""
+    device = entry_device(device)
     config = read_config(cfg, make_dirs=False)
     for k, v in overrides.items():
         setattr(config, k, v)

@@ -1,8 +1,8 @@
 """End-to-end SLU model, fixed-slot intent head: encoder + bi-GRU + Linear + max over time.
 
-Port of the fixed-slot part of ``tpu_slu/models/slu.py`` on the exact-shape
-paths: decode (``Model.decode_intents`` without ``lengths``/``bucket``) and
-the train surface (``Model.forward``, the loss, the ULMFiT trainable mask). The
+Port of the fixed-slot part of ``tpu_slu/models/slu.py``: decode
+(``Model.decode_intents`` at the input's exact shape, or length-exact over a
+padded batch with ``lengths=``/``bucket=True``) and the train surface (``Model.forward``, the loss, the ULMFiT trainable mask). The
 :class:`Model` module's ``state_dict`` keys are the reference ``Model``'s
 (``pretrained_model.*``, ``intent_layers.*``).
 """
@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpu_slu_torch.data.loader import WAVE_BUCKET_QUANT, pad_to_bucket
 from tpu_slu_torch.models.convert import params_from_jax, read_npz
 from tpu_slu_torch.models.encoder import (
     LayerSpec,
@@ -62,18 +63,27 @@ class IntentArch:
 
 def intent_logits(layers: nn.ModuleList, arch: IntentArch, feats: torch.Tensor,
                   frame_mask: torch.Tensor | None = None, *, train: bool = False,
-                  generator: torch.Generator | None = None) -> torch.Tensor:
+                  generator: torch.Generator | None = None,
+                  n_frames: torch.Tensor | None = None) -> torch.Tensor:
     """feats (B, T, C) encoder features -> (B, sum(values_per_slot)) logits.
 
     ``frame_mask`` (B, T_out) marks frames that come from real audio; the
     others are left out of the max over time. ``train`` applies dropout
     (masks from ``generator``), as :func:`~tpu_slu_torch.models.encoder.apply_stack`.
+
+    ``n_frames`` (B,) valid feature frames select the length-exact path: the
+    head's GRU and downsamples compute as if each example were cropped to
+    its own length, and the max over time covers its valid frames only,
+    their count clipped to [1, T_out] (a batch-fill row stays finite).
     """
-    out = apply_stack(layers, arch.layers, feats, train=train, generator=generator)
+    out = apply_stack(layers, arch.layers, feats, train=train, generator=generator, n=n_frames)
     if isinstance(out, PartsTM):
         out = parts_to_btc(out)
     lin = layers[arch.linear_index]
     out = F.linear(out, lin.weight, lin.bias)
+    if n_frames is not None:
+        n = torch.clamp(frames_through(arch.layers, n_frames), 1, out.shape[1])
+        frame_mask = torch.arange(out.shape[1], device=out.device)[None, :] < n[:, None]
     if frame_mask is not None:
         out = out.masked_fill(~frame_mask[:, :, None], float("-inf"))
     return out.amax(dim=1)
@@ -280,28 +290,50 @@ class Model(nn.Module):
 
     @torch.inference_mode()
     def predict_intents(self, x, bucket: bool = False, lengths=None):
-        """Waveform(s) (T,) or (B, T) -> (logits (B, S), per-slot predictions (B, 3)).
+        """Waveform(s) (T,) or (B, T) -> (logits (B, S), per-slot predictions (B, 3)),
+        on the device the model lies on, with the JAX package's rules:
 
-        Runs at the input's exact shape on the device the model lies on.
+        * by default, at the input's exact shape;
+        * ``lengths=`` (B,) true sample counts of an already padded batch, or
+          ``bucket=True`` (zero-pads the input to the next 0.5 s boundary
+          after taking its true length): the length-exact path, each row
+          equal to its example decoded alone at its exact shape;
+        * with the config's ``mask_padding=False`` the exact path is off
+          (strict reference emulation: the padding leaks).
         """
-        if bucket or lengths is not None:
-            raise NotImplementedError("the length-exact path (lengths=, bucket=True) is not ported yet")
         dev = self.device
         x = torch.as_tensor(np.asarray(x, np.float32) if not torch.is_tensor(x) else x,
                             dtype=torch.float32, device=dev)
         if x.dim() == 1:
             x = x[None, :]
-        feats = encoder_features(self.pretrained_model, x)
-        fm = None
-        if getattr(self.config, "mask_padding", True):
-            t_out = frames_through(self.intent_arch.layers, feats.shape[1])
+        exact = lengths is not None
+        if lengths is None:
             lengths = torch.full((x.shape[0],), x.shape[1], dtype=torch.int64, device=dev)
-            fm = frame_mask_from_lengths(self.encoder_arch, lengths, t_out, self.intent_arch)
-        logits = intent_logits(self.intent_layers, self.intent_arch, feats, frame_mask=fm)
+        else:
+            lengths = torch.as_tensor(np.asarray(lengths) if not torch.is_tensor(lengths) else lengths,
+                                      dtype=torch.int64, device=dev)
+        if bucket:
+            t_pad = pad_to_bucket(x.shape[1], WAVE_BUCKET_QUANT)
+            if t_pad != x.shape[1]:
+                x = F.pad(x, (0, t_pad - x.shape[1]))
+            exact = True
+        mask_padding = getattr(self.config, "mask_padding", True)
+        if exact and mask_padding:
+            feats = encoder_features(self.pretrained_model, x, lengths=lengths)
+            logits = intent_logits(self.intent_layers, self.intent_arch, feats,
+                                   n_frames=self.encoder_arch.num_frames(lengths))
+        else:
+            feats = encoder_features(self.pretrained_model, x)
+            fm = None
+            if mask_padding:
+                t_out = frames_through(self.intent_arch.layers, feats.shape[1])
+                fm = frame_mask_from_lengths(self.encoder_arch, lengths, t_out, self.intent_arch)
+            logits = intent_logits(self.intent_layers, self.intent_arch, feats, frame_mask=fm)
         return logits, intent_predictions(logits, self.values_per_slot)
 
     def decode_intents(self, x, bucket: bool = False, lengths=None) -> list[list[str]]:
-        """Waveform(s) -> one list of slot-value strings per example."""
+        """Waveform(s) -> one list of slot-value strings per example
+        (``bucket``/``lengths`` as :meth:`predict_intents`)."""
         _, predicted = self.predict_intents(x, bucket=bucket, lengths=lengths)
         intents = []
         for prediction in predicted.cpu().numpy():

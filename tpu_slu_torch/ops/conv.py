@@ -1,7 +1,8 @@
 """1-D convolution and ceil-mode pooling with torch semantics.
 
-Port of ``tpu_slu/ops/conv.py`` (unmasked ops). Conv layout is (B, C, T);
-the RNN stack uses (B, T, C).
+Port of ``tpu_slu/ops/conv.py``: the ops, and the length-aware ceil pools
+of the length-exact path (``masked_*``, per-example valid frame counts
+``n``). Conv layout is (B, C, T); the RNN stack uses (B, T, C).
 """
 
 from __future__ import annotations
@@ -66,6 +67,44 @@ def avg_pool1d_ceil(x, k: int):
     if k == 1:
         return x
     return F.avg_pool1d(x, k, ceil_mode=True)
+
+
+def _valid(n, t: int):
+    """(B, 1, t) bool: frame t' < n_b of each row."""
+    return (torch.arange(t, device=n.device)[None, :] < n[:, None])[:, None, :]
+
+
+def masked_max_pool1d_ceil(x, k: int, n):
+    """Length-aware ceil max-pool on (B, C, T); ``n`` (B,) = valid frames.
+
+    Equal to :func:`max_pool1d_ceil` on each example cropped to its own
+    length: frames >= n_b take no part in any window (-inf), and output
+    frames >= ceil(n_b / k) are 0, a row with n_b = 0 too (``where``, so the
+    -inf of an empty window never reaches the output).
+    """
+    if k == 1:
+        return x
+    out = max_pool1d_ceil(torch.where(_valid(n, x.shape[-1]), x, float("-inf")), k)
+    return torch.where(_valid(-(-n // k), out.shape[-1]), out, 0.0)
+
+
+def masked_avg_pool1d_ceil(x, k: int, n):
+    """Length-aware ceil avg-pool on (B, C, T); ``n`` (B,) = valid frames.
+
+    Each window's sum over its frames inside [0, n_b) is divided by their
+    count ``clip(n_b - m k, 0, k)``, floored at 1: torch's partial-window
+    divisor of an exact-shape (T = n_b) ceil-mode avg pool, per example.
+    Output frames past the valid extent come out 0.
+    """
+    if k == 1:
+        return x
+    B, C, T = x.shape
+    t_out = -(-T // k)
+    xm = torch.where(_valid(n, T), x, 0.0)
+    sums = F.pad(xm, (0, t_out * k - T)).reshape(B, C, t_out, k).sum(-1)
+    m = torch.arange(t_out, device=n.device)
+    counts = torch.clamp(n[:, None] - m[None, :] * k, 0, k)
+    return sums / torch.clamp(counts, min=1)[:, None, :].to(x.dtype)
 
 
 def downsample(x, method: str, factor: int, time_axis: int = 1):

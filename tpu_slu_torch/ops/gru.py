@@ -45,12 +45,46 @@ def gru_direction(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     return out
 
 
+def _direction(p: dict, x: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """One direction over batch-major x (B, T, D) -> (B, T, H)."""
+    gi = torch.matmul(x.transpose(0, 1), p["weight_ih"].t()) + p["bias_ih"]
+    return gru_direction(gi, p["weight_hh"], p["bias_hh"], reverse).transpose(0, 1)
+
+
 def gru_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     """Bidirectional GRU over batch-major x (B, T, D) -> (B, T, 2H)."""
-    xt = x.transpose(0, 1)
-    outs = []
-    for name, reverse in (("fwd", False), ("bwd", True)):
-        p = params[name]
-        gi = torch.matmul(xt, p["weight_ih"].t()) + p["bias_ih"]
-        outs.append(gru_direction(gi, p["weight_hh"], p["bias_hh"], reverse))
-    return torch.cat(outs, dim=-1).transpose(0, 1)
+    return torch.cat([_direction(params["fwd"], x, False), _direction(params["bwd"], x, True)], dim=-1)
+
+
+def reverse_padded(x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Per-example time reversal of the valid prefix. x: (B, T, C), n: (B,).
+
+    Row b becomes [x[b, n_b-1], ..., x[b, 0], 0, 0, ...]: a forward walk
+    over the result equals a backward walk over the exact-shape (T = n_b)
+    input.
+    """
+    T = x.shape[1]
+    t = torch.arange(T, device=x.device)
+    idx = torch.clamp(n[:, None] - 1 - t[None, :], 0, T - 1)  # (B, T)
+    out = torch.gather(x, 1, idx[:, :, None].expand(-1, -1, x.shape[2]))
+    return torch.where((t[None, :] < n[:, None])[:, :, None], out, 0.0)
+
+
+def gru_apply_masked(params: dict, x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Length-aware GRU over x (B, T, D) with valid lengths n (B,) -> (B, T,
+    H or 2H): each row equals :func:`gru_apply` on the example cropped to
+    its own length, and frames >= n_b are 0.
+
+    The forward direction is exact for valid frames as it is (h0 = 0, the
+    padding sits after the prefix); the backward direction walks the
+    per-example reversed prefix (:func:`reverse_padded`) forward and is
+    reversed back: the structure of the JAX package's scan branch
+    (``tpu_slu/ops/gru.py`` ``gru_apply_masked``).
+    """
+    t = torch.arange(x.shape[1], device=x.device)
+    valid = (t[None, :] < n[:, None])[:, :, None]
+    out_f = torch.where(valid, _direction(params["fwd"], x, False), 0.0)
+    if "bwd" not in params:
+        return out_f
+    out_b = reverse_padded(_direction(params["bwd"], reverse_padded(x, n), False), n)
+    return torch.cat([out_f, out_b], dim=-1)
