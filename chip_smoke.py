@@ -24,7 +24,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    K2 (train forward) and K3 (backward) against their plain versions at the
    flagship layer shapes; the pooled eval path's gradients against autograd
    of the plain version; one whole train step on the card against the CPU
-   plain path; ``Trainer(model, config).train(dataset)`` over seeded
+   plain path (the sinc parameters' gradients, sums over every sample,
+   against an f64 CPU reference of the step, each side's error printed);
+   ``Trainer(model, config).train(dataset)`` over seeded
    synthetic batches of B = 64 with 4 K2, 1 K1 and 5 K3 launches per step,
    then ``Trainer.test``; warm timings of the train step and of K2 and K3
    against their plain versions;
@@ -37,7 +39,21 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    1.0-4.0 s from 8 threads, each answer equal to its exact-shape decode,
    5 K4f launches per device call; ``make_http_server`` on the golden
    checkpoint decoding every golden wav; warm timings of K4f, of the exact
-   decode against the exact-shape B = 8 decode, and the served latency.
+   decode against the exact-shape B = 8 decode, and the served latency;
+8. seq2seq decode and serving at the width of ``all_real_seq2seq.cfg``:
+   ``[k7]`` K7 (the fused beam search) against its plain version at the
+   flagship decoder (B = 1, 16, and 8 with mixed valid frames), the golden
+   decoder, an odd small one and W = 1, tokens equal (on a mismatch, the
+   plain version's best extensions at the first step that differs) and
+   scores within rtol 1e-5 atol 1e-4; ``[golden-s2s]`` the six golden
+   seq2seq wavs exact on the card with one K7 launch a decode and no plain
+   search, also through an ``IntentServer`` and over HTTP; ``[s2s]`` the
+   flagship seq2seq decode at B = 1 and 16 against the CPU plain path (beam-0
+   tokens equal, scores within 1e-3 relative), and a length-exact (8, 4 s)
+   decode whose rows equal their exact-shape decodes; ``[time]`` K7 against
+   its plain version and bound at B = 1 and 16, the warm decode, its device
+   time by kernel; ``[serve]`` the seq2seq ``IntentServer`` with the traffic
+   of phase 7, one K7 and five K4f launches per device call, p50/p90.
 
 Beside each kernel's time the script prints its plain version's, a cuDNN
 ``torch.nn.GRU`` call's where one computes the same function (timed as a
@@ -56,6 +72,7 @@ outside a checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import shutil
@@ -88,6 +105,9 @@ INTENT_SHAPE = ("intent_rnn0", 256, 1, 25)
 K4F_SOURCE = "tpu_slu_torch/csrc/bigru_masked_fwd.cu"
 K4F_REPLACES = "tpu_slu/ops/pallas_gru.py:323"
 EXACT_LOGIT_ATOL = 1e-4  # length-exact (K4f) vs exact-shape (K1) decode on the card, same weights
+K7_SOURCE = "tpu_slu_torch/csrc/beam_decode.cu"
+K7_REPLACES = "tpu_slu/ops/pallas_beam.py:152"
+SINC_PARAMS = ("filt_b1", "filt_band")  # their gradients are held against an f64 CPU reference
 SERVE_BATCH = 8  # the IntentServer's max_batch: a served batch is (8, 4 s bucket)
 # the card's published peaks at 700 W (NVIDIA H100 SXM data sheet): f32 outside the
 # tensor cores, and HBM3
@@ -374,15 +394,29 @@ def phase_train(dev, card: str, rng) -> tuple[list[dict], int]:
     (l_cpu, g_cpu), (l_card, g_card) = grads["cpu"], grads["card"]
     if not abs(l_card - l_cpu) <= STEP_LOSS_ATOL:
         raise AssertionError(f"train step loss: card {l_card} vs CPU {l_cpu}")
+    # the sinc parameters' gradients sum over every sample of the batch: both f32
+    # sides are held against an f64 CPU reference of the same step
+    m64 = copy.deepcopy(cpu_model).double()
+    m64.zero_grad(set_to_none=True)
+    batch = {k: torch.from_numpy(v) for k, v in b16.items()}
+    m64.loss(batch["x"].double(), batch["y_intent"], train=True, weights=batch["w"].double(),
+             lengths=batch["len"], generator=torch.Generator().manual_seed(5))[0].backward()
+    g64 = {n: p.grad for n, p in m64.named_parameters() if n.endswith(SINC_PARAMS)}
+    del m64
+    for n, r in g64.items():
+        e_card, e_cpu = rel_err(g_card[n].cpu().double(), r), rel_err(g_cpu[n].double(), r)
+        print(f"[step] {n} gradient vs f64, of its largest element: card {e_card:.3g}, CPU f32 {e_cpu:.3g} "
+              f"(card / CPU {e_card / max(e_cpu, 1e-30):.3g})")
     worst = 0.0
     for n, g in g_cpu.items():
         if g is None:  # the encoder's phoneme/word heads take no part in the SLU loss
             assert g_card[n] is None, n
             continue
-        e = rel_err(g_card[n].cpu(), g)
+        e = rel_err(g_card[n].cpu().double(), g64[n]) if n in g64 else rel_err(g_card[n].cpu(), g)
         worst = max(worst, e)
         if not e <= STEP_GRAD_TOL:
-            raise AssertionError(f"train step: gradient of {n} off the CPU's by {e:.3g} of its largest")
+            raise AssertionError(f"train step: gradient of {n} off the {'f64' if n in g64 else 'CPU'} "
+                                 f"reference's by {e:.3g} of its largest")
     # masked Adam from equal gradients: the first Adam step is lr * g / (|g| + eps),
     # ~lr * sign(g), so f32 noise on a near-zero gradient flips an update. How
     # many would differ from each side's own gradients is counted, not held.
@@ -402,8 +436,8 @@ def phase_train(dev, card: str, rng) -> tuple[list[dict], int]:
     if not p_err <= STEP_PARAM_ATOL:
         raise AssertionError(f"masked Adam: card vs CPU parameters off by {p_err:.3g}")
     print(f"[step] flagship train step B=16, 4 s audio, card vs CPU: loss {l_card:.6f} vs {l_cpu:.6f} "
-          f"(atol {STEP_LOSS_ATOL}); every gradient within {worst:.3g} of its largest element "
-          f"(limit {STEP_GRAD_TOL}); params after masked Adam from equal gradients within {p_err:.3g} "
+          f"(atol {STEP_LOSS_ATOL}); every gradient within {worst:.3g} of its largest element, the sinc "
+          f"parameters' of the f64 reference's, the others' of the CPU's (limit {STEP_GRAD_TOL}); params after masked Adam from equal gradients within {p_err:.3g} "
           f"(atol {STEP_PARAM_ATOL}); from each side's own gradients {flips} of {n_params} would "
           f"differ by more than {STEP_PARAM_ATOL}")
     del cpu_model, card_model, grads, g_cpu, g_card, card_params
@@ -657,6 +691,305 @@ def phase_serve(dev, card: str, rng, golden, expected) -> dict:
             "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": k4_lib}
 
 
+def k7_work(B: int, T: int, W: int, U: int, nl: int, H: int, K: int, V: int, L: int) -> tuple[float, float]:
+    """FLOPs and bytes of a whole beam search: per step and hypothesis row,
+    the query, the scores and context over T frames, the cells (2 * 3H *
+    (in + H) each, and the gate math), the label projection, the
+    log-softmax; in: keys, values and the decoder weights once; out: scores
+    and int64 tokens."""
+    cells = sum(2 * 3 * H * ((H + V if li == 0 else H) + H) + GATE_OPS * H for li in range(nl))
+    row = 2 * H * K + 2 * T * (K + V) + 4 * T + cells + 2 * H * L + 4 * L
+    weights = H * K + K + L * H + H + sum(3 * H * ((H + V if li == 0 else H) + H) + 6 * H for li in range(nl)) \
+        + H * L + L + nl * H
+    return float(row) * W * B * U, 4.0 * (B * T * (K + V) + weights + W * B) + 8.0 * W * B * U
+
+
+def compare_searches(what: str, run, ref_run, U: int) -> tuple[object, object, list[int], list[str]]:
+    """Hold a beam search against a reference: ``run(n)`` and ``ref_run(n)``
+    give (scores (W, B), tokens (W, B, n)) of searches of n steps, on the CPU.
+
+    A row whose tokens are equal passes. A row whose tokens differ is
+    followed back (searches of fewer steps, a bisection) to a step u whose
+    beams differ while those of step u - 1 were equal, so both ranked
+    extensions of the same hypotheses there: the two beams' sorted scores
+    must then agree within f32 rounding of the score (4 spacings, at least
+    1e-5), i.e. the two took different members of a tie; anything else
+    raises. Returns both full results, the rows that passed whole, and a
+    note for each row that parted at a tie (not compared after it)."""
+    import torch
+
+    got, ref = run(U), ref_run(U)
+    rows, notes = [], []
+
+    def differ(n: int, b: int) -> bool:
+        return not torch.equal(run(n)[1][:, b], ref_run(n)[1][:, b])
+
+    for b in range(ref[1].shape[1]):
+        if torch.equal(got[1][:, b], ref[1][:, b]):
+            rows.append(b)
+            continue
+        lo, hi = 0, U - 1  # differ(hi + 1, b); lo == 0 or not differ(lo, b)
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if differ(mid + 1, b):
+                hi = mid
+            else:
+                lo = mid + 1
+        gs, rs = run(lo + 1)[0][:, b].double(), ref_run(lo + 1)[0][:, b].double()
+        eps = max(4 * 2**-23 * rs.abs().max().item(), 1e-5)
+        gap = (gs - rs).abs().max().item()
+        if gap > eps:
+            raise AssertionError(f"{what}: row {b}'s beams differ at step {lo}, equal before it, with sorted "
+                                 f"scores {gs.tolist()} against the reference's "
+                                 f"{rs.tolist()}: {gap:.3g} apart, more than f32 rounding ({eps:.3g})")
+        notes.append(f"row {b} parts from the reference at step {lo} of {U}, where the two took different members "
+                     f"of a tie (beam scores within {gap:.3g}, f32 rounding {eps:.3g}); equal before it")
+    return got, ref, rows, notes
+
+
+def phase_seq2seq(dev, card: str, rng) -> dict:
+    """Phase 8: seq2seq decode and serving. Returns K7's JSON entry; its
+    launches are those of the served run."""
+    import concurrent.futures as cf
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from tpu_slu_torch import read_config
+    from tpu_slu_torch.data.audio import read_wav
+    from tpu_slu_torch.models.flagship import flagship_seq2seq_model
+    from tpu_slu_torch.models.slu import Seq2SeqArch, Seq2SeqDecoder
+    from tpu_slu_torch.ops import beam as plain
+    from tpu_slu_torch.ops.attention import attention_kv
+    from tpu_slu_torch.ops.beam_fused import beam_decode
+    from tpu_slu_torch.ops.bigru_masked import bigru_masked
+    from tpu_slu_torch.ops.bigru_shared import bigru_shared
+    from tpu_slu_torch.serving import IntentServer, load_trained_model, make_http_server
+
+    cpu = flagship_seq2seq_model("cpu")
+    model = copy.deepcopy(cpu).to(dev)
+    a = model.seq2seq_arch
+    flag = (a.num_decoder_layers, a.decoder_dim, a.key_dim, a.value_dim, a.num_labels)  # 2, 256, 100, 200, 102
+    U = a.max_decode_len
+
+    def decoder(seed, nl, H, K, V, L):
+        if (nl, H, K, V, L) == flag:
+            return model.decoder
+        arch = Seq2SeqArch(num_labels=L, num_encoder_layers=1, encoder_dim=a.encoder_dim,
+                           num_decoder_layers=nl, decoder_dim=H, key_dim=K, value_dim=V, sos=0)
+        return Seq2SeqDecoder(arch, torch.Generator().manual_seed(seed)).eval().to(dev)
+
+    def kv(dec, B, T):
+        enc = rng.standard_normal((B, T, 2 * a.encoder_dim)).astype(np.float32)
+        with torch.inference_mode():
+            return attention_kv(dec.attention, torch.from_numpy(enc).to(dev))
+
+    # 8.1 K7 against its plain version on the card
+    k7_err, k7_ties = 0.0, []
+    cases = [("flagship", 1, 25, *flag, 4, U, False), ("flagship", 16, 25, *flag, 4, U, False),
+             ("flagship mixed", 8, 25, *flag, 4, U, True), ("golden decoder", 4, 13, 1, 64, 64, 64, 102, 4, 16, True),
+             ("odd small", 5, 6, 2, 8, 4, 8, 11, 3, 10, False), ("greedy", 4, 25, *flag, 1, U, True)]
+    for i, (name, B, T, nl, H, K, V, L, W, Ub, mixed) in enumerate(cases):
+        dec = decoder(i, nl, H, K, V, L)
+        keys, values = kv(dec, B, T)
+        n = None
+        if mixed:
+            n = torch.from_numpy(rng.integers(1, T + 1, B)).to(dev)
+            n[0] = 1
+        before = beam_decode.launches
+        with torch.inference_mode():
+            beam_decode(dec, keys, values, n, W, Ub)
+        torch.cuda.synchronize()
+        assert beam_decode.launches == before + 1, "K7 launch counter did not advance"
+
+        def search(fn):
+            def steps(n_steps):
+                with torch.inference_mode():
+                    return tuple(t.cpu() for t in fn(dec, keys, values, n, W, n_steps))
+            return steps
+
+        (scores, _), (ref_scores, _), rows, notes = compare_searches(
+            f"K7 {name} B={B}", search(beam_decode), search(plain.beam_search_reference), Ub)
+        err = (scores - ref_scores)[:, rows].abs().amax().item() if rows else 0.0
+        k7_err = max(k7_err, err)
+        if not torch.allclose(scores[:, rows], ref_scores[:, rows], rtol=1e-5, atol=1e-4):
+            raise AssertionError(f"K7 {name} B={B}: scores off the plain version's by {err:.3g}")
+        k7_ties += notes
+        print(f"[k7] {name:14s} B={B:2d} T={T:3d} layers={nl} H={H:3d} K={K:3d} V={V:3d} L={L:3d} W={W} U={Ub:3d}"
+              f"{' mixed valid frames ' + str(n.tolist()) if mixed else ''}: tokens equal in {len(rows)} of {B} "
+              f"rows, scores max abs err {err:.3g}" + "".join(f"; {t}" for t in notes))
+    print(f"[k7] tokens equal in every row but {len(k7_ties)} that parted at a tie; scores within rtol 1e-5 "
+          f"atol 1e-4, max abs err {k7_err:.3g}")
+
+    # 8.2 the golden seq2seq checkpoint on the card: one K7 launch a decode, no plain search
+    golden_dir = os.path.join(HERE, "tests", "assets", "golden_seq2seq")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_s2s_")
+    try:
+        folder = os.path.join(tmp, "exp")
+        with open(os.path.join(golden_dir, "experiment.cfg.template")) as f:
+            template = f.read()
+        with open(os.path.join(tmp, "exp.cfg"), "w") as f:
+            f.write(template.replace("__GOLDEN_FOLDER__", folder))
+        config = read_config(os.path.join(tmp, "exp.cfg"))
+        with open(os.path.join(golden_dir, "expected.json")) as f:
+            meta = json.load(f)
+        config.seq2seq_max_decode_len = meta["max_decode_len"]
+        for name in ("model_state.npz", "vocab.json"):
+            shutil.copyfile(os.path.join(golden_dir, name), os.path.join(folder, "training", name))
+        golden = load_trained_model(config, device=dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cases = [(c["wav"], read_wav(os.path.join(golden_dir, c["wav"]))[0], c["semantics"]) for c in meta["expected"]]
+    plain_calls = []
+    real_search = plain.beam_search
+    plain.beam_search = lambda *args, **kw: plain_calls.append(1) or real_search(*args, **kw)
+    try:
+        for wav_name, wav, want in cases:
+            before = beam_decode.launches
+            got = golden.decode_intents(wav[None, :])[0]
+            if got != want or beam_decode.launches != before + 1:
+                raise AssertionError(f"golden seq2seq {wav_name}: {got!r}, want {want!r}; K7 launches "
+                                     f"+{beam_decode.launches - before}, want 1")
+            print(f"[golden-s2s] {wav_name}: {got!r} exact, K7 launches +1")
+        server = IntentServer(golden, max_batch=SERVE_BATCH)
+        httpd = make_http_server(server, "127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            served = [f.result(timeout=120) for f in [server.submit(w) for _, w, _ in cases]]
+            base = f"http://127.0.0.1:{httpd.server_address[1]}"
+            over_http = []
+            for wav_name, _, _ in cases:
+                with open(os.path.join(golden_dir, wav_name), "rb") as f:
+                    req = urllib.request.Request(f"{base}/decode", data=f.read())
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    over_http.append(json.loads(r.read())["intents"])
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            server.close()
+            thread.join(timeout=10)
+    finally:
+        plain.beam_search = real_search
+    want = [w for *_, w in cases]
+    if served != want or over_http != want or plain_calls:
+        raise AssertionError(f"golden seq2seq served {served}, over HTTP {over_http}, want {want}; plain "
+                             f"searches on the path: {len(plain_calls)}")
+    print(f"[golden-s2s] the {len(cases)} wavs exact through IntentServer and over HTTP; no plain search ran")
+
+    # 8.3 flagship seq2seq decode, card against the CPU plain path; length-exact rows
+    def predict(m, xs, n_steps, **kw):
+        """m.predict_intents(xs, **kw) with a search of n_steps, on the CPU."""
+        arch = m.seq2seq_arch
+        m.seq2seq_arch = dataclasses.replace(arch, max_decode_len=n_steps)
+        try:
+            return tuple(t.cpu() for t in m.predict_intents(xs, **kw))
+        finally:
+            m.seq2seq_arch = arch
+
+    x = (0.1 * np.random.default_rng(2).standard_normal((16, 4 * 16000))).astype(np.float32)
+    for B in (1, 16):
+        before = beam_decode.launches
+        model.predict_intents(x[:B])
+        torch.cuda.synchronize()
+        launched = beam_decode.launches - before
+        (scores, _), (ref_scores, _), rows, notes = compare_searches(
+            f"flagship seq2seq B={B}, card vs CPU", lambda n: predict(model, x[:B], n),
+            lambda n: predict(cpu, x[:B], n), U)
+        err = rel_err(scores[:, rows], ref_scores[:, rows]) if rows else 0.0
+        if not (launched == 1 and torch.isfinite(scores).all()
+                and torch.allclose(scores[:, rows], ref_scores[:, rows], rtol=1e-3, atol=0)):
+            raise AssertionError(f"flagship seq2seq B={B}: {launched} K7 launches; scores off the CPU's by "
+                                 f"{err:.3g} of the largest")
+        print(f"[s2s] flagship seq2seq predict_intents B={B}, 4 s, W=4, U={U}: 1 K7 launch; tokens equal the CPU "
+              f"plain path's in {len(rows)} of {B} rows, scores within {err:.3g} of the largest (limit 1e-3 "
+              f"relative)" + "".join(f"; {t}" for t in notes))
+    print(f"[s2s] decode_intents B=1 (random weights): {model.decode_intents(x[:1])[0][:60]!r}")
+    n_samples = rng.integers(16000, 64001, SERVE_BATCH)
+    n_samples[0] = 64000
+    waves = [(0.1 * rng.standard_normal(int(t))).astype(np.float32) for t in n_samples]
+    xb = np.zeros((SERVE_BATCH, 64000), np.float32)
+    for i, w in enumerate(waves):
+        xb[i, :len(w)] = w
+    before = (beam_decode.launches, bigru_masked.launches)
+    model.predict_intents(xb, lengths=n_samples)
+    torch.cuda.synchronize()
+    launched = (beam_decode.launches - before[0], bigru_masked.launches - before[1])
+    if launched != (1, 5):
+        raise AssertionError(f"length-exact seq2seq decode launched K7 {launched[0]} and K4f {launched[1]} "
+                             "times; want 1 and 5")
+    _, _, rows, notes = compare_searches(
+        "length-exact seq2seq vs each row's exact-shape decode", lambda n: predict(model, xb, n, lengths=n_samples),
+        lambda n: tuple(torch.cat(r, dim=1) for r in zip(*[predict(model, w, n) for w in waves])), U)
+    print(f"[s2s] length-exact predict_intents at ({SERVE_BATCH}, 64000), lengths {n_samples.tolist()}: 1 K7 "
+          f"and 5 K4f launches; tokens equal the row's exact-shape decode's in {len(rows)} of {SERVE_BATCH} rows"
+          + "".join(f"; {t}" for t in notes))
+
+    # 8.4 timings: K7 against its plain version, the warm decode, its device time by kernel
+    k7_ms = {}
+    for B in (1, 16):
+        keys, values = kv(model.decoder, B, 25)
+        with torch.inference_mode():
+            kern, pl = in_turns(lambda: plain.beam_search_reference(model.decoder, keys, values, None, 4, U),
+                                lambda: beam_decode(model.decoder, keys, values, None, 4, U))
+        w = k7_work(B, 25, 4, U, *flag)
+        k7_ms[B] = (kern, pl, *bound(*w))
+        print(f"[time] K7 flagship B={B:2d} T=25 W=4 U={U}: kernel {kern:.4f} ms ({kern / U * 1e3:.2f} us a step), "
+              f"plain {pl:.3f} ms, bound {k7_ms[B][2]:.4f} ms ({k7_ms[B][3]}: {w[0] / 1e9:.2f} GFLOP, "
+              f"{w[1] / 1e6:.2f} MB) on {card}")
+    for B in (1, 16):
+        xd = torch.from_numpy(x[:B]).to(dev)
+        ms = cuda_ms(lambda: model.predict_intents(xd), reps=10, warmup=2)
+        print(f"[time] warm seq2seq predict_intents B={B:2d}, 4 s, W=4, U={U}: median {ms:.3f} ms of 10 "
+              f"(CUDA events) on {card}")
+    xd = torch.from_numpy(x).to(dev)
+    profile_calls(lambda: model.predict_intents(xd), f"seq2seq predict_intents B=16, 4 s, W=4, U={U}", card,
+                  reps=5)
+
+    # 8.5 the main path: the seq2seq IntentServer, the traffic of phase 7
+    reqs = [(0.1 * rng.standard_normal(int(t))).astype(np.float32) for t in rng.integers(16000, 64001, 32)]
+    server = IntentServer(model, max_batch=SERVE_BATCH)
+    try:
+        server.warmup()
+        server.batch_sizes.clear()
+        beam_decode.launches = bigru_masked.launches = bigru_shared.launches = 0
+
+        def ask(chunk):
+            out = []
+            for i in chunk:
+                t0 = time.perf_counter()
+                out.append((i, server.decode(reqs[i]), (time.perf_counter() - t0) * 1e3))
+            return out
+
+        with cf.ThreadPoolExecutor(8) as pool:
+            answers = [r for part in pool.map(ask, [range(k, 32, 8) for k in range(8)]) for r in part]
+        torch.cuda.synchronize()
+        launches = {"K7": beam_decode.launches, "K4f": bigru_masked.launches, "K1": bigru_shared.launches}
+        sizes = dict(server.batch_sizes)
+    finally:
+        server.close()
+    calls = sum(sizes.values())
+    if launches != {"K7": calls, "K4f": 5 * calls, "K1": 0} or sum(k * v for k, v in sizes.items()) != 32:
+        raise AssertionError(f"served seq2seq run: {calls} device calls ({sizes}) launched {launches}; want 1 "
+                             "K7, 5 K4f and 0 K1 a call")
+    for i, got, _ in answers:
+        want = model.decode_intents(reqs[i])[0]
+        if got != want:
+            raise AssertionError(f"served seq2seq request {i} ({len(reqs[i])} samples): {got!r}, exact-shape "
+                                 f"{want!r}")
+    lat = sorted(ms for *_, ms in answers)
+    print(f"[serve] seq2seq IntentServer(max_batch={SERVE_BATCH}) after warmup: 32 requests of 1.0-4.0 s from "
+          f"8 threads in {calls} device calls (by requests carried: {sizes}); launches {launches}; every answer "
+          f"equals its exact-shape decode")
+    print(f"[time] seq2seq served latency (submit to answer, host clock): p50 {lat[len(lat) // 2]:.3f} ms, "
+          f"p90 {lat[int(0.9 * len(lat))]:.3f} ms, max {lat[-1]:.3f} ms on {card}")
+    return {"name": "beam_decode", "route": "cuda", "source": K7_SOURCE, "replaces": K7_REPLACES,
+            "launches": launches["K7"], "max_abs_err": k7_err, "ms": k7_ms[16][0], "plain_ms": k7_ms[16][1],
+            "bound_ms": k7_ms[16][2], "bound_by": k7_ms[16][3], "library_ms": None}
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "tpu_slu_torch")):
         raise SystemExit("chip_smoke.py: tpu_slu_torch/ is not beside this script; "
@@ -868,6 +1201,9 @@ def main() -> None:
     # 7. length-exact decode and serving
     k4f = phase_serve(dev, card, rng, golden, expected)
 
+    # 8. seq2seq decode and serving
+    k7 = phase_seq2seq(dev, card, rng)
+
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_slu"))
     if loaded:
         raise AssertionError(f"the port loaded modules of JAX or of the JAX package: {loaded}")
@@ -877,7 +1213,7 @@ def main() -> None:
         "launches": k1_train_launches, "launches_decode": launches, "max_abs_err": max_err,
         "ms": totals[16][0], "plain_ms": totals[16][1], "bound_ms": k1_bound, "bound_by": k1_by,
         "library_ms": totals[16][2],
-    }] + train_kernels + [k4f]}))
+    }] + train_kernels + [k4f, k7]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 

@@ -11,6 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_slu_torch.models.slu import Seq2SeqArch, Seq2SeqDecoder
+from tpu_slu_torch.ops.attention import attention_kv
+from tpu_slu_torch.ops.beam import beam_search_reference
+from tpu_slu_torch.ops.beam_fused import beam_decode
 from tpu_slu_torch.ops.bigru_masked import bigru_masked, bigru_masked_reference
 from tpu_slu_torch.ops.bigru_shared import (
     bigru_shared,
@@ -471,3 +475,152 @@ def test_length_exact_decode_runs_k4f_only(dev, tmp_path):
     assert torch.isfinite(logits).all() and (logits.cpu() - ref).abs().max().item() <= 1e-4
     decoded = card.decode_intents(x, lengths=n)
     assert decoded[:len(cases)] == [[c["action"], c["object"], c["location"]] for c in cases]
+
+
+# ---------------------------------------------------------------------------
+# K7: the fused beam search
+# ---------------------------------------------------------------------------
+
+
+def k7_inputs(seed, B, T, nl, H, K, V, L, dev, enc_dim=128):
+    """A seeded seq2seq decoder on dev, and keys/values of random encoder states."""
+    arch = Seq2SeqArch(num_labels=L, num_encoder_layers=1, encoder_dim=enc_dim, num_decoder_layers=nl,
+                       decoder_dim=H, key_dim=K, value_dim=V, sos=0)
+    dec = Seq2SeqDecoder(arch, torch.Generator().manual_seed(seed)).eval().to(dev)
+    enc = np.random.default_rng(seed).standard_normal((B, T, 2 * enc_dim)).astype(np.float32)
+    with torch.inference_mode():
+        keys, values = attention_kv(dec.attention, torch.from_numpy(enc).to(dev))
+    return dec, keys, values
+
+
+K7_CASES = [  # B, T, nl, H, K, V, L, W, U
+    (1, 25, 2, 256, 100, 200, 102, 4, 200),  # all_real_seq2seq.cfg's decoder, 4 s of audio
+    (3, 25, 2, 256, 100, 200, 102, 4, 200),
+    (2, 100, 2, 256, 100, 200, 102, 4, 40),  # 16 s, the server's longest request
+    (4, 13, 1, 64, 64, 64, 102, 4, 16),  # the golden seq2seq decoder
+    (5, 6, 2, 8, 4, 8, 11, 3, 10),  # the shapes of tests/test_pallas_beam.py
+    (3, 9, 2, 8, 4, 8, 11, 1, 12),  # greedy
+    (2, 7, 1, 12, 5, 6, 9, 8, 10),  # the widest beam, widths that are not multiples of 4
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,nl,H,K,V,L,W,U", K7_CASES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_k7_matches_plain(dev, B, T, nl, H, K, V, L, W, U, masked):
+    dec, keys, values = k7_inputs(B * T + W, B, T, nl, H, K, V, L, dev)
+    n = None
+    if masked:
+        n = torch.from_numpy(np.random.default_rng(T).integers(1, T + 1, B)).to(dev)
+        n[0] = 1
+    with torch.inference_mode():
+        before = beam_decode.launches
+        scores, tokens = beam_decode(dec, keys, values, n, W, U)
+        torch.cuda.synchronize()
+        assert beam_decode.launches == before + 1
+        ref_scores, ref_tokens = beam_search_reference(dec, keys, values, n, W, U)
+    assert tokens.shape == (W, B, U) and tokens.dtype == torch.int64
+    assert torch.equal(tokens, ref_tokens)
+    torch.testing.assert_close(scores, ref_scores, rtol=1e-5, atol=1e-4)  # f32, another order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [2, 4, 8])
+def test_k7_tie_order_is_lax_top_k(dev, W):
+    """Label logits that do not depend on the state, with repeated values:
+    every step's extensions tie across beams and tokens, and the kernel
+    takes them in the plain version's (lax.top_k's) order."""
+    dec, keys, values = k7_inputs(3, 2, 5, 2, 16, 8, 8, 10, dev)
+    with torch.no_grad():
+        dec.linear.weight.zero_()
+        dec.linear.bias.copy_(torch.tensor([1.0, 1.0, 0.5, 2.0, 2.0, 0.5, 2.0, 1.0, 0.0, 0.0]))
+    with torch.inference_mode():
+        scores, tokens = beam_decode(dec, keys, values, None, W, 6)
+        ref_scores, ref_tokens = beam_search_reference(dec, keys, values, None, W, 6)
+    assert torch.equal(tokens, ref_tokens)
+    torch.testing.assert_close(scores, ref_scores, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["float64", "noncontiguous", "cpu_weight", "n_zero", "n_past_T",
+                                   "beam_9", "shape", "smem"])
+def test_k7_rejects_what_it_does_not_take(dev, fault):
+    dec, keys, values = k7_inputs(5, 2, 6, 2, 8, 4, 8, 11, dev)
+    n, W, U = torch.tensor([6, 3], device=dev), 3, 8
+    if fault == "float64":
+        keys = keys.double()
+    elif fault == "noncontiguous":
+        values = values.transpose(0, 1).contiguous().transpose(0, 1)
+    elif fault == "cpu_weight":
+        dec.linear.to("cpu")
+    elif fault == "n_zero":
+        n[1] = 0
+    elif fault == "n_past_T":
+        n[0] = 7
+    elif fault == "beam_9":
+        W = 9
+    elif fault == "shape":
+        values = values[:, :, :7].contiguous()
+    else:
+        dec, keys, values = k7_inputs(6, 1, 400, 2, 256, 100, 200, 102, dev)
+        n = None
+    before = beam_decode.launches
+    with torch.inference_mode(), pytest.raises((ValueError, TypeError)):
+        beam_decode(dec, keys, values, n, W, U)
+    assert beam_decode.launches == before
+
+
+@pytest.mark.cuda
+def test_k7_refuses_a_call_that_needs_a_gradient(dev):
+    dec, keys, values = k7_inputs(7, 2, 6, 1, 8, 4, 8, 11, dev)
+    before = beam_decode.launches
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        beam_decode(dec, keys, values, None, 2, 5)
+    with torch.no_grad():
+        beam_decode(dec, keys, values, None, 2, 5)
+    assert beam_decode.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_golden_seq2seq_decodes_with_one_k7_launch(dev, tmp_path):
+    """The golden seq2seq checkpoint on the card: each decode one K7 launch
+    and no plain search, the six wavs exact, alone and in one padded batch."""
+    import json
+    import os
+    import shutil
+
+    from tpu_slu_torch import read_config
+    from tpu_slu_torch.data.audio import read_wav
+    from tpu_slu_torch.ops import beam as plain
+    from tpu_slu_torch.serving import load_trained_model
+
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets", "golden_seq2seq")
+    folder = tmp_path / "exp"
+    with open(os.path.join(golden, "experiment.cfg.template")) as f:
+        (tmp_path / "exp.cfg").write_text(f.read().replace("__GOLDEN_FOLDER__", str(folder)))
+    config = read_config(str(tmp_path / "exp.cfg"))
+    with open(os.path.join(golden, "expected.json")) as f:
+        meta = json.load(f)
+    config.seq2seq_max_decode_len = meta["max_decode_len"]
+    for name in ("model_state.npz", "vocab.json"):
+        shutil.copyfile(os.path.join(golden, name), folder / "training" / name)
+    model = load_trained_model(config, device=dev)
+    waves = [read_wav(os.path.join(golden, c["wav"]))[0] for c in meta["expected"]]
+    want = [c["semantics"] for c in meta["expected"]]
+    calls = []
+    real = plain.beam_search
+    plain.beam_search = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        for w, s in zip(waves, want):
+            before = beam_decode.launches
+            assert model.decode_intents(w[None, :])[0] == s
+            assert beam_decode.launches == before + 1
+        x = np.zeros((len(waves) + 1, max(len(w) for w in waves)), np.float32)
+        for i, w in enumerate(waves):
+            x[i, :len(w)] = w
+        before = beam_decode.launches
+        assert model.decode_intents(x, lengths=[len(w) for w in waves] + [0])[:len(waves)] == want
+        assert beam_decode.launches == before + 1
+    finally:
+        plain.beam_search = real
+    assert not calls

@@ -1,4 +1,4 @@
-"""The PyTorch port decodes, serves and trains without jax, pandas or any ``tpu_slu`` module.
+"""The PyTorch port decodes (both heads), serves and trains without jax, pandas or any ``tpu_slu`` module.
 
 Checked in a fresh interpreter: this test process has imported jax already.
 """
@@ -46,11 +46,27 @@ try:
         loader = [batch]
     acc, loss = Trainer(model, config).train(Data())
     assert np.isfinite(loss)
+    # one seq2seq decode of the golden seq2seq checkpoint
+    golden = os.path.join("tests", "assets", "golden_seq2seq")
+    folder = os.path.join(tmp, "s2s")
+    with open(os.path.join(golden, "experiment.cfg.template")) as f:
+        template = f.read()
+    with open(os.path.join(tmp, "s2s.cfg"), "w") as f:
+        f.write(template.replace("__GOLDEN_FOLDER__", folder))
+    config = read_config(os.path.join(tmp, "s2s.cfg"))
+    with open(os.path.join(golden, "expected.json")) as f:
+        meta = json.load(f)
+    config.seq2seq_max_decode_len = meta["max_decode_len"]
+    for name in ("model_state.npz", "vocab.json"):
+        shutil.copyfile(os.path.join(golden, name), os.path.join(folder, "training", name))
+    wav, _ = read_wav(os.path.join(golden, meta["expected"][0]["wav"]))
+    s2s = [load_trained_model(config, device="cpu").decode_intents(wav)[0], meta["expected"][0]["semantics"]]
 finally:
     shutil.rmtree(tmp)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pandas", "tpu_slu"))
 print(json.dumps({"decoded": decoded, "served": served,
-                  "want": [case["action"], case["object"], case["location"]], "forbidden": loaded}))
+                  "want": [case["action"], case["object"], case["location"]], "s2s": s2s,
+                  "forbidden": loaded}))
 """
 
 
@@ -63,4 +79,5 @@ def test_port_imports_neither_jax_nor_pandas():
 
     result = json.loads(out.strip().splitlines()[-1])
     assert result["decoded"] == result["served"] == result["want"]
+    assert result["s2s"][0] == result["s2s"][1]
     assert result["forbidden"] == []

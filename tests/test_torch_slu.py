@@ -159,7 +159,7 @@ def test_load_is_strict(pair, fault):
 
 def test_unknown_jax_leaf_raises():
     with pytest.raises(KeyError):
-        params_from_jax({"decoder": {"initial_state": np.zeros((1, 4), np.float32)}})
+        params_from_jax({"decoder": {"final_state": np.zeros((1, 4), np.float32)}})
 
 
 @pytest.mark.parametrize("present", [True, False])

@@ -2,8 +2,9 @@
 
     python -m tpu_slu_torch.cli --decode --wav test.wav --config_path exp.cfg [--device cpu]
 
-Prints the intent of the wav, as a Python list of slot values, from the
-trained checkpoint of the config's experiment folder. ``--train``,
+Prints the intent of the wav, as a Python list of slot values (or, for a
+seq2seq model, its semantics string), from the trained checkpoint of the
+config's experiment folder. ``--train``,
 ``--pretrain`` and ``--restart`` are not ported.
 """
 

@@ -11,7 +11,12 @@ The mapping needs no architecture, only the leaf names:
   with the JAX (in, 3H) matrices transposed to torch's (3H, in);
 * Linear ``w`` (2-D, (in, out)) -> ``weight`` (out, in), ``b`` -> ``bias``;
 * conv ``w`` (3-D) keeps torch's (out, in, k) layout;
-* sinc ``filt_b1``/``filt_band`` keep their names.
+* sinc ``filt_b1``/``filt_band`` keep their names;
+* the seq2seq head (``tpu_slu/models/torch_import.py``): ``encoder/i`` and
+  ``decoder/rnn/i`` gain a ``layers`` level, a decoder GRUCell (no direction
+  level) maps ``w_ih`` -> ``weight_ih`` transposed, the attention's
+  ``key``/``query``/``value`` become ``*_linear``, and
+  ``decoder/initial_state`` (layers, H) keeps its name and layout.
 """
 
 from __future__ import annotations
@@ -51,10 +56,22 @@ def params_from_jax(tree_or_flat) -> dict[str, torch.Tensor]:
     for path, arr in _flatten(tree_or_flat).items():
         *head, leaf = path.split("/")
         arr = np.asarray(arr, np.float32)
+        if head[:1] == ["encoder"]:
+            head.insert(1, "layers")
+        elif head[:2] == ["decoder", "rnn"]:
+            head.insert(2, "layers")
+        elif head[:2] == ["decoder", "attention"] and len(head) == 3:
+            head[2] += "_linear"
         if head and head[-1] in _GRU_DIRS and leaf in _GRU_LEAVES:
             name = _GRU_LEAVES[leaf] + _GRU_DIRS[head.pop()]
             if leaf.startswith("w_"):
                 arr = arr.T
+        elif head[:3] == ["decoder", "rnn", "layers"] and leaf in _GRU_LEAVES:
+            name = _GRU_LEAVES[leaf]  # a GRUCell: one direction, no suffix
+            if leaf.startswith("w_"):
+                arr = arr.T
+        elif path == "decoder/initial_state":
+            name = leaf
         elif leaf in ("filt_b1", "filt_band"):
             name = leaf
         elif leaf == "w":

@@ -1,21 +1,27 @@
-"""End-to-end SLU model, fixed-slot intent head: encoder + bi-GRU + Linear + max over time.
+"""End-to-end SLU model: encoder + fixed-slot intent head OR seq2seq decoder.
 
-Port of the fixed-slot part of ``tpu_slu/models/slu.py``: decode
-(``Model.decode_intents`` at the input's exact shape, or length-exact over a
-padded batch with ``lengths=``/``bucket=True``) and the train surface (``Model.forward``, the loss, the ULMFiT trainable mask). The
+Port of ``tpu_slu/models/slu.py``. The fixed-slot head (bi-GRU + Linear +
+max over time): decode (``Model.decode_intents`` at the input's exact shape,
+or length-exact over a padded batch with ``lengths=``/``bucket=True``) and
+the train surface (``Model.forward``, the loss, the ULMFiT trainable mask).
+The seq2seq head (bi-GRU encoder, attention, stacked GRUCells, beam search):
+decode, exact shape and length-exact; its training is not ported. The
 :class:`Model` module's ``state_dict`` keys are the reference ``Model``'s
-(``pretrained_model.*``, ``intent_layers.*``).
+(``pretrained_model.*``, and ``intent_layers.*`` or ``encoder.*`` and
+``decoder.*``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.utils import skip_init
 
 from tpu_slu_torch.data.loader import WAVE_BUCKET_QUANT, pad_to_bucket
 from tpu_slu_torch.models.convert import params_from_jax, read_npz
@@ -26,11 +32,15 @@ from tpu_slu_torch.models.encoder import (
     apply_stack,
     encoder_features,
     frames_through,
+    make_layer,
     make_layers,
     make_linear,
     parts_to_btc,
     rnn_block_specs,
 )
+from tpu_slu_torch.ops.attention import attention_kv
+from tpu_slu_torch.ops.beam_fused import beam_decode
+from tpu_slu_torch.ops.bigru_masked import bigru_masked
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,14 +99,20 @@ def intent_logits(layers: nn.ModuleList, arch: IntentArch, feats: torch.Tensor,
     return out.amax(dim=1)
 
 
+def valid_frames(encoder_arch, lengths: torch.Tensor, t_frames: int,
+                 intent_arch: IntentArch | None = None) -> torch.Tensor:
+    """(B,) waveform sample counts -> (B,) valid frame counts in [1, t_frames]."""
+    n = encoder_arch.num_frames(torch.clamp(lengths, min=1))
+    if intent_arch is not None:
+        n = frames_through(intent_arch.layers, n)
+    return torch.clamp(n, 1, t_frames)
+
+
 def frame_mask_from_lengths(encoder_arch, lengths: torch.Tensor, t_frames: int,
                             intent_arch: IntentArch | None = None) -> torch.Tensor:
     """(B,) waveform sample counts -> (B, t_frames) bool valid-frame mask,
     with at least one valid frame per row."""
-    n = encoder_arch.num_frames(torch.clamp(lengths, min=1))
-    if intent_arch is not None:
-        n = frames_through(intent_arch.layers, n)
-    n = torch.clamp(n, 1, t_frames)
+    n = valid_frames(encoder_arch, lengths, t_frames, intent_arch)
     return torch.arange(t_frames, device=lengths.device)[None, :] < n[:, None]
 
 
@@ -121,6 +137,131 @@ def intent_loss_acc(logits: torch.Tensor, y_intent: torch.Tensor, values_per_slo
 def intent_predictions(logits: torch.Tensor, values_per_slot) -> torch.Tensor:
     """Per-slot argmax -> (B, num_slots) int64."""
     return torch.stack([s.argmax(dim=1) for s in logits.split(list(values_per_slot), dim=1)], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Seq2seq head (reference models.py:381-651)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Seq2SeqArch:
+    """The seq2seq head's widths. ``max_decode_len`` is the beam search's
+    fixed step count (the reference's true_U); ``dropout`` and
+    ``zeros_start`` are the JAX package's training knobs, kept for its
+    config surface (training is not ported)."""
+
+    num_labels: int
+    num_encoder_layers: int
+    encoder_dim: int
+    num_decoder_layers: int
+    decoder_dim: int
+    key_dim: int
+    value_dim: int
+    sos: int
+    max_decode_len: int = 200
+    dropout: float = 0.5
+    zeros_start: bool = False
+
+    @staticmethod
+    def from_config(config, sos: int, num_labels: int) -> "Seq2SeqArch":
+        return Seq2SeqArch(
+            num_labels=num_labels,
+            num_encoder_layers=config.num_intent_encoder_layers,
+            encoder_dim=config.intent_encoder_dim,
+            num_decoder_layers=config.num_intent_decoder_layers,
+            decoder_dim=config.intent_decoder_dim,
+            key_dim=config.intent_decoder_key_dim,
+            value_dim=config.intent_decoder_value_dim,
+            sos=sos,
+            max_decode_len=getattr(config, "seq2seq_max_decode_len", 200),
+            dropout=getattr(config, "seq2seq_dropout", 0.5),
+            zeros_start=getattr(config, "seq2seq_zeros_start", False),
+        )
+
+
+class Seq2SeqEncoder(nn.Module):
+    """``layers``: [bi-GRU, select, dropout] per layer, the GRU at 3i."""
+
+    def __init__(self, arch: Seq2SeqArch, in_dim: int, gen: torch.Generator):
+        super().__init__()
+        layers = []
+        for idx in range(arch.num_encoder_layers):
+            d = in_dim if idx == 0 else 2 * arch.encoder_dim
+            layers += [make_layer(LayerSpec("gru", 3 * idx, f"encoder{idx}", (d, arch.encoder_dim, True)),
+                                  gen), nn.Identity(), nn.Identity()]
+        self.layers = nn.ModuleList(layers)
+
+
+class Attention(nn.Module):
+    """The key, query and value projections (:mod:`tpu_slu_torch.ops.attention`)."""
+
+    def __init__(self, encoder_dim: int, decoder_dim: int, key_dim: int, value_dim: int,
+                 gen: torch.Generator):
+        super().__init__()
+        self.key_linear = make_linear(encoder_dim, key_dim, gen)
+        self.query_linear = make_linear(decoder_dim, key_dim, gen)
+        self.value_linear = make_linear(encoder_dim, value_dim, gen)
+
+
+class DecoderRNN(nn.Module):
+    """``layers``: [GRUCell, dropout] per layer, the cell at 2i; layer 0
+    takes [embedding | context]."""
+
+    def __init__(self, arch: Seq2SeqArch, gen: torch.Generator):
+        super().__init__()
+        layers = []
+        for idx in range(arch.num_decoder_layers):
+            d = arch.decoder_dim + arch.value_dim if idx == 0 else arch.decoder_dim
+            cell = skip_init(nn.GRUCell, d, arch.decoder_dim)
+            with torch.no_grad():
+                for p in cell.parameters():
+                    p.uniform_(-1.0 / math.sqrt(arch.decoder_dim), 1.0 / math.sqrt(arch.decoder_dim),
+                               generator=gen)
+            layers += [cell, nn.Identity()]
+        self.layers = nn.ModuleList(layers)
+
+
+class Seq2SeqDecoder(nn.Module):
+    """Label embedding, attention, stacked GRUCells from a learned initial
+    state (layers, H), and the output projection over the labels."""
+
+    def __init__(self, arch: Seq2SeqArch, gen: torch.Generator):
+        super().__init__()
+        self.embed = make_linear(arch.num_labels, arch.decoder_dim, gen)
+        self.attention = Attention(2 * arch.encoder_dim, arch.decoder_dim, arch.key_dim,
+                                   arch.value_dim, gen)
+        self.rnn = DecoderRNN(arch, gen)
+        self.initial_state = nn.Parameter(
+            torch.randn((arch.num_decoder_layers, arch.decoder_dim), generator=gen))
+        self.linear = make_linear(arch.decoder_dim, arch.num_labels, gen)
+
+
+def seq2seq_encode(encoder: Seq2SeqEncoder, arch: Seq2SeqArch, feats: torch.Tensor,
+                   n_frames: torch.Tensor | None = None) -> torch.Tensor:
+    """The encoder's bi-GRU layers over feats (B, T, C), eval mode.
+    ``n_frames`` (B,) valid frames select the length-exact path; without it
+    every row has T. Each layer is :func:`bigru_masked` (K4f on the card,
+    the TPU's route too; its plain version on the CPU)."""
+    B, T, _ = feats.shape
+    n = n_frames if n_frames is not None else torch.full((B,), T, dtype=torch.int64,
+                                                         device=feats.device)
+    out = feats
+    for idx in range(arch.num_encoder_layers):
+        out = bigru_masked(encoder.layers[3 * idx].params(), out.contiguous(), n)
+    return out
+
+
+def seq2seq_beam_infer(encoder: Seq2SeqEncoder, decoder: Seq2SeqDecoder, arch: Seq2SeqArch,
+                       feats: torch.Tensor, beam_width: int = 4, *,
+                       n_valid: torch.Tensor | None = None,
+                       n_frames: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Beam-search decode of encoder features: (scores (W, B), tokens (W,
+    B, max_decode_len)). ``n_valid`` (B,) counts the frames attention sees
+    (a prefix; None: all); ``n_frames`` as :func:`seq2seq_encode`. The
+    search is K7 on the card, one launch (:func:`beam_decode`)."""
+    keys, values = attention_kv(decoder.attention, seq2seq_encode(encoder, arch, feats, n_frames))
+    return beam_decode(decoder, keys, values, n_valid, beam_width, arch.max_decode_len)
 
 
 # ---------------------------------------------------------------------------
@@ -153,7 +294,8 @@ def num_walkable(arch, unfreezing_type: int) -> int:
 
 
 class Model(nn.Module):
-    """End-to-end SLU model with the fixed-slot head (reference ``Model``).
+    """End-to-end SLU model (reference ``Model``): the fixed-slot head, or
+    the seq2seq head when the config's ``seq2seq`` is on.
 
     Weights are drawn from a ``torch.Generator`` seeded with ``seed`` (the
     config's seed by default) in the reference's distributions; they differ
@@ -167,10 +309,9 @@ class Model(nn.Module):
 
     def __init__(self, config, seed: int | None = None, load_pretrained: bool = True):
         super().__init__()
-        if config.seq2seq:
-            raise NotImplementedError("the seq2seq head is not ported yet")
         self.config = config
         self.Sy_intent = config.require("Sy_intent")
+        self.seq2seq = config.seq2seq
         self.unfreezing_type = config.unfreezing_type
         self.unfreezing_index = config.starting_unfreezing_index
         self._unfrozen_count = 0
@@ -179,12 +320,20 @@ class Model(nn.Module):
         gen = torch.Generator().manual_seed(config.seed if seed is None else seed)
         self.pretrained_model = PretrainedModel(config, generator=gen)
         self.encoder_arch = self.pretrained_model.arch
-        self.intent_arch = IntentArch.from_config(config, self.encoder_arch.word_feat_dim)
-        self.values_per_slot = self.intent_arch.values_per_slot
-        self.intent_layers = make_layers(self.intent_arch.layers, gen)
-        self.intent_layers.append(
-            make_linear(self.intent_arch.feat_dim, sum(self.values_per_slot), gen)
-        )
+        in_dim = self.encoder_arch.word_feat_dim
+        if not self.seq2seq:
+            self.intent_arch = IntentArch.from_config(config, in_dim)
+            self.values_per_slot = self.intent_arch.values_per_slot
+            self.intent_layers = make_layers(self.intent_arch.layers, gen)
+            self.intent_layers.append(
+                make_linear(self.intent_arch.feat_dim, sum(self.values_per_slot), gen)
+            )
+        else:
+            self.SOS = self.Sy_intent.index("<sos>")
+            self.num_labels = len(self.Sy_intent)
+            self.seq2seq_arch = Seq2SeqArch.from_config(config, self.SOS, self.num_labels)
+            self.encoder = Seq2SeqEncoder(self.seq2seq_arch, in_dim, gen)
+            self.decoder = Seq2SeqDecoder(self.seq2seq_arch, gen)
 
         if config.pretraining_type != 0 and load_pretrained:
             pre_dir = os.path.join(config.folder, "pretraining")
@@ -218,7 +367,7 @@ class Model(nn.Module):
     @property
     def device(self) -> torch.device:
         """The device the model's parameters lie on."""
-        return self.intent_layers[self.intent_arch.linear_index].weight.device
+        return next(self.parameters()).device
 
     def loss(self, x: torch.Tensor, y_intent: torch.Tensor, *, train: bool,
              weights: torch.Tensor | None = None, lengths: torch.Tensor | None = None,
@@ -226,7 +375,13 @@ class Model(nn.Module):
         """(loss, acc) of a batch on the model's device: the JAX Trainer's
         loss (``trainer.py:280-297``). ``lengths`` (B,) sample counts leave
         the frames of batch padding out of the max over time when the
-        config's ``mask_padding`` is on; ``weights`` (B,) weight the mean."""
+        config's ``mask_padding`` is on; ``weights`` (B,) weight the mean.
+        Fixed-slot head only: seq2seq training (``seq2seq_log_prob``, and
+        K4b, the encoder's backward on the card) is a later slice."""
+        if self.seq2seq:
+            raise NotImplementedError(
+                "seq2seq training is not ported: it comes with the seq2seq training slice "
+                "(seq2seq_log_prob and K4b, the TPU's _fused_bwd_kernel); this model decodes only")
         feats = encoder_features(self.pretrained_model, x, train=train, generator=generator)
         fm = None
         if getattr(self.config, "mask_padding", True) and lengths is not None:
@@ -289,8 +444,10 @@ class Model(nn.Module):
                     print(f"{spec.name}: {'unfrozen' if on else 'frozen'}")
 
     @torch.inference_mode()
-    def predict_intents(self, x, bucket: bool = False, lengths=None):
-        """Waveform(s) (T,) or (B, T) -> (logits (B, S), per-slot predictions (B, 3)),
+    def predict_intents(self, x, bucket: bool = False, beam_width: int = 4, lengths=None):
+        """Waveform(s) (T,) or (B, T) -> (logits (B, S), per-slot predictions
+        (B, 3)), or for the seq2seq head (scores (W, B) best-first, tokens
+        (W, B, max_decode_len)) of a ``beam_width``-wide search (1: greedy),
         on the device the model lies on, with the JAX package's rules:
 
         * by default, at the input's exact shape;
@@ -318,7 +475,14 @@ class Model(nn.Module):
                 x = F.pad(x, (0, t_pad - x.shape[1]))
             exact = True
         mask_padding = getattr(self.config, "mask_padding", True)
-        if exact and mask_padding:
+        exact = exact and mask_padding
+        if self.seq2seq:
+            feats = encoder_features(self.pretrained_model, x, lengths=lengths if exact else None)
+            n_valid = valid_frames(self.encoder_arch, lengths, feats.shape[1]) if mask_padding else None
+            return seq2seq_beam_infer(
+                self.encoder, self.decoder, self.seq2seq_arch, feats, beam_width, n_valid=n_valid,
+                n_frames=self.encoder_arch.num_frames(lengths) if exact else None)
+        if exact:
             feats = encoder_features(self.pretrained_model, x, lengths=lengths)
             logits = intent_logits(self.intent_layers, self.intent_arch, feats,
                                    n_frames=self.encoder_arch.num_frames(lengths))
@@ -331,10 +495,13 @@ class Model(nn.Module):
             logits = intent_logits(self.intent_layers, self.intent_arch, feats, frame_mask=fm)
         return logits, intent_predictions(logits, self.values_per_slot)
 
-    def decode_intents(self, x, bucket: bool = False, lengths=None) -> list[list[str]]:
-        """Waveform(s) -> one list of slot-value strings per example
-        (``bucket``/``lengths`` as :meth:`predict_intents`)."""
+    def decode_intents(self, x, bucket: bool = False, lengths=None) -> list:
+        """Waveform(s) -> one list of slot-value strings per example, or for
+        the seq2seq head one semantics string per example, from the best
+        beam (``bucket``/``lengths`` as :meth:`predict_intents`)."""
         _, predicted = self.predict_intents(x, bucket=bucket, lengths=lengths)
+        if self.seq2seq:
+            return [self.ids_to_string(ids, self.Sy_intent) for ids in predicted[0].cpu().numpy()]
         intents = []
         for prediction in predicted.cpu().numpy():
             intent = []
@@ -344,3 +511,9 @@ class Model(nn.Module):
                         intent.append(value)
             intents.append(intent)
         return intents
+
+    @staticmethod
+    def ids_to_string(ids, S) -> str:
+        """Token ids -> string, with the reference's strip quirk:
+        ``.lstrip("<sos>").rstrip("<eos>")`` strips by character set."""
+        return "".join(S[int(c)] for c in ids).lstrip("<sos>").rstrip("<eos>")

@@ -1,0 +1,133 @@
+"""Fused beam search of the seq2seq decoder (K7): the kernel's wrapper.
+
+Port of ``tpu_slu/ops/pallas_beam.py`` (``beam_decode_pallas``, the TPU
+kernel ``_mk_beam_kernel``): the whole width-W, ``max_len``-step search in
+one launch of ``csrc/beam_decode.cu``, counted on ``beam_decode.launches``.
+A CPU tensor runs the plain version, :func:`~tpu_slu_torch.ops.beam.beam_search_reference`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_slu_torch.ops import _build
+from tpu_slu_torch.ops.beam import beam_search_reference, decoder_cells
+
+MAX_BEAM = 8  # the beam widths the kernel is built for: 1..8
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper (227 KB)
+
+
+def _layout(dec) -> dict[str, torch.Tensor]:
+    """The decoder's weights in the kernel's layout (the JAX one): each
+    matrix (in, out) row-major; the cells packed layer by layer as w_ih,
+    w_hh, b_ih, b_hh."""
+    cells = [t for c in decoder_cells(dec)
+             for t in (c["weight_ih"].t(), c["weight_hh"].t(), c["bias_ih"], c["bias_hh"])]
+    return {
+        "wq": dec.attention.query_linear.weight.t().contiguous(),
+        "bq": dec.attention.query_linear.bias.contiguous(),
+        "we": dec.embed.weight.t().contiguous(),
+        "be": dec.embed.bias.contiguous(),
+        "cells": torch.cat([t.reshape(-1) for t in cells]),
+        "wl": dec.linear.weight.t().contiguous(),
+        "bl": dec.linear.bias.contiguous(),
+        "init": dec.initial_state.contiguous(),
+    }
+
+
+def _check_cuda(dec, keys: torch.Tensor, values: torch.Tensor, n_valid: torch.Tensor,
+                beam_width: int, max_len: int) -> dict[str, int]:
+    if keys.dim() != 3 or values.dim() != 3 or keys.shape[:2] != values.shape[:2]:
+        raise ValueError(f"beam_decode: keys {tuple(keys.shape)} and values {tuple(values.shape)} "
+                         "must be (B, T, K) and (B, T, V)")
+    B, T, K = keys.shape
+    V = values.shape[-1]
+    nl, H = dec.initial_state.shape
+    L = dec.linear.out_features
+    tensors = [("keys", keys), ("values", values)] + [(n, p) for n, p in dec.named_parameters()]
+    for name, t in tensors:
+        if t.device != keys.device:
+            raise ValueError(f"beam_decode: {name} is on {t.device}, keys on {keys.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"beam_decode: {name} is {t.dtype}; the kernel takes float32")
+    for name, t in (("keys", keys), ("values", values)):
+        if not t.is_contiguous():
+            raise ValueError(f"beam_decode: {name} is not contiguous")
+    q, e, o = dec.attention.query_linear, dec.embed, dec.linear
+    want = [("query weight", q.weight, (K, H)), ("query bias", q.bias, (K,)),
+            ("embed weight", e.weight, (H, L)), ("embed bias", e.bias, (H,)),
+            ("linear weight", o.weight, (L, H)), ("linear bias", o.bias, (L,))]
+    cells = decoder_cells(dec)
+    for li, c in enumerate(cells):
+        want += [(f"cell {li} {n}", c[n], shape) for n, shape in (
+            ("weight_ih", (3 * H, H + V if li == 0 else H)), ("weight_hh", (3 * H, H)),
+            ("bias_ih", (3 * H,)), ("bias_hh", (3 * H,)))]
+    for name, t, shape in want:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"beam_decode: {name} has shape {tuple(t.shape)}, want {shape}")
+    if len(cells) != nl:
+        raise ValueError(f"beam_decode: {len(cells)} cells but an initial state of {nl} layers")
+    if not 1 <= beam_width <= MAX_BEAM or max_len < 1 or min(B, T) < 1:
+        raise ValueError(f"beam_decode: the kernel takes 1 <= beam_width <= {MAX_BEAM}, max_len >= 1 "
+                         f"and B, T >= 1 (beam_width={beam_width}, max_len={max_len}, B={B}, T={T})")
+    if max(B * T * max(K, V), beam_width * B * max_len) >= 2**31:
+        raise ValueError(f"beam_decode: too large for the kernel's int indexing (B={B}, T={T})")
+    if n_valid.device != keys.device or n_valid.dtype not in (torch.int32, torch.int64) \
+            or tuple(n_valid.shape) != (B,):
+        raise TypeError(f"beam_decode: n_valid must be an int tensor of shape ({B},) on {keys.device}, "
+                        f"got {n_valid.dtype} {tuple(n_valid.shape)} on {n_valid.device}")
+    lo, hi = (int(v) for v in torch.aminmax(n_valid))
+    if lo < 1 or hi > T:
+        raise ValueError(f"beam_decode: valid frame counts must lie in [1, T={T}], got [{lo}, {hi}]")
+    dims = {"B": B, "T": T, "W": beam_width, "nl": nl, "H": H, "K": K, "V": V, "L": L, "U": max_len}
+    smem = _build.library().tsl_beam_decode_smem_bytes(T, beam_width, nl, H, K, V, L, max_len)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"beam_decode: {smem} bytes of shared memory for T={T} frames and "
+                         f"max_len={max_len} at H={H}, K={K}, V={V}, W={beam_width}; a block has "
+                         f"{SMEM_LIMIT}")
+    return dims
+
+
+def beam_decode(dec, keys: torch.Tensor, values: torch.Tensor, n_valid: torch.Tensor | None,
+                beam_width: int, max_len: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7: (scores (W, B) best-first, tokens (W, B, max_len) int64), as
+    :func:`~tpu_slu_torch.ops.beam.beam_search_reference`.
+
+    ``dec``: the seq2seq decoder (``embed``, ``attention``, ``rnn.layers``,
+    ``initial_state``, ``linear``); keys (B, T, K) and values (B, T, V) from
+    ``attention_kv``; ``n_valid`` (B,) each row's valid frames, a prefix in
+    [1, T] (None: all T). CPU tensors take the plain version. CUDA tensors
+    launch the kernel on the current stream, with the weights laid out anew
+    for the call (the range check of ``n_valid`` reads it on the host);
+    anything the kernel does not take raises, and so does a call with grad
+    mode on and a weight or input that requires grad: the search has no
+    gradient.
+    """
+    if keys.device.type == "cpu":
+        return beam_search_reference(dec, keys, values, n_valid, beam_width, max_len)
+    if keys.device.type != "cuda":
+        raise ValueError(f"beam_decode runs on cpu or cuda tensors, not {keys.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (keys, values, *dec.parameters())):
+        raise NotImplementedError(
+            "beam_decode has no gradient; call it under torch.no_grad() or torch.inference_mode()")
+    if n_valid is None:
+        n_valid = torch.full((keys.shape[0],), keys.shape[1], dtype=torch.int64, device=keys.device)
+    d = _check_cuda(dec, keys, values, n_valid, beam_width, max_len)
+    lib = _build.library()
+    w = _layout(dec)
+    n = n_valid.to(torch.int64).contiguous()
+    scores = torch.empty((d["W"], d["B"]), device=keys.device, dtype=torch.float32)
+    tokens = torch.empty((d["W"], d["B"], d["U"]), device=keys.device, dtype=torch.int64)
+    err = lib.tsl_beam_decode(
+        keys.data_ptr(), values.data_ptr(), n.data_ptr(),
+        *[w[k].data_ptr() for k in ("wq", "bq", "we", "be", "cells", "wl", "bl", "init")],
+        scores.data_ptr(), tokens.data_ptr(),
+        *[d[k] for k in ("B", "T", "W", "nl", "H", "K", "V", "L", "U")],
+        torch.cuda.current_stream(keys.device).cuda_stream,
+    )
+    _build.check(err, f"beam_decode (B={d['B']}, T={d['T']}, W={d['W']}, U={d['U']})")
+    beam_decode.launches += 1
+    return scores, tokens
+
+
+beam_decode.launches = 0  # wrapper calls that launched K7

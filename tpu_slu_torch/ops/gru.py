@@ -28,6 +28,14 @@ def gate_update(gi: torch.Tensor, gh: torch.Tensor, h: torch.Tensor) -> torch.Te
     return n + z * (h - n)
 
 
+def gru_cell_step(p: dict, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """One GRUCell update (a direction's params, torch layout): x (B, D),
+    h (B, H) -> h' (B, H)."""
+    gi = torch.addmm(p["bias_ih"], x, p["weight_ih"].t())
+    gh = torch.addmm(p["bias_hh"], h, p["weight_hh"].t())
+    return gate_update(gi, gh, h)
+
+
 def gru_direction(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                   reverse: bool) -> torch.Tensor:
     """Recurrence over time-major gi (T, B, 3H) -> (T, B, H), h0 = 0.

@@ -30,27 +30,29 @@ def mel_init(n_filt: int, fs: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 def sinc_filters(filt_b1: torch.Tensor, filt_band: torch.Tensor, filt_dim: int, fs: int):
-    """(N_filt, filt_dim) Hamming-windowed band-pass bank, peak-normalised."""
+    """(N_filt, filt_dim) Hamming-windowed band-pass bank, peak-normalised;
+    float32 (float64 for float64 parameters, as an f64 reference takes)."""
     N = filt_dim
     dev = filt_b1.device
-    filt_b1 = filt_b1.float()
-    filt_band = filt_band.float()
+    dt = torch.float64 if filt_b1.dtype == torch.float64 else torch.float32
+    filt_b1 = filt_b1.to(dt)
+    filt_band = filt_band.to(dt)
     beg = filt_b1.abs() + 50.0 / fs
     end = beg + (filt_band.abs() + 50.0 / fs)
 
     half = (N - 1) // 2
-    t_right = torch.linspace(1.0, (N - 1) / 2.0, half, dtype=torch.float32, device=dev) / fs
+    t_right = torch.linspace(1.0, (N - 1) / 2.0, half, dtype=dt, device=dev) / fs
 
     def low_pass(cut):  # (F,) normalised cutoff -> (F, N) scaled sinc
         arg = 2.0 * math.pi * (cut[:, None] * fs) * t_right[None, :]
         y_right = torch.sin(arg) / arg
-        ones = torch.ones((cut.shape[0], 1), dtype=torch.float32, device=dev)
+        ones = torch.ones((cut.shape[0], 1), dtype=dt, device=dev)
         y = torch.cat([y_right.flip(1), ones, y_right], dim=1)
         return 2.0 * cut[:, None] * y
 
     band_pass = low_pass(end) - low_pass(beg)
     band_pass = band_pass / band_pass.amax(dim=1, keepdim=True)  # ties split the gradient, as jnp.max
-    n = torch.linspace(0.0, float(N), N, dtype=torch.float32, device=dev)
+    n = torch.linspace(0.0, float(N), N, dtype=dt, device=dev)
     window = 0.54 - 0.46 * torch.cos(2.0 * math.pi * n / N)
     return band_pass * window
 

@@ -10,7 +10,8 @@ Port of ``tpu_slu/serving.py``:
   batching never changes an answer: every request decodes as it would
   alone at its exact shape. The rows that fill the batch have length 0.
 * :func:`make_http_server`: ``POST /decode`` with a WAV body ->
-  ``{"intents": [...], "ms": N}``; ``GET /healthz`` -> ``{"ok": true}``.
+  ``{"intents": [...], "ms": N}`` (a seq2seq model answers
+  ``{"intents": "<semantics string>", ...}``); ``GET /healthz`` -> ``{"ok": true}``.
 
 Run a server:
 
@@ -44,9 +45,10 @@ def load_trained_model(config, device: str | torch.device | None = None) -> Mode
     """Build a :class:`Model` from a trained experiment folder, in eval mode
     on ``device`` (the GPU by default; raises without one).
 
-    ``<folder>/training/vocab.json`` supplies the slot vocabulary (the port
-    does not read datasets); the JAX package's ``model_state.npz`` is
-    preferred, a reference ``model_state.pth`` is taken as well.
+    ``<folder>/training/vocab.json`` supplies the slot vocabulary, or the
+    label list of a seq2seq model (the port does not read datasets); the JAX
+    package's ``model_state.npz`` is preferred, a reference
+    ``model_state.pth`` is taken as well.
     """
     device = entry_device(device)
     training = os.path.join(config.folder, "training")
@@ -90,7 +92,7 @@ class IntentServer:
 
     def submit(self, wav: np.ndarray) -> cf.Future:
         """Enqueue a 1-D float32 waveform; resolves to its intent decode (a
-        list of slot strings)."""
+        list of slot strings, or the seq2seq string)."""
         wav = np.asarray(wav, np.float32).reshape(-1)
         if wav.size == 0:
             raise ValueError("empty waveform")
@@ -196,7 +198,7 @@ def make_http_server(server: IntentServer, host: str = "127.0.0.1", port: int = 
                     raise ValueError(f"expected {server.fs} Hz audio, got {fs}")
                 t0 = time.time()
                 intents = server.decode(wav)
-                self._reply(200, {"intents": list(intents),
+                self._reply(200, {"intents": intents if isinstance(intents, str) else list(intents),
                                   "ms": round((time.time() - t0) * 1000, 2)})
             except Exception as e:
                 self._reply(400, {"error": str(e)})
