@@ -53,12 +53,26 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    decode whose rows equal their exact-shape decodes; ``[time]`` K7 against
    its plain version and bound at B = 1 and 16, the warm decode, its device
    time by kernel; ``[serve]`` the seq2seq ``IntentServer`` with the traffic
-   of phase 7, one K7 and five K4f launches per device call, p50/p90.
+   of phase 7, one K7 and five K4f launches per device call, p50/p90;
+9. seq2seq train step at the width of ``all_real_seq2seq.cfg``: ``[k4b]``
+   K4b (the length-masked bi-GRU backward) against its plain version at the
+   seq2seq encoder layer (B = 64, T = 25, D = 256, every row T), at B = 8
+   with mixed lengths (0 and 1 among them) and at an odd small shape, dX
+   and the eight weight and bias gradients within ``GRAD_TOL``, dX exactly
+   0 past each length; ``[s2s-grad]`` one train step (B = 16, U = 32,
+   dropout on) on the card against the same step on the CPU, within phase
+   6's limits (the sinc parameters against an f64 CPU step, the key bias
+   against its weight's scale); ``[s2s-trainer]`` ``Trainer.train`` at B =
+   64 over seeded one-hot batches, 4 K2, 4 K3, 1 K4f, 1 K4b and no K1
+   launches a step, then ``Trainer.test`` with the decode's exact match, one
+   K7 launch a batch and no plain search; ``[time]`` K4b against its plain
+   version, bound and cuDNN, the warm train step; ``[profile]`` its device
+   time by kernel.
 
 Beside each kernel's time the script prints its plain version's, a cuDNN
 ``torch.nn.GRU`` call's where one computes the same function (timed as a
 yardstick only: forward at the unpooled shapes for K1, on packed rows for
-K4f, the backward for K3; none for K2, whose dropout and pool are fused),
+K4f, the backward for K3 and K4b; none for K2, whose dropout and pool are fused),
 and its bound: the larger of the f32 operations over 67 TFLOP/s and the
 bytes over 3.35 TB/s (each input read once, each output written once),
 ignoring the serial chain. At the end it checks that no module of JAX or
@@ -71,6 +85,7 @@ outside a checkout, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -107,6 +122,12 @@ K4F_REPLACES = "tpu_slu/ops/pallas_gru.py:323"
 EXACT_LOGIT_ATOL = 1e-4  # length-exact (K4f) vs exact-shape (K1) decode on the card, same weights
 K7_SOURCE = "tpu_slu_torch/csrc/beam_decode.cu"
 K7_REPLACES = "tpu_slu/ops/pallas_beam.py:152"
+K4B_SOURCE = "tpu_slu_torch/csrc/bigru_masked_bwd.cu"
+K4B_REPLACES = "tpu_slu/ops/pallas_gru.py:400"
+S2S_U = 32  # label steps of the seq2seq train step: the JAX bench's train shape (bench.py:879-896)
+# the attention's key bias shifts every frame's score alike, which the softmax cancels: its
+# gradient is 0 in exact arithmetic, and it is held against the key weight's gradient's scale
+KEY_BIAS, KEY_WEIGHT = "decoder.attention.key_linear.bias", "decoder.attention.key_linear.weight"
 SINC_PARAMS = ("filt_b1", "filt_band")  # their gradients are held against an f64 CPU reference
 SERVE_BATCH = 8  # the IntentServer's max_batch: a served batch is (8, 4 s bucket)
 # the card's published peaks at 700 W (NVIDIA H100 SXM data sheet): f32 outside the
@@ -990,6 +1011,278 @@ def phase_seq2seq(dev, card: str, rng) -> dict:
             "bound_ms": k7_ms[16][2], "bound_by": k7_ms[16][3], "library_ms": None}
 
 
+class FrontEndBranches:
+    """The front end's data-dependent branches in a train step: the sign of
+    each leaky ReLU's input and the argmax of each max-pool window. Where f32
+    rounding puts a value on the other side of a branch than f64 does, the
+    two steps differ by a whole branch at that element, and the sinc
+    parameters' gradients, sums over every sample that cancel heavily, move
+    by up to ~1e-3 of their largest element. ``record()`` keeps one step's
+    branches; ``replay()`` makes another step take them, counting the
+    elements where its own would differ, so that an f64 reference of the
+    card's step differs from it by rounding alone."""
+
+    def __init__(self):
+        self.taken: list = []
+        self.flips = 0
+
+    @contextlib.contextmanager
+    def _patched(self, relu, pool):
+        from tpu_slu_torch.models import encoder as enc
+
+        saved = enc.leaky_relu, enc.max_pool1d_ceil
+        enc.leaky_relu, enc.max_pool1d_ceil = relu, pool
+        try:
+            yield self
+        finally:
+            enc.leaky_relu, enc.max_pool1d_ceil = saved
+
+    def record(self):
+        import torch.nn.functional as F
+
+        self.taken = []
+
+        def relu(x, slope=0.2):
+            self.taken.append((x > 0).cpu())
+            return F.leaky_relu(x, slope)
+
+        def pool(x, k):
+            if k == 1:
+                return x
+            out, idx = F.max_pool1d(x, k, ceil_mode=True, return_indices=True)
+            self.taken.append(idx.cpu())
+            return out
+
+        return self._patched(relu, pool)
+
+    def replay(self):
+        import torch
+        import torch.nn.functional as F
+
+        taken = list(self.taken)
+        self.flips = 0
+
+        def relu(x, slope=0.2):
+            keep = taken.pop(0).to(x.device)
+            self.flips += int((keep != (x > 0)).sum())
+            return torch.where(keep, x, slope * x)
+
+        def pool(x, k):
+            if k == 1:
+                return x
+            idx = taken.pop(0).to(x.device)
+            self.flips += int((idx != F.max_pool1d(x, k, ceil_mode=True, return_indices=True)[1]).sum())
+            return torch.gather(x, 2, idx)
+
+        return self._patched(relu, pool)
+
+
+def s2s_batches(rng, n: int, B: int, labels: list, U: int = S2S_U) -> list[dict]:
+    """Seeded 4 s waveforms and one-hot label strings in the loader's seq2seq
+    batch format over the vocabulary ``labels``: ``<sos>``, random printable
+    characters, ``<eos>``, EOS-padded to U past each row's true length
+    ``y_len`` (U/2..U, one row of U)."""
+    import numpy as np
+
+    sos, eos = labels.index("<sos>"), labels.index("<eos>")
+    chars = np.array([i for i, c in enumerate(labels) if len(c) == 1 and c.isprintable()])
+    out = []
+    for _ in range(n):
+        y_len = rng.integers(U // 2, U + 1, B)
+        y_len[0] = U
+        ids = chars[rng.integers(0, len(chars), (B, U))]
+        ids[:, 0] = sos
+        ids[np.arange(U)[None, :] >= y_len[:, None] - 1] = eos
+        out.append({"x": (0.1 * rng.standard_normal((B, 4 * 16000))).astype(np.float32),
+                    "y_intent": np.eye(len(labels), dtype=np.float32)[ids], "w": np.ones(B, np.float32),
+                    "len": np.full(B, 4 * 16000, np.int64), "y_len": y_len.astype(np.int64)})
+    return out
+
+
+def phase_s2s_train(dev, card: str, rng) -> dict:
+    """Phase 9: the seq2seq train step. Returns K4b's JSON entry; its
+    launches are those of ``Trainer.train``."""
+    import numpy as np
+    import torch
+
+    from tpu_slu_torch.models.flagship import flagship_seq2seq_model
+    from tpu_slu_torch.ops import beam as plain
+    from tpu_slu_torch.ops.beam_fused import beam_decode
+    from tpu_slu_torch.ops.bigru_masked import (
+        bigru_masked,
+        bigru_masked_bwd,
+        bigru_masked_bwd_reference,
+    )
+    from tpu_slu_torch.ops.bigru_shared import bigru_shared, bigru_shared_bwd, bigru_trainpool
+    from tpu_slu_torch.training import Trainer
+
+    # 9.1 K4b against its plain version on the card
+    def k4b_case(B, T, D, H, lengths):
+        params, parts = k1_case(rng, 1, D, T, B, H, dev)
+        x = parts[0].transpose(0, 1).contiguous()
+        n = torch.from_numpy(np.asarray(lengths, np.int64)).to(dev)
+        with torch.inference_mode():
+            out = bigru_masked(params, x, n)
+        dy = torch.from_numpy(rng.standard_normal((B, T, 2 * H)).astype(np.float32)).to(dev)
+        return params, x, n, out, dy
+
+    B, T, D, H = 64, 25, 256, 128  # the seq2seq encoder layer at 4 s of audio
+    mixed = rng.integers(2, T + 1, 8)
+    mixed[:3] = T, 0, 1
+    cases = [("flagship layer", B, T, D, H, [T] * B), ("mixed lengths", 8, T, D, H, mixed.tolist()),
+             ("odd small", 5, 7, 12, 16, [7, 0, 1, 3, 6])]
+    k4b_err = 0.0
+    for name, Bc, Tc, Dc, Hc, lengths in cases:
+        params, x, n, out, dy = k4b_case(Bc, Tc, Dc, Hc, lengths)
+        before = bigru_masked_bwd.launches
+        dx, grads = bigru_masked_bwd(params, x, out, n, dy)
+        torch.cuda.synchronize()
+        assert bigru_masked_bwd.launches == before + 1, "K4b launch counter did not advance"
+        rdx, rgrads = bigru_masked_bwd_reference(params, x, out, n, dy)
+        pairs = [("dX", dx, rdx)] + [(f"{d}.{k}", grads[d][k], rgrads[d][k]) for d in grads for k in grads[d]]
+        worst = 0.0
+        for what, g, r in pairs:
+            e = rel_err(g, r)
+            worst = max(worst, e)
+            k4b_err = max(k4b_err, (g - r).abs().max().item())
+            if g.shape != r.shape or not e <= GRAD_TOL:
+                raise AssertionError(f"K4b {name}: {what} off its plain version by {e:.3g} of its largest "
+                                     f"element (limit {GRAD_TOL})")
+        tail = torch.arange(Tc, device=dev)[None, :] >= n[:, None]
+        if not (dx[tail] == 0).all():
+            raise AssertionError(f"K4b {name}: dX past a row's length is not exactly 0")
+        print(f"[k4b] {name:14s} B={Bc:2d} T={Tc:2d} D={Dc:3d} H={Hc:3d} lengths "
+              f"{lengths if Bc <= 8 else 'all ' + str(Tc)}: dX and the 8 weight and bias gradients within "
+              f"{worst:.3g} of each largest element, dX exactly 0 past each length")
+    print(f"[k4b] within {GRAD_TOL} of each tensor's largest element; max abs err {k4b_err:.3g}")
+
+    # 9.2 one flagship seq2seq train step, card against the CPU plain path, B = 16
+    cpu_model = flagship_seq2seq_model("cpu").train()
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    b16 = s2s_batches(rng, 1, 16, cpu_model.Sy_intent)[0]
+
+    def step(model, where, dtype=torch.float32):
+        batch = {k: torch.from_numpy(v).to(where) for k, v in b16.items()}
+        model.zero_grad(set_to_none=True)
+        loss, _ = model.loss(batch["x"].to(dtype), batch["y_intent"].to(dtype), train=True,
+                             weights=batch["w"].to(dtype), lengths=batch["len"], y_len=batch["y_len"],
+                             generator=torch.Generator().manual_seed(5))
+        loss.backward()
+        return loss.item(), {n: p.grad for n, p in model.named_parameters()}
+
+    l_cpu, g_cpu = step(cpu_model, torch.device("cpu"))
+    branches = FrontEndBranches()
+    with branches.record():
+        l_card, g_card = step(card_model, dev)
+    m64 = copy.deepcopy(cpu_model).double()
+    l64, g64_own = step(m64, torch.device("cpu"), torch.float64)
+    with branches.replay():
+        g64 = step(m64, torch.device("cpu"), torch.float64)[1]
+    del m64
+    print(f"[s2s-grad] front-end branches (leaky ReLU signs, max-pool argmaxes) where the card's step and the "
+          f"f64 step part: {branches.flips}")
+    for n in [n for n in g64 if n.endswith(SINC_PARAMS)]:
+        e_card, e_cpu = rel_err(g_card[n].cpu().double(), g64[n]), rel_err(g_cpu[n].double(), g64_own[n])
+        print(f"[s2s-grad] {n} gradient vs f64, of its largest element: card {e_card:.3g} (against the f64 "
+              f"step with its own branches {rel_err(g_card[n].cpu().double(), g64_own[n]):.3g}), CPU f32 "
+              f"{e_cpu:.3g}")
+    print(f"[s2s-grad] loss: card {l_card:.6f}, CPU {l_cpu:.6f}, f64 {l64:.6f} (card - CPU {l_card - l_cpu:.3g}, "
+          f"card - f64 {l_card - l64:.3g}, CPU - f64 {l_cpu - l64:.3g})")
+    worst, faults = 0.0, []
+    for n, g in g_cpu.items():
+        if g is None:  # the encoder's phoneme/word heads take no part in the SLU loss
+            if g_card[n] is not None:
+                faults.append(f"{n}: a card gradient where the CPU has none")
+            continue
+        ref = g64[n] if n.endswith(SINC_PARAMS) else g.double()
+        scale = g_cpu[KEY_WEIGHT].abs().max().item() if n == KEY_BIAS else ref.abs().max().item()
+        e = (g_card[n].cpu().double() - ref).abs().max().item() / max(scale, 1e-30)
+        worst = max(worst, e)
+        if not e <= STEP_GRAD_TOL:
+            faults.append(f"{n}: off the {'f64' if n.endswith(SINC_PARAMS) else 'CPU'} reference's by {e:.3g}")
+    if not abs(l_card - l_cpu) <= STEP_LOSS_ATOL:
+        faults.append(f"loss: card {l_card} vs CPU {l_cpu}")
+    if faults:
+        raise AssertionError("seq2seq train step, card vs CPU: " + "; ".join(faults))
+    print(f"[s2s-grad] flagship seq2seq train step B=16, 4 s, U={S2S_U}, dropout 0.5, card vs CPU: loss "
+          f"{l_card:.6f} vs {l_cpu:.6f} (atol {STEP_LOSS_ATOL}); every gradient within {worst:.3g} of its "
+          f"largest element (limit {STEP_GRAD_TOL}), the sinc parameters' of the f64 reference's on the "
+          f"card's front-end branches, the key bias's of the key weight's largest")
+    del cpu_model, card_model, g_cpu, g_card, g64, g64_own
+
+    # 9.3 the main path: Trainer.train over seeded batches of B = 64, then Trainer.test
+    model = flagship_seq2seq_model(dev, seed=1)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_s2s_train_")
+    try:
+        model.config.folder = tmp
+        model.config.decode_acc_from_epoch = 0
+        trainer = Trainer(model, model.config, generator=torch.Generator().manual_seed(7))
+        B = model.config.training_batch_size
+        data = Batches(s2s_batches(rng, 3, B, model.Sy_intent))
+        steps = len(data.loader)
+        bigru_shared.launches = bigru_trainpool.launches = bigru_shared_bwd.launches = 0
+        bigru_masked.launches = bigru_masked_bwd.launches = beam_decode.launches = 0
+        acc, loss = trainer.train(data)
+        torch.cuda.synchronize()
+        launches = {"K1": bigru_shared.launches, "K2": bigru_trainpool.launches,
+                    "K3": bigru_shared_bwd.launches, "K4f": bigru_masked.launches,
+                    "K4b": bigru_masked_bwd.launches, "K7": beam_decode.launches}
+        want = {"K1": 0, "K2": 4 * steps, "K3": 4 * steps, "K4f": steps, "K4b": steps, "K7": 0}
+        if launches != want:
+            raise AssertionError(f"seq2seq Trainer.train over {steps} steps launched {launches}; want 4 K2, "
+                                 "4 K3, 1 K4f, 1 K4b and no K1 per step")
+        if not (np.isfinite(loss) and acc == 0.0):
+            raise AssertionError(f"seq2seq Trainer.train: loss {loss}, acc {acc}")
+        with open(os.path.join(tmp, "training", "log.csv")) as f:
+            header = f.readline().strip()
+        if not header.startswith(",intent_loss,intent_acc,set,examples_per_sec,steps"):
+            raise AssertionError(f"log.csv header {header!r}")
+        print(f"[s2s-trainer] Trainer.train at all_real_seq2seq.cfg width, B={B}, 4 s, U={S2S_U}, {steps} "
+              f"steps: loss {loss:.4f}; launches {launches}; log.csv {header}")
+        one = Batches(data.loader[:1])
+        plain_calls = []
+        real_search = plain.beam_search
+        plain.beam_search = lambda *args, **kw: plain_calls.append(1) or real_search(*args, **kw)
+        try:
+            beam_decode.launches = 0
+            t_acc, t_loss = trainer.test(one)
+            torch.cuda.synchronize()
+        finally:
+            plain.beam_search = real_search
+        if beam_decode.launches != 1 or plain_calls or not (np.isfinite(t_loss) and 0.0 <= t_acc <= 1.0):
+            raise AssertionError(f"seq2seq Trainer.test: {beam_decode.launches} K7 launches, {len(plain_calls)} "
+                                 f"plain searches, loss {t_loss}, acc {t_acc}")
+        print(f"[s2s-trainer] Trainer.test (decode_acc_from_epoch=0) on 1 batch of {B}: 1 K7 launch, no plain "
+              f"search; loss {t_loss:.4f}, exact-match acc {t_acc:.3f}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 9.4 timings: K4b against its plain version, bound and cuDNN; the warm train step
+    params, x, n, out, dy = k4b_case(B, T, D, H, [T] * B)
+    kern, pl = in_turns(lambda: bigru_masked_bwd_reference(params, x, out, n, dy),
+                        lambda: bigru_masked_bwd(params, x, out, n, dy))
+    lib = cudnn_gru_ms(D, T, B, H, dev, backward=True)
+    rows = int(n.sum())  # the valid (t, b) rows: all of them on the train path
+    # per valid row and direction: gi and gh recomputed, the dh chain, dX, dW_ih, dW_hh
+    # (2 * 3H * (3D + 3H)) and the gate derivatives; in: x, out, dy, weights; out: dX and
+    # the weight gradients
+    w = (2 * rows * (2 * 3 * H * (3 * D + 3 * H) + 2 * GATE_OPS * H),
+         4 * (2 * B * T * D + 4 * B * T * H + 2 * gru_weight_floats(D, H)))
+    k4b_bound, k4b_by = bound(*w)
+    print(f"[time] K4b seq2seq encoder layer B={B} T={T} D={D} H={H}: kernel {kern:.4f} ms, plain {pl:.3f} ms, "
+          f"cuDNN nn.GRU backward {lib:.4f} ms, bound {k4b_bound:.4f} ms ({k4b_by}: {w[0] / 1e9:.2f} GFLOP, "
+          f"{w[1] / 1e6:.2f} MB) on {card}")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.loader[0].items()}
+    step_ms = cuda_ms(lambda: trainer.train_step(batch), reps=10, warmup=2)
+    print(f"[time] warm seq2seq train step B={B}, 4 s, U={S2S_U} (forward, backward, masked Adam): median "
+          f"{step_ms:.3f} ms of 10 (CUDA events) on {card}")
+    profile_calls(lambda: trainer.train_step(batch), f"seq2seq train step B={B}, 4 s, U={S2S_U}", card,
+                  reps=5, top=12)
+    return {"name": "bigru_masked_bwd", "route": "cuda", "source": K4B_SOURCE, "replaces": K4B_REPLACES,
+            "launches": launches["K4b"], "max_abs_err": k4b_err, "ms": kern, "plain_ms": pl,
+            "bound_ms": k4b_bound, "bound_by": k4b_by, "library_ms": lib}
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "tpu_slu_torch")):
         raise SystemExit("chip_smoke.py: tpu_slu_torch/ is not beside this script; "
@@ -1204,6 +1497,9 @@ def main() -> None:
     # 8. seq2seq decode and serving
     k7 = phase_seq2seq(dev, card, rng)
 
+    # 9. seq2seq train step
+    k4b = phase_s2s_train(dev, card, rng)
+
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_slu"))
     if loaded:
         raise AssertionError(f"the port loaded modules of JAX or of the JAX package: {loaded}")
@@ -1213,7 +1509,7 @@ def main() -> None:
         "launches": k1_train_launches, "launches_decode": launches, "max_abs_err": max_err,
         "ms": totals[16][0], "plain_ms": totals[16][1], "bound_ms": k1_bound, "bound_by": k1_by,
         "library_ms": totals[16][2],
-    }] + train_kernels + [k4f, k7]}))
+    }] + train_kernels + [k4f, k7, k4b]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 

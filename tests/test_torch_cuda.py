@@ -15,7 +15,12 @@ from tpu_slu_torch.models.slu import Seq2SeqArch, Seq2SeqDecoder
 from tpu_slu_torch.ops.attention import attention_kv
 from tpu_slu_torch.ops.beam import beam_search_reference
 from tpu_slu_torch.ops.beam_fused import beam_decode
-from tpu_slu_torch.ops.bigru_masked import bigru_masked, bigru_masked_reference
+from tpu_slu_torch.ops.bigru_masked import (
+    bigru_masked,
+    bigru_masked_bwd,
+    bigru_masked_bwd_reference,
+    bigru_masked_reference,
+)
 from tpu_slu_torch.ops.bigru_shared import (
     bigru_shared,
     bigru_shared_bwd,
@@ -397,20 +402,99 @@ def test_k4f_rejects_what_it_does_not_take(dev, fault):
     assert bigru_masked.launches == before
 
 
+# ---------------------------------------------------------------------------
+# K4b: the length-masked bi-GRU backward
+# ---------------------------------------------------------------------------
+
+
+def k4b_inputs(seed, B, T, D, H, dev):
+    """K4f's inputs (lengths holding T and 0, and 1 where B > 2), the
+    forward output of each length vector and a seeded cotangent that is
+    nonzero past each length."""
+    params, x, lengths = k4_inputs(seed, B, T, D, H, dev)
+    if B > 2:
+        lengths[0][1] = 1
+    with torch.inference_mode():
+        outs = [bigru_masked(params, x, n) for n in lengths]
+    rng = np.random.default_rng(seed + 200)
+    dy = torch.from_numpy(rng.standard_normal((B, T, 2 * H)).astype(np.float32)).to(dev)
+    return params, x, lengths, outs, dy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 2, 25, 400])
+@pytest.mark.parametrize("H", [16, 128])
+@pytest.mark.parametrize("B", [1, 3, 8, 64])
+def test_k4b_matches_plain(dev, B, H, T):
+    """dX and the eight weight and bias gradients within 1e-4 of each
+    tensor's largest element (f32 sums over B*T rows in another order); dX
+    exactly 0 past each row's length."""
+    D = 60 if T == 400 else 2 * H
+    params, x, lengths, outs, dy = k4b_inputs(30, B, T, D, H, dev)
+    for n, out in zip(lengths, outs):
+        before = bigru_masked_bwd.launches
+        got = bigru_masked_bwd(params, x, out, n, dy)
+        torch.cuda.synchronize()
+        assert bigru_masked_bwd.launches == before + 1
+        ref = bigru_masked_bwd_reference(params, x, out, n, dy)
+        _assert_grads_close(((got[0],), got[1]), ((ref[0],), ref[1]))
+        for b, nb in enumerate(n.tolist()):
+            assert (got[0][b, nb:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_k4b_weight_gradients_are_deterministic(dev):
+    params, x, (n,), (out,), dy = k4b_inputs(31, 64, 25, 256, 128, dev)
+    a = bigru_masked_bwd(params, x, out, n, dy)
+    b = bigru_masked_bwd(params, x, out, n, dy)
+    assert torch.equal(a[0], b[0])
+    assert all(torch.equal(a[1][d][k], b[1][d][k]) for d in a[1] for k in a[1][d])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("leaf", ["x", "weight"])
-def test_k4f_refuses_a_call_that_needs_its_backward(dev, leaf):
-    params, x, (n,) = k4_inputs(23, 3, 9, 8, 8, dev)
-    if leaf == "x":
-        x.requires_grad_()
+def test_bigru_masked_gradients_match_autograd_of_the_plain_version(dev, leaf):
+    """With grad on, ``bigru_masked`` on the card goes through K4f and K4b
+    (one launch each) and never returns a detached output; its gradients
+    are autograd's of the plain version within 1e-4 of each largest element."""
+    params, x, (n,) = k4_inputs(32, 8, 37, 128, 128, dev)
+    tp, (tx,) = _leaves(params, [x])
+    if leaf == "weight":
+        tx.requires_grad_(False)
+    counts = (bigru_masked.launches, bigru_masked_bwd.launches)
+    out = bigru_masked(tp, tx, n)
+    assert out.grad_fn is not None
+    rp, (rx,) = _leaves(params, [x])
+    ref = bigru_masked_reference(rp, rx, n)
+    cot = torch.from_numpy(np.random.default_rng(33).standard_normal(tuple(ref.shape)).astype(np.float32)).to(dev)
+    out.backward(cot)
+    ref.backward(cot)
+    torch.cuda.synchronize()
+    assert (bigru_masked.launches, bigru_masked_bwd.launches) == (counts[0] + 1, counts[1] + 1)
+    pairs = [(tp[d][k], rp[d][k]) for d in tp for k in tp[d]] + ([(tx, rx)] if leaf == "x" else [])
+    for g, r in pairs:
+        assert _rel_close(g.grad, r.grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["float64_dy", "noncontiguous_dy", "cpu_out", "dy_shape", "n_too_long"])
+def test_k4b_rejects_what_it_does_not_take(dev, fault):
+    params, x, (n,), (out,), dy = k4b_inputs(34, 3, 9, 8, 8, dev)
+    if fault == "float64_dy":
+        dy = dy.double()
+    elif fault == "noncontiguous_dy":
+        dy = dy.transpose(0, 1).contiguous().transpose(0, 1)
+    elif fault == "cpu_out":
+        out = out.cpu()
+    elif fault == "dy_shape":
+        dy = dy[:, :-1].contiguous()
     else:
-        params["fwd"]["weight_hh"].requires_grad_()
-    before = bigru_masked.launches
-    with pytest.raises(NotImplementedError, match="K4b"):
-        bigru_masked(params, x, n)
-    with torch.no_grad():
-        out = bigru_masked(params, x, n)
-    assert out.grad_fn is None and bigru_masked.launches == before + 1
+        n = n.clone()
+        n[1] = 10
+    before = bigru_masked_bwd.launches
+    with pytest.raises((TypeError, ValueError)):
+        bigru_masked_bwd(params, x, out, n, dy)
+    assert bigru_masked_bwd.launches == before
 
 
 @pytest.mark.cuda

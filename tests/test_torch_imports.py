@@ -1,4 +1,4 @@
-"""The PyTorch port decodes (both heads), serves and trains without jax, pandas or any ``tpu_slu`` module.
+"""The PyTorch port decodes, serves and trains (both heads) without jax, pandas or any ``tpu_slu`` module.
 
 Checked in a fresh interpreter: this test process has imported jax already.
 """
@@ -60,7 +60,16 @@ try:
     for name in ("model_state.npz", "vocab.json"):
         shutil.copyfile(os.path.join(golden, name), os.path.join(folder, "training", name))
     wav, _ = read_wav(os.path.join(golden, meta["expected"][0]["wav"]))
-    s2s = [load_trained_model(config, device="cpu").decode_intents(wav)[0], meta["expected"][0]["semantics"]]
+    s2s_model = load_trained_model(config, device="cpu")
+    s2s = [s2s_model.decode_intents(wav)[0], meta["expected"][0]["semantics"]]
+    # one seq2seq train step: one-hot targets and their lengths
+    y = np.eye(len(s2s_model.Sy_intent), dtype=np.float32)[np.full((2, 5), s2s_model.Sy_intent.index("<eos>"))]
+    batch = {"x": np.stack([wav[:4000], wav[-4000:]]), "y_intent": y, "w": np.ones(2, np.float32),
+             "len": np.full(2, 4000), "y_len": np.array([5, 3])}
+    class S2SData:
+        loader = [batch]
+    acc, loss = Trainer(s2s_model, config).train(S2SData())
+    assert np.isfinite(loss) and acc == 0.0
 finally:
     shutil.rmtree(tmp)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pandas", "tpu_slu"))

@@ -277,14 +277,6 @@ def test_length_exact_rows_equal_their_example_alone(pair):
     assert torch.isfinite(scores[:, 3]).all()  # a batch-fill row of length 0
 
 
-def test_seq2seq_training_is_not_ported(pair):
-    tmodel = pair[2]
-    x = np.zeros((1, 4000), np.float32)
-    y = np.zeros((1, 3, len(tmodel.Sy_intent)), np.float32)
-    with pytest.raises(NotImplementedError, match="seq2seq training"):
-        tmodel.forward(x, y)
-
-
 def test_ids_to_string_strips_by_character_set():
     S = SEQ2SEQ_LABELS
     ids = [S.index(c) for c in "ok seen"] + [S.index("<eos>")] * 3

@@ -1,0 +1,291 @@
+// Length-masked bidirectional GRU layer, BACKWARD (K4b), for sm_90a.
+//
+// Replaces the TPU kernel `_fused_bwd_kernel` in tpu_slu/ops/pallas_gru.py:400
+// (`pallas_call` at :525), the custom-VJP backward of the joint bi-GRU
+// (`_bigru_seq_for` :557-605), which seq2seq training reaches through
+// `seq2seq_encode` -> `gru_apply` -> `gru_apply_pallas` -> `_bigru_streams`.
+// It is the VJP of K4f (bigru_masked_fwd.cu): a batch-major input x (B, T,
+// D) whose row b holds n_b valid frames, the layer's output `out` (B, T, 2H)
+// and its cotangent dy (B, T, 2H) -> dX (B, T, D), the sum of both
+// directions' contributions, and dW_ih, db_ih, dW_hh, db_hh of each
+// direction in torch layout. With every n_b = T it is the VJP of the
+// unmasked layer, the one seq2seq training takes.
+//
+// The TPU kernel takes time-flipped copies of x, h_prev and dy for each
+// direction, returns one dX stream per direction, and relies on dy = 0 at
+// the padded steps (pallas_gru.py:420-423). Here nothing is flipped: the
+// blocks compute their own addresses, as K4f's do. Nor is dy trusted: the
+// output past n_b is a constant 0, so a caller's cotangent there is read by
+// no step. The work runs in K3's three phases (bigru_shared_bwd.cu), with
+// K4f's layout (row m = b*T + t) and per-row lengths:
+//   1. Gates (parallel): each direction's h_prev gathered from `out` by
+//      index (out[b, t-1, :H] forward, out[b, t+1, H:] backward, zero at the
+//      direction's first step, t = 0 and t = n_b - 1); gi and gh for all
+//      rows by the tiled projection of bigru_common.cuh; the gate tensor
+//      [gh_n r(1-r), z, n, r] (bigru_bwd_common.cuh). The logistic sigmoid,
+//      as K4f uses.
+//   2. The serial dh chain: one CTA per (batch tile, direction), W_hh in
+//      shared memory; a row's chain walks its valid steps only, the forward
+//      direction's gradient t = n_b-1..0, the backward direction's t =
+//      0..n_b-1. Each step is dh <- dgh W_hh + dh z and writes dgi and dgh;
+//      the CTA then writes exact zeros to both at t >= n_b.
+//   3. Products (bigru_bwd_common.cuh, K3's): dX = sum_dir dgi W_ih into one
+//      tensor; dW_ih = dgi^T x, dW_hh = dgh^T h_prev, db by a column of ones,
+//      over a fixed number of row chunks summed in a fixed order. Padded rows
+//      hold dgi = dgh = 0, so they add exactly 0 to dW and db, and dX there is
+//      exactly 0. No float atomics: repeated runs agree bit for bit.
+//
+// What bounds it on this card: at the seq2seq encoder's layer (B = 64,
+// T = 25, D = 256, H = 128) ~2.8 GFLOP of f32 products, of which the chain
+// holds ~0.3 GFLOP in 2 x 25 serial steps side by side; the rest are the
+// gate recompute and the dX/dW GEMMs, which K3's simple f32 tiles (no tensor
+// cores) run far below the card's peak. What the design does about it:
+// everything without a serial dependence leaves the chain, and the dW
+// reduction splits its 1,600 rows into enough chunks to give the SMs work.
+// f32 operands and accumulation throughout.
+
+#include "bigru_bwd_common.cuh"
+
+namespace {
+
+__device__ __forceinline__ int clamp_len(long long n, int T) {
+  return (int)(n < 0 ? 0 : (n > T ? T : n));
+}
+
+// Phase 1a: hp[dir][b*T + t] = each direction's h_prev at natural t, read
+// from the forward output (B, T, 2H) by index.
+__global__ void masked_hprev_kernel(const float* __restrict__ out,
+                                    const long long* __restrict__ lengths,
+                                    float* __restrict__ hp, int T, int B, int H) {
+  const size_t M = (size_t)B * T;
+  const size_t total = 2 * M * H;
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const int i = (int)(e % H);
+    const size_t row = e / H;  // dir * M + m
+    const int dir = (int)(row / M);
+    const size_t m = row % M;
+    const int b = (int)(m / T), t = (int)(m % T);
+    float v = 0.0f;
+    if (dir == 0) {
+      if (t > 0) v = out[(m - 1) * 2 * H + i];
+    } else if (t + 1 < clamp_len(lengths[b], T)) {
+      v = out[(m + 1) * 2 * H + H + i];
+    }
+    hp[e] = v;
+  }
+}
+
+// Phase 2: one CTA per (batch tile of NB rows, direction), blockDim.x >= 3H.
+// Thread e < NB*H owns element (b, i) of dh through the row's valid steps;
+// thread tid < 3H owns output column j = tid % H of the group g = tid / H of
+// W_hh's rows in the recurrent product dgh W_hh (K3's bwd_chain_kernel).
+// Step s of row b is t = n_b - 1 - s (forward direction) or t = s
+// (backward); a row past its walk idles while the tile's longest finishes.
+template <int NB>
+__global__ void masked_bwd_chain_kernel(const float* __restrict__ gates,  // (2, B*T, 4H)
+                                        const float* __restrict__ hp,     // (2, B*T, H)
+                                        const float* __restrict__ dy,     // (B, T, 2H)
+                                        const long long* __restrict__ lengths,
+                                        const float* __restrict__ whh_f,
+                                        const float* __restrict__ whh_b,
+                                        float* __restrict__ dgi,  // (2, B*T, 3H)
+                                        float* __restrict__ dgh, int T, int B, int H) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int n_s[NB];
+  const int H3 = 3 * H;
+  float* w_s = smem;                // [3H][H], torch layout
+  float* dgh_s = w_s + H3 * H;      // [NB][3H]
+  float* part_s = dgh_s + NB * H3;  // [3][NB][H]
+
+  const int dir = blockIdx.y;
+  const int b0 = blockIdx.x * NB;
+  const int nb = min(NB, B - b0);
+  const size_t M = (size_t)B * T;
+  const float* __restrict__ whh = dir == 0 ? whh_f : whh_b;
+  const float* __restrict__ gd = gates + dir * M * 4 * H;
+  const float* __restrict__ hpd = hp + dir * M * H;
+  const float* __restrict__ dyd = dy + dir * H;
+  float* __restrict__ dgi_d = dgi + dir * M * H3;
+  float* __restrict__ dgh_d = dgh + dir * M * H3;
+  const int tid = threadIdx.x, nt = blockDim.x;
+
+  for (int e = tid; e < H3 * H; e += nt) w_s[e] = whh[e];
+  for (int e = tid; e < NB * H3; e += nt) dgh_s[e] = 0.0f;
+  if (tid < NB) n_s[tid] = tid < nb ? clamp_len(lengths[b0 + tid], T) : 0;
+  constexpr int kIt = (NB + 2) / 3;
+  float dh[kIt];
+#pragma unroll
+  for (int it = 0; it < kIt; ++it) dh[it] = 0.0f;
+  const int g = tid / H, j = tid % H;
+  __syncthreads();
+  int nmax = 0;
+#pragma unroll
+  for (int b = 0; b < NB; ++b) nmax = max(nmax, n_s[b]);
+
+  for (int s = 0; s < nmax; ++s) {
+#pragma unroll
+    for (int it = 0; it < kIt; ++it) {
+      const int e = tid + it * nt;
+      if (e < nb * H) {
+        const int b = e / H, i = e % H, n = n_s[b];
+        if (s < n) {
+          const int t = dir == 0 ? n - 1 - s : s;
+          const size_t row = (size_t)(b0 + b) * T + t;
+          const float* gr = gd + row * 4 * H;
+          const float rfac = gr[i], z = gr[H + i], ng = gr[2 * H + i], r = gr[3 * H + i];
+          const float d = dh[it] + dyd[row * 2 * H + i];
+          const float h_prev = hpd[row * H + i];
+          const float dn = d * (1.0f - z) * (1.0f - ng * ng);
+          const float dz = d * (h_prev - ng) * z * (1.0f - z);
+          const float dr = dn * rfac;
+          const float dnr = dn * r;
+          float* o = dgi_d + row * H3;
+          o[i] = dr;
+          o[H + i] = dz;
+          o[2 * H + i] = dn;
+          o = dgh_d + row * H3;
+          o[i] = dr;
+          o[H + i] = dz;
+          o[2 * H + i] = dnr;
+          float* sd = dgh_s + b * H3;
+          sd[i] = dr;
+          sd[H + i] = dz;
+          sd[2 * H + i] = dnr;
+          dh[it] = d * z;
+        }
+      }
+    }
+    __syncthreads();
+    if (tid < H3) {
+      float acc[NB];
+#pragma unroll
+      for (int b = 0; b < NB; ++b) acc[b] = 0.0f;
+      const float* wcol = w_s + (size_t)g * H * H + j;
+      const float* dg = dgh_s + g * H;
+#pragma unroll 4
+      for (int k = 0; k < H; ++k) {
+        const float wv = wcol[(size_t)k * H];
+#pragma unroll
+        for (int b = 0; b < NB; ++b) acc[b] = fmaf(dg[b * H3 + k], wv, acc[b]);
+      }
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        if (b < nb) part_s[(g * NB + b) * H + j] = acc[b];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int it = 0; it < kIt; ++it) {
+      const int e = tid + it * nt;
+      if (e < nb * H) {
+        const int b = e / H, i = e % H;
+        if (s < n_s[b])
+          dh[it] += part_s[b * H + i] + part_s[(NB + b) * H + i] + part_s[(2 * NB + b) * H + i];
+      }
+    }
+  }
+  // the padded frames t >= n_b of every row of the tile
+  const size_t per_row = (size_t)T * H3;
+  for (size_t e = tid; e < (size_t)nb * per_row; e += nt) {
+    const int b = (int)(e / per_row);
+    const size_t r = e % per_row;
+    if ((int)(r / H3) >= n_s[b]) {
+      const size_t off = (size_t)(b0 + b) * per_row + r;
+      dgi_d[off] = 0.0f;
+      dgh_d[off] = 0.0f;
+    }
+  }
+}
+
+template <int NB>
+cudaError_t launch_masked_chain(const float* gates, const float* hp, const float* dy,
+                                const long long* lengths, const float* whh_f, const float* whh_b,
+                                float* dgi, float* dgh, int T, int B, int H, cudaStream_t st) {
+  const size_t smem = sizeof(float) * ((size_t)3 * H * H + (size_t)NB * 3 * H + (size_t)3 * NB * H);
+  cudaError_t err = cudaFuncSetAttribute(masked_bwd_chain_kernel<NB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int threads = (3 * H + 31) / 32 * 32;
+  dim3 grid((B + NB - 1) / NB, 2);
+  masked_bwd_chain_kernel<NB><<<grid, threads, smem, st>>>(gates, hp, dy, lengths, whh_f, whh_b,
+                                                           dgi, dgh, T, B, H);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Backward of one length-masked bidirectional GRU layer (K4f's VJP). x (B, T,
+// D), out and dy (B, T, 2H) row-major, lengths (B,) int64 (clamped to [0,
+// T]); weights as tsl_bigru_masked_fwd. Outputs, all overwritten: dx (B, T,
+// D), and dW_ih (3H, D), db_ih, dW_hh (3H, H), db_hh of each direction.
+// Scratch: hp 2*B*T*H floats, buf_a and buf_b 2*B*T*3H each, gates
+// 2*B*T*4H, partial as tsl_bigru_shared_bwd_partial_floats(D, H). H must be
+// a multiple of 4. Returns cudaSuccess (0) or the first launch error; does
+// not synchronise.
+int tsl_bigru_masked_bwd(
+    const float* x, int D, const long long* lengths, const float* out, const float* dy,
+    const float* wih_f, const float* bih_f, const float* whh_f, const float* bhh_f,
+    const float* wih_b, const float* bih_b, const float* whh_b, const float* bhh_b,
+    float* dx, float* dwih_f, float* dbih_f, float* dwhh_f, float* dbhh_f,
+    float* dwih_b, float* dbih_b, float* dwhh_b, float* dbhh_b,
+    float* hp, float* buf_a, float* buf_b, float* gates, float* partial,
+    int T, int B, int H, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int M = B * T, H3 = 3 * H;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+
+  // 1. h_prev, gates
+  masked_hprev_kernel<<<grid_for((size_t)2 * M * H, sms), 256, 0, st>>>(out, lengths, hp, T, B, H);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const float* hp_b = hp + (size_t)M * H;
+  err = launch_gi_proj(x, D, nullptr, 0, wih_f, bih_f, wih_b, bih_b, buf_a, M, H3, 2, st);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_gi_proj(hp, H, nullptr, 0, whh_f, bhh_f, nullptr, nullptr, buf_b, M, H3, 1, st);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_gi_proj(hp_b, H, nullptr, 0, whh_b, bhh_b, nullptr, nullptr, buf_b + (size_t)M * H3,
+                       M, H3, 1, st);
+  if (err != cudaSuccess) return (int)err;
+  bwd_gates_kernel<<<grid_for((size_t)2 * M * H, sms), 256, 0, st>>>(
+      buf_a, buf_b, gates, nullptr, nullptr, nullptr, T, B, H, 1, 0, 0u, kKeepAll, 1.0f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  // 2. the serial dh chain; dgi and dgh overwrite gi and gh
+  int nb = 8;
+  err = pick_batch_tile(B, &nb);
+  if (err != cudaSuccess) return (int)err;
+  switch (nb) {
+    case 1:
+      err = launch_masked_chain<1>(gates, hp, dy, lengths, whh_f, whh_b, buf_a, buf_b, T, B, H, st);
+      break;
+    case 2:
+      err = launch_masked_chain<2>(gates, hp, dy, lengths, whh_f, whh_b, buf_a, buf_b, T, B, H, st);
+      break;
+    case 4:
+      err = launch_masked_chain<4>(gates, hp, dy, lengths, whh_f, whh_b, buf_a, buf_b, T, B, H, st);
+      break;
+    default:
+      err = launch_masked_chain<8>(gates, hp, dy, lengths, whh_f, whh_b, buf_a, buf_b, T, B, H, st);
+  }
+  if (err != cudaSuccess) return (int)err;
+
+  // 3. products
+  dim3 xgrid((D + kTile - 1) / kTile, (M + kTile - 1) / kTile);
+  bwd_dx_kernel<<<xgrid, 256, 0, st>>>(buf_a, wih_f, wih_b, dx, D, nullptr, 0, M, H3);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = weight_grads(buf_a, H3, x, nullptr, x, nullptr, D, 0, partial, dwih_f, dbih_f, dwih_b,
+                     dbih_b, M, sms, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)weight_grads(buf_b, H3, hp, nullptr, hp_b, nullptr, H, 0, partial, dwhh_f, dbhh_f,
+                           dwhh_b, dbhh_b, M, sms, st);
+}
+
+}  // extern "C"

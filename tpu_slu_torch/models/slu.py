@@ -1,14 +1,14 @@
 """End-to-end SLU model: encoder + fixed-slot intent head OR seq2seq decoder.
 
-Port of ``tpu_slu/models/slu.py``. The fixed-slot head (bi-GRU + Linear +
-max over time): decode (``Model.decode_intents`` at the input's exact shape,
-or length-exact over a padded batch with ``lengths=``/``bucket=True``) and
-the train surface (``Model.forward``, the loss, the ULMFiT trainable mask).
-The seq2seq head (bi-GRU encoder, attention, stacked GRUCells, beam search):
-decode, exact shape and length-exact; its training is not ported. The
-:class:`Model` module's ``state_dict`` keys are the reference ``Model``'s
-(``pretrained_model.*``, and ``intent_layers.*`` or ``encoder.*`` and
-``decoder.*``).
+Port of ``tpu_slu/models/slu.py``. Both heads decode (``Model.decode_intents``
+at the input's exact shape, or length-exact over a padded batch with
+``lengths=``/``bucket=True``) and train (``Model.forward``/``loss``, the
+ULMFiT trainable mask): the fixed-slot head (bi-GRU + Linear + max over
+time) and the seq2seq head (bi-GRU encoder, attention, stacked GRUCells;
+beam search to decode, the teacher-forced :func:`seq2seq_log_prob` to
+train). The :class:`Model` module's ``state_dict`` keys are the reference
+``Model``'s (``pretrained_model.*``, and ``intent_layers.*`` or
+``encoder.*`` and ``decoder.*``).
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from tpu_slu_torch.models.encoder import (
     PartsTM,
     PretrainedModel,
     apply_stack,
+    dropout,
     encoder_features,
     frames_through,
     make_layer,
@@ -38,9 +39,11 @@ from tpu_slu_torch.models.encoder import (
     parts_to_btc,
     rnn_block_specs,
 )
-from tpu_slu_torch.ops.attention import attention_kv
+from tpu_slu_torch.ops.attention import attend_kv, attention_kv
+from tpu_slu_torch.ops.beam import decoder_cells
 from tpu_slu_torch.ops.beam_fused import beam_decode
 from tpu_slu_torch.ops.bigru_masked import bigru_masked
+from tpu_slu_torch.ops.gru import gru_cell_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,9 +150,12 @@ def intent_predictions(logits: torch.Tensor, values_per_slot) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class Seq2SeqArch:
     """The seq2seq head's widths. ``max_decode_len`` is the beam search's
-    fixed step count (the reference's true_U); ``dropout`` and
-    ``zeros_start`` are the JAX package's training knobs, kept for its
-    config surface (training is not ported)."""
+    fixed step count (the reference's true_U). Training knobs of the JAX
+    package's config: ``dropout`` (``seq2seq_dropout``, 0.5 as the reference
+    hardcodes) after each encoder layer and between the decoder's cells;
+    ``zeros_start`` (``seq2seq_zeros_start``) feeds step 0 of teacher
+    forcing the zeros vector beam search feeds, where the reference feeds a
+    one-hot ``<sos>``."""
 
     num_labels: int
     num_encoder_layers: int
@@ -238,18 +244,69 @@ class Seq2SeqDecoder(nn.Module):
 
 
 def seq2seq_encode(encoder: Seq2SeqEncoder, arch: Seq2SeqArch, feats: torch.Tensor,
-                   n_frames: torch.Tensor | None = None) -> torch.Tensor:
-    """The encoder's bi-GRU layers over feats (B, T, C), eval mode.
-    ``n_frames`` (B,) valid frames select the length-exact path; without it
-    every row has T. Each layer is :func:`bigru_masked` (K4f on the card,
-    the TPU's route too; its plain version on the CPU)."""
+                   n_frames: torch.Tensor | None = None, *, train: bool = False,
+                   generator: torch.Generator | None = None) -> torch.Tensor:
+    """The encoder's bi-GRU layers over feats (B, T, C). ``n_frames`` (B,)
+    valid frames select the length-exact path; without it every row has T.
+    Each layer is :func:`bigru_masked` (K4f forward and K4b backward on the
+    card, the TPU's route too; their plain versions on the CPU). ``train``
+    applies dropout of rate ``arch.dropout`` after each layer (JAX
+    ``slu.py:251-255``), its masks drawn from ``generator``."""
     B, T, _ = feats.shape
     n = n_frames if n_frames is not None else torch.full((B,), T, dtype=torch.int64,
                                                          device=feats.device)
     out = feats
     for idx in range(arch.num_encoder_layers):
         out = bigru_masked(encoder.layers[3 * idx].params(), out.contiguous(), n)
+        if train and arch.dropout > 0.0:
+            out = dropout(out, arch.dropout, generator)
     return out
+
+
+def seq2seq_log_prob(encoder: Seq2SeqEncoder, decoder: Seq2SeqDecoder, arch: Seq2SeqArch,
+                     feats: torch.Tensor, y_onehot: torch.Tensor, *, train: bool = False,
+                     generator: torch.Generator | None = None,
+                     enc_mask: torch.Tensor | None = None,
+                     num_steps: torch.Tensor | None = None) -> torch.Tensor:
+    """Teacher-forced log p(y|x) per example, (B,): the batched path of JAX
+    ``seq2seq_log_prob`` (``slu.py:289-356``) in plain PyTorch.
+
+    ``y_onehot`` (B, U, L) are the EOS-padded one-hot targets. Step u embeds
+    y_{u-1}, and step 0 ``<sos>`` one-hot (the zeros vector with
+    ``arch.zeros_start``), all up front; the serial loop holds only the
+    attention read and the stacked GRUCells, with dropout between the cells
+    when training (masks from ``generator``, after the encoder's); one
+    output projection and one log-softmax follow it. ``enc_mask`` (B, T)
+    marks the encoder frames attention sees; ``num_steps`` (a 0-d tensor)
+    leaves steps u >= num_steps out of the sum.
+    """
+    keys, values = attention_kv(decoder.attention,
+                                seq2seq_encode(encoder, arch, feats, train=train, generator=generator))
+    B, U, L = y_onehot.shape
+    if arch.zeros_start:
+        y_sos = y_onehot.new_zeros((B, L))
+    else:
+        y_sos = F.one_hot(torch.full((B,), arch.sos, device=y_onehot.device), L).to(y_onehot.dtype)
+    y_prev = torch.cat([y_sos[:, None], y_onehot[:, :-1]], dim=1)
+    embs = F.linear(y_prev, decoder.embed.weight, decoder.embed.bias)  # (B, U, E)
+    cells = decoder_cells(decoder)
+    states = list(decoder.initial_state[None].expand((B,) + tuple(decoder.initial_state.shape)).unbind(1))
+    tops = []
+    for u in range(U):
+        h_in = torch.cat([embs[:, u], attend_kv(decoder.attention, keys, values, states[-1],
+                                                mask=enc_mask)], dim=1)
+        for li, cell in enumerate(cells):
+            states[li] = gru_cell_step(cell, h_in, states[li])
+            h_in = states[li]
+            # JAX also draws a mask after the top cell; its output is never read
+            if train and arch.dropout > 0.0 and li + 1 < len(cells):
+                h_in = dropout(h_in, arch.dropout, generator)
+        tops.append(states[-1])
+    logits = F.linear(torch.stack(tops, dim=1), decoder.linear.weight, decoder.linear.bias)
+    step_lp = (F.log_softmax(logits, dim=2) * y_onehot).sum(dim=2)  # (B, U)
+    if num_steps is not None:
+        step_lp = torch.where(torch.arange(U, device=step_lp.device)[None, :] < num_steps, step_lp, 0.0)
+    return step_lp.sum(dim=1)
 
 
 def seq2seq_beam_infer(encoder: Seq2SeqEncoder, decoder: Seq2SeqDecoder, arch: Seq2SeqArch,
@@ -371,20 +428,34 @@ class Model(nn.Module):
 
     def loss(self, x: torch.Tensor, y_intent: torch.Tensor, *, train: bool,
              weights: torch.Tensor | None = None, lengths: torch.Tensor | None = None,
-             generator: torch.Generator | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+             generator: torch.Generator | None = None,
+             y_len: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         """(loss, acc) of a batch on the model's device: the JAX Trainer's
-        loss (``trainer.py:280-297``). ``lengths`` (B,) sample counts leave
-        the frames of batch padding out of the max over time when the
-        config's ``mask_padding`` is on; ``weights`` (B,) weight the mean.
-        Fixed-slot head only: seq2seq training (``seq2seq_log_prob``, and
-        K4b, the encoder's backward on the card) is a later slice."""
-        if self.seq2seq:
-            raise NotImplementedError(
-                "seq2seq training is not ported: it comes with the seq2seq training slice "
-                "(seq2seq_log_prob and K4b, the TPU's _fused_bwd_kernel); this model decodes only")
+        loss (``trainer.py:280-326``), the mean over the examples weighted by
+        ``weights`` (B,) (all ones by default). ``lengths`` (B,) sample
+        counts leave the frames of batch padding out when the config's
+        ``mask_padding`` is on: out of the max over time (fixed-slot), out of
+        attention (seq2seq).
+
+        Fixed-slot: ``y_intent`` (B, n_slots) int, the per-slot cross-entropy
+        and the all-slots-correct accuracy. Seq2seq: ``y_intent`` (B, U, L)
+        one-hot targets, ``-log p(y|x)`` of :func:`seq2seq_log_prob` with
+        the steps past ``max(y_len)`` masked when ``y_len`` (B,) is given,
+        and an accuracy of 0 (the JAX Trainer's; ``Trainer.test`` adds the
+        decode's exact match). Its encoder layer runs unmasked (n = T), as
+        the JAX train path runs it."""
         feats = encoder_features(self.pretrained_model, x, train=train, generator=generator)
+        mask_padding = getattr(self.config, "mask_padding", True) and lengths is not None
+        if self.seq2seq:
+            enc_mask = (frame_mask_from_lengths(self.encoder_arch, lengths, feats.shape[1])
+                        if mask_padding else None)
+            log_p = seq2seq_log_prob(self.encoder, self.decoder, self.seq2seq_arch, feats, y_intent,
+                                     train=train, generator=generator, enc_mask=enc_mask,
+                                     num_steps=None if y_len is None else y_len.max())
+            w = log_p.new_ones(log_p.shape[0]) if weights is None else weights.to(log_p.dtype)
+            return -(log_p * w).sum() / torch.clamp(w.sum(), min=1.0), log_p.new_zeros(())
         fm = None
-        if getattr(self.config, "mask_padding", True) and lengths is not None:
+        if mask_padding:
             t_out = frames_through(self.intent_arch.layers, feats.shape[1])
             fm = frame_mask_from_lengths(self.encoder_arch, lengths, t_out, self.intent_arch)
         logits = intent_logits(self.intent_layers, self.intent_arch, feats, frame_mask=fm,
@@ -392,10 +463,12 @@ class Model(nn.Module):
         return intent_loss_acc(logits, y_intent, self.values_per_slot, weights)
 
     def forward(self, x, y_intent, training: bool = False, *, weights=None, lengths=None,
-                generator: torch.Generator | None = None):
+                y_len=None, generator: torch.Generator | None = None):
         """(loss, acc) for a batch (reference ``Model.forward``). ``training``
         applies dropout, its masks and seeds drawn from ``generator`` (the
-        model's own, seeded with the config's seed, by default)."""
+        model's own, seeded with the config's seed, by default). Without
+        ``weights``, ``lengths`` and ``y_len`` the seq2seq loss is JAX
+        ``forward``'s, ``-log_p.mean()``."""
         dev = self.device
 
         def put(a, dtype):
@@ -403,8 +476,9 @@ class Model(nn.Module):
                                                           dtype=dtype, device=dev)
 
         x = put(x, torch.float32)
-        return self.loss(x, put(y_intent, torch.int64), train=training,
+        return self.loss(x, put(y_intent, torch.float32 if self.seq2seq else torch.int64), train=training,
                          weights=put(weights, torch.float32), lengths=put(lengths, torch.int64),
+                         y_len=put(y_len, torch.int64),
                          generator=(generator or self._generator) if training else None)
 
     # -- freezing (reference models.py:738-795) -------------------------------
@@ -517,3 +591,8 @@ class Model(nn.Module):
         """Token ids -> string, with the reference's strip quirk:
         ``.lstrip("<sos>").rstrip("<eos>")`` strips by character set."""
         return "".join(S[int(c)] for c in ids).lstrip("<sos>").rstrip("<eos>")
+
+    @staticmethod
+    def one_hot_to_string(one_hot_seq, S) -> str:
+        """One-hot targets (U, L) -> string, as :meth:`ids_to_string`."""
+        return Model.ids_to_string(np.asarray(one_hot_seq).argmax(axis=-1), S)

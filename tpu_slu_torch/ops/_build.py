@@ -38,6 +38,8 @@ _SIGNATURES = {
                              + [_P] * 5 + [_I] * 5 + [_U, _U, _F, _P]),
     "tsl_bigru_shared_bwd_partial_floats": (ctypes.c_longlong, [_I, _I]),
     "tsl_bigru_masked_fwd": (_I, [_P, _I, _P] + [_P] * 8 + [_P] * 2 + [_I] * 3 + [_P]),
+    "tsl_bigru_masked_bwd": (_I, [_P, _I, _P, _P, _P] + [_P] * 8 + [_P] * 9 + [_P] * 5 + [_I] * 3
+                             + [_P]),
     "tsl_beam_decode": (_I, [_P] * 13 + [_I] * 9 + [_P]),
     "tsl_beam_decode_smem_bytes": (ctypes.c_longlong, [_I] * 8),
     "tsl_error_string": (ctypes.c_char_p, [_I]),

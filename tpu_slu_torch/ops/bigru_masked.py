@@ -1,15 +1,24 @@
-"""Length-masked bidirectional GRU layer (K4f): the kernel's wrapper and its plain version.
+"""Length-masked bidirectional GRU layer: K4f and K4b, their wrappers, plain versions and autograd.
 
 Port of the length-exact path's bi-GRU, ``gru_apply_masked`` of
 ``tpu_slu/ops/gru.py``, which on the TPU runs the joint kernel
-``_fused_fwd_kernel`` (``tpu_slu/ops/pallas_gru.py:323``). Batch-major, as
-the JAX function: x (B, T, D) and valid lengths n (B,) -> (B, T, 2H), each
-row equal to the layer on that example alone at T = n_b, zeros at t >= n_b.
+``_fused_fwd_kernel`` (``tpu_slu/ops/pallas_gru.py:323``) and, in training,
+its VJP ``_fused_bwd_kernel`` (``:400``). Batch-major, as the JAX function:
+x (B, T, D) and valid lengths n (B,) -> (B, T, 2H), each row equal to the
+layer on that example alone at T = n_b, zeros at t >= n_b. With every
+n_b = T it is the unmasked ``gru_apply`` of the seq2seq encoder.
 
-:func:`bigru_masked` launches ``csrc/bigru_masked_fwd.cu`` on a CUDA tensor,
-counted on ``bigru_masked.launches``, and runs :func:`bigru_masked_reference`
-on a CPU tensor. The kernel has no backward yet (that is K4b, the TPU's
-``_fused_bwd_kernel``): on CUDA, a call that would need a gradient raises.
+Each kernel has a wrapper, which launches it on a CUDA tensor and runs its
+plain PyTorch version on a CPU tensor, and keeps a count of its launches:
+
+* K4f, the forward: :func:`bigru_masked_fwd`, counted on
+  ``bigru_masked.launches`` (``csrc/bigru_masked_fwd.cu``);
+* K4b, the backward: :func:`bigru_masked_bwd`, counted on
+  ``bigru_masked_bwd.launches`` (``csrc/bigru_masked_bwd.cu``).
+
+:func:`bigru_masked` routes a call through a ``torch.autograd.Function``
+whose forward and backward are those wrappers whenever a gradient is needed,
+on either device.
 """
 
 from __future__ import annotations
@@ -28,11 +37,68 @@ _NAMES = ("weight_ih", "bias_ih", "weight_hh", "bias_hh")
 bigru_masked_reference = gru_apply_masked
 
 
-def _check_cuda(params: dict, x: torch.Tensor, n: torch.Tensor) -> tuple[int, int, int, int]:
+def bigru_masked_bwd_reference(params: dict, x: torch.Tensor, out: torch.Tensor, n: torch.Tensor,
+                               dy: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """K4b's function in plain PyTorch, written out as the kernel computes it
+    (``pallas_gru.py:400-503``): the gates recomputed from x and each
+    direction's h_prev, the serial dh chain of each direction, then dX and
+    the weight gradients.
+
+    ``out`` (B, T, 2H) is the forward output of :func:`bigru_masked`; each
+    direction's h_prev is read from it, ``out[:, t-1, :H]`` (forward) and
+    ``out[:, t+1, H:]`` (backward), zero at the direction's first step (t = 0
+    and t = n_b - 1). ``dy`` (B, T, 2H) is the cotangent; at t >= n_b the
+    output is a constant 0, so ``dy`` there is ignored and dX there is 0.
+    Returns ``(dx (B, T, D), grads)``, ``grads`` keyed like ``params``.
+    """
+    B, T, D = x.shape
+    H = params["fwd"]["weight_hh"].shape[1]
+    t = torch.arange(T, device=x.device)
+    valid = (t[None, :] < n.to(x.device)[:, None])[:, :, None]  # (B, T, 1)
+    zero = out.new_zeros((B, 1, H))
+    hps = {"fwd": torch.cat([zero, out[:, :-1, :H]], dim=1),
+           "bwd": torch.where((t[None, :] + 1 < n.to(x.device)[:, None])[:, :, None],
+                              torch.cat([out[:, 1:, H:], zero], dim=1), 0.0)}
+    xf = x.reshape(B * T, D)
+    dx = 0.0
+    grads = {}
+    for k, name in enumerate(_DIRS):
+        p, hp = params[name], hps[name]
+        gi = torch.matmul(x, p["weight_ih"].t()) + p["bias_ih"]
+        gh = torch.matmul(hp, p["weight_hh"].t()) + p["bias_hh"]
+        rz = torch.sigmoid(gi[..., :2 * H] + gh[..., :2 * H])
+        r, z = rz[..., :H], rz[..., H:]
+        gh_n = gh[..., 2 * H:]
+        ng = torch.tanh(gi[..., 2 * H:] + r * gh_n)
+        rfac = gh_n * r * (1.0 - r)
+        dyd = torch.where(valid, dy[..., k * H:(k + 1) * H], 0.0)
+        dgi = torch.empty_like(gi)
+        dh = x.new_zeros((B, H))
+        # the forward direction's gradient walks t = T-1..0, the backward's 0..T-1; a row
+        # takes part at its valid steps only (its walk starts at t = n_b - 1 and 0)
+        for s in (range(T - 1, -1, -1) if name == "fwd" else range(T)):
+            v = valid[:, s]
+            d = dh + dyd[:, s]
+            dn = d * (1.0 - z[:, s]) * (1.0 - ng[:, s] * ng[:, s])
+            dz = d * (hp[:, s] - ng[:, s]) * z[:, s] * (1.0 - z[:, s])
+            dr = dn * rfac[:, s]
+            dgi[:, s] = torch.where(v, torch.cat([dr, dz, dn], dim=-1), 0.0)
+            dgh_s = torch.cat([dr, dz, dn * r[:, s]], dim=-1)
+            dh = torch.where(v, torch.matmul(dgh_s, p["weight_hh"]) + d * z[:, s], 0.0)
+        dgh = torch.cat([dgi[..., :2 * H], dgi[..., 2 * H:] * r], dim=-1).reshape(B * T, 3 * H)
+        dgi = dgi.reshape(B * T, 3 * H)
+        dx = dx + torch.matmul(dgi, p["weight_ih"])
+        grads[name] = {"weight_ih": torch.matmul(dgi.t(), xf), "bias_ih": dgi.sum(0),
+                       "weight_hh": torch.matmul(dgh.t(), hp.reshape(B * T, H)),
+                       "bias_hh": dgh.sum(0)}
+    return dx.reshape(B, T, D), grads
+
+
+def _check_cuda(params: dict, x: torch.Tensor, n: torch.Tensor, extra=()) -> tuple[int, int, int, int]:
     if x.dim() != 3:
         raise ValueError(f"bigru_masked: x has shape {tuple(x.shape)}, want (B, T, D)")
     B, T, D = x.shape
-    tensors = [("x", x)] + [(f"{d}.{k}", params[d][k]) for d in _DIRS for k in _NAMES]
+    tensors = [("x", x)] + [(f"{d}.{k}", params[d][k]) for d in _DIRS for k in _NAMES] + list(extra)
     for name, t in tensors:
         if t.device != x.device:
             raise ValueError(f"bigru_masked: {name} is on {t.device}, x on {x.device}")
@@ -47,6 +113,9 @@ def _check_cuda(params: dict, x: torch.Tensor, n: torch.Tensor) -> tuple[int, in
             if tuple(params[d][k].shape) != shape:
                 raise ValueError(f"bigru_masked: {d}.{k} has shape {tuple(params[d][k].shape)}, "
                                  f"want {shape}")
+    for name, t in extra:
+        if tuple(t.shape) != (B, T, 2 * H):
+            raise ValueError(f"bigru_masked: {name} has shape {tuple(t.shape)}, want {(B, T, 2 * H)}")
     if T < 1 or B < 1 or H % 4 != 0:
         raise ValueError(f"bigru_masked: kernel needs T, B >= 1 and H % 4 == 0 (T={T}, B={B}, H={H})")
     if 2 * B * T * 3 * H >= 2**31 or B * T * max(D, 2 * H) >= 2**31:
@@ -63,34 +132,39 @@ def _check_cuda(params: dict, x: torch.Tensor, n: torch.Tensor) -> tuple[int, in
     return B, T, D, H
 
 
-def bigru_masked(params: dict, x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+def _device_of(x: torch.Tensor) -> torch.device:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"bigru_masked runs on cpu or cuda tensors, not {x.device}")
+    return x.device
+
+
+def _weights(params: dict) -> list[torch.Tensor]:
+    return [params[d][k] for d in _DIRS for k in _NAMES]
+
+
+def _params(weights) -> dict:
+    return {d: dict(zip(_NAMES, weights[4 * k:4 * k + 4])) for k, d in enumerate(_DIRS)}
+
+
+def bigru_masked_fwd(params: dict, x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     """K4f: ``(B, T, 2H)`` as :func:`bigru_masked_reference`.
 
     ``params``: ``{"fwd": d, "bwd": d}``, ``d`` holding ``weight_ih`` (3H,
     D), ``weight_hh`` (3H, H), ``bias_ih`` and ``bias_hh`` (3H,), torch
     layout. CPU tensors take the plain version. CUDA tensors launch the
     kernel on the current stream without synchronising (the range check of
-    ``n`` reads it on the host); anything the kernel does not take raises,
-    and so does a call with grad mode on and an input or weight that
-    requires grad, since the kernel's backward (K4b) is not ported.
+    ``n`` reads it on the host); anything the kernel does not take raises.
+    Records no autograd graph on CUDA.
     """
-    if x.device.type == "cpu":
+    if _device_of(x).type == "cpu":
         return bigru_masked_reference(params, x, n)
-    if x.device.type != "cuda":
-        raise ValueError(f"bigru_masked runs on cpu or cuda tensors, not {x.device}")
-    weights = [params[d][k] for d in _DIRS for k in _NAMES]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *weights)):
-        raise NotImplementedError(
-            "bigru_masked on CUDA has no backward: K4b (the TPU's _fused_bwd_kernel, "
-            "tpu_slu/ops/pallas_gru.py:400) is not ported; call it under torch.no_grad() or "
-            "torch.inference_mode()")
     B, T, D, H = _check_cuda(params, x, n)
     lib = _build.library()
     lengths = n.to(torch.int64).contiguous()
     gi = torch.empty((2, B, T, 3 * H), device=x.device, dtype=torch.float32)
     out = torch.empty((B, T, 2 * H), device=x.device, dtype=torch.float32)
     err = lib.tsl_bigru_masked_fwd(
-        x.data_ptr(), D, lengths.data_ptr(), *[t.data_ptr() for t in weights],
+        x.data_ptr(), D, lengths.data_ptr(), *[t.data_ptr() for t in _weights(params)],
         gi.data_ptr(), out.data_ptr(), T, B, H, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, f"bigru_masked (B={B}, T={T}, H={H})")
@@ -98,4 +172,78 @@ def bigru_masked(params: dict, x: torch.Tensor, n: torch.Tensor) -> torch.Tensor
     return out
 
 
-bigru_masked.launches = 0  # wrapper calls that launched K4f
+def bigru_masked_bwd(params: dict, x: torch.Tensor, out: torch.Tensor, n: torch.Tensor,
+                     dy: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """K4b: ``(dx, grads)`` as :func:`bigru_masked_bwd_reference`.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel on the
+    current stream without synchronising, and anything the kernel does not
+    take raises. The weight gradients are summed in a fixed order, so
+    repeated calls on one card agree bit for bit.
+    """
+    if _device_of(x).type == "cpu":
+        return bigru_masked_bwd_reference(params, x, out, n, dy)
+    B, T, D, H = _check_cuda(params, x, n, [("out", out), ("dy", dy)])
+    lib = _build.library()
+    lengths = n.to(torch.int64).contiguous()
+
+    def empty(*shape):
+        return torch.empty(shape, device=x.device, dtype=torch.float32)
+
+    dx = empty(B, T, D)
+    grads = {d: {"weight_ih": empty(3 * H, D), "bias_ih": empty(3 * H),
+                 "weight_hh": empty(3 * H, H), "bias_hh": empty(3 * H)} for d in _DIRS}
+    hp, gates = empty(2, B, T, H), empty(2, B, T, 4 * H)
+    buf_a, buf_b = empty(2, B, T, 3 * H), empty(2, B, T, 3 * H)
+    partial = empty(lib.tsl_bigru_shared_bwd_partial_floats(D, H))
+    err = lib.tsl_bigru_masked_bwd(
+        x.data_ptr(), D, lengths.data_ptr(), out.data_ptr(), dy.data_ptr(),
+        *[t.data_ptr() for t in _weights(params)],
+        dx.data_ptr(), *[grads[d][k].data_ptr() for d in _DIRS for k in _NAMES],
+        hp.data_ptr(), buf_a.data_ptr(), buf_b.data_ptr(), gates.data_ptr(), partial.data_ptr(),
+        T, B, H, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(err, f"bigru_masked_bwd (B={B}, T={T}, H={H})")
+    bigru_masked_bwd.launches += 1
+    return dx, grads
+
+
+bigru_masked_bwd.launches = 0  # wrapper calls that launched K4b
+
+
+class _MaskedCore(torch.autograd.Function):
+    """The layer under autograd (``_bigru_seq_for``'s custom VJP): K4f
+    forward, saving x, n, the output and the weights; K4b backward, h_prev
+    read from the saved output. ``n`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, n, *weights):
+        out = bigru_masked_fwd(_params(weights), x, n)
+        ctx.save_for_backward(x, n, out, *weights)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, n, out, *weights = ctx.saved_tensors
+        dx, grads = bigru_masked_bwd(_params(weights), x, out, n, dy.contiguous())
+        return (dx, None, *_weights(grads))
+
+
+def bigru_masked(params: dict, x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """The layer, ``(B, T, 2H)`` as :func:`bigru_masked_reference`.
+
+    Whenever grad mode is on and x or a weight requires grad, the call goes
+    through an autograd Function whose forward is K4f's wrapper and whose
+    backward is K4b's (on a CPU tensor, their plain versions); otherwise
+    K4f's wrapper is called alone, as decode under
+    ``torch.inference_mode()`` does. On CUDA it never returns a detached
+    output of a call that needs a gradient.
+    """
+    _device_of(x)
+    weights = _weights(params)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *weights)):
+        return _MaskedCore.apply(x, n, *weights)
+    return bigru_masked_fwd(params, x, n)
+
+
+bigru_masked.launches = 0  # wrapper calls that launched K4f (bigru_masked_fwd)

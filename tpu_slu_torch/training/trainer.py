@@ -1,15 +1,18 @@
-"""Training engine of the fixed-slot SLU model, on one device.
+"""Training engine of the SLU models (fixed-slot and seq2seq), on one device.
 
-Port of the fixed-slot SLU branch of ``tpu_slu/training/trainer.py``: masked
-Adam over the ULMFiT schedule, per-epoch train and test passes over a
-dataset's batches, a ``log.csv`` row per pass with the JAX Trainer's columns,
-and ``unfreeze_one_layer()`` at the end of each training epoch.
+Port of the SLU branch of ``tpu_slu/training/trainer.py``: masked Adam over
+the ULMFiT schedule, per-epoch train and test passes over a dataset's
+batches, a ``log.csv`` row per pass with the JAX Trainer's columns, and
+``unfreeze_one_layer()`` at the end of each training epoch. For a seq2seq
+model the test pass adds, from epoch ``decode_acc_from_epoch`` on (default
+2), the exact-match accuracy of beam-search decodes against the targets.
 
 A dataset is anything whose ``.loader`` yields batches in the JAX package's
-``BatchLoader`` format: dicts of numpy arrays ``x`` (B, T) float32,
-``y_intent`` (B, n_slots) int, ``w`` (B,) float32 (1 for a real example, 0
-for batch padding) and ``len`` (B,) sample counts. The port has no data
-pipeline of its own yet.
+``BatchLoader`` format: dicts of numpy arrays ``x`` (B, T) float32, ``w``
+(B,) float32 (1 for a real example, 0 for batch padding), ``len`` (B,)
+sample counts, and ``y_intent``: (B, n_slots) int for the fixed-slot model;
+(B, U, L) float32 one-hot targets for the seq2seq model, with ``y_len``
+(B,) their true lengths. The port has no data pipeline of its own yet.
 """
 
 from __future__ import annotations
@@ -81,13 +84,14 @@ def write_log_csv(path: str, rows: list[dict]) -> None:
 
 class Trainer:
     """``Trainer(model, config).train(dataset)`` / ``.test(dataset)`` for the
-    fixed-slot :class:`~tpu_slu_torch.models.slu.Model`, on the device the
-    model lies on. Dropout masks and seeds come from ``generator`` (a CPU
-    generator seeded with the config's seed by default)."""
+    SLU :class:`~tpu_slu_torch.models.slu.Model` (either head), on the
+    device the model lies on. Dropout masks and seeds come from
+    ``generator`` (a CPU generator seeded with the config's seed by
+    default)."""
 
     def __init__(self, model: Model, config, generator: torch.Generator | None = None):
         if not isinstance(model, Model):
-            raise NotImplementedError("the port's Trainer trains the fixed-slot SLU Model only")
+            raise NotImplementedError("the port's Trainer trains the SLU Model only")
         self.model = model
         self.config = config
         self.lr = config.training_lr
@@ -101,7 +105,8 @@ class Trainer:
         self.optimizer = MaskedAdam(model.named_parameters(), self.lr)
 
     def _to_device(self, batch: dict) -> dict:
-        dtypes = {"x": torch.float32, "y_intent": torch.int64, "w": torch.float32, "len": torch.int64}
+        dtypes = {"x": torch.float32, "y_intent": torch.float32 if self.model.seq2seq else torch.int64,
+                  "w": torch.float32, "len": torch.int64, "y_len": torch.int64}
         return {k: torch.as_tensor(np.asarray(batch[k]), dtype=dt).to(self.device, non_blocking=True)
                 for k, dt in dtypes.items() if k in batch}
 
@@ -115,7 +120,8 @@ class Trainer:
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         loss, acc = self.model.loss(batch["x"], batch["y_intent"], train=True, weights=batch["w"],
-                                    lengths=batch.get("len"), generator=self.generator)
+                                    lengths=batch.get("len"), y_len=batch.get("y_len"),
+                                    generator=self.generator)
         loss.backward()
         clip_grad_norm(self.model.parameters(), self.clip)
         self.optimizer.step()
@@ -156,16 +162,33 @@ class Trainer:
 
     @torch.no_grad()
     def test(self, dataset, log_set: str = "valid"):
-        """Loss and accuracy without dropout; returns (intent_acc, intent_loss)."""
+        """Loss and accuracy without dropout; returns (intent_acc, intent_loss).
+        A seq2seq model's accuracy is the exact match of
+        ``decode_intents(x, lengths=len)`` against the targets' strings, from
+        epoch ``decode_acc_from_epoch`` (default 2) on, and 0 before it
+        (JAX ``trainer.py:584-624``)."""
         self.model.eval()
         total_loss = total_acc = 0.0
         num_examples = 0.0
-        for bs, batch in self._batches(dataset):
+        decode = self.model.seq2seq and self.epoch >= getattr(self.config, "decode_acc_from_epoch", 2)
+        for idx, (bs, batch) in enumerate(self._batches(dataset)):
             num_examples += bs
             loss, acc = self.model.loss(batch["x"], batch["y_intent"], train=False,
-                                        weights=batch["w"], lengths=batch.get("len"))
+                                        weights=batch["w"], lengths=batch.get("len"),
+                                        y_len=batch.get("y_len"))
             total_loss = total_loss + loss * bs
             total_acc = total_acc + acc * bs
+            if decode:
+                n_real = int(bs)
+                guesses = np.array(self.model.decode_intents(batch["x"], lengths=batch.get("len"))[:n_real])
+                y_host = batch["y_intent"][:n_real].cpu().numpy()
+                truths = np.array([self.model.one_hot_to_string(y, self.model.Sy_intent) for y in y_host])
+                match = float((guesses == truths).mean())
+                total_acc = total_acc + match * bs
+                print(f"decoding batch {idx}")
+                print(f"acc: {match}")
+                print(f"guess: {guesses[0]}")
+                print(f"truth: {truths[0]}")
         results = {
             "intent_loss": _weighted_mean(float(total_loss), num_examples),
             "intent_acc": _weighted_mean(float(total_acc), num_examples),
