@@ -25,7 +25,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    flagship layer shapes; the pooled eval path's gradients against autograd
    of the plain version; one whole train step on the card against the CPU
    plain path (the sinc parameters' gradients, sums over every sample,
-   against an f64 CPU reference of the step, each side's error printed);
+   against an f64 CPU step that replays the card's front-end branches,
+   leaky ReLU signs and max-pool argmaxes, each side's error printed);
    ``Trainer(model, config).train(dataset)`` over seeded
    synthetic batches of B = 64 with 4 K2, 1 K1 and 5 K3 launches per step,
    then ``Trainer.test``; warm timings of the train step and of K2 and K3
@@ -42,17 +43,17 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    decode against the exact-shape B = 8 decode, and the served latency;
 8. seq2seq decode and serving at the width of ``all_real_seq2seq.cfg``:
    ``[k7]`` K7 (the fused beam search) against its plain version at the
-   flagship decoder (B = 1, 16, and 8 with mixed valid frames), the golden
-   decoder, an odd small one and W = 1, tokens equal (on a mismatch, the
-   plain version's best extensions at the first step that differs) and
-   scores within rtol 1e-5 atol 1e-4; ``[golden-s2s]`` the six golden
+   flagship decoder (B = 1, 16, and 8 with mixed valid frames; 30 s, 188
+   frames, at B = 1 and 4, and an odd T of 171; W = 9 and 16), the golden
+   decoder, an odd small one and W = 1, tokens equal (a row that differs
+   must part at a tie within f32 rounding) and scores within rtol 1e-5
+   atol 1e-4; ``[golden-s2s]`` the six golden
    seq2seq wavs exact on the card with one K7 launch a decode and no plain
    search, also through an ``IntentServer`` and over HTTP; ``[s2s]`` the
-   flagship seq2seq decode at B = 1 and 16 against the CPU plain path (beam-0
-   tokens equal, scores within 1e-3 relative), and a length-exact (8, 4 s)
-   decode whose rows equal their exact-shape decodes; ``[time]`` K7 against
-   its plain version and bound at B = 1 and 16, the warm decode, its device
-   time by kernel; ``[serve]`` the seq2seq ``IntentServer`` with the traffic
+   flagship seq2seq decode at B = 1 and 16 and on 30 s of audio against the CPU plain path (beam-0 tokens equal, scores
+   within 1e-3 relative), and a length-exact (8, 4 s) decode whose rows
+   equal their exact-shape decodes; ``[time]`` K7 against its plain
+   version and bound at B = 1 and 16 on 4 s and 30 s, the warm decode, its device time by kernel; ``[serve]`` the seq2seq ``IntentServer`` with the traffic
    of phase 7, one K7 and five K4f launches per device call, p50/p90;
 9. seq2seq train step at the width of ``all_real_seq2seq.cfg``: ``[k4b]``
    K4b (the length-masked bi-GRU backward) against its plain version at the
@@ -67,12 +68,26 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    launches a step, then ``Trainer.test`` with the decode's exact match, one
    K7 launch a batch and no plain search; ``[time]`` K4b against its plain
    version, bound and cuDNN, the warm train step; ``[profile]`` its device
-   time by kernel.
+   time by kernel;
+10. unidirectional GRU layers: the flagship with ``UNIDIRECTIONAL``
+   overrides (every GRU layer one direction of H = 128): ``[k5f]``/``[k5b]``
+   K5f and K5b against their plain versions at the five layer shapes, B =
+   16 and 64, B = 8 with mixed lengths (0 and 1 among them, zeros past
+   each), an odd small shape; ``[uni]`` ``decode_intents`` at B = 1 and 16
+   against the CPU (5 K5f launches a call, no K1 or K4f) and a length-exact
+   (8, 4 s) decode against each row's exact-shape decode; ``[serve]`` an
+   ``IntentServer`` answering phase 7's traffic; ``[uni-step]`` one train
+   step card vs CPU as phase 6's; ``[uni-trainer]`` ``Trainer.train`` at B =
+   64 with 5 K5f and 5 K5b launches a step and no other GRU kernel;
+   ``[time]`` K5f (B = 16; B = 8 masked) and K5b (B = 64) per layer against
+   plain, bound and a unidirectional cuDNN ``nn.GRU``, the warm decode and
+   train step; ``[profile]`` the train step's device time by kernel.
 
 Beside each kernel's time the script prints its plain version's, a cuDNN
 ``torch.nn.GRU`` call's where one computes the same function (timed as a
 yardstick only: forward at the unpooled shapes for K1, on packed rows for
-K4f, the backward for K3 and K4b; none for K2, whose dropout and pool are fused),
+K4f, the backward for K3, K4b and K5b, one direction's forward for K5f;
+none for K2, whose dropout and pool are fused, or K7),
 and its bound: the larger of the f32 operations over 67 TFLOP/s and the
 bytes over 3.35 TB/s (each input read once, each output written once),
 ignoring the serial chain. At the end it checks that no module of JAX or
@@ -124,6 +139,13 @@ K7_SOURCE = "tpu_slu_torch/csrc/beam_decode.cu"
 K7_REPLACES = "tpu_slu/ops/pallas_beam.py:152"
 K4B_SOURCE = "tpu_slu_torch/csrc/bigru_masked_bwd.cu"
 K4B_REPLACES = "tpu_slu/ops/pallas_gru.py:400"
+K5F_SOURCE = "tpu_slu_torch/csrc/bigru_masked_fwd.cu"
+K5F_REPLACES = "tpu_slu/ops/pallas_gru.py:138"
+K5B_SOURCE = "tpu_slu_torch/csrc/bigru_masked_bwd.cu"
+K5B_REPLACES = "tpu_slu/ops/pallas_gru.py:189"
+# the unidirectional flagship's GRU layers at 4 s of audio: name, input width D, T
+UNI_SHAPES = [("phone_rnn0", 60, 400), ("phone_rnn1", 128, 200), ("word_rnn0", 128, 100),
+              ("word_rnn1", 128, 50), ("intent_rnn0", 128, 25)]
 S2S_U = 32  # label steps of the seq2seq train step: the JAX bench's train shape (bench.py:879-896)
 # the attention's key bias shifts every frame's score alike, which the softmax cancels: its
 # gradient is 0 in exact arithmetic, and it is held against the key weight's gradient's scale
@@ -197,22 +219,25 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def gru_weight_floats(D: int, H: int) -> int:
-    return 2 * (3 * H * D + 3 * H * H + 6 * H)
+def gru_weight_floats(D: int, H: int, dirs: int = 2) -> int:
+    return dirs * (3 * H * D + 3 * H * H + 6 * H)
 
 
-def gru_fwd_work(rows: int, D: int, H: int, in_floats: int, out_floats: int) -> tuple[float, float]:
-    """FLOPs and bytes of a bi-GRU forward over ``rows`` (t, b) rows of
-    width D: per row and direction the input projection and the recurrent
-    product (2 * 3H * (D + H)) and the gate math (GATE_OPS per element);
-    each input read once, each output written once, f32."""
-    flops = 2 * rows * (2 * 3 * H * (D + H) + GATE_OPS * H)
-    return flops, 4 * (in_floats + gru_weight_floats(D, H) + out_floats)
+def gru_fwd_work(rows: int, D: int, H: int, in_floats: int, out_floats: int,
+                 dirs: int = 2) -> tuple[float, float]:
+    """FLOPs and bytes of a GRU layer's forward over ``rows`` (t, b) rows of
+    width D and ``dirs`` directions: per row and direction the input
+    projection and the recurrent product (2 * 3H * (D + H)) and the gate
+    math (GATE_OPS per element); each input read once, each output written
+    once, f32."""
+    flops = dirs * rows * (2 * 3 * H * (D + H) + GATE_OPS * H)
+    return flops, 4 * (in_floats + gru_weight_floats(D, H, dirs) + out_floats)
 
 
-def cudnn_gru_ms(D: int, T: int, B: int, H: int, dev, lengths=None, backward=False) -> float:
-    """Median ms of one cuDNN ``torch.nn.GRU(bidirectional=True)`` call at
-    (T, B, D), a yardstick the port never calls; with ``lengths``, over
+def cudnn_gru_ms(D: int, T: int, B: int, H: int, dev, lengths=None, backward=False,
+                 bidirectional=True) -> float:
+    """Median ms of one cuDNN ``torch.nn.GRU`` call at (T, B, D), a
+    yardstick the port never calls; with ``lengths``, over
     ``pack_padded_sequence`` of the rows with n_b > 0 (it takes no empty
     row); ``backward``: the backward alone, input and weight gradients. Its
     input comes from a generator of its own, so that the phases' seeded data
@@ -221,7 +246,7 @@ def cudnn_gru_ms(D: int, T: int, B: int, H: int, dev, lengths=None, backward=Fal
     import torch
     from torch.nn.utils.rnn import pack_padded_sequence
 
-    gru = torch.nn.GRU(D, H, bidirectional=True).to(dev)
+    gru = torch.nn.GRU(D, H, bidirectional=bidirectional).to(dev)
     x = np.random.default_rng(T * B + D).standard_normal((T, B, D)).astype("float32")
     x = torch.from_numpy(x).to(dev)
     if backward:
@@ -287,6 +312,30 @@ class Batches:
         self.loader = batches
 
 
+def serve_requests(server, reqs, threads: int = 8) -> tuple[list, dict]:
+    """Submit ``reqs`` to a warmed-up ``IntentServer`` from ``threads`` client
+    threads, each its share in turn; returns ([(i, answer, submit-to-answer
+    ms)], device calls by requests carried)."""
+    import concurrent.futures as cf
+
+    import torch
+
+    server.batch_sizes.clear()
+
+    def ask(chunk):
+        out = []
+        for i in chunk:
+            t0 = time.perf_counter()
+            out.append((i, server.decode(reqs[i]), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    with cf.ThreadPoolExecutor(threads) as pool:
+        answers = [a for part in pool.map(ask, [range(k, len(reqs), threads) for k in range(threads)])
+                   for a in part]
+    torch.cuda.synchronize()
+    return answers, dict(server.batch_sizes)
+
+
 def synthetic_batches(rng, n: int, B: int, values_per_slot) -> list[dict]:
     """Seeded 4 s waveforms and slot labels, in the loader's batch format."""
     import numpy as np
@@ -295,6 +344,89 @@ def synthetic_batches(rng, n: int, B: int, values_per_slot) -> list[dict]:
     return [{"x": (0.1 * rng.standard_normal((B, T))).astype(np.float32),
              "y_intent": np.stack([rng.integers(0, v, B) for v in values_per_slot], 1),
              "w": np.ones(B, np.float32), "len": np.full(B, T, np.int64)} for _ in range(n)]
+
+
+def step_vs_cpu(dev, rng, tag: str, **overrides) -> None:
+    """One whole train step of ``no_pretraining.cfg``'s model (``overrides``
+    set on its config; the intent layer's dropout 0, the encoder's 0.5) at
+    B = 16 on 4 s, card against the CPU plain path from equal weights and
+    equal dropout masks: the loss within STEP_LOSS_ATOL, every gradient
+    within STEP_GRAD_TOL of its largest element, the parameters after masked
+    Adam from equal gradients within STEP_PARAM_ATOL. The sinc parameters'
+    gradients, sums over every sample, are held against an f64 CPU step
+    that replays the card's front-end branches (``FrontEndBranches``), so
+    that a correct card cannot fail on a leaky ReLU input or a max-pool tie
+    within rounding of its branch; each side's error against the f64 step on
+    its own branches is printed beside it."""
+    import torch
+
+    from tpu_slu_torch.models.flagship import TRAIN_CFG, flagship_model
+    from tpu_slu_torch.training import MaskedAdam
+
+    cpu_model = flagship_model("cpu", cfg=TRAIN_CFG, intent_rnn_drop=[0.0], **overrides).train()
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    b16 = synthetic_batches(rng, 1, 16, cpu_model.values_per_slot)[0]
+
+    def step(model, where, dtype=torch.float32):
+        batch = {k: torch.from_numpy(v).to(where) for k, v in b16.items()}
+        model.zero_grad(set_to_none=True)
+        loss, _ = model.loss(batch["x"].to(dtype), batch["y_intent"], train=True, weights=batch["w"].to(dtype),
+                             lengths=batch["len"], generator=torch.Generator().manual_seed(5))
+        loss.backward()
+        return loss.item(), {n: p.grad for n, p in model.named_parameters()}
+
+    l_cpu, g_cpu = step(cpu_model, torch.device("cpu"))
+    branches = FrontEndBranches()
+    with branches.record():
+        l_card, g_card = step(card_model, dev)
+    m64 = copy.deepcopy(cpu_model).double()
+    g64_own = step(m64, torch.device("cpu"), torch.float64)[1]
+    with branches.replay():
+        g64 = step(m64, torch.device("cpu"), torch.float64)[1]
+    del m64
+    g64 = {n: g for n, g in g64.items() if n.endswith(SINC_PARAMS)}
+    print(f"[{tag}] front-end branches (leaky ReLU signs, max-pool argmaxes) where the card's step and the "
+          f"f64 step part: {branches.flips}")
+    if not abs(l_card - l_cpu) <= STEP_LOSS_ATOL:
+        raise AssertionError(f"{tag}: train step loss: card {l_card} vs CPU {l_cpu}")
+    for n, r in g64.items():
+        e_card, e_cpu = rel_err(g_card[n].cpu().double(), r), rel_err(g_cpu[n].double(), g64_own[n])
+        print(f"[{tag}] {n} gradient vs f64 on the card's branches, of its largest element: card {e_card:.3g} "
+              f"(on f64's own {rel_err(g_card[n].cpu().double(), g64_own[n]):.3g}); CPU f32 vs f64 {e_cpu:.3g}")
+    worst = 0.0
+    for n, g in g_cpu.items():
+        if g is None:  # the encoder's phoneme/word heads take no part in the SLU loss
+            assert g_card[n] is None, n
+            continue
+        e = rel_err(g_card[n].cpu().double(), g64[n]) if n in g64 else rel_err(g_card[n].cpu(), g)
+        worst = max(worst, e)
+        if not e <= STEP_GRAD_TOL:
+            raise AssertionError(f"{tag}: train step: gradient of {n} off the {'f64' if n in g64 else 'CPU'} "
+                                 f"reference's by {e:.3g} of its largest")
+    # masked Adam from equal gradients: the first Adam step is lr * g / (|g| + eps),
+    # ~lr * sign(g), so f32 noise on a near-zero gradient flips an update. How
+    # many would differ from each side's own gradients is counted, not held.
+    lr = cpu_model.config.training_lr
+    flips = sum(int(((g_card[n].cpu() / (g_card[n].cpu().abs() + 1e-8) - g / (g.abs() + 1e-8)).abs()
+                     * lr > STEP_PARAM_ATOL).sum()) for n, g in g_cpu.items() if g is not None)
+    n_params = sum(p.numel() for p in cpu_model.parameters())
+    for n, p in cpu_model.named_parameters():
+        p.grad = None if g_card[n] is None else g_card[n].cpu()
+    for model in (cpu_model, card_model):
+        opt = MaskedAdam(model.named_parameters(), lr)
+        opt.set_mask(model.trainable_mask())
+        opt.step()
+    card_params = dict(card_model.named_parameters())
+    p_err = max((card_params[n].detach().cpu() - p.detach()).abs().max().item()
+                for n, p in cpu_model.named_parameters())
+    if not p_err <= STEP_PARAM_ATOL:
+        raise AssertionError(f"{tag}: masked Adam: card vs CPU parameters off by {p_err:.3g}")
+    print(f"[{tag}] train step B=16, 4 s audio, card vs CPU: loss {l_card:.6f} vs {l_cpu:.6f} "
+          f"(atol {STEP_LOSS_ATOL}); every gradient within {worst:.3g} of its largest element, the sinc "
+          f"parameters' of the f64 reference's on the card's branches, the others' of the CPU's (limit "
+          f"{STEP_GRAD_TOL}); params after masked Adam from equal gradients within {p_err:.3g} "
+          f"(atol {STEP_PARAM_ATOL}); from each side's own gradients {flips} of {n_params} would "
+          f"differ by more than {STEP_PARAM_ATOL}")
 
 
 def phase_train(dev, card: str, rng) -> tuple[list[dict], int]:
@@ -313,7 +445,7 @@ def phase_train(dev, card: str, rng) -> tuple[list[dict], int]:
         bigru_trainpool,
         bigru_trainpool_reference,
     )
-    from tpu_slu_torch.training import MaskedAdam, Trainer
+    from tpu_slu_torch.training import Trainer
 
     # 6.1 K2 against its plain version at the encoder layers' shapes, and an odd T
     k2_err = 0.0
@@ -401,67 +533,7 @@ def phase_train(dev, card: str, rng) -> tuple[list[dict], int]:
               f"{worst:.3g} of autograd of the plain version")
 
     # 6.4 one whole train step, card against the CPU plain path, B = 16
-    cpu_model = flagship_model("cpu", cfg=TRAIN_CFG, intent_rnn_drop=[0.0]).train()
-    card_model = copy.deepcopy(cpu_model).to(dev)
-    b16 = synthetic_batches(rng, 1, 16, cpu_model.values_per_slot)[0]
-    grads = {}
-    for model, where, label in ((cpu_model, torch.device("cpu"), "cpu"), (card_model, dev, "card")):
-        batch = {k: torch.from_numpy(v).to(where) for k, v in b16.items()}
-        model.zero_grad(set_to_none=True)
-        loss, _ = model.loss(batch["x"], batch["y_intent"], train=True, weights=batch["w"],
-                             lengths=batch["len"], generator=torch.Generator().manual_seed(5))
-        loss.backward()
-        grads[label] = (loss.item(), {n: p.grad for n, p in model.named_parameters()})
-    (l_cpu, g_cpu), (l_card, g_card) = grads["cpu"], grads["card"]
-    if not abs(l_card - l_cpu) <= STEP_LOSS_ATOL:
-        raise AssertionError(f"train step loss: card {l_card} vs CPU {l_cpu}")
-    # the sinc parameters' gradients sum over every sample of the batch: both f32
-    # sides are held against an f64 CPU reference of the same step
-    m64 = copy.deepcopy(cpu_model).double()
-    m64.zero_grad(set_to_none=True)
-    batch = {k: torch.from_numpy(v) for k, v in b16.items()}
-    m64.loss(batch["x"].double(), batch["y_intent"], train=True, weights=batch["w"].double(),
-             lengths=batch["len"], generator=torch.Generator().manual_seed(5))[0].backward()
-    g64 = {n: p.grad for n, p in m64.named_parameters() if n.endswith(SINC_PARAMS)}
-    del m64
-    for n, r in g64.items():
-        e_card, e_cpu = rel_err(g_card[n].cpu().double(), r), rel_err(g_cpu[n].double(), r)
-        print(f"[step] {n} gradient vs f64, of its largest element: card {e_card:.3g}, CPU f32 {e_cpu:.3g} "
-              f"(card / CPU {e_card / max(e_cpu, 1e-30):.3g})")
-    worst = 0.0
-    for n, g in g_cpu.items():
-        if g is None:  # the encoder's phoneme/word heads take no part in the SLU loss
-            assert g_card[n] is None, n
-            continue
-        e = rel_err(g_card[n].cpu().double(), g64[n]) if n in g64 else rel_err(g_card[n].cpu(), g)
-        worst = max(worst, e)
-        if not e <= STEP_GRAD_TOL:
-            raise AssertionError(f"train step: gradient of {n} off the {'f64' if n in g64 else 'CPU'} "
-                                 f"reference's by {e:.3g} of its largest")
-    # masked Adam from equal gradients: the first Adam step is lr * g / (|g| + eps),
-    # ~lr * sign(g), so f32 noise on a near-zero gradient flips an update. How
-    # many would differ from each side's own gradients is counted, not held.
-    lr = cpu_model.config.training_lr
-    flips = sum(int(((g_card[n].cpu() / (g_card[n].cpu().abs() + 1e-8) - g / (g.abs() + 1e-8)).abs()
-                     * lr > STEP_PARAM_ATOL).sum()) for n, g in g_cpu.items() if g is not None)
-    n_params = sum(p.numel() for p in cpu_model.parameters())
-    for n, p in cpu_model.named_parameters():
-        p.grad = None if g_card[n] is None else g_card[n].cpu()
-    for model in (cpu_model, card_model):
-        opt = MaskedAdam(model.named_parameters(), lr)
-        opt.set_mask(model.trainable_mask())
-        opt.step()
-    card_params = dict(card_model.named_parameters())
-    p_err = max((card_params[n].detach().cpu() - p.detach()).abs().max().item()
-                for n, p in cpu_model.named_parameters())
-    if not p_err <= STEP_PARAM_ATOL:
-        raise AssertionError(f"masked Adam: card vs CPU parameters off by {p_err:.3g}")
-    print(f"[step] flagship train step B=16, 4 s audio, card vs CPU: loss {l_card:.6f} vs {l_cpu:.6f} "
-          f"(atol {STEP_LOSS_ATOL}); every gradient within {worst:.3g} of its largest element, the sinc "
-          f"parameters' of the f64 reference's, the others' of the CPU's (limit {STEP_GRAD_TOL}); params after masked Adam from equal gradients within {p_err:.3g} "
-          f"(atol {STEP_PARAM_ATOL}); from each side's own gradients {flips} of {n_params} would "
-          f"differ by more than {STEP_PARAM_ATOL}")
-    del cpu_model, card_model, grads, g_cpu, g_card, card_params
+    step_vs_cpu(dev, rng, "step")
 
     # 6.5 the main path: Trainer.train over seeded batches of B = 64
     model = flagship_model(dev, cfg=TRAIN_CFG, seed=1)
@@ -547,7 +619,6 @@ def phase_train(dev, card: str, rng) -> tuple[list[dict], int]:
 def phase_serve(dev, card: str, rng, golden, expected) -> dict:
     """Phase 7: length-exact decode and the micro-batching server. Returns
     K4f's JSON entry; its launches are those of the served run."""
-    import concurrent.futures as cf
     import threading
     import urllib.request
 
@@ -648,21 +719,9 @@ def phase_serve(dev, card: str, rng, golden, expected) -> dict:
     server = IntentServer(model, max_batch=SERVE_BATCH)
     try:
         server.warmup()
-        server.batch_sizes.clear()
         bigru_masked.launches = bigru_shared.launches = 0
-
-        def ask(chunk):
-            out = []
-            for i in chunk:
-                t0 = time.perf_counter()
-                out.append((i, server.decode(reqs[i]), (time.perf_counter() - t0) * 1e3))
-            return out
-
-        with cf.ThreadPoolExecutor(8) as pool:
-            answers = [a for part in pool.map(ask, [range(k, 32, 8) for k in range(8)]) for a in part]
-        torch.cuda.synchronize()
+        answers, sizes = serve_requests(server, reqs)
         k4_launches, k1_launches = bigru_masked.launches, bigru_shared.launches
-        sizes = dict(server.batch_sizes)
     finally:
         server.close()
     calls = sum(sizes.values())
@@ -771,7 +830,6 @@ def compare_searches(what: str, run, ref_run, U: int) -> tuple[object, object, l
 def phase_seq2seq(dev, card: str, rng) -> dict:
     """Phase 8: seq2seq decode and serving. Returns K7's JSON entry; its
     launches are those of the served run."""
-    import concurrent.futures as cf
     import threading
     import urllib.request
 
@@ -784,7 +842,7 @@ def phase_seq2seq(dev, card: str, rng) -> dict:
     from tpu_slu_torch.models.slu import Seq2SeqArch, Seq2SeqDecoder
     from tpu_slu_torch.ops import beam as plain
     from tpu_slu_torch.ops.attention import attention_kv
-    from tpu_slu_torch.ops.beam_fused import beam_decode
+    from tpu_slu_torch.ops.beam_fused import MAX_BEAM, beam_decode
     from tpu_slu_torch.ops.bigru_masked import bigru_masked
     from tpu_slu_torch.ops.bigru_shared import bigru_shared
     from tpu_slu_torch.serving import IntentServer, load_trained_model, make_http_server
@@ -807,11 +865,14 @@ def phase_seq2seq(dev, card: str, rng) -> dict:
         with torch.inference_mode():
             return attention_kv(dec.attention, torch.from_numpy(enc).to(dev))
 
-    # 8.1 K7 against its plain version on the card
+    # 8.1 K7 against its plain version on the card, at 4 s (25 frames) and 30 s (188)
     k7_err, k7_ties = 0.0, []
     cases = [("flagship", 1, 25, *flag, 4, U, False), ("flagship", 16, 25, *flag, 4, U, False),
              ("flagship mixed", 8, 25, *flag, 4, U, True), ("golden decoder", 4, 13, 1, 64, 64, 64, 102, 4, 16, True),
-             ("odd small", 5, 6, 2, 8, 4, 8, 11, 3, 10, False), ("greedy", 4, 25, *flag, 1, U, True)]
+             ("odd small", 5, 6, 2, 8, 4, 8, 11, 3, 10, False), ("greedy", 4, 25, *flag, 1, U, True),
+             ("flagship 30 s", 1, 188, *flag, 4, U, False), ("flagship 30 s", 4, 188, *flag, 4, U, True),
+             ("flagship odd T", 3, 171, *flag, 4, U, True), ("flagship W=9", 2, 25, *flag, 9, U, False),
+             ("flagship W=16", 2, 25, *flag, 16, U, True)]
     for i, (name, B, T, nl, H, K, V, L, W, Ub, mixed) in enumerate(cases):
         dec = decoder(i, nl, H, K, V, L)
         keys, values = kv(dec, B, T)
@@ -823,7 +884,8 @@ def phase_seq2seq(dev, card: str, rng) -> dict:
         with torch.inference_mode():
             beam_decode(dec, keys, values, n, W, Ub)
         torch.cuda.synchronize()
-        assert beam_decode.launches == before + 1, "K7 launch counter did not advance"
+        if beam_decode.launches != before + 1:
+            raise AssertionError(f"K7 {name} B={B} T={T} W={W}: launches +{beam_decode.launches - before}, want 1")
 
         def search(fn):
             def steps(n_steps):
@@ -838,11 +900,12 @@ def phase_seq2seq(dev, card: str, rng) -> dict:
         if not torch.allclose(scores[:, rows], ref_scores[:, rows], rtol=1e-5, atol=1e-4):
             raise AssertionError(f"K7 {name} B={B}: scores off the plain version's by {err:.3g}")
         k7_ties += notes
-        print(f"[k7] {name:14s} B={B:2d} T={T:3d} layers={nl} H={H:3d} K={K:3d} V={V:3d} L={L:3d} W={W} U={Ub:3d}"
+        print(f"[k7] {name:14s} B={B:2d} T={T:3d} layers={nl} H={H:3d} K={K:3d} V={V:3d} L={L:3d} W={W:2d} U={Ub:3d}"
               f"{' mixed valid frames ' + str(n.tolist()) if mixed else ''}: tokens equal in {len(rows)} of {B} "
               f"rows, scores max abs err {err:.3g}" + "".join(f"; {t}" for t in notes))
     print(f"[k7] tokens equal in every row but {len(k7_ties)} that parted at a tie; scores within rtol 1e-5 "
-          f"atol 1e-4, max abs err {k7_err:.3g}")
+          f"atol 1e-4, max abs err {k7_err:.3g}; beams up to "
+          f"MAX_BEAM = {MAX_BEAM}")
 
     # 8.2 the golden seq2seq checkpoint on the card: one K7 launch a decode, no plain search
     golden_dir = os.path.join(HERE, "tests", "assets", "golden_seq2seq")
@@ -928,6 +991,21 @@ def phase_seq2seq(dev, card: str, rng) -> dict:
               f"plain path's in {len(rows)} of {B} rows, scores within {err:.3g} of the largest (limit 1e-3 "
               f"relative)" + "".join(f"; {t}" for t in notes))
     print(f"[s2s] decode_intents B=1 (random weights): {model.decode_intents(x[:1])[0][:60]!r}")
+    x30 = (0.1 * np.random.default_rng(3).standard_normal((1, 30 * 16000))).astype(np.float32)
+    before = beam_decode.launches
+    model.predict_intents(x30)
+    torch.cuda.synchronize()
+    launched = beam_decode.launches - before
+    (scores, _), (ref_scores, _), rows, notes = compare_searches(
+        "flagship seq2seq 30 s, card vs CPU", lambda n: predict(model, x30, n), lambda n: predict(cpu, x30, n), U)
+    err = rel_err(scores[:, rows], ref_scores[:, rows]) if rows else 0.0
+    if not (launched == 1 and torch.isfinite(scores).all()
+            and torch.allclose(scores[:, rows], ref_scores[:, rows], rtol=1e-3, atol=0)):
+        raise AssertionError(f"flagship seq2seq 30 s: {launched} K7 launches; scores off the CPU's by "
+                             f"{err:.3g} of the largest")
+    print(f"[s2s] flagship seq2seq predict_intents B=1, 30 s, W=4, U={U}: 1 K7 launch; tokens equal "
+          f"the CPU plain path's in {len(rows)} of 1 rows, scores within {err:.3g} of the largest (limit 1e-3 "
+          f"relative)" + "".join(f"; {t}" for t in notes))
     n_samples = rng.integers(16000, 64001, SERVE_BATCH)
     n_samples[0] = 64000
     waves = [(0.1 * rng.standard_normal(int(t))).astype(np.float32) for t in n_samples]
@@ -948,18 +1026,19 @@ def phase_seq2seq(dev, card: str, rng) -> dict:
           f"and 5 K4f launches; tokens equal the row's exact-shape decode's in {len(rows)} of {SERVE_BATCH} rows"
           + "".join(f"; {t}" for t in notes))
 
-    # 8.4 timings: K7 against its plain version, the warm decode, its device time by kernel
+    # 8.4 timings: K7 against its plain version at 4 s and 30 s, the warm decode, its
+    # device time by kernel
     k7_ms = {}
-    for B in (1, 16):
-        keys, values = kv(model.decoder, B, 25)
+    for B, T in ((1, 25), (16, 25), (1, 188), (16, 188)):
+        keys, values = kv(model.decoder, B, T)
         with torch.inference_mode():
             kern, pl = in_turns(lambda: plain.beam_search_reference(model.decoder, keys, values, None, 4, U),
                                 lambda: beam_decode(model.decoder, keys, values, None, 4, U))
-        w = k7_work(B, 25, 4, U, *flag)
-        k7_ms[B] = (kern, pl, *bound(*w))
-        print(f"[time] K7 flagship B={B:2d} T=25 W=4 U={U}: kernel {kern:.4f} ms ({kern / U * 1e3:.2f} us a step), "
-              f"plain {pl:.3f} ms, bound {k7_ms[B][2]:.4f} ms ({k7_ms[B][3]}: {w[0] / 1e9:.2f} GFLOP, "
-              f"{w[1] / 1e6:.2f} MB) on {card}")
+        w = k7_work(B, T, 4, U, *flag)
+        k7_ms[B, T] = (kern, pl, *bound(*w))
+        print(f"[time] K7 flagship B={B:2d} T={T:3d} W=4 U={U}: kernel "
+              f"{kern:.4f} ms ({kern / U * 1e3:.2f} us a step), plain {pl:.3f} ms, bound {k7_ms[B, T][2]:.4f} ms "
+              f"({k7_ms[B, T][3]}: {w[0] / 1e9:.2f} GFLOP, {w[1] / 1e6:.2f} MB) on {card}")
     for B in (1, 16):
         xd = torch.from_numpy(x[:B]).to(dev)
         ms = cuda_ms(lambda: model.predict_intents(xd), reps=10, warmup=2)
@@ -974,21 +1053,9 @@ def phase_seq2seq(dev, card: str, rng) -> dict:
     server = IntentServer(model, max_batch=SERVE_BATCH)
     try:
         server.warmup()
-        server.batch_sizes.clear()
         beam_decode.launches = bigru_masked.launches = bigru_shared.launches = 0
-
-        def ask(chunk):
-            out = []
-            for i in chunk:
-                t0 = time.perf_counter()
-                out.append((i, server.decode(reqs[i]), (time.perf_counter() - t0) * 1e3))
-            return out
-
-        with cf.ThreadPoolExecutor(8) as pool:
-            answers = [r for part in pool.map(ask, [range(k, 32, 8) for k in range(8)]) for r in part]
-        torch.cuda.synchronize()
+        answers, sizes = serve_requests(server, reqs)
         launches = {"K7": beam_decode.launches, "K4f": bigru_masked.launches, "K1": bigru_shared.launches}
-        sizes = dict(server.batch_sizes)
     finally:
         server.close()
     calls = sum(sizes.values())
@@ -1007,8 +1074,10 @@ def phase_seq2seq(dev, card: str, rng) -> dict:
     print(f"[time] seq2seq served latency (submit to answer, host clock): p50 {lat[len(lat) // 2]:.3f} ms, "
           f"p90 {lat[int(0.9 * len(lat))]:.3f} ms, max {lat[-1]:.3f} ms on {card}")
     return {"name": "beam_decode", "route": "cuda", "source": K7_SOURCE, "replaces": K7_REPLACES,
-            "launches": launches["K7"], "max_abs_err": k7_err, "ms": k7_ms[16][0], "plain_ms": k7_ms[16][1],
-            "bound_ms": k7_ms[16][2], "bound_by": k7_ms[16][3], "library_ms": None}
+            "launches": launches["K7"], "max_abs_err": k7_err, "ms": k7_ms[16, 25][0],
+            "plain_ms": k7_ms[16, 25][1], "bound_ms": k7_ms[16, 25][2], "bound_by": k7_ms[16, 25][3],
+            "library_ms": None, "ms_30s": k7_ms[16, 188][0], "plain_ms_30s": k7_ms[16, 188][1],
+            "bound_ms_30s": k7_ms[16, 188][2], "max_beam": MAX_BEAM}
 
 
 class FrontEndBranches:
@@ -1283,6 +1352,238 @@ def phase_s2s_train(dev, card: str, rng) -> dict:
             "bound_ms": k4b_bound, "bound_by": k4b_by, "library_ms": lib}
 
 
+def phase_uni(dev, card: str, rng) -> list[dict]:
+    """Phase 10: the flagship with every GRU layer unidirectional
+    (``UNIDIRECTIONAL``), decode, serve and train. Returns K5f's and K5b's
+    JSON entries; their launches are those of ``Trainer.train``."""
+    import numpy as np
+    import torch
+
+    from tpu_slu_torch.models.flagship import TRAIN_CFG, UNIDIRECTIONAL, flagship_model
+    from tpu_slu_torch.ops.bigru_masked import bigru_masked, bigru_masked_bwd
+    from tpu_slu_torch.ops.bigru_shared import bigru_shared, bigru_shared_bwd, bigru_trainpool
+    from tpu_slu_torch.ops.gru1 import gru1, gru1_bwd, gru1_bwd_reference, gru1_fwd, gru1_reference
+    from tpu_slu_torch.serving import IntentServer
+    from tpu_slu_torch.training import Trainer
+
+    H = 128
+    others = {"K1": bigru_shared, "K2": bigru_trainpool, "K3": bigru_shared_bwd, "K4f": bigru_masked,
+              "K4b": bigru_masked_bwd}
+
+    def zero() -> None:
+        """Set every GRU kernel's launch count to 0, just before a run that reads them."""
+        gru1.launches = gru1_bwd.launches = 0
+        for f in others.values():
+            f.launches = 0
+
+    def counts() -> dict:
+        return {"K5f": gru1.launches, "K5b": gru1_bwd.launches, **{k: f.launches for k, f in others.items()}}
+
+    def layer_case(B, T, D, Hc, lengths):
+        params, parts = k1_case(rng, 1, D, T, B, Hc, dev)
+        n = None if lengths is None else torch.from_numpy(np.asarray(lengths, np.int64)).to(dev)
+        return {"fwd": params["fwd"]}, parts[0].transpose(0, 1).contiguous(), n
+
+    # 10.1 K5f and K5b against their plain versions: the five layer shapes at B = 16
+    # (decode) and 64 (train), B = 8 with mixed lengths (0 and 1 among them), an odd small shape
+    cases = []
+    for name, D, T in UNI_SHAPES:
+        mixed = rng.integers(2, T + 1, SERVE_BATCH)
+        mixed[:3] = T, 0, 1
+        cases += [(name, 16, T, D, H, None), (name, 64, T, D, H, None), (name, SERVE_BATCH, T, D, H, mixed.tolist())]
+    cases.append(("odd small", 5, 7, 12, 16, [7, 0, 1, 3, 6]))
+    k5f_err = k5b_err = 0.0
+    for name, B, T, D, Hc, lengths in cases:
+        params, x, n = layer_case(B, T, D, Hc, lengths)
+        zero()
+        with torch.inference_mode():
+            out = gru1_fwd(params, x, n)
+        dy = torch.from_numpy(rng.standard_normal((B, T, Hc)).astype(np.float32)).to(dev)
+        dx, grads = gru1_bwd(params, x, out, n, dy)
+        torch.cuda.synchronize()
+        assert counts() == {"K5f": 1, "K5b": 1, **{k: 0 for k in others}}, counts()
+        ref = gru1_reference(params, x, n)
+        e = rel_err(out, ref)
+        k5f_err = max(k5f_err, (out - ref).abs().max().item())
+        if out.shape != ref.shape or not e <= ATOL:
+            raise AssertionError(f"K5f {name} B={B} T={T}: off its plain version by {e:.3g} of the largest "
+                                 f"element (limit {ATOL})")
+        rdx, rgrads = gru1_bwd_reference(params, x, out, n, dy)
+        worst = 0.0
+        for what, g, r in [("dX", dx, rdx)] + [(k, grads["fwd"][k], rgrads["fwd"][k]) for k in grads["fwd"]]:
+            worst = max(worst, rel_err(g, r))
+            k5b_err = max(k5b_err, (g - r).abs().max().item())
+            if g.shape != r.shape or not rel_err(g, r) <= GRAD_TOL:
+                raise AssertionError(f"K5b {name} B={B} T={T}: {what} off its plain version by {rel_err(g, r):.3g} "
+                                     f"of its largest element (limit {GRAD_TOL})")
+        if n is not None:
+            tail = torch.arange(T, device=dev)[None, :] >= n[:, None]
+            if not ((out[tail] == 0).all() and (dx[tail] == 0).all()):
+                raise AssertionError(f"K5f/K5b {name} B={B} T={T}: an output or dX past a row's length is not 0")
+        print(f"[k5f] {name:11s} B={B:2d} T={T:3d} D={D:3d} H={Hc:3d} "
+              f"{'lengths ' + str(lengths) if lengths is not None else 'every row T'}: max abs err "
+              f"{(out - ref).abs().max().item():.3g} (rel {e:.3g}); [k5b] dX, dW, db within {worst:.3g} of each "
+              f"largest element{'; zeros past each length' if lengths is not None else ''}")
+    print(f"[k5f] within {ATOL} of the largest element, max abs err {k5f_err:.3g}; [k5b] within {GRAD_TOL}, max abs "
+          f"err {k5b_err:.3g}")
+
+    # 10.2 decode at the input's shape, card against the CPU
+    cpu_model = flagship_model("cpu", **UNIDIRECTIONAL)
+    model = copy.deepcopy(cpu_model).to(dev)
+    x_dec = (0.1 * np.random.default_rng(4).standard_normal((16, 4 * 16000))).astype(np.float32)
+    decode_launches = 0
+    for B in (1, 16):
+        zero()
+        decoded = model.decode_intents(x_dec[:B])
+        torch.cuda.synchronize()
+        launched = counts()
+        decode_launches += launched["K5f"]
+        if launched != {"K5f": 5, "K5b": 0, **{k: 0 for k in others}}:
+            raise AssertionError(f"uni decode B={B} launched {launched}; want 5 K5f and nothing else")
+        logits, preds = model.predict_intents(x_dec[:B])
+        ref, ref_preds = cpu_model.predict_intents(x_dec[:B])
+        err = (logits.cpu() - ref).abs().max().item()
+        if not (torch.isfinite(logits).all() and err <= LOGIT_ATOL):
+            raise AssertionError(f"uni decode B={B}: card vs CPU logits max abs err {err:.3g} > {LOGIT_ATOL}")
+        print(f"[uni] unidirectional flagship decode_intents B={B}: 5 K5f launches, no K1 or K4f; logits card vs "
+              f"CPU max abs err {err:.3g} (atol {LOGIT_ATOL}); predictions equal: "
+              f"{bool((preds.cpu() == ref_preds).all())}; first {decoded[0]}")
+
+    # 10.3 length-exact decode of (8, 4 s bucket) against each example's exact-shape decode
+    n_samples = rng.integers(16000, 64001, SERVE_BATCH)
+    n_samples[0] = 64000
+    waves = [(0.1 * rng.standard_normal(int(t))).astype(np.float32) for t in n_samples]
+    xb = np.zeros((SERVE_BATCH, 64000), np.float32)
+    for i, w in enumerate(waves):
+        xb[i, :len(w)] = w
+    zero()
+    logits, preds = model.predict_intents(xb, lengths=n_samples)
+    torch.cuda.synchronize()
+    if counts() != {"K5f": 5, "K5b": 0, **{k: 0 for k in others}}:
+        raise AssertionError(f"uni length-exact decode launched {counts()}; want 5 K5f and nothing else")
+    worst = 0.0
+    for i, w in enumerate(waves):
+        alone, alone_preds = model.predict_intents(w)
+        e = (logits[i] - alone[0]).abs().max().item()
+        worst = max(worst, e)
+        if not (torch.isfinite(logits[i]).all() and e <= EXACT_LOGIT_ATOL and torch.equal(preds[i], alone_preds[0])):
+            raise AssertionError(f"uni length-exact row {i} ({len(w)} samples): logits off its exact-shape decode "
+                                 f"by {e:.3g} (atol {EXACT_LOGIT_ATOL}) or predictions differ")
+    print(f"[uni] predict_intents(lengths=) at ({SERVE_BATCH}, 64000), lengths {n_samples.tolist()}: 5 K5f launches, "
+          f"no K4f or K1; each row within {worst:.3g} of its exact-shape decode (atol {EXACT_LOGIT_ATOL})")
+
+    # 10.4 the serve path: an IntentServer answering phase 7's traffic
+    reqs = [(0.1 * rng.standard_normal(int(t))).astype(np.float32) for t in rng.integers(16000, 64001, 32)]
+    server = IntentServer(model, max_batch=SERVE_BATCH)
+    try:
+        server.warmup()
+        zero()
+        answers, sizes = serve_requests(server, reqs)
+        served = counts()
+    finally:
+        server.close()
+    calls = sum(sizes.values())
+    if served != {"K5f": 5 * calls, "K5b": 0, **{k: 0 for k in others}} or sum(k * v for k, v in sizes.items()) != 32:
+        raise AssertionError(f"served uni run: {calls} device calls ({sizes}) launched {served}; want 5 K5f a call")
+    for i, got, _ in answers:
+        want = model.decode_intents(reqs[i])[0]
+        if got != want:
+            raise AssertionError(f"served uni request {i} ({len(reqs[i])} samples): {got}, exact-shape {want}")
+    lat = sorted(ms for *_, ms in answers)
+    print(f"[serve] unidirectional IntentServer(max_batch={SERVE_BATCH}): 32 requests of 1.0-4.0 s from 8 threads in "
+          f"{calls} device calls ({sizes}), {served['K5f']} K5f launches and no other GRU kernel; every answer equals "
+          f"its exact-shape decode; p50 {lat[len(lat) // 2]:.3f} ms, p90 {lat[int(0.9 * len(lat))]:.3f} ms (host "
+          f"clock) on {card}")
+
+    # 10.5 the train path: one step card vs CPU, then Trainer.train at B = 64
+    step_vs_cpu(dev, rng, "uni-step", **UNIDIRECTIONAL)
+    train_model = flagship_model(dev, cfg=TRAIN_CFG, seed=1, **UNIDIRECTIONAL)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_uni_")
+    try:
+        train_model.config.folder = tmp
+        trainer = Trainer(train_model, train_model.config, generator=torch.Generator().manual_seed(7))
+        B = train_model.config.training_batch_size
+        data = Batches(synthetic_batches(rng, 3, B, train_model.values_per_slot))
+        steps = len(data.loader)
+        zero()
+        acc, loss = trainer.train(data)
+        torch.cuda.synchronize()
+        launches = counts()
+        if launches != {"K5f": 5 * steps, "K5b": 5 * steps, **{k: 0 for k in others}}:
+            raise AssertionError(f"uni Trainer.train over {steps} steps launched {launches}; want 5 K5f and 5 K5b "
+                                 "a step and no other GRU kernel")
+        if not (np.isfinite(loss) and np.isfinite(acc)):
+            raise AssertionError(f"uni Trainer.train: loss {loss}, acc {acc}")
+        print(f"[uni-trainer] Trainer.train at no_pretraining.cfg width, unidirectional, B={B}, {steps} steps: loss "
+              f"{loss:.4f} acc {acc:.3f}; launches {launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 10.6 timings: K5f at B = 16 (and B = 8 with mixed lengths), K5b at B = 64, per layer
+    # and summed, against their plain versions, their bounds and cuDNN as a yardstick
+    tot = {k: [0.0, 0.0, 0.0] for k in ("k5f", "k5f masked", "k5b")}  # kernel, plain, cuDNN
+    work = {k: [0.0, 0.0] for k in tot}  # FLOPs, bytes
+    for name, D, T in UNI_SHAPES:
+        rows = []
+        params, x, _ = layer_case(16, T, D, H, None)
+        with torch.inference_mode():
+            a, b = in_turns(lambda: gru1_reference(params, x), lambda: gru1_fwd(params, x))
+        w = gru_fwd_work(16 * T, D, H, 16 * T * D, 16 * T * H, dirs=1)
+        rows.append(("k5f", 16, a, b, cudnn_gru_ms(D, T, 16, H, dev, bidirectional=False), w))
+        lengths = rng.integers(1, T + 1, SERVE_BATCH)
+        lengths[0], lengths[-1] = T, 0
+        params, x, n = layer_case(SERVE_BATCH, T, D, H, lengths)
+        with torch.inference_mode():
+            a, b = in_turns(lambda: gru1_reference(params, x, n), lambda: gru1_fwd(params, x, n))
+        valid = int(lengths.sum())
+        w = gru_fwd_work(valid, D, H, valid * D, SERVE_BATCH * T * H, dirs=1)
+        rows.append(("k5f masked", SERVE_BATCH, a, b,
+                     cudnn_gru_ms(D, T, SERVE_BATCH, H, dev, lengths=lengths.tolist(), bidirectional=False), w))
+        params, x, _ = layer_case(64, T, D, H, None)
+        with torch.inference_mode():
+            out = gru1_fwd(params, x)
+        dy = torch.from_numpy(rng.standard_normal((64, T, H)).astype(np.float32)).to(dev)
+        a, b = in_turns(lambda: gru1_bwd_reference(params, x, out, None, dy), lambda: gru1_bwd(params, x, out, None, dy))
+        # per row: gi and gh recomputed, the dh chain, dX, dW_ih, dW_hh (2 * 3H * (3D + 3H)) and the
+        # gate derivatives; in: x, out, dy, weights; out: dX and the weight gradients
+        w = (64 * T * (2 * 3 * H * (3 * D + 3 * H) + 2 * GATE_OPS * H),
+             4 * (2 * 64 * T * D + 2 * 64 * T * H + 2 * gru_weight_floats(D, H, dirs=1)))
+        rows.append(("k5b", 64, a, b, cudnn_gru_ms(D, T, 64, H, dev, backward=True, bidirectional=False), w))
+        for what, B, a, b, lib, w in rows:
+            tot[what] = [tot[what][0] + a, tot[what][1] + b, tot[what][2] + lib]
+            work[what] = [work[what][0] + w[0], work[what][1] + w[1]]
+            yard = {"k5f": "cuDNN nn.GRU", "k5f masked": "cuDNN nn.GRU on packed rows",
+                    "k5b": "cuDNN nn.GRU backward"}[what]
+            print(f"[time] {what.upper().replace(' MASKED', ' masked'):10s} {name:11s} B={B:2d} T={T:3d} D={D:3d}: "
+                  f"kernel {a:.4f} ms, plain {b:.3f} ms, {yard} {lib:.4f} ms, bound {bound(*w)[0]:.4f} ms "
+                  f"({bound(*w)[1]})")
+    bounds = {k: bound(*w) for k, w in work.items()}
+    for what, (a, b, lib) in tot.items():
+        print(f"[time] {what} five layers: kernel {a:.4f} ms, plain {b:.3f} ms, cuDNN {lib:.4f} ms, bound "
+              f"{bounds[what][0]:.4f} ms ({bounds[what][1]}) on {card}")
+    for B in (1, 16):
+        xd = torch.from_numpy(x_dec[:B]).to(dev)
+        ms = cuda_ms(lambda: model.predict_intents(xd), reps=30, warmup=5)
+        print(f"[time] warm unidirectional predict_intents B={B:2d}, 4 s: median {ms:.3f} ms of 30 (CUDA events) "
+              f"on {card}")
+    B = train_model.config.training_batch_size
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.loader[0].items()}
+    step_ms = cuda_ms(lambda: trainer.train_step(batch), reps=10, warmup=2)
+    print(f"[time] warm unidirectional train step B={B}, 4 s (forward, backward, masked Adam): median "
+          f"{step_ms:.3f} ms of 10 (CUDA events) on {card}")
+    profile_calls(lambda: trainer.train_step(batch), f"unidirectional train step B={B}, 4 s", card, reps=5, top=12)
+    return [
+        {"name": "gru1_fwd", "route": "cuda", "source": K5F_SOURCE, "replaces": K5F_REPLACES,
+         "launches": launches["K5f"], "launches_decode": decode_launches, "launches_served": served["K5f"],
+         "max_abs_err": k5f_err, "ms": tot["k5f"][0], "plain_ms": tot["k5f"][1], "bound_ms": bounds["k5f"][0],
+         "bound_by": bounds["k5f"][1], "library_ms": tot["k5f"][2], "masked_ms": tot["k5f masked"][0],
+         "masked_library_ms": tot["k5f masked"][2]},
+        {"name": "gru1_bwd", "route": "cuda", "source": K5B_SOURCE, "replaces": K5B_REPLACES,
+         "launches": launches["K5b"], "max_abs_err": k5b_err, "ms": tot["k5b"][0], "plain_ms": tot["k5b"][1],
+         "bound_ms": bounds["k5b"][0], "bound_by": bounds["k5b"][1], "library_ms": tot["k5b"][2]},
+    ]
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "tpu_slu_torch")):
         raise SystemExit("chip_smoke.py: tpu_slu_torch/ is not beside this script; "
@@ -1500,6 +1801,9 @@ def main() -> None:
     # 9. seq2seq train step
     k4b = phase_s2s_train(dev, card, rng)
 
+    # 10. unidirectional GRU layers: decode, serve and train
+    uni = phase_uni(dev, card, rng)
+
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_slu"))
     if loaded:
         raise AssertionError(f"the port loaded modules of JAX or of the JAX package: {loaded}")
@@ -1509,7 +1813,7 @@ def main() -> None:
         "launches": k1_train_launches, "launches_decode": launches, "max_abs_err": max_err,
         "ms": totals[16][0], "plain_ms": totals[16][1], "bound_ms": k1_bound, "bound_by": k1_by,
         "library_ms": totals[16][2],
-    }] + train_kernels + [k4f, k7, k4b]}))
+    }] + train_kernels + [k4f, k7, k4b] + uni}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 

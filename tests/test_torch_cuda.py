@@ -14,7 +14,7 @@ import torch
 from tpu_slu_torch.models.slu import Seq2SeqArch, Seq2SeqDecoder
 from tpu_slu_torch.ops.attention import attention_kv
 from tpu_slu_torch.ops.beam import beam_search_reference
-from tpu_slu_torch.ops.beam_fused import beam_decode
+from tpu_slu_torch.ops.beam_fused import MAX_BEAM, SMEM_LIMIT, beam_decode
 from tpu_slu_torch.ops.bigru_masked import (
     bigru_masked,
     bigru_masked_bwd,
@@ -32,6 +32,7 @@ from tpu_slu_torch.ops.bigru_shared import (
 )
 from tpu_slu_torch.ops.conv import conv1d
 from tpu_slu_torch.ops.dropout import DIR_SALT_B, DIR_SALT_F, keep_mask, keep_threshold
+from tpu_slu_torch.ops.gru1 import gru1, gru1_bwd, gru1_bwd_reference, gru1_fwd, gru1_reference
 
 POOLS = [(1, "avg"), (2, "avg"), (2, "max")]
 
@@ -497,6 +498,180 @@ def test_k4b_rejects_what_it_does_not_take(dev, fault):
     assert bigru_masked_bwd.launches == before
 
 
+# ---------------------------------------------------------------------------
+# K5f and K5b: the unidirectional GRU layer, forward and backward
+# ---------------------------------------------------------------------------
+
+
+def k5_inputs(seed, B, T, D, H, dev):
+    """One direction's params and x (B, T, D) on ``dev``, and the length
+    vectors to try: None (every row T) and K4f's (T and 0 in each, and 1
+    where B > 2)."""
+    params, x, lengths = k4_inputs(seed, B, T, D, H, dev)
+    if B > 2:
+        lengths[0][1] = 1
+    return {"fwd": params["fwd"]}, x, [None] + lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 2, 25, 400])
+@pytest.mark.parametrize("H", [16, 128])
+@pytest.mark.parametrize("B", [1, 3, 8, 64])
+def test_k5f_matches_plain(dev, B, H, T):
+    """Within 1e-4 of the plain version's largest element, exact zeros past
+    each row's length, one launch a call."""
+    D = 60 if T == 400 else H
+    params, x, lengths = k5_inputs(40, B, T, D, H, dev)
+    for n in lengths:
+        before = gru1.launches
+        with torch.inference_mode():
+            got = gru1(params, x, n)
+        torch.cuda.synchronize()
+        assert gru1.launches == before + 1
+        ref = gru1_reference(params, x, n)
+        assert got.shape == ref.shape == (B, T, H)
+        assert _rel_close(got, ref), (got - ref).abs().max().item()
+        for b, nb in enumerate([T] * B if n is None else n.tolist()):
+            assert (got[b, nb:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_k5f_rows_equal_their_example_alone(dev):
+    params, x, (_, n) = k5_inputs(41, 8, 50, 128, 128, dev)
+    with torch.inference_mode():
+        got = gru1_fwd(params, x, n)
+        for b, nb in enumerate(n.tolist()):
+            if nb:
+                alone = gru1_fwd(params, x[b:b + 1, :nb].contiguous())[0]
+                assert _rel_close(got[b, :nb], alone)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 2, 25, 400])
+@pytest.mark.parametrize("H", [16, 128])
+@pytest.mark.parametrize("B", [1, 3, 8, 64])
+def test_k5b_matches_plain(dev, B, H, T):
+    """dX and the four weight and bias gradients within 1e-4 of each
+    tensor's largest element; dX exactly 0 past each row's length."""
+    D = 60 if T == 400 else H
+    params, x, lengths = k5_inputs(42, B, T, D, H, dev)
+    dy = torch.from_numpy(np.random.default_rng(43).standard_normal((B, T, H)).astype(np.float32)).to(dev)
+    for n in lengths:
+        with torch.inference_mode():
+            out = gru1_fwd(params, x, n)
+        before = gru1_bwd.launches
+        got = gru1_bwd(params, x, out, n, dy)
+        torch.cuda.synchronize()
+        assert gru1_bwd.launches == before + 1
+        ref = gru1_bwd_reference(params, x, out, n, dy)
+        _assert_grads_close(((got[0],), got[1]), ((ref[0],), ref[1]))
+        for b, nb in enumerate([T] * B if n is None else n.tolist()):
+            assert (got[0][b, nb:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_k5b_weight_gradients_are_deterministic(dev):
+    params, x, (n, *_) = k5_inputs(44, 64, 100, 128, 128, dev)
+    with torch.inference_mode():
+        out = gru1_fwd(params, x, n)
+    dy = torch.randn_like(out)
+    a = gru1_bwd(params, x, out, n, dy)
+    b = gru1_bwd(params, x, out, n, dy)
+    assert torch.equal(a[0], b[0])
+    assert all(torch.equal(a[1]["fwd"][k], b[1]["fwd"][k]) for k in a[1]["fwd"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_gru1_gradients_match_autograd_of_the_plain_version(dev, masked):
+    """With grad on, ``gru1`` on the card goes through K5f and K5b (one
+    launch each) and never returns a detached output; its gradients are
+    autograd's of the plain version within 1e-4 of each largest element."""
+    params, x, (_, n) = k5_inputs(45, 8, 37, 128, 128, dev)
+    n = n if masked else None
+    tp, (tx,) = _leaves(params, [x])
+    counts = (gru1.launches, gru1_bwd.launches)
+    out = gru1(tp, tx, n)
+    assert out.grad_fn is not None
+    rp, (rx,) = _leaves(params, [x])
+    ref = gru1_reference(rp, rx, n)
+    cot = torch.from_numpy(np.random.default_rng(46).standard_normal(tuple(ref.shape)).astype(np.float32)).to(dev)
+    out.backward(cot)
+    ref.backward(cot)
+    torch.cuda.synchronize()
+    assert (gru1.launches, gru1_bwd.launches) == (counts[0] + 1, counts[1] + 1)
+    for g, r in [(tp["fwd"][k], rp["fwd"][k]) for k in tp["fwd"]] + [(tx, rx)]:
+        assert _rel_close(g.grad, r.grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["float64", "noncontiguous", "cpu_weight", "shape", "h_not_multiple_of_4",
+                                   "n_too_long", "n_on_cpu", "two_directions", "dy_shape"])
+def test_k5_rejects_what_it_does_not_take(dev, fault):
+    H = 10 if fault == "h_not_multiple_of_4" else 8
+    params, x, (_, n) = k5_inputs(47, 3, 9, 6, H, dev)
+    with torch.inference_mode():
+        out = gru1_fwd(params, x, n) if H % 4 == 0 else None
+    dy = None if out is None else torch.randn_like(out)
+    if fault == "float64":
+        x = x.double()
+    elif fault == "noncontiguous":
+        x = x.transpose(0, 1).contiguous().transpose(0, 1)
+    elif fault == "cpu_weight":
+        params["fwd"]["weight_hh"] = params["fwd"]["weight_hh"].cpu()
+    elif fault == "shape":
+        params["fwd"]["weight_ih"] = params["fwd"]["weight_ih"][:, :-1].contiguous()
+    elif fault == "n_too_long":
+        n = n.clone()
+        n[1] = 10
+    elif fault == "n_on_cpu":
+        n = n.cpu()
+    elif fault == "two_directions":
+        params = k4_inputs(47, 3, 9, 6, H, dev)[0]
+    elif fault == "dy_shape":
+        dy = dy[:, :-1].contiguous()
+    counts = (gru1.launches, gru1_bwd.launches)
+    if fault != "dy_shape":
+        with pytest.raises((TypeError, ValueError)):
+            gru1_fwd(params, x, n)
+    if out is not None:
+        with pytest.raises((TypeError, ValueError)):
+            gru1_bwd(params, x, out, n, dy)
+    assert (gru1.launches, gru1_bwd.launches) == counts
+
+
+@pytest.mark.cuda
+def test_unidirectional_model_decodes_and_trains_through_k5(dev):
+    """The flagship's unidirectional model (``UNIDIRECTIONAL`` overrides) on
+    the card: a decode at the input's shape and a length-exact one launch
+    K5f 5 times and K1, K4f 0 times, logits within 1e-3 of the CPU's; a
+    train step launches K5f 5 times, K5b 5 times and K1, K2, K3 none."""
+    import copy
+
+    from tpu_slu_torch.models.flagship import TRAIN_CFG, UNIDIRECTIONAL, flagship_model
+
+    cpu = flagship_model("cpu", **UNIDIRECTIONAL)
+    card = copy.deepcopy(cpu).to(dev)
+    x = (0.1 * np.random.default_rng(48).standard_normal((3, 16000))).astype(np.float32)
+    for kw in ({}, {"lengths": [16000, 9000, 0]}):
+        counts = (gru1.launches, bigru_shared.launches, bigru_masked.launches)
+        logits, _ = card.predict_intents(x, **kw)
+        torch.cuda.synchronize()
+        assert (gru1.launches - counts[0], bigru_shared.launches - counts[1],
+                bigru_masked.launches - counts[2]) == (5, 0, 0)
+        ref, _ = cpu.predict_intents(x, **kw)
+        assert torch.isfinite(logits).all() and (logits.cpu() - ref).abs().max().item() <= 1e-3
+    model = flagship_model(dev, cfg=TRAIN_CFG, **UNIDIRECTIONAL).train()
+    counts = (gru1.launches, gru1_bwd.launches, bigru_shared.launches, bigru_trainpool.launches,
+              bigru_shared_bwd.launches)
+    loss, _ = model(x, np.zeros((3, 3), np.int64), training=True)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert np.isfinite(loss.item())
+    assert (gru1.launches - counts[0], gru1_bwd.launches - counts[1], bigru_shared.launches - counts[2],
+            bigru_trainpool.launches - counts[3], bigru_shared_bwd.launches - counts[4]) == (5, 5, 0, 0, 0)
+
+
 @pytest.mark.cuda
 def test_k1_and_k2_unchanged_beside_k4f(dev):
     """K1 and K2 give the same bits and launch once each, before and after K4f runs."""
@@ -627,7 +802,7 @@ def test_k7_tie_order_is_lax_top_k(dev, W):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fault", ["float64", "noncontiguous", "cpu_weight", "n_zero", "n_past_T",
-                                   "beam_9", "shape", "smem"])
+                                   "beam_zero", "beam_past_max", "shape", "smem"])
 def test_k7_rejects_what_it_does_not_take(dev, fault):
     dec, keys, values = k7_inputs(5, 2, 6, 2, 8, 4, 8, 11, dev)
     n, W, U = torch.tensor([6, 3], device=dev), 3, 8
@@ -641,13 +816,14 @@ def test_k7_rejects_what_it_does_not_take(dev, fault):
         n[1] = 0
     elif fault == "n_past_T":
         n[0] = 7
-    elif fault == "beam_9":
-        W = 9
+    elif fault == "beam_zero":
+        W = 0
+    elif fault == "beam_past_max":
+        W = MAX_BEAM + 1
     elif fault == "shape":
         values = values[:, :, :7].contiguous()
-    else:
-        dec, keys, values = k7_inputs(6, 1, 400, 2, 256, 100, 200, 102, dev)
-        n = None
+    elif fault == "smem":  # the backpointers of 20,000 steps fill a block
+        U = 20000
     before = beam_decode.launches
     with torch.inference_mode(), pytest.raises((ValueError, TypeError)):
         beam_decode(dec, keys, values, n, W, U)
@@ -708,3 +884,157 @@ def test_golden_seq2seq_decodes_with_one_k7_launch(dev, tmp_path):
     finally:
         plain.beam_search = real
     assert not calls
+
+
+# ---------------------------------------------------------------------------
+# K7 at long inputs and wide beams
+# ---------------------------------------------------------------------------
+
+FLAGSHIP_DECODER = (2, 256, 100, 200, 102)  # all_real_seq2seq.cfg: layers, H, K, V, L
+
+
+@pytest.mark.cuda
+def test_max_beam_is_the_widest_blocked_plan_at_the_flagship_decoder(dev):
+    from tpu_slu_torch.ops import _build
+
+    plan = _build.library().tsl_beam_decode_smem_bytes  # the plan has no T term
+    assert plan(MAX_BEAM, *FLAGSHIP_DECODER, 200) <= SMEM_LIMIT < plan(MAX_BEAM + 1, *FLAGSHIP_DECODER, 200)
+
+
+K7_BLOCKED_CASES = [  # B, T, nl, H, K, V, L, W, U
+    (1, 25, 2, 256, 100, 200, 102, 4, 60),  # the flagship decoder at 4 s
+    (2, 188, 2, 256, 100, 200, 102, 4, 40),  # 30 s
+    (3, 131, 2, 256, 100, 200, 102, 8, 30),  # an odd T, several frame blocks
+    (4, 13, 1, 64, 64, 64, 102, 4, 16),  # the golden seq2seq decoder
+    (5, 70, 2, 8, 4, 8, 11, 3, 10),  # odd small widths, two frame blocks
+    (2, 65, 2, 12, 5, 6, 9, 16, 10),  # a wide beam, one frame past a block
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,nl,H,K,V,L,W,U", K7_BLOCKED_CASES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_k7_blocked_mode_matches_plain(dev, B, T, nl, H, K, V, L, W, U, masked):
+    """K7's blocked attention (frame blocks, online softmax) against the
+    plain search, from 13 to 188 frames and over several frame blocks:
+    tokens equal, scores within rtol 1e-5 atol 1e-4 (the online softmax sums
+    in another order)."""
+    dec, keys, values = k7_inputs(B * T + W + 1, B, T, nl, H, K, V, L, dev)
+    n = None
+    if masked:
+        n = torch.from_numpy(np.random.default_rng(T + 1).integers(1, T + 1, B)).to(dev)
+        n[0] = 1
+    with torch.inference_mode():
+        before = beam_decode.launches
+        scores, tokens = beam_decode(dec, keys, values, n, W, U)
+        torch.cuda.synchronize()
+        assert beam_decode.launches == before + 1
+        ref_scores, ref_tokens = beam_search_reference(dec, keys, values, n, W, U)
+    assert torch.equal(tokens, ref_tokens)
+    torch.testing.assert_close(scores, ref_scores, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [9, 12, 16, MAX_BEAM])
+def test_k7_wide_beams_match_plain(dev, W):
+    dec, keys, values = k7_inputs(W, 3, 21, 2, 16, 8, 8, 10, dev)
+    n = torch.tensor([21, 1, 13], device=dev)
+    with torch.inference_mode():
+        scores, tokens = beam_decode(dec, keys, values, n, W, 12)
+        ref_scores, ref_tokens = beam_search_reference(dec, keys, values, n, W, 12)
+    assert torch.equal(tokens, ref_tokens)
+    torch.testing.assert_close(scores, ref_scores, rtol=1e-5, atol=1e-4)
+
+
+def _flagship_seq2seq_pair(dev):
+    import copy
+
+    from tpu_slu_torch.models.flagship import flagship_seq2seq_model
+
+    cpu = flagship_seq2seq_model("cpu")
+    return cpu, copy.deepcopy(cpu).to(dev)
+
+
+def _hold_against_the_cpu(card, cpu, x, W, **kw):
+    """The card's decode against the CPU's plain path: beam-0 tokens equal
+    (a row that parts at a tie within f32 rounding passes, as
+    ``chip_smoke.compare_searches`` has it), scores within 1e-3 relative."""
+    import dataclasses
+
+    from chip_smoke import compare_searches
+
+    def predict(m, n_steps):
+        arch = m.seq2seq_arch
+        m.seq2seq_arch = dataclasses.replace(arch, max_decode_len=n_steps)
+        try:
+            return tuple(t.cpu() for t in m.predict_intents(x, beam_width=W, **kw))
+        finally:
+            m.seq2seq_arch = arch
+
+    (scores, _), (ref, _), rows, _ = compare_searches(
+        "card vs CPU", lambda n: predict(card, n), lambda n: predict(cpu, n), card.seq2seq_arch.max_decode_len)
+    assert torch.isfinite(scores).all()
+    assert torch.allclose(scores[:, rows], ref[:, rows], rtol=1e-3, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["30s", "padded_to_40s", "4s_w9", "4s_w16"])
+def test_flagship_seq2seq_decodes_every_length_and_width(dev, case):
+    """The flagship seq2seq ``predict_intents`` on the card, one K7 launch a
+    decode, against the CPU's plain search: 30 s at W = 4, a batch padded
+    to 40 s with ``lengths=``, and 4 s at W = 9 and 16."""
+    cpu, card = _flagship_seq2seq_pair(dev)
+    rng = np.random.default_rng(49)
+    kw, W = {}, 4
+    if case == "30s":
+        x = (0.1 * rng.standard_normal((1, 30 * 16000))).astype(np.float32)
+    elif case == "padded_to_40s":
+        lengths = [40 * 16000, 30 * 16000, 12 * 16000]
+        x = np.zeros((3, 40 * 16000), np.float32)
+        for i, t in enumerate(lengths):
+            x[i, :t] = 0.1 * rng.standard_normal(t)
+        kw = {"lengths": lengths}
+    else:
+        x = (0.1 * rng.standard_normal((2, 4 * 16000))).astype(np.float32)
+        W = 9 if case == "4s_w9" else 16
+    before = beam_decode.launches
+    with torch.inference_mode():
+        card.predict_intents(x, beam_width=W, **kw)
+    torch.cuda.synchronize()
+    assert beam_decode.launches == before + 1
+    _hold_against_the_cpu(card, cpu, x, W, **kw)
+
+
+@pytest.mark.cuda
+def test_trainer_test_decodes_a_long_seq2seq_batch(dev, tmp_path):
+    """``Trainer.test`` with the decode's exact match on a seq2seq batch
+    padded past 24 s: one K7 launch, no plain search, no raise."""
+    from tpu_slu_torch.models.flagship import flagship_seq2seq_model
+    from tpu_slu_torch.ops import beam as plain
+    from tpu_slu_torch.training import Trainer
+
+    model = flagship_seq2seq_model(dev, seq2seq_max_decode_len=16)
+    model.config.folder = str(tmp_path)
+    model.config.decode_acc_from_epoch = 0
+    labels = model.Sy_intent
+    rng = np.random.default_rng(50)
+    T = 26 * 16000
+    ids = rng.integers(1, len(labels) - 1, (2, 16))
+    batch = {"x": (0.1 * rng.standard_normal((2, T))).astype(np.float32),
+             "y_intent": np.eye(len(labels), dtype=np.float32)[ids], "w": np.ones(2, np.float32),
+             "len": np.array([T, 20 * 16000]), "y_len": np.array([16, 9])}
+
+    class Data:
+        loader = [batch]
+
+    calls = []
+    real = plain.beam_search
+    plain.beam_search = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        before = beam_decode.launches
+        acc, loss = Trainer(model, model.config).test(Data())
+        torch.cuda.synchronize()
+    finally:
+        plain.beam_search = real
+    assert beam_decode.launches == before + 1
+    assert not calls and np.isfinite(loss) and 0.0 <= acc <= 1.0

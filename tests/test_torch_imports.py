@@ -1,4 +1,5 @@
-"""The PyTorch port decodes, serves and trains (both heads) without jax, pandas or any ``tpu_slu`` module.
+"""The PyTorch port decodes, serves and trains (both heads, and a unidirectional model) without jax,
+pandas or any ``tpu_slu`` module.
 
 Checked in a fresh interpreter: this test process has imported jax already.
 """
@@ -46,6 +47,13 @@ try:
         loader = [batch]
     acc, loss = Trainer(model, config).train(Data())
     assert np.isfinite(loss)
+    # the flagship's unidirectional model (K5f and K5b on a card): a decode and a train step
+    from tpu_slu_torch.models.flagship import TRAIN_CFG, UNIDIRECTIONAL, flagship_model
+    uni = flagship_model("cpu", **UNIDIRECTIONAL).decode_intents(wav[:8000])[0]
+    uni_model = flagship_model("cpu", cfg=TRAIN_CFG, **UNIDIRECTIONAL)
+    uni_model.config.folder = os.path.join(tmp, "uni")
+    acc, loss = Trainer(uni_model, uni_model.config).train(Data())
+    uni = [len(uni), bool(np.isfinite(loss))]
     # one seq2seq decode of the golden seq2seq checkpoint
     golden = os.path.join("tests", "assets", "golden_seq2seq")
     folder = os.path.join(tmp, "s2s")
@@ -74,7 +82,7 @@ finally:
     shutil.rmtree(tmp)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pandas", "tpu_slu"))
 print(json.dumps({"decoded": decoded, "served": served,
-                  "want": [case["action"], case["object"], case["location"]], "s2s": s2s,
+                  "want": [case["action"], case["object"], case["location"]], "s2s": s2s, "uni": uni,
                   "forbidden": loaded}))
 """
 
@@ -89,4 +97,5 @@ def test_port_imports_neither_jax_nor_pandas():
     result = json.loads(out.strip().splitlines()[-1])
     assert result["decoded"] == result["served"] == result["want"]
     assert result["s2s"][0] == result["s2s"][1]
+    assert result["uni"] == [3, True]
     assert result["forbidden"] == []

@@ -7,10 +7,21 @@ the host clock (ends in ``torch.cuda.synchronize``), untraced, and traces the
 same calls with ``torch.profiler``: device time by kernel name, and the
 device's idle share of the traced run's own wall time. ``--train`` does the
 same for one ``Trainer.train_step`` (forward, backward, masked Adam) of
-``experiments/no_pretraining.cfg``. Run from the root of a checkout:
+``experiments/no_pretraining.cfg``; ``--seq2seq`` for the seq2seq model of
+``experiments/all_real_seq2seq.cfg`` (its decode: W = 4, U = 200);
+``--seconds`` sets the audio's length. ``--unidirectional`` makes every GRU
+layer of the fixed-slot model one direction (``UNIDIRECTIONAL``), and
+``--no-dropout`` sets its GRU layers' dropout to 0, so that a train step
+can be timed with and without its host-drawn dropout masks. With
+``--host-ops N`` it also lists the traced run's N operators that took the
+most host time (self CPU time). ``--repo`` imports the port from another
+checkout, so that one call on the card can time two trees in turns. Run
+from the root of a checkout:
 
     python3 tools/torch_decode_profile.py --batch 1 16
     python3 tools/torch_decode_profile.py --train --batch 64
+    python3 tools/torch_decode_profile.py --train --unidirectional --no-dropout --host-ops 12
+    python3 tools/torch_decode_profile.py --seq2seq --batch 16 --seconds 30
 """
 
 from __future__ import annotations
@@ -30,30 +41,44 @@ def main() -> None:
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 16])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--train", action="store_true", help="time Trainer.train_step instead")
+    ap.add_argument("--seq2seq", action="store_true", help="the seq2seq model instead")
+    ap.add_argument("--seconds", type=float, default=4.0, help="length of the seeded audio")
+    ap.add_argument("--unidirectional", action="store_true", help="every GRU layer one direction")
+    ap.add_argument("--no-dropout", action="store_true", help="the GRU layers' dropout at 0")
+    ap.add_argument("--host-ops", type=int, default=0, help="list the N operators of most host time")
+    ap.add_argument("--repo", default=HERE, help="the checkout whose tpu_slu_torch to import")
     args = ap.parse_args()
-    sys.path.insert(0, HERE)
+    sys.path.insert(0, os.path.abspath(args.repo))
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from tpu_slu_torch.models.flagship import TRAIN_CFG, flagship_model
+    from tpu_slu_torch.models.flagship import TRAIN_CFG, flagship_model, flagship_seq2seq_model
     from tpu_slu_torch.training import Trainer
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           check=True, capture_output=True, text=True).stdout.strip()
+    print(f"tpu_slu_torch from {os.path.dirname(os.path.dirname(sys.modules['tpu_slu_torch'].__file__))}")
+    overrides = {}
+    if args.unidirectional:
+        from tpu_slu_torch.models.flagship import UNIDIRECTIONAL
+
+        overrides.update(UNIDIRECTIONAL)
+    if args.no_dropout:
+        overrides.update(phone_rnn_drop=[0.0, 0.0], word_rnn_drop=[0.0, 0.0], intent_rnn_drop=[0.0])
     if args.train:
-        model = flagship_model("cuda", cfg=TRAIN_CFG)
+        model = flagship_model("cuda", cfg=TRAIN_CFG, **overrides)
         model.config.folder = tempfile.mkdtemp(prefix="train_profile_")
         trainer = Trainer(model, model.config, generator=torch.Generator().manual_seed(0))
-        what = "Trainer.train_step"
+        what = f"Trainer.train_step{' ' + str(overrides) if overrides else ''}"
     else:
-        model = flagship_model("cuda")
-        what = "predict_intents"
+        model = flagship_seq2seq_model("cuda") if args.seq2seq else flagship_model("cuda", **overrides)
+        what = f"predict_intents{' (seq2seq, W=4)' if args.seq2seq else ''} on {args.seconds:g} s"
     rng = np.random.default_rng(1)
     for B in args.batch:
-        x = torch.from_numpy((0.1 * rng.standard_normal((B, 4 * 16000))).astype(np.float32)).cuda()
+        x = torch.from_numpy((0.1 * rng.standard_normal((B, int(args.seconds * 16000)))).astype(np.float32)).cuda()
         if args.train:
             batch = {"x": x, "w": torch.ones(B, device="cuda"),
                      "len": torch.full((B,), x.shape[1], dtype=torch.int64, device="cuda"),
@@ -94,6 +119,15 @@ def main() -> None:
         for e in kernels:
             print(f"  {e.self_device_time_total / args.reps / 1e3:8.4f} ms  "
                   f"{e.count / args.reps:5.1f} launches  {e.key[:90]}")
+        if args.host_ops:
+            ops = [e for e in prof.key_averages() if e.device_type.name == "CPU"]
+            ops.sort(key=lambda e: -e.self_cpu_time_total)
+            host = sum(e.self_cpu_time_total for e in ops) / args.reps / 1e3
+            print(f"B={B}: host self time of the traced operators {host:.3f} ms per call; the "
+                  f"{args.host_ops} largest:")
+            for e in ops[:args.host_ops]:
+                print(f"  {e.self_cpu_time_total / args.reps / 1e3:8.4f} ms  "
+                      f"{e.count / args.reps:7.1f} calls  {e.key[:90]}")
 
 
 if __name__ == "__main__":

@@ -13,15 +13,28 @@
 // Its plain version is `beam_search_reference` in tpu_slu_torch/ops/beam.py.
 //
 // Layout: one CTA per utterance, its W beams as W rows. Shared memory holds
-// the utterance's keys and values (its valid frames only), the beams' states
-// before and after the step, the step's scratch (query, attention weights,
-// [embedding | context], gate pre-activations, extensions), the scores, and
-// a backpointer per step and beam (w * L + l of the chosen extension). After
-// the last step each final beam walks its backpointers back to u = 0 and
-// writes its tokens: the same tokens as gathering the history at every step,
-// without copying W x U ints per step. The TPU kernel's two attention modes
-// (unrolled, blocked online softmax) and its routing by VMEM budget are not
-// carried over: they are TPU measurements.
+// the beams' states before and after the step, the step's scratch (query,
+// a frame block's attention weights, [embedding | context], gate
+// pre-activations, extensions), the scores, and a backpointer per step and
+// beam (w * L + l of the chosen extension). After the last step each final
+// beam walks its backpointers back to u = 0 and writes its tokens: the same
+// tokens as gathering the history at every step, without copying W x U ints
+// per step.
+//
+// Attention is the TPU kernel's blocked mode (`fb`, :215-255) at every
+// length: keys and values stay in global memory, where they are L2-resident
+// (~3.6 MB at 30 s, B = 16), and each step streams the valid frames in
+// blocks of kFB with the online-softmax recurrence: per beam a running max
+// and sum in shared memory, and the running W x V context in the context
+// half of [embedding | context], rescaled at each block. So the plan does
+// not depend on T and any length fits. The TPU kernel also has a mode that
+// keeps K/V resident for short inputs (`_fused_mode`, :105); on this card a
+// shared-memory-resident mode was no faster at 4 s (PERF.md), so it is not
+// kept. The beams' score threads of one frame read the same key row, served
+// by L1.
+// Beams are held in registers in groups of G rows: widths 1-8 each have an
+// instantiation with G = W; wider beams run the G = 8 instantiation over
+// ceil(W / 8) groups, each weight read serving the group's rows.
 //
 // The weights come in the JAX layout, (in, out) row-major, so that thread j
 // reads column j and neighbouring threads read neighbouring addresses; each
@@ -50,30 +63,30 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kFB = 64;    // frames per block of the blocked mode
+constexpr int kGroup = 8;  // rows per register group of the wide instantiation
 
 __device__ __forceinline__ float sigmoid_(float x) { return 1.0f / (1.0f + expf(-x)); }
 
 struct Dims {
-  int B, T, nl, H, K, V, L, U;
+  int B, T, W, nl, H, K, V, L, U;
 };
 
 // Shared-memory plan, in 4-byte words; the kernel and the host share it.
 struct Plan {
-  long long k, v, h, hn, x, q, p, rz, gin, ghn, ext, score, newscore, red_v, red_i, sel, hist,
+  long long h, hn, x, q, p, stat, rz, gin, ghn, ext, score, newscore, red_v, red_i, sel, hist,
       total;
 };
 
-__host__ __device__ inline Plan make_plan(int T, int W, int nl, int H, int K, int V, int L,
-                                          int U) {
+__host__ __device__ inline Plan make_plan(int W, int nl, int H, int K, int V, int L, int U) {
   Plan p;
   long long o = 0;
-  p.k = o;        o += (long long)T * K;        // keys of the valid frames
-  p.v = o;        o += (long long)T * V;        // values of the valid frames
   p.h = o;        o += (long long)nl * W * H;   // live beams' states
   p.hn = o;       o += (long long)nl * W * H;   // states after this step, before the reorder
   p.x = o;        o += (long long)W * (H + V);  // [embedding | context]
   p.q = o;        o += (long long)W * K;        // query
-  p.p = o;        o += (long long)W * T;        // attention scores, then weights
+  p.p = o;        o += (long long)W * kFB;      // a frame block's scores, then weights
+  p.stat = o;     o += 3LL * W;                 // running max, sum and rescale, per beam
   p.rz = o;       o += (long long)W * 2 * H;    // gi + gh of the r and z gates
   p.gin = o;      o += (long long)W * H;        // gi of the n gate
   p.ghn = o;      o += (long long)W * H;        // gh of the n gate
@@ -88,26 +101,35 @@ __host__ __device__ inline Plan make_plan(int T, int W, int nl, int H, int K, in
   return p;
 }
 
+// The row of group slot w of the group starting at g0, clamped into [0, W):
+// a group past the last row recomputes row W - 1 and does not write it.
+__device__ __forceinline__ int row_of(int g0, int w, int W) { return min(g0 + w, W - 1); }
+
 // out[w * out_pitch + j] = bias[j] + sum_d in[w * in_pitch + d] * wt[d * N + j],
-// for j < N and the W rows; thread j owns column j (strided over the block).
-// in lies in shared memory; wt (D, N) row-major and bias in global memory.
-template <int W>
+// for j < N and the W rows, G rows at a time; thread j owns column j
+// (strided over the block). in lies in shared memory; wt (D, N) row-major
+// and bias in global memory.
+template <int G>
 __device__ __forceinline__ void matvec(const float* __restrict__ wt, const float* __restrict__ bias,
                                        const float* in, int in_pitch, int D, int N, float* out,
-                                       int out_pitch) {
+                                       int out_pitch, int W) {
   for (int j = threadIdx.x; j < N; j += kThreads) {
-    float acc[W];
     const float b = bias[j];
+    for (int g0 = 0; g0 < W; g0 += G) {
+      float acc[G];
 #pragma unroll
-    for (int w = 0; w < W; ++w) acc[w] = b;
+      for (int w = 0; w < G; ++w) acc[w] = b;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float wv = __ldg(wt + (size_t)d * N + j);
+      for (int d = 0; d < D; ++d) {
+        const float wv = __ldg(wt + (size_t)d * N + j);
 #pragma unroll
-      for (int w = 0; w < W; ++w) acc[w] = fmaf(in[w * in_pitch + d], wv, acc[w]);
+        for (int w = 0; w < G; ++w)
+          acc[w] = fmaf(in[row_of(g0, w, W) * in_pitch + d], wv, acc[w]);
+      }
+#pragma unroll
+      for (int w = 0; w < G; ++w)
+        if (g0 + w < W) out[(g0 + w) * out_pitch + j] = acc[w];
     }
-#pragma unroll
-    for (int w = 0; w < W; ++w) out[w * out_pitch + j] = acc[w];
   }
 }
 
@@ -129,7 +151,9 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
-template <int W>
+// G: rows per register group; WIDE: W = d.W rows in ceil(W / G) groups
+// (else W = G).
+template <int G, bool WIDE>
 __global__ void __launch_bounds__(kThreads, 1) beam_decode_kernel(
     const float* __restrict__ keys,      // (B, T, K)
     const float* __restrict__ values,    // (B, T, V)
@@ -143,14 +167,16 @@ __global__ void __launch_bounds__(kThreads, 1) beam_decode_kernel(
     long long* __restrict__ tokens,      // (W, B, U)
     Dims d) {
   extern __shared__ __align__(16) float smem[];
-  const Plan pl = make_plan(d.T, W, d.nl, d.H, d.K, d.V, d.L, d.U);
-  float* k_s = smem + pl.k;
-  float* v_s = smem + pl.v;
+  const int W = WIDE ? d.W : G;
+  const Plan pl = make_plan(W, d.nl, d.H, d.K, d.V, d.L, d.U);
   float* h_s = smem + pl.h;
   float* hn_s = smem + pl.hn;
   float* x_s = smem + pl.x;
   float* q_s = smem + pl.q;
   float* p_s = smem + pl.p;
+  float* m_s = smem + pl.stat;  // running max,
+  float* l_s = m_s + W;         // running sum,
+  float* a_s = l_s + W;         // and this block's rescale factor, per beam
   float* rz_s = smem + pl.rz;
   float* gin_s = smem + pl.gin;
   float* ghn_s = smem + pl.ghn;
@@ -169,57 +195,87 @@ __global__ void __launch_bounds__(kThreads, 1) beam_decode_kernel(
   const int n = (int)(nv < 1 ? 1 : (nv > T ? T : nv));
   const float scale = sqrtf((float)K);  // of the keys' true width
 
-  for (int e = tid; e < n * K; e += kThreads) k_s[e] = keys[(size_t)b * T * K + e];
-  for (int e = tid; e < n * V; e += kThreads) v_s[e] = values[(size_t)b * T * V + e];
+  const float* __restrict__ kb = keys + (size_t)b * T * K;
+  const float* __restrict__ vb = values + (size_t)b * T * V;
   for (int e = tid; e < nl * W * H; e += kThreads) h_s[e] = init[(e / (W * H)) * H + e % H];
   if (tid < W) score_s[tid] = 0.0f;
   __syncthreads();
 
   for (int u = 0; u < d.U; ++u) {
-    // ---- attention over the valid frames, query from the top layer's state
-    matvec<W>(wq, bq, h_s + (size_t)(nl - 1) * W * H, H, H, K, q_s, K);
+    // ---- attention over the valid frames, query from the top layer's state;
+    // the context lands in x_s[w * X + H + c]
+    matvec<G>(wq, bq, h_s + (size_t)(nl - 1) * W * H, H, H, K, q_s, K, W);
     __syncthreads();
-    for (int e = tid; e < W * n; e += kThreads) {
-      const int w = e / n, t = e % n;
-      const float* q = q_s + w * K;
-      const float* k = k_s + t * K;
-      float s = 0.0f;
-      for (int c = 0; c < K; ++c) s = fmaf(q[c], k[c], s);
-      p_s[w * T + t] = s / scale;
+    for (int w = tid; w < W; w += kThreads) {
+      m_s[w] = -INFINITY;
+      l_s[w] = 0.0f;
     }
+    for (int e = tid; e < W * V; e += kThreads) x_s[(e / V) * X + H + e % V] = 0.0f;
     __syncthreads();
-    for (int w = warp; w < W; w += kWarps) {
-      float* p = p_s + w * T;
-      float m = -INFINITY;
-      for (int t = lane; t < n; t += 32) m = fmaxf(m, p[t]);
-      m = warp_max(m);
-      float s = 0.0f;
-      for (int t = lane; t < n; t += 32) {
-        const float e = expf(p[t] - m);
-        p[t] = e;
-        s += e;
+    for (int t0 = 0; t0 < n; t0 += kFB) {
+      const int nf = min(kFB, n - t0);
+      // scores of the block's frames; neighbouring threads take neighbouring frames
+      for (int e = tid; e < W * nf; e += kThreads) {
+        const int w = e / nf, t = e % nf;
+        const float* q = q_s + w * K;
+        const float* __restrict__ k = kb + (size_t)(t0 + t) * K;
+        float s = 0.0f;
+        for (int c = 0; c < K; ++c) s = fmaf(q[c], __ldg(k + c), s);
+        p_s[w * kFB + t] = s / scale;
       }
-      s = warp_sum(s);
-      for (int t = lane; t < n; t += 32) p[t] /= s;
+      __syncthreads();
+      // online softmax: m' = max(m, block max), weights exp(s - m'), the
+      // running sum and context rescaled by exp(m - m')
+      for (int w = warp; w < W; w += kWarps) {
+        float* p = p_s + w * kFB;
+        float mb = -INFINITY;
+        for (int t = lane; t < nf; t += 32) mb = fmaxf(mb, p[t]);
+        const float m_old = m_s[w];
+        const float m_new = fmaxf(m_old, warp_max(mb));
+        float s = 0.0f;
+        for (int t = lane; t < nf; t += 32) {
+          const float e = expf(p[t] - m_new);
+          p[t] = e;
+          s += e;
+        }
+        s = warp_sum(s);
+        if (lane == 0) {
+          const float alpha = expf(m_old - m_new);  // 0 at the first block
+          a_s[w] = alpha;
+          l_s[w] = l_s[w] * alpha + s;
+          m_s[w] = m_new;
+        }
+      }
+      __syncthreads();
+      for (int c = tid; c < V; c += kThreads) {
+        for (int g0 = 0; g0 < W; g0 += G) {
+          float acc[G];
+#pragma unroll
+          for (int w = 0; w < G; ++w) {
+            const int r = row_of(g0, w, W);
+            acc[w] = x_s[r * X + H + c] * a_s[r];
+          }
+          for (int t = 0; t < nf; ++t) {
+            const float vv = __ldg(vb + (size_t)(t0 + t) * V + c);
+#pragma unroll
+            for (int w = 0; w < G; ++w)
+              acc[w] = fmaf(p_s[row_of(g0, w, W) * kFB + t], vv, acc[w]);
+          }
+#pragma unroll
+          for (int w = 0; w < G; ++w)
+            if (g0 + w < W) x_s[(g0 + w) * X + H + c] = acc[w];
+        }
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    // ---- [embedding of the previous token | context]
+    // ---- [embedding of the previous token | context]: the running context
+    // over its sum
     for (int j = tid; j < X; j += kThreads) {
       if (j < H) {
-#pragma unroll
         for (int w = 0; w < W; ++w)
           x_s[w * X + j] = u == 0 ? be[j] : we[(size_t)(sel_s[w] % L) * H + j] + be[j];
       } else {
-        float acc[W];
-#pragma unroll
-        for (int w = 0; w < W; ++w) acc[w] = 0.0f;
-        for (int t = 0; t < n; ++t) {
-          const float vv = v_s[t * V + j - H];
-#pragma unroll
-          for (int w = 0; w < W; ++w) acc[w] = fmaf(p_s[w * T + t], vv, acc[w]);
-        }
-#pragma unroll
-        for (int w = 0; w < W; ++w) x_s[w * X + j] = acc[w];
+        for (int w = 0; w < W; ++w) x_s[w * X + j] /= l_s[w];
       }
     }
     __syncthreads();
@@ -236,32 +292,38 @@ __global__ void __launch_bounds__(kThreads, 1) beam_decode_kernel(
       cw = b_hh + H3;
       const float* h = h_s + (size_t)li * W * H;
       for (int j = tid; j < H3; j += kThreads) {
-        float gi[W], gh[W];
         const float bi = b_ih[j], bh = b_hh[j];
+        for (int g0 = 0; g0 < W; g0 += G) {
+          float gi[G], gh[G];
 #pragma unroll
-        for (int w = 0; w < W; ++w) {
-          gi[w] = bi;
-          gh[w] = bh;
-        }
+          for (int w = 0; w < G; ++w) {
+            gi[w] = bi;
+            gh[w] = bh;
+          }
 #pragma unroll 8
-        for (int k = 0; k < D; ++k) {
-          const float wv = __ldg(w_ih + (size_t)k * H3 + j);
+          for (int k = 0; k < D; ++k) {
+            const float wv = __ldg(w_ih + (size_t)k * H3 + j);
 #pragma unroll
-          for (int w = 0; w < W; ++w) gi[w] = fmaf(in[w * in_pitch + k], wv, gi[w]);
-        }
+            for (int w = 0; w < G; ++w)
+              gi[w] = fmaf(in[row_of(g0, w, W) * in_pitch + k], wv, gi[w]);
+          }
 #pragma unroll 8
-        for (int k = 0; k < H; ++k) {
-          const float wv = __ldg(w_hh + (size_t)k * H3 + j);
+          for (int k = 0; k < H; ++k) {
+            const float wv = __ldg(w_hh + (size_t)k * H3 + j);
 #pragma unroll
-          for (int w = 0; w < W; ++w) gh[w] = fmaf(h[w * H + k], wv, gh[w]);
-        }
+            for (int w = 0; w < G; ++w)
+              gh[w] = fmaf(h[row_of(g0, w, W) * H + k], wv, gh[w]);
+          }
 #pragma unroll
-        for (int w = 0; w < W; ++w) {
-          if (j < 2 * H) {
-            rz_s[w * 2 * H + j] = gi[w] + gh[w];
-          } else {
-            gin_s[w * H + j - 2 * H] = gi[w];
-            ghn_s[w * H + j - 2 * H] = gh[w];
+          for (int w = 0; w < G; ++w) {
+            const int r = g0 + w;
+            if (r >= W) continue;
+            if (j < 2 * H) {
+              rz_s[r * 2 * H + j] = gi[w] + gh[w];
+            } else {
+              gin_s[r * H + j - 2 * H] = gi[w];
+              ghn_s[r * H + j - 2 * H] = gh[w];
+            }
           }
         }
       }
@@ -277,7 +339,7 @@ __global__ void __launch_bounds__(kThreads, 1) beam_decode_kernel(
       __syncthreads();
     }
     // ---- log-softmax over the labels, extensions of the live beams
-    matvec<W>(wl, bl, hn_s + (size_t)(nl - 1) * W * H, H, H, L, ext_s, L);
+    matvec<G>(wl, bl, hn_s + (size_t)(nl - 1) * W * H, H, H, L, ext_s, L, W);
     __syncthreads();
     for (int w = warp; w < W; w += kWarps) {
       float* x = ext_s + w * L;
@@ -354,17 +416,18 @@ __global__ void __launch_bounds__(kThreads, 1) beam_decode_kernel(
   }
 }
 
-template <int W>
+template <int G, bool WIDE>
 cudaError_t launch(const float* keys, const float* values, const long long* n_valid,
                    const float* wq, const float* bq, const float* we, const float* be,
                    const float* cells, const float* wl, const float* bl, const float* init,
                    float* scores, long long* tokens, Dims d, cudaStream_t st) {
-  const size_t smem = sizeof(float) * make_plan(d.T, W, d.nl, d.H, d.K, d.V, d.L, d.U).total;
-  cudaError_t err = cudaFuncSetAttribute(beam_decode_kernel<W>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = sizeof(float) * make_plan(d.W, d.nl, d.H, d.K, d.V, d.L, d.U).total;
+  auto kernel = beam_decode_kernel<G, WIDE>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  beam_decode_kernel<W><<<d.B, kThreads, smem, st>>>(keys, values, n_valid, wq, bq, we, be, cells,
-                                                     wl, bl, init, scores, tokens, d);
+  kernel<<<d.B, kThreads, smem, st>>>(keys, values, n_valid, wq, bq, we, be, cells, wl, bl, init,
+                                      scores, tokens, d);
   return cudaGetLastError();
 }
 
@@ -372,9 +435,9 @@ cudaError_t launch(const float* keys, const float* values, const long long* n_va
 
 extern "C" {
 
-// Bytes of dynamic shared memory one CTA of the search takes.
-long long tsl_beam_decode_smem_bytes(int T, int W, int nl, int H, int K, int V, int L, int U) {
-  return (long long)sizeof(float) * make_plan(T, W, nl, H, K, V, L, U).total;
+// Bytes of dynamic shared memory one CTA of the search takes; no T term.
+long long tsl_beam_decode_smem_bytes(int W, int nl, int H, int K, int V, int L, int U) {
+  return (long long)sizeof(float) * make_plan(W, nl, H, K, V, L, U).total;
 }
 
 // The whole beam search of B utterances, one CTA each. keys (B, T, K) and
@@ -383,30 +446,37 @@ long long tsl_beam_decode_smem_bytes(int T, int W, int nl, int H, int K, int V, 
 // (K), we (L, H), be (H), wl (H, L), bl (L), init (nl, H); cells packs, per
 // layer, w_ih (in, 3H) (in = H + V for layer 0, H after it), w_hh (H, 3H),
 // b_ih (3H) and b_hh (3H). Writes scores (W, B) best-first and tokens (W, B,
-// U) int64. 1 <= W <= 8. Returns cudaSuccess (0) or the first error of the
+// U) int64. W >= 1. Returns cudaSuccess (0) or the first error of the
 // launch; does not synchronise.
 int tsl_beam_decode(const float* keys, const float* values, const long long* n_valid,
                     const float* wq, const float* bq, const float* we, const float* be,
                     const float* cells, const float* wl, const float* bl, const float* init,
                     float* scores, long long* tokens, int B, int T, int W, int nl, int H, int K,
                     int V, int L, int U, void* stream) {
-  const Dims d{B, T, nl, H, K, V, L, U};
+  const Dims d{B, T, W, nl, H, K, V, L, U};
   cudaStream_t st = (cudaStream_t)stream;
-#define TSL_BEAM(WV)                                                                           \
-  case WV:                                                                                     \
-    return (int)launch<WV>(keys, values, n_valid, wq, bq, we, be, cells, wl, bl, init, scores, \
-                           tokens, d, st)
+#define TSL_BEAM(GV, WIDEV)                                                                  \
+  (int)launch<GV, WIDEV>(keys, values, n_valid, wq, bq, we, be, cells, wl, bl, init, scores, \
+                         tokens, d, st)
   switch (W) {
-    TSL_BEAM(1);
-    TSL_BEAM(2);
-    TSL_BEAM(3);
-    TSL_BEAM(4);
-    TSL_BEAM(5);
-    TSL_BEAM(6);
-    TSL_BEAM(7);
-    TSL_BEAM(8);
+    case 1:
+      return TSL_BEAM(1, false);
+    case 2:
+      return TSL_BEAM(2, false);
+    case 3:
+      return TSL_BEAM(3, false);
+    case 4:
+      return TSL_BEAM(4, false);
+    case 5:
+      return TSL_BEAM(5, false);
+    case 6:
+      return TSL_BEAM(6, false);
+    case 7:
+      return TSL_BEAM(7, false);
+    case 8:
+      return TSL_BEAM(8, false);
     default:
-      return (int)cudaErrorInvalidValue;
+      return W > 8 ? TSL_BEAM(kGroup, true) : (int)cudaErrorInvalidValue;
   }
 #undef TSL_BEAM
 }

@@ -1,10 +1,11 @@
-// Pieces shared by the bi-GRU backward kernels (K3 bigru_shared_bwd.cu, K4b
-// bigru_masked_bwd.cu): the gate tensor of phase 1, and phase 3's products
-// (dX, and dW/db as a split row-chunk GEMM with a fixed-order reduction, so
-// that repeated runs agree bit for bit). None of them depends on the order of
-// the M = T*B rows, so the time-major (K3) and the batch-major (K4b) layouts
-// share them. Included after bigru_common.cuh; the anonymous namespace gives
-// each source its own copy.
+// Pieces shared by the GRU backward kernels (K3 bigru_shared_bwd.cu, K4b and
+// K5b bigru_masked_bwd.cu): the gate tensor of phase 1, and phase 3's
+// products (dX, and dW/db as a split row-chunk GEMM with a fixed-order
+// reduction, so that repeated runs agree bit for bit). None of them depends
+// on the order of the M = T*B rows, so the time-major (K3) and the
+// batch-major (K4b, K5b) layouts share them; `ndir` is the number of
+// directions, 2 (K3, K4b) or 1 (K5b). Included after bigru_common.cuh; the
+// anonymous namespace gives each source its own copy.
 
 #pragma once
 
@@ -22,9 +23,9 @@ __global__ void bwd_gates_kernel(const float* __restrict__ gi, const float* __re
                                  float* __restrict__ gates, const float* __restrict__ dyp_f,
                                  const float* __restrict__ dyp_b, float* __restrict__ dyx,
                                  int T, int B, int H, int pool, int fused, uint32_t seed,
-                                 uint32_t thresh, float inv_keep) {
+                                 uint32_t thresh, float inv_keep, int ndir) {
   const size_t M = (size_t)T * B;
-  const size_t total = 2 * M * H;
+  const size_t total = (size_t)ndir * M * H;
   for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < total;
        e += (size_t)gridDim.x * blockDim.x) {
     const int i = (int)(e % H);
@@ -60,14 +61,14 @@ __global__ void bwd_gates_kernel(const float* __restrict__ gi, const float* __re
 __global__ void __launch_bounds__(256) bwd_dx_kernel(
     const float* __restrict__ dgi, const float* __restrict__ wih_f,
     const float* __restrict__ wih_b, float* __restrict__ dx1, int d1, float* __restrict__ dx2,
-    int d2, int M, int H3) {
+    int d2, int M, int H3, int ndir) {
   __shared__ float as[kTK][kTile + 1];
   __shared__ float ws[kTK][kTile + 1];
   const int D = d1 + d2;
   const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   float acc[4][4] = {};
-  for (int dir = 0; dir < 2; ++dir) {
+  for (int dir = 0; dir < ndir; ++dir) {
     const float* __restrict__ A = dgi + (size_t)dir * M * H3;
     const float* __restrict__ W = dir == 0 ? wih_f : wih_b;
     for (int k0 = 0; k0 < H3; k0 += kTK) {
@@ -118,10 +119,10 @@ __global__ void __launch_bounds__(256) bwd_dw_kernel(
     const float* __restrict__ A, int H3, const float* __restrict__ x1_f,
     const float* __restrict__ x2_f, const float* __restrict__ x1_b,
     const float* __restrict__ x2_b, int d1, int d2, float* __restrict__ partial, int M,
-    int chunk) {
+    int chunk, int ndir) {
   __shared__ float as[kTK][kTile + 1];
   __shared__ float xs[kTK][kTile + 1];
-  const int dir = blockIdx.z % 2, split = blockIdx.z / 2;
+  const int dir = blockIdx.z % ndir, split = blockIdx.z / ndir;
   const int Dx = d1 + d2, NC = Dx + 1;
   const int i0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
   const int mb = split * chunk, me = min(M, mb + chunk);
@@ -162,7 +163,7 @@ __global__ void __launch_bounds__(256) bwd_dw_kernel(
     }
     __syncthreads();
   }
-  float* __restrict__ out = partial + (size_t)(split * 2 + dir) * H3 * NC;
+  float* __restrict__ out = partial + (size_t)(split * ndir + dir) * H3 * NC;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = i0 + ty + 16 * i;
@@ -179,16 +180,17 @@ __global__ void __launch_bounds__(256) bwd_dw_kernel(
 // db (3H) of each direction.
 __global__ void bwd_dw_reduce_kernel(const float* __restrict__ partial, int S, int H3, int Dx,
                                      float* __restrict__ dw_f, float* __restrict__ db_f,
-                                     float* __restrict__ dw_b, float* __restrict__ db_b) {
+                                     float* __restrict__ dw_b, float* __restrict__ db_b,
+                                     int ndir) {
   const int NC = Dx + 1;
   const size_t per_dir = (size_t)H3 * NC;
-  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < 2 * per_dir;
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < ndir * per_dir;
        e += (size_t)gridDim.x * blockDim.x) {
     const int dir = (int)(e / per_dir);
     const size_t rem = e % per_dir;
     const int i = (int)(rem / NC), n = (int)(rem % NC);
     float s = 0.0f;
-    for (int sp = 0; sp < S; ++sp) s += partial[(size_t)(sp * 2 + dir) * per_dir + rem];
+    for (int sp = 0; sp < S; ++sp) s += partial[(size_t)(sp * ndir + dir) * per_dir + rem];
     if (n < Dx) {
       (dir == 0 ? dw_f : dw_b)[(size_t)i * Dx + n] = s;
     } else {
@@ -202,24 +204,25 @@ inline int grid_for(size_t total, int sms) {
   return (int)(blocks < (size_t)sms * 8 ? blocks : (size_t)sms * 8);
 }
 
-// dW and db of both directions: the split row-chunk GEMM, then the reduction.
+// dW and db of each direction: the split row-chunk GEMM, then the reduction.
 cudaError_t weight_grads(const float* A, int H3, const float* x1_f, const float* x2_f,
                          const float* x1_b, const float* x2_b, int d1, int d2, float* partial,
                          float* dw_f, float* db_f, float* dw_b, float* db_b, int M, int sms,
-                         cudaStream_t st) {
+                         cudaStream_t st, int ndir = 2) {
   const int Dx = d1 + d2;
-  const int tiles = 2 * ((H3 + kTile - 1) / kTile) * ((Dx + 1 + kTile - 1) / kTile);
+  const int tiles = ndir * ((H3 + kTile - 1) / kTile) * ((Dx + 1 + kTile - 1) / kTile);
   // enough row chunks to give every SM a CTA, each of at least 256 rows
   int S = (sms + tiles - 1) / tiles;
   S = std::max(1, std::min(S, std::min(kMaxSplit, (M + 255) / 256)));
   const int chunk = ((M + S - 1) / S + kTK - 1) / kTK * kTK;
   S = (M + chunk - 1) / chunk;
-  dim3 grid((Dx + 1 + kTile - 1) / kTile, (H3 + kTile - 1) / kTile, 2 * S);
-  bwd_dw_kernel<<<grid, 256, 0, st>>>(A, H3, x1_f, x2_f, x1_b, x2_b, d1, d2, partial, M, chunk);
+  dim3 grid((Dx + 1 + kTile - 1) / kTile, (H3 + kTile - 1) / kTile, ndir * S);
+  bwd_dw_kernel<<<grid, 256, 0, st>>>(A, H3, x1_f, x2_f, x1_b, x2_b, d1, d2, partial, M, chunk,
+                                      ndir);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bwd_dw_reduce_kernel<<<grid_for((size_t)2 * H3 * (Dx + 1), sms), 256, 0, st>>>(
-      partial, S, H3, Dx, dw_f, db_f, dw_b, db_b);
+  bwd_dw_reduce_kernel<<<grid_for((size_t)ndir * H3 * (Dx + 1), sms), 256, 0, st>>>(
+      partial, S, H3, Dx, dw_f, db_f, dw_b, db_b, ndir);
   return cudaGetLastError();
 }
 

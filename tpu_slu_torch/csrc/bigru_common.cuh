@@ -247,10 +247,11 @@ cudaError_t launch_rec(const float* gi, const float* whh_f, const float* bhh_f,
   return cudaGetLastError();
 }
 
-// The smallest batch tile of 1, 2, 4 or 8 rows whose 2 * ceil(B / tile) CTAs
-// (one per tile and direction) fit in one wave of the card's SMs: a serial
-// step's time grows with the rows a CTA carries, and the CTAs run side by side.
-inline cudaError_t pick_batch_tile(int B, int* nb) {
+// The smallest batch tile of 1, 2, 4 or 8 rows whose ndir * ceil(B / tile)
+// CTAs (one per tile and direction) fit in one wave of the card's SMs: a
+// serial step's time grows with the rows a CTA carries, and the CTAs run
+// side by side.
+inline cudaError_t pick_batch_tile(int B, int* nb, int ndir = 2) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -258,7 +259,7 @@ inline cudaError_t pick_batch_tile(int B, int* nb) {
   if (err != cudaSuccess) return err;
   *nb = 8;
   for (int cand = 1; cand < 8; cand *= 2) {
-    if (2 * ((B + cand - 1) / cand) <= sms) {
+    if (ndir * ((B + cand - 1) / cand) <= sms) {
       *nb = cand;
       break;
     }

@@ -1,4 +1,5 @@
-// Length-masked bidirectional GRU layer, BACKWARD (K4b), for sm_90a.
+// Length-masked GRU layer, BACKWARD: K4b (bidirectional) and K5b
+// (unidirectional), for sm_90a.
 //
 // Replaces the TPU kernel `_fused_bwd_kernel` in tpu_slu/ops/pallas_gru.py:400
 // (`pallas_call` at :525), the custom-VJP backward of the joint bi-GRU
@@ -35,6 +36,18 @@
 //      hold dgi = dgh = 0, so they add exactly 0 to dW and db, and dX there is
 //      exactly 0. No float atomics: repeated runs agree bit for bit.
 //
+// K5b replaces the TPU kernel `_fused1_bwd_kernel` (pallas_gru.py:189,
+// `pallas_call` at :261), the custom-VJP backward of every unidirectional
+// GRU layer (`_gru1_seq_for` :617-644). It is the VJP of K5f
+// (bigru_masked_fwd.cu, NDIR = 1): the same three phases with one
+// direction (the chain kernel's NDIR = 1, its own name in a trace): x (B,
+// T, D), the forward output (B, T, H) and dy (B, T, H) -> dX, dW_ih, db_ih,
+// dW_hh, db_hh; h_prev is
+// out[b, t-1] (0 at t = 0), the chain walks t = n_b-1..0. The TPU kernel
+// takes time-flipped x, h_prev and dy and carries dh and the dW sums across
+// its sequential time blocks; here nothing is flipped and dW is phase 3's
+// fixed-order reduction.
+//
 // What bounds it on this card: at the seq2seq encoder's layer (B = 64,
 // T = 25, D = 256, H = 128) ~2.8 GFLOP of f32 products, of which the chain
 // holds ~0.3 GFLOP in 2 x 25 serial steps side by side; the rest are the
@@ -48,17 +61,21 @@
 
 namespace {
 
-__device__ __forceinline__ int clamp_len(long long n, int T) {
+// Row b's valid frames, clamped to [0, T]; every row has T without lengths.
+__device__ __forceinline__ int row_len(const long long* __restrict__ lengths, int b, int T) {
+  if (lengths == nullptr) return T;
+  const long long n = lengths[b];
   return (int)(n < 0 ? 0 : (n > T ? T : n));
 }
 
 // Phase 1a: hp[dir][b*T + t] = each direction's h_prev at natural t, read
-// from the forward output (B, T, 2H) by index.
+// from the forward output (B, T, ndir*H) by index.
 __global__ void masked_hprev_kernel(const float* __restrict__ out,
                                     const long long* __restrict__ lengths,
-                                    float* __restrict__ hp, int T, int B, int H) {
+                                    float* __restrict__ hp, int T, int B, int H, int ndir) {
   const size_t M = (size_t)B * T;
-  const size_t total = 2 * M * H;
+  const size_t total = (size_t)ndir * M * H;
+  const size_t P = (size_t)ndir * H;
   for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < total;
        e += (size_t)gridDim.x * blockDim.x) {
     const int i = (int)(e % H);
@@ -68,28 +85,29 @@ __global__ void masked_hprev_kernel(const float* __restrict__ out,
     const int b = (int)(m / T), t = (int)(m % T);
     float v = 0.0f;
     if (dir == 0) {
-      if (t > 0) v = out[(m - 1) * 2 * H + i];
-    } else if (t + 1 < clamp_len(lengths[b], T)) {
-      v = out[(m + 1) * 2 * H + H + i];
+      if (t > 0) v = out[(m - 1) * P + i];
+    } else if (t + 1 < row_len(lengths, b, T)) {
+      v = out[(m + 1) * P + H + i];
     }
     hp[e] = v;
   }
 }
 
-// Phase 2: one CTA per (batch tile of NB rows, direction), blockDim.x >= 3H.
+// Phase 2: one CTA per (batch tile of NB rows, direction), blockDim.x >= 3H;
+// NDIR = 1: the forward direction alone (K5b).
 // Thread e < NB*H owns element (b, i) of dh through the row's valid steps;
 // thread tid < 3H owns output column j = tid % H of the group g = tid / H of
 // W_hh's rows in the recurrent product dgh W_hh (K3's bwd_chain_kernel).
 // Step s of row b is t = n_b - 1 - s (forward direction) or t = s
 // (backward); a row past its walk idles while the tile's longest finishes.
-template <int NB>
-__global__ void masked_bwd_chain_kernel(const float* __restrict__ gates,  // (2, B*T, 4H)
-                                        const float* __restrict__ hp,     // (2, B*T, H)
-                                        const float* __restrict__ dy,     // (B, T, 2H)
+template <int NB, int NDIR>
+__global__ void masked_bwd_chain_kernel(const float* __restrict__ gates,  // (NDIR, B*T, 4H)
+                                        const float* __restrict__ hp,     // (NDIR, B*T, H)
+                                        const float* __restrict__ dy,     // (B, T, NDIR*H)
                                         const long long* __restrict__ lengths,
                                         const float* __restrict__ whh_f,
                                         const float* __restrict__ whh_b,
-                                        float* __restrict__ dgi,  // (2, B*T, 3H)
+                                        float* __restrict__ dgi,  // (NDIR, B*T, 3H)
                                         float* __restrict__ dgh, int T, int B, int H) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int n_s[NB];
@@ -98,7 +116,7 @@ __global__ void masked_bwd_chain_kernel(const float* __restrict__ gates,  // (2,
   float* dgh_s = w_s + H3 * H;      // [NB][3H]
   float* part_s = dgh_s + NB * H3;  // [3][NB][H]
 
-  const int dir = blockIdx.y;
+  const int dir = NDIR == 1 ? 0 : blockIdx.y;
   const int b0 = blockIdx.x * NB;
   const int nb = min(NB, B - b0);
   const size_t M = (size_t)B * T;
@@ -112,7 +130,7 @@ __global__ void masked_bwd_chain_kernel(const float* __restrict__ gates,  // (2,
 
   for (int e = tid; e < H3 * H; e += nt) w_s[e] = whh[e];
   for (int e = tid; e < NB * H3; e += nt) dgh_s[e] = 0.0f;
-  if (tid < NB) n_s[tid] = tid < nb ? clamp_len(lengths[b0 + tid], T) : 0;
+  if (tid < NB) n_s[tid] = tid < nb ? row_len(lengths, b0 + tid, T) : 0;
   constexpr int kIt = (NB + 2) / 3;
   float dh[kIt];
 #pragma unroll
@@ -134,7 +152,7 @@ __global__ void masked_bwd_chain_kernel(const float* __restrict__ gates,  // (2,
           const size_t row = (size_t)(b0 + b) * T + t;
           const float* gr = gd + row * 4 * H;
           const float rfac = gr[i], z = gr[H + i], ng = gr[2 * H + i], r = gr[3 * H + i];
-          const float d = dh[it] + dyd[row * 2 * H + i];
+          const float d = dh[it] + dyd[row * NDIR * H + i];
           const float h_prev = hpd[row * H + i];
           const float dn = d * (1.0f - z) * (1.0f - ng * ng);
           const float dz = d * (h_prev - ng) * z * (1.0f - z);
@@ -197,19 +215,91 @@ __global__ void masked_bwd_chain_kernel(const float* __restrict__ gates,  // (2,
   }
 }
 
-template <int NB>
+template <int NB, int NDIR>
 cudaError_t launch_masked_chain(const float* gates, const float* hp, const float* dy,
                                 const long long* lengths, const float* whh_f, const float* whh_b,
                                 float* dgi, float* dgh, int T, int B, int H, cudaStream_t st) {
   const size_t smem = sizeof(float) * ((size_t)3 * H * H + (size_t)NB * 3 * H + (size_t)3 * NB * H);
-  cudaError_t err = cudaFuncSetAttribute(masked_bwd_chain_kernel<NB>,
+  cudaError_t err = cudaFuncSetAttribute(masked_bwd_chain_kernel<NB, NDIR>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int threads = (3 * H + 31) / 32 * 32;
-  dim3 grid((B + NB - 1) / NB, 2);
-  masked_bwd_chain_kernel<NB><<<grid, threads, smem, st>>>(gates, hp, dy, lengths, whh_f, whh_b,
-                                                           dgi, dgh, T, B, H);
+  dim3 grid((B + NB - 1) / NB, NDIR);
+  masked_bwd_chain_kernel<NB, NDIR><<<grid, threads, smem, st>>>(gates, hp, dy, lengths, whh_f,
+                                                                 whh_b, dgi, dgh, T, B, H);
   return cudaGetLastError();
+}
+
+// The three phases for NDIR directions; the _b operands are unused at NDIR = 1.
+template <int NDIR>
+cudaError_t masked_bwd(const float* x, int D, const long long* lengths, const float* out,
+                       const float* dy, const float* wih_f, const float* bih_f,
+                       const float* whh_f, const float* bhh_f, const float* wih_b,
+                       const float* bih_b, const float* whh_b, const float* bhh_b, float* dx,
+                       float* dwih_f, float* dbih_f, float* dwhh_f, float* dbhh_f,
+                       float* dwih_b, float* dbih_b, float* dwhh_b, float* dbhh_b, float* hp,
+                       float* buf_a, float* buf_b, float* gates, float* partial, int T, int B,
+                       int H, cudaStream_t st) {
+  const int M = B * T, H3 = 3 * H;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+
+  // 1. h_prev, gates
+  masked_hprev_kernel<<<grid_for((size_t)NDIR * M * H, sms), 256, 0, st>>>(out, lengths, hp, T, B,
+                                                                           H, NDIR);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const float* hp_b = hp + (size_t)M * H;
+  err = launch_gi_proj(x, D, nullptr, 0, wih_f, bih_f, wih_b, bih_b, buf_a, M, H3, NDIR, st);
+  if (err != cudaSuccess) return err;
+  err = launch_gi_proj(hp, H, nullptr, 0, whh_f, bhh_f, nullptr, nullptr, buf_b, M, H3, 1, st);
+  if (err != cudaSuccess) return err;
+  if (NDIR == 2) {
+    err = launch_gi_proj(hp_b, H, nullptr, 0, whh_b, bhh_b, nullptr, nullptr,
+                         buf_b + (size_t)M * H3, M, H3, 1, st);
+    if (err != cudaSuccess) return err;
+  }
+  bwd_gates_kernel<<<grid_for((size_t)NDIR * M * H, sms), 256, 0, st>>>(
+      buf_a, buf_b, gates, nullptr, nullptr, nullptr, T, B, H, 1, 0, 0u, kKeepAll, 1.0f, NDIR);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  // 2. the serial dh chain; dgi and dgh overwrite gi and gh
+  int nb = 8;
+  err = pick_batch_tile(B, &nb, NDIR);
+  if (err != cudaSuccess) return err;
+#define TSL_CHAIN(NBV)                                                                         \
+  launch_masked_chain<NBV, NDIR>(gates, hp, dy, lengths, whh_f, whh_b, buf_a, buf_b, T, B, H, \
+                                 st)
+  switch (nb) {
+    case 1:
+      err = TSL_CHAIN(1);
+      break;
+    case 2:
+      err = TSL_CHAIN(2);
+      break;
+    case 4:
+      err = TSL_CHAIN(4);
+      break;
+    default:
+      err = TSL_CHAIN(8);
+  }
+#undef TSL_CHAIN
+  if (err != cudaSuccess) return err;
+
+  // 3. products
+  dim3 xgrid((D + kTile - 1) / kTile, (M + kTile - 1) / kTile);
+  bwd_dx_kernel<<<xgrid, 256, 0, st>>>(buf_a, wih_f, wih_b, dx, D, nullptr, 0, M, H3, NDIR);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = weight_grads(buf_a, H3, x, nullptr, x, nullptr, D, 0, partial, dwih_f, dbih_f, dwih_b,
+                     dbih_b, M, sms, st, NDIR);
+  if (err != cudaSuccess) return err;
+  return weight_grads(buf_b, H3, hp, nullptr, hp_b, nullptr, H, 0, partial, dwhh_f, dbhh_f,
+                      dwhh_b, dbhh_b, M, sms, st, NDIR);
 }
 
 }  // namespace
@@ -232,60 +322,29 @@ int tsl_bigru_masked_bwd(
     float* dwih_b, float* dbih_b, float* dwhh_b, float* dbhh_b,
     float* hp, float* buf_a, float* buf_b, float* gates, float* partial,
     int T, int B, int H, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int M = B * T, H3 = 3 * H;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
+  return (int)masked_bwd<2>(x, D, lengths, out, dy, wih_f, bih_f, whh_f, bhh_f, wih_b, bih_b,
+                            whh_b, bhh_b, dx, dwih_f, dbih_f, dwhh_f, dbhh_f, dwih_b, dbih_b,
+                            dwhh_b, dbhh_b, hp, buf_a, buf_b, gates, partial, T, B, H,
+                            (cudaStream_t)stream);
+}
 
-  // 1. h_prev, gates
-  masked_hprev_kernel<<<grid_for((size_t)2 * M * H, sms), 256, 0, st>>>(out, lengths, hp, T, B, H);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const float* hp_b = hp + (size_t)M * H;
-  err = launch_gi_proj(x, D, nullptr, 0, wih_f, bih_f, wih_b, bih_b, buf_a, M, H3, 2, st);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_gi_proj(hp, H, nullptr, 0, whh_f, bhh_f, nullptr, nullptr, buf_b, M, H3, 1, st);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_gi_proj(hp_b, H, nullptr, 0, whh_b, bhh_b, nullptr, nullptr, buf_b + (size_t)M * H3,
-                       M, H3, 1, st);
-  if (err != cudaSuccess) return (int)err;
-  bwd_gates_kernel<<<grid_for((size_t)2 * M * H, sms), 256, 0, st>>>(
-      buf_a, buf_b, gates, nullptr, nullptr, nullptr, T, B, H, 1, 0, 0u, kKeepAll, 1.0f);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  // 2. the serial dh chain; dgi and dgh overwrite gi and gh
-  int nb = 8;
-  err = pick_batch_tile(B, &nb);
-  if (err != cudaSuccess) return (int)err;
-  switch (nb) {
-    case 1:
-      err = launch_masked_chain<1>(gates, hp, dy, lengths, whh_f, whh_b, buf_a, buf_b, T, B, H, st);
-      break;
-    case 2:
-      err = launch_masked_chain<2>(gates, hp, dy, lengths, whh_f, whh_b, buf_a, buf_b, T, B, H, st);
-      break;
-    case 4:
-      err = launch_masked_chain<4>(gates, hp, dy, lengths, whh_f, whh_b, buf_a, buf_b, T, B, H, st);
-      break;
-    default:
-      err = launch_masked_chain<8>(gates, hp, dy, lengths, whh_f, whh_b, buf_a, buf_b, T, B, H, st);
-  }
-  if (err != cudaSuccess) return (int)err;
-
-  // 3. products
-  dim3 xgrid((D + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-  bwd_dx_kernel<<<xgrid, 256, 0, st>>>(buf_a, wih_f, wih_b, dx, D, nullptr, 0, M, H3);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = weight_grads(buf_a, H3, x, nullptr, x, nullptr, D, 0, partial, dwih_f, dbih_f, dwih_b,
-                     dbih_b, M, sms, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)weight_grads(buf_b, H3, hp, nullptr, hp_b, nullptr, H, 0, partial, dwhh_f, dbhh_f,
-                           dwhh_b, dbhh_b, M, sms, st);
+// Backward of one unidirectional GRU layer (K5f's VJP, K5b). x (B, T, D),
+// out and dy (B, T, H) row-major, lengths (B,) int64 (clamped to [0, T]) or
+// nullptr for T frames in every row; weights as tsl_gru1_fwd. Outputs, all
+// overwritten: dx (B, T, D), dW_ih (3H, D), db_ih, dW_hh (3H, H), db_hh.
+// Scratch: hp B*T*H floats, buf_a and buf_b B*T*3H each, gates B*T*4H,
+// partial as tsl_bigru_shared_bwd_partial_floats(D, H). H must be a
+// multiple of 4. Returns cudaSuccess (0) or the first launch error; does
+// not synchronise.
+int tsl_gru1_bwd(const float* x, int D, const long long* lengths, const float* out,
+                 const float* dy, const float* wih, const float* bih, const float* whh,
+                 const float* bhh, float* dx, float* dwih, float* dbih, float* dwhh, float* dbhh,
+                 float* hp, float* buf_a, float* buf_b, float* gates, float* partial, int T, int B,
+                 int H, void* stream) {
+  return (int)masked_bwd<1>(x, D, lengths, out, dy, wih, bih, whh, bhh, nullptr, nullptr,
+                            nullptr, nullptr, dx, dwih, dbih, dwhh, dbhh, nullptr, nullptr,
+                            nullptr, nullptr, hp, buf_a, buf_b, gates, partial, T, B, H,
+                            (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
-// Length-masked bidirectional GRU layer, forward (K4f), for sm_90a.
+// Length-masked GRU layer, forward: K4f (bidirectional) and K5f
+// (unidirectional), for sm_90a.
 //
-// Replaces the TPU kernel `_fused_fwd_kernel` in tpu_slu/ops/pallas_gru.py:323
+// K4f replaces the TPU kernel `_fused_fwd_kernel` in tpu_slu/ops/pallas_gru.py:323
 // (`pallas_call` at :378), reached on the length-exact path through
 // `gru_apply_masked` -> `bigru_apply_pallas_streams` -> `_bigru_streams` ->
 // `_bigru_seq_for` -> `_fused_fwd_call`. Same function as the TPU kernel
@@ -11,7 +12,18 @@
 // example alone at T = n_b (the `reverse_padded` construction of
 // tpu_slu/ops/gru.py `gru_apply_masked`).
 //
-// The TPU kernel takes the backward direction's input already reversed per
+// K5f replaces the TPU kernel `_fused1_fwd_kernel` (pallas_gru.py:138,
+// `pallas_call` at :174), every unidirectional GRU layer's forward, reached
+// through `gru_apply` -> `gru_apply_pallas` -> `_run_direction` ->
+// `_gru1_seq_for` (exact shape and training) and through `gru_apply_masked`
+// on `{"fwd"}` (length-exact). It is the same recurrence with one direction
+// (the template's NDIR = 1): row b walks t = 0..n_b-1 and writes zeros at t
+// >= n_b; with every n_b = T (no lengths) it is the TPU kernel's function
+// exactly. The TPU kernel pads T to its time block and projects the input
+// block by block inside the kernel; here the projection runs first, over
+// all rows, and the recurrence steps over the valid frames only.
+//
+// The TPU's K4f takes the backward direction's input already reversed per
 // example (`reverse_padded(x, n)`, a copy in HBM) because its BlockSpecs cut
 // contiguous time blocks. A CUDA block computes its own addresses, so here
 // nothing is reversed or copied: the backward direction reads gi and writes
@@ -22,7 +34,7 @@
 // 8 rows); the length masking costs a few integer operations per element.
 //
 // What the design does about it:
-//   * `gi_proj_kernel` (bigru_common.cuh) computes both directions' gi for
+//   * `gi_proj_kernel` (bigru_common.cuh) computes every direction's gi for
 //     all (b, t) at once over the natural-order input, off the chain;
 //   * one CTA per (batch tile, direction) walks the steps with W_hh resident
 //     in shared memory (row pitch 32k + 4 against bank conflicts), thread
@@ -32,22 +44,24 @@
 //   * a CTA steps only while a row of its tile still has valid frames (the
 //     largest n_b of the tile), then zero-fills the rest: a padded row with
 //     n_b = 0 costs no step;
-//   * both directions write into one (B, T, 2H) output at column offsets 0
-//     and H, so the layer's output needs no concat;
-//   * no pool is fused: the masked pools run after the layer in PyTorch.
+//   * the directions write into one (B, T, NDIR*H) output at column offsets
+//     0 and H, so the layer's output needs no concat;
+//   * no pool is fused: the pools run after the layer in PyTorch.
 // f32 operands and accumulation throughout.
 
 #include "bigru_common.cuh"
 
 namespace {
 
-template <int NB>
+// NDIR = 2 (K4f): grid.y holds the two directions; NDIR = 1 (K5f): the
+// forward direction alone. lengths == nullptr: every row has T frames.
+template <int NB, int NDIR>
 __global__ void bigru_masked_rec_kernel(
-    const float* __restrict__ gi,            // (2, B, T, 3H)
-    const long long* __restrict__ lengths,   // (B,)
+    const float* __restrict__ gi,            // (NDIR, B, T, 3H)
+    const long long* __restrict__ lengths,   // (B,) or nullptr
     const float* __restrict__ whh_f, const float* __restrict__ bhh_f,
     const float* __restrict__ whh_b, const float* __restrict__ bhh_b,
-    float* __restrict__ out,                 // (B, T, 2H)
+    float* __restrict__ out,                 // (B, T, NDIR*H)
     int T, int B, int H) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int n_s[NB];
@@ -56,20 +70,20 @@ __global__ void bigru_masked_rec_kernel(
   float* h_s = w_s + H3 * HP;      // [NB][H]
   float* gh_s = h_s + NB * H;      // [NB][3H]
 
-  const int dir = blockIdx.y;
+  const int dir = NDIR == 1 ? 0 : blockIdx.y;
   const int b0 = blockIdx.x * NB;
   const int nb = min(NB, B - b0);
   const float* __restrict__ whh = dir == 0 ? whh_f : whh_b;
   const float* __restrict__ bhh = dir == 0 ? bhh_f : bhh_b;
   const float* __restrict__ gid = gi + (size_t)dir * B * T * H3;
   float* __restrict__ outd = out + dir * H;
-  const size_t ostride = 2 * (size_t)H;
+  const size_t ostride = NDIR * (size_t)H;
   const int tid = threadIdx.x, nt = blockDim.x;
 
   for (int e = tid; e < H3 * H; e += nt) w_s[(e / H) * HP + e % H] = whh[e];
   for (int e = tid; e < NB * H; e += nt) h_s[e] = 0.0f;
   if (tid < NB) {
-    const long long n = tid < nb ? lengths[b0 + tid] : 0;
+    const long long n = tid < nb ? (lengths ? lengths[b0 + tid] : T) : 0;
     n_s[tid] = (int)(n < 0 ? 0 : (n > T ? T : n));
   }
   const float bj = tid < H3 ? bhh[tid] : 0.0f;
@@ -149,19 +163,42 @@ __global__ void bigru_masked_rec_kernel(
   }
 }
 
-template <int NB>
+template <int NB, int NDIR>
 cudaError_t launch_masked_rec(const float* gi, const long long* lengths, const float* whh_f,
                               const float* bhh_f, const float* whh_b, const float* bhh_b,
                               float* out, int T, int B, int H, cudaStream_t st) {
   const size_t smem = sizeof(float) * ((size_t)3 * H * whh_pitch(H) + (size_t)NB * H * 4);
   cudaError_t err = cudaFuncSetAttribute(
-      bigru_masked_rec_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      bigru_masked_rec_kernel<NB, NDIR>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int threads = (3 * H + 31) / 32 * 32;
-  dim3 grid((B + NB - 1) / NB, 2);
-  bigru_masked_rec_kernel<NB><<<grid, threads, smem, st>>>(gi, lengths, whh_f, bhh_f, whh_b,
-                                                           bhh_b, out, T, B, H);
+  dim3 grid((B + NB - 1) / NB, NDIR);
+  bigru_masked_rec_kernel<NB, NDIR><<<grid, threads, smem, st>>>(gi, lengths, whh_f, bhh_f,
+                                                                 whh_b, bhh_b, out, T, B, H);
   return cudaGetLastError();
+}
+
+// The recurrence at the batch tile pick_batch_tile chooses for NDIR directions.
+template <int NDIR>
+cudaError_t masked_rec(const float* gi, const long long* lengths, const float* whh_f,
+                       const float* bhh_f, const float* whh_b, const float* bhh_b, float* out,
+                       int T, int B, int H, cudaStream_t st) {
+  int nb = 8;
+  cudaError_t err = pick_batch_tile(B, &nb, NDIR);
+  if (err != cudaSuccess) return err;
+#define TSL_REC(NBV) \
+  launch_masked_rec<NBV, NDIR>(gi, lengths, whh_f, bhh_f, whh_b, bhh_b, out, T, B, H, st)
+  switch (nb) {
+    case 1:
+      return TSL_REC(1);
+    case 2:
+      return TSL_REC(2);
+    case 4:
+      return TSL_REC(4);
+    default:
+      return TSL_REC(8);
+  }
+#undef TSL_REC
 }
 
 }  // namespace
@@ -183,23 +220,23 @@ int tsl_bigru_masked_fwd(
   cudaError_t err = launch_gi_proj(x, D, nullptr, 0, wih_f, bih_f, wih_b, bih_b, gi_scratch,
                                    B * T, 3 * H, 2, st);
   if (err != cudaSuccess) return (int)err;
-  int nb = 8;
-  err = pick_batch_tile(B, &nb);
+  return (int)masked_rec<2>(gi_scratch, lengths, whh_f, bhh_f, whh_b, bhh_b, out, T, B, H, st);
+}
+
+// Forward of one unidirectional GRU layer (K5f): x (B, T, D) row-major,
+// lengths (B,) int64 valid frame counts (clamped to [0, T]) or nullptr for
+// T frames in every row; weights in torch layout as tsl_bigru_masked_fwd.
+// gi_scratch holds B*T*3H floats; out holds B*T*H floats. H must be a
+// multiple of 4. Returns cudaSuccess (0) or the first error of a launch;
+// does not synchronise.
+int tsl_gru1_fwd(const float* x, int D, const long long* lengths, const float* wih,
+                 const float* bih, const float* whh, const float* bhh, float* gi_scratch,
+                 float* out, int T, int B, int H, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = launch_gi_proj(x, D, nullptr, 0, wih, bih, nullptr, nullptr, gi_scratch,
+                                   B * T, 3 * H, 1, st);
   if (err != cudaSuccess) return (int)err;
-  switch (nb) {
-    case 1:
-      return (int)launch_masked_rec<1>(gi_scratch, lengths, whh_f, bhh_f, whh_b, bhh_b, out, T,
-                                       B, H, st);
-    case 2:
-      return (int)launch_masked_rec<2>(gi_scratch, lengths, whh_f, bhh_f, whh_b, bhh_b, out, T,
-                                       B, H, st);
-    case 4:
-      return (int)launch_masked_rec<4>(gi_scratch, lengths, whh_f, bhh_f, whh_b, bhh_b, out, T,
-                                       B, H, st);
-    default:
-      return (int)launch_masked_rec<8>(gi_scratch, lengths, whh_f, bhh_f, whh_b, bhh_b, out, T,
-                                       B, H, st);
-  }
+  return (int)masked_rec<1>(gi_scratch, lengths, whh, bhh, nullptr, nullptr, out, T, B, H, st);
 }
 
 }  // extern "C"

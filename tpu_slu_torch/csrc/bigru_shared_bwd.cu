@@ -213,7 +213,7 @@ int tsl_bigru_shared_bwd(
                        buf_b + (size_t)M * H3, M, H3, 1, st);
   if (err != cudaSuccess) return (int)err;
   bwd_gates_kernel<<<grid_for((size_t)2 * M * H, sms), 256, 0, st>>>(
-      buf_a, buf_b, gates, dy_f, dy_b, dyx, T, B, H, pool, fused, seed, thresh, inv_keep);
+      buf_a, buf_b, gates, dy_f, dy_b, dyx, T, B, H, pool, fused, seed, thresh, inv_keep, 2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -240,7 +240,7 @@ int tsl_bigru_shared_bwd(
 
   // 3. products
   dim3 xgrid((d1 + d2 + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-  bwd_dx_kernel<<<xgrid, 256, 0, st>>>(buf_a, wih_f, wih_b, dx1, d1, dx2, d2, M, H3);
+  bwd_dx_kernel<<<xgrid, 256, 0, st>>>(buf_a, wih_f, wih_b, dx1, d1, dx2, d2, M, H3, 2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = weight_grads(buf_a, H3, x1, x2, x1, x2, d1, d2, partial, dwih_f, dbih_f, dwih_b, dbih_b,

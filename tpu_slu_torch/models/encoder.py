@@ -11,7 +11,9 @@ flat list of :class:`LayerSpec` whose ``index`` fields follow the reference
 Between bidirectional GRU layers the activations travel as time-major part
 streams (:class:`PartsTM`): each layer reads the previous layer's ``h_f`` and
 ``h_b`` as two parts, and the following ceil-mode downsample is fused into
-the layer (``ops/bigru_shared.py``).
+the layer (``ops/bigru_shared.py``). A unidirectional GRU layer (a config's
+``*_rnn_bidirectional=False``) takes and returns batch-major (B, T, C)
+(``ops/gru1.py``); its dropout and downsample run after it, as in JAX.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from tpu_slu_torch.ops.conv import (
     masked_max_pool1d_ceil,
     max_pool1d_ceil,
 )
+from tpu_slu_torch.ops.gru1 import gru1
 from tpu_slu_torch.ops.sinc import mel_init, sinc_conv
 
 
@@ -198,6 +201,23 @@ class BiGRULayer(nn.Module):
         }
 
 
+class GRULayer(nn.Module):
+    """Unidirectional GRU parameters in ``torch.nn.GRU`` naming and layout:
+    ``weight_ih_l0`` (3H, D), ``weight_hh_l0`` (3H, H), ``bias_ih_l0``,
+    ``bias_hh_l0`` (3H,)."""
+
+    def __init__(self, in_dim: int, hidden: int):
+        super().__init__()
+        for name, shape in (("weight_ih", (3 * hidden, in_dim)), ("weight_hh", (3 * hidden, hidden)),
+                            ("bias_ih", (3 * hidden,)), ("bias_hh", (3 * hidden,))):
+            self.register_parameter(name + "_l0", nn.Parameter(torch.empty(shape)))
+
+    def params(self) -> dict:
+        """``{"fwd": {...}}`` as :func:`~tpu_slu_torch.ops.gru1.gru1` takes them."""
+        return {"fwd": {n: getattr(self, n + "_l0")
+                        for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")}}
+
+
 def _uniform_(t: torch.Tensor, bound: float, gen: torch.Generator) -> None:
     with torch.no_grad():
         t.uniform_(-bound, bound, generator=gen)
@@ -215,9 +235,7 @@ def make_layer(spec: LayerSpec, gen: torch.Generator) -> nn.Module:
         bound = 1.0 / (cin * k) ** 0.5
     elif spec.kind == "gru":
         in_dim, hidden, bidir = spec.h
-        if not bidir:
-            raise NotImplementedError("unidirectional GRU layers are not ported yet")
-        m = BiGRULayer(in_dim, hidden)
+        m = (BiGRULayer if bidir else GRULayer)(in_dim, hidden)
         bound = 1.0 / hidden ** 0.5
     else:
         return nn.Identity()
@@ -325,7 +343,8 @@ def _apply_stack_masked(layers: nn.ModuleList, specs, out, n: torch.Tensor, *, t
     cropped to its own ``n_b`` valid samples (before the convs) or frames
     (after them). Conv tails are zeroed, the ceil pools take the
     per-example partial-window divisor, and each bi-GRU runs K4f
-    (:func:`bigru_masked`); the shared-stream chain is not taken. Conv specs
+    (:func:`bigru_masked`), each unidirectional GRU K5f (:func:`gru1`); the
+    shared-stream chain is not taken. Conv specs
     take (B, C, T), RNN specs (B, T, C); returns (B, T, C). The counts
     follow :func:`frames_through`, spec by spec, with ``//`` flooring on
     int64 tensors as JAX's does (a row with n_b = 0 stays at 0 frames)."""
@@ -353,7 +372,7 @@ def _apply_stack_masked(layers: nn.ModuleList, specs, out, n: torch.Tensor, *, t
         elif spec.kind == "ncl2nlc":
             out = out.transpose(1, 2)  # (B, C, T) -> (B, T, C)
         elif spec.kind == "gru":
-            out = bigru_masked(layer.params(), out.contiguous(), n)
+            out = (bigru_masked if spec.h[2] else gru1)(layer.params(), out.contiguous(), n)
         elif spec.kind == "select":
             pass  # the GRU returns its sequence
         elif spec.kind == "downsample":
@@ -370,9 +389,10 @@ def _apply_stack_masked(layers: nn.ModuleList, specs, out, n: torch.Tensor, *, t
 
 def apply_stack(layers: nn.ModuleList, specs, out, *, train: bool = False,
                 generator: torch.Generator | None = None, n: torch.Tensor | None = None):
-    """Run a LayerSpec stack. Conv specs take (B, C, T); a GRU takes
-    time-major parts (or (B, T, C), which it turns time-major); the rest of
-    the RNN specs take (B, T, C). Returns a tensor or a :class:`PartsTM`.
+    """Run a LayerSpec stack. Conv specs take (B, C, T); a bidirectional GRU
+    takes time-major parts (or (B, T, C), which it turns time-major); a
+    unidirectional GRU and the rest of the RNN specs take (B, T, C), parts
+    finalised first. Returns a tensor or a :class:`PartsTM`.
 
     ``train`` applies dropout, its masks and seeds drawn from ``generator``
     in layer order (needed whenever a rate is above 0). ``n`` (B,) int64
@@ -387,7 +407,7 @@ def apply_stack(layers: nn.ModuleList, specs, out, *, train: bool = False,
         spec = specs[idx]
         layer = layers[spec.index]
         idx += 1
-        if spec.kind == "gru":
+        if spec.kind == "gru" and spec.h[2]:
             if not isinstance(out, PartsTM):
                 out = PartsTM((out.transpose(0, 1).contiguous(),))
             # RNN blocks are [gru, select, dropout, downsample] (rnn_block_specs):
@@ -416,6 +436,8 @@ def apply_stack(layers: nn.ModuleList, specs, out, *, train: bool = False,
         elif spec.kind == "dropout":
             if train and spec.h[0] > 0.0:
                 out = dropout(out, spec.h[0], generator)
+        elif spec.kind == "gru":  # unidirectional: JAX's generic gru_apply branch
+            out = gru1(layer.params(), out.contiguous())
         elif spec.kind == "select":
             pass  # the GRU returns its sequence
         elif spec.kind == "ncl2nlc":

@@ -29,6 +29,12 @@ FLAGSHIP_CFG = os.path.join(_EXPERIMENTS, "no_unfreezing.cfg")
 # the same widths, trained from scratch: every layer trains from step 1
 TRAIN_CFG = os.path.join(_EXPERIMENTS, "no_pretraining.cfg")
 SEQ2SEQ_CFG = os.path.join(_EXPERIMENTS, "all_real_seq2seq.cfg")
+# the overrides that make every GRU layer unidirectional, as a cfg's
+# *_rnn_bidirectional=False does: flagship_model(device, **UNIDIRECTIONAL)
+# is the flagship's unidirectional model (four phone/word layers and the
+# intent layer of H = 128, each one direction), run by K5f and K5b on the card
+UNIDIRECTIONAL = {"phone_rnn_bidirectional": False, "word_rnn_bidirectional": False,
+                  "intent_rnn_bidirectional": False}
 # tpu_slu/data/datasets.py: <sos>, the sorted set of the semantics' characters
 # and string.printable (the semantics are printable), <eos>
 SEQ2SEQ_LABELS = ["<sos>"] + sorted(set(string.printable)) + ["<eos>"]

@@ -40,8 +40,10 @@ _SIGNATURES = {
     "tsl_bigru_masked_fwd": (_I, [_P, _I, _P] + [_P] * 8 + [_P] * 2 + [_I] * 3 + [_P]),
     "tsl_bigru_masked_bwd": (_I, [_P, _I, _P, _P, _P] + [_P] * 8 + [_P] * 9 + [_P] * 5 + [_I] * 3
                              + [_P]),
+    "tsl_gru1_fwd": (_I, [_P, _I, _P] + [_P] * 4 + [_P] * 2 + [_I] * 3 + [_P]),
+    "tsl_gru1_bwd": (_I, [_P, _I, _P, _P, _P] + [_P] * 4 + [_P] * 5 + [_P] * 5 + [_I] * 3 + [_P]),
     "tsl_beam_decode": (_I, [_P] * 13 + [_I] * 9 + [_P]),
-    "tsl_beam_decode_smem_bytes": (ctypes.c_longlong, [_I] * 8),
+    "tsl_beam_decode_smem_bytes": (ctypes.c_longlong, [_I] * 7),
     "tsl_error_string": (ctypes.c_char_p, [_I]),
 }
 

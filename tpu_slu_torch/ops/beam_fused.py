@@ -3,7 +3,10 @@
 Port of ``tpu_slu/ops/pallas_beam.py`` (``beam_decode_pallas``, the TPU
 kernel ``_mk_beam_kernel``): the whole width-W, ``max_len``-step search in
 one launch of ``csrc/beam_decode.cu``, counted on ``beam_decode.launches``.
-A CPU tensor runs the plain version, :func:`~tpu_slu_torch.ops.beam.beam_search_reference`.
+Its attention is the TPU kernel's blocked mode at every length (keys and
+values streamed from global memory in frame blocks with an online softmax),
+so its shared-memory plan does not depend on the frames. A CPU tensor runs
+the plain version, :func:`~tpu_slu_torch.ops.beam.beam_search_reference`.
 """
 
 from __future__ import annotations
@@ -13,7 +16,11 @@ import torch
 from tpu_slu_torch.ops import _build
 from tpu_slu_torch.ops.beam import beam_search_reference, decoder_cells
 
-MAX_BEAM = 8  # the beam widths the kernel is built for: 1..8
+# The widest beam the kernel takes: the widest whose plan fits a block at
+# the flagship decoder of experiments/all_real_seq2seq.cfg (2 cells of H =
+# 256, keys 100, values 200, 102 labels, 200 steps): 2,976 words a beam and
+# 32 more, 19 beams in 226,304 bytes, 20 in 238,208.
+MAX_BEAM = 19
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper (227 KB)
 
 
@@ -68,8 +75,10 @@ def _check_cuda(dec, keys: torch.Tensor, values: torch.Tensor, n_valid: torch.Te
     if len(cells) != nl:
         raise ValueError(f"beam_decode: {len(cells)} cells but an initial state of {nl} layers")
     if not 1 <= beam_width <= MAX_BEAM or max_len < 1 or min(B, T) < 1:
-        raise ValueError(f"beam_decode: the kernel takes 1 <= beam_width <= {MAX_BEAM}, max_len >= 1 "
-                         f"and B, T >= 1 (beam_width={beam_width}, max_len={max_len}, B={B}, T={T})")
+        raise ValueError(f"beam_decode: the kernel takes 1 <= beam_width <= MAX_BEAM = {MAX_BEAM} (the "
+                         "widest beam whose plan fits a block at the flagship decoder), "
+                         f"max_len >= 1 and B, T >= 1 (beam_width={beam_width}, max_len={max_len}, "
+                         f"B={B}, T={T})")
     if max(B * T * max(K, V), beam_width * B * max_len) >= 2**31:
         raise ValueError(f"beam_decode: too large for the kernel's int indexing (B={B}, T={T})")
     if n_valid.device != keys.device or n_valid.dtype not in (torch.int32, torch.int64) \
@@ -79,13 +88,11 @@ def _check_cuda(dec, keys: torch.Tensor, values: torch.Tensor, n_valid: torch.Te
     lo, hi = (int(v) for v in torch.aminmax(n_valid))
     if lo < 1 or hi > T:
         raise ValueError(f"beam_decode: valid frame counts must lie in [1, T={T}], got [{lo}, {hi}]")
-    dims = {"B": B, "T": T, "W": beam_width, "nl": nl, "H": H, "K": K, "V": V, "L": L, "U": max_len}
-    smem = _build.library().tsl_beam_decode_smem_bytes(T, beam_width, nl, H, K, V, L, max_len)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"beam_decode: {smem} bytes of shared memory for T={T} frames and "
-                         f"max_len={max_len} at H={H}, K={K}, V={V}, W={beam_width}; a block has "
-                         f"{SMEM_LIMIT}")
-    return dims
+    need = _build.library().tsl_beam_decode_smem_bytes(beam_width, nl, H, K, V, L, max_len)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"beam_decode: shared memory for max_len={max_len} at H={H}, K={K}, V={V}, L={L}, "
+                         f"W={beam_width}: {need} bytes; a block has {SMEM_LIMIT}")
+    return {"B": B, "T": T, "W": beam_width, "nl": nl, "H": H, "K": K, "V": V, "L": L, "U": max_len}
 
 
 def beam_decode(dec, keys: torch.Tensor, values: torch.Tensor, n_valid: torch.Tensor | None,

@@ -42,27 +42,30 @@ def bigru_masked_bwd_reference(params: dict, x: torch.Tensor, out: torch.Tensor,
     """K4b's function in plain PyTorch, written out as the kernel computes it
     (``pallas_gru.py:400-503``): the gates recomputed from x and each
     direction's h_prev, the serial dh chain of each direction, then dX and
-    the weight gradients.
+    the weight gradients. With ``params`` of one direction (``{"fwd"}``) it
+    is K5b's function (``_fused1_bwd_kernel``, ``:189-247``).
 
-    ``out`` (B, T, 2H) is the forward output of :func:`bigru_masked`; each
-    direction's h_prev is read from it, ``out[:, t-1, :H]`` (forward) and
-    ``out[:, t+1, H:]`` (backward), zero at the direction's first step (t = 0
-    and t = n_b - 1). ``dy`` (B, T, 2H) is the cotangent; at t >= n_b the
-    output is a constant 0, so ``dy`` there is ignored and dX there is 0.
-    Returns ``(dx (B, T, D), grads)``, ``grads`` keyed like ``params``.
+    ``out`` (B, T, 2H, or H for one direction) is the forward output of
+    :func:`bigru_masked`; each direction's h_prev is read from it,
+    ``out[:, t-1, :H]`` (forward) and ``out[:, t+1, H:]`` (backward), zero at
+    the direction's first step (t = 0 and t = n_b - 1). ``dy``, shaped as
+    ``out``, is the cotangent; at t >= n_b the output is a constant 0, so
+    ``dy`` there is ignored and dX there is 0. Returns ``(dx (B, T, D),
+    grads)``, ``grads`` keyed like ``params``.
     """
     B, T, D = x.shape
     H = params["fwd"]["weight_hh"].shape[1]
     t = torch.arange(T, device=x.device)
     valid = (t[None, :] < n.to(x.device)[:, None])[:, :, None]  # (B, T, 1)
     zero = out.new_zeros((B, 1, H))
-    hps = {"fwd": torch.cat([zero, out[:, :-1, :H]], dim=1),
-           "bwd": torch.where((t[None, :] + 1 < n.to(x.device)[:, None])[:, :, None],
-                              torch.cat([out[:, 1:, H:], zero], dim=1), 0.0)}
+    hps = {"fwd": torch.cat([zero, out[:, :-1, :H]], dim=1)}
+    if "bwd" in params:
+        hps["bwd"] = torch.where((t[None, :] + 1 < n.to(x.device)[:, None])[:, :, None],
+                                 torch.cat([out[:, 1:, H:], zero], dim=1), 0.0)
     xf = x.reshape(B * T, D)
     dx = 0.0
     grads = {}
-    for k, name in enumerate(_DIRS):
+    for k, name in enumerate(hps):
         p, hp = params[name], hps[name]
         gi = torch.matmul(x, p["weight_ih"].t()) + p["bias_ih"]
         gh = torch.matmul(hp, p["weight_hh"].t()) + p["bias_hh"]
@@ -94,47 +97,57 @@ def bigru_masked_bwd_reference(params: dict, x: torch.Tensor, out: torch.Tensor,
     return dx.reshape(B, T, D), grads
 
 
-def _check_cuda(params: dict, x: torch.Tensor, n: torch.Tensor, extra=()) -> tuple[int, int, int, int]:
+def check_layer(what: str, params: dict, x: torch.Tensor, n: torch.Tensor | None,
+                extra=()) -> tuple[int, int, int, int]:
+    """(B, T, D, H) of a CUDA call of the masked layer kernels (K4f, K4b with
+    ``params`` of both directions; K5f, K5b with ``{"fwd"}``), or raise with
+    the reason the kernel cannot take it; ``extra`` are (name, tensor)
+    pairs shaped as the output. ``n`` None: every row has T frames."""
     if x.dim() != 3:
-        raise ValueError(f"bigru_masked: x has shape {tuple(x.shape)}, want (B, T, D)")
+        raise ValueError(f"{what}: x has shape {tuple(x.shape)}, want (B, T, D)")
     B, T, D = x.shape
-    tensors = [("x", x)] + [(f"{d}.{k}", params[d][k]) for d in _DIRS for k in _NAMES] + list(extra)
+    dirs = [d for d in _DIRS if d in params]
+    tensors = [("x", x)] + [(f"{d}.{k}", params[d][k]) for d in dirs for k in _NAMES] + list(extra)
     for name, t in tensors:
         if t.device != x.device:
-            raise ValueError(f"bigru_masked: {name} is on {t.device}, x on {x.device}")
+            raise ValueError(f"{what}: {name} is on {t.device}, x on {x.device}")
         if t.dtype != torch.float32:
-            raise TypeError(f"bigru_masked: {name} is {t.dtype}; the kernel takes float32")
+            raise TypeError(f"{what}: {name} is {t.dtype}; the kernel takes float32")
         if not t.is_contiguous():
-            raise ValueError(f"bigru_masked: {name} is not contiguous")
+            raise ValueError(f"{what}: {name} is not contiguous")
     H = params["fwd"]["weight_hh"].shape[-1]
     want = {"weight_ih": (3 * H, D), "weight_hh": (3 * H, H), "bias_ih": (3 * H,), "bias_hh": (3 * H,)}
-    for d in _DIRS:
+    for d in dirs:
         for k, shape in want.items():
             if tuple(params[d][k].shape) != shape:
-                raise ValueError(f"bigru_masked: {d}.{k} has shape {tuple(params[d][k].shape)}, "
+                raise ValueError(f"{what}: {d}.{k} has shape {tuple(params[d][k].shape)}, "
                                  f"want {shape}")
+    width = len(dirs) * H
     for name, t in extra:
-        if tuple(t.shape) != (B, T, 2 * H):
-            raise ValueError(f"bigru_masked: {name} has shape {tuple(t.shape)}, want {(B, T, 2 * H)}")
+        if tuple(t.shape) != (B, T, width):
+            raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, want {(B, T, width)}")
     if T < 1 or B < 1 or H % 4 != 0:
-        raise ValueError(f"bigru_masked: kernel needs T, B >= 1 and H % 4 == 0 (T={T}, B={B}, H={H})")
-    if 2 * B * T * 3 * H >= 2**31 or B * T * max(D, 2 * H) >= 2**31:
-        raise ValueError(f"bigru_masked: B*T*H too large for the kernel's int indexing "
+        raise ValueError(f"{what}: kernel needs T, B >= 1 and H % 4 == 0 (T={T}, B={B}, H={H})")
+    if len(dirs) * B * T * 3 * H >= 2**31 or B * T * max(D, width) >= 2**31:
+        raise ValueError(f"{what}: B*T*H too large for the kernel's int indexing "
                          f"(B={B}, T={T}, H={H})")
+    if n is None:
+        return B, T, D, H
     if n.device != x.device:
-        raise ValueError(f"bigru_masked: n is on {n.device}, x on {x.device}")
+        raise ValueError(f"{what}: n is on {n.device}, x on {x.device}")
     if n.dtype not in (torch.int32, torch.int64) or tuple(n.shape) != (B,):
-        raise TypeError(f"bigru_masked: n must be an int32/int64 tensor of shape ({B},), "
+        raise TypeError(f"{what}: n must be an int32/int64 tensor of shape ({B},), "
                         f"got {n.dtype} {tuple(n.shape)}")
     lo, hi = (int(v) for v in torch.aminmax(n))
     if lo < 0 or hi > T:
-        raise ValueError(f"bigru_masked: lengths must lie in [0, T={T}], got [{lo}, {hi}]")
+        raise ValueError(f"{what}: lengths must lie in [0, T={T}], got [{lo}, {hi}]")
     return B, T, D, H
 
 
-def _device_of(x: torch.Tensor) -> torch.device:
+def device_of(what: str, x: torch.Tensor) -> torch.device:
+    """x's device, which must be the CPU (plain version) or a GPU (kernel)."""
     if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"bigru_masked runs on cpu or cuda tensors, not {x.device}")
+        raise ValueError(f"{what} runs on cpu or cuda tensors, not {x.device}")
     return x.device
 
 
@@ -156,9 +169,9 @@ def bigru_masked_fwd(params: dict, x: torch.Tensor, n: torch.Tensor) -> torch.Te
     ``n`` reads it on the host); anything the kernel does not take raises.
     Records no autograd graph on CUDA.
     """
-    if _device_of(x).type == "cpu":
+    if device_of("bigru_masked", x).type == "cpu":
         return bigru_masked_reference(params, x, n)
-    B, T, D, H = _check_cuda(params, x, n)
+    B, T, D, H = check_layer("bigru_masked", params, x, n)
     lib = _build.library()
     lengths = n.to(torch.int64).contiguous()
     gi = torch.empty((2, B, T, 3 * H), device=x.device, dtype=torch.float32)
@@ -181,9 +194,9 @@ def bigru_masked_bwd(params: dict, x: torch.Tensor, out: torch.Tensor, n: torch.
     take raises. The weight gradients are summed in a fixed order, so
     repeated calls on one card agree bit for bit.
     """
-    if _device_of(x).type == "cpu":
+    if device_of("bigru_masked", x).type == "cpu":
         return bigru_masked_bwd_reference(params, x, out, n, dy)
-    B, T, D, H = _check_cuda(params, x, n, [("out", out), ("dy", dy)])
+    B, T, D, H = check_layer("bigru_masked", params, x, n, [("out", out), ("dy", dy)])
     lib = _build.library()
     lengths = n.to(torch.int64).contiguous()
 
@@ -239,7 +252,7 @@ def bigru_masked(params: dict, x: torch.Tensor, n: torch.Tensor) -> torch.Tensor
     ``torch.inference_mode()`` does. On CUDA it never returns a detached
     output of a call that needs a gradient.
     """
-    _device_of(x)
+    device_of("bigru_masked", x)
     weights = _weights(params)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *weights)):
         return _MaskedCore.apply(x, n, *weights)

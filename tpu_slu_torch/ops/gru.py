@@ -1,4 +1,4 @@
-"""GRU gate math and a plain bidirectional GRU, in PyTorch.
+"""GRU gate math and a plain GRU layer (bidirectional or not), in PyTorch.
 
 Port of ``tpu_slu/ops/gru.py``. Gate order along the stacked 3H axis is
 (r, z, n), with PyTorch's two biases kept separate:
@@ -11,7 +11,7 @@ Port of ``tpu_slu/ops/gru.py``. Gate order along the stacked 3H axis is
 where gi = x W_ih^T + b_ih and gh = h W_hh^T + b_hh. Weights are in
 ``torch.nn.GRU`` layout: W_ih (3H, D), W_hh (3H, H). A direction's params
 are ``{"weight_ih", "weight_hh", "bias_ih", "bias_hh"}``; a layer's are
-``{"fwd": ..., "bwd": ...}``.
+``{"fwd": ..., "bwd": ...}``, or ``{"fwd": ...}`` for a unidirectional one.
 """
 
 from __future__ import annotations
@@ -60,8 +60,12 @@ def _direction(p: dict, x: torch.Tensor, reverse: bool) -> torch.Tensor:
 
 
 def gru_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Bidirectional GRU over batch-major x (B, T, D) -> (B, T, 2H)."""
-    return torch.cat([_direction(params["fwd"], x, False), _direction(params["bwd"], x, True)], dim=-1)
+    """GRU over batch-major x (B, T, D) -> (B, T, 2H), or (B, T, H) for a
+    unidirectional layer (``params`` without ``"bwd"``)."""
+    out_f = _direction(params["fwd"], x, False)
+    if "bwd" not in params:
+        return out_f
+    return torch.cat([out_f, _direction(params["bwd"], x, True)], dim=-1)
 
 
 def reverse_padded(x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
