@@ -44,7 +44,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 8. seq2seq decode and serving at the width of ``all_real_seq2seq.cfg``:
    ``[k7]`` K7 (the fused beam search) against its plain version at the
    flagship decoder (B = 1, 16, and 8 with mixed valid frames; 30 s, 188
-   frames, at B = 1 and 4, and an odd T of 171; W = 9 and 16), the golden
+   frames, at B = 1 and 4, and an odd T of 171; W = 9 and 16; W = 20 and 32,
+   at 4 s and 30 s, on the global plan: the plan in device memory, counted
+   on ``beam_decode.launches_global``), the golden
    decoder, an odd small one and W = 1, tokens equal (a row that differs
    must part at a tie within f32 rounding) and scores within rtol 1e-5
    atol 1e-4; ``[golden-s2s]`` the six golden
@@ -53,7 +55,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    flagship seq2seq decode at B = 1 and 16 and on 30 s of audio against the CPU plain path (beam-0 tokens equal, scores
    within 1e-3 relative), and a length-exact (8, 4 s) decode whose rows
    equal their exact-shape decodes; ``[time]`` K7 against its plain
-   version and bound at B = 1 and 16 on 4 s and 30 s, the warm decode, its device time by kernel; ``[serve]`` the seq2seq ``IntentServer`` with the traffic
+   version and bound at B = 1 and 16 on 4 s and 30 s, and at W = 16 (smem
+   plan), 20 and 32 (global plan), the warm decode, its device time by kernel; ``[serve]`` the seq2seq ``IntentServer`` with the traffic
    of phase 7, one K7 and five K4f launches per device call, p50/p90;
 9. seq2seq train step at the width of ``all_real_seq2seq.cfg``: ``[k4b]``
    K4b (the length-masked bi-GRU backward) against its plain version at the
@@ -81,13 +84,27 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    64 with 5 K5f and 5 K5b launches a step and no other GRU kernel;
    ``[time]`` K5f (B = 16; B = 8 masked) and K5b (B = 64) per layer against
    plain, bound and a unidirectional cuDNN ``nn.GRU``, the warm decode and
-   train step; ``[profile]`` the train step's device time by kernel.
+   train step; ``[profile]`` the train step's device time by kernel;
+11. the exact-shape eval path's two routes: ``[k8]`` K8 (the fused sinc
+   front end) against its plain version (the cuDNN conv, |.|, ceil max
+   pool, act) at the flagship front end (B = 1, 16, 128 on 4 s, 16 on
+   3.3 s, ReLU) and the JAX tests' small shapes, within ``CONV_RTOL`` of
+   the largest output; ``[time]`` K8, plain, one cuDNN conv alone and the
+   bound at B = 1, 16, 128; ``[ab-frontend]`` the A/B of the two front-end
+   routes (alone, then the warm decode) in turns P, C, C, P that sets the
+   default; ``[k6]`` K6 (K1's row-stacked layout) against its plain version
+   and K1 at the five layer shapes, B = 1 and 16, pool 1/2 avg/max, with
+   ``[ab-layout]`` K1 against K6 in turns, then the warm decode; ``[time]``
+   K6, plain, cuDNN ``nn.GRU`` and bound; ``[routes]`` the flagship decode
+   at B = 1 and 16 through K8 and K6 (1 K8 and 5 K6 launches a call, no
+   K1), logits within ``LOGIT_ATOL`` of the CPU's.
 
 Beside each kernel's time the script prints its plain version's, a cuDNN
 ``torch.nn.GRU`` call's where one computes the same function (timed as a
 yardstick only: forward at the unpooled shapes for K1, on packed rows for
 K4f, the backward for K3, K4b and K5b, one direction's forward for K5f;
-none for K2, whose dropout and pool are fused, or K7),
+none for K2, whose dropout and pool are fused, or K7; one cuDNN conv for
+K8, without the |.|, pool and act it fuses),
 and its bound: the larger of the f32 operations over 67 TFLOP/s and the
 bytes over 3.35 TB/s (each input read once, each output written once),
 ignoring the serial chain. At the end it checks that no module of JAX or
@@ -132,6 +149,8 @@ STEP_PARAM_ATOL = 1e-5  # ... parameters after masked Adam from equal gradients
 ENC_SHAPES = [("phone_rnn0", 60, 1, 400), ("phone_rnn1", 128, 2, 200),
               ("word_rnn0", 128, 2, 100), ("word_rnn1", 128, 2, 50)]
 INTENT_SHAPE = ("intent_rnn0", 256, 1, 25)
+# the five bi-GRU layers of a flagship decode at 4 s: name, part width, parts, T, pool
+FLAGSHIP_LAYERS = [(*s, 2) for s in ENC_SHAPES] + [(*INTENT_SHAPE, 1)]
 K4F_SOURCE = "tpu_slu_torch/csrc/bigru_masked_fwd.cu"
 K4F_REPLACES = "tpu_slu/ops/pallas_gru.py:323"
 EXACT_LOGIT_ATOL = 1e-4  # length-exact (K4f) vs exact-shape (K1) decode on the card, same weights
@@ -143,6 +162,10 @@ K5F_SOURCE = "tpu_slu_torch/csrc/bigru_masked_fwd.cu"
 K5F_REPLACES = "tpu_slu/ops/pallas_gru.py:138"
 K5B_SOURCE = "tpu_slu_torch/csrc/bigru_masked_bwd.cu"
 K5B_REPLACES = "tpu_slu/ops/pallas_gru.py:189"
+K8_SOURCE = "tpu_slu_torch/csrc/sinc_frontend.cu"
+K8_REPLACES = "tpu_slu/ops/pallas_frontend.py:45"
+K6_SOURCE = "tpu_slu_torch/csrc/bigru_shared_fwd.cu"
+K6_REPLACES = "tpu_slu/ops/pallas_gru.py:887"
 # the unidirectional flagship's GRU layers at 4 s of audio: name, input width D, T
 UNI_SHAPES = [("phone_rnn0", 60, 400), ("phone_rnn1", 128, 200), ("word_rnn0", 128, 100),
               ("word_rnn1", 128, 50), ("intent_rnn0", 128, 25)]
@@ -260,6 +283,47 @@ def cudnn_gru_ms(D: int, T: int, B: int, H: int, dev, lengths=None, backward=Fal
                                  enforce_sorted=False)
     with torch.inference_mode():
         return cuda_ms(lambda: gru(x), reps=20, warmup=3)
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of ``fn`` a call in ms: ``fn`` captured once into a CUDA
+    graph, then the median of ``reps`` replays between CUDA events. A replay
+    runs ``fn``'s kernels back to back, so a route of many small launches is
+    not charged for the host's enqueueing, which CUDA events around a plain
+    call would include."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps=reps, warmup=2)
+
+
+def device_ms(fn, reps: int = 10, name: str | None = None) -> float:
+    """Device time of ``fn`` a call in ms, from ``torch.profiler`` over
+    ``reps`` warm calls: the sum of the kernels' own times (of those whose
+    name holds ``name``, if given). Host gaps between launches are not
+    counted, so a route of many small launches is not charged for the
+    host's enqueueing, which CUDA events around the call would include."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+               and not getattr(e, "is_user_annotation", False) and (name is None or name in e.key)]
+    if not kernels:
+        raise AssertionError(f"the profiler saw no device time{' of ' + name if name else ''}")
+    return sum(e.self_device_time_total for e in kernels) / reps / 1e3
 
 
 def profile_calls(fn, what: str, card: str, reps: int = 10, top: int = 8) -> None:
@@ -842,7 +906,8 @@ def phase_seq2seq(dev, card: str, rng) -> dict:
     from tpu_slu_torch.models.slu import Seq2SeqArch, Seq2SeqDecoder
     from tpu_slu_torch.ops import beam as plain
     from tpu_slu_torch.ops.attention import attention_kv
-    from tpu_slu_torch.ops.beam_fused import MAX_BEAM, beam_decode
+    from tpu_slu_torch.ops.beam_fused import SMEM_LIMIT, beam_decode
+    from tpu_slu_torch.ops import _build
     from tpu_slu_torch.ops.bigru_masked import bigru_masked
     from tpu_slu_torch.ops.bigru_shared import bigru_shared
     from tpu_slu_torch.serving import IntentServer, load_trained_model, make_http_server
@@ -872,7 +937,10 @@ def phase_seq2seq(dev, card: str, rng) -> dict:
              ("odd small", 5, 6, 2, 8, 4, 8, 11, 3, 10, False), ("greedy", 4, 25, *flag, 1, U, True),
              ("flagship 30 s", 1, 188, *flag, 4, U, False), ("flagship 30 s", 4, 188, *flag, 4, U, True),
              ("flagship odd T", 3, 171, *flag, 4, U, True), ("flagship W=9", 2, 25, *flag, 9, U, False),
-             ("flagship W=16", 2, 25, *flag, 16, U, True)]
+             ("flagship W=16", 2, 25, *flag, 16, U, True), ("flagship W=20", 2, 25, *flag, 20, U, False),
+             ("flagship W=32", 2, 25, *flag, 32, U, True), ("flagship 30 s W=20", 1, 188, *flag, 20, U, True),
+             ("flagship 30 s W=32", 2, 188, *flag, 32, U, False)]
+    plan_bytes = _build.library().tsl_beam_decode_smem_bytes
     for i, (name, B, T, nl, H, K, V, L, W, Ub, mixed) in enumerate(cases):
         dec = decoder(i, nl, H, K, V, L)
         keys, values = kv(dec, B, T)
@@ -880,12 +948,16 @@ def phase_seq2seq(dev, card: str, rng) -> dict:
         if mixed:
             n = torch.from_numpy(rng.integers(1, T + 1, B)).to(dev)
             n[0] = 1
-        before = beam_decode.launches
+        global_plan = plan_bytes(W, nl, H, K, V, L, Ub) > SMEM_LIMIT
+        before = beam_decode.launches, beam_decode.launches_global
         with torch.inference_mode():
             beam_decode(dec, keys, values, n, W, Ub)
         torch.cuda.synchronize()
-        if beam_decode.launches != before + 1:
-            raise AssertionError(f"K7 {name} B={B} T={T} W={W}: launches +{beam_decode.launches - before}, want 1")
+        launched = beam_decode.launches - before[0], beam_decode.launches_global - before[1]
+        if launched != (1, int(global_plan)) or global_plan != (W >= 20 and (nl, H, K, V, L) == flag):
+            raise AssertionError(f"K7 {name} B={B} T={T} W={W}: launches +{launched[0]}, of them +{launched[1]} "
+                                 f"with the global plan; want 1 launch, on the global plan from W = 20 at the "
+                                 "flagship decoder")
 
         def search(fn):
             def steps(n_steps):
@@ -900,12 +972,13 @@ def phase_seq2seq(dev, card: str, rng) -> dict:
         if not torch.allclose(scores[:, rows], ref_scores[:, rows], rtol=1e-5, atol=1e-4):
             raise AssertionError(f"K7 {name} B={B}: scores off the plain version's by {err:.3g}")
         k7_ties += notes
-        print(f"[k7] {name:14s} B={B:2d} T={T:3d} layers={nl} H={H:3d} K={K:3d} V={V:3d} L={L:3d} W={W:2d} U={Ub:3d}"
+        print(f"[k7] {name:18s} B={B:2d} T={T:3d} layers={nl} H={H:3d} K={K:3d} V={V:3d} L={L:3d} W={W:2d} U={Ub:3d} "
+              f"{'global' if global_plan else 'smem'} plan"
               f"{' mixed valid frames ' + str(n.tolist()) if mixed else ''}: tokens equal in {len(rows)} of {B} "
               f"rows, scores max abs err {err:.3g}" + "".join(f"; {t}" for t in notes))
     print(f"[k7] tokens equal in every row but {len(k7_ties)} that parted at a tie; scores within rtol 1e-5 "
-          f"atol 1e-4, max abs err {k7_err:.3g}; beams up to "
-          f"MAX_BEAM = {MAX_BEAM}")
+          f"atol 1e-4, max abs err {k7_err:.3g}; plans past {SMEM_LIMIT} bytes of shared memory (W >= 20 at "
+          "the flagship decoder) lie in device memory")
 
     # 8.2 the golden seq2seq checkpoint on the card: one K7 launch a decode, no plain search
     golden_dir = os.path.join(HERE, "tests", "assets", "golden_seq2seq")
@@ -1039,6 +1112,15 @@ def phase_seq2seq(dev, card: str, rng) -> dict:
         print(f"[time] K7 flagship B={B:2d} T={T:3d} W=4 U={U}: kernel "
               f"{kern:.4f} ms ({kern / U * 1e3:.2f} us a step), plain {pl:.3f} ms, bound {k7_ms[B, T][2]:.4f} ms "
               f"({k7_ms[B, T][3]}: {w[0] / 1e9:.2f} GFLOP, {w[1] / 1e6:.2f} MB) on {card}")
+    # the widest smem plan's neighbour against the global plan, at B = 16, 4 s
+    keys, values = kv(model.decoder, 16, 25)
+    for W in (16, 20, 32):
+        with torch.inference_mode():
+            k7_ms["W", W] = cuda_ms(lambda: beam_decode(model.decoder, keys, values, None, W, U), reps=3, warmup=1)
+        plan = "global" if plan_bytes(W, *flag, U) > SMEM_LIMIT else "smem"
+        print(f"[time] K7 flagship B=16 T= 25 W={W} U={U}, {plan} plan of {plan_bytes(W, *flag, U)} bytes a CTA: "
+              f"kernel {k7_ms['W', W]:.4f} ms ({k7_ms['W', W] / U * 1e3:.2f} us a step), bound "
+              f"{bound(*k7_work(16, 25, W, U, *flag))[0]:.4f} ms on {card}")
     for B in (1, 16):
         xd = torch.from_numpy(x[:B]).to(dev)
         ms = cuda_ms(lambda: model.predict_intents(xd), reps=10, warmup=2)
@@ -1077,7 +1159,8 @@ def phase_seq2seq(dev, card: str, rng) -> dict:
             "launches": launches["K7"], "max_abs_err": k7_err, "ms": k7_ms[16, 25][0],
             "plain_ms": k7_ms[16, 25][1], "bound_ms": k7_ms[16, 25][2], "bound_by": k7_ms[16, 25][3],
             "library_ms": None, "ms_30s": k7_ms[16, 188][0], "plain_ms_30s": k7_ms[16, 188][1],
-            "bound_ms_30s": k7_ms[16, 188][2], "max_beam": MAX_BEAM}
+            "bound_ms_30s": k7_ms[16, 188][2], "ms_w16": k7_ms["W", 16], "ms_w20_global": k7_ms["W", 20],
+            "ms_w32_global": k7_ms["W", 32]}
 
 
 class FrontEndBranches:
@@ -1584,6 +1667,260 @@ def phase_uni(dev, card: str, rng) -> list[dict]:
     ]
 
 
+def ab_turns(routes, B_list, fn_of, timer=None) -> dict:
+    """Same-process A/B of two routes in turns (first, second, second, first)
+    at each B: ``fn_of(route, B)`` gives the call to time, ``timer(fn)``
+    its ms a call (default: the median of 20 calls, CUDA events). Returns
+    {(B, route): [the two turns' ms]}."""
+    timer = timer or (lambda fn: cuda_ms(fn, reps=20, warmup=3))
+    first, second = routes
+    out = {}
+    for B in B_list:
+        fns = {r: fn_of(r, B) for r in routes}
+        for r in (first, second, second, first):
+            out.setdefault((B, r), []).append(timer(fns[r]))
+    return out
+
+
+def faster(ab: dict, routes, B_list) -> str | None:
+    """The route whose mean of its turns is below the other's at every B, else None."""
+    a, b = routes
+    wins = {statistics.mean(ab[B, a]) < statistics.mean(ab[B, b]) for B in B_list}
+    return a if wins == {True} else b if wins == {False} else None
+
+
+def phase_routes(dev, card: str, rng) -> list[dict]:
+    """Phase 11: K8 (the fused sinc front end) and K6 (K1's row-stacked
+    layout), the two routes of the exact-shape eval path. Returns their
+    JSON entries; their launches are those of the flagship decode through
+    both (11.5)."""
+    import numpy as np
+    import torch
+
+    from tpu_slu_torch.models.encoder import DEFAULT_FRONTEND, DEFAULT_GRU_LAYOUT, apply_stack
+    from tpu_slu_torch.models.flagship import flagship_model
+    from tpu_slu_torch.ops import _build
+    from tpu_slu_torch.ops.bigru_shared import bigru_shared, bigru_shared_rowstack_reference
+    from tpu_slu_torch.ops.frontend_fused import sinc_frontend_fused, sinc_frontend_reference
+    from tpu_slu_torch.ops.sinc import mel_init, sinc_filters
+
+    flagship_kw = dict(filt_dim=401, fs=16000, stride=80, padding=200, pool=2, act="leaky_relu")
+
+    def k8_case(B, T, F):
+        b1, band = (torch.from_numpy(a).to(dev) for a in mel_init(F, 16000))
+        x = torch.from_numpy((0.1 * rng.standard_normal((B, T))).astype(np.float32)).to(dev)
+        return b1, band, x
+
+    # 11.1 K8 against its plain version (the cuDNN conv, |.|, ceil max pool, act)
+    k8_err = 0.0
+    small_kw = dict(filt_dim=31, fs=16000, stride=10, padding=15, pool=2)
+    for name, B, T, F, kw in [("flagship 4 s", 1, 64000, 80, flagship_kw), ("flagship 4 s", 16, 64000, 80, flagship_kw),
+                              ("flagship 3.3 s", 16, 52800, 80, flagship_kw),
+                              ("flagship 4 s relu", 16, 64000, 80, {**flagship_kw, "act": "relu"}),
+                              ("flagship 4 s", 128, 64000, 80, flagship_kw),
+                              ("small", 3, 1600, 16, small_kw), ("small ragged", 3, 1555, 16, small_kw)]:
+        b1, band, x = k8_case(B, T, F)
+        before = sinc_frontend_fused.launches
+        with torch.inference_mode():
+            got = sinc_frontend_fused(b1, band, x, **kw)
+            torch.cuda.synchronize()
+            ref = sinc_frontend_reference(b1, band, x, **kw)
+        if sinc_frontend_fused.launches != before + 1:
+            raise AssertionError(f"K8 {name} B={B}: launches +{sinc_frontend_fused.launches - before}, want 1")
+        e = rel_err(got, ref)
+        k8_err = max(k8_err, (got - ref).abs().max().item())
+        if got.shape != ref.shape or not e <= CONV_RTOL:
+            raise AssertionError(f"K8 {name} B={B} T={T}: off its plain version by {e:.3g} of the largest output "
+                                 f"(limit {CONV_RTOL})")
+        print(f"[k8] {name:17s} B={B:3d} T={T:5d} F={F} K={kw['filt_dim']} S={kw['stride']} pool={kw['pool']}: "
+              f"out {tuple(got.shape)}, max abs err {(got - ref).abs().max().item():.3g} (rel {e:.3g}, limit "
+              f"{CONV_RTOL})")
+
+    # 11.2 K8's device time at 4 s, by CUDA graph replay (both routes also compute the
+    # filter bank, ~20 small launches whose host time CUDA events around a call would
+    # charge): the kernel alone (its entry point on a precomputed filter bank), its
+    # route with the filter bank, its plain version (the composed route), one cuDNN conv
+    # call alone (TF32 off; without |.|, pool and act) and the bound
+    lib_k = _build.library()
+    k8_ms = {}
+    for B in (1, 16, 128):
+        b1, band, x = k8_case(B, 64000, 80)
+        filt = sinc_filters(b1, band, 401, 16000).contiguous()
+        filt4 = filt[:, None, None, :]
+        x4 = x[:, None, None, :]
+        out = torch.empty((B, 80, 400), device=dev)
+
+        def kernel_alone():
+            _build.check(lib_k.tsl_sinc_frontend_fwd(
+                x.data_ptr(), filt.data_ptr(), out.data_ptr(), B, 64000, 80, 401, 80, 200, 2, 1,
+                torch.cuda.current_stream(dev).cuda_stream), "K8")
+
+        with torch.inference_mode():
+            kern = graph_ms(kernel_alone)
+            route = graph_ms(lambda: sinc_frontend_fused(b1, band, x, **flagship_kw))
+            plain_ms = graph_ms(lambda: sinc_frontend_reference(b1, band, x, **flagship_kw))
+            lib = graph_ms(lambda: torch.cudnn_convolution(x4, filt4, (0, 200), (1, 80), (1, 1), 1, False, False,
+                                                           False))
+            prof = device_ms(lambda: sinc_frontend_fused(b1, band, x, **flagship_kw), name="sinc_frontend_kernel")
+            events = cuda_ms(lambda: sinc_frontend_fused(b1, band, x, **flagship_kw), reps=20, warmup=3)
+        t_out, t_pool = 800, 400
+        w = (2.0 * B * t_out * 80 * 401, 4.0 * (B * 64000 + 80 * 401 + 2 * 80 + B * t_pool * 80))
+        k8_ms[B] = (kern, plain_ms, lib, *bound(*w))
+        print(f"[time] K8 flagship B={B:3d} 4 s, device time (graph replay): kernel {kern:.4f} ms (torch.profiler "
+              f"{prof:.4f}), with the filter bank {route:.4f} ms (CUDA events around the call {events:.4f}); plain "
+              f"(filter bank, cuDNN conv, |.|, pool, act) {plain_ms:.4f} ms; cuDNN conv alone {lib:.4f} ms; bound "
+              f"{k8_ms[B][3]:.4f} ms ({k8_ms[B][4]}: {w[0] / 1e9:.3f} GFLOP, {w[1] / 1e6:.2f} MB) on {card}")
+
+    # 11.3 the A/B that sets the front end's default: the composed route (P) against
+    # K8 (C) over the front end's five specs, then the whole warm decode, in turns P, C, C, P
+    model = flagship_model(dev)
+    enc = model.pretrained_model
+    specs = enc.arch.phoneme_layers[:5]
+    assert [s.kind for s in specs] == ["sinc", "abs", "pool", "act", "dropout"], specs
+    waves = {B: torch.from_numpy((0.1 * rng.standard_normal((B, 64000))).astype(np.float32)).to(dev)
+             for B in (1, 16, 128)}
+
+    def front(route, B):
+        x3 = waves[B][:, None, :]
+
+        def run():
+            with torch.inference_mode():
+                return apply_stack(enc.phoneme_layers, specs, x3, frontend=route)
+        return run
+
+    def decode(attr):
+        def fn_of(route, B):
+            def run():
+                setattr(enc, attr, route)
+                return model.predict_intents(waves[B])
+            return run
+        return fn_of
+
+    fronts = ("composed", "fused")
+    ab_front = ab_turns(fronts, (1, 16, 128), front, timer=graph_ms)
+    ab_front_dec = ab_turns(fronts, (1, 16), decode("frontend"), timer=device_ms)
+    ab_front_wall = ab_turns(fronts, (1, 16), decode("frontend"))
+    enc.frontend = DEFAULT_FRONTEND
+    for what, ab, Bs in (("front end alone, device ms (graph replay)", ab_front, (1, 16, 128)),
+                         ("warm predict_intents, device ms", ab_front_dec, (1, 16)),
+                         ("warm predict_intents, CUDA events", ab_front_wall, (1, 16))):
+        for B in Bs:
+            print(f"[ab-frontend] {what}, B={B:3d} 4 s, in turns P, C, C, P: composed "
+                  f"{ab[B, 'composed'][0]:.4f}, fused (K8) {ab[B, 'fused'][0]:.4f}, {ab[B, 'fused'][1]:.4f}, "
+                  f"composed {ab[B, 'composed'][1]:.4f} on {card}")
+    print(f"[ab-frontend] faster at B=1 and 16 in this run: front end alone "
+          f"{faster(ab_front, fronts, (1, 16)) or 'neither at both'}, warm decode (device) "
+          f"{faster(ab_front_dec, fronts, (1, 16)) or 'neither at both'}; default in models/encoder.py: "
+          f"{DEFAULT_FRONTEND}")
+
+    # 11.4 K6 against its plain version and K1 at the five flagship layer shapes, B = 1
+    # and 16, pool 1 and 2, avg and max; the A/B against K1 (P) in turns P, C, C, P
+    layouts = ("split", "rowstack")
+    k6_err = 0.0
+    ab_layer = {}  # (B, name, pool, method) -> {(1, layout): [ms, ms]}
+    for B in (1, 16):
+        for name, d, n_parts, T, _ in FLAGSHIP_LAYERS:
+            params, parts = k1_case(rng, n_parts, d, T, B, 128, dev)
+            for pool, method in ((1, "avg"), (2, "avg"), (2, "max")):
+                before = bigru_shared.launches, bigru_shared.launches_rowstack
+                got = bigru_shared(params, parts, pool=pool, pool_method=method, layout="rowstack")[:2]
+                torch.cuda.synchronize()
+                if (bigru_shared.launches, bigru_shared.launches_rowstack) != (before[0], before[1] + 1):
+                    raise AssertionError(f"K6 {name} B={B}: not one K6 launch and no K1")
+                ref = bigru_shared_rowstack_reference(params, parts, pool=pool, pool_method=method)
+                k1 = bigru_shared(params, parts, pool=pool, pool_method=method)[:2]
+                err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+                k1_diff = max((g - k).abs().max().item() for g, k in zip(got, k1))
+                k6_err = max(k6_err, err)
+                if not all(torch.allclose(g, r, atol=ATOL, rtol=RTOL) for g, r in zip(got, ref)):
+                    raise AssertionError(f"K6 {name} B={B} pool={pool}/{method}: off its plain version by {err:.3g}")
+                if not k1_diff <= ATOL:
+                    raise AssertionError(f"K6 {name} B={B} pool={pool}/{method}: off K1 by {k1_diff:.3g}")
+
+                def layer(lay, _, pool=pool, method=method, params=params, parts=parts):
+                    return lambda: bigru_shared(params, parts, pool=pool, pool_method=method, layout=lay)
+                t = ab_layer[B, name, pool, method] = ab_turns(layouts, (1,), layer,
+                                                               timer=lambda fn: cuda_ms(fn, reps=10, warmup=3))
+                print(f"[k6] {name:11s} B={B:2d} D={n_parts * d:3d} T={T:3d} pool={pool}/{method}: max abs err "
+                      f"{err:.3g} vs plain, {k1_diff:.3g} vs K1; [ab-layout] ms in turns P, C, C, P: K1 "
+                      f"{t[1, 'split'][0]:.4f}, K6 {t[1, 'rowstack'][0]:.4f}, {t[1, 'rowstack'][1]:.4f}, K1 "
+                      f"{t[1, 'split'][1]:.4f}")
+    # the five layers at their decode pools (avg), summed turn by turn
+    ab_five = {(B, lay): [sum(ab_layer[B, name, pool, "avg"][1, lay][i] for name, _, _, _, pool in FLAGSHIP_LAYERS)
+                          for i in range(2)] for B in (1, 16) for lay in layouts}
+    ab_layout_dec = ab_turns(layouts, (1, 16), decode("gru_layout"), timer=device_ms)
+    ab_layout_wall = ab_turns(layouts, (1, 16), decode("gru_layout"))
+    enc.gru_layout = DEFAULT_GRU_LAYOUT
+    for what, ab in (("five layers at their decode pools, CUDA events", ab_five),
+                     ("warm predict_intents, device ms", ab_layout_dec),
+                     ("warm predict_intents, CUDA events", ab_layout_wall)):
+        for B in (1, 16):
+            print(f"[ab-layout] {what}, B={B:2d} 4 s, in turns P, C, C, P: K1 {ab[B, 'split'][0]:.4f}, "
+                  f"K6 {ab[B, 'rowstack'][0]:.4f}, {ab[B, 'rowstack'][1]:.4f}, K1 {ab[B, 'split'][1]:.4f} on {card}")
+    print(f"[ab-layout] faster at B=1 and 16 in this run: five layers "
+          f"{faster(ab_five, layouts, (1, 16)) or 'neither at both'}, warm decode (device) "
+          f"{faster(ab_layout_dec, layouts, (1, 16)) or 'neither at both'}; default in models/encoder.py: "
+          f"{DEFAULT_GRU_LAYOUT}")
+
+    # K6's time at B = 16 over the five layers: the kernel, its plain version, cuDNN
+    # nn.GRU unpooled (K1's yardstick) and the bound (K1's)
+    k6_tot = [0.0, 0.0, 0.0]  # kernel, plain, cuDNN
+    k6_work = [0.0, 0.0]
+    for name, d, n_parts, T, pool in FLAGSHIP_LAYERS:
+        params, parts = k1_case(rng, n_parts, d, T, 16, 128, dev)
+        kern, plain_ms = in_turns(lambda: bigru_shared_rowstack_reference(params, parts, pool=pool),
+                                  lambda: bigru_shared(params, parts, pool=pool, layout="rowstack"))
+        D = n_parts * d
+        lib = cudnn_gru_ms(D, T, 16, 128, dev)
+        w = gru_fwd_work(T * 16, D, 128, T * 16 * D, 2 * -(-T // pool) * 16 * 128)
+        k6_tot = [k6_tot[0] + kern, k6_tot[1] + plain_ms, k6_tot[2] + lib]
+        k6_work = [k6_work[0] + w[0], k6_work[1] + w[1]]
+        print(f"[time] K6 {name:11s} B=16 D={D:3d} T={T:3d} pool={pool}: kernel {kern:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, cuDNN nn.GRU {lib:.4f} ms, bound {bound(*w)[0]:.4f} ms")
+    k6_bound = bound(*k6_work)
+    print(f"[time] K6 five flagship layers B=16: kernel {k6_tot[0]:.4f} ms, plain {k6_tot[1]:.3f} ms, cuDNN "
+          f"nn.GRU {k6_tot[2]:.4f} ms, bound {k6_bound[0]:.4f} ms ({k6_bound[1]}) on {card}")
+
+    # 11.5 the main path of this phase: the flagship decode at B = 1 and 16 through K8
+    # and K6, counts set to 0 just before and read just after; logits against the CPU
+    cpu_model = flagship_model("cpu")
+    for m in (cpu_model, model):
+        m.pretrained_model.frontend, m.pretrained_model.gru_layout = "fused", "rowstack"
+    x = (0.1 * np.random.default_rng(5).standard_normal((16, 4 * 16000))).astype(np.float32)
+    sinc_frontend_fused.launches = bigru_shared.launches = bigru_shared.launches_rowstack = 0
+    decoded = {B: model.decode_intents(x[:B]) for B in (1, 16)}
+    torch.cuda.synchronize()
+    main = {"K8": sinc_frontend_fused.launches, "K6": bigru_shared.launches_rowstack, "K1": bigru_shared.launches}
+    if main != {"K8": 2, "K6": 10, "K1": 0}:
+        raise AssertionError(f"flagship decode through K8 and K6 at B=1 and 16 launched {main}; want 1 K8 and 5 K6 "
+                             "a call and no K1")
+    for B in (1, 16):
+        logits, preds = model.predict_intents(x[:B])
+        ref, ref_preds = cpu_model.predict_intents(x[:B])
+        err = (logits.cpu() - ref).abs().max().item()
+        if not (logits.shape == (B, 24) and torch.isfinite(logits).all() and err <= LOGIT_ATOL):
+            raise AssertionError(f"flagship B={B} through K8 and K6: card vs CPU logits max abs err {err:.3g} > "
+                                 f"{LOGIT_ATOL}")
+        print(f"[routes] flagship decode_intents B={B:2d} through K8 and K6 -> {decoded[B][0]}; logits card vs CPU "
+              f"max abs err {err:.3g} (atol {LOGIT_ATOL}); predictions equal: {bool((preds.cpu() == ref_preds).all())}")
+    print(f"[routes] launches of the two decodes: {main}")
+    return [
+        {"name": "sinc_frontend_fused", "route": "cuda", "source": K8_SOURCE, "replaces": K8_REPLACES,
+         "launches": main["K8"], "max_abs_err": k8_err, "ms": k8_ms[16][0], "plain_ms": k8_ms[16][1],
+         "bound_ms": k8_ms[16][3], "bound_by": k8_ms[16][4], "library_ms": k8_ms[16][2],
+         "ms_b1": k8_ms[1][0], "plain_ms_b1": k8_ms[1][1], "ms_b128": k8_ms[128][0], "plain_ms_b128": k8_ms[128][1],
+         "ab_frontend_device": {f"{r} B={B}": v for (B, r), v in ab_front.items()},
+         "ab_frontend_decode_device": {f"{r} B={B}": v for (B, r), v in ab_front_dec.items()},
+         "default": DEFAULT_FRONTEND},
+        {"name": "bigru_shared_fwd_rs", "route": "cuda", "source": K6_SOURCE, "replaces": K6_REPLACES,
+         "launches": main["K6"], "max_abs_err": k6_err, "ms": k6_tot[0], "plain_ms": k6_tot[1],
+         "bound_ms": k6_bound[0], "bound_by": k6_bound[1], "library_ms": k6_tot[2],
+         "ab_layout_five_layers": {f"{r} B={B}": v for (B, r), v in ab_five.items()},
+         "ab_layout_decode_device": {f"{r} B={B}": v for (B, r), v in ab_layout_dec.items()},
+         "default": DEFAULT_GRU_LAYOUT},
+    ]
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "tpu_slu_torch")):
         raise SystemExit("chip_smoke.py: tpu_slu_torch/ is not beside this script; "
@@ -1760,13 +2097,10 @@ def main() -> None:
               f"of 30 (CUDA events) on {card}")
 
     # K1 alone at the five flagship layer shapes (input width, parts, T, pool)
-    shapes = [("phone_rnn0", 60, 1, 400, 2), ("phone_rnn1", 128, 2, 200, 2),
-              ("word_rnn0", 128, 2, 100, 2), ("word_rnn1", 128, 2, 50, 2),
-              ("intent_rnn0", 256, 1, 25, 1)]
     totals = {B: [0.0, 0.0, 0.0] for B in batches}  # kernel, plain, cuDNN nn.GRU
     k1_work = [0.0, 0.0]  # FLOPs and bytes at B = 16
     for B in batches:
-        for name, d, n_parts, T, pool in shapes:
+        for name, d, n_parts, T, pool in FLAGSHIP_LAYERS:
             params, parts = k1_case(rng, n_parts, d, T, B, 128, dev)
             got = bigru_shared(params, parts, pool=pool)[:2]
             ref = bigru_shared_reference(params, parts, pool=pool)
@@ -1804,6 +2138,9 @@ def main() -> None:
     # 10. unidirectional GRU layers: decode, serve and train
     uni = phase_uni(dev, card, rng)
 
+    # 11. the exact-shape eval path's routes: K8 and K6
+    routes = phase_routes(dev, card, rng)
+
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_slu"))
     if loaded:
         raise AssertionError(f"the port loaded modules of JAX or of the JAX package: {loaded}")
@@ -1813,7 +2150,7 @@ def main() -> None:
         "launches": k1_train_launches, "launches_decode": launches, "max_abs_err": max_err,
         "ms": totals[16][0], "plain_ms": totals[16][1], "bound_ms": k1_bound, "bound_by": k1_by,
         "library_ms": totals[16][2],
-    }] + train_kernels + [k4f, k7, k4b] + uni}))
+    }] + train_kernels + [k4f, k7, k4b] + uni + routes}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 

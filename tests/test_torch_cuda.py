@@ -14,7 +14,7 @@ import torch
 from tpu_slu_torch.models.slu import Seq2SeqArch, Seq2SeqDecoder
 from tpu_slu_torch.ops.attention import attention_kv
 from tpu_slu_torch.ops.beam import beam_search_reference
-from tpu_slu_torch.ops.beam_fused import MAX_BEAM, SMEM_LIMIT, beam_decode
+from tpu_slu_torch.ops.beam_fused import SMEM_LIMIT, beam_decode
 from tpu_slu_torch.ops.bigru_masked import (
     bigru_masked,
     bigru_masked_bwd,
@@ -27,11 +27,13 @@ from tpu_slu_torch.ops.bigru_shared import (
     bigru_shared_bwd_reference,
     bigru_shared_fwd,
     bigru_shared_reference,
+    bigru_shared_rowstack_reference,
     bigru_trainpool,
     bigru_trainpool_reference,
 )
 from tpu_slu_torch.ops.conv import conv1d
 from tpu_slu_torch.ops.dropout import DIR_SALT_B, DIR_SALT_F, keep_mask, keep_threshold
+from tpu_slu_torch.ops.frontend_fused import sinc_frontend_fused, sinc_frontend_reference
 from tpu_slu_torch.ops.gru1 import gru1, gru1_bwd, gru1_bwd_reference, gru1_fwd, gru1_reference
 
 POOLS = [(1, "avg"), (2, "avg"), (2, "max")]
@@ -802,7 +804,7 @@ def test_k7_tie_order_is_lax_top_k(dev, W):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fault", ["float64", "noncontiguous", "cpu_weight", "n_zero", "n_past_T",
-                                   "beam_zero", "beam_past_max", "shape", "smem"])
+                                   "beam_zero", "shape"])
 def test_k7_rejects_what_it_does_not_take(dev, fault):
     dec, keys, values = k7_inputs(5, 2, 6, 2, 8, 4, 8, 11, dev)
     n, W, U = torch.tensor([6, 3], device=dev), 3, 8
@@ -818,12 +820,8 @@ def test_k7_rejects_what_it_does_not_take(dev, fault):
         n[0] = 7
     elif fault == "beam_zero":
         W = 0
-    elif fault == "beam_past_max":
-        W = MAX_BEAM + 1
     elif fault == "shape":
         values = values[:, :, :7].contiguous()
-    elif fault == "smem":  # the backpointers of 20,000 steps fill a block
-        U = 20000
     before = beam_decode.launches
     with torch.inference_mode(), pytest.raises((ValueError, TypeError)):
         beam_decode(dec, keys, values, n, W, U)
@@ -894,11 +892,65 @@ FLAGSHIP_DECODER = (2, 256, 100, 200, 102)  # all_real_seq2seq.cfg: layers, H, K
 
 
 @pytest.mark.cuda
-def test_max_beam_is_the_widest_blocked_plan_at_the_flagship_decoder(dev):
+def test_k7_takes_the_smem_plan_where_it_fits(dev):
+    """At the flagship decoder 19 beams' plan fits a block and 20 do not (the
+    plan has no T term): W = 19 runs the smem plan, W = 20 the global one."""
     from tpu_slu_torch.ops import _build
 
-    plan = _build.library().tsl_beam_decode_smem_bytes  # the plan has no T term
-    assert plan(MAX_BEAM, *FLAGSHIP_DECODER, 200) <= SMEM_LIMIT < plan(MAX_BEAM + 1, *FLAGSHIP_DECODER, 200)
+    plan = _build.library().tsl_beam_decode_smem_bytes
+    assert plan(19, *FLAGSHIP_DECODER, 200) <= SMEM_LIMIT < plan(20, *FLAGSHIP_DECODER, 200)
+    dec, keys, values = k7_inputs(19, 1, 25, *FLAGSHIP_DECODER, dev)
+    for W, global_plan in ((19, 0), (20, 1)):
+        before = beam_decode.launches, beam_decode.launches_global
+        with torch.inference_mode():
+            beam_decode(dec, keys, values, None, W, 200)
+        torch.cuda.synchronize()
+        assert (beam_decode.launches - before[0], beam_decode.launches_global - before[1]) == (1, global_plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [20, 32, 64])
+def test_k7_global_plan_matches_plain(dev, W):
+    """Beams too wide for a block's shared memory at the flagship decoder
+    and its 200 steps: the global plan, one launch; tokens equal the plain
+    search's, or a row parts from it only at a tie (``compare_searches``:
+    where the two first differ, the row's sorted beam scores agree within
+    f32 rounding; a random decoder scores permuted hypotheses alike)."""
+    from chip_smoke import compare_searches
+
+    dec, keys, values = k7_inputs(W + 2, 2, 25, *FLAGSHIP_DECODER, dev)
+    n = torch.tensor([25, 9], device=dev)
+    before = beam_decode.launches, beam_decode.launches_global
+    with torch.inference_mode():
+        beam_decode(dec, keys, values, n, W, 200)
+    torch.cuda.synchronize()
+    assert (beam_decode.launches - before[0], beam_decode.launches_global - before[1]) == (1, 1)
+
+    def search(fn):
+        def steps(n_steps):
+            with torch.inference_mode():
+                return tuple(t.cpu() for t in fn(dec, keys, values, n, W, n_steps))
+        return steps
+
+    (scores, _), (ref_scores, _), rows, _ = compare_searches(
+        f"K7 W={W}", search(beam_decode), search(beam_search_reference), 200)
+    torch.testing.assert_close(scores[:, rows], ref_scores[:, rows], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_k7_global_plan_takes_a_long_search(dev):
+    """20,000 steps at W = 4: the backpointers alone pass a block's shared
+    memory, so the plan lies in device memory; tokens equal the plain search's."""
+    dec, keys, values = k7_inputs(5, 2, 6, 2, 8, 4, 8, 11, dev)
+    n = torch.tensor([6, 3], device=dev)
+    with torch.inference_mode():
+        before = beam_decode.launches_global
+        scores, tokens = beam_decode(dec, keys, values, n, 4, 20000)
+        torch.cuda.synchronize()
+        assert beam_decode.launches_global == before + 1
+        ref_scores, ref_tokens = beam_search_reference(dec, keys, values, n, 4, 20000)
+    assert torch.equal(tokens, ref_tokens)
+    torch.testing.assert_close(scores, ref_scores, rtol=1e-5, atol=1e-3)  # sums of 20,000 steps
 
 
 K7_BLOCKED_CASES = [  # B, T, nl, H, K, V, L, W, U
@@ -935,7 +987,7 @@ def test_k7_blocked_mode_matches_plain(dev, B, T, nl, H, K, V, L, W, U, masked):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("W", [9, 12, 16, MAX_BEAM])
+@pytest.mark.parametrize("W", [9, 12, 16, 19])
 def test_k7_wide_beams_match_plain(dev, W):
     dec, keys, values = k7_inputs(W, 3, 21, 2, 16, 8, 8, 10, dev)
     n = torch.tensor([21, 1, 13], device=dev)
@@ -1038,3 +1090,166 @@ def test_trainer_test_decodes_a_long_seq2seq_batch(dev, tmp_path):
         plain.beam_search = real
     assert beam_decode.launches == before + 1
     assert not calls and np.isfinite(loss) and 0.0 <= acc <= 1.0
+
+
+# ---------------------------------------------------------------------------
+# K8, the fused sinc front end
+# ---------------------------------------------------------------------------
+
+K8_CASES = [  # B, T, F, K, S, pad, pool
+    (1, 64000, 80, 401, 80, 200, 2),  # the flagship's front end on 4 s of audio
+    (16, 64000, 80, 401, 80, 200, 2),
+    (16, 52800, 80, 401, 80, 200, 2),  # 3.3 s: a ragged last pooling window
+    (3, 1600, 16, 31, 10, 15, 2),  # tests/test_pallas_shared.py's shapes
+    (3, 1555, 16, 31, 10, 15, 2),
+    (2, 4000, 100, 61, 7, 30, 3),  # F past one filter tile, a pool that does not divide 32
+]
+
+
+def k8_inputs(seed, B, T, F, dev):
+    from tpu_slu_torch.ops.sinc import mel_init
+
+    b1, band = (torch.from_numpy(a).to(dev) for a in mel_init(F, 16000))
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal((B, T)).astype(np.float32)).to(dev)
+    return b1, band, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,F,K,S,pad,pool", K8_CASES)
+@pytest.mark.parametrize("act", ["leaky_relu", "relu"])
+def test_k8_matches_plain(dev, B, T, F, K, S, pad, pool, act):
+    """Within 1e-5 of the largest output (f32 sums of K products in another
+    order; TF32 would be ~1e-3 off)."""
+    b1, band, x = k8_inputs(B + T, B, T, F, dev)
+    kw = dict(filt_dim=K, fs=16000, stride=S, padding=pad, pool=pool, act=act)
+    before = sinc_frontend_fused.launches
+    with torch.inference_mode():
+        got = sinc_frontend_fused(b1, band, x, **kw)
+    torch.cuda.synchronize()
+    assert sinc_frontend_fused.launches == before + 1
+    ref = sinc_frontend_reference(b1, band, x, **kw)
+    assert got.shape == ref.shape == (B, -(-((T + 2 * pad - K) // S + 1) // pool), F)
+    assert got.transpose(1, 2).is_contiguous()  # channels-first underneath, for the convs after it
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_k8_gradients_recompute_through_the_plain_composition(dev):
+    b1, band, x = k8_inputs(1, 2, 16000, 80, dev)
+    kw = dict(filt_dim=401, fs=16000, stride=80, padding=200, pool=2)
+    leaves = [t.clone().requires_grad_() for t in (b1, band, x)]
+    out = sinc_frontend_fused(*leaves, **kw)
+    assert out.grad_fn is not None
+    cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(2)).to(dev)
+    out.backward(cot)
+    ref_leaves = [t.clone().requires_grad_() for t in (b1, band, x)]
+    sinc_frontend_reference(*ref_leaves, **kw).backward(cot)
+    for g, r in zip(leaves, ref_leaves):
+        torch.testing.assert_close(g.grad, r.grad, rtol=1e-5, atol=1e-5 * r.grad.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["float64", "noncontiguous", "cpu_filter"])
+def test_k8_rejects_what_it_does_not_take(dev, fault):
+    b1, band, x = k8_inputs(3, 2, 1600, 16, dev)
+    if fault == "float64":
+        x = x.double()
+    elif fault == "noncontiguous":
+        x = torch.cat([x, x], dim=1)[:, ::2]
+    else:
+        band = band.cpu()
+    before = sinc_frontend_fused.launches
+    with torch.inference_mode(), pytest.raises((TypeError, ValueError)):
+        sinc_frontend_fused(b1, band, x, filt_dim=31, fs=16000, stride=10, padding=15, pool=2)
+    assert sinc_frontend_fused.launches == before
+
+
+# ---------------------------------------------------------------------------
+# K6, the row-stacked layout of K1
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(1, 1), (1, 21), (1, 400), (3, 21), (16, 400), (100, 21), (300, 21)])
+@pytest.mark.parametrize("pool,method", POOLS)
+@pytest.mark.parametrize("dims", [(60,), (128, 128)], ids=["parts1", "parts2"])
+def test_k6_matches_plain_and_k1(dev, dims, pool, method, B, T):
+    params, parts = k1_inputs(0, dims, T, B, 128, dev)
+    before = bigru_shared.launches, bigru_shared.launches_rowstack
+    got = bigru_shared(params, parts, pool=pool, pool_method=method, layout="rowstack")[:2]
+    torch.cuda.synchronize()
+    assert (bigru_shared.launches, bigru_shared.launches_rowstack) == (before[0], before[1] + 1)
+    ref = bigru_shared_rowstack_reference(params, parts, pool=pool, pool_method=method)
+    k1 = bigru_shared(params, parts, pool=pool, pool_method=method)[:2]
+    for g, r, k in zip(got, ref, k1):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)  # K1's limits: f32 sums in another order
+        torch.testing.assert_close(g, k, rtol=1e-5, atol=1e-5)  # one recurrence, the biases added apart
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kwargs", [{"pool": 2}, {"pool": 2, "pool_method": "max"}, {"train": True}])
+def test_k6_forward_under_autograd_with_k3(dev, kwargs):
+    """The pooled eval core and the train core with K6 forward and K3
+    backward, against torch autograd of K1's plain version."""
+    params, parts = k1_inputs(13, (128, 128), 37, 5, 128, dev)
+    tp, tx = _leaves(params, parts)
+    before = bigru_shared.launches, bigru_shared.launches_rowstack, bigru_shared_bwd.launches
+    out = bigru_shared(tp, tx, layout="rowstack", **kwargs)
+    rp, rx = _leaves(params, parts)
+    ref = bigru_shared_reference(rp, rx, pool=kwargs.get("pool", 1),
+                                 pool_method=kwargs.get("pool_method", "avg"))
+    rng = np.random.default_rng(14)
+    cot = [torch.from_numpy(rng.standard_normal(tuple(r.shape)).astype(np.float32)).to(dev) for r in ref]
+    torch.autograd.backward(out[:2], cot)
+    torch.autograd.backward(ref, cot)
+    torch.cuda.synchronize()
+    recompute = int(kwargs.get("pool", 1) > 1)  # the pooled core recomputes the full-rate forward
+    assert (bigru_shared.launches - before[0], bigru_shared.launches_rowstack - before[1],
+            bigru_shared_bwd.launches - before[2]) == (0, 1 + recompute, 1)
+    pairs = list(zip(tx, rx)) + [(tp[d][n], rp[d][n]) for d in tp for n in tp[d]]
+    for g, r in pairs:
+        assert (g.grad - r.grad).abs().max().item() <= 1e-4 * r.grad.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["float64", "noncontiguous", "h_not_multiple_of_4", "cpu_weight", "shape"])
+def test_k6_rejects_what_it_does_not_take(dev, fault):
+    H = 10 if fault == "h_not_multiple_of_4" else 8
+    params, parts = k1_inputs(2, (6,), 9, 2, H, dev)
+    if fault == "float64":
+        parts = [p.double() for p in parts]
+    elif fault == "noncontiguous":
+        parts = [p.transpose(0, 1).contiguous().transpose(0, 1) for p in parts]
+    elif fault == "cpu_weight":
+        params["bwd"]["weight_hh"] = params["bwd"]["weight_hh"].cpu()
+    elif fault == "shape":
+        params["fwd"]["bias_hh"] = params["fwd"]["bias_hh"][:-1].contiguous()
+    before = bigru_shared.launches_rowstack
+    with pytest.raises((TypeError, ValueError)):
+        bigru_shared(params, parts, layout="rowstack")
+    assert bigru_shared.launches_rowstack == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frontend,gru_layout", [("fused", "rowstack"), ("fused", "split"),
+                                                 ("composed", "rowstack")])
+def test_flagship_decode_through_k8_and_k6(dev, frontend, gru_layout):
+    """The flagship decode with each route set: one K8 launch a call on the
+    fused front end, five K6 (and no K1) launches on the row-stacked layout;
+    logits within the smoke's 1e-3 of the same model on the CPU."""
+    from tpu_slu_torch.models.flagship import flagship_model
+
+    cpu = flagship_model("cpu")
+    card = flagship_model(dev)
+    for m in (cpu, card):
+        m.pretrained_model.frontend, m.pretrained_model.gru_layout = frontend, gru_layout
+    x = (0.1 * np.random.default_rng(15).standard_normal((2, 64000))).astype(np.float32)
+    before = sinc_frontend_fused.launches, bigru_shared.launches, bigru_shared.launches_rowstack
+    logits, _ = card.predict_intents(x)
+    torch.cuda.synchronize()
+    rowstack = gru_layout == "rowstack"
+    assert (sinc_frontend_fused.launches - before[0], bigru_shared.launches - before[1],
+            bigru_shared.launches_rowstack - before[2]) == (int(frontend == "fused"), 5 * (not rowstack),
+                                                           5 * rowstack)
+    ref, _ = cpu.predict_intents(x)
+    assert (logits.cpu() - ref).abs().max().item() <= 1e-3

@@ -12,14 +12,28 @@
 // equal extensions the smaller w * L + l ranks first (lax.top_k's order).
 // Its plain version is `beam_search_reference` in tpu_slu_torch/ops/beam.py.
 //
-// Layout: one CTA per utterance, its W beams as W rows. Shared memory holds
-// the beams' states before and after the step, the step's scratch (query,
-// a frame block's attention weights, [embedding | context], gate
+// Layout: one CTA per utterance, its W beams as W rows. The plan (make_plan)
+// holds the beams' states before and after the step, the step's scratch
+// (query, a frame block's attention weights, [embedding | context], gate
 // pre-activations, extensions), the scores, and a backpointer per step and
 // beam (w * L + l of the chosen extension). After the last step each final
 // beam walks its backpointers back to u = 0 and writes its tokens: the same
 // tokens as gathering the history at every step, without copying W x U ints
 // per step.
+//
+// Where the plan lies is fixed at compile time (GLOBAL). The smem plan keeps
+// it in shared memory; it is taken whenever it fits a block (227 KB). The
+// global plan keeps it in a per-CTA slice of a workspace in device memory
+// that the caller allocates (B x plan words), and only the warp reduction
+// slots in shared memory: wide beams (past 19 at the flagship decoder, ~3k
+// words a beam) and long searches (U x W backpointers) run there, on any
+// width and any max_len. A CTA's slice is read and written by that CTA
+// alone and stays in the 50 MB L2 (~12 MB at W = 64, B = 16), and
+// __syncthreads() orders its global writes as it does the shared ones: the
+// search code is the same for both plans. The global plan runs the wide
+// instantiation (groups of 8 rows) at every width. It is correct first and
+// not fast: measured on an H100 SXM (700 W), its step costs ~4.8x the smem
+// plan's at W = 20 against W = 16 (PERF.md), the scratch reread from L2.
 //
 // Attention is the TPU kernel's blocked mode (`fb`, :215-255) at every
 // length: keys and values stay in global memory, where they are L2-resident
@@ -152,8 +166,9 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
 }
 
 // G: rows per register group; WIDE: W = d.W rows in ceil(W / G) groups
-// (else W = G).
-template <int G, bool WIDE>
+// (else W = G); GLOBAL: the plan lies in ws (B x plan words), else in shared
+// memory.
+template <int G, bool WIDE, bool GLOBAL>
 __global__ void __launch_bounds__(kThreads, 1) beam_decode_kernel(
     const float* __restrict__ keys,      // (B, T, K)
     const float* __restrict__ values,    // (B, T, V)
@@ -165,28 +180,30 @@ __global__ void __launch_bounds__(kThreads, 1) beam_decode_kernel(
     const float* __restrict__ init,      // (nl, H)
     float* __restrict__ scores,          // (W, B)
     long long* __restrict__ tokens,      // (W, B, U)
+    float* ws,                           // (B, plan words), GLOBAL only
     Dims d) {
   extern __shared__ __align__(16) float smem[];
   const int W = WIDE ? d.W : G;
   const Plan pl = make_plan(W, d.nl, d.H, d.K, d.V, d.L, d.U);
-  float* h_s = smem + pl.h;
-  float* hn_s = smem + pl.hn;
-  float* x_s = smem + pl.x;
-  float* q_s = smem + pl.q;
-  float* p_s = smem + pl.p;
-  float* m_s = smem + pl.stat;  // running max,
+  float* base = GLOBAL ? ws + (size_t)blockIdx.x * pl.total : smem;
+  float* h_s = base + pl.h;
+  float* hn_s = base + pl.hn;
+  float* x_s = base + pl.x;
+  float* q_s = base + pl.q;
+  float* p_s = base + pl.p;
+  float* m_s = base + pl.stat;  // running max,
   float* l_s = m_s + W;         // running sum,
   float* a_s = l_s + W;         // and this block's rescale factor, per beam
-  float* rz_s = smem + pl.rz;
-  float* gin_s = smem + pl.gin;
-  float* ghn_s = smem + pl.ghn;
-  float* ext_s = smem + pl.ext;
-  float* score_s = smem + pl.score;
-  float* newscore_s = smem + pl.newscore;
-  float* red_v = smem + pl.red_v;
-  int* red_i = reinterpret_cast<int*>(smem + pl.red_i);
-  int* sel_s = reinterpret_cast<int*>(smem + pl.sel);
-  int* hist_s = reinterpret_cast<int*>(smem + pl.hist);
+  float* rz_s = base + pl.rz;
+  float* gin_s = base + pl.gin;
+  float* ghn_s = base + pl.ghn;
+  float* ext_s = base + pl.ext;
+  float* score_s = base + pl.score;
+  float* newscore_s = base + pl.newscore;
+  float* red_v = GLOBAL ? smem : base + pl.red_v;
+  int* red_i = reinterpret_cast<int*>(GLOBAL ? smem + kWarps : base + pl.red_i);
+  int* sel_s = reinterpret_cast<int*>(base + pl.sel);
+  int* hist_s = reinterpret_cast<int*>(base + pl.hist);
 
   const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int T = d.T, H = d.H, K = d.K, V = d.V, L = d.L, nl = d.nl;
@@ -416,18 +433,19 @@ __global__ void __launch_bounds__(kThreads, 1) beam_decode_kernel(
   }
 }
 
-template <int G, bool WIDE>
+template <int G, bool WIDE, bool GLOBAL>
 cudaError_t launch(const float* keys, const float* values, const long long* n_valid,
                    const float* wq, const float* bq, const float* we, const float* be,
                    const float* cells, const float* wl, const float* bl, const float* init,
-                   float* scores, long long* tokens, Dims d, cudaStream_t st) {
-  const size_t smem = sizeof(float) * make_plan(d.W, d.nl, d.H, d.K, d.V, d.L, d.U).total;
-  auto kernel = beam_decode_kernel<G, WIDE>;
+                   float* scores, long long* tokens, float* ws, Dims d, cudaStream_t st) {
+  const size_t smem = GLOBAL ? sizeof(float) * 2 * kWarps
+                             : sizeof(float) * make_plan(d.W, d.nl, d.H, d.K, d.V, d.L, d.U).total;
+  auto kernel = beam_decode_kernel<G, WIDE, GLOBAL>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<d.B, kThreads, smem, st>>>(keys, values, n_valid, wq, bq, we, be, cells, wl, bl, init,
-                                      scores, tokens, d);
+                                      scores, tokens, ws, d);
   return cudaGetLastError();
 }
 
@@ -435,7 +453,8 @@ cudaError_t launch(const float* keys, const float* values, const long long* n_va
 
 extern "C" {
 
-// Bytes of dynamic shared memory one CTA of the search takes; no T term.
+// Bytes of one CTA's plan: its dynamic shared memory under the smem plan,
+// its slice of the workspace under the global plan; no T term.
 long long tsl_beam_decode_smem_bytes(int W, int nl, int H, int K, int V, int L, int U) {
   return (long long)sizeof(float) * make_plan(W, nl, H, K, V, L, U).total;
 }
@@ -446,37 +465,41 @@ long long tsl_beam_decode_smem_bytes(int W, int nl, int H, int K, int V, int L, 
 // (K), we (L, H), be (H), wl (H, L), bl (L), init (nl, H); cells packs, per
 // layer, w_ih (in, 3H) (in = H + V for layer 0, H after it), w_hh (H, 3H),
 // b_ih (3H) and b_hh (3H). Writes scores (W, B) best-first and tokens (W, B,
-// U) int64. W >= 1. Returns cudaSuccess (0) or the first error of the
-// launch; does not synchronise.
+// U) int64. W >= 1. workspace null: the smem plan, which must fit a block;
+// else the global plan, in workspace of B x tsl_beam_decode_smem_bytes bytes.
+// Returns cudaSuccess (0) or the first error of the launch; does not
+// synchronise.
 int tsl_beam_decode(const float* keys, const float* values, const long long* n_valid,
                     const float* wq, const float* bq, const float* we, const float* be,
                     const float* cells, const float* wl, const float* bl, const float* init,
-                    float* scores, long long* tokens, int B, int T, int W, int nl, int H, int K,
-                    int V, int L, int U, void* stream) {
+                    float* scores, long long* tokens, float* workspace, int B, int T, int W,
+                    int nl, int H, int K, int V, int L, int U, void* stream) {
   const Dims d{B, T, W, nl, H, K, V, L, U};
   cudaStream_t st = (cudaStream_t)stream;
-#define TSL_BEAM(GV, WIDEV)                                                                  \
-  (int)launch<GV, WIDEV>(keys, values, n_valid, wq, bq, we, be, cells, wl, bl, init, scores, \
-                         tokens, d, st)
+#define TSL_BEAM(GV, WIDEV, GLOBALV)                                                          \
+  (int)launch<GV, WIDEV, GLOBALV>(keys, values, n_valid, wq, bq, we, be, cells, wl, bl, init, \
+                                  scores, tokens, workspace, d, st)
+  if (W < 1) return (int)cudaErrorInvalidValue;
+  if (workspace != nullptr) return TSL_BEAM(kGroup, true, true);
   switch (W) {
     case 1:
-      return TSL_BEAM(1, false);
+      return TSL_BEAM(1, false, false);
     case 2:
-      return TSL_BEAM(2, false);
+      return TSL_BEAM(2, false, false);
     case 3:
-      return TSL_BEAM(3, false);
+      return TSL_BEAM(3, false, false);
     case 4:
-      return TSL_BEAM(4, false);
+      return TSL_BEAM(4, false, false);
     case 5:
-      return TSL_BEAM(5, false);
+      return TSL_BEAM(5, false, false);
     case 6:
-      return TSL_BEAM(6, false);
+      return TSL_BEAM(6, false, false);
     case 7:
-      return TSL_BEAM(7, false);
+      return TSL_BEAM(7, false, false);
     case 8:
-      return TSL_BEAM(8, false);
+      return TSL_BEAM(8, false, false);
     default:
-      return W > 8 ? TSL_BEAM(kGroup, true) : (int)cudaErrorInvalidValue;
+      return TSL_BEAM(kGroup, true, false);
   }
 #undef TSL_BEAM
 }

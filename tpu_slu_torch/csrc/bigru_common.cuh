@@ -1,9 +1,16 @@
-// Pieces shared by the bi-GRU kernels (K1 bigru_shared_fwd.cu, K2
+// Pieces shared by the bi-GRU kernels (K1 and K6 bigru_shared_fwd.cu, K2
 // bigru_trainpool_fwd.cu, K3 bigru_shared_bwd.cu): the tiled input
 // projection, the forward recurrence (eval, or train with h_prev residuals,
 // hash dropout and the ceil avg-pool), the dropout hash and the choice of
 // batch tile. Everything is f32 with f32 accumulation. Included by each
 // source; the anonymous namespace gives each its own copy.
+//
+// RS (K6, the row-stacked layout): gi of both directions lives in one (T,
+// 2B, 3H) array, forward rows 0:B at natural t, backward rows B:2B written
+// pre-reversed (step s holds t = T - 1 - s), so that step s reads row s for
+// both directions; b_hh's r and z columns are folded into b_ih at
+// projection time, and only b_hh's n column stays in the recurrence, added
+// to the recurrent product before the r gate multiplies it.
 
 #pragma once
 
@@ -46,11 +53,16 @@ constexpr uint32_t kKeepAll = 1u << 24;  // thresh for p = 0: every element kept
 // over m = t*B + b < M = T*B and n < N = 3H. W_ih is (3H, d1 + d2) row-major
 // (torch layout), so both operands are contiguous along k. blockIdx.z is
 // the direction; a launch with gridDim.z == 1 uses only the _f operands.
+// RS: row (s, dir * B + b) of the (T, 2B, 3H) row-stacked array instead,
+// s = t forward and T - 1 - t backward, and b_ih[n] + fold[n] for n < 2H
+// (fold_f, fold_b: b_hh of each direction).
+template <bool RS>
 __global__ void __launch_bounds__(256) gi_proj_kernel(
     const float* __restrict__ x1, int d1, const float* __restrict__ x2, int d2,
     const float* __restrict__ wih_f, const float* __restrict__ bih_f,
     const float* __restrict__ wih_b, const float* __restrict__ bih_b,
-    float* __restrict__ gi, int M, int N) {
+    float* __restrict__ gi, int M, int N, const float* __restrict__ fold_f,
+    const float* __restrict__ fold_b, int B) {
   __shared__ float xs[kTK][kTile + 1];
   __shared__ float ws[kTK][kTile + 1];
   const int dir = blockIdx.z;
@@ -87,15 +99,24 @@ __global__ void __launch_bounds__(256) gi_proj_kernel(
       __syncthreads();
     }
   }
-  float* __restrict__ out = gi + (size_t)dir * M * N;
+  const float* __restrict__ fold = dir == 0 ? fold_f : fold_b;
+  const int T = RS ? M / B : 0;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int m = m0 + ty + 16 * i;
     if (m >= M) continue;
+    size_t row = (size_t)dir * M + m;
+    if (RS) {
+      const int t = m / B, b = m % B;
+      row = (size_t)(dir == 0 ? t : T - 1 - t) * 2 * B + (size_t)dir * B + b;
+    }
+    float* __restrict__ out = gi + row * N;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx + 16 * j;
-      if (n < N) out[(size_t)m * N + n] = acc[i][j] + bias[n];
+      if (n >= N) continue;
+      const float bn = RS && 3 * n < 2 * N ? bias[n] + fold[n] : bias[n];
+      out[n] = acc[i][j] + bn;
     }
   }
 }
@@ -107,7 +128,21 @@ inline cudaError_t launch_gi_proj(const float* x1, int d1, const float* x2, int 
                                   const float* b_b, float* out, int M, int N, int ndir,
                                   cudaStream_t st) {
   dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile, ndir);
-  gi_proj_kernel<<<grid, 256, 0, st>>>(x1, d1, x2, d2, w_f, b_f, w_b, b_b, out, M, N);
+  gi_proj_kernel<false><<<grid, 256, 0, st>>>(x1, d1, x2, d2, w_f, b_f, w_b, b_b, out, M, N,
+                                              nullptr, nullptr, 1);
+  return cudaGetLastError();
+}
+
+// The row-stacked projection of K6 over both directions of T x B rows, b_hh's
+// r and z columns folded into b_ih.
+inline cudaError_t launch_gi_proj_rs(const float* x1, int d1, const float* x2, int d2,
+                                     const float* w_f, const float* b_f, const float* bhh_f,
+                                     const float* w_b, const float* b_b, const float* bhh_b,
+                                     float* out, int T, int B, int N, cudaStream_t st) {
+  const int M = T * B;
+  dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile, 2);
+  gi_proj_kernel<true><<<grid, 256, 0, st>>>(x1, d1, x2, d2, w_f, b_f, w_b, b_b, out, M, N, bhh_f,
+                                             bhh_b, B);
   return cudaGetLastError();
 }
 
@@ -122,9 +157,12 @@ inline cudaError_t launch_gi_proj(const float* x1, int d1, const float* x2, int 
 // t into hp (zero at the start of that direction's walk), and drops h at
 // the full frame rate (kept: h / (1 - p); `keep_hash` on the natural t, the
 // GLOBAL batch row and h) before the avg pool.
-template <int NB, bool TRAIN>
+// RS = true (K6, eval): gi is the row-stacked (T, 2B, 3H) array; the r and z
+// columns of the recurrent product take no bias (folded into gi), the n
+// column takes b_hh's after the product.
+template <int NB, bool TRAIN, bool RS = false>
 __global__ void bigru_rec_kernel(
-    const float* __restrict__ gi,  // (2, T, B, 3H)
+    const float* __restrict__ gi,  // (2, T, B, 3H); RS: (T, 2B, 3H)
     const float* __restrict__ whh_f, const float* __restrict__ bhh_f,
     const float* __restrict__ whh_b, const float* __restrict__ bhh_b,
     float* __restrict__ out_f, float* __restrict__ out_b,  // (ceil(T/pool), B, H)
@@ -143,7 +181,7 @@ __global__ void bigru_rec_kernel(
   const int nb = min(NB, B - b0);
   const float* __restrict__ whh = dir == 0 ? whh_f : whh_b;
   const float* __restrict__ bhh = dir == 0 ? bhh_f : bhh_b;
-  const float* __restrict__ gid = gi + (size_t)dir * T * B * H3;
+  const float* __restrict__ gid = gi + (size_t)dir * (RS ? B : T * B) * H3;
   float* __restrict__ out = dir == 0 ? out_f : out_b;
   float* __restrict__ hp = dir == 0 ? hp_f : hp_b;
   const uint32_t salt = dir == 0 ? kSaltF : kSaltB;
@@ -152,7 +190,7 @@ __global__ void bigru_rec_kernel(
 
   for (int e = tid; e < H3 * H; e += nt) w_s[(e / H) * HP + e % H] = whh[e];
   for (int e = tid; e < NB * H; e += nt) h_s[e] = 0.0f;
-  const float bj = tid < H3 ? bhh[tid] : 0.0f;
+  const float bj = tid < H3 && !(RS && tid < 2 * H) ? bhh[tid] : 0.0f;
   __syncthreads();
 
   // gate-phase elements per thread: NB*H <= kIt * nt because nt >= 3H
@@ -160,7 +198,8 @@ __global__ void bigru_rec_kernel(
   const int H4 = H / 4;
   for (int s = 0; s < T; ++s) {
     const int t = dir == 0 ? s : T - 1 - s;
-    const float* __restrict__ git = gid + ((size_t)t * B + b0) * H3;
+    const float* __restrict__ git = RS ? gid + ((size_t)s * 2 * B + b0) * H3
+                                       : gid + ((size_t)t * B + b0) * H3;
     float gr[kIt], gz[kIt], gn[kIt];
 #pragma unroll
     for (int it = 0; it < kIt; ++it) {
@@ -175,7 +214,7 @@ __global__ void bigru_rec_kernel(
     if (tid < H3) {
       float acc[NB];
 #pragma unroll
-      for (int b = 0; b < NB; ++b) acc[b] = bj;
+      for (int b = 0; b < NB; ++b) acc[b] = RS ? 0.0f : bj;
       const float4* wrow = reinterpret_cast<const float4*>(w_s + tid * HP);
 #pragma unroll 4
       for (int k4 = 0; k4 < H4; ++k4) {
@@ -191,7 +230,7 @@ __global__ void bigru_rec_kernel(
       }
 #pragma unroll
       for (int b = 0; b < NB; ++b)
-        if (b < nb) gh_s[b * H3 + tid] = acc[b];
+        if (b < nb) gh_s[b * H3 + tid] = RS ? acc[b] + bj : acc[b];
     }
     __syncthreads();
     const int wi = t / pool;
@@ -229,7 +268,7 @@ __global__ void bigru_rec_kernel(
   }
 }
 
-template <int NB, bool TRAIN>
+template <int NB, bool TRAIN, bool RS>
 cudaError_t launch_rec(const float* gi, const float* whh_f, const float* bhh_f,
                        const float* whh_b, const float* bhh_b, float* out_f, float* out_b,
                        float* hp_f, float* hp_b, int T, int B, int H, int pool, int pool_max,
@@ -237,11 +276,11 @@ cudaError_t launch_rec(const float* gi, const float* whh_f, const float* bhh_f,
   const size_t smem =
       sizeof(float) * ((size_t)3 * H * whh_pitch(H) + (size_t)NB * H * 5);
   cudaError_t err = cudaFuncSetAttribute(
-      bigru_rec_kernel<NB, TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      bigru_rec_kernel<NB, TRAIN, RS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int threads = (3 * H + 31) / 32 * 32;
   dim3 grid((B + NB - 1) / NB, 2);
-  bigru_rec_kernel<NB, TRAIN><<<grid, threads, smem, st>>>(
+  bigru_rec_kernel<NB, TRAIN, RS><<<grid, threads, smem, st>>>(
       gi, whh_f, bhh_f, whh_b, bhh_b, out_f, out_b, hp_f, hp_b, T, B, H, pool, pool_max, seed,
       thresh, inv_keep);
   return cudaGetLastError();
@@ -267,23 +306,28 @@ inline cudaError_t pick_batch_tile(int B, int* nb, int ndir = 2) {
   return cudaSuccess;
 }
 
-// Input projection, then the recurrence at the batch tile pick_batch_tile chooses.
-template <bool TRAIN>
+// Input projection, then the recurrence at the batch tile pick_batch_tile
+// chooses; RS: the row-stacked layout of K6 (eval only).
+template <bool TRAIN, bool RS = false>
 cudaError_t bigru_forward(const float* x1, int d1, const float* x2, int d2, const float* wih_f,
                           const float* bih_f, const float* whh_f, const float* bhh_f,
                           const float* wih_b, const float* bih_b, const float* whh_b,
                           const float* bhh_b, float* gi_scratch, float* out_f, float* out_b,
                           float* hp_f, float* hp_b, int T, int B, int H, int pool, int pool_max,
                           uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t st) {
-  cudaError_t err = launch_gi_proj(x1, d1, x2, d2, wih_f, bih_f, wih_b, bih_b, gi_scratch,
-                                   T * B, 3 * H, 2, st);
+  static_assert(!(TRAIN && RS), "the row-stacked layout is eval only");
+  cudaError_t err =
+      RS ? launch_gi_proj_rs(x1, d1, x2, d2, wih_f, bih_f, bhh_f, wih_b, bih_b, bhh_b, gi_scratch,
+                             T, B, 3 * H, st)
+         : launch_gi_proj(x1, d1, x2, d2, wih_f, bih_f, wih_b, bih_b, gi_scratch, T * B, 3 * H, 2,
+                          st);
   if (err != cudaSuccess) return err;
   int nb = 8;
   err = pick_batch_tile(B, &nb);
   if (err != cudaSuccess) return err;
-#define TSL_REC(NBV)                                                                       \
-  launch_rec<NBV, TRAIN>(gi_scratch, whh_f, bhh_f, whh_b, bhh_b, out_f, out_b, hp_f, hp_b, T, \
-                         B, H, pool, pool_max, seed, thresh, inv_keep, st)
+#define TSL_REC(NBV)                                                                           \
+  launch_rec<NBV, TRAIN, RS>(gi_scratch, whh_f, bhh_f, whh_b, bhh_b, out_f, out_b, hp_f, hp_b, \
+                             T, B, H, pool, pool_max, seed, thresh, inv_keep, st)
   switch (nb) {
     case 1:
       return TSL_REC(1);

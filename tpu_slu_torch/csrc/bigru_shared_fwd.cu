@@ -1,4 +1,5 @@
-// Shared-stream bidirectional GRU layer, forward (eval), for sm_90a.
+// Shared-stream bidirectional GRU layer, forward (eval), for sm_90a: K1 and
+// its row-stacked layout K6.
 //
 // Replaces the TPU kernel `_mk_shared_fwd_kernel` in
 // tpu_slu/ops/pallas_gru.py (reached through `_shared_fwd_call` and
@@ -43,6 +44,24 @@
 // H-long FMA chain, the two barriers per step, and too few warps per SM to
 // hide latency. Splitting W_hh over a cluster of SMs, keeping it in
 // registers, wgmma and bf16 operands are later work.
+//
+// K6, the row-stacked layout (`tsl_bigru_shared_fwd_rs`), replaces the TPU
+// kernel `_mk_shared_fwd_kernel_rs` (tpu_slu/ops/pallas_gru.py:887,
+// `pallas_call` at :1047). Same function as K1, laid out differently: the
+// projection writes both directions' gi into ONE (T, 2B, 3H) array, forward
+// rows 0:B at t = s and backward rows B:2B pre-reversed (row s holds t = T -
+// 1 - s), so that step s of either direction reads row s; b_hh's r and z
+// columns are folded into b_ih there, and only b_hh's n column stays in the
+// recurrence, inside r * (W_hn h + b_hn). On the TPU the layout let one
+// (2B, 3H) elementwise chain serve both directions. Here both directions'
+// W_hh cannot share one SM in f32 (2 x 3H x (H + 4) x 4 B = 405 KB at H =
+// 128, against 227 KB), so K6 keeps K1's CTA per (batch tile, direction),
+// each reading its half of row s. A 2-CTA cluster sharing the step through
+// distributed shared memory was not taken: the two directions' chains share
+// no data, so a cluster would add a cluster barrier a step and exchange
+// nothing. What K6 changes on this card is the scratch layout (both
+// directions' rows of a step adjacent) and two fewer bias adds a gate
+// column a step; its bound is K1's.
 
 #include "bigru_common.cuh"
 
@@ -66,6 +85,20 @@ int tsl_bigru_shared_fwd(
                                    whh_b, bhh_b, gi_scratch, out_f, out_b, nullptr, nullptr, T,
                                    B, H, pool, pool_max, 0u, kKeepAll, 1.0f,
                                    (cudaStream_t)stream);
+}
+
+// K6: as tsl_bigru_shared_fwd, with gi_scratch (2*T*B*3H floats) holding
+// the row-stacked (T, 2B, 3H) projection, b_hh's r and z columns folded in.
+int tsl_bigru_shared_fwd_rs(
+    const float* x1, int d1, const float* x2, int d2,
+    const float* wih_f, const float* bih_f, const float* whh_f, const float* bhh_f,
+    const float* wih_b, const float* bih_b, const float* whh_b, const float* bhh_b,
+    float* gi_scratch, float* out_f, float* out_b,
+    int T, int B, int H, int pool, int pool_max, void* stream) {
+  return (int)bigru_forward<false, true>(x1, d1, x2, d2, wih_f, bih_f, whh_f, bhh_f, wih_b, bih_b,
+                                         whh_b, bhh_b, gi_scratch, out_f, out_b, nullptr, nullptr,
+                                         T, B, H, pool, pool_max, 0u, kKeepAll, 1.0f,
+                                         (cudaStream_t)stream);
 }
 
 }  // extern "C"

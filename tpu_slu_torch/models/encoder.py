@@ -14,6 +14,14 @@ streams (:class:`PartsTM`): each layer reads the previous layer's ``h_f`` and
 the layer (``ops/bigru_shared.py``). A unidirectional GRU layer (a config's
 ``*_rnn_bidirectional=False``) takes and returns batch-major (B, T, C)
 (``ops/gru1.py``); its dropout and downsample run after it, as in JAX.
+
+Two routes of the exact-shape eval path are settings of
+:class:`PretrainedModel`, passed down to :func:`apply_stack` by its
+callers: ``frontend`` (``"fused"``: the sinc conv, |.|, max pool and
+activation in one launch of K8, ``ops/frontend_fused.py``; ``"composed"``:
+the cuDNN conv and three PyTorch ops) and ``gru_layout`` (``"split"``: K1;
+``"rowstack"``: K6). Both compute the same function; their defaults are
+the routes measured faster on the card (PERF.md).
 """
 
 from __future__ import annotations
@@ -34,8 +42,16 @@ from tpu_slu_torch.ops.conv import (
     masked_max_pool1d_ceil,
     max_pool1d_ceil,
 )
+from tpu_slu_torch.ops.frontend_fused import sinc_frontend_fused
 from tpu_slu_torch.ops.gru1 import gru1
 from tpu_slu_torch.ops.sinc import mel_init, sinc_conv
+
+FRONTENDS = ("fused", "composed")
+# the routes of the exact-shape eval path that a PretrainedModel takes unless
+# told otherwise, chosen by a same-process A/B on the card (PERF.md): K8's
+# route was slower than the composed one at B = 1, and K6 within 2% of K1
+DEFAULT_FRONTEND = "composed"
+DEFAULT_GRU_LAYOUT = "split"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -291,7 +307,7 @@ def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None) -> tor
     return torch.where(keep.to(x.device), x / (1.0 - p), 0.0)
 
 
-def _gru_block(layer, tail, out, *, train: bool, generator):
+def _gru_block(layer, tail, out, *, train: bool, generator, layout: str):
     """One bi-GRU block ([gru] + ``tail``, the trailing [select, dropout,
     downsample] when present) over part streams; returns the next parts.
 
@@ -316,11 +332,11 @@ def _gru_block(layer, tail, out, *, train: bool, generator):
                 seed = 0
         h_f, h_b, pooled = bigru_shared(layer.params(), out, train=True,
                                         pool=factor if want_pool else 1, drop_p=drop_p,
-                                        seed=seed)
+                                        seed=seed, layout=layout)
     else:
         fused = factor > 1 and method in ("avg", "max")
         h_f, h_b, pooled = bigru_shared(layer.params(), out, pool=factor if fused else 1,
-                                        pool_method=method if fused else "avg")
+                                        pool_method=method if fused else "avg", layout=layout)
     parts = [h_f, h_b]
     if train and drop_p > 0.0 and not pooled:
         h = dropout(torch.cat(parts, dim=-1), drop_p, generator)
@@ -387,8 +403,19 @@ def _apply_stack_masked(layers: nn.ModuleList, specs, out, n: torch.Tensor, *, t
     return out
 
 
+def _fuses_frontend(spec: LayerSpec, tail) -> bool:
+    """JAX's gate of the fused front end (``encoder.py:327-332``): a sinc
+    conv whose stride is above 1 and below its taps, followed by [abs, pool,
+    act, dropout]."""
+    if spec.kind != "sinc":
+        return False
+    _, filt_dim, _, stride, _ = spec.h
+    return stride > 1 and filt_dim > stride and [s.kind for s in tail] == ["abs", "pool", "act", "dropout"]
+
+
 def apply_stack(layers: nn.ModuleList, specs, out, *, train: bool = False,
-                generator: torch.Generator | None = None, n: torch.Tensor | None = None):
+                generator: torch.Generator | None = None, n: torch.Tensor | None = None,
+                frontend: str = DEFAULT_FRONTEND, gru_layout: str = DEFAULT_GRU_LAYOUT):
     """Run a LayerSpec stack. Conv specs take (B, C, T); a bidirectional GRU
     takes time-major parts (or (B, T, C), which it turns time-major); a
     unidirectional GRU and the rest of the RNN specs take (B, T, C), parts
@@ -398,7 +425,15 @@ def apply_stack(layers: nn.ModuleList, specs, out, *, train: bool = False,
     in layer order (needed whenever a rate is above 0). ``n`` (B,) int64
     valid counts of ``out`` select the length-exact branch
     (:func:`_apply_stack_masked`); the counts of its output are
-    ``frames_through(specs, n)``."""
+    ``frames_through(specs, n)``.
+
+    In eval at the exact shape, ``frontend="fused"`` runs a sinc conv and the
+    [abs, pool, act, dropout] after it as one K8 call (dropout is a no-op in
+    eval), where JAX's gate allows; ``gru_layout`` is every bidirectional
+    layer's ``bigru_shared`` layout. The length-exact branch and training
+    keep the composed front end, as in JAX."""
+    if frontend not in FRONTENDS:
+        raise ValueError(f"frontend must be one of {FRONTENDS}, got {frontend!r}")
     if n is not None:
         return _apply_stack_masked(layers, specs, out, n, train=train, generator=generator)
     specs = list(specs)
@@ -417,10 +452,19 @@ def apply_stack(layers: nn.ModuleList, specs, out, *, train: bool = False,
                 idx += 3
             else:
                 tail = []
-            out = _gru_block(layer, tail, out, train=train, generator=generator)
+            out = _gru_block(layer, tail, out, train=train, generator=generator, layout=gru_layout)
             continue
         if isinstance(out, PartsTM):
             out = parts_to_btc(out)
+        if frontend == "fused" and not train and _fuses_frontend(spec, specs[idx:idx + 4]):
+            _, filt_dim, fs, stride, pad = spec.h
+            pool, act = specs[idx + 1].h[0], specs[idx + 2].h[0]
+            idx += 4
+            out = sinc_frontend_fused(layer.filt_b1, layer.filt_band, out[:, 0, :], filt_dim=filt_dim,
+                                      fs=fs, stride=stride, padding=pad, pool=pool,
+                                      act="leaky_relu" if act == "leaky_relu" else "relu")
+            out = out.transpose(1, 2)  # (B, F, t_pool), contiguous: K8 writes channels-first
+            continue
         if spec.kind == "sinc":
             _, filt_dim, fs, stride, pad = spec.h
             out = sinc_conv(layer.filt_b1, layer.filt_band, out, filt_dim, fs, stride, pad)
@@ -462,21 +506,28 @@ def encoder_features(encoder: "PretrainedModel", x: torch.Tensor, *, train: bool
     T = lengths_b, and its frames past ``arch.num_frames(lengths_b)`` are 0.
     """
     arch = encoder.arch
+    routes = {"frontend": encoder.frontend, "gru_layout": encoder.gru_layout}
     out = apply_stack(encoder.phoneme_layers, arch.phoneme_layers, x[:, None, :], train=train,
-                      generator=generator, n=lengths)
+                      generator=generator, n=lengths, **routes)
     n = None if lengths is None else frames_through(arch.phoneme_layers, lengths)
     out = apply_stack(encoder.word_layers, arch.word_layers, out, train=train, generator=generator,
-                      n=n)
+                      n=n, **routes)
     return parts_to_btc(out) if isinstance(out, PartsTM) else out
 
 
 class PretrainedModel(nn.Module):
     """The encoder's parameters, named like the reference ``PretrainedModel``:
     ``phoneme_layers`` and ``word_layers`` ModuleLists indexed as the
-    reference builds them, plus ``phoneme_linear`` and ``word_linear``."""
+    reference builds them, plus ``phoneme_linear`` and ``word_linear``.
 
-    def __init__(self, config, generator: torch.Generator | None = None):
+    ``frontend`` and ``gru_layout`` are the routes of the exact-shape eval
+    path (:func:`apply_stack`); plain attributes, which a caller may also
+    set after construction."""
+
+    def __init__(self, config, generator: torch.Generator | None = None, *,
+                 frontend: str = DEFAULT_FRONTEND, gru_layout: str = DEFAULT_GRU_LAYOUT):
         super().__init__()
+        self.frontend, self.gru_layout = frontend, gru_layout
         if not hasattr(config, "num_phonemes"):
             config.num_phonemes = 42  # the JAX package's default head size
         gen = generator if generator is not None else torch.Generator().manual_seed(config.seed)

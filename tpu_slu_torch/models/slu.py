@@ -26,6 +26,8 @@ from torch.nn.utils import skip_init
 from tpu_slu_torch.data.loader import WAVE_BUCKET_QUANT, pad_to_bucket
 from tpu_slu_torch.models.convert import params_from_jax, read_npz
 from tpu_slu_torch.models.encoder import (
+    DEFAULT_FRONTEND,
+    DEFAULT_GRU_LAYOUT,
     LayerSpec,
     PartsTM,
     PretrainedModel,
@@ -77,7 +79,8 @@ class IntentArch:
 def intent_logits(layers: nn.ModuleList, arch: IntentArch, feats: torch.Tensor,
                   frame_mask: torch.Tensor | None = None, *, train: bool = False,
                   generator: torch.Generator | None = None,
-                  n_frames: torch.Tensor | None = None) -> torch.Tensor:
+                  n_frames: torch.Tensor | None = None,
+                  gru_layout: str = DEFAULT_GRU_LAYOUT) -> torch.Tensor:
     """feats (B, T, C) encoder features -> (B, sum(values_per_slot)) logits.
 
     ``frame_mask`` (B, T_out) marks frames that come from real audio; the
@@ -88,8 +91,10 @@ def intent_logits(layers: nn.ModuleList, arch: IntentArch, feats: torch.Tensor,
     head's GRU and downsamples compute as if each example were cropped to
     its own length, and the max over time covers its valid frames only,
     their count clipped to [1, T_out] (a batch-fill row stays finite).
+    ``gru_layout`` is the bidirectional layers' kernel layout (K1 or K6).
     """
-    out = apply_stack(layers, arch.layers, feats, train=train, generator=generator, n=n_frames)
+    out = apply_stack(layers, arch.layers, feats, train=train, generator=generator, n=n_frames,
+                      gru_layout=gru_layout)
     if isinstance(out, PartsTM):
         out = parts_to_btc(out)
     lin = layers[arch.linear_index]
@@ -362,9 +367,14 @@ class Model(nn.Module):
     ``requires_grad``, and :meth:`trainable_mask` gives the 0/1 mask of the
     ULMFiT schedule that the optimizer applies
     (:class:`~tpu_slu_torch.training.optim.MaskedAdam`).
+
+    ``frontend`` and ``gru_layout`` are the exact-shape eval path's routes,
+    kept on ``pretrained_model`` (:class:`PretrainedModel`); ``gru_layout``
+    also serves the intent head's bidirectional layers.
     """
 
-    def __init__(self, config, seed: int | None = None, load_pretrained: bool = True):
+    def __init__(self, config, seed: int | None = None, load_pretrained: bool = True, *,
+                 frontend: str = DEFAULT_FRONTEND, gru_layout: str = DEFAULT_GRU_LAYOUT):
         super().__init__()
         self.config = config
         self.Sy_intent = config.require("Sy_intent")
@@ -375,7 +385,8 @@ class Model(nn.Module):
         self._frozen_base = config.pretraining_type != 0
         self._generator = torch.Generator().manual_seed(config.seed)  # forward(training=True)
         gen = torch.Generator().manual_seed(config.seed if seed is None else seed)
-        self.pretrained_model = PretrainedModel(config, generator=gen)
+        self.pretrained_model = PretrainedModel(config, generator=gen, frontend=frontend,
+                                                gru_layout=gru_layout)
         self.encoder_arch = self.pretrained_model.arch
         in_dim = self.encoder_arch.word_feat_dim
         if not self.seq2seq:
@@ -459,7 +470,8 @@ class Model(nn.Module):
             t_out = frames_through(self.intent_arch.layers, feats.shape[1])
             fm = frame_mask_from_lengths(self.encoder_arch, lengths, t_out, self.intent_arch)
         logits = intent_logits(self.intent_layers, self.intent_arch, feats, frame_mask=fm,
-                               train=train, generator=generator)
+                               train=train, generator=generator,
+                               gru_layout=self.pretrained_model.gru_layout)
         return intent_loss_acc(logits, y_intent, self.values_per_slot, weights)
 
     def forward(self, x, y_intent, training: bool = False, *, weights=None, lengths=None,
@@ -566,7 +578,8 @@ class Model(nn.Module):
             if mask_padding:
                 t_out = frames_through(self.intent_arch.layers, feats.shape[1])
                 fm = frame_mask_from_lengths(self.encoder_arch, lengths, t_out, self.intent_arch)
-            logits = intent_logits(self.intent_layers, self.intent_arch, feats, frame_mask=fm)
+            logits = intent_logits(self.intent_layers, self.intent_arch, feats, frame_mask=fm,
+                                   gru_layout=self.pretrained_model.gru_layout)
         return logits, intent_predictions(logits, self.values_per_slot)
 
     def decode_intents(self, x, bucket: bool = False, lengths=None) -> list:

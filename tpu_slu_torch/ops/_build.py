@@ -42,8 +42,10 @@ _SIGNATURES = {
                              + [_P]),
     "tsl_gru1_fwd": (_I, [_P, _I, _P] + [_P] * 4 + [_P] * 2 + [_I] * 3 + [_P]),
     "tsl_gru1_bwd": (_I, [_P, _I, _P, _P, _P] + [_P] * 4 + [_P] * 5 + [_P] * 5 + [_I] * 3 + [_P]),
-    "tsl_beam_decode": (_I, [_P] * 13 + [_I] * 9 + [_P]),
+    "tsl_beam_decode": (_I, [_P] * 14 + [_I] * 9 + [_P]),
     "tsl_beam_decode_smem_bytes": (ctypes.c_longlong, [_I] * 7),
+    "tsl_sinc_frontend_fwd": (_I, [_P] * 3 + [_I] * 8 + [_P]),
+    "tsl_bigru_shared_fwd_rs": (_I, [_P, _I, _P, _I] + [_P] * 8 + [_P] * 3 + [_I] * 5 + [_P]),
     "tsl_error_string": (ctypes.c_char_p, [_I]),
 }
 

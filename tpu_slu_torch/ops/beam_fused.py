@@ -5,8 +5,11 @@ kernel ``_mk_beam_kernel``): the whole width-W, ``max_len``-step search in
 one launch of ``csrc/beam_decode.cu``, counted on ``beam_decode.launches``.
 Its attention is the TPU kernel's blocked mode at every length (keys and
 values streamed from global memory in frame blocks with an online softmax),
-so its shared-memory plan does not depend on the frames. A CPU tensor runs
-the plain version, :func:`~tpu_slu_torch.ops.beam.beam_search_reference`.
+so its plan does not depend on the frames. The plan lies in shared memory
+where it fits a block, and in a workspace in device memory otherwise (wide
+beams, long searches), counted also on ``beam_decode.launches_global``: any
+beam width and any ``max_len`` run on the card. A CPU tensor runs the plain
+version, :func:`~tpu_slu_torch.ops.beam.beam_search_reference`.
 """
 
 from __future__ import annotations
@@ -16,12 +19,12 @@ import torch
 from tpu_slu_torch.ops import _build
 from tpu_slu_torch.ops.beam import beam_search_reference, decoder_cells
 
-# The widest beam the kernel takes: the widest whose plan fits a block at
-# the flagship decoder of experiments/all_real_seq2seq.cfg (2 cells of H =
-# 256, keys 100, values 200, 102 labels, 200 steps): 2,976 words a beam and
-# 32 more, 19 beams in 226,304 bytes, 20 in 238,208.
-MAX_BEAM = 19
-SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper (227 KB)
+# Bytes of shared memory one block may use on Hopper (227 KB): a plan up to
+# this size lies in shared memory, a larger one in the workspace. At the
+# flagship decoder of experiments/all_real_seq2seq.cfg (2 cells of H = 256,
+# keys 100, values 200, 102 labels, 200 steps) a beam takes 2,976 words: 19
+# beams fit (226,304 bytes), 20 do not (238,208).
+SMEM_LIMIT = 232448
 
 
 def _layout(dec) -> dict[str, torch.Tensor]:
@@ -74,12 +77,10 @@ def _check_cuda(dec, keys: torch.Tensor, values: torch.Tensor, n_valid: torch.Te
             raise ValueError(f"beam_decode: {name} has shape {tuple(t.shape)}, want {shape}")
     if len(cells) != nl:
         raise ValueError(f"beam_decode: {len(cells)} cells but an initial state of {nl} layers")
-    if not 1 <= beam_width <= MAX_BEAM or max_len < 1 or min(B, T) < 1:
-        raise ValueError(f"beam_decode: the kernel takes 1 <= beam_width <= MAX_BEAM = {MAX_BEAM} (the "
-                         "widest beam whose plan fits a block at the flagship decoder), "
-                         f"max_len >= 1 and B, T >= 1 (beam_width={beam_width}, max_len={max_len}, "
-                         f"B={B}, T={T})")
-    if max(B * T * max(K, V), beam_width * B * max_len) >= 2**31:
+    if beam_width < 1 or max_len < 1 or min(B, T) < 1:
+        raise ValueError(f"beam_decode: the kernel takes beam_width, max_len, B and T >= 1 "
+                         f"(beam_width={beam_width}, max_len={max_len}, B={B}, T={T})")
+    if max(B * T * max(K, V), beam_width * B * max_len, beam_width * L) >= 2**31:
         raise ValueError(f"beam_decode: too large for the kernel's int indexing (B={B}, T={T})")
     if n_valid.device != keys.device or n_valid.dtype not in (torch.int32, torch.int64) \
             or tuple(n_valid.shape) != (B,):
@@ -88,10 +89,6 @@ def _check_cuda(dec, keys: torch.Tensor, values: torch.Tensor, n_valid: torch.Te
     lo, hi = (int(v) for v in torch.aminmax(n_valid))
     if lo < 1 or hi > T:
         raise ValueError(f"beam_decode: valid frame counts must lie in [1, T={T}], got [{lo}, {hi}]")
-    need = _build.library().tsl_beam_decode_smem_bytes(beam_width, nl, H, K, V, L, max_len)
-    if need > SMEM_LIMIT:
-        raise ValueError(f"beam_decode: shared memory for max_len={max_len} at H={H}, K={K}, V={V}, L={L}, "
-                         f"W={beam_width}: {need} bytes; a block has {SMEM_LIMIT}")
     return {"B": B, "T": T, "W": beam_width, "nl": nl, "H": H, "K": K, "V": V, "L": L, "U": max_len}
 
 
@@ -105,10 +102,11 @@ def beam_decode(dec, keys: torch.Tensor, values: torch.Tensor, n_valid: torch.Te
     ``attention_kv``; ``n_valid`` (B,) each row's valid frames, a prefix in
     [1, T] (None: all T). CPU tensors take the plain version. CUDA tensors
     launch the kernel on the current stream, with the weights laid out anew
-    for the call (the range check of ``n_valid`` reads it on the host);
-    anything the kernel does not take raises, and so does a call with grad
-    mode on and a weight or input that requires grad: the search has no
-    gradient.
+    for the call (the range check of ``n_valid`` reads it on the host) and
+    the plan in shared memory if it fits a block, else in a workspace of B
+    plans in device memory; anything the kernel does not take raises, and so
+    does a call with grad mode on and a weight or input that requires grad:
+    the search has no gradient.
     """
     if keys.device.type == "cpu":
         return beam_search_reference(dec, keys, values, n_valid, beam_width, max_len)
@@ -125,16 +123,24 @@ def beam_decode(dec, keys: torch.Tensor, values: torch.Tensor, n_valid: torch.Te
     n = n_valid.to(torch.int64).contiguous()
     scores = torch.empty((d["W"], d["B"]), device=keys.device, dtype=torch.float32)
     tokens = torch.empty((d["W"], d["B"], d["U"]), device=keys.device, dtype=torch.int64)
+    plan = lib.tsl_beam_decode_smem_bytes(*[d[k] for k in ("W", "nl", "H", "K", "V", "L", "U")])
+    ws = None
+    if plan > SMEM_LIMIT:  # the global plan: one plan a CTA in device memory
+        ws = torch.empty((d["B"], plan // 4), device=keys.device, dtype=torch.float32)
     err = lib.tsl_beam_decode(
         keys.data_ptr(), values.data_ptr(), n.data_ptr(),
         *[w[k].data_ptr() for k in ("wq", "bq", "we", "be", "cells", "wl", "bl", "init")],
-        scores.data_ptr(), tokens.data_ptr(),
+        scores.data_ptr(), tokens.data_ptr(), None if ws is None else ws.data_ptr(),
         *[d[k] for k in ("B", "T", "W", "nl", "H", "K", "V", "L", "U")],
         torch.cuda.current_stream(keys.device).cuda_stream,
     )
-    _build.check(err, f"beam_decode (B={d['B']}, T={d['T']}, W={d['W']}, U={d['U']})")
+    _build.check(err, f"beam_decode (B={d['B']}, T={d['T']}, W={d['W']}, U={d['U']}, "
+                      f"{'global' if ws is not None else 'smem'} plan of {plan} bytes)")
     beam_decode.launches += 1
+    if ws is not None:
+        beam_decode.launches_global += 1
     return scores, tokens
 
 
-beam_decode.launches = 0  # wrapper calls that launched K7
+beam_decode.launches = 0  # wrapper calls that launched K7, either plan
+beam_decode.launches_global = 0  # ... of them with the plan in device memory

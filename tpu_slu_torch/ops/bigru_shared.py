@@ -13,6 +13,11 @@ plain PyTorch version on a CPU tensor, and keeps a count of its launches:
 
 * K1, eval/unpooled forward: :func:`bigru_shared_fwd`, counted on
   ``bigru_shared.launches`` (``csrc/bigru_shared_fwd.cu``);
+* K6, the same forward in the row-stacked layout (``layout="rowstack"``:
+  both directions' gi in one (T, 2B, 3H) array, the backward rows
+  pre-reversed, b_hh's r and z columns folded into b_ih):
+  :func:`bigru_shared_fwd`, counted on ``bigru_shared.launches_rowstack``
+  (the same source);
 * K2, train forward with hash dropout and avg pool: :func:`bigru_trainpool`
   (``csrc/bigru_trainpool_fwd.cu``);
 * K3, the backward of both: :func:`bigru_shared_bwd`
@@ -35,12 +40,15 @@ from tpu_slu_torch.ops.gru import gru_direction
 _DIRS = ("fwd", "bwd")
 _SALTS = {"fwd": DIR_SALT_F, "bwd": DIR_SALT_B}
 _NAMES = ("weight_ih", "bias_ih", "weight_hh", "bias_hh")
+LAYOUTS = ("split", "rowstack")  # K1's gi layout, K6's
 
 
-def _check_args(parts, pool: int, pool_method: str) -> tuple:
+def _check_args(parts, pool: int, pool_method: str, layout: str = "split") -> tuple:
     parts = tuple(parts)
     if len(parts) not in (1, 2):
         raise ValueError(f"bigru_shared takes 1 or 2 part streams, got {len(parts)}")
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
     if pool < 1:
         raise ValueError(f"pool must be >= 1, got {pool}")
     if pool_method not in ("avg", "max"):
@@ -100,6 +108,40 @@ def bigru_shared_reference(params: dict, parts, *, pool: int = 1, pool_method: s
                           reverse=name == "bwd")
         outs.append(downsample(h, pool_method, pool, time_axis=0))
     return outs[0], outs[1]
+
+
+def bigru_shared_rowstack_reference(params: dict, parts, *, pool: int = 1, pool_method: str = "avg"):
+    """K6's function in plain PyTorch, laid out as K6 lays it out
+    (``pallas_gru.py:887-1000``, the bias fold at ``:1034-1037``): the gi of
+    both directions in one (T, 2B, 3H) array, forward rows 0:B at t = u and
+    backward rows B:2B pre-reversed (row u holds t = T - 1 - u), with b_hh's
+    r and z columns folded into b_ih; a loop over u updates the (2B, H)
+    carry of both directions, b_hh's n column added to the recurrent product
+    inside r * (.). Same contract as :func:`bigru_shared_reference`."""
+    parts = _check_args(parts, pool, pool_method)
+    B = parts[0].shape[1]
+    H = params["fwd"]["weight_hh"].shape[1]
+    gis = []
+    for name in _DIRS:
+        p = params[name]
+        fold = torch.cat([p["bias_hh"][:2 * H], p["bias_hh"].new_zeros(H)])
+        gi = _input_projection({**p, "bias_ih": p["bias_ih"] + fold}, parts)
+        gis.append(gi if name == "fwd" else gi.flip(0))
+    gi2 = torch.cat(gis, dim=1)  # (T, 2B, 3H)
+    bn = torch.cat([params[d]["bias_hh"][2 * H:].expand(B, H) for d in _DIRS])
+    h = gi2.new_zeros((2 * B, H))
+    out = gi2.new_empty((gi2.shape[0], 2 * B, H))
+    for u in range(gi2.shape[0]):
+        gh = torch.cat([torch.mm(h[:B], params["fwd"]["weight_hh"].t()),
+                        torch.mm(h[B:], params["bwd"]["weight_hh"].t())])
+        g = gi2[u]
+        rz = torch.sigmoid(g[:, :2 * H] + gh[:, :2 * H])
+        r, z = rz[:, :H], rz[:, H:]
+        n = torch.tanh(g[:, 2 * H:] + r * (gh[:, 2 * H:] + bn))
+        h = n + z * (h - n)
+        out[u] = h
+    return (downsample(out[:, :B], pool_method, pool, time_axis=0),
+            downsample(out[:, B:].flip(0), pool_method, pool, time_axis=0))
 
 
 def bigru_trainpool_reference(params: dict, parts, *, pool: int, drop_p: float, seed: int):
@@ -248,16 +290,22 @@ def _part_ptrs(parts) -> list:
             None if x2 is None else x2.data_ptr(), 0 if x2 is None else x2.shape[-1]]
 
 
-def bigru_shared_fwd(params: dict, parts, *, pool: int = 1, pool_method: str = "avg"):
-    """K1: the eval forward, ``(h_f, h_b)`` of shape (ceil(T/pool), B, H).
+def bigru_shared_fwd(params: dict, parts, *, pool: int = 1, pool_method: str = "avg",
+                     layout: str = "split"):
+    """K1 (``layout="split"``) or K6 (``"rowstack"``): the eval forward,
+    ``(h_f, h_b)`` of shape (ceil(T/pool), B, H).
 
-    CPU tensors take :func:`bigru_shared_reference`; CUDA tensors launch the
-    kernel on the current stream without synchronising, and anything the
-    kernel does not take raises. Records no autograd graph on CUDA.
+    CPU tensors take the layout's plain version,
+    :func:`bigru_shared_reference` or
+    :func:`bigru_shared_rowstack_reference`; CUDA tensors launch the kernel
+    on the current stream without synchronising, and anything the kernel
+    does not take raises. Records no autograd graph on CUDA.
     """
-    parts = _check_args(parts, pool, pool_method)
+    parts = _check_args(parts, pool, pool_method, layout)
+    rowstack = layout == "rowstack"
     if _device_of(parts).type == "cpu":
-        return bigru_shared_reference(params, parts, pool=pool, pool_method=pool_method)
+        ref = bigru_shared_rowstack_reference if rowstack else bigru_shared_reference
+        return ref(params, parts, pool=pool, pool_method=pool_method)
     T, B, H = _check_cuda("bigru_shared_fwd", params, parts)
     lib = _build.library()
     dev = parts[0].device
@@ -265,12 +313,16 @@ def bigru_shared_fwd(params: dict, parts, *, pool: int = 1, pool_method: str = "
     gi = torch.empty((2, T, B, 3 * H), device=dev, dtype=torch.float32)
     h_f = torch.empty((To, B, H), device=dev, dtype=torch.float32)
     h_b = torch.empty((To, B, H), device=dev, dtype=torch.float32)
-    err = lib.tsl_bigru_shared_fwd(
+    fn = lib.tsl_bigru_shared_fwd_rs if rowstack else lib.tsl_bigru_shared_fwd
+    err = fn(
         *_part_ptrs(parts), *_ptrs(params), gi.data_ptr(), h_f.data_ptr(), h_b.data_ptr(),
         T, B, H, pool, int(pool_method == "max"), torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(err, f"bigru_shared_fwd (T={T}, B={B}, H={H}, pool={pool})")
-    bigru_shared.launches += 1
+    _build.check(err, f"bigru_shared_fwd (layout {layout}, T={T}, B={B}, H={H}, pool={pool})")
+    if rowstack:
+        bigru_shared.launches_rowstack += 1
+    else:
+        bigru_shared.launches += 1
     return h_f, h_b
 
 
@@ -369,13 +421,14 @@ def _grad_outputs(dxs, grads) -> tuple:
 
 
 class _TrainCore(torch.autograd.Function):
-    """Unpooled train core (``_shared_train_core_for``): K1 forward at full
-    rate; backward K3 in plain mode, h_prev made by shifting the outputs."""
+    """Unpooled train core (``_shared_train_core_for``): K1 (or K6) forward
+    at full rate; backward K3 in plain mode, h_prev made by shifting the
+    outputs."""
 
     @staticmethod
-    def forward(ctx, n_parts, *args):
+    def forward(ctx, n_parts, layout, *args):
         parts, weights = args[:n_parts], args[n_parts:]
-        h_f, h_b = bigru_shared_fwd(_params(weights), parts)
+        h_f, h_b = bigru_shared_fwd(_params(weights), parts, layout=layout)
         ctx.n_parts = n_parts
         ctx.save_for_backward(*args, h_f, h_b)
         return h_f, h_b
@@ -387,7 +440,7 @@ class _TrainCore(torch.autograd.Function):
         hp_f, hp_b = _shift_hp(h_f, h_b)
         dxs, grads = bigru_shared_bwd(_params(weights), parts, hp_f, hp_b,
                                       dy_f.contiguous(), dy_b.contiguous())
-        return (None, *_grad_outputs(dxs, grads))
+        return (None, None, *_grad_outputs(dxs, grads))
 
 
 class _TrainPoolCore(torch.autograd.Function):
@@ -416,34 +469,36 @@ class _TrainPoolCore(torch.autograd.Function):
 
 class _PooledEvalCore(torch.autograd.Function):
     """Pooled eval path with exact gradients on demand
-    (``_shared_pooled_core_for``): K1 forward at the pooled rate; the
-    backward recomputes the full-rate forward through K1, takes the VJP of
-    the ceil pool, and runs K3 in plain mode."""
+    (``_shared_pooled_core_for``): K1 (or K6) forward at the pooled rate;
+    the backward recomputes the full-rate forward through the same kernel,
+    takes the VJP of the ceil pool, and runs K3 in plain mode."""
 
     @staticmethod
-    def forward(ctx, n_parts, pool, pool_method, *args):
+    def forward(ctx, n_parts, pool, pool_method, layout, *args):
         parts, weights = args[:n_parts], args[n_parts:]
-        ctx.n_parts, ctx.pool, ctx.pool_method = n_parts, pool, pool_method
+        ctx.n_parts, ctx.pool, ctx.pool_method, ctx.layout = n_parts, pool, pool_method, layout
         ctx.save_for_backward(*args)
-        return bigru_shared_fwd(_params(weights), parts, pool=pool, pool_method=pool_method)
+        return bigru_shared_fwd(_params(weights), parts, pool=pool, pool_method=pool_method,
+                                layout=layout)
 
     @staticmethod
     def backward(ctx, dy_f, dy_b):
         saved = ctx.saved_tensors
         parts, weights = saved[:ctx.n_parts], saved[ctx.n_parts:]
         params = _params(weights)
-        h_f, h_b = bigru_shared_fwd(params, parts)
+        h_f, h_b = bigru_shared_fwd(params, parts, layout=ctx.layout)
         with torch.enable_grad():
             full = [h.detach().requires_grad_() for h in (h_f, h_b)]
             pooled = [downsample(h, ctx.pool_method, ctx.pool, time_axis=0) for h in full]
             df, db = torch.autograd.grad(pooled, full, (dy_f, dy_b))
         hp_f, hp_b = _shift_hp(h_f, h_b)
         dxs, grads = bigru_shared_bwd(params, parts, hp_f, hp_b, df.contiguous(), db.contiguous())
-        return (None, None, None, *_grad_outputs(dxs, grads))
+        return (None, None, None, None, *_grad_outputs(dxs, grads))
 
 
 def bigru_shared(params: dict, parts, *, train: bool = False, pool: int = 1,
-                 pool_method: str = "avg", drop_p: float = 0.0, seed=None):
+                 pool_method: str = "avg", drop_p: float = 0.0, seed=None,
+                 layout: str = "split"):
     """One bidirectional GRU layer over time-major part streams.
 
     Same contract as the JAX ``bigru_apply_shared``; returns ``(h_f, h_b,
@@ -460,12 +515,16 @@ def bigru_shared(params: dict, parts, *, train: bool = False, pool: int = 1,
       (ceil(T/pool), B, H) and ``pooled`` is ``pool > 1``. When a gradient is
       needed it stays exact: the backward recomputes the full-rate forward.
 
+    ``layout`` picks the kernel of every K1 forward above, as JAX's
+    ``_rowstack`` does in ``_shared_fwd_call``: ``"split"`` K1, ``"rowstack"``
+    K6; the fused train path (K2) and the backward (K3) take no layout.
+
     Whenever grad mode is on and a part or a weight requires grad, the call
     goes through an autograd Function whose forward and backward are the
     kernels' wrappers; otherwise the forward wrapper is called alone, as
     decode under ``torch.inference_mode()`` does.
     """
-    parts = _check_args(parts, pool, pool_method)
+    parts = _check_args(parts, pool, pool_method, layout)
     _device_of(parts)
     weights = _weights(params)
     needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (*parts, *weights))
@@ -479,15 +538,17 @@ def bigru_shared(params: dict, parts, *, train: bool = False, pool: int = 1,
         return p_f, p_b, True
     if train or pool == 1:
         if needs_grad:
-            h_f, h_b = _TrainCore.apply(n, *parts, *weights)
+            h_f, h_b = _TrainCore.apply(n, layout, *parts, *weights)
         else:
-            h_f, h_b = bigru_shared_fwd(params, parts)
+            h_f, h_b = bigru_shared_fwd(params, parts, layout=layout)
         return h_f, h_b, False
     if needs_grad:
-        h_f, h_b = _PooledEvalCore.apply(n, pool, pool_method, *parts, *weights)
+        h_f, h_b = _PooledEvalCore.apply(n, pool, pool_method, layout, *parts, *weights)
     else:
-        h_f, h_b = bigru_shared_fwd(params, parts, pool=pool, pool_method=pool_method)
+        h_f, h_b = bigru_shared_fwd(params, parts, pool=pool, pool_method=pool_method,
+                                    layout=layout)
     return h_f, h_b, True
 
 
-bigru_shared.launches = 0  # wrapper calls that launched K1 (bigru_shared_fwd)
+bigru_shared.launches = 0  # wrapper calls that launched K1 (bigru_shared_fwd, layout "split")
+bigru_shared.launches_rowstack = 0  # ... that launched K6 (layout "rowstack")
