@@ -30,7 +30,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    ``Trainer(model, config).train(dataset)`` over seeded
    synthetic batches of B = 64 with 4 K2, 1 K1 and 5 K3 launches per step,
    then ``Trainer.test``; warm timings of the train step and of K2 and K3
-   against their plain versions;
+   against their plain versions, K3's five layers by phase (the gate pass,
+   the chain, the GEMM core's launches, dW's reduce pass; profiler) and the
+   core's TFLOP/s on the products counted from the shapes;
 7. length-exact decode and serving at the width of ``no_unfreezing.cfg``:
    K4f (the length-masked bi-GRU) against its plain version at the five
    layer shapes, B = 8, seeded mixed lengths with exact zeros past each; a
@@ -83,8 +85,11 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    step card vs CPU as phase 6's; ``[uni-trainer]`` ``Trainer.train`` at B =
    64 with 5 K5f and 5 K5b launches a step and no other GRU kernel;
    ``[time]`` K5f (B = 16; B = 8 masked) and K5b (B = 64) per layer against
-   plain, bound and a unidirectional cuDNN ``nn.GRU``, the warm decode and
-   train step; ``[profile]`` the train step's device time by kernel;
+   plain, bound and a unidirectional cuDNN ``nn.GRU``, K5f's us a step;
+   ``[k5f-batch]`` K5f's five layers back to back at B = 16, masked B = 8
+   and B = 64, each at the cluster size it takes there; the warm decode and
+   train step; ``[profile]`` the train
+   step's device time by kernel;
 11. the exact-shape eval path's two routes: ``[k8]`` K8 (the fused sinc
    front end) against its plain version (the cuDNN conv, |.|, ceil max
    pool, act) at the flagship front end (B = 1, 16, 128 on 4 s, 16 on
@@ -140,6 +145,10 @@ K2_SOURCE = "tpu_slu_torch/csrc/bigru_trainpool_fwd.cu"
 K2_REPLACES = "tpu_slu/ops/pallas_gru.py:1146"
 K3_SOURCE = "tpu_slu_torch/csrc/bigru_shared_bwd.cu"
 K3_REPLACES = "tpu_slu/ops/pallas_gru.py:1293"
+# K3's kernels by phase: the gate pass, the dh chain, the GEMM core in its three layouts (gi and gh;
+# dX; dW and db), dW's reduce pass
+K3_PHASES = {"gates": "bwd_gates_kernel", "chain": "bwd_chain_kernel", "core gi/gh": "gemm_kernel<0, 0",
+             "core dX": "gemm_kernel<0, 1", "core dW": "gemm_kernel<1, 1", "reduce": "dw_reduce_kernel"}
 # K3 vs plain, of each tensor's largest element: f32 sums over up to 25,600 rows, another order
 GRAD_TOL = 1e-4
 STEP_LOSS_ATOL = 1e-4  # one train step, card vs CPU: loss
@@ -310,6 +319,13 @@ def device_ms(fn, reps: int = 10, name: str | None = None) -> float:
     name holds ``name``, if given). Host gaps between launches are not
     counted, so a route of many small launches is not charged for the
     host's enqueueing, which CUDA events around the call would include."""
+    return device_split(fn, {"kernels": name or ""}, reps)["kernels"]
+
+
+def device_split(fn, names: dict, reps: int = 5) -> dict:
+    """Device time a call in ms of the kernels whose names hold each value of
+    ``names`` (the first that matches), keyed as ``names``, from
+    ``torch.profiler`` over ``reps`` warm calls; "other" holds the rest."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -319,11 +335,15 @@ def device_ms(fn, reps: int = 10, name: str | None = None) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
-               and not getattr(e, "is_user_annotation", False) and (name is None or name in e.key)]
-    if not kernels:
-        raise AssertionError(f"the profiler saw no device time{' of ' + name if name else ''}")
-    return sum(e.self_device_time_total for e in kernels) / reps / 1e3
+    split = {n: 0.0 for n in (*names, "other")}
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA" or getattr(e, "is_user_annotation", False):
+            continue
+        key = next((k for k, n in names.items() if n in e.key), "other")
+        split[key] += e.self_device_time_total / reps / 1e3
+    if not any(split[k] for k in names):
+        raise AssertionError(f"the profiler saw none of {list(names.values())}")
+    return split
 
 
 def profile_calls(fn, what: str, card: str, reps: int = 10, top: int = 8) -> None:
@@ -638,10 +658,14 @@ def phase_train(dev, card: str, rng) -> tuple[list[dict], int]:
     k2_ms = k2_plain = k3_ms = k3_plain = k3_lib = 0.0
     k2_work, k3_work = [0.0, 0.0], [0.0, 0.0]  # FLOPs, bytes
     H = 128
+    k3_layers, core_flops = [], 0.0
     for name, d, n_parts, T in ENC_SHAPES + [INTENT_SHAPE]:
         fused = name != INTENT_SHAPE[0]
         D, To = n_parts * d, -(-T // 2) if fused else T
         params, parts, hp_f, hp_b, dy, kw = k3_case(d, n_parts, T, B, fused)
+        k3_layers.append((params, parts, hp_f, hp_b, dy, kw))
+        # the GEMM core's products: gi, dX and dW_ih (D each), gh and dW_hh (H each), two directions
+        core_flops += 2 * 2 * T * B * 3 * H * (3 * D + 2 * H)
         if fused:
             kw2 = {"pool": 2, "drop_p": 0.5, "seed": kw["seed"]}
             a, b = in_turns(lambda: bigru_trainpool_reference(params, parts, **kw2),
@@ -670,13 +694,23 @@ def phase_train(dev, card: str, rng) -> tuple[list[dict], int]:
           f"bound {k2_bound:.4f} ms ({k2_by}); K3 five layers: kernel {k3_ms:.4f} ms, plain "
           f"{k3_plain:.3f} ms, cuDNN nn.GRU backward {k3_lib:.4f} ms, bound {k3_bound:.4f} ms "
           f"({k3_by}) on {card}")
+    # K3 by phase: the gate pass, the chain, the GEMM core's launches and dW's reduce pass
+    k3_split = device_split(lambda: [bigru_shared_bwd(p, x, hf, hb, *dy, **kw) for p, x, hf, hb, dy, kw in k3_layers],
+                            K3_PHASES)
+    core_ms = sum(v for k, v in k3_split.items() if k.startswith("core"))
+    core_tflops = core_flops / (core_ms * 1e-3) / 1e12
+    print(f"[time] K3 five layers B={B} by phase (profiler, device ms a step): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in k3_split.items())
+          + f"; the GEMM core: {core_flops / 1e9:.2f} GFLOP in {core_ms:.4f} ms, {core_tflops:.1f} TFLOP/s "
+          f"({core_tflops / (PEAK_F32 / 1e12):.2f} of the f32 peak) on {card}")
     return [
         {"name": "bigru_trainpool_fwd", "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
          "launches": launches["K2"], "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
         {"name": "bigru_shared_bwd", "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
          "launches": launches["K3"], "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain,
-         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": k3_lib},
+         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": k3_lib, "phase_ms": k3_split,
+         "core_gflop": core_flops / 1e9, "core_tflops": core_tflops},
     ], launches["K1"]
 
 
@@ -1445,7 +1479,8 @@ def phase_uni(dev, card: str, rng) -> list[dict]:
     from tpu_slu_torch.models.flagship import TRAIN_CFG, UNIDIRECTIONAL, flagship_model
     from tpu_slu_torch.ops.bigru_masked import bigru_masked, bigru_masked_bwd
     from tpu_slu_torch.ops.bigru_shared import bigru_shared, bigru_shared_bwd, bigru_trainpool
-    from tpu_slu_torch.ops.gru1 import gru1, gru1_bwd, gru1_bwd_reference, gru1_fwd, gru1_reference
+    from tpu_slu_torch.ops.gru1 import (gru1, gru1_bwd, gru1_bwd_reference, gru1_cluster_size, gru1_fwd,
+                                         gru1_reference)
     from tpu_slu_torch.serving import IntentServer
     from tpu_slu_torch.training import Trainer
 
@@ -1641,9 +1676,35 @@ def phase_uni(dev, card: str, rng) -> list[dict]:
                   f"kernel {a:.4f} ms, plain {b:.3f} ms, {yard} {lib:.4f} ms, bound {bound(*w)[0]:.4f} ms "
                   f"({bound(*w)[1]})")
     bounds = {k: bound(*w) for k, w in work.items()}
+    steps = sum(T for *_, T in UNI_SHAPES)  # K5f's serial steps over the five layers (each tile has a full row)
     for what, (a, b, lib) in tot.items():
-        print(f"[time] {what} five layers: kernel {a:.4f} ms, plain {b:.3f} ms, cuDNN {lib:.4f} ms, bound "
-              f"{bounds[what][0]:.4f} ms ({bounds[what][1]}) on {card}")
+        per_step = f", {1e3 * a / steps:.3f} us a step" if what.startswith("k5f") else ""
+        print(f"[time] {what} five layers: kernel {a:.4f} ms{per_step}, plain {b:.3f} ms, cuDNN {lib:.4f} ms, "
+              f"bound {bounds[what][0]:.4f} ms ({bounds[what][1]}) on {card}")
+
+    # 10.7 K5f by batch, each at the cluster size the kernel takes there (4 CTAs while every row gets a
+    # cluster of its own in one wave of the SMs, else 2): the five layers back to back, two turns, at
+    # B = 16, at the served B = 8 with mixed lengths and at the train step's B = 64
+    cluster_by_batch = {}
+    for B, masked in ((16, False), (SERVE_BATCH, True), (64, False)):
+        cases = []
+        for name, D, T in UNI_SHAPES:
+            lengths = None
+            if masked:
+                lengths = rng.integers(1, T + 1, B)
+                lengths[0], lengths[-1] = T, 0
+            cases.append(layer_case(B, T, D, H, lengths))
+
+        def five():
+            with torch.inference_mode():
+                for params, x, n in cases:
+                    gru1_fwd(params, x, n)
+
+        turns = [cuda_ms(five, reps=10, warmup=2) for _ in range(2)]
+        tag = f"B={B}{' masked' if masked else ''}"
+        cluster_by_batch[tag] = {"C": gru1_cluster_size(B), "ms": turns}
+        print(f"[k5f-batch] K5f five layers {tag}, clusters of {cluster_by_batch[tag]['C']}: turns "
+              f"{turns[0]:.4f}, {turns[1]:.4f} ms ({1e3 * statistics.mean(turns) / steps:.3f} us a step) on {card}")
     for B in (1, 16):
         xd = torch.from_numpy(x_dec[:B]).to(dev)
         ms = cuda_ms(lambda: model.predict_intents(xd), reps=30, warmup=5)
@@ -1659,6 +1720,7 @@ def phase_uni(dev, card: str, rng) -> list[dict]:
         {"name": "gru1_fwd", "route": "cuda", "source": K5F_SOURCE, "replaces": K5F_REPLACES,
          "launches": launches["K5f"], "launches_decode": decode_launches, "launches_served": served["K5f"],
          "max_abs_err": k5f_err, "ms": tot["k5f"][0], "plain_ms": tot["k5f"][1], "bound_ms": bounds["k5f"][0],
+         "us_per_step": 1e3 * tot["k5f"][0] / steps, "cluster_by_batch": cluster_by_batch,
          "bound_by": bounds["k5f"][1], "library_ms": tot["k5f"][2], "masked_ms": tot["k5f masked"][0],
          "masked_library_ms": tot["k5f masked"][2]},
         {"name": "gru1_bwd", "route": "cuda", "source": K5B_SOURCE, "replaces": K5B_REPLACES,

@@ -190,6 +190,39 @@ def test_bwd_reference_matches_autograd_of_the_plain_forwards(rng, dims, mode):
                                        msg=f"{d}.{n}")
 
 
+# the shapes the GEMM core's tiles cut raggedly: T*B = 75 rows (not a multiple of 128),
+# an input of 60 columns (the flagship's first layer), two parts of unequal width
+@pytest.mark.parametrize("mode", ["plain", "fused"])
+@pytest.mark.parametrize("dims,H", [((60,), 12), ((12, 20), 12), ((60,), 8)], ids=["d60", "parts12_20", "d60_h8"])
+def test_bwd_reference_matches_jax_vjp_at_ragged_shapes(rng, dims, H, mode):
+    """K3's plain version, which the card holds the kernel against, against
+    ``jax.vjp`` of ``bigru_apply_shared(train=True)`` (the Pallas kernels in
+    interpret mode) on the same forward residuals and cotangents."""
+    T, B, seed = 25, 3, 0x5EED
+    jax_p, port_p = make_params(rng, sum(dims), H)
+    parts = make_parts(rng, dims, T, B)
+    tparts = [torch.from_numpy(x) for x in parts]
+    if mode == "fused":
+        kw = {"pool": 2, "drop_p": 0.5, "seed": seed}
+        jkw = {"pool": 2, "pool_method": "avg", "drop_p": 0.5, "drop_seed": jnp.asarray([seed], jnp.uint32)}
+        hp_f, hp_b, o_f, _ = bigru_trainpool_reference(port_p, tparts, **kw)
+    else:
+        kw, jkw = {}, {}
+        o_f, o_b = bigru_shared_reference(port_p, tparts)
+        hp_f, hp_b = ops._shift_hp(o_f, o_b)
+    cot = [rng.standard_normal(tuple(o_f.shape)).astype(np.float32) for _ in range(2)]
+    _, d_parts, d_p = _jax_vjp(jax_p, parts, cot, train=True, **jkw)
+    dxs, grads = bigru_shared_bwd_reference(port_p, tparts, hp_f, hp_b, *[torch.from_numpy(c) for c in cot],
+                                            **kw)
+    for g, want in zip(dxs, d_parts):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    for d in ("fwd", "bwd"):
+        for n, j in _JAX_NAMES.items():
+            want = np.asarray(d_p[d][j])
+            np.testing.assert_allclose(grads[d][n].numpy(), want.T if n.startswith("weight") else want,
+                                       rtol=RTOL, atol=ATOL, err_msg=f"{d}.{n}")
+
+
 def test_trainpool_reference_hp_and_mask(rng):
     """hp is the previous-step h of each walk; the dropout zero pattern is the mask's."""
     _, port_p = make_params(rng, 6, 4)

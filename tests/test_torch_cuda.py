@@ -34,7 +34,9 @@ from tpu_slu_torch.ops.bigru_shared import (
 from tpu_slu_torch.ops.conv import conv1d
 from tpu_slu_torch.ops.dropout import DIR_SALT_B, DIR_SALT_F, keep_mask, keep_threshold
 from tpu_slu_torch.ops.frontend_fused import sinc_frontend_fused, sinc_frontend_reference
-from tpu_slu_torch.ops.gru1 import gru1, gru1_bwd, gru1_bwd_reference, gru1_fwd, gru1_reference
+from tpu_slu_torch.ops.bigru_gemm import gemm_dw, gemm_dx, gemm_proj
+from tpu_slu_torch.ops.gru1 import (gru1, gru1_bwd, gru1_bwd_reference, gru1_cluster_size, gru1_fwd,
+                                     gru1_reference)
 
 POOLS = [(1, "avg"), (2, "avg"), (2, "max")]
 
@@ -1253,3 +1255,173 @@ def test_flagship_decode_through_k8_and_k6(dev, frontend, gru_layout):
                                                            5 * rowstack)
     ref, _ = cpu.predict_intents(x)
     assert (logits.cpu() - ref).abs().max().item() <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# The GEMM core (csrc/bigru_gemm.cuh) in each of its three layouts, and the
+# kernels that take it; K5f's cluster recurrence at the batches that take each
+# cluster size
+# ---------------------------------------------------------------------------
+
+
+def _f32(rng, *shape, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+
+def _close_to_f64(got, ref64, scale64, tol=1e-5):
+    """Within ``tol`` of the largest element of |A| |B| (the f64 product of
+    the operands' magnitudes): f32 sums of up to 25,600 terms against f64."""
+    assert got.shape == ref64.shape
+    err = (got.double() - ref64).abs().max().item()
+    assert err <= tol * max(scale64.max().item(), 1e-30), err
+
+
+# M = T*B rows: 75 (T = 25, B = 3) and 1,601 not a multiple of the 128-row tile;
+# K or N in {36 (3H at the golden H = 12), 60, 128, 256, 384}; two parts with d1 != d2
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,d1,d2,N", [(75, 60, 0, 384), (75, 128, 128, 384), (75, 12, 20, 36),
+                                       (1601, 256, 0, 384), (25600, 60, 0, 384), (200, 128, 0, 60)])
+@pytest.mark.parametrize("bias", [True, False])
+def test_gemm_core_proj_layout_matches_f64(dev, M, d1, d2, N, bias):
+    rng = np.random.default_rng(M + d1 + d2 + N)
+    x1, w = _f32(rng, M, d1, dev=dev), _f32(rng, N, d1 + d2, dev=dev)
+    x2 = _f32(rng, M, d2, dev=dev) if d2 else None
+    b = _f32(rng, N, dev=dev) if bias else None
+    got = gemm_proj(x1, x2, w, b)
+    torch.cuda.synchronize()
+    x = (x1 if x2 is None else torch.cat([x1, x2], 1)).double()
+    ref = x @ w.double().t() + (b.double() if bias else 0.0)
+    _close_to_f64(got, ref, x.abs() @ w.double().abs().t() + (b.double().abs() if bias else 0.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndir,M,K,d1,d2", [(2, 75, 384, 60, 0), (2, 75, 384, 128, 128), (1, 75, 36, 12, 20),
+                                            (2, 1601, 384, 256, 0), (1, 25600, 384, 60, 0),
+                                            (2, 200, 36, 12, 12)])
+def test_gemm_core_dx_layout_matches_f64(dev, ndir, M, K, d1, d2):
+    rng = np.random.default_rng(M + K + d1 + d2)
+    a = _f32(rng, ndir, M, K, dev=dev)
+    ws = [_f32(rng, K, d1 + d2, dev=dev) for _ in range(ndir)]
+    dx1, dx2 = gemm_dx(a, ws, d1)
+    torch.cuda.synchronize()
+    ref = sum(a[i].double() @ w.double() for i, w in enumerate(ws))
+    scale = sum(a[i].double().abs() @ w.double().abs() for i, w in enumerate(ws))
+    _close_to_f64(torch.cat([dx1, dx2], 1), ref, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,d1,d2", [(75, 384, 60, 0), (75, 384, 128, 128), (75, 36, 12, 20),
+                                       (25600, 384, 60, 0), (1601, 384, 128, 128), (25600, 384, 128, 0),
+                                       (7, 36, 12, 0)])
+def test_gemm_core_dw_layout_matches_f64_and_repeats_bit_for_bit(dev, M, K, d1, d2):
+    """dW and db (the column sums, no ones column) against f64; two calls
+    agree bit for bit (the row chunks are summed in chunk order)."""
+    rng = np.random.default_rng(M + K + d1 + d2)
+    a, x1 = _f32(rng, M, K, dev=dev), _f32(rng, M, d1, dev=dev)
+    x2 = _f32(rng, M, d2, dev=dev) if d2 else None
+    dw, db = gemm_dw(a, x1, x2)
+    again = gemm_dw(a, x1, x2)
+    torch.cuda.synchronize()
+    x = (x1 if x2 is None else torch.cat([x1, x2], 1)).double()
+    _close_to_f64(dw, a.double().t() @ x, a.double().abs().t() @ x.abs())
+    _close_to_f64(db, a.double().sum(0), a.double().abs().sum(0))
+    assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
+
+
+def _assert_grads_equal(a, b):
+    (adx, ag), (bdx, bg) = a, b
+    assert all(torch.equal(x, y) for x, y in zip(adx, bdx))
+    assert all(torch.equal(ag[d][n], bg[d][n]) for d in ag for n in ag[d]), "dW/db differ between runs"
+
+
+# the flagship's K3 layers at B = 64 (D = 60 at T = 400; two parts of 128; the intent
+# layer) and small widths with T*B not a multiple of 128 and two parts of unequal width
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,T,B,H,fused", [((60,), 400, 64, 128, True), ((128, 128), 200, 64, 128, True),
+                                              ((256,), 25, 64, 128, False), ((12, 20), 25, 3, 12, True),
+                                              ((60,), 25, 3, 16, False)])
+def test_k3_matches_plain_and_repeats_bit_for_bit(dev, dims, T, B, H, fused):
+    params, parts, hp_f, hp_b, dy, kw = _bwd_case(11, dims, T, B, H, dev, fused)
+    got = bigru_shared_bwd(params, parts, hp_f, hp_b, *dy, **kw)
+    again = bigru_shared_bwd(params, parts, hp_f, hp_b, *dy, **kw)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, bigru_shared_bwd_reference(params, parts, hp_f, hp_b, *dy, **kw))
+    _assert_grads_equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,H", [(64, 25, 256, 128), (3, 25, 60, 12), (8, 37, 60, 128)])
+def test_k4b_matches_plain_and_repeats_bit_for_bit(dev, B, T, D, H):
+    params, x, lengths, outs, dy = k4b_inputs(32, B, T, D, H, dev)
+    for n, out in zip(lengths, outs):
+        got = bigru_masked_bwd(params, x, out, n, dy)
+        again = bigru_masked_bwd(params, x, out, n, dy)
+        torch.cuda.synchronize()
+        ref = bigru_masked_bwd_reference(params, x, out, n, dy)
+        _assert_grads_close(((got[0],), got[1]), ((ref[0],), ref[1]))
+        _assert_grads_equal(((got[0],), got[1]), ((again[0],), again[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,H", [(64, 400, 60, 128), (64, 25, 128, 128), (3, 25, 60, 12)])
+def test_k5b_matches_plain_and_repeats_bit_for_bit(dev, B, T, D, H):
+    params, x, lengths = k5_inputs(48, B, T, D, H, dev)
+    dy = torch.from_numpy(np.random.default_rng(49).standard_normal((B, T, H)).astype(np.float32)).to(dev)
+    for n in lengths:
+        with torch.inference_mode():
+            out = gru1_fwd(params, x, n)
+        got = gru1_bwd(params, x, out, n, dy)
+        again = gru1_bwd(params, x, out, n, dy)
+        torch.cuda.synchronize()
+        ref = gru1_bwd_reference(params, x, out, n, dy)
+        _assert_grads_close(((got[0],), got[1]), ((ref[0],), ref[1]))
+        _assert_grads_equal(((got[0],), got[1]), ((again[0],), again[1]))
+
+
+# On an H100's 132 SMs, B <= 33 takes clusters of 4 CTAs and B = 64 clusters of 2
+_K5F_BATCHES = [(1, False), (3, False), (8, True), (16, False), (64, False)]
+
+
+@pytest.mark.cuda
+def test_k5f_cluster_size_follows_the_batch(dev):
+    """4 CTAs a cluster while every row gets a cluster in one wave of the
+    SMs, else 2; the batches of the test below reach both sizes."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for B in (1, 3, 8, 16, 33, 34, 64, 200):
+        assert gru1_cluster_size(B) == (4 if 4 * B <= sms else 2), B
+    assert {gru1_cluster_size(B) for B, _ in _K5F_BATCHES} == {2, 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [12, 128])
+@pytest.mark.parametrize("B,masked", _K5F_BATCHES)
+def test_k5f_cluster_recurrence_matches_plain(dev, B, masked, H):
+    """K5f on the clusters it takes at batch B against ``gru1_reference``,
+    within 1e-4 of its largest element; B = 8 with lengths holding 0 and T
+    among mixed ones, zeros past each; one launch a call on the counter."""
+    T, D = 50, 60
+    params, x, _ = k5_inputs(50, B, T, D, H, dev)
+    n = None
+    if masked:
+        lengths = np.random.default_rng(51).integers(1, T, B)
+        lengths[0], lengths[-1] = T, 0
+        n = torch.tensor(lengths, device=dev)
+    before = gru1.launches
+    with torch.inference_mode():
+        got = gru1_fwd(params, x, n)
+    torch.cuda.synchronize()
+    assert gru1.launches == before + 1
+    ref = gru1_reference(params, x, n)
+    assert got.shape == ref.shape == (B, T, H)
+    assert _rel_close(got, ref), (got - ref).abs().max().item()
+    for b, nb in enumerate([T] * B if n is None else n.tolist()):
+        assert (got[b, nb:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_k5f_rejects_a_width_past_its_registers(dev):
+    wide, x_wide, _ = k5_inputs(52, 2, 5, 8, 132, dev)
+    before = gru1.launches
+    with pytest.raises(ValueError):
+        gru1_fwd(wide, x_wide)
+    assert gru1.launches == before

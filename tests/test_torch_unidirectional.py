@@ -73,7 +73,8 @@ def _rel(got, want) -> float:
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("B,T,D,H", [(2, 13, 6, 8), (3, 64, 5, 12), (4, 70, 16, 16), (1, 1, 4, 8)])
+# (3, 25, 60, 12): T*B = 75 rows, not a multiple of the GEMM core's 128-row tile, D = 60
+@pytest.mark.parametrize("B,T,D,H", [(2, 13, 6, 8), (3, 64, 5, 12), (4, 70, 16, 16), (1, 1, 4, 8), (3, 25, 60, 12)])
 def test_gru1_reference_matches_jax_pallas(interpret, rng, B, T, D, H):
     """T a multiple of the kernel's 64-frame time block, and not."""
     tp, jp = uni_params(rng, D, H)
@@ -85,7 +86,7 @@ def test_gru1_reference_matches_jax_pallas(interpret, rng, B, T, D, H):
     assert torch.equal(gru1(tp, torch.from_numpy(x)), got)  # on the CPU, gru1 is the plain version
 
 
-@pytest.mark.parametrize("B,T,D,H", [(2, 13, 6, 8), (3, 70, 5, 12), (1, 1, 4, 8)])
+@pytest.mark.parametrize("B,T,D,H", [(2, 13, 6, 8), (3, 70, 5, 12), (1, 1, 4, 8), (3, 25, 60, 12)])
 def test_gru1_backward_matches_jax_pallas_vjp(interpret, rng, B, T, D, H):
     """dX and the four weight and bias gradients of ``gru1_bwd_reference`` and
     of autograd through ``gru1`` against ``jax.vjp`` through the Pallas
@@ -112,6 +113,7 @@ def test_gru1_backward_matches_jax_pallas_vjp(interpret, rng, B, T, D, H):
 
 @pytest.mark.parametrize("B,T,D,H,lengths", [
     (5, 13, 6, 8, [0, 1, 13, 7, 12]),
+    (3, 25, 60, 12, [25, 0, 11]),
     (3, 1, 4, 12, [0, 1, 1]),
     (4, 70, 16, 16, [70, 69, 2, 0]),
 ])

@@ -1,9 +1,10 @@
 // Pieces shared by the bi-GRU kernels (K1 and K6 bigru_shared_fwd.cu, K2
-// bigru_trainpool_fwd.cu, K3 bigru_shared_bwd.cu): the tiled input
-// projection, the forward recurrence (eval, or train with h_prev residuals,
-// hash dropout and the ceil avg-pool), the dropout hash and the choice of
-// batch tile. Everything is f32 with f32 accumulation. Included by each
-// source; the anonymous namespace gives each its own copy.
+// bigru_trainpool_fwd.cu, K3 bigru_shared_bwd.cu): the forward recurrence
+// (eval, or train with h_prev residuals, hash dropout and the ceil
+// avg-pool), the dropout hash and the choice of batch tile; the input
+// projection is the GEMM core's (bigru_gemm.cuh). Everything is f32 with f32
+// accumulation. Included by each source; the anonymous namespace gives each
+// its own copy.
 //
 // RS (K6, the row-stacked layout): gi of both directions lives in one (T,
 // 2B, 3H) array, forward rows 0:B at natural t, backward rows B:2B written
@@ -17,10 +18,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "bigru_gemm.cuh"
 
-constexpr int kTile = 64;  // GEMM output tile (rows and columns)
-constexpr int kTK = 16;    // GEMM depth tile
+namespace {
 
 __device__ __forceinline__ float sigmoid_(float x) { return 1.0f / (1.0f + expf(-x)); }
 
@@ -48,103 +48,6 @@ __device__ __forceinline__ bool keep_hash(uint32_t seed, uint32_t salt, uint32_t
 constexpr uint32_t kSaltF = 0x9E3779B9u;
 constexpr uint32_t kSaltB = 0x7F4A7C15u;
 constexpr uint32_t kKeepAll = 1u << 24;  // thresh for p = 0: every element kept
-
-// gi[dir][m][n] = sum_p sum_k x_p[m][k] * W_ih[dir][n][off_p + k] + b_ih[dir][n]
-// over m = t*B + b < M = T*B and n < N = 3H. W_ih is (3H, d1 + d2) row-major
-// (torch layout), so both operands are contiguous along k. blockIdx.z is
-// the direction; a launch with gridDim.z == 1 uses only the _f operands.
-// RS: row (s, dir * B + b) of the (T, 2B, 3H) row-stacked array instead,
-// s = t forward and T - 1 - t backward, and b_ih[n] + fold[n] for n < 2H
-// (fold_f, fold_b: b_hh of each direction).
-template <bool RS>
-__global__ void __launch_bounds__(256) gi_proj_kernel(
-    const float* __restrict__ x1, int d1, const float* __restrict__ x2, int d2,
-    const float* __restrict__ wih_f, const float* __restrict__ bih_f,
-    const float* __restrict__ wih_b, const float* __restrict__ bih_b,
-    float* __restrict__ gi, int M, int N, const float* __restrict__ fold_f,
-    const float* __restrict__ fold_b, int B) {
-  __shared__ float xs[kTK][kTile + 1];
-  __shared__ float ws[kTK][kTile + 1];
-  const int dir = blockIdx.z;
-  const float* __restrict__ w = dir == 0 ? wih_f : wih_b;
-  const float* __restrict__ bias = dir == 0 ? bih_f : bih_b;
-  const int K = d1 + d2;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  float acc[4][4] = {};
-  for (int p = 0; p < 2; ++p) {
-    const float* __restrict__ x = p == 0 ? x1 : x2;
-    const int dp = p == 0 ? d1 : d2;
-    const int off = p == 0 ? 0 : d1;
-    for (int k0 = 0; k0 < dp; k0 += kTK) {
-      for (int e = tid; e < kTile * kTK; e += 256) {
-        const int r = e / kTK, kk = e % kTK, k = k0 + kk;
-        const int m = m0 + r, n = n0 + r;
-        xs[kk][r] = (m < M && k < dp) ? x[(size_t)m * dp + k] : 0.0f;
-        ws[kk][r] = (n < N && k < dp) ? w[(size_t)n * K + off + k] : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kTK; ++kk) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = xs[kk][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = ws[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-  const float* __restrict__ fold = dir == 0 ? fold_f : fold_b;
-  const int T = RS ? M / B : 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-    size_t row = (size_t)dir * M + m;
-    if (RS) {
-      const int t = m / B, b = m % B;
-      row = (size_t)(dir == 0 ? t : T - 1 - t) * 2 * B + (size_t)dir * B + b;
-    }
-    float* __restrict__ out = gi + row * N;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= N) continue;
-      const float bn = RS && 3 * n < 2 * N ? bias[n] + fold[n] : bias[n];
-      out[n] = acc[i][j] + bn;
-    }
-  }
-}
-
-// Launches gi_proj_kernel over both directions (ndir = 2) or the _f
-// operands alone (ndir = 1).
-inline cudaError_t launch_gi_proj(const float* x1, int d1, const float* x2, int d2,
-                                  const float* w_f, const float* b_f, const float* w_b,
-                                  const float* b_b, float* out, int M, int N, int ndir,
-                                  cudaStream_t st) {
-  dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile, ndir);
-  gi_proj_kernel<false><<<grid, 256, 0, st>>>(x1, d1, x2, d2, w_f, b_f, w_b, b_b, out, M, N,
-                                              nullptr, nullptr, 1);
-  return cudaGetLastError();
-}
-
-// The row-stacked projection of K6 over both directions of T x B rows, b_hh's
-// r and z columns folded into b_ih.
-inline cudaError_t launch_gi_proj_rs(const float* x1, int d1, const float* x2, int d2,
-                                     const float* w_f, const float* b_f, const float* bhh_f,
-                                     const float* w_b, const float* b_b, const float* bhh_b,
-                                     float* out, int T, int B, int N, cudaStream_t st) {
-  const int M = T * B;
-  dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile, 2);
-  gi_proj_kernel<true><<<grid, 256, 0, st>>>(x1, d1, x2, d2, w_f, b_f, w_b, b_b, out, M, N, bhh_f,
-                                             bhh_b, B);
-  return cudaGetLastError();
-}
 
 // Forward recurrence. One CTA per (batch tile of NB rows, direction);
 // blockDim.x >= 3H. Thread j < 3H owns gate column j of the recurrent
@@ -286,19 +189,17 @@ cudaError_t launch_rec(const float* gi, const float* whh_f, const float* bhh_f,
   return cudaGetLastError();
 }
 
-// The smallest batch tile of 1, 2, 4 or 8 rows whose ndir * ceil(B / tile)
-// CTAs (one per tile and direction) fit in one wave of the card's SMs: a
-// serial step's time grows with the rows a CTA carries, and the CTAs run
-// side by side.
-inline cudaError_t pick_batch_tile(int B, int* nb, int ndir = 2) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+// The smallest batch tile of 1, 2, 4 or 8 rows whose ctas * ceil(B / tile)
+// CTAs (ctas a tile: one per direction, or K5f's cluster of C) fit in one
+// wave of the card's SMs: a serial step's time grows with the rows a CTA
+// carries, and the CTAs run side by side.
+inline cudaError_t pick_batch_tile(int B, int* nb, int ctas = 2) {
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   *nb = 8;
   for (int cand = 1; cand < 8; cand *= 2) {
-    if (ndir * ((B + cand - 1) / cand) <= sms) {
+    if (ctas * ((B + cand - 1) / cand) <= sms) {
       *nb = cand;
       break;
     }

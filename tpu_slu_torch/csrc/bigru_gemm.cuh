@@ -1,0 +1,517 @@
+// The one f32 GEMM core of the bi-GRU kernels (K1-K6), for sm_90a: every
+// product off the recurrent chain goes through `gemm_kernel`.
+//
+//   * gi = [x1 | x2] W_ih^T + b_ih (K1, K2, K4f, K5f, K6 and phase 1 of K3,
+//     K4b, K5b; K6's row-stacked rows and bias fold in the epilogue), and
+//     gh = h_prev W_hh^T + b_hh (phase 1 of the backward kernels): both
+//     operands contiguous along k, the parts x1 | x2 two k segments;
+//   * dX = sum_dir dgi_dir W_ih_dir (phase 3): A contiguous along k, B
+//     (W_ih, 3H x D) contiguous along n; the directions are two k segments,
+//     the output is split at the parts' column offset;
+//   * dW = dgi^T [x1 | x2] and dgh^T h_prev (phase 3): both operands
+//     contiguous along their output index, the reduction over the M = T*B
+//     rows, cut into row chunks that each write their own slot; a second
+//     pass sums the slots in chunk order. db, the column sum of dgi (dgh),
+//     is taken from the shared-memory tiles by the CTAs of the first column
+//     tile. No float atomics: repeated runs agree bit for bit.
+//
+// What bounds the products on this card: f32 FMAs. K3 at the flagship's five
+// layers and B = 64 runs ~55 GFLOP of them (dW 21.7, dX 11.8, the recomputed
+// gi 11.8 and gh 9.75), 0.82 ms at the 67 TFLOP/s f32 peak; the bytes are a
+// small fraction of that at 3.35 TB/s. What the design does about it:
+//   * a 128 x 128 output tile over 256 threads, 8 x 8 accumulators a
+//     thread, so that a k step is four 128-bit shared-memory loads for 64
+//     FMAs; where the output is narrow, 128 x 64 over 256 threads of 8 x 4
+//     (three loads for 32 FMAs), so that the SMs keep 16 warps;
+//   * both operands k-major in shared memory ([k][row], rows padded by 4
+//     floats), filled by 4-byte cp.async copies that transpose on the way
+//     when the operand is contiguous along k, coalesced in device memory in
+//     either layout, zero-filled past every edge, so any shape is taken;
+//   * a 3-stage cp.async ring of 8-deep k slices: the copies of the next two
+//     slices are in flight while the current one is multiplied, one barrier a
+//     slice;
+//   * one launch serves several problems (both directions, gi and gh of
+//     phase 1, the parts of dW), so small layers still fill the SMs; dW's row
+//     chunks are as many as give every SM two CTAs.
+// f32 operands and f32 FMAs throughout, no TF32.
+//
+// Included by bigru_common.cuh; the anonymous namespace gives each source
+// its own copy.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
+
+namespace {
+
+constexpr int kBK = 8;          // depth of a k slice
+constexpr int kStages = 3;      // slices in the cp.async ring
+constexpr int kPad = 4;         // floats of padding after each k row of a tile
+constexpr int kMaxProblems = 4;
+constexpr int kLayK = 0;        // element (r, k) at p[r * ld + k]
+constexpr int kLayR = 1;        // element (r, k) at p[k * ld + r]
+
+// One product C (M x N) = sum over up to two k segments of A_s (M x K_s)
+// times B_s (K_s x N), A's element (m, k) and B's (n, k) read in the layouts
+// of the kernel's template, and its epilogue:
+//   out[row(m) * ldo + n] = C + bias[n] (+ fold[n] for n < fold_n), n < n_split;
+//   out2[row(m) * ldo2 + n - n_split] = C, n >= n_split;
+//   row(m) = m, or K6's row-stacked row when rs_B > 0: m = t * rs_B + b ->
+//   (rs_dir ? T - 1 - t : t) * 2 rs_B + rs_dir * rs_B + b;
+//   db (non-null): db[m] = the sum of A(m, k) over the reduction.
+// With the launch's kchunk > 0 the (single) segment is cut into row chunks of
+// kchunk along k; chunk c writes out, out2 and db shifted by c * chunk_stride.
+struct GemmProblem {
+  const float* a0;
+  const float* b0;
+  const float* a1;
+  const float* b1;
+  int lda0, ldb0, K0, lda1, ldb1, K1;  // K1 = 0: one segment
+  int M, N;
+  float* out;
+  float* out2;
+  int ldo, ldo2, n_split;
+  const float* bias;
+  const float* fold;
+  int fold_n, rs_B, rs_dir;
+  float* db;
+  long long chunk_stride;
+};
+
+struct GemmArgs {
+  GemmProblem p[kMaxProblems];
+  int nprob;
+  int kchunk;  // 0: no split of the reduction
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Copies the R x kBK slice (rows r0.., k0..) of an operand into s[kk][r]
+// (row pitch R + kPad), zeros past rmax and kmax. Consecutive threads take
+// consecutive addresses of the operand's contiguous index.
+template <int L, int R, int NT>
+__device__ __forceinline__ void load_slice(float* s, const float* p, int ld, int r0, int rmax,
+                                           int k0, int kmax, int tid) {
+  constexpr int kPer = R * kBK / NT;
+  static_assert(kPer * NT == R * kBK, "tile and thread count do not divide");
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int e = tid + q * NT;
+    const int r = L == kLayK ? e / kBK : e % R;
+    const int kk = L == kLayK ? e % kBK : e / R;
+    const int gr = r0 + r, gk = k0 + kk;
+    const bool ok = gr < rmax && gk < kmax;
+    const float* src = !ok ? p : L == kLayK ? p + (size_t)gr * ld + gk : p + (size_t)gk * ld + gr;
+    cp_async4(s + kk * (R + kPad) + r, src, ok);
+  }
+}
+
+// A column block [n, n + 4) of one output row, v[j] at column n + j.
+__device__ __forceinline__ void store4(const GemmProblem& P, size_t row, size_t shift, int n,
+                                       const float (&v)[4]) {
+  const int N = P.N, ns = P.n_split;
+  float* q;
+  int end;
+  if (n >= ns) {
+    q = P.out2 + shift + row * P.ldo2 + (n - ns);
+    end = N - n;
+  } else {
+    q = P.out + shift + row * P.ldo + n;
+    end = min(N, ns) - n;
+  }
+  if (end >= 4 && (reinterpret_cast<uintptr_t>(q) & 15) == 0) {
+    *reinterpret_cast<float4*>(q) = make_float4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = n + j;
+    if (c >= N) break;
+    if (c < ns) {
+      P.out[shift + row * P.ldo + c] = v[j];
+    } else {
+      P.out2[shift + row * P.ldo2 + (c - ns)] = v[j];
+    }
+  }
+}
+
+// The core. Grid: x column tiles, y row tiles (of the largest problem), z
+// chunk * nprob + problem; 256 threads a CTA, two CTAs an SM (128 registers a
+// thread at most). Thread (ty, tx) owns 8 x TN outputs: rows ty*4 + i and
+// BM/2 + ty*4 + i, columns tx*4 + j (TN = 4) or tx*4 + j and BN/2 + tx*4 + j
+// (TN = 8), i, j < 4; a warp covers 4 ty by 8 tx, so each of its 128-bit
+// loads of a k step reads one wavefront. The narrow tile (BN = 64) takes TN
+// = 4, so that it still runs 8 warps.
+template <int LA, int LB, int BM, int BN, int TN>
+__global__ void __launch_bounds__((BM / 8) * (BN / TN), 2)
+    gemm_kernel(const __grid_constant__ GemmArgs args) {
+  constexpr int NT = (BM / 8) * (BN / TN);
+  constexpr int WX = BN / TN / 8;       // warps across a row of the tile
+  constexpr int HW = BN / (TN / 4);     // columns between a thread's float4 blocks
+  constexpr int LDA = BM + kPad, LDB = BN + kPad;
+  constexpr int kGroups = NT / BM;  // db: threads per row of A
+  __shared__ __align__(16) float As[kStages][kBK * LDA];
+  __shared__ __align__(16) float Bs[kStages][kBK * LDB];
+  __shared__ float db_s[kGroups][BM];
+
+  const GemmProblem& P = args.p[blockIdx.z % args.nprob];
+  const int chunk = blockIdx.z / args.nprob;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  if (m0 >= P.M || n0 >= P.N) return;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int ty = (warp / WX) * 4 + lane / 8;
+  const int tx = (warp % WX) * 8 + lane % 8;
+
+  // the segments, cut to this CTA's chunk of the reduction
+  const float* a0 = P.a0;
+  const float* b0 = P.b0;
+  int K0 = P.K0;
+  const int K1 = args.kchunk ? 0 : P.K1;
+  size_t shift = 0;
+  if (args.kchunk) {
+    const int kb = chunk * args.kchunk;
+    K0 = min(args.kchunk, P.K0 - kb);
+    a0 += LA == kLayK ? (size_t)kb : (size_t)kb * P.lda0;
+    b0 += LB == kLayK ? (size_t)kb : (size_t)kb * P.ldb0;
+    shift = (size_t)chunk * P.chunk_stride;
+  }
+  const int nt0 = (K0 + kBK - 1) / kBK;
+  const int ntiles = nt0 + (K1 + kBK - 1) / kBK;
+  const bool take_db = P.db != nullptr && blockIdx.x == 0;
+
+  auto issue = [&](int q) {
+    const bool s1 = q >= nt0;
+    const int k0 = (s1 ? q - nt0 : q) * kBK;
+    const int st = q % kStages;
+    load_slice<LA, BM, NT>(As[st], s1 ? P.a1 : a0, s1 ? P.lda1 : P.lda0, m0, P.M, k0,
+                           s1 ? K1 : K0, tid);
+    load_slice<LB, BN, NT>(Bs[st], s1 ? P.b1 : b0, s1 ? P.ldb1 : P.ldb0, n0, P.N, k0,
+                           s1 ? K1 : K0, tid);
+  };
+
+  float acc[8][TN];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+  float dbacc = 0.0f;
+
+#pragma unroll
+  for (int q = 0; q < kStages - 1; ++q) {
+    if (q < ntiles) issue(q);
+    cp_async_commit();
+  }
+  for (int q = 0; q < ntiles; ++q) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // slice q has landed; slice q - 1's stage is free
+    if (q + kStages - 1 < ntiles) issue(q + kStages - 1);
+    cp_async_commit();
+    const float* as = As[q % kStages];
+    const float* bs = Bs[q % kStages];
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float4 x0 = *reinterpret_cast<const float4*>(as + kk * LDA + ty * 4);
+      const float4 x1 = *reinterpret_cast<const float4*>(as + kk * LDA + BM / 2 + ty * 4);
+      const float a[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+      float b[TN];
+#pragma unroll
+      for (int h = 0; h < TN / 4; ++h) {
+        const float4 y = *reinterpret_cast<const float4*>(bs + kk * LDB + h * HW + tx * 4);
+        b[4 * h] = y.x;
+        b[4 * h + 1] = y.y;
+        b[4 * h + 2] = y.z;
+        b[4 * h + 3] = y.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (take_db) {  // thread (g, r) sums rows kk = g, g + kGroups, ... of A's column r
+#pragma unroll
+      for (int kk = tid / BM; kk < kBK; kk += kGroups) dbacc += as[kk * LDA + tid % BM];
+    }
+  }
+  cp_async_wait<0>();
+
+  if (take_db) {
+    db_s[tid / BM][tid % BM] = dbacc;
+    __syncthreads();
+    if (tid < BM && m0 + tid < P.M) {
+      float s = 0.0f;
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) s += db_s[g][tid];
+      P.db[shift + m0 + tid] = s;
+    }
+  }
+
+  const int T = P.rs_B > 0 ? P.M / P.rs_B : 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i < 4 ? ty * 4 + i : BM / 2 + ty * 4 + i - 4);
+    if (m >= P.M) continue;
+    size_t row = m;
+    if (P.rs_B > 0) {
+      const int t = m / P.rs_B, b = m % P.rs_B;
+      row = (size_t)(P.rs_dir ? T - 1 - t : t) * 2 * P.rs_B + (size_t)P.rs_dir * P.rs_B + b;
+    }
+#pragma unroll
+    for (int h = 0; h < TN / 4; ++h) {
+      const int n = n0 + h * HW + tx * 4;
+      if (n >= P.N) continue;
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = n + j;
+        v[j] = acc[i][h * 4 + j];
+        if (P.bias != nullptr && c < P.N) {
+          v[j] += P.bias[c];
+          if (c < P.fold_n) v[j] += P.fold[c];
+        }
+      }
+      store4(P, row, shift, n, v);
+    }
+  }
+}
+
+inline cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// Launches the core over args' problems and `nchunks` row chunks, with the
+// 128 x BN tile (BN 64 or 128).
+template <int LA, int LB>
+cudaError_t launch_gemm(const GemmArgs& args, int nchunks, int bn, cudaStream_t st) {
+  int M = 0, N = 0;
+  for (int i = 0; i < args.nprob; ++i) {
+    M = std::max(M, args.p[i].M);
+    N = std::max(N, args.p[i].N);
+  }
+  if (M == 0 || N == 0) return cudaSuccess;
+  const unsigned z = (unsigned)(args.nprob * nchunks);
+  if (bn == 64) {
+    gemm_kernel<LA, LB, 128, 64, 4><<<dim3((N + 63) / 64, (M + 127) / 128, z), 256, 0, st>>>(args);
+  } else {
+    gemm_kernel<LA, LB, 128, 128, 8><<<dim3((N + 127) / 128, (M + 127) / 128, z), 256, 0, st>>>(args);
+  }
+  return cudaGetLastError();
+}
+
+// The column tile of an unsplit product: 64 where the output is narrow or
+// where 128-wide tiles would leave SMs idle, else 128.
+inline int pick_bn(const GemmArgs& args, int sms) {
+  int M = 0, N = 0;
+  for (int i = 0; i < args.nprob; ++i) {
+    M = std::max(M, args.p[i].M);
+    N = std::max(N, args.p[i].N);
+  }
+  const long long wide = (long long)args.nprob * ((M + 127) / 128) * ((N + 127) / 128);
+  return N <= 64 || wide < sms ? 64 : 128;
+}
+
+// gi (or gh) of one direction: [x1 | x2] (M x d1, M x d2) times w^T (w: N x
+// (d1 + d2), torch layout) plus b, into out (M x N).
+inline GemmProblem proj_problem(const float* x1, int d1, const float* x2, int d2, const float* w,
+                                const float* b, float* out, int M, int N) {
+  GemmProblem P = {};
+  P.a0 = x1;
+  P.lda0 = d1;
+  P.b0 = w;
+  P.ldb0 = d1 + d2;
+  P.K0 = d1;
+  if (d2 > 0) {
+    P.a1 = x2;
+    P.lda1 = d2;
+    P.b1 = w + d1;
+    P.ldb1 = d1 + d2;
+    P.K1 = d2;
+  }
+  P.M = M;
+  P.N = N;
+  P.out = out;
+  P.ldo = N;
+  P.n_split = N;
+  P.bias = b;
+  return P;
+}
+
+inline cudaError_t launch_proj(const GemmArgs& args, cudaStream_t st) {
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  return launch_gemm<kLayK, kLayK>(args, 1, pick_bn(args, sms), st);
+}
+
+// gi of both directions (ndir = 2, out (2, M, N)) or of the _f operands
+// alone (ndir = 1).
+inline cudaError_t launch_gi_proj(const float* x1, int d1, const float* x2, int d2,
+                                  const float* w_f, const float* b_f, const float* w_b,
+                                  const float* b_b, float* out, int M, int N, int ndir,
+                                  cudaStream_t st) {
+  GemmArgs args = {};
+  args.nprob = ndir;
+  args.p[0] = proj_problem(x1, d1, x2, d2, w_f, b_f, out, M, N);
+  if (ndir == 2) args.p[1] = proj_problem(x1, d1, x2, d2, w_b, b_b, out + (size_t)M * N, M, N);
+  return launch_proj(args, st);
+}
+
+// The row-stacked projection of K6 over both directions of T x B rows, b_hh's
+// r and z columns folded into b_ih.
+inline cudaError_t launch_gi_proj_rs(const float* x1, int d1, const float* x2, int d2,
+                                     const float* w_f, const float* b_f, const float* bhh_f,
+                                     const float* w_b, const float* b_b, const float* bhh_b,
+                                     float* out, int T, int B, int N, cudaStream_t st) {
+  GemmArgs args = {};
+  args.nprob = 2;
+  for (int d = 0; d < 2; ++d) {
+    GemmProblem& P = args.p[d];
+    P = proj_problem(x1, d1, x2, d2, d ? w_b : w_f, d ? b_b : b_f, out, T * B, N);
+    P.fold = d ? bhh_b : bhh_f;
+    P.fold_n = 2 * N / 3;
+    P.rs_B = B;
+    P.rs_dir = d;
+  }
+  return launch_proj(args, st);
+}
+
+// dx = sum_dir dgi[dir] W_ih_dir over k < H3, for n < D = d1 + d2; column n
+// goes to dx1 (M x d1, n < d1) or dx2 (M x d2).
+inline cudaError_t launch_dx(const float* dgi, const float* wih_f, const float* wih_b,
+                             float* dx1, int d1, float* dx2, int d2, int M, int H3, int ndir,
+                             cudaStream_t st) {
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const int D = d1 + d2;
+  GemmArgs args = {};
+  args.nprob = 1;
+  GemmProblem& P = args.p[0];
+  P.a0 = dgi;
+  P.lda0 = H3;
+  P.b0 = wih_f;
+  P.ldb0 = D;
+  P.K0 = H3;
+  if (ndir == 2) {
+    P.a1 = dgi + (size_t)M * H3;
+    P.lda1 = H3;
+    P.b1 = wih_b;
+    P.ldb1 = D;
+    P.K1 = H3;
+  }
+  P.M = M;
+  P.N = D;
+  P.out = dx1;
+  P.ldo = d1;
+  P.out2 = dx2;
+  P.ldo2 = d2;
+  P.n_split = d1;
+  return launch_gemm<kLayK, kLayR>(args, 1, pick_bn(args, sms), st);
+}
+
+// The split of dW's reduction over M rows for outputs of H3 rows and parts
+// of d1 and d2 columns in ndir directions: the column tile, the row chunk
+// (a multiple of kBK, at least 64 rows) and the number of chunks, as many
+// as give every SM two CTAs.
+inline void dw_plan(int H3, int d1, int d2, int M, int ndir, int sms, int* bn, int* chunk,
+                    int* nchunks) {
+  *bn = std::max(d1, d2) <= 64 ? 64 : 128;
+  const int cols = (d1 + *bn - 1) / *bn + (d2 + *bn - 1) / *bn;
+  const int tiles = ndir * ((H3 + 127) / 128) * cols;
+  int S = (2 * sms + tiles - 1) / tiles;  // two CTAs an SM
+  S = std::max(1, std::min(S, (M + 63) / 64));
+  *chunk = ((M + S - 1) / S + kBK - 1) / kBK * kBK;
+  *nchunks = (M + *chunk - 1) / *chunk;
+}
+
+// Floats of one chunk's slots: dW (H3 x D) and db (H3) of each direction.
+inline long long dw_slot_floats(int H3, int D, int ndir) {
+  return (long long)ndir * ((long long)H3 * D + H3);
+}
+
+// Sums the chunks' slots in chunk order into dW (H3, D) and db (H3) of each
+// direction.
+__global__ void dw_reduce_kernel(const float* __restrict__ partial, int S, int H3, int D,
+                                 float* __restrict__ dw_f, float* __restrict__ db_f,
+                                 float* __restrict__ dw_b, float* __restrict__ db_b, int ndir) {
+  const size_t per_dir = (size_t)H3 * D + H3;
+  const size_t stride = ndir * per_dir;
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < stride;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const int dir = (int)(e / per_dir);
+    const size_t r = e % per_dir;
+    float s = 0.0f;
+    for (int c = 0; c < S; ++c) s += partial[(size_t)c * stride + e];
+    if (r < (size_t)H3 * D) {
+      (dir == 0 ? dw_f : dw_b)[r] = s;
+    } else {
+      (dir == 0 ? db_f : db_b)[r - (size_t)H3 * D] = s;
+    }
+  }
+}
+
+// Floats of the `partial` workspace weight_grads needs.
+inline long long dw_partial_floats(int H3, int d1, int d2, int M, int ndir, int sms) {
+  int bn = 0, chunk = 0, S = 0;
+  dw_plan(H3, d1, d2, M, ndir, sms, &bn, &chunk, &S);
+  return (long long)S * dw_slot_floats(H3, d1 + d2, ndir);
+}
+
+// dW (H3, d1 + d2) and db (H3) of each direction: A[dir] (M x H3) summed
+// against X_dir = [x1 | x2] (x*_f for dir 0, x*_b for dir 1) over the M rows,
+// by row chunks into `partial`, then the reduce pass.
+inline cudaError_t weight_grads(const float* A, int H3, const float* x1_f, const float* x2_f,
+                         const float* x1_b, const float* x2_b, int d1, int d2, float* partial,
+                         float* dw_f, float* db_f, float* dw_b, float* db_b, int M, int sms,
+                         cudaStream_t st, int ndir = 2) {
+  const int D = d1 + d2;
+  int bn = 0, chunk = 0, S = 0;
+  dw_plan(H3, d1, d2, M, ndir, sms, &bn, &chunk, &S);
+  const long long slot = dw_slot_floats(H3, D, ndir);
+  GemmArgs args = {};
+  args.kchunk = chunk;
+  for (int dir = 0; dir < ndir; ++dir) {
+    float* base = partial + (size_t)dir * ((size_t)H3 * D + H3);
+    for (int p = 0; p < 2; ++p) {
+      const int dp = p == 0 ? d1 : d2;
+      if (dp == 0) continue;
+      GemmProblem& P = args.p[args.nprob++];
+      P.a0 = A + (size_t)dir * M * H3;
+      P.lda0 = H3;
+      P.b0 = p == 0 ? (dir == 0 ? x1_f : x1_b) : (dir == 0 ? x2_f : x2_b);
+      P.ldb0 = dp;
+      P.K0 = M;
+      P.M = H3;
+      P.N = dp;
+      P.out = base + (p == 0 ? 0 : d1);
+      P.ldo = D;
+      P.n_split = dp;
+      P.db = p == 0 ? base + (size_t)H3 * D : nullptr;
+      P.chunk_stride = slot;
+    }
+  }
+  cudaError_t err = launch_gemm<kLayR, kLayR>(args, S, bn, st);
+  if (err != cudaSuccess) return err;
+  const size_t total = (size_t)slot;
+  const int blocks = (int)std::min<size_t>((total + 255) / 256, (size_t)sms * 8);
+  dw_reduce_kernel<<<blocks, 256, 0, st>>>(partial, S, H3, D, dw_f, db_f, dw_b, db_b, ndir);
+  return cudaGetLastError();
+}
+
+}  // namespace

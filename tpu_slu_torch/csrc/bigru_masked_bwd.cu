@@ -22,7 +22,7 @@
 //   1. Gates (parallel): each direction's h_prev gathered from `out` by
 //      index (out[b, t-1, :H] forward, out[b, t+1, H:] backward, zero at the
 //      direction's first step, t = 0 and t = n_b - 1); gi and gh for all
-//      rows by the tiled projection of bigru_common.cuh; the gate tensor
+//      rows by the GEMM core of bigru_gemm.cuh, one launch; the gate tensor
 //      [gh_n r(1-r), z, n, r] (bigru_bwd_common.cuh). The logistic sigmoid,
 //      as K4f uses.
 //   2. The serial dh chain: one CTA per (batch tile, direction), W_hh in
@@ -30,9 +30,9 @@
 //      direction's gradient t = n_b-1..0, the backward direction's t =
 //      0..n_b-1. Each step is dh <- dgh W_hh + dh z and writes dgi and dgh;
 //      the CTA then writes exact zeros to both at t >= n_b.
-//   3. Products (bigru_bwd_common.cuh, K3's): dX = sum_dir dgi W_ih into one
-//      tensor; dW_ih = dgi^T x, dW_hh = dgh^T h_prev, db by a column of ones,
-//      over a fixed number of row chunks summed in a fixed order. Padded rows
+//   3. Products (the GEMM core, K3's): dX = sum_dir dgi W_ih into one
+//      tensor; dW_ih = dgi^T x, dW_hh = dgh^T h_prev, db the column sums,
+//      over row chunks summed in chunk order. Padded rows
 //      hold dgi = dgh = 0, so they add exactly 0 to dW and db, and dX there is
 //      exactly 0. No float atomics: repeated runs agree bit for bit.
 //
@@ -51,10 +51,10 @@
 // What bounds it on this card: at the seq2seq encoder's layer (B = 64,
 // T = 25, D = 256, H = 128) ~2.8 GFLOP of f32 products, of which the chain
 // holds ~0.3 GFLOP in 2 x 25 serial steps side by side; the rest are the
-// gate recompute and the dX/dW GEMMs, which K3's simple f32 tiles (no tensor
-// cores) run far below the card's peak. What the design does about it:
-// everything without a serial dependence leaves the chain, and the dW
-// reduction splits its 1,600 rows into enough chunks to give the SMs work.
+// gate recompute and the dX/dW products, f32 FMAs on the GEMM core
+// (bigru_gemm.cuh). What the design does about it: everything without a
+// serial dependence leaves the chain, and the dW reduction splits its 1,600
+// rows into enough chunks to give every SM two CTAs.
 // f32 operands and accumulation throughout.
 
 #include "bigru_bwd_common.cuh"
@@ -253,15 +253,9 @@ cudaError_t masked_bwd(const float* x, int D, const long long* lengths, const fl
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const float* hp_b = hp + (size_t)M * H;
-  err = launch_gi_proj(x, D, nullptr, 0, wih_f, bih_f, wih_b, bih_b, buf_a, M, H3, NDIR, st);
+  err = launch_gi_gh(x, D, nullptr, 0, hp, hp_b, wih_f, bih_f, whh_f, bhh_f, wih_b, bih_b, whh_b,
+                     bhh_b, buf_a, buf_b, M, H, NDIR, st);
   if (err != cudaSuccess) return err;
-  err = launch_gi_proj(hp, H, nullptr, 0, whh_f, bhh_f, nullptr, nullptr, buf_b, M, H3, 1, st);
-  if (err != cudaSuccess) return err;
-  if (NDIR == 2) {
-    err = launch_gi_proj(hp_b, H, nullptr, 0, whh_b, bhh_b, nullptr, nullptr,
-                         buf_b + (size_t)M * H3, M, H3, 1, st);
-    if (err != cudaSuccess) return err;
-  }
   bwd_gates_kernel<<<grid_for((size_t)NDIR * M * H, sms), 256, 0, st>>>(
       buf_a, buf_b, gates, nullptr, nullptr, nullptr, T, B, H, 1, 0, 0u, kKeepAll, 1.0f, NDIR);
   err = cudaGetLastError();
@@ -291,9 +285,7 @@ cudaError_t masked_bwd(const float* x, int D, const long long* lengths, const fl
   if (err != cudaSuccess) return err;
 
   // 3. products
-  dim3 xgrid((D + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-  bwd_dx_kernel<<<xgrid, 256, 0, st>>>(buf_a, wih_f, wih_b, dx, D, nullptr, 0, M, H3, NDIR);
-  err = cudaGetLastError();
+  err = launch_dx(buf_a, wih_f, wih_b, dx, D, nullptr, 0, M, H3, NDIR, st);
   if (err != cudaSuccess) return err;
   err = weight_grads(buf_a, H3, x, nullptr, x, nullptr, D, 0, partial, dwih_f, dbih_f, dwih_b,
                      dbih_b, M, sms, st, NDIR);
@@ -311,8 +303,8 @@ extern "C" {
 // T]); weights as tsl_bigru_masked_fwd. Outputs, all overwritten: dx (B, T,
 // D), and dW_ih (3H, D), db_ih, dW_hh (3H, H), db_hh of each direction.
 // Scratch: hp 2*B*T*H floats, buf_a and buf_b 2*B*T*3H each, gates
-// 2*B*T*4H, partial as tsl_bigru_shared_bwd_partial_floats(D, H). H must be
-// a multiple of 4. Returns cudaSuccess (0) or the first launch error; does
+// 2*B*T*4H, partial as tsl_bigru_shared_bwd_partial_floats(D, 0, H, B*T,
+// 2). H must be a multiple of 4. Returns cudaSuccess (0) or the first launch error; does
 // not synchronise.
 int tsl_bigru_masked_bwd(
     const float* x, int D, const long long* lengths, const float* out, const float* dy,
@@ -333,8 +325,8 @@ int tsl_bigru_masked_bwd(
 // nullptr for T frames in every row; weights as tsl_gru1_fwd. Outputs, all
 // overwritten: dx (B, T, D), dW_ih (3H, D), db_ih, dW_hh (3H, H), db_hh.
 // Scratch: hp B*T*H floats, buf_a and buf_b B*T*3H each, gates B*T*4H,
-// partial as tsl_bigru_shared_bwd_partial_floats(D, H). H must be a
-// multiple of 4. Returns cudaSuccess (0) or the first launch error; does
+// partial as tsl_bigru_shared_bwd_partial_floats(D, 0, H, B*T, 1). H
+// must be a multiple of 4. Returns cudaSuccess (0) or the first launch error; does
 // not synchronise.
 int tsl_gru1_bwd(const float* x, int D, const long long* lengths, const float* out,
                  const float* dy, const float* wih, const float* bih, const float* whh,

@@ -14,7 +14,7 @@
 // the dW sums in VMEM from block to block. CUDA blocks run in no order, so
 // the work is cut into three phases instead:
 //   1. Gates (parallel over T): gi = x W_ih^T + b_ih and gh = hp W_hh^T +
-//      b_hh for all T (K1's tiled projection), then the gate tensor
+//      b_hh for all T (the GEMM core, one launch), then the gate tensor
 //      [gh_n r(1-r), z, n, r] (2, T, B, 4H) and, in fused mode, the
 //      expanded dY (2, T, B, H). The logistic sigmoid, as K1 and K2 use.
 //   2. The serial dh chain: one CTA per (batch tile, direction), W_hh
@@ -23,27 +23,32 @@
 //      0..T-1; each step is dh <- dgh W_hh + dh z and writes dgi and dgh =
 //      [dgi_rz, dgi_n r] (2, T, B, 3H), over the phase-1 buffers.
 //   3. Products (parallel): dX = sum_dir dgi W_ih; dW_ih = dgi^T x and
-//      dW_hh = dgh^T hp, with db as the product with a column of ones.
-//      Hand-written tiled f32 GEMMs; the dW reduction over T*B rows is
-//      split into a fixed number of row chunks, each written to its own
-//      slot, then summed in a fixed order: no float atomics, so repeated
-//      runs agree bit for bit.
-// The gate kernel of phase 1 and the products of phase 3 do not depend on
-// the order of the rows; they live in bigru_bwd_common.cuh, shared with
-// K4b (bigru_masked_bwd.cu).
+//      dW_hh = dgh^T hp; db the column sums of dgi and dgh. All of them, and
+//      phase 1's gi and gh, are the one f32 GEMM core of bigru_gemm.cuh;
+//      the dW reduction over T*B rows is cut into row chunks, each written
+//      to its own slot, then summed in chunk order: no float atomics, so
+//      repeated runs agree bit for bit.
+// The gate kernel of phase 1 and the products do not depend on the order of
+// the rows; they are shared with K4b and K5b (bigru_masked_bwd.cu).
 //
-// What bounds it on this card: the serial chain of 2T steps (T per
-// direction, side by side) of (NB, 3H) x (3H, H) products, latency-bound as
-// K1's forward; then the GEMM FLOPs of phases 1 and 3, which simple f32
-// tiles (no tensor cores) run far below the card's peak. On an H100 SXM
-// (700 W) at the flagship's five layers and B = 64 the GEMMs take most of
-// the time: the dW phase alone ~4.3 ms at ~5 TFLOP/s, the chains ~1.9 ms.
-// The dW phase has few CTAs (2 directions x output tiles x at most
-// kMaxSplit row chunks), each looping over thousands of rows.
+// What bounds it on this card:
+//   * the products: at the flagship's five layers and B = 64, ~55 GFLOP of
+//     f32 FMAs (dW 21.7, dX 11.8, the recomputed x W_ih^T 11.8 and h_prev
+//     W_hh^T 9.75), 0.82 ms at the 67 TFLOP/s f32 peak. Until this core they
+//     ran in 64 x 64 tiles at ~5 TFLOP/s (dW: 4.3 ms), shared-memory bound,
+//     with too few CTAs for dW and a ones column for db;
+//   * the rest: the serial chain of 2T steps (T per direction, side by
+//     side) of (NB, 3H) x (3H, H) products, latency-bound as K1's forward
+//     (~1.9 ms over the five layers); the gate and reduce passes are a few
+//     bandwidth-bound sweeps.
 // What the design does about it: everything without a serial dependence
 // (gate math and transcendentals, the cotangent expansion and the mask
 // hash, every product but dh's) leaves the chain, which keeps only the
-// recurrent product and a few multiplies per element per step.
+// recurrent product and a few multiplies per element per step. The products
+// take the GEMM core: 128 x 128 tiles of 8 x 8 accumulators a thread fed
+// from a 3-stage cp.async ring, phase 1's four products (gi and gh of both
+// directions) in one launch, dW split into as many row chunks as give every
+// SM two CTAs, db summed from the tiles already in shared memory.
 
 #include "bigru_bwd_common.cuh"
 
@@ -168,10 +173,16 @@ cudaError_t launch_chain(const float* gates, const float* hp_f, const float* hp_
 
 extern "C" {
 
-// Floats of the `partial` workspace tsl_bigru_shared_bwd needs for an input
-// width D and hidden width H.
-long long tsl_bigru_shared_bwd_partial_floats(int D, int H) {
-  return (long long)kMaxSplit * 2 * 3 * H * ((D > H ? D : H) + 1);
+// Floats of the `partial` workspace of tsl_bigru_shared_bwd (ndir = 2; input
+// parts of d1 and d2 columns), tsl_bigru_masked_bwd (ndir = 2, d2 = 0) and
+// tsl_gru1_bwd (ndir = 1, d2 = 0) at hidden width H over M = T*B rows on the
+// current device: dW's row chunks, each with its own slot. -1 on a CUDA
+// error.
+long long tsl_bigru_shared_bwd_partial_floats(int d1, int d2, int H, int M, int ndir) {
+  int sms = 0;
+  if (sm_count(&sms) != cudaSuccess) return -1;
+  return std::max(dw_partial_floats(3 * H, d1, d2, M, ndir, sms),
+                  dw_partial_floats(3 * H, H, 0, M, ndir, sms));
 }
 
 // Backward of one bidirectional GRU layer. Parts, weights and layouts as
@@ -183,7 +194,8 @@ long long tsl_bigru_shared_bwd_partial_floats(int D, int H) {
 // d2; null when d2 = 0), and dW_ih (3H, D), db_ih, dW_hh (3H, H), db_hh of
 // each direction, all overwritten. Scratch: buf_a and buf_b 2*T*B*3H floats
 // each, gates 2*T*B*4H, dyx 2*T*B*H (fused mode only), partial as
-// tsl_bigru_shared_bwd_partial_floats. H must be a multiple of 4. Returns
+// tsl_bigru_shared_bwd_partial_floats(d1, d2, H, T*B, 2). H must be a
+// multiple of 4. Returns
 // cudaSuccess (0) or the first launch error; does not synchronise.
 int tsl_bigru_shared_bwd(
     const float* x1, int d1, const float* x2, int d2,
@@ -205,12 +217,8 @@ int tsl_bigru_shared_bwd(
   if (err != cudaSuccess) return (int)err;
 
   // 1. gates (and the expanded cotangent)
-  err = launch_gi_proj(x1, d1, x2, d2, wih_f, bih_f, wih_b, bih_b, buf_a, M, H3, 2, st);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_gi_proj(hp_f, H, nullptr, 0, whh_f, bhh_f, nullptr, nullptr, buf_b, M, H3, 1, st);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_gi_proj(hp_b, H, nullptr, 0, whh_b, bhh_b, nullptr, nullptr,
-                       buf_b + (size_t)M * H3, M, H3, 1, st);
+  err = launch_gi_gh(x1, d1, x2, d2, hp_f, hp_b, wih_f, bih_f, whh_f, bhh_f, wih_b, bih_b, whh_b,
+                     bhh_b, buf_a, buf_b, M, H, 2, st);
   if (err != cudaSuccess) return (int)err;
   bwd_gates_kernel<<<grid_for((size_t)2 * M * H, sms), 256, 0, st>>>(
       buf_a, buf_b, gates, dy_f, dy_b, dyx, T, B, H, pool, fused, seed, thresh, inv_keep, 2);
@@ -239,9 +247,7 @@ int tsl_bigru_shared_bwd(
   if (err != cudaSuccess) return (int)err;
 
   // 3. products
-  dim3 xgrid((d1 + d2 + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-  bwd_dx_kernel<<<xgrid, 256, 0, st>>>(buf_a, wih_f, wih_b, dx1, d1, dx2, d2, M, H3, 2);
-  err = cudaGetLastError();
+  err = launch_dx(buf_a, wih_f, wih_b, dx1, d1, dx2, d2, M, H3, 2, st);
   if (err != cudaSuccess) return (int)err;
   err = weight_grads(buf_a, H3, x1, x2, x1, x2, d1, d2, partial, dwih_f, dbih_f, dwih_b, dbih_b,
                      M, sms, st);

@@ -21,9 +21,9 @@
 //
 // What the design does about it:
 //   * The input projection, which has no serial dependence, leaves the
-//     chain: `gi_proj_kernel` computes it for all T at once as one tiled
-//     product over (T*B) x 3H for both directions, into a (2, T, B, 3H)
-//     scratch.
+//     chain: the GEMM core (bigru_gemm.cuh) computes it for all T at once
+//     as one product over (T*B) x 3H for both directions, into a (2, T, B,
+//     3H) scratch.
 //   * `bigru_rec_kernel` runs one CTA per (batch tile, direction). W_hh
 //     (3H x H, torch layout) is copied once into shared memory and stays
 //     there for all T steps; h and the pool accumulator live in shared

@@ -36,16 +36,20 @@ _SIGNATURES = {
                                 + [_U, _U, _F, _P]),
     "tsl_bigru_shared_bwd": (_I, [_P, _I, _P, _I] + [_P] * 4 + [_P] * 8 + [_P] * 2 + [_P] * 8
                              + [_P] * 5 + [_I] * 5 + [_U, _U, _F, _P]),
-    "tsl_bigru_shared_bwd_partial_floats": (ctypes.c_longlong, [_I, _I]),
+    "tsl_bigru_shared_bwd_partial_floats": (ctypes.c_longlong, [_I] * 5),
     "tsl_bigru_masked_fwd": (_I, [_P, _I, _P] + [_P] * 8 + [_P] * 2 + [_I] * 3 + [_P]),
     "tsl_bigru_masked_bwd": (_I, [_P, _I, _P, _P, _P] + [_P] * 8 + [_P] * 9 + [_P] * 5 + [_I] * 3
                              + [_P]),
     "tsl_gru1_fwd": (_I, [_P, _I, _P] + [_P] * 4 + [_P] * 2 + [_I] * 3 + [_P]),
+    "tsl_gru1_cluster_size": (_I, [_I]),
     "tsl_gru1_bwd": (_I, [_P, _I, _P, _P, _P] + [_P] * 4 + [_P] * 5 + [_P] * 5 + [_I] * 3 + [_P]),
     "tsl_beam_decode": (_I, [_P] * 14 + [_I] * 9 + [_P]),
     "tsl_beam_decode_smem_bytes": (ctypes.c_longlong, [_I] * 7),
     "tsl_sinc_frontend_fwd": (_I, [_P] * 3 + [_I] * 8 + [_P]),
     "tsl_bigru_shared_fwd_rs": (_I, [_P, _I, _P, _I] + [_P] * 8 + [_P] * 3 + [_I] * 5 + [_P]),
+    "tsl_gemm_proj": (_I, [_P, _I, _P, _I, _P, _P, _P, _I, _I, _P]),
+    "tsl_gemm_dx": (_I, [_P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P]),
+    "tsl_gemm_dw": (_I, [_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _P]),
     "tsl_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -119,6 +123,16 @@ def library():
                 fn.argtypes = argtypes
             _lib = lib
         return _lib
+
+
+def partial_floats(d1: int, d2: int, H: int, M: int, ndir: int) -> int:
+    """Floats of the dW workspace of K3 (``ndir`` 2, parts ``d1``, ``d2``), K4b
+    (2, ``d2`` 0) and K5b (1, ``d2`` 0) over M = T*B rows on the current
+    device: one slot for each row chunk of the reduction."""
+    n = library().tsl_bigru_shared_bwd_partial_floats(d1, d2, H, M, ndir)
+    if n < 0:
+        raise RuntimeError("tsl_bigru_shared_bwd_partial_floats: CUDA error")
+    return n
 
 
 def check(err: int, what: str) -> None:

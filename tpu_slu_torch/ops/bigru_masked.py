@@ -208,7 +208,7 @@ def bigru_masked_bwd(params: dict, x: torch.Tensor, out: torch.Tensor, n: torch.
                  "weight_hh": empty(3 * H, H), "bias_hh": empty(3 * H)} for d in _DIRS}
     hp, gates = empty(2, B, T, H), empty(2, B, T, 4 * H)
     buf_a, buf_b = empty(2, B, T, 3 * H), empty(2, B, T, 3 * H)
-    partial = empty(lib.tsl_bigru_shared_bwd_partial_floats(D, H))
+    partial = empty(_build.partial_floats(D, 0, H, B * T, 2))
     err = lib.tsl_bigru_masked_bwd(
         x.data_ptr(), D, lengths.data_ptr(), out.data_ptr(), dy.data_ptr(),
         *[t.data_ptr() for t in _weights(params)],

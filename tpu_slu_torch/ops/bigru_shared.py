@@ -393,7 +393,7 @@ def bigru_shared_bwd(params: dict, parts, hp_f, hp_b, dy_f, dy_b, *, pool: int =
     buf_a, buf_b = empty(2, T, B, 3 * H), empty(2, T, B, 3 * H)
     gates = empty(2, T, B, 4 * H)
     dyx = empty(2, T, B, H) if fused else None
-    partial = empty(lib.tsl_bigru_shared_bwd_partial_floats(D, H))
+    partial = empty(_build.partial_floats(parts[0].shape[-1], D - parts[0].shape[-1], H, T * B, 2))
     err = lib.tsl_bigru_shared_bwd(
         *_part_ptrs(parts), hp_f.data_ptr(), hp_b.data_ptr(), dy_f.data_ptr(), dy_b.data_ptr(),
         *_ptrs(params), dxs[0].data_ptr(), dxs[1].data_ptr() if len(dxs) == 2 else None,

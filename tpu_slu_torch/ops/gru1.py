@@ -13,8 +13,9 @@ Each kernel has a wrapper, which launches it on a CUDA tensor and runs its
 plain PyTorch version on a CPU tensor, and keeps a count of its launches:
 
 * K5f, the forward: :func:`gru1_fwd`, counted on ``gru1.launches``
-  (``csrc/bigru_masked_fwd.cu``, the one-direction instantiation of K4f's
-  recurrence);
+  (``csrc/bigru_masked_fwd.cu`` ``gru1_cluster_kernel``: a thread-block
+  cluster a batch tile, W_hh split by hidden units over its CTAs, the
+  cluster's size chosen from the batch, :func:`gru1_cluster_size`);
 * K5b, the backward: :func:`gru1_bwd`, counted on ``gru1_bwd.launches``
   (``csrc/bigru_masked_bwd.cu``, the one-direction instantiation of K4b).
 
@@ -64,6 +65,16 @@ def _lengths(n: torch.Tensor | None) -> tuple[torch.Tensor | None, int | None]:
     return n, n.data_ptr()
 
 
+def gru1_cluster_size(B: int) -> int:
+    """The CTAs in a cluster of K5f's recurrence at batch B on the current
+    card: 4 while every row gets a cluster of its own in one wave of its
+    SMs, else 2."""
+    C = _build.library().tsl_gru1_cluster_size(B)
+    if C < 0:
+        raise RuntimeError("tsl_gru1_cluster_size: CUDA error")
+    return C
+
+
 def gru1_fwd(params: dict, x: torch.Tensor, n: torch.Tensor | None = None) -> torch.Tensor:
     """K5f: ``(B, T, H)`` as :func:`gru1_reference`.
 
@@ -72,14 +83,16 @@ def gru1_fwd(params: dict, x: torch.Tensor, n: torch.Tensor | None = None) -> to
     ``bias_hh`` (3H,), torch layout. CPU tensors take the plain version.
     CUDA tensors launch the kernel on the current stream without
     synchronising; ``n`` None reads nothing on the host, a given ``n`` is
-    range-checked there. Anything the kernel does not take raises. Records
-    no autograd graph on CUDA.
+    range-checked there. Anything the kernel does not take raises, H past
+    128 too. Records no autograd graph on CUDA.
     """
     if device_of("gru1", x).type == "cpu":
         return gru1_reference(params, x, n)
     if "bwd" in params:
         raise ValueError("gru1: params hold a backward direction; a bidirectional layer is bigru_masked's")
     B, T, D, H = check_layer("gru1", params, x, n)
+    if H > 128:
+        raise ValueError(f"gru1: the kernel holds W_hh in registers for H <= 128, got H={H}")
     lib = _build.library()
     p = params["fwd"]
     lengths, lengths_ptr = _lengths(n)
@@ -119,7 +132,7 @@ def gru1_bwd(params: dict, x: torch.Tensor, out: torch.Tensor, n: torch.Tensor |
              "bias_hh": empty(3 * H)}
     hp, gates = empty(B, T, H), empty(B, T, 4 * H)
     buf_a, buf_b = empty(B, T, 3 * H), empty(B, T, 3 * H)
-    partial = empty(lib.tsl_bigru_shared_bwd_partial_floats(D, H))
+    partial = empty(_build.partial_floats(D, 0, H, B * T, 1))
     p = params["fwd"]
     lengths, lengths_ptr = _lengths(n)
     err = lib.tsl_gru1_bwd(
