@@ -9,7 +9,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 
 1. environment: torch, the card, its power limit and nvcc; torch's TF32
    flags are left at their defaults, as a user has them;
-2. build: compiles ``tpu_slu_torch/csrc/*.cu`` with nvcc;
+2. build: compiles ``tpu_slu_torch/csrc/*.cu`` with nvcc, and beside it two
+   developer copies of one source each (``VARIANTS``): K1 on the cluster
+   size its rule does not pick, and K7 with clocks by phase;
 3. K1 (the shared-stream bi-GRU kernel) against its plain PyTorch version
    on the card, over parts, pools, odd and even T, B and H = 128; the front
    end's convs and their gradients on the card against an f64 conv on the
@@ -19,7 +21,11 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 5. flagship slice: ``decode_intents`` at the width of
    ``experiments/no_unfreezing.cfg`` with seeded random weights at B = 1 and
    16, logits held against the same model on the CPU, then warm timings of
-   ``predict_intents`` and of K1 alone against its plain version;
+   ``predict_intents`` (and its ``[profile]`` at B = 16) and of K1 alone
+   against its plain version, with its us a step and cluster size;
+   ``[k1-batch]`` K1's five layers on clusters of 2 and of 4 CTAs in turns
+   at B = 1, 16 and 64 (the rule's size in the port's library, the other
+   in the ``k1_other_c`` variant), each held against the plain version first;
 6. flagship train step at the width of ``experiments/no_pretraining.cfg``:
    K2 (train forward) and K3 (backward) against their plain versions at the
    flagship layer shapes; the pooled eval path's gradients against autograd
@@ -45,8 +51,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    decode against the exact-shape B = 8 decode, and the served latency;
 8. seq2seq decode and serving at the width of ``all_real_seq2seq.cfg``:
    ``[k7]`` K7 (the fused beam search) against its plain version at the
-   flagship decoder (B = 1, 16, and 8 with mixed valid frames; 30 s, 188
-   frames, at B = 1 and 4, and an odd T of 171; W = 9 and 16; W = 20 and 32,
+   flagship decoder (B = 1, 16, 17, 64, 133 and 8 with mixed valid frames,
+   so that several cluster sizes and a second wave are reached; 30 s, 188
+   frames, at B = 1 and 4, and an odd T of 171; W = 9, 16 and 20; W = 25,
+   the widest smem plan, at B = 33 and 133, on small clusters; W = 32,
    at 4 s and 30 s, on the global plan: the plan in device memory, counted
    on ``beam_decode.launches_global``), the golden
    decoder, an odd small one and W = 1, tokens equal (a row that differs
@@ -57,8 +65,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    flagship seq2seq decode at B = 1 and 16 and on 30 s of audio against the CPU plain path (beam-0 tokens equal, scores
    within 1e-3 relative), and a length-exact (8, 4 s) decode whose rows
    equal their exact-shape decodes; ``[time]`` K7 against its plain
-   version and bound at B = 1 and 16 on 4 s and 30 s, and at W = 16 (smem
-   plan), 20 and 32 (global plan), the warm decode, its device time by kernel; ``[serve]`` the seq2seq ``IntentServer`` with the traffic
+   version and bound at B = 1 and 16 on 4 s and 30 s, with its cluster size
+   and plan, and its step split by phase from a traced build of the kernel
+   (the ``k7_trace`` variant), and at W = 16, 20 (smem plan) and 32 (global
+   plan), the warm decode, its device time by kernel; ``[serve]`` the seq2seq ``IntentServer`` with the traffic
    of phase 7, one K7 and five K4f launches per device call, p50/p90;
 9. seq2seq train step at the width of ``all_real_seq2seq.cfg``: ``[k4b]``
    K4b (the length-masked bi-GRU backward) against its plain version at the
@@ -160,6 +170,7 @@ ENC_SHAPES = [("phone_rnn0", 60, 1, 400), ("phone_rnn1", 128, 2, 200),
 INTENT_SHAPE = ("intent_rnn0", 256, 1, 25)
 # the five bi-GRU layers of a flagship decode at 4 s: name, part width, parts, T, pool
 FLAGSHIP_LAYERS = [(*s, 2) for s in ENC_SHAPES] + [(*INTENT_SHAPE, 1)]
+K1_STEPS = sum(T for *_, T, _ in FLAGSHIP_LAYERS)  # serial steps of the five layers: 775
 K4F_SOURCE = "tpu_slu_torch/csrc/bigru_masked_fwd.cu"
 K4F_REPLACES = "tpu_slu/ops/pallas_gru.py:323"
 EXACT_LOGIT_ATOL = 1e-4  # length-exact (K4f) vs exact-shape (K1) decode on the card, same weights
@@ -196,6 +207,69 @@ def smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+# Developer copies of one kernel source each, for the A/Bs and the K7 trace: name -> (source in
+# tpu_slu_torch/csrc, [(text, its replacement)], nvcc flags). Never the port's library.
+_RULE_K1 = "*C = (ndir == 1 ? 4 * B <= sms : 4 * 8 * B <= 3 * sms) ? 4 : 2;"
+_TILE_C4 = "if (C == 4) return nb == 1 ? launch_gru_cluster<4, 1, POOL>(a, ndir, st) : cudaErrorInvalidValue;"
+VARIANTS = {
+    # K1 on the cluster size its rule does not pick (2 <-> 4), with the 4-row tile C = 4
+    # then takes at B = 64
+    "k1_other_c": ("bigru_shared_fwd.cu", [
+        (_RULE_K1, _RULE_K1.replace("4 * 8 * B <= 3 * sms", "4 * 8 * B > 3 * sms")),
+        (_TILE_C4, _TILE_C4.replace(" : cudaErrorInvalidValue", " : nb == 4 ? launch_gru_cluster<4, 4, POOL>"
+                                                                "(a, ndir, st) : cudaErrorInvalidValue"))], []),
+    # K7 recording its first utterance's clocks by phase (tsl_beam_trace)
+    "k7_trace": ("beam_decode.cu", [], ["-DTSL_TRACE"]),
+}
+
+
+def start_variant(name: str, source: str, edits, flags) -> tuple[subprocess.Popen, str]:
+    """Start compiling a copy of ``tpu_slu_torch/csrc`` with ``edits`` (each
+    text in exactly one file of it, every occurrence replaced) as the shared
+    library of ``source`` alone, with nvcc ``flags``, into
+    ``build/variants/<name>.so``. Returns the process and the path."""
+    from tpu_slu_torch.ops import _build
+
+    out_dir = os.path.join(HERE, "build", "variants", name)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.copytree(_build.CSRC, out_dir)
+    texts = {}
+    for fn in os.listdir(out_dir):
+        with open(os.path.join(out_dir, fn)) as f:
+            texts[fn] = f.read()
+    for old, new in edits:
+        where = [fn for fn, t in texts.items() if old in t]
+        if len(where) != 1:
+            raise SystemExit(f"variant {name}: {old!r} is in {where or 'no file'} of tpu_slu_torch/csrc")
+        texts[where[0]] = texts[where[0]].replace(old, new)
+    for fn, t in texts.items():
+        with open(os.path.join(out_dir, fn), "w") as f:
+            f.write(t)
+    path = f"{out_dir}.so"
+    cmd = [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", *flags, "-shared", "-Xcompiler",
+           "-fPIC", "-o", path, os.path.join(out_dir, source)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), path
+
+
+def load_variant(name: str, proc: subprocess.Popen, path: str):
+    """Wait for ``start_variant``'s build and load it, its entry points
+    typed as the port's library types them."""
+    import ctypes
+
+    from tpu_slu_torch.ops import _build
+
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"variant {name} failed to compile ({proc.returncode}):\n{err}")
+    lib = ctypes.CDLL(path)
+    sigs = {**_build._SIGNATURES, "tsl_beam_trace": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_int])}
+    for fn, (restype, argtypes) in sigs.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+    return lib
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -511,6 +585,69 @@ def step_vs_cpu(dev, rng, tag: str, **overrides) -> None:
           f"{STEP_GRAD_TOL}); params after masked Adam from equal gradients within {p_err:.3g} "
           f"(atol {STEP_PARAM_ATOL}); from each side's own gradients {flips} of {n_params} would "
           f"differ by more than {STEP_PARAM_ATOL}")
+
+
+def k1_cluster_ab(dev, card: str, rng, other_lib, batches=(1, 16, 64)) -> dict:
+    """``[k1-batch]``: K1's five flagship layers back to back at clusters of
+    2 and of 4 CTAs, in turns (the size K1 takes at that B first, the other,
+    the other, the first), at B = 1, 16 and 64; each size takes the smallest
+    batch tile that keeps the grid in one wave. The rule's size runs in the
+    port's library, the other in ``other_lib``, the ``k1_other_c`` variant
+    (``VARIANTS``), both through their ``tsl_bigru_shared_fwd``. Both sizes'
+    outputs are held against the plain version first. Returns {"B=..":
+    {"C": rule's size, "C=2": [ms, ms], "C=4": [ms, ms]}}."""
+    import torch
+
+    from tpu_slu_torch.ops import _build
+    from tpu_slu_torch.ops.bigru_shared import bigru_cluster_size, bigru_shared_reference
+
+    out = {}
+    for B in batches:
+        cases = []
+        for name, d, n_parts, T, pool in FLAGSHIP_LAYERS:
+            params, parts = k1_case(rng, n_parts, d, T, B, 128, dev)
+            To = -(-T // pool)
+            bufs = (torch.empty((2, T, B, 384), device=dev), torch.empty((To, B, 128), device=dev),
+                    torch.empty((To, B, 128), device=dev))
+            cases.append((params, parts, pool, bufs))
+
+        rule = bigru_cluster_size(B)
+        other = other_lib.tsl_bigru_shared_cluster_size(B)
+        if {rule, other} != {2, 4}:
+            raise AssertionError(f"K1's A/B at B={B}: clusters of {rule} and {other}, want 2 and 4")
+        libs = {rule: _build.library(), other: other_lib}
+
+        def five(C, cases=cases, B=B):
+            def run():
+                for params, parts, pool, (gi, h_f, h_b) in cases:
+                    x2 = parts[1] if len(parts) == 2 else None
+                    err = libs[C].tsl_bigru_shared_fwd(
+                        parts[0].data_ptr(), parts[0].shape[-1], None if x2 is None else x2.data_ptr(),
+                        0 if x2 is None else x2.shape[-1],
+                        *[params[dr][k].data_ptr() for dr in ("fwd", "bwd")
+                          for k in ("weight_ih", "bias_ih", "weight_hh", "bias_hh")],
+                        gi.data_ptr(), h_f.data_ptr(), h_b.data_ptr(), parts[0].shape[0], B, 128, pool, 0,
+                        torch.cuda.current_stream(dev).cuda_stream)
+                    _build.check(err, f"tsl_bigru_shared_fwd on clusters of {C} (B={B})")
+            return run
+
+        for C in (rule, other):
+            five(C)()
+            torch.cuda.synchronize()
+            for params, parts, pool, (_, h_f, h_b) in cases:
+                r_f, r_b = bigru_shared_reference(params, parts, pool=pool)
+                if not (torch.allclose(h_f, r_f, atol=ATOL, rtol=RTOL) and torch.allclose(h_b, r_b, atol=ATOL, rtol=RTOL)):
+                    raise AssertionError(f"K1 on clusters of {C} at B={B} disagrees with its plain version")
+        turns = {rule: [], other: []}
+        for C in (rule, other, other, rule):
+            turns[C].append(cuda_ms(five(C), reps=10, warmup=2))
+        out[f"B={B}"] = {"C": rule, **{f"C={C}": v for C, v in sorted(turns.items())}}
+        faster_c = min(turns, key=lambda C: statistics.mean(turns[C]))
+        print(f"[k1-batch] K1 five layers B={B:2d}, in turns: clusters of {rule} (the rule's) "
+              f"{turns[rule][0]:.4f}, of {other} {turns[other][0]:.4f}, {turns[other][1]:.4f}, of {rule} "
+              f"{turns[rule][1]:.4f} ms ({1e3 * statistics.mean(turns[rule]) / K1_STEPS:.3f} against "
+              f"{1e3 * statistics.mean(turns[other]) / K1_STEPS:.3f} us a step); faster: {faster_c} on {card}")
+    return out
 
 
 def phase_train(dev, card: str, rng) -> tuple[list[dict], int]:
@@ -882,6 +1019,42 @@ def k7_work(B: int, T: int, W: int, U: int, nl: int, H: int, K: int, V: int, L: 
     return float(row) * W * B * U, 4.0 * (B * T * (K + V) + weights + W * B) + 8.0 * W * B * U
 
 
+def k7_round_split(trace_lib, dec, keys, values, U: int, ms: float, card: str) -> dict:
+    """One K7 search through ``trace_lib``, a build of ``beam_decode.cu``
+    with ``TSL_TRACE`` (the ``k7_trace`` variant, or a tool's): the first
+    utterance's step split by phase as one CTA's thread 0 sees it, its own
+    products and then its wait for each exchange round, scaled to ``ms``,
+    the served kernel's time; printed and returned in us a step."""
+    import ctypes
+
+    import torch
+
+    from tpu_slu_torch.ops import _build
+    from tpu_slu_torch.ops.beam_fused import beam_decode
+
+    nl = dec.initial_state.shape[0]
+    served = _build.library()
+    _build._lib = trace_lib
+    try:
+        with torch.inference_mode():
+            beam_decode(dec, keys, values, None, 4, U)
+        torch.cuda.synchronize()
+    finally:
+        _build._lib = served
+    clocks = (ctypes.c_longlong * (2 * nl + 5))()
+    _build.check(trace_lib.tsl_beam_trace(clocks, 2 * nl + 5), "tsl_beam_trace")
+    clocks = list(clocks)
+    names = (["prologue", "attention + embedding"]
+             + [f"layer {li} {part}" for li in range(nl) for part in ("products", "exchange wait")]
+             + ["head products", "head exchange wait", "log-softmax, top-W, reorder"])
+    us = 1e3 * ms / U / sum(clocks[1:])  # us a clock of a step, from the untraced time
+    split = {n: c * us for n, c in zip(names, clocks) if n != "prologue"}
+    print(f"[time] K7 B={keys.shape[0]:2d} T={keys.shape[1]:3d} W=4 step by phase (traced clocks, scaled to "
+          f"{1e3 * ms / U:.2f} us a step): " + ", ".join(f"{n} {v:.2f} us" for n, v in split.items())
+          + f" on {card}")
+    return split
+
+
 def compare_searches(what: str, run, ref_run, U: int) -> tuple[object, object, list[int], list[str]]:
     """Hold a beam search against a reference: ``run(n)`` and ``ref_run(n)``
     give (scores (W, B), tokens (W, B, n)) of searches of n steps, on the CPU.
@@ -925,7 +1098,7 @@ def compare_searches(what: str, run, ref_run, U: int) -> tuple[object, object, l
     return got, ref, rows, notes
 
 
-def phase_seq2seq(dev, card: str, rng) -> dict:
+def phase_seq2seq(dev, card: str, rng, trace_lib) -> dict:
     """Phase 8: seq2seq decode and serving. Returns K7's JSON entry; its
     launches are those of the served run."""
     import threading
@@ -940,7 +1113,7 @@ def phase_seq2seq(dev, card: str, rng) -> dict:
     from tpu_slu_torch.models.slu import Seq2SeqArch, Seq2SeqDecoder
     from tpu_slu_torch.ops import beam as plain
     from tpu_slu_torch.ops.attention import attention_kv
-    from tpu_slu_torch.ops.beam_fused import SMEM_LIMIT, beam_decode
+    from tpu_slu_torch.ops.beam_fused import SMEM_LIMIT, beam_cluster_size, beam_decode
     from tpu_slu_torch.ops import _build
     from tpu_slu_torch.ops.bigru_masked import bigru_masked
     from tpu_slu_torch.ops.bigru_shared import bigru_shared
@@ -973,7 +1146,9 @@ def phase_seq2seq(dev, card: str, rng) -> dict:
              ("flagship odd T", 3, 171, *flag, 4, U, True), ("flagship W=9", 2, 25, *flag, 9, U, False),
              ("flagship W=16", 2, 25, *flag, 16, U, True), ("flagship W=20", 2, 25, *flag, 20, U, False),
              ("flagship W=32", 2, 25, *flag, 32, U, True), ("flagship 30 s W=20", 1, 188, *flag, 20, U, True),
-             ("flagship 30 s W=32", 2, 188, *flag, 32, U, False)]
+             ("flagship 30 s W=32", 2, 188, *flag, 32, U, False), ("flagship B=17", 17, 25, *flag, 4, U, True),
+             ("flagship B=64", 64, 25, *flag, 4, U, True), ("flagship two waves", 133, 25, *flag, 4, 40, True),
+             ("flagship W=25", 33, 25, *flag, 25, U, True), ("flagship W=25 waves", 133, 25, *flag, 25, U, False)]
     plan_bytes = _build.library().tsl_beam_decode_smem_bytes
     for i, (name, B, T, nl, H, K, V, L, W, Ub, mixed) in enumerate(cases):
         dec = decoder(i, nl, H, K, V, L)
@@ -988,10 +1163,11 @@ def phase_seq2seq(dev, card: str, rng) -> dict:
             beam_decode(dec, keys, values, n, W, Ub)
         torch.cuda.synchronize()
         launched = beam_decode.launches - before[0], beam_decode.launches_global - before[1]
-        if launched != (1, int(global_plan)) or global_plan != (W >= 20 and (nl, H, K, V, L) == flag):
+        if launched != (1, int(global_plan)) or global_plan != (W >= 26 and (nl, H, K, V, L) == flag):
             raise AssertionError(f"K7 {name} B={B} T={T} W={W}: launches +{launched[0]}, of them +{launched[1]} "
-                                 f"with the global plan; want 1 launch, on the global plan from W = 20 at the "
+                                 f"with the global plan; want 1 launch, on the global plan from W = 26 at the "
                                  "flagship decoder")
+        C = beam_cluster_size(B, T, W, nl, H, K, V, L, Ub)
 
         def search(fn):
             def steps(n_steps):
@@ -1007,11 +1183,11 @@ def phase_seq2seq(dev, card: str, rng) -> dict:
             raise AssertionError(f"K7 {name} B={B}: scores off the plain version's by {err:.3g}")
         k7_ties += notes
         print(f"[k7] {name:18s} B={B:2d} T={T:3d} layers={nl} H={H:3d} K={K:3d} V={V:3d} L={L:3d} W={W:2d} U={Ub:3d} "
-              f"{'global' if global_plan else 'smem'} plan"
+              f"{'global' if global_plan else 'smem'} plan, clusters of {C}"
               f"{' mixed valid frames ' + str(n.tolist()) if mixed else ''}: tokens equal in {len(rows)} of {B} "
               f"rows, scores max abs err {err:.3g}" + "".join(f"; {t}" for t in notes))
     print(f"[k7] tokens equal in every row but {len(k7_ties)} that parted at a tie; scores within rtol 1e-5 "
-          f"atol 1e-4, max abs err {k7_err:.3g}; plans past {SMEM_LIMIT} bytes of shared memory (W >= 20 at "
+          f"atol 1e-4, max abs err {k7_err:.3g}; plans past {SMEM_LIMIT} bytes of shared memory (W >= 26 at "
           "the flagship decoder) lie in device memory")
 
     # 8.2 the golden seq2seq checkpoint on the card: one K7 launch a decode, no plain search
@@ -1133,8 +1309,9 @@ def phase_seq2seq(dev, card: str, rng) -> dict:
           f"and 5 K4f launches; tokens equal the row's exact-shape decode's in {len(rows)} of {SERVE_BATCH} rows"
           + "".join(f"; {t}" for t in notes))
 
-    # 8.4 timings: K7 against its plain version at 4 s and 30 s, the warm decode, its
-    # device time by kernel
+    # 8.4 timings: K7 against its plain version at 4 s and 30 s, with its cluster size and
+    # plan, the step's split by phase (the kernel's trace), the warm decode, its device
+    # time by kernel
     k7_ms = {}
     for B, T in ((1, 25), (16, 25), (1, 188), (16, 188)):
         keys, values = kv(model.decoder, B, T)
@@ -1143,18 +1320,22 @@ def phase_seq2seq(dev, card: str, rng) -> dict:
                                 lambda: beam_decode(model.decoder, keys, values, None, 4, U))
         w = k7_work(B, T, 4, U, *flag)
         k7_ms[B, T] = (kern, pl, *bound(*w))
-        print(f"[time] K7 flagship B={B:2d} T={T:3d} W=4 U={U}: kernel "
-              f"{kern:.4f} ms ({kern / U * 1e3:.2f} us a step), plain {pl:.3f} ms, bound {k7_ms[B, T][2]:.4f} ms "
-              f"({k7_ms[B, T][3]}: {w[0] / 1e9:.2f} GFLOP, {w[1] / 1e6:.2f} MB) on {card}")
-    # the widest smem plan's neighbour against the global plan, at B = 16, 4 s
+        print(f"[time] K7 flagship B={B:2d} T={T:3d} W=4 U={U}, clusters of {beam_cluster_size(B, T, 4, *flag, U)}, "
+              f"smem plan: kernel {kern:.4f} ms ({kern / U * 1e3:.2f} us a step), plain {pl:.3f} ms, bound "
+              f"{k7_ms[B, T][2]:.4f} ms ({k7_ms[B, T][3]}: {w[0] / 1e9:.2f} GFLOP, {w[1] / 1e6:.2f} MB) on {card}")
+    k7_split = {f"B={B} T={T}": k7_round_split(trace_lib, model.decoder, *kv(model.decoder, B, T), U,
+                                               k7_ms[B, T][0], card)
+                for B, T in ((1, 25), (16, 25))}
+    # wide beams at B = 16, 4 s: W = 16 and 20 on the smem plan, 32 on the global one
     keys, values = kv(model.decoder, 16, 25)
     for W in (16, 20, 32):
         with torch.inference_mode():
             k7_ms["W", W] = cuda_ms(lambda: beam_decode(model.decoder, keys, values, None, W, U), reps=3, warmup=1)
         plan = "global" if plan_bytes(W, *flag, U) > SMEM_LIMIT else "smem"
-        print(f"[time] K7 flagship B=16 T= 25 W={W} U={U}, {plan} plan of {plan_bytes(W, *flag, U)} bytes a CTA: "
-              f"kernel {k7_ms['W', W]:.4f} ms ({k7_ms['W', W] / U * 1e3:.2f} us a step), bound "
-              f"{bound(*k7_work(16, 25, W, U, *flag))[0]:.4f} ms on {card}")
+        print(f"[time] K7 flagship B=16 T= 25 W={W} U={U}, clusters of {beam_cluster_size(16, 25, W, *flag, U)}, {plan} "
+              f"plan of {plan_bytes(W, *flag, U)} bytes a CTA: kernel {k7_ms['W', W]:.4f} ms "
+              f"({k7_ms['W', W] / U * 1e3:.2f} us a step), bound {bound(*k7_work(16, 25, W, U, *flag))[0]:.4f} ms "
+              f"on {card}")
     for B in (1, 16):
         xd = torch.from_numpy(x[:B]).to(dev)
         ms = cuda_ms(lambda: model.predict_intents(xd), reps=10, warmup=2)
@@ -1193,7 +1374,10 @@ def phase_seq2seq(dev, card: str, rng) -> dict:
             "launches": launches["K7"], "max_abs_err": k7_err, "ms": k7_ms[16, 25][0],
             "plain_ms": k7_ms[16, 25][1], "bound_ms": k7_ms[16, 25][2], "bound_by": k7_ms[16, 25][3],
             "library_ms": None, "ms_30s": k7_ms[16, 188][0], "plain_ms_30s": k7_ms[16, 188][1],
-            "bound_ms_30s": k7_ms[16, 188][2], "ms_w16": k7_ms["W", 16], "ms_w20_global": k7_ms["W", 20],
+            "bound_ms_30s": k7_ms[16, 188][2], "ms_b1": k7_ms[1, 25][0], "ms_30s_b1": k7_ms[1, 188][0],
+            "us_per_step": k7_ms[16, 25][0] / U * 1e3, "cluster_by_batch": {
+                str(B): beam_cluster_size(B, 25, 4, *flag, U) for B in (1, 16, 17, 33, 64, 133)},
+            "round_split_us": k7_split, "ms_w16": k7_ms["W", 16], "ms_w20": k7_ms["W", 20],
             "ms_w32_global": k7_ms["W", 32]}
 
 
@@ -2000,7 +2184,7 @@ def main() -> None:
     from tpu_slu_torch.data.audio import read_wav
     from tpu_slu_torch.models.flagship import flagship_model
     from tpu_slu_torch.ops import _build
-    from tpu_slu_torch.ops.bigru_shared import bigru_shared, bigru_shared_reference
+    from tpu_slu_torch.ops.bigru_shared import bigru_cluster_size, bigru_shared, bigru_shared_reference
     from tpu_slu_torch.ops.conv import conv1d
     from tpu_slu_torch.ops.sinc import mel_init, sinc_filters
     from tpu_slu_torch.serving import load_trained_model
@@ -2017,11 +2201,14 @@ def main() -> None:
     print("[env] TF32 flags left at torch's defaults, as a user has them: the port runs its "
           "convs in cuDNN with TF32 off per call (checked below) and K1 in f32 CUDA code")
 
-    # 2. build
+    # 2. build: the port's library, and the variants of the A/B and the trace beside it
     t0 = time.perf_counter()
+    builds = {name: start_variant(name, *v) for name, v in VARIANTS.items()}
     lib_path = _build.build(verbose=True)
     _build.library()
-    print(f"[build] {os.path.relpath(lib_path, HERE)} in {time.perf_counter() - t0:.1f} s")
+    variants = {name: load_variant(name, *b) for name, b in builds.items()}
+    print(f"[build] {os.path.relpath(lib_path, HERE)} and the variants {sorted(variants)} in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # 3. K1 against its plain version on the card
     rng = np.random.default_rng(0)
@@ -2157,6 +2344,8 @@ def main() -> None:
         decode_ms[B] = cuda_ms(lambda: model.predict_intents(xd), reps=30, warmup=5)
         print(f"[time] warm predict_intents B={B:2d}, 4 s audio: median {decode_ms[B]:.3f} ms "
               f"of 30 (CUDA events) on {card}")
+    xd = torch.from_numpy(batches[16]).to(dev)
+    profile_calls(lambda: model.predict_intents(xd), "fixed-slot predict_intents B=16, 4 s", card)
 
     # K1 alone at the five flagship layer shapes (input width, parts, T, pool)
     totals = {B: [0.0, 0.0, 0.0] for B in batches}  # kernel, plain, cuDNN nn.GRU
@@ -2181,9 +2370,11 @@ def main() -> None:
             print(f"[time] K1 {name:11s} B={B:2d} D={D:3d} T={T:3d} pool={pool}: kernel {k_ms:.4f} ms, "
                   f"plain {p_ms:.3f} ms, cuDNN nn.GRU {lib_ms:.4f} ms, bound {bound(*w)[0]:.4f} ms "
                   f"({bound(*w)[1]}), max abs err {err:.3g}")
-        print(f"[time] K1 five flagship layers B={B:2d}: kernel {totals[B][0]:.4f} ms, "
+        print(f"[time] K1 five flagship layers B={B:2d}: kernel {totals[B][0]:.4f} ms "
+              f"({1e3 * totals[B][0] / K1_STEPS:.3f} us a step, clusters of {bigru_cluster_size(B)}), "
               f"plain {totals[B][1]:.3f} ms, cuDNN nn.GRU {totals[B][2]:.4f} ms on {card}")
     k1_bound, k1_by = bound(*k1_work)
+    k1_ab = k1_cluster_ab(dev, card, rng, variants["k1_other_c"])
 
     # 6. flagship train step
     train_kernels, k1_train_launches = phase_train(dev, card, rng)
@@ -2192,7 +2383,7 @@ def main() -> None:
     k4f = phase_serve(dev, card, rng, golden, expected)
 
     # 8. seq2seq decode and serving
-    k7 = phase_seq2seq(dev, card, rng)
+    k7 = phase_seq2seq(dev, card, rng, variants["k7_trace"])
 
     # 9. seq2seq train step
     k4b = phase_s2s_train(dev, card, rng)
@@ -2211,7 +2402,9 @@ def main() -> None:
         "name": "bigru_shared_fwd", "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
         "launches": k1_train_launches, "launches_decode": launches, "max_abs_err": max_err,
         "ms": totals[16][0], "plain_ms": totals[16][1], "bound_ms": k1_bound, "bound_by": k1_by,
-        "library_ms": totals[16][2],
+        "library_ms": totals[16][2], "us_per_step": 1e3 * totals[16][0] / K1_STEPS, "ms_b1": totals[1][0],
+        "library_ms_b1": totals[1][2], "cluster_by_batch": {str(B): bigru_cluster_size(B) for B in (1, 16, 64)},
+        "ab_cluster": k1_ab,
     }] + train_kernels + [k4f, k7, k4b] + uni + routes}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

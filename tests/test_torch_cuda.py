@@ -14,7 +14,7 @@ import torch
 from tpu_slu_torch.models.slu import Seq2SeqArch, Seq2SeqDecoder
 from tpu_slu_torch.ops.attention import attention_kv
 from tpu_slu_torch.ops.beam import beam_search_reference
-from tpu_slu_torch.ops.beam_fused import SMEM_LIMIT, beam_decode
+from tpu_slu_torch.ops.beam_fused import SMEM_LIMIT, beam_cluster_size, beam_decode
 from tpu_slu_torch.ops.bigru_masked import (
     bigru_masked,
     bigru_masked_bwd,
@@ -22,6 +22,7 @@ from tpu_slu_torch.ops.bigru_masked import (
     bigru_masked_reference,
 )
 from tpu_slu_torch.ops.bigru_shared import (
+    bigru_cluster_size,
     bigru_shared,
     bigru_shared_bwd,
     bigru_shared_bwd_reference,
@@ -63,7 +64,7 @@ def k1_inputs(seed, dims, T, B, H, dev):
 
 
 @pytest.mark.cuda
-# B = 100 and 300 take the kernel's batch tiles of 2 and 8 rows on a 132-SM card
+# B = 100 and 300 take the kernel's batch tiles of 4 and 8 rows on a 132-SM card
 @pytest.mark.parametrize("B,T", [(1, 1), (1, 21), (1, 400), (3, 21), (16, 21), (16, 400), (100, 21), (300, 21)])
 @pytest.mark.parametrize("pool,method", POOLS)
 @pytest.mark.parametrize("dims", [(60,), (128, 128)], ids=["parts1", "parts2"])
@@ -86,6 +87,88 @@ def test_k1_matches_plain_at_golden_widths(dev, H, dims):
     ref = bigru_shared_reference(params, parts, pool=2)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+
+
+# On an H100's 132 SMs, K1 takes clusters of 4 CTAs at B <= 12 (2 x 4 x B CTAs, at most three
+# quarters of the SMs) and of 2 past it, with batch tiles of 1 (B <= 33), 2 (B <= 66), 4 (B <= 132)
+# and 8 rows (B = 300, two waves)
+_K1_BATCHES = [1, 2, 12, 16, 17, 33, 64, 100, 300]
+
+
+@pytest.mark.cuda
+def test_k1_cluster_size_follows_the_batch(dev):
+    """4 CTAs a cluster while both directions' clusters of 4 fill at most
+    three quarters of the SMs, else 2; the batches below reach both sizes."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for B in (1, 2, 12, 13, 16, 17, 33, 34, 64, 100, 300):
+        assert bigru_cluster_size(B) == (4 if 32 * B <= 3 * sms else 2), B
+    assert {bigru_cluster_size(B) for B in _K1_BATCHES} == {2, 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 21, 400])
+@pytest.mark.parametrize("B", _K1_BATCHES)
+@pytest.mark.parametrize("pool,method", POOLS)
+@pytest.mark.parametrize("dims", [(60,), (128, 128)], ids=["parts1", "parts2"])
+def test_k1_cluster_recurrence_matches_plain(dev, dims, pool, method, B, T):
+    """K1 on the clusters and batch tiles it takes at batch B against
+    ``bigru_shared_reference``, within 1e-4; one launch a call."""
+    params, parts = k1_inputs(3, dims, T, B, 128, dev)
+    before = bigru_shared.launches
+    with torch.inference_mode():
+        got = bigru_shared_fwd(params, parts, pool=pool, pool_method=method)
+    torch.cuda.synchronize()
+    assert bigru_shared.launches == before + 1
+    ref = bigru_shared_reference(params, parts, pool=pool, pool_method=method)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape == (-(-T // pool), B, 128)
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)  # f32 sums in another order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 17, 64, 300])
+def test_k1_repeats_bit_for_bit(dev, B):
+    """Two calls on the same inputs give the same bits: no atomics, a fixed
+    order of every sum."""
+    params, parts = k1_inputs(4, (128, 128), 50, B, 128, dev)
+    with torch.inference_mode():
+        first = bigru_shared_fwd(params, parts, pool=2)
+        again = bigru_shared_fwd(params, parts, pool=2)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["k1", "k6", "k2", "k3", "k4f", "k4b", "k5f", "k5b"])
+def test_recurrent_kernels_refuse_h_past_128(dev, kernel):
+    """H = 132 (a multiple of 4 past the limit): each recurrent kernel's
+    wrapper raises a ValueError naming the limit before any launch."""
+    H, T, B = 132, 9, 2
+    params, parts = k1_inputs(5, (8,), T, B, H, dev)
+    x = parts[0].transpose(0, 1).contiguous()
+    n = torch.tensor([T, 4], device=dev)
+    one = {"fwd": params["fwd"]}
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=dev)
+
+    calls = {
+        "k1": lambda: bigru_shared_fwd(params, parts),
+        "k6": lambda: bigru_shared_fwd(params, parts, layout="rowstack"),
+        "k2": lambda: bigru_trainpool(params, parts, pool=2, drop_p=0.5, seed=1),
+        "k3": lambda: bigru_shared_bwd(params, parts, *[zeros(T, B, H) for _ in range(4)]),
+        "k4f": lambda: bigru_masked(params, x, n),
+        "k4b": lambda: bigru_masked_bwd(params, x, zeros(B, T, 2 * H), n, zeros(B, T, 2 * H)),
+        "k5f": lambda: gru1_fwd(one, x, n),
+        "k5b": lambda: gru1_bwd(one, x, zeros(B, T, H), n, zeros(B, T, H)),
+    }
+    counters = (bigru_shared, bigru_trainpool, bigru_shared_bwd, bigru_masked, bigru_masked_bwd, gru1,
+                gru1_bwd)
+    before = [c.launches for c in counters] + [bigru_shared.launches_rowstack]
+    with torch.inference_mode(), pytest.raises(ValueError, match="H <= 128"):
+        calls[kernel]()
+    assert [c.launches for c in counters] + [bigru_shared.launches_rowstack] == before
 
 
 @pytest.mark.cuda
@@ -892,17 +975,71 @@ def test_golden_seq2seq_decodes_with_one_k7_launch(dev, tmp_path):
 
 FLAGSHIP_DECODER = (2, 256, 100, 200, 102)  # all_real_seq2seq.cfg: layers, H, K, V, L
 
+# On an H100 the batches below take clusters of 8 CTAs (B = 1), fewer as B grows (16, 17, 33,
+# 64), and 1 at B = 133, in two waves of its 132 SMs
+_K7_BATCHES = [1, 16, 17, 33, 64, 133]
+
+
+@pytest.mark.cuda
+def test_k7_cluster_size_follows_the_batch(dev):
+    """1 to 8 CTAs a cluster, the largest whose clusters of the batch are
+    all resident on the card at once: it never grows with B, one utterance
+    takes 8, B past the SMs takes 1, and the batches below reach four
+    sizes or more."""
+    def size(B):
+        return beam_cluster_size(B, 25, 4, *FLAGSHIP_DECODER, 200)
+
+    sizes = [size(B) for B in (1, 2, 8, 16, 17, 33, 34, 64, 66, 67, 133, 300)]
+    assert set(sizes) <= set(range(1, 9)) and sizes == sorted(sizes, reverse=True), sizes
+    assert size(1) == 8 and size(133) == 1
+    assert len({size(B) for B in _K7_BATCHES}) >= 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", _K7_BATCHES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_k7_cluster_design_matches_plain(dev, B, masked):
+    """The flagship decoder at each batch, so that every cluster size and a
+    second wave are reached, masked (ragged valid frames, 1 among them) and
+    not: one launch; tokens equal the plain search's, or a row parts from
+    it only at a tie (``compare_searches``), scores within rtol 1e-5 atol
+    1e-4 on the rows that pass whole."""
+    from chip_smoke import compare_searches
+
+    W, U = 4, 24
+    dec, keys, values = k7_inputs(B + 40, B, 25, *FLAGSHIP_DECODER, dev)
+    n = None
+    if masked:
+        n = torch.from_numpy(np.random.default_rng(B).integers(1, 26, B)).to(dev)
+        n[0] = 1
+    before = beam_decode.launches
+    with torch.inference_mode():
+        beam_decode(dec, keys, values, n, W, U)
+    torch.cuda.synchronize()
+    assert beam_decode.launches == before + 1
+
+    def search(fn):
+        def steps(n_steps):
+            with torch.inference_mode():
+                return tuple(t.cpu() for t in fn(dec, keys, values, n, W, n_steps))
+        return steps
+
+    (scores, _), (ref_scores, _), rows, _ = compare_searches(
+        f"K7 B={B}", search(beam_decode), search(beam_search_reference), U)
+    torch.testing.assert_close(scores[:, rows], ref_scores[:, rows], rtol=1e-5, atol=1e-4)
+
 
 @pytest.mark.cuda
 def test_k7_takes_the_smem_plan_where_it_fits(dev):
-    """At the flagship decoder 19 beams' plan fits a block and 20 do not (the
-    plan has no T term): W = 19 runs the smem plan, W = 20 the global one."""
+    """At the flagship decoder 25 beams' plan fits a block beside a one-CTA
+    cluster's bias slices and 26 do not (the plan has no T term): W = 25
+    runs the smem plan, W = 26 the global one."""
     from tpu_slu_torch.ops import _build
 
     plan = _build.library().tsl_beam_decode_smem_bytes
-    assert plan(19, *FLAGSHIP_DECODER, 200) <= SMEM_LIMIT < plan(20, *FLAGSHIP_DECODER, 200)
+    assert plan(25, *FLAGSHIP_DECODER, 200) <= SMEM_LIMIT < plan(26, *FLAGSHIP_DECODER, 200)
     dec, keys, values = k7_inputs(19, 1, 25, *FLAGSHIP_DECODER, dev)
-    for W, global_plan in ((19, 0), (20, 1)):
+    for W, global_plan in ((25, 0), (26, 1)):
         before = beam_decode.launches, beam_decode.launches_global
         with torch.inference_mode():
             beam_decode(dec, keys, values, None, W, 200)
@@ -911,7 +1048,7 @@ def test_k7_takes_the_smem_plan_where_it_fits(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("W", [20, 32, 64])
+@pytest.mark.parametrize("W", [26, 32, 64])
 def test_k7_global_plan_matches_plain(dev, W):
     """Beams too wide for a block's shared memory at the flagship decoder
     and its 200 steps: the global plan, one launch; tokens equal the plain
@@ -936,6 +1073,44 @@ def test_k7_global_plan_matches_plain(dev, W):
 
     (scores, _), (ref_scores, _), rows, _ = compare_searches(
         f"K7 W={W}", search(beam_decode), search(beam_search_reference), 200)
+    torch.testing.assert_close(scores[:, rows], ref_scores[:, rows], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [33, 133])
+@pytest.mark.parametrize("W", [27, 28])
+def test_k7_plan_boundary_on_small_clusters(dev, B, W):
+    """Either side of the smem plan's edge at the flagship decoder and U =
+    24 steps: W = 27, the widest smem beam, and W = 28, whose plan fits a
+    block alone but not beside a one-CTA cluster's bias slices, so takes
+    the global plan; at batches whose smem plan takes clusters of 3 CTAs or
+    fewer, where each CTA's bias slices are the largest (B = 133: one CTA
+    an utterance, two waves). One launch; tokens equal the plain search's,
+    or a row parts from it only at a tie (``compare_searches``), scores
+    within rtol 1e-5 atol 1e-4."""
+    from chip_smoke import compare_searches
+    from tpu_slu_torch.ops import _build
+
+    U = 24
+    plan = _build.library().tsl_beam_decode_smem_bytes
+    assert plan(27, *FLAGSHIP_DECODER, U) <= SMEM_LIMIT < plan(28, *FLAGSHIP_DECODER, U)
+    assert beam_cluster_size(B, 25, 27, *FLAGSHIP_DECODER, U) <= 3
+    dec, keys, values = k7_inputs(B + W, B, 25, *FLAGSHIP_DECODER, dev)
+    n = torch.from_numpy(np.random.default_rng(B).integers(1, 26, B)).to(dev)
+    before = beam_decode.launches, beam_decode.launches_global
+    with torch.inference_mode():
+        beam_decode(dec, keys, values, n, W, U)
+    torch.cuda.synchronize()
+    assert (beam_decode.launches - before[0], beam_decode.launches_global - before[1]) == (1, int(W == 28))
+
+    def search(fn):
+        def steps(n_steps):
+            with torch.inference_mode():
+                return tuple(t.cpu() for t in fn(dec, keys, values, n, W, n_steps))
+        return steps
+
+    (scores, _), (ref_scores, _), rows, _ = compare_searches(
+        f"K7 W={W} B={B}", search(beam_decode), search(beam_search_reference), U)
     torch.testing.assert_close(scores[:, rows], ref_scores[:, rows], rtol=1e-5, atol=1e-4)
 
 

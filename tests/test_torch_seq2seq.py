@@ -133,6 +133,8 @@ BEAM_CASES = [  # seed, Bs, T, W, U, nl, masked
     (0, 5, 6, 3, 10, 2, False), (1, 8, 6, 4, 10, 2, False), (2, 3, 6, 2, 10, 2, False),
     (3, 4, 7, 3, 8, 2, True), (4, 5, 4, 4, 6, 1, False), (5, 4, 8, 1, 12, 1, True),
     (6, 2, 5, 4, 12, 2, True),
+    (7, 17, 6, 4, 8, 2, True),  # ragged valid frames past 16 rows: K7's clusters of 4 on the card
+    (8, 33, 6, 10, 6, 2, True),  # a wide beam over ragged frames past 32 rows: K7's smallest clusters
 ]
 
 

@@ -1,8 +1,9 @@
 // Pieces shared by the bi-GRU kernels (K1 and K6 bigru_shared_fwd.cu, K2
-// bigru_trainpool_fwd.cu, K3 bigru_shared_bwd.cu): the forward recurrence
-// (eval, or train with h_prev residuals, hash dropout and the ceil
-// avg-pool), the dropout hash and the choice of batch tile; the input
-// projection is the GEMM core's (bigru_gemm.cuh). Everything is f32 with f32
+// bigru_trainpool_fwd.cu, K3 bigru_shared_bwd.cu, K4f and K5f
+// bigru_masked_fwd.cu): the one-CTA forward recurrence of K2 and K6 (K1's
+// is the cluster recurrence of gru_cluster.cuh), the dropout hash and the
+// choice of batch tile; the input projection is the GEMM core's
+// (bigru_gemm.cuh). Everything is f32 with f32
 // accumulation. Included by each source; the anonymous namespace gives each
 // its own copy.
 //
@@ -55,7 +56,7 @@ constexpr uint32_t kKeepAll = 1u << 24;  // thresh for p = 0: every element kept
 // accumulator live in shared memory. The ceil pool runs in the epilogue of
 // each step, so outputs are written at the pooled rate only.
 //
-// TRAIN = false (K1): eval; avg or max pool.
+// TRAIN = false: eval; avg or max pool (K6, with RS).
 // TRAIN = true (K2): also stores each direction's previous-step h at natural
 // t into hp (zero at the start of that direction's walk), and drops h at
 // the full frame rate (kept: h / (1 - p); `keep_hash` on the natural t, the
@@ -208,7 +209,7 @@ inline cudaError_t pick_batch_tile(int B, int* nb, int ctas = 2) {
 }
 
 // Input projection, then the recurrence at the batch tile pick_batch_tile
-// chooses; RS: the row-stacked layout of K6 (eval only).
+// chooses: K2 (TRAIN) and K6 (RS, the row-stacked layout, eval only).
 template <bool TRAIN, bool RS = false>
 cudaError_t bigru_forward(const float* x1, int d1, const float* x2, int d2, const float* wih_f,
                           const float* bih_f, const float* whh_f, const float* bhh_f,

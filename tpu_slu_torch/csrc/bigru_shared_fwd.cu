@@ -24,26 +24,26 @@
 //     chain: the GEMM core (bigru_gemm.cuh) computes it for all T at once
 //     as one product over (T*B) x 3H for both directions, into a (2, T, B,
 //     3H) scratch.
-//   * `bigru_rec_kernel` runs one CTA per (batch tile, direction). W_hh
-//     (3H x H, torch layout) is copied once into shared memory and stays
-//     there for all T steps; h and the pool accumulator live in shared
-//     memory too. Thread j < 3H owns gate column j of the recurrent product
-//     and reads its W_hh row and h with 128-bit loads; the row pitch is
-//     32k + 4 floats so that those loads are free of bank conflicts.
-//   * The batch tile is as small as the card allows (1, 2, 4 or 8 rows, the
-//     least that keeps the CTAs within one wave of the SMs): a step's time
-//     grows with the rows a CTA carries, and the CTAs run side by side.
-//   * A step issues its gi loads before the recurrent product, which does
-//     not depend on them, so their latency overlaps the product.
-//   * f32 operands and f32 accumulation throughout (no tensor cores yet).
-// The projection and the recurrence live in bigru_common.cuh, where K2
-// (bigru_trainpool_fwd.cu) takes the same recurrence with its train flag set.
-// Which resource sets the time of one step is not measured yet (no hardware
-// counters have been read for this kernel). Candidates: the shared-memory
-// reads of all of W_hh (192 KiB at H = 128) per step, each thread's serial
-// H-long FMA chain, the two barriers per step, and too few warps per SM to
-// hide latency. Splitting W_hh over a cluster of SMs, keeping it in
-// registers, wgmma and bf16 operands are later work.
+//   * The recurrence is the cluster recurrence of gru_cluster.cuh, which
+//     K5f instantiates too, here with two directions, time-major strides
+//     and the pool: a thread-block cluster of C CTAs a (batch tile,
+//     direction), CTA c owning the r, z and n rows of W_hh for hidden units
+//     [c H/C, (c+1) H/C) in registers; each step's h goes to every CTA of
+//     the cluster by st.async into distributed shared memory, counted on a
+//     per-buffer mbarrier (no cluster barrier a step); gi arrives through a
+//     cp.async ring. Both directions' clusters share the grid and run side
+//     by side.
+//   * The ceil pool runs in the epilogue: the lane that runs the gate math
+//     of (row, unit) keeps the window's sum or max in a register and writes
+//     only at the pooled rate.
+//   * The cluster size follows the batch (`gru_cluster_size(B, 2)`): 4 while
+//     the 2 x 4 x B CTAs fill at most three quarters of the SMs (B <= 12 on
+//     132), else 2, with the smallest batch tile that fits one wave. The one-CTA design it
+//     replaces (`bigru_rec_kernel`, still K2's and K6's) read all of W_hh
+//     (192 KB at H = 128) from shared memory every step behind two CTA
+//     barriers, a ~2.6 us step at B = 16 on 32 of 132 SMs.
+//   * f32 operands and f32 accumulation throughout (no tensor cores).
+// H <= 128 (the W_hh slice's registers), H % 4 == 0.
 //
 // K6, the row-stacked layout (`tsl_bigru_shared_fwd_rs`), replaces the TPU
 // kernel `_mk_shared_fwd_kernel_rs` (tpu_slu/ops/pallas_gru.py:887,
@@ -55,15 +55,55 @@
 // recurrence, inside r * (W_hn h + b_hn). On the TPU the layout let one
 // (2B, 3H) elementwise chain serve both directions. Here both directions'
 // W_hh cannot share one SM in f32 (2 x 3H x (H + 4) x 4 B = 405 KB at H =
-// 128, against 227 KB), so K6 keeps K1's CTA per (batch tile, direction),
-// each reading its half of row s. A 2-CTA cluster sharing the step through
-// distributed shared memory was not taken: the two directions' chains share
-// no data, so a cluster would add a cluster barrier a step and exchange
-// nothing. What K6 changes on this card is the scratch layout (both
-// directions' rows of a step adjacent) and two fewer bias adds a gate
-// column a step; its bound is K1's.
+// 128, against 227 KB), so K6 keeps a CTA per (batch tile, direction),
+// each reading its half of row s, on the one-CTA recurrence
+// `bigru_rec_kernel<NB, false, true>` (bigru_common.cuh). What K6 changes on
+// this card is the scratch layout (both directions' rows of a step adjacent)
+// and two fewer bias adds a gate column a step; its bound is K1's.
 
 #include "bigru_common.cuh"
+#include "gru_cluster.cuh"
+
+namespace {
+
+// K1: the GEMM core's projection of both directions into the (2, T, B, 3H)
+// scratch, then the time-major cluster recurrence with the pool in its
+// epilogue, both directions' clusters in one grid, on clusters of the size
+// gru_cluster_size(B, 2) picks.
+cudaError_t k1_forward(const float* x1, int d1, const float* x2, int d2,
+                       const float* wih_f, const float* bih_f, const float* whh_f,
+                       const float* bhh_f, const float* wih_b, const float* bih_b,
+                       const float* whh_b, const float* bhh_b, float* gi, float* out_f,
+                       float* out_b, int T, int B, int H, int pool, int pool_max,
+                       cudaStream_t st) {
+  if (H % 4 != 0 || H > kGruMaxH) return cudaErrorInvalidValue;
+  int C = 4;
+  cudaError_t err = gru_cluster_size(B, 2, &C);
+  if (err != cudaSuccess) return err;
+  err = launch_gi_proj(x1, d1, x2, d2, wih_f, bih_f, wih_b, bih_b, gi, T * B, 3 * H, 2, st);
+  if (err != cudaSuccess) return err;
+  ClusterRec a = {};
+  a.gi = gi;
+  a.gi_dir = (long long)T * B * 3 * H;
+  a.gi_b = 3 * H;
+  a.gi_t = (long long)B * 3 * H;
+  a.whh[0] = whh_f;
+  a.whh[1] = whh_b;
+  a.bhh[0] = bhh_f;
+  a.bhh[1] = bhh_b;
+  a.out[0] = out_f;
+  a.out[1] = out_b;
+  a.out_b = H;
+  a.out_t = (long long)B * H;
+  a.T = T;
+  a.B = B;
+  a.H = H;
+  a.pool = pool;
+  a.pool_max = pool_max;
+  return pool > 1 ? gru_cluster_rec<true>(a, 2, C, st) : gru_cluster_rec<false>(a, 2, C, st);
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -73,18 +113,25 @@ const char* tsl_error_string(int err) { return cudaGetErrorString((cudaError_t)e
 // parts. x2 may be null with d2 == 0. Weights are in torch layout: W_ih
 // (3H, d1 + d2), W_hh (3H, H), biases (3H). gi_scratch holds 2*T*B*3H
 // floats; out_f and out_b hold ceil(T/pool)*B*H floats each. H must be a
-// multiple of 4. Returns cudaSuccess (0) or the first error of a launch;
-// does not synchronise.
+// multiple of 4 and at most 128. The recurrence runs on clusters of the
+// size gru_cluster_size(B, 2) picks. Returns cudaSuccess (0) or the first
+// error of a launch; does not synchronise.
 int tsl_bigru_shared_fwd(
     const float* x1, int d1, const float* x2, int d2,
     const float* wih_f, const float* bih_f, const float* whh_f, const float* bhh_f,
     const float* wih_b, const float* bih_b, const float* whh_b, const float* bhh_b,
     float* gi_scratch, float* out_f, float* out_b,
     int T, int B, int H, int pool, int pool_max, void* stream) {
-  return (int)bigru_forward<false>(x1, d1, x2, d2, wih_f, bih_f, whh_f, bhh_f, wih_b, bih_b,
-                                   whh_b, bhh_b, gi_scratch, out_f, out_b, nullptr, nullptr, T,
-                                   B, H, pool, pool_max, 0u, kKeepAll, 1.0f,
-                                   (cudaStream_t)stream);
+  return (int)k1_forward(x1, d1, x2, d2, wih_f, bih_f, whh_f, bhh_f, wih_b, bih_b, whh_b,
+                         bhh_b, gi_scratch, out_f, out_b, T, B, H, pool, pool_max,
+                         (cudaStream_t)stream);
+}
+
+// The cluster size tsl_bigru_shared_fwd takes at batch B on the current
+// device (2 or 4); -1 on a CUDA error.
+int tsl_bigru_shared_cluster_size(int B) {
+  int C = 0;
+  return gru_cluster_size(B, 2, &C) == cudaSuccess ? C : -1;
 }
 
 // K6: as tsl_bigru_shared_fwd, with gi_scratch (2*T*B*3H floats) holding

@@ -22,6 +22,13 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tpu_slu_torch")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
+# The widest hidden size the card's recurrent kernels take: each holds a
+# direction's W_hh (3H x H floats), or its cluster's slice of it, in one SM's
+# shared memory or registers (K1 and K5f: registers sized for 128; K2, K3,
+# K4f, K4b, K5b and K6: 3H rows in 227 KB of shared memory). The JAX package
+# takes any H; no config in experiments/ uses one past 128.
+MAX_H = 128
+
 _lock = threading.Lock()
 _lib = None
 
@@ -43,9 +50,11 @@ _SIGNATURES = {
     "tsl_gru1_fwd": (_I, [_P, _I, _P] + [_P] * 4 + [_P] * 2 + [_I] * 3 + [_P]),
     "tsl_gru1_cluster_size": (_I, [_I]),
     "tsl_gru1_bwd": (_I, [_P, _I, _P, _P, _P] + [_P] * 4 + [_P] * 5 + [_P] * 5 + [_I] * 3 + [_P]),
-    "tsl_beam_decode": (_I, [_P] * 14 + [_I] * 9 + [_P]),
+    "tsl_beam_decode": (_I, [_P] * 12 + [_I] * 9 + [_P]),
+    "tsl_beam_cluster_size": (_I, [_I] * 9),
     "tsl_beam_decode_smem_bytes": (ctypes.c_longlong, [_I] * 7),
     "tsl_sinc_frontend_fwd": (_I, [_P] * 3 + [_I] * 8 + [_P]),
+    "tsl_bigru_shared_cluster_size": (_I, [_I]),
     "tsl_bigru_shared_fwd_rs": (_I, [_P, _I, _P, _I] + [_P] * 8 + [_P] * 3 + [_I] * 5 + [_P]),
     "tsl_gemm_proj": (_I, [_P, _I, _P, _I, _P, _P, _P, _I, _I, _P]),
     "tsl_gemm_dx": (_I, [_P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P]),

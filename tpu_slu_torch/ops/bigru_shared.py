@@ -12,7 +12,8 @@ Each kernel has a wrapper, which launches it on a CUDA tensor and runs its
 plain PyTorch version on a CPU tensor, and keeps a count of its launches:
 
 * K1, eval/unpooled forward: :func:`bigru_shared_fwd`, counted on
-  ``bigru_shared.launches`` (``csrc/bigru_shared_fwd.cu``);
+  ``bigru_shared.launches`` (``csrc/bigru_shared_fwd.cu``, its recurrence
+  ``csrc/gru_cluster.cuh``, which K5f shares);
 * K6, the same forward in the row-stacked layout (``layout="rowstack"``:
   both directions' gi in one (T, 2B, 3H) array, the backward rows
   pre-reversed, b_hh's r and z columns folded into b_ih):
@@ -268,6 +269,9 @@ def _check_cuda(what: str, params: dict, parts: tuple, extra=()) -> tuple[int, i
                 raise ValueError(f"{what}: {d}.{n} has shape {tuple(params[d][n].shape)}, want {shape}")
     if T < 1 or B < 1 or H % 4 != 0:
         raise ValueError(f"{what}: kernel needs T, B >= 1 and H % 4 == 0 (T={T}, B={B}, H={H})")
+    if H > _build.MAX_H:
+        raise ValueError(f"{what}: the card's kernel holds W_hh in one SM for H <= {_build.MAX_H}, "
+                         f"got H={H}")
     if 2 * T * B * 4 * H >= 2**31 or T * B * max(D, H) >= 2**31:
         raise ValueError(f"{what}: T*B*H too large for the kernel's int indexing (T={T}, B={B}, H={H})")
     return T, B, H
@@ -290,6 +294,16 @@ def _part_ptrs(parts) -> list:
             None if x2 is None else x2.data_ptr(), 0 if x2 is None else x2.shape[-1]]
 
 
+def bigru_cluster_size(B: int) -> int:
+    """The CTAs in a cluster of K1's recurrence at batch B on the current
+    card: 4 while both directions' clusters of 4 (8 B CTAs) fill at most
+    three quarters of its SMs, else 2."""
+    C = _build.library().tsl_bigru_shared_cluster_size(B)
+    if C < 0:
+        raise RuntimeError("tsl_bigru_shared_cluster_size: CUDA error")
+    return C
+
+
 def bigru_shared_fwd(params: dict, parts, *, pool: int = 1, pool_method: str = "avg",
                      layout: str = "split"):
     """K1 (``layout="split"``) or K6 (``"rowstack"``): the eval forward,
@@ -299,7 +313,9 @@ def bigru_shared_fwd(params: dict, parts, *, pool: int = 1, pool_method: str = "
     :func:`bigru_shared_reference` or
     :func:`bigru_shared_rowstack_reference`; CUDA tensors launch the kernel
     on the current stream without synchronising, and anything the kernel
-    does not take raises. Records no autograd graph on CUDA.
+    does not take raises, H past 128 too. K1's recurrence runs on
+    thread-block clusters whose size follows the batch
+    (:func:`bigru_cluster_size`). Records no autograd graph on CUDA.
     """
     parts = _check_args(parts, pool, pool_method, layout)
     rowstack = layout == "rowstack"

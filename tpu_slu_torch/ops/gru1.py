@@ -91,8 +91,6 @@ def gru1_fwd(params: dict, x: torch.Tensor, n: torch.Tensor | None = None) -> to
     if "bwd" in params:
         raise ValueError("gru1: params hold a backward direction; a bidirectional layer is bigru_masked's")
     B, T, D, H = check_layer("gru1", params, x, n)
-    if H > 128:
-        raise ValueError(f"gru1: the kernel holds W_hh in registers for H <= 128, got H={H}")
     lib = _build.library()
     p = params["fwd"]
     lengths, lengths_ptr = _lengths(n)
