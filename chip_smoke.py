@@ -9,9 +9,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 
 1. environment: torch, the card, its power limit and nvcc; torch's TF32
    flags are left at their defaults, as a user has them;
-2. build: compiles ``tpu_slu_torch/csrc/*.cu`` with nvcc, and beside it two
-   developer copies of one source each (``VARIANTS``): K1 on the cluster
-   size its rule does not pick, and K7 with clocks by phase;
+2. build: compiles ``tpu_slu_torch/csrc/*.cu`` with nvcc, and beside it
+   developer copies of one source each (``VARIANTS``): K1, K2 and K4f on
+   the cluster size the two-direction rule does not pick, and K7 with
+   clocks by phase;
 3. K1 (the shared-stream bi-GRU kernel) against its plain PyTorch version
    on the card, over parts, pools, odd and even T, B and H = 128; the front
    end's convs and their gradients on the card against an f64 conv on the
@@ -35,8 +36,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    leaky ReLU signs and max-pool argmaxes, each side's error printed);
    ``Trainer(model, config).train(dataset)`` over seeded
    synthetic batches of B = 64 with 4 K2, 1 K1 and 5 K3 launches per step,
-   then ``Trainer.test``; warm timings of the train step and of K2 and K3
-   against their plain versions, K3's five layers by phase (the gate pass,
+   then ``Trainer.test``; warm timings of the train step and of K2 (its us
+   a step) and K3 against their plain versions, ``[k2-batch]`` K2's four
+   layers on clusters of 2 and of 4 CTAs in turns at B = 16 and 64 (the
+   other size in the ``k2_other_c`` variant), K3's five layers by phase (the gate pass,
    the chain, the GEMM core's launches, dW's reduce pass; profiler) and the
    core's TFLOP/s on the products counted from the shapes;
 7. length-exact decode and serving at the width of ``no_unfreezing.cfg``:
@@ -47,8 +50,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    call; an ``IntentServer(max_batch=8)`` answering 32 seeded requests of
    1.0-4.0 s from 8 threads, each answer equal to its exact-shape decode,
    5 K4f launches per device call; ``make_http_server`` on the golden
-   checkpoint decoding every golden wav; warm timings of K4f, of the exact
-   decode against the exact-shape B = 8 decode, and the served latency;
+   checkpoint decoding every golden wav; warm timings of K4f (its us a
+   step), ``[k4f-batch]`` its five layers with mixed lengths on clusters of
+   2 and of 4 CTAs in turns at B = 1, 8 and 64 (``k4f_other_c``), of the
+   exact decode against the exact-shape B = 8 decode, and the served latency;
 8. seq2seq decode and serving at the width of ``all_real_seq2seq.cfg``:
    ``[k7]`` K7 (the fused beam search) against its plain version at the
    flagship decoder (B = 1, 16, 17, 64, 133 and 8 with mixed valid frames,
@@ -118,8 +123,9 @@ Beside each kernel's time the script prints its plain version's, a cuDNN
 ``torch.nn.GRU`` call's where one computes the same function (timed as a
 yardstick only: forward at the unpooled shapes for K1, on packed rows for
 K4f, the backward for K3, K4b and K5b, one direction's forward for K5f;
-none for K2, whose dropout and pool are fused, or K7; one cuDNN conv for
-K8, without the |.|, pool and act it fuses),
+for K2 the nearest call, the unpooled forward without its dropout and
+h_prev; none for K7; one cuDNN conv for K8, without the |.|, pool and act
+it fuses),
 and its bound: the larger of the f32 operations over 67 TFLOP/s and the
 bytes over 3.35 TB/s (each input read once, each output written once),
 ignoring the serial chain. At the end it checks that no module of JAX or
@@ -211,15 +217,18 @@ def smi() -> str:
 
 # Developer copies of one kernel source each, for the A/Bs and the K7 trace: name -> (source in
 # tpu_slu_torch/csrc, [(text, its replacement)], nvcc flags). Never the port's library.
-_RULE_K1 = "*C = (ndir == 1 ? 4 * B <= sms : 4 * 8 * B <= 3 * sms) ? 4 : 2;"
-_TILE_C4 = "if (C == 4) return nb == 1 ? launch_gru_cluster<4, 1, POOL>(a, ndir, st) : cudaErrorInvalidValue;"
+_RULE_2DIR = "*C = (ndir == 1 ? 4 * B <= sms : 4 * 8 * B <= 3 * sms) ? 4 : 2;"
+_TILE_C4 = ("if (C == 4) return nb == 1 ? launch_gru_cluster<4, 1, POOL, TRAIN>(a, ndir, st) : "
+            "cudaErrorInvalidValue;")
+# the two-direction cluster recurrence (K1, K2, K4f) on the cluster size the rule does not pick
+# (2 <-> 4), with the 4-row tile C = 4 then takes at B = 64; only the ndir = 2 branch changes
+_OTHER_C = [(_RULE_2DIR, _RULE_2DIR.replace("4 * 8 * B <= 3 * sms", "4 * 8 * B > 3 * sms")),
+            (_TILE_C4, _TILE_C4.replace(" : cudaErrorInvalidValue", " : nb == 4 ? launch_gru_cluster<4, 4, POOL, "
+                                                                    "TRAIN>(a, ndir, st) : cudaErrorInvalidValue"))]
 VARIANTS = {
-    # K1 on the cluster size its rule does not pick (2 <-> 4), with the 4-row tile C = 4
-    # then takes at B = 64
-    "k1_other_c": ("bigru_shared_fwd.cu", [
-        (_RULE_K1, _RULE_K1.replace("4 * 8 * B <= 3 * sms", "4 * 8 * B > 3 * sms")),
-        (_TILE_C4, _TILE_C4.replace(" : cudaErrorInvalidValue", " : nb == 4 ? launch_gru_cluster<4, 4, POOL>"
-                                                                "(a, ndir, st) : cudaErrorInvalidValue"))], []),
+    "k1_other_c": ("bigru_shared_fwd.cu", _OTHER_C, []),
+    "k2_other_c": ("bigru_trainpool_fwd.cu", _OTHER_C, []),
+    "k4f_other_c": ("bigru_masked_fwd.cu", _OTHER_C, []),
     # K7 recording its first utterance's clocks by phase (tsl_beam_trace)
     "k7_trace": ("beam_decode.cu", [], ["-DTSL_TRACE"]),
 }
@@ -587,78 +596,164 @@ def step_vs_cpu(dev, rng, tag: str, **overrides) -> None:
           f"differ by more than {STEP_PARAM_ATOL}")
 
 
-def k1_cluster_ab(dev, card: str, rng, other_lib, batches=(1, 16, 64)) -> dict:
-    """``[k1-batch]``: K1's five flagship layers back to back at clusters of
-    2 and of 4 CTAs, in turns (the size K1 takes at that B first, the other,
-    the other, the first), at B = 1, 16 and 64; each size takes the smallest
-    batch tile that keeps the grid in one wave. The rule's size runs in the
-    port's library, the other in ``other_lib``, the ``k1_other_c`` variant
-    (``VARIANTS``), both through their ``tsl_bigru_shared_fwd``. Both sizes'
-    outputs are held against the plain version first. Returns {"B=..":
-    {"C": rule's size, "C=2": [ms, ms], "C=4": [ms, ms]}}."""
+def k1_layer(rng, dev, d: int, n_parts: int, T: int, B: int, pool: int):
+    """K1 at one flagship layer shape, called through a library's
+    ``tsl_bigru_shared_fwd``: ``(launch(lib) -> error code, check())``;
+    ``check`` raises unless the last launch's outputs match the plain
+    version."""
+    import torch
+
+    from tpu_slu_torch.ops.bigru_shared import _part_ptrs, _ptrs, bigru_shared_reference
+
+    params, parts = k1_case(rng, n_parts, d, T, B, 128, dev)
+    gi = torch.empty((2, T, B, 384), device=dev)
+    out = torch.empty((2, -(-T // pool), B, 128), device=dev)
+
+    def launch(lib):
+        return lib.tsl_bigru_shared_fwd(*_part_ptrs(parts), *_ptrs(params), gi.data_ptr(), out[0].data_ptr(),
+                                        out[1].data_ptr(), T, B, 128, pool, 0,
+                                        torch.cuda.current_stream(dev).cuda_stream)
+
+    def check():
+        ref = bigru_shared_reference(params, parts, pool=pool)
+        if not all(torch.allclose(g, r, atol=ATOL, rtol=RTOL) for g, r in zip(out, ref)):
+            raise AssertionError(f"K1 T={T} B={B} disagrees with its plain version")
+    return launch, check
+
+
+def k2_layer(rng, dev, d: int, n_parts: int, T: int, B: int):
+    """K2 at one encoder layer shape (pool 2, dropout 0.5, a seeded mask),
+    called through a library's ``tsl_bigru_trainpool_fwd``: ``(launch,
+    check)`` as :func:`k1_layer`'s; ``check`` also holds the zero pattern."""
+    import torch
+
+    from tpu_slu_torch.ops.bigru_shared import _part_ptrs, _ptrs, bigru_trainpool_reference
+    from tpu_slu_torch.ops.dropout import keep_threshold
+
+    params, parts = k1_case(rng, n_parts, d, T, B, 128, dev)
+    seed = int(rng.integers(2**32))
+    gi = torch.empty((2, T, B, 384), device=dev)
+    hp, pooled = torch.empty((2, T, B, 128), device=dev), torch.empty((2, -(-T // 2), B, 128), device=dev)
+
+    def launch(lib):
+        return lib.tsl_bigru_trainpool_fwd(*_part_ptrs(parts), *_ptrs(params), gi.data_ptr(), hp[0].data_ptr(),
+                                           hp[1].data_ptr(), pooled[0].data_ptr(), pooled[1].data_ptr(), T, B,
+                                           128, 2, seed, keep_threshold(0.5), 2.0,
+                                           torch.cuda.current_stream(dev).cuda_stream)
+
+    def check():
+        ref = bigru_trainpool_reference(params, parts, pool=2, drop_p=0.5, seed=seed)
+        if not (all(torch.allclose(g, r, atol=ATOL, rtol=RTOL) for g, r in zip((*hp, *pooled), ref))
+                and all(same_zeros(g, r) for g, r in zip(pooled, ref[2:]))):
+            raise AssertionError(f"K2 T={T} B={B} disagrees with its plain version")
+    return launch, check
+
+
+def k4f_layer(rng, dev, D: int, T: int, B: int):
+    """K4f at one flagship layer shape with seeded mixed lengths (row 0 holds
+    T, the last row of B > 1 holds 0), called through a library's
+    ``tsl_bigru_masked_fwd``: ``(launch, check)`` as :func:`k1_layer`'s;
+    ``check`` also holds exact zeros past each length."""
+    import torch
+
+    from tpu_slu_torch.ops.bigru_masked import bigru_masked_reference
+    from tpu_slu_torch.ops.bigru_shared import _ptrs
+
+    params, parts = k1_case(rng, 1, D, T, B, 128, dev)
+    x = parts[0].transpose(0, 1).contiguous()
+    lengths = rng.integers(1, T + 1, B)
+    lengths[-1], lengths[0] = 0, T
+    n = torch.from_numpy(lengths).to(dev)
+    gi, out = torch.empty((2, B, T, 384), device=dev), torch.empty((B, T, 256), device=dev)
+
+    def launch(lib):
+        return lib.tsl_bigru_masked_fwd(x.data_ptr(), D, n.data_ptr(), *_ptrs(params), gi.data_ptr(),
+                                        out.data_ptr(), T, B, 128, torch.cuda.current_stream(dev).cuda_stream)
+
+    def check():
+        ref = bigru_masked_reference(params, x, n)
+        tail = torch.arange(T, device=dev)[None, :] >= n[:, None]
+        if not (rel_err(out, ref) <= ATOL and (out[tail] == 0).all()):
+            raise AssertionError(f"K4f T={T} B={B} lengths {lengths.tolist()} disagrees with its plain version")
+    return launch, check
+
+
+def cluster_ab(what: str, layers_of, dev, card: str, other_lib, batches) -> dict:
+    """``[<what>-batch]``: a two-direction cluster kernel's layers (K1, K2 or
+    K4f; ``layers_of(B)`` gives their ``(launch, check)`` pairs and serial
+    steps) back to back at clusters of 2 and of 4 CTAs, in turns (the size
+    the rule takes at that B first, the other, the other, the first) at each
+    batch; each size takes the smallest batch tile that keeps the grid in one
+    wave. The rule's size runs in the port's library, the other in
+    ``other_lib``, the kernel's ``*_other_c`` variant (``VARIANTS``: the
+    two-direction rule inverted). Both sizes' outputs are held against the
+    plain version first. Returns {"B=..": {"C": rule's size, "C=2": [ms, ms],
+    "C=4": [ms, ms]}}."""
     import torch
 
     from tpu_slu_torch.ops import _build
-    from tpu_slu_torch.ops.bigru_shared import bigru_cluster_size, bigru_shared_reference
+    from tpu_slu_torch.ops.bigru_shared import bigru_cluster_size
 
     out = {}
     for B in batches:
-        cases = []
-        for name, d, n_parts, T, pool in FLAGSHIP_LAYERS:
-            params, parts = k1_case(rng, n_parts, d, T, B, 128, dev)
-            To = -(-T // pool)
-            bufs = (torch.empty((2, T, B, 384), device=dev), torch.empty((To, B, 128), device=dev),
-                    torch.empty((To, B, 128), device=dev))
-            cases.append((params, parts, pool, bufs))
-
-        rule = bigru_cluster_size(B)
-        other = other_lib.tsl_bigru_shared_cluster_size(B)
-        if {rule, other} != {2, 4}:
-            raise AssertionError(f"K1's A/B at B={B}: clusters of {rule} and {other}, want 2 and 4")
+        layers, steps = layers_of(B)
+        rule = bigru_cluster_size(B)  # the two-direction rule of gru_cluster.cuh, K1's, K2's and K4f's
+        other = 6 - rule
         libs = {rule: _build.library(), other: other_lib}
 
-        def five(C, cases=cases, B=B):
-            def run():
-                for params, parts, pool, (gi, h_f, h_b) in cases:
-                    x2 = parts[1] if len(parts) == 2 else None
-                    err = libs[C].tsl_bigru_shared_fwd(
-                        parts[0].data_ptr(), parts[0].shape[-1], None if x2 is None else x2.data_ptr(),
-                        0 if x2 is None else x2.shape[-1],
-                        *[params[dr][k].data_ptr() for dr in ("fwd", "bwd")
-                          for k in ("weight_ih", "bias_ih", "weight_hh", "bias_hh")],
-                        gi.data_ptr(), h_f.data_ptr(), h_b.data_ptr(), parts[0].shape[0], B, 128, pool, 0,
-                        torch.cuda.current_stream(dev).cuda_stream)
-                    _build.check(err, f"tsl_bigru_shared_fwd on clusters of {C} (B={B})")
-            return run
+        def run(C, layers=layers, B=B):
+            def f():
+                for launch, _ in layers:
+                    _build.check(launch(libs[C]), f"{what} on clusters of {C} (B={B})")
+            return f
 
         for C in (rule, other):
-            five(C)()
+            run(C)()
             torch.cuda.synchronize()
-            for params, parts, pool, (_, h_f, h_b) in cases:
-                r_f, r_b = bigru_shared_reference(params, parts, pool=pool)
-                if not (torch.allclose(h_f, r_f, atol=ATOL, rtol=RTOL) and torch.allclose(h_b, r_b, atol=ATOL, rtol=RTOL)):
-                    raise AssertionError(f"K1 on clusters of {C} at B={B} disagrees with its plain version")
+            for _, check in layers:
+                check()
         turns = {rule: [], other: []}
         for C in (rule, other, other, rule):
-            turns[C].append(cuda_ms(five(C), reps=10, warmup=2))
+            turns[C].append(cuda_ms(run(C), reps=10, warmup=2))
         out[f"B={B}"] = {"C": rule, **{f"C={C}": v for C, v in sorted(turns.items())}}
         faster_c = min(turns, key=lambda C: statistics.mean(turns[C]))
-        print(f"[k1-batch] K1 five layers B={B:2d}, in turns: clusters of {rule} (the rule's) "
-              f"{turns[rule][0]:.4f}, of {other} {turns[other][0]:.4f}, {turns[other][1]:.4f}, of {rule} "
-              f"{turns[rule][1]:.4f} ms ({1e3 * statistics.mean(turns[rule]) / K1_STEPS:.3f} against "
-              f"{1e3 * statistics.mean(turns[other]) / K1_STEPS:.3f} us a step); faster: {faster_c} on {card}")
+        print(f"[{what.lower()}-batch] {what} {len(layers)} layers B={B:2d}, in turns: clusters of {rule} (the "
+              f"rule's) {turns[rule][0]:.4f}, of {other} {turns[other][0]:.4f}, {turns[other][1]:.4f}, of {rule} "
+              f"{turns[rule][1]:.4f} ms ({1e3 * statistics.mean(turns[rule]) / steps:.3f} against "
+              f"{1e3 * statistics.mean(turns[other]) / steps:.3f} us a step); faster: {faster_c} on {card}")
     return out
 
 
-def phase_train(dev, card: str, rng) -> tuple[list[dict], int]:
+def k1_cluster_ab(dev, card: str, rng, other_lib, batches=(1, 16, 64)) -> dict:
+    """``[k1-batch]``: K1's five flagship layers at B = 1, 16 and 64 (:func:`cluster_ab`)."""
+    return cluster_ab("K1", lambda B: ([k1_layer(rng, dev, d, n, T, B, pool) for _, d, n, T, pool in FLAGSHIP_LAYERS],
+                                       K1_STEPS), dev, card, other_lib, batches)
+
+
+def k2_cluster_ab(dev, card: str, rng, other_lib, batches=(16, 64)) -> dict:
+    """``[k2-batch]``: K2's four encoder layers at B = 16 and the train step's 64 (:func:`cluster_ab`)."""
+    return cluster_ab("K2", lambda B: ([k2_layer(rng, dev, d, n, T, B) for _, d, n, T in ENC_SHAPES],
+                                       sum(T for *_, T in ENC_SHAPES)), dev, card, other_lib, batches)
+
+
+def k4f_cluster_ab(dev, card: str, rng, other_lib, batches=(1, SERVE_BATCH, 64)) -> dict:
+    """``[k4f-batch]``: K4f's five flagship layers with mixed lengths at B = 1,
+    the served batch of 8 and 64 (:func:`cluster_ab`)."""
+    return cluster_ab("K4f", lambda B: ([k4f_layer(rng, dev, n * d, T, B) for _, d, n, T, _ in FLAGSHIP_LAYERS],
+                                        K1_STEPS), dev, card, other_lib, batches)
+
+
+def phase_train(dev, card: str, rng, k2_other) -> tuple[list[dict], int]:
     """Phase 6: the flagship train step. Returns K2's and K3's JSON entries
-    and K1's launches in ``Trainer.train``."""
+    and K1's launches in ``Trainer.train``; ``k2_other`` is the
+    ``k2_other_c`` variant, for ``[k2-batch]``."""
     import numpy as np
     import torch
 
     from tpu_slu_torch.models.flagship import TRAIN_CFG, flagship_model
     from tpu_slu_torch.ops.bigru_shared import (
         _shift_hp,
+        bigru_cluster_size,
         bigru_shared,
         bigru_shared_bwd,
         bigru_shared_bwd_reference,
@@ -792,7 +887,7 @@ def phase_train(dev, card: str, rng) -> tuple[list[dict], int]:
     step_ms = cuda_ms(lambda: trainer.train_step(batch), reps=10, warmup=2)
     print(f"[time] warm train step B={B}, 4 s audio (forward, backward, masked Adam): median "
           f"{step_ms:.3f} ms of 10 (CUDA events) on {card}")
-    k2_ms = k2_plain = k3_ms = k3_plain = k3_lib = 0.0
+    k2_ms = k2_plain = k2_lib = k3_ms = k3_plain = k3_lib = 0.0
     k2_work, k3_work = [0.0, 0.0], [0.0, 0.0]  # FLOPs, bytes
     H = 128
     k3_layers, core_flops = [], 0.0
@@ -807,12 +902,13 @@ def phase_train(dev, card: str, rng) -> tuple[list[dict], int]:
             kw2 = {"pool": 2, "drop_p": 0.5, "seed": kw["seed"]}
             a, b = in_turns(lambda: bigru_trainpool_reference(params, parts, **kw2),
                             lambda: bigru_trainpool(params, parts, **kw2))
-            k2_ms, k2_plain = k2_ms + a, k2_plain + b
+            lib = cudnn_gru_ms(D, T, B, H, dev)  # the nearest call: no dropout, no pool, no h_prev
+            k2_ms, k2_plain, k2_lib = k2_ms + a, k2_plain + b, k2_lib + lib
             # in: x; out: the pooled outputs and h_prev of both directions
             w = gru_fwd_work(T * B, D, H, T * B * D, 2 * To * B * H + 2 * T * B * H)
             k2_work = [k2_work[0] + w[0], k2_work[1] + w[1]]
-            print(f"[time] K2 {name:11s} B={B} T={T:3d}: kernel {a:.4f} ms, plain {b:.3f} ms, "
-                  f"bound {bound(*w)[0]:.4f} ms ({bound(*w)[1]})")
+            print(f"[time] K2 {name:11s} B={B} T={T:3d}: kernel {a:.4f} ms ({1e3 * a / T:.3f} us a step), plain "
+                  f"{b:.3f} ms, cuDNN nn.GRU unpooled {lib:.4f} ms, bound {bound(*w)[0]:.4f} ms ({bound(*w)[1]})")
         a, b = in_turns(lambda: bigru_shared_bwd_reference(params, parts, hp_f, hp_b, *dy, **kw),
                         lambda: bigru_shared_bwd(params, parts, hp_f, hp_b, *dy, **kw))
         lib = cudnn_gru_ms(D, T, B, H, dev, backward=True)
@@ -827,10 +923,14 @@ def phase_train(dev, card: str, rng) -> tuple[list[dict], int]:
               f"plain {b:.3f} ms, cuDNN nn.GRU backward {lib:.4f} ms, bound {bound(*w)[0]:.4f} ms "
               f"({bound(*w)[1]})")
     (k2_bound, k2_by), (k3_bound, k3_by) = bound(*k2_work), bound(*k3_work)
-    print(f"[time] K2 four encoder layers B={B}: kernel {k2_ms:.4f} ms, plain {k2_plain:.3f} ms, "
-          f"bound {k2_bound:.4f} ms ({k2_by}); K3 five layers: kernel {k3_ms:.4f} ms, plain "
+    k2_steps = sum(T for *_, T in ENC_SHAPES)
+    print(f"[time] K2 four encoder layers B={B}: kernel {k2_ms:.4f} ms ({1e3 * k2_ms / k2_steps:.3f} us a step, "
+          f"clusters of {bigru_cluster_size(B)}), plain {k2_plain:.3f} ms, cuDNN nn.GRU unpooled (the nearest "
+          f"call: no dropout, pool or h_prev) {k2_lib:.4f} ms, bound {k2_bound:.4f} ms ({k2_by}); K3 five layers: "
+          f"kernel {k3_ms:.4f} ms, plain "
           f"{k3_plain:.3f} ms, cuDNN nn.GRU backward {k3_lib:.4f} ms, bound {k3_bound:.4f} ms "
           f"({k3_by}) on {card}")
+    k2_ab = k2_cluster_ab(dev, card, rng, k2_other)
     # K3 by phase: the gate pass, the chain, the GEMM core's launches and dW's reduce pass
     k3_split = device_split(lambda: [bigru_shared_bwd(p, x, hf, hb, *dy, **kw) for p, x, hf, hb, dy, kw in k3_layers],
                             K3_PHASES)
@@ -843,7 +943,9 @@ def phase_train(dev, card: str, rng) -> tuple[list[dict], int]:
     return [
         {"name": "bigru_trainpool_fwd", "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
          "launches": launches["K2"], "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
-         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
+         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": k2_lib,
+         "library_call": "cuDNN nn.GRU, bidirectional, unpooled: the nearest call, not the same function",
+         "us_per_step": 1e3 * k2_ms / k2_steps, "ab_cluster": k2_ab},
         {"name": "bigru_shared_bwd", "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
          "launches": launches["K3"], "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain,
          "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": k3_lib, "phase_ms": k3_split,
@@ -851,9 +953,10 @@ def phase_train(dev, card: str, rng) -> tuple[list[dict], int]:
     ], launches["K1"]
 
 
-def phase_serve(dev, card: str, rng, golden, expected) -> dict:
+def phase_serve(dev, card: str, rng, golden, expected, k4f_other) -> dict:
     """Phase 7: length-exact decode and the micro-batching server. Returns
-    K4f's JSON entry; its launches are those of the served run."""
+    K4f's JSON entry; its launches are those of the served run. ``k4f_other``
+    is the ``k4f_other_c`` variant, for ``[k4f-batch]``."""
     import threading
     import urllib.request
 
@@ -862,7 +965,7 @@ def phase_serve(dev, card: str, rng, golden, expected) -> dict:
 
     from tpu_slu_torch.models.flagship import flagship_model
     from tpu_slu_torch.ops.bigru_masked import bigru_masked, bigru_masked_reference
-    from tpu_slu_torch.ops.bigru_shared import bigru_shared
+    from tpu_slu_torch.ops.bigru_shared import bigru_cluster_size, bigru_shared
     from tpu_slu_torch.serving import IntentServer, make_http_server
 
     H = 128
@@ -905,9 +1008,11 @@ def phase_serve(dev, card: str, rng, golden, expected) -> dict:
               f"plain {b:.3f} ms, cuDNN nn.GRU on packed rows {lib:.4f} ms, bound "
               f"{bound(*w)[0]:.4f} ms ({bound(*w)[1]})")
     k4_bound, k4_by = bound(*k4_work)
-    print(f"[time] K4f five flagship layers B={SERVE_BATCH}: kernel {k4_ms:.4f} ms, plain "
+    print(f"[time] K4f five flagship layers B={SERVE_BATCH}: kernel {k4_ms:.4f} ms "
+          f"({1e3 * k4_ms / K1_STEPS:.3f} us a step, clusters of {bigru_cluster_size(SERVE_BATCH)}), plain "
           f"{k4_plain:.3f} ms, cuDNN nn.GRU {k4_lib:.4f} ms, bound {k4_bound:.4f} ms ({k4_by}); "
           f"within {ATOL} of each largest element, max abs err {k4_err:.3g} on {card}")
+    k4_ab = k4f_cluster_ab(dev, card, rng, k4f_other)
 
     # 7.2 a length-exact decode of (8, 4 s bucket) against each example's exact-shape
     # decode (the K1 path) on the card
@@ -1003,7 +1108,8 @@ def phase_serve(dev, card: str, rng, golden, expected) -> dict:
         thread.join(timeout=10)
     return {"name": "bigru_masked_fwd", "route": "cuda", "source": K4F_SOURCE, "replaces": K4F_REPLACES,
             "launches": k4_launches, "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain,
-            "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": k4_lib}
+            "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": k4_lib,
+            "us_per_step": 1e3 * k4_ms / K1_STEPS, "ab_cluster": k4_ab}
 
 
 def k7_work(B: int, T: int, W: int, U: int, nl: int, H: int, K: int, V: int, L: int) -> tuple[float, float]:
@@ -2377,10 +2483,10 @@ def main() -> None:
     k1_ab = k1_cluster_ab(dev, card, rng, variants["k1_other_c"])
 
     # 6. flagship train step
-    train_kernels, k1_train_launches = phase_train(dev, card, rng)
+    train_kernels, k1_train_launches = phase_train(dev, card, rng, variants["k2_other_c"])
 
     # 7. length-exact decode and serving
-    k4f = phase_serve(dev, card, rng, golden, expected)
+    k4f = phase_serve(dev, card, rng, golden, expected, variants["k4f_other_c"])
 
     # 8. seq2seq decode and serving
     k7 = phase_seq2seq(dev, card, rng, variants["k7_trace"])

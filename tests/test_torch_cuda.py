@@ -98,7 +98,8 @@ _K1_BATCHES = [1, 2, 12, 16, 17, 33, 64, 100, 300]
 @pytest.mark.cuda
 def test_k1_cluster_size_follows_the_batch(dev):
     """4 CTAs a cluster while both directions' clusters of 4 fill at most
-    three quarters of the SMs, else 2; the batches below reach both sizes."""
+    three quarters of the SMs, else 2 (the rule K2 and K4f take too); the
+    batches below reach both sizes."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for B in (1, 2, 12, 13, 16, 17, 33, 34, 64, 100, 300):
         assert bigru_cluster_size(B) == (4 if 32 * B <= 3 * sms else 2), B
@@ -217,10 +218,16 @@ def assert_same_zeros(g, r):
     assert not differ.any() or torch.maximum(g.abs(), r.abs())[differ].max().item() <= 1e-6
 
 
+# On an H100's 132 SMs the two-direction cluster recurrence (K1, K2, K4f) takes clusters of 4 CTAs
+# to B = 12 and of 2 from B = 13, with batch tiles of 1 row to B = 33, 2 to 66, 4 to 132 and 8 past;
+# B = 34, 67 and 133 are the first batches whose tiles hold rows of different lengths in K4f
+_CLUSTER_EDGES = [12, 13, 33, 34, 66, 67, 133]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("T", [1, 2, 25, 400])
 @pytest.mark.parametrize("H", [16, 128])
-@pytest.mark.parametrize("B", [1, 3, 64, 300])
+@pytest.mark.parametrize("B", sorted([1, 3, 8, 64, 300] + _CLUSTER_EDGES))
 def test_k2_matches_plain(dev, B, H, T):
     """Pooled outputs and hp within 1e-4 (f32 sums in another order); the
     dropout zero pattern equal to the plain version's, element for element."""
@@ -424,7 +431,7 @@ def _rel_close(g, r, tol=1e-4):
 @pytest.mark.cuda
 @pytest.mark.parametrize("T", [1, 2, 25, 400])
 @pytest.mark.parametrize("H", [16, 128])
-@pytest.mark.parametrize("B", [1, 3, 8, 64])
+@pytest.mark.parametrize("B", sorted([1, 3, 8, 64] + _CLUSTER_EDGES))
 def test_k4f_matches_plain(dev, B, H, T):
     D = 60 if T == 400 else 2 * H
     params, x, lengths = k4_inputs(20, B, T, D, H, dev)

@@ -1,13 +1,22 @@
 #!/usr/bin/env python3
-"""A/Bs of the port's cluster kernels on one GPU: K1's cluster size, K7's
-cluster size by batch, and K7's step with parts of its design taken out.
+"""A/Bs of the port's cluster kernels on one GPU: the cluster size of K1, K2
+and K4f, those kernels and K5f against another checkout's, K7's cluster
+size by batch, and K7's step with parts of its design taken out.
 
     python3 tools/torch_cluster_ab.py [--k1-batches 1 2 4 8 12 16 64]
+        [--k2-batches 16 64] [--k4f-batches 1 8 64] [--parent DIR]
         [--k7-sizes] [--k7-variants base skip_gi skip_gh no_kv no_cache ...]
 
-``--k1-batches``: K1's five flagship layers on clusters of 2 and of 4 CTAs
-in turns at each batch (``chip_smoke.k1_cluster_ab``, the other size from
-the smoke's ``k1_other_c`` variant). ``--k7-sizes``: the cluster size K7
+``--k1-batches``, ``--k2-batches``, ``--k4f-batches``: the kernel's
+flagship layers (K4f's with mixed lengths) on clusters of 2 and of 4 CTAs
+in turns at each batch (``chip_smoke.cluster_ab``, the other size from the
+smoke's ``k1_other_c``, ``k2_other_c`` or ``k4f_other_c`` variant).
+``--parent DIR``: the kernel library of the checkout at DIR (e.g. the
+parent commit unpacked under ``build/``), built with that checkout's own
+``_build.py``, against this tree's, in turns parent, this, this, parent:
+K1's five layers at B = 16, K2's four at B = 64, K4f's five at B = 8 with
+mixed lengths and K5f's five at B = 16, each output held against its plain
+version. ``--k7-sizes``: the cluster size K7
 takes at each batch at the flagship decoder, W = 4, 4 s. ``--k7-variants``:
 each variant is ``tpu_slu_torch/csrc/beam_decode.cu`` with one text edit
 (``VARIANTS``) and ``TSL_TRACE`` defined, compiled alone into
@@ -85,9 +94,78 @@ def k7_variants(names: list[str], dev, card: str) -> None:
         _build._lib = real
 
 
+def parent_ab(parent: str, dev, card: str) -> None:
+    """``[parent]``: this tree's K1, K2, K4f and K5f against the library of
+    the checkout at ``parent``, through the same C entry points, in turns."""
+    import importlib.util
+    import statistics
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from tpu_slu_torch.ops import _build
+    from tpu_slu_torch.ops.gru1 import gru1_reference
+
+    spec = importlib.util.spec_from_file_location(
+        "parent_build", os.path.join(os.path.abspath(parent), "tpu_slu_torch", "ops", "_build.py"))
+    parent_build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(parent_build)
+    libs = {"parent": parent_build.library(), "this": _build.library()}
+    rng = np.random.default_rng(0)
+
+    def k5f_layer(D, T, B):
+        params, parts = cs.k1_case(rng, 1, D, T, B, 128, dev)
+        one = {"fwd": params["fwd"]}
+        x = parts[0].transpose(0, 1).contiguous()
+        gi, out = torch.empty((B, T, 384), device=dev), torch.empty((B, T, 128), device=dev)
+
+        def launch(lib):
+            return lib.tsl_gru1_fwd(x.data_ptr(), D, None, *[one["fwd"][k].data_ptr() for k in
+                                                             ("weight_ih", "bias_ih", "weight_hh", "bias_hh")],
+                                    gi.data_ptr(), out.data_ptr(), T, B, 128, torch.cuda.current_stream(dev).cuda_stream)
+
+        def check():
+            if not cs.rel_err(out, gru1_reference(one, x)) <= cs.ATOL:
+                raise AssertionError(f"K5f T={T} B={B} disagrees with its plain version")
+        return launch, check
+
+    kernels = {
+        "K1 five layers B=16": ([cs.k1_layer(rng, dev, d, n, T, 16, pool) for _, d, n, T, pool in cs.FLAGSHIP_LAYERS],
+                                cs.K1_STEPS),
+        "K2 four layers B=64": ([cs.k2_layer(rng, dev, d, n, T, 64) for _, d, n, T in cs.ENC_SHAPES],
+                                sum(T for *_, T in cs.ENC_SHAPES)),
+        f"K4f five layers B={cs.SERVE_BATCH} mixed lengths": (
+            [cs.k4f_layer(rng, dev, n * d, T, cs.SERVE_BATCH) for _, d, n, T, _ in cs.FLAGSHIP_LAYERS], cs.K1_STEPS),
+        "K5f five layers B=16": ([k5f_layer(D, T, 16) for _, D, T in cs.UNI_SHAPES], sum(T for *_, T in cs.UNI_SHAPES)),
+    }
+    for what, (layers, steps) in kernels.items():
+        def run(lib, layers=layers):
+            def f():
+                for launch, _ in layers:
+                    _build.check(launch(lib), what)
+            return f
+
+        for lib in libs.values():
+            run(lib)()
+            torch.cuda.synchronize()
+            for _, check in layers:
+                check()
+        turns = {k: [] for k in libs}
+        for k in ("parent", "this", "this", "parent"):
+            turns[k].append(cs.cuda_ms(run(libs[k]), reps=10, warmup=2))
+        print(f"[parent] {what}, in turns: parent {turns['parent'][0]:.4f}, this {turns['this'][0]:.4f}, "
+              f"{turns['this'][1]:.4f}, parent {turns['parent'][1]:.4f} ms "
+              f"({1e3 * statistics.mean(turns['parent']) / steps:.3f} against "
+              f"{1e3 * statistics.mean(turns['this']) / steps:.3f} us a step) on {card}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k1-batches", type=int, nargs="*", default=[])
+    ap.add_argument("--k2-batches", type=int, nargs="*", default=[])
+    ap.add_argument("--k4f-batches", type=int, nargs="*", default=[])
+    ap.add_argument("--parent", help="a checkout whose kernel library to time against this tree's")
     ap.add_argument("--k7-sizes", action="store_true")
     ap.add_argument("--k7-variants", nargs="*", default=[], choices=sorted(VARIANTS))
     args = ap.parse_args()
@@ -102,9 +180,14 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     card = cs.smi()
     print(f"[env] {card}")
-    if args.k1_batches:
-        other = cs.load_variant("k1_other_c", *cs.start_variant("k1_other_c", *cs.VARIANTS["k1_other_c"]))
-        cs.k1_cluster_ab(dev, card, np.random.default_rng(0), other, tuple(args.k1_batches))
+    for name, batches, ab in (("k1", args.k1_batches, cs.k1_cluster_ab), ("k2", args.k2_batches, cs.k2_cluster_ab),
+                              ("k4f", args.k4f_batches, cs.k4f_cluster_ab)):
+        if batches:
+            other = cs.load_variant(f"{name}_other_c", *cs.start_variant(f"{name}_other_c",
+                                                                        *cs.VARIANTS[f"{name}_other_c"]))
+            ab(dev, card, np.random.default_rng(0), other, tuple(batches))
+    if args.parent:
+        parent_ab(args.parent, dev, card)
     if args.k7_sizes:
         from tpu_slu_torch.ops.beam_fused import beam_cluster_size
 

@@ -9,7 +9,10 @@ device's idle share of the traced run's own wall time. ``--train`` does the
 same for one ``Trainer.train_step`` (forward, backward, masked Adam) of
 ``experiments/no_pretraining.cfg``; ``--seq2seq`` for the seq2seq model of
 ``experiments/all_real_seq2seq.cfg`` (its decode: W = 4, U = 200);
-``--seconds`` sets the audio's length. ``--unidirectional`` makes every GRU
+``--seconds`` sets the audio's length; ``--exact`` times the length-exact
+decode the ``IntentServer`` runs instead, ``predict_intents(x,
+lengths=n)`` of a padded (B, seconds) batch whose seeded lengths lie
+between 1 s and the batch's length (row 0 full). ``--unidirectional`` makes every GRU
 layer of the fixed-slot model one direction (``UNIDIRECTIONAL``), and
 ``--no-dropout`` sets its GRU layers' dropout to 0, so that a train step
 can be timed with and without its host-drawn dropout masks. With
@@ -20,6 +23,7 @@ from the root of a checkout:
 
     python3 tools/torch_decode_profile.py --batch 1 16
     python3 tools/torch_decode_profile.py --train --batch 64
+    python3 tools/torch_decode_profile.py --exact --batch 8
     python3 tools/torch_decode_profile.py --train --unidirectional --no-dropout --host-ops 12
     python3 tools/torch_decode_profile.py --seq2seq --batch 16 --seconds 30
 """
@@ -43,6 +47,7 @@ def main() -> None:
     ap.add_argument("--train", action="store_true", help="time Trainer.train_step instead")
     ap.add_argument("--seq2seq", action="store_true", help="the seq2seq model instead")
     ap.add_argument("--seconds", type=float, default=4.0, help="length of the seeded audio")
+    ap.add_argument("--exact", action="store_true", help="the length-exact decode of a padded batch")
     ap.add_argument("--unidirectional", action="store_true", help="every GRU layer one direction")
     ap.add_argument("--no-dropout", action="store_true", help="the GRU layers' dropout at 0")
     ap.add_argument("--host-ops", type=int, default=0, help="list the N operators of most host time")
@@ -75,7 +80,8 @@ def main() -> None:
         what = f"Trainer.train_step{' ' + str(overrides) if overrides else ''}"
     else:
         model = flagship_seq2seq_model("cuda") if args.seq2seq else flagship_model("cuda", **overrides)
-        what = f"predict_intents{' (seq2seq, W=4)' if args.seq2seq else ''} on {args.seconds:g} s"
+        what = (f"predict_intents{' (seq2seq, W=4)' if args.seq2seq else ''}"
+                f"{' (length-exact, seeded lengths)' if args.exact else ''} on {args.seconds:g} s")
     rng = np.random.default_rng(1)
     for B in args.batch:
         x = torch.from_numpy((0.1 * rng.standard_normal((B, int(args.seconds * 16000)))).astype(np.float32)).cuda()
@@ -87,6 +93,12 @@ def main() -> None:
 
             def call():
                 trainer.train_step(batch)
+        elif args.exact:
+            n = torch.from_numpy(rng.integers(16000, x.shape[1] + 1, B)).cuda()
+            n[0] = x.shape[1]
+
+            def call():
+                model.predict_intents(x, lengths=n)
         else:
             def call():
                 model.predict_intents(x)

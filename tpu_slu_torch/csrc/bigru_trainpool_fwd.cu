@@ -19,17 +19,26 @@
 // no counterpart here.
 //
 // What bounds it on this card: as K1, the serial T-step chain of (B, H) x
-// (H, 3H) products, latency-bound at the small batch tiles it runs; the
-// extra work per step (one store of h_prev, the hash) is a few integer and
-// memory operations per element, off the recurrent product.
+// (H, 3H) products, latency-bound at the small batch tiles it runs (B = 64,
+// the train batch: 750 steps over the four encoder layers); a step's time
+// is what counts. The extra work per step (one store of h_prev, the hash)
+// is a few integer and memory operations per element, off the recurrent
+// product, but it sits in the lane that also sends h to the cluster.
 //
-// What the design does about it: it is K1's recurrence with its TRAIN flag
-// set (`bigru_rec_kernel<NB, true>` in bigru_common.cuh): the input
-// projection leaves the chain as one tiled product for all T, W_hh stays in
-// shared memory for all T steps, and the batch tile is the smallest that
-// keeps the CTAs in one wave. f32 throughout.
+// What the design does about it: it is K1 (bigru_shared_fwd.cu) with the
+// template's TRAIN flag set (`bigru_cluster_forward<true>` in
+// gru_cluster.cuh): the GEMM core computes the input projection
+// of both directions for all T at once, off the chain; the recurrence is
+// the cluster recurrence of gru_cluster.cuh, a cluster of C CTAs a (batch
+// tile, direction) with the W_hh slice of its hidden units in registers,
+// each step's undropped h sent to every CTA by st.async, both directions
+// side by side in one grid. The lane that runs the gate math of (row,
+// unit) stores h_prev, drops and pools in registers, and writes the
+// output at the pooled rate. C and the batch tile follow the batch as
+// K1's (`gru_cluster_size(B, 2)`). f32 throughout; H <= 128, H % 4 == 0.
 
 #include "bigru_common.cuh"
+#include "gru_cluster.cuh"
 
 extern "C" {
 
@@ -37,8 +46,8 @@ extern "C" {
 // tsl_bigru_shared_fwd, plus hp_f and hp_b (T*B*H floats each), the uint32
 // dropout seed, thresh = round((1 - p) * 2^24) (2^24 keeps every element)
 // and inv_keep = 1 / (1 - p). The pool is always avg; pool = 1 leaves the
-// outputs at full rate. Returns cudaSuccess (0) or the first launch error;
-// does not synchronise.
+// outputs at full rate. H must be a multiple of 4 and at most 128. Returns
+// cudaSuccess (0) or the first launch error; does not synchronise.
 int tsl_bigru_trainpool_fwd(
     const float* x1, int d1, const float* x2, int d2,
     const float* wih_f, const float* bih_f, const float* whh_f, const float* bhh_f,
@@ -46,9 +55,10 @@ int tsl_bigru_trainpool_fwd(
     float* gi_scratch, float* hp_f, float* hp_b, float* out_f, float* out_b,
     int T, int B, int H, int pool, unsigned int seed, unsigned int thresh, float inv_keep,
     void* stream) {
-  return (int)bigru_forward<true>(x1, d1, x2, d2, wih_f, bih_f, whh_f, bhh_f, wih_b, bih_b,
-                                  whh_b, bhh_b, gi_scratch, out_f, out_b, hp_f, hp_b, T, B, H,
-                                  pool, 0, seed, thresh, inv_keep, (cudaStream_t)stream);
+  return (int)bigru_cluster_forward<true>(x1, d1, x2, d2, wih_f, bih_f, whh_f, bhh_f, wih_b,
+                                          bih_b, whh_b, bhh_b, gi_scratch, out_f, out_b, hp_f,
+                                          hp_b, T, B, H, pool, 0, seed, thresh, inv_keep,
+                                          (cudaStream_t)stream);
 }
 
 }  // extern "C"

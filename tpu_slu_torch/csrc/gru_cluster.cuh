@@ -1,8 +1,12 @@
-// The cluster recurrence of a GRU layer, for sm_90a: one template that K1
+// The cluster recurrence of a GRU layer, for sm_90a: one template that every
+// forward recurrence on the port's default routes instantiates. K1
 // (bigru_shared_fwd.cu: two directions, time-major, a ceil pool in the
-// epilogue) and K5f (bigru_masked_fwd.cu: one direction, batch-major, valid
-// lengths) both instantiate. The input projection gi = x W_ih^T + b_ih has
-// run before it, on the GEMM core (bigru_gemm.cuh), over all rows at once.
+// epilogue), K2 (bigru_trainpool_fwd.cu: K1's layer in training, with h_prev
+// stored and the hash dropout before the pool), K4f (bigru_masked_fwd.cu:
+// two directions, batch-major, valid lengths) and K5f (the same file: one
+// direction, batch-major, valid lengths). The input projection gi = x W_ih^T
+// + b_ih has run before it, on the GEMM core (bigru_gemm.cuh), over all rows
+// at once.
 //
 // What bounds a step of a one-CTA recurrence at small B (one batch row a CTA,
 // most SMs idle): the CTA reads all of W_hh (192 KB at H = 128) from shared
@@ -32,16 +36,22 @@
 //     division a step); the backward direction visits a window's frames
 //     last to first. The pool is a template flag, so a layer without one
 //     runs the plain epilogue;
+//   * in training (the TRAIN flag, K2) the same lane also stores the h it
+//     started the step from at its frame (K3's residuals) and drops the new
+//     h at the full frame rate by the counter hash `keep_hash`, before the
+//     pool; the cluster still receives the undropped h;
 //   * the batch tile is the smallest of 1, 2, 4, 8 rows that keeps the
 //     grid's CTAs within one wave (`pick_batch_tile`); a larger B runs
 //     further waves. H <= 128 (the slice's registers are sized for it),
 //     H % 4 == 0.
 // Rows with valid lengths step to the tile's largest length and write zeros
-// at t >= n_b (one direction, pool 1: K5f). f32 operands and accumulation.
+// at t >= n_b (pool 1: K4f, K5f). f32 operands and accumulation.
 
 #pragma once
 
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "bigru_common.cuh"
 #include "cluster_sync.cuh"
@@ -56,7 +66,10 @@ constexpr int kRing = 4;        // steps of gi in flight a lane
 
 // A layer's recurrence: direction d reads gi at gi + d * gi_dir and writes
 // out[d]; strides in floats. Batch-major (B, T, .) or time-major (T, B, .)
-// layouts differ only in the strides.
+// layouts differ only in the strides. 128 bytes: a kernel parameter past
+// that made nvcc recompute the step loop's 64-bit addresses every step
+// (K1 and K5f ~2% slower on an H100), so the train epilogue's fields live
+// in ClusterTrainRec, the parameter of the TRAIN instantiations alone.
 struct ClusterRec {
   const float* gi;           // x W_ih^T + b_ih: 3H floats a (row, frame)
   long long gi_dir, gi_b, gi_t;
@@ -69,6 +82,16 @@ struct ClusterRec {
   int pool, pool_max;        // ceil pool of `pool` frames, avg or max; 1 with lengths
 };
 
+struct ClusterTrainRec : ClusterRec {
+  float* hp[2];              // H floats a (row, frame), the h each step started from
+  long long hp_b, hp_t;
+  uint32_t seed, thresh;     // the dropout hash's seed, round((1 - p) 2^24)
+  float inv_keep;            // 1 / (1 - p)
+};
+
+template <bool TRAIN>
+using ClusterArgs = std::conditional_t<TRAIN, ClusterTrainRec, ClusterRec>;
+
 // CTA c = rank in its cluster of C owns units [c H/C, (c+1) H/C) of batch
 // tile (cluster % tiles) of direction (cluster / tiles), NB rows; thread u * 8
 // + l holds the r, z and n rows of W_hh for unit u, float4 chunks l, l + 8,
@@ -78,9 +101,15 @@ struct ClusterRec {
 // step s + 1 when all H x nb values of it have landed.
 // POOL: a.pool > 1 (every row walks all T frames); else each step's h is
 // written at its frame.
-template <int C, int NB, bool POOL>
+// TRAIN (no lengths; a is a ClusterTrainRec): the lane also stores the h it
+// started step s from at hp[dir] (row, frame(s)), zero where the walk
+// starts, and, while thresh <
+// kKeepAll, writes (or pools) keep_hash(seed, salt of dir, t, row, unit) ?
+// h * inv_keep : 0 at the natural frame t and global batch row: K3
+// (bigru_shared_bwd.cu) regenerates the same mask from the same coordinates.
+template <int C, int NB, bool POOL, bool TRAIN>
 __global__ void __launch_bounds__(kGruMaxH / C * kUnitLanes)
-    gru_cluster_kernel(const ClusterRec a) {
+    gru_cluster_kernel(const ClusterArgs<TRAIN> a) {
   static_assert(NB <= kUnitLanes, "one lane of a unit per batch row");
   constexpr int kJ = kGruMaxH / 4 / kUnitLanes;  // float4 chunks of a row a lane holds
   __shared__ __align__(16) float h_s[2][NB][kGruMaxH];
@@ -147,6 +176,8 @@ __global__ void __launch_bounds__(kGruMaxH / C * kUnitLanes)
   const int row = b0 + (mine ? lane : 0);
   const float* gib = a.gi + dir * a.gi_dir + row * a.gi_b + col;
   float* ob = (dir == 0 ? a.out[0] : a.out[1]) + row * a.out_b + col;
+  float* hpb = nullptr;
+  if constexpr (TRAIN) hpb = (dir == 0 ? a.hp[0] : a.hp[1]) + row * a.hp_b + col;
   auto frame = [&](int s) { return dir == 0 ? s : n_mine - 1 - s; };  // of step s < n_mine
   auto fetch = [&](int s) {  // step s's gi into its ring slot; zeros past the row's length
     if (mine) {
@@ -223,13 +254,19 @@ __global__ void __launch_bounds__(kGruMaxH / C * kUnitLanes)
         const float zg = sigmoid_(gs[gstride] + gh[1]);
         const float ng = tanhf(gs[2 * gstride] + rg * gh[2]);
         v = ng + zg * (hprev - ng);
-        hprev = v;
         t = frame(s);
+        if constexpr (TRAIN) hpb[t * a.hp_t] = hprev;
+        hprev = v;
       }
       if (s + 1 < nmax) {  // every row sends every step, so a step's byte count is fixed
         const unsigned off = (unsigned)(((p ^ 1) * NB + lane) * kGruMaxH + col) * 4u;
 #pragma unroll
         for (int r = 0; r < C; ++r) st_async(peer_h[r] + off, hprev, peer_bar[r] + 8 * (p ^ 1));
+      }
+      if constexpr (TRAIN) {
+        if (a.thresh < kKeepAll)
+          v = keep_hash(a.seed, dir == 0 ? kSaltF : kSaltB, t, row, col, a.thresh) ? v * a.inv_keep
+                                                                                  : 0.0f;
       }
       if (POOL) {
         const bool first = dir == 0 ? r == 0 : r == cnt - 1;
@@ -267,8 +304,8 @@ __global__ void __launch_bounds__(kGruMaxH / C * kUnitLanes)
   cluster.sync();  // no CTA leaves while a peer may still address its shared memory
 }
 
-template <int C, int NB, bool POOL>
-cudaError_t launch_gru_cluster(const ClusterRec& a, int ndir, cudaStream_t st) {
+template <int C, int NB, bool POOL, bool TRAIN>
+cudaError_t launch_gru_cluster(const ClusterArgs<TRAIN>& a, int ndir, cudaStream_t st) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(ndir * ((a.B + NB - 1) / NB) * C));
   cfg.blockDim = dim3((unsigned)((a.H / C * kUnitLanes + 31) / 32 * 32));
@@ -280,7 +317,7 @@ cudaError_t launch_gru_cluster(const ClusterRec& a, int ndir, cudaStream_t st) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, gru_cluster_kernel<C, NB, POOL>, a);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, gru_cluster_kernel<C, NB, POOL, TRAIN>, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -288,10 +325,12 @@ cudaError_t launch_gru_cluster(const ClusterRec& a, int ndir, cudaStream_t st) {
 // The cluster size of a layer of `ndir` directions at batch B, each rule from
 // an A/B on an H100 (PERF.md section 6): one direction (K5f) takes 4 while
 // 4 B CTAs fit one wave of the card's SMs, else 2 (C = 4 beat C = 2 by 13%
-// at B = 16 and lost by 19% at B = 64); two directions (K1) take 4 while
-// their 8 B CTAs fill at most three quarters of the SMs (B <= 12 on 132),
-// else 2 (C = 4 won by 10-11% at B = 1 to 12 and lost by 3% at B = 16,
-// where 128 CTAs leave some SMs holding two; tools/torch_cluster_ab.py).
+// at B = 16 and lost by 19% at B = 64); two directions (K1, K2, K4f) take 4
+// while their 8 B CTAs fill at most three quarters of the SMs (B <= 12 on
+// 132), else 2 (K1: C = 4 won by 10-11% at B = 1 to 12 and lost by 3% at
+// B = 16, where 128 CTAs leave some SMs holding two; K4f with mixed
+// lengths: C = 4 won by 10-11% at B = 1 and 8 and lost by 16% at B = 64;
+// K2: C = 2 won by 5% at B = 16 and 19% at B = 64; tools/torch_cluster_ab.py).
 inline cudaError_t gru_cluster_size(int B, int ndir, int* C) {
   int sms = 0;
   const cudaError_t err = sm_count(&sms);
@@ -301,28 +340,81 @@ inline cudaError_t gru_cluster_size(int B, int ndir, int* C) {
 }
 
 // The recurrence on clusters of C CTAs at the batch tile pick_batch_tile
-// chooses for ndir * C CTAs a tile; POOL: a.pool > 1. The rule above takes
-// C = 4 only where that tile is one row, and C = 2 at any tile.
-template <bool POOL>
-cudaError_t gru_cluster_rec(const ClusterRec& a, int ndir, int C, cudaStream_t st) {
+// chooses for ndir * C CTAs a tile; POOL: a.pool > 1; TRAIN: the epilogue of
+// the train forward (no lengths). The rule above takes C = 4 only where that
+// tile is one row, and C = 2 at any tile.
+template <bool POOL, bool TRAIN>
+cudaError_t gru_cluster_rec(const ClusterArgs<TRAIN>& a, int ndir, int C, cudaStream_t st) {
   if (a.H % 4 != 0 || a.H > kGruMaxH || (ndir != 1 && ndir != 2) || POOL != (a.pool > 1) ||
-      (POOL && a.lengths != nullptr) || a.pool < 1)
+      (POOL && a.lengths != nullptr) || (TRAIN && a.lengths != nullptr) || a.pool < 1)
     return cudaErrorInvalidValue;
   int nb = 8;
   cudaError_t err = pick_batch_tile(a.B, &nb, ndir * C);
   if (err != cudaSuccess) return err;
-  if (C == 4) return nb == 1 ? launch_gru_cluster<4, 1, POOL>(a, ndir, st) : cudaErrorInvalidValue;
+  if (C == 4) return nb == 1 ? launch_gru_cluster<4, 1, POOL, TRAIN>(a, ndir, st) : cudaErrorInvalidValue;
   if (C != 2) return cudaErrorInvalidValue;
   switch (nb) {
     case 1:
-      return launch_gru_cluster<2, 1, POOL>(a, ndir, st);
+      return launch_gru_cluster<2, 1, POOL, TRAIN>(a, ndir, st);
     case 2:
-      return launch_gru_cluster<2, 2, POOL>(a, ndir, st);
+      return launch_gru_cluster<2, 2, POOL, TRAIN>(a, ndir, st);
     case 4:
-      return launch_gru_cluster<2, 4, POOL>(a, ndir, st);
+      return launch_gru_cluster<2, 4, POOL, TRAIN>(a, ndir, st);
     default:
-      return launch_gru_cluster<2, 8, POOL>(a, ndir, st);
+      return launch_gru_cluster<2, 8, POOL, TRAIN>(a, ndir, st);
   }
+}
+
+// A time-major bidirectional layer over natural-order parts (K1, and K2 with
+// TRAIN): the GEMM core's projection of both directions into the (2, T, B,
+// 3H) scratch gi, then the recurrence with the pool in its epilogue, both
+// directions' clusters in one grid, on clusters of the size
+// gru_cluster_size(B, 2) picks. Outputs (ceil(T/pool), B, H) a direction;
+// TRAIN: hp_f and hp_b (T, B, H) and the dropout (seed, thresh, inv_keep)
+// as ClusterRec's; else they are unused.
+template <bool TRAIN>
+cudaError_t bigru_cluster_forward(const float* x1, int d1, const float* x2, int d2,
+                                  const float* wih_f, const float* bih_f, const float* whh_f,
+                                  const float* bhh_f, const float* wih_b, const float* bih_b,
+                                  const float* whh_b, const float* bhh_b, float* gi,
+                                  float* out_f, float* out_b, float* hp_f, float* hp_b, int T,
+                                  int B, int H, int pool, int pool_max, uint32_t seed,
+                                  uint32_t thresh, float inv_keep, cudaStream_t st) {
+  if (H % 4 != 0 || H > kGruMaxH) return cudaErrorInvalidValue;
+  int C = 4;
+  cudaError_t err = gru_cluster_size(B, 2, &C);
+  if (err != cudaSuccess) return err;
+  err = launch_gi_proj(x1, d1, x2, d2, wih_f, bih_f, wih_b, bih_b, gi, T * B, 3 * H, 2, st);
+  if (err != cudaSuccess) return err;
+  ClusterArgs<TRAIN> a = {};
+  a.gi = gi;
+  a.gi_dir = (long long)T * B * 3 * H;
+  a.gi_b = 3 * H;
+  a.gi_t = (long long)B * 3 * H;
+  a.whh[0] = whh_f;
+  a.whh[1] = whh_b;
+  a.bhh[0] = bhh_f;
+  a.bhh[1] = bhh_b;
+  a.out[0] = out_f;
+  a.out[1] = out_b;
+  a.out_b = H;
+  a.out_t = (long long)B * H;
+  if constexpr (TRAIN) {
+    a.hp[0] = hp_f;
+    a.hp[1] = hp_b;
+    a.hp_b = H;
+    a.hp_t = (long long)B * H;
+    a.seed = seed;
+    a.thresh = thresh;
+    a.inv_keep = inv_keep;
+  }
+  a.T = T;
+  a.B = B;
+  a.H = H;
+  a.pool = pool;
+  a.pool_max = pool_max;
+  return pool > 1 ? gru_cluster_rec<true, TRAIN>(a, 2, C, st)
+                  : gru_cluster_rec<false, TRAIN>(a, 2, C, st);
 }
 
 }  // namespace

@@ -12,7 +12,9 @@ Each kernel has a wrapper, which launches it on a CUDA tensor and runs its
 plain PyTorch version on a CPU tensor, and keeps a count of its launches:
 
 * K4f, the forward: :func:`bigru_masked_fwd`, counted on
-  ``bigru_masked.launches`` (``csrc/bigru_masked_fwd.cu``);
+  ``bigru_masked.launches`` (``csrc/bigru_masked_fwd.cu``: the cluster
+  recurrence of ``csrc/gru_cluster.cuh`` at two directions, batch-major,
+  with the rows' lengths);
 * K4b, the backward: :func:`bigru_masked_bwd`, counted on
   ``bigru_masked_bwd.launches`` (``csrc/bigru_masked_bwd.cu``).
 
@@ -169,8 +171,12 @@ def bigru_masked_fwd(params: dict, x: torch.Tensor, n: torch.Tensor) -> torch.Te
     D), ``weight_hh`` (3H, H), ``bias_ih`` and ``bias_hh`` (3H,), torch
     layout. CPU tensors take the plain version. CUDA tensors launch the
     kernel on the current stream without synchronising (the range check of
-    ``n`` reads it on the host); anything the kernel does not take raises.
-    Records no autograd graph on CUDA.
+    ``n`` reads it on the host); anything the kernel does not take raises,
+    H past 128 too. Its recurrence runs both directions on thread-block
+    clusters whose size follows the batch as K1's does
+    (``bigru_shared.bigru_cluster_size``); each batch tile steps to its
+    longest row and writes exact zeros past each row's length. Records no
+    autograd graph on CUDA.
     """
     if device_of("bigru_masked", x).type == "cpu":
         return bigru_masked_reference(params, x, n)

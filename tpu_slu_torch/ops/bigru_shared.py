@@ -13,14 +13,15 @@ plain PyTorch version on a CPU tensor, and keeps a count of its launches:
 
 * K1, eval/unpooled forward: :func:`bigru_shared_fwd`, counted on
   ``bigru_shared.launches`` (``csrc/bigru_shared_fwd.cu``, its recurrence
-  ``csrc/gru_cluster.cuh``, which K5f shares);
+  ``csrc/gru_cluster.cuh``, the cluster recurrence K2, K4f and K5f share);
 * K6, the same forward in the row-stacked layout (``layout="rowstack"``:
   both directions' gi in one (T, 2B, 3H) array, the backward rows
   pre-reversed, b_hh's r and z columns folded into b_ih):
   :func:`bigru_shared_fwd`, counted on ``bigru_shared.launches_rowstack``
   (the same source);
 * K2, train forward with hash dropout and avg pool: :func:`bigru_trainpool`
-  (``csrc/bigru_trainpool_fwd.cu``);
+  (``csrc/bigru_trainpool_fwd.cu``: K1's cluster recurrence with h_prev
+  stored and the dropout applied in its epilogue);
 * K3, the backward of both: :func:`bigru_shared_bwd`
   (``csrc/bigru_shared_bwd.cu``).
 
@@ -295,9 +296,9 @@ def _part_ptrs(parts) -> list:
 
 
 def bigru_cluster_size(B: int) -> int:
-    """The CTAs in a cluster of K1's recurrence at batch B on the current
-    card: 4 while both directions' clusters of 4 (8 B CTAs) fill at most
-    three quarters of its SMs, else 2."""
+    """The CTAs in a cluster of the two-direction recurrence (K1, K2 and K4f)
+    at batch B on the current card: 4 while both directions' clusters of 4
+    (8 B CTAs) fill at most three quarters of its SMs, else 2."""
     C = _build.library().tsl_bigru_shared_cluster_size(B)
     if C < 0:
         raise RuntimeError("tsl_bigru_shared_cluster_size: CUDA error")
@@ -346,7 +347,12 @@ def bigru_trainpool(params: dict, parts, *, pool: int, drop_p: float, seed: int)
     """K2: ``(hp_f, hp_b, pooled_f, pooled_b)`` as :func:`bigru_trainpool_reference`.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel on the
-    current stream without synchronising. Records no autograd graph on CUDA.
+    current stream without synchronising, and anything the kernel does not
+    take raises, H past 128 too. Its recurrence is K1's, on thread-block
+    clusters whose size follows the batch as K1's does
+    (:func:`bigru_cluster_size`), with each step's h_prev stored and the
+    hash dropout applied before the pool in its epilogue. Records no
+    autograd graph on CUDA.
     """
     parts = _check_args(parts, pool, "avg")
     _check_drop(drop_p, seed)
