@@ -11,8 +11,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    flags are left at their defaults, as a user has them;
 2. build: compiles ``tpu_slu_torch/csrc/*.cu`` with nvcc, and beside it
    developer copies of one source each (``VARIANTS``): K1, K2 and K4f on
-   the cluster size the two-direction rule does not pick, and K7 with
-   clocks by phase;
+   the cluster size the two-direction rule does not pick, K4b's and K5b's
+   chain on the size its rule does not pick, and K7 with clocks by phase;
 3. K1 (the shared-stream bi-GRU kernel) against its plain PyTorch version
    on the card, over parts, pools, odd and even T, B and H = 128; the front
    end's convs and their gradients on the card against an f64 conv on the
@@ -63,8 +63,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    at 4 s and 30 s, on the global plan: the plan in device memory, counted
    on ``beam_decode.launches_global``), the golden
    decoder, an odd small one and W = 1, tokens equal (a row that differs
-   must part at a tie within f32 rounding) and scores within rtol 1e-5
-   atol 1e-4; ``[golden-s2s]`` the six golden
+   must part at a tie within the f32 drift of its summed steps,
+   ``tie_tolerance``) and scores within rtol 1e-5 atol 1e-4; ``[golden-s2s]`` the six golden
    seq2seq wavs exact on the card with one K7 launch a decode and no plain
    search, also through an ``IntentServer`` and over HTTP; ``[s2s]`` the
    flagship seq2seq decode at B = 1 and 16 and on 30 s of audio against the CPU plain path (beam-0 tokens equal, scores
@@ -78,17 +78,20 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 9. seq2seq train step at the width of ``all_real_seq2seq.cfg``: ``[k4b]``
    K4b (the length-masked bi-GRU backward) against its plain version at the
    seq2seq encoder layer (B = 64, T = 25, D = 256, every row T), at B = 8
-   with mixed lengths (0 and 1 among them) and at an odd small shape, dX
-   and the eight weight and bias gradients within ``GRAD_TOL``, dX exactly
-   0 past each length; ``[s2s-grad]`` one train step (B = 16, U = 32,
+   and B = 133 (batch tiles of 8 rows) with mixed lengths (0 and 1 among
+   them) and at an odd small shape, dX and the eight weight and bias
+   gradients within ``GRAD_TOL``, dX exactly 0 past each length; ``[s2s-grad]`` one train step (B = 16, U = 32,
    dropout on) on the card against the same step on the CPU, within phase
    6's limits (the sinc parameters against an f64 CPU step, the key bias
    against its weight's scale); ``[s2s-trainer]`` ``Trainer.train`` at B =
    64 over seeded one-hot batches, 4 K2, 4 K3, 1 K4f, 1 K4b and no K1
    launches a step, then ``Trainer.test`` with the decode's exact match, one
    K7 launch a batch and no plain search; ``[time]`` K4b against its plain
-   version, bound and cuDNN, the warm train step; ``[profile]`` its device
-   time by kernel;
+   version, bound and cuDNN, and by phase (``K4B_PHASES``: the h_prev
+   gather, the gate pass, the chain, the GEMM core's launches, dW's reduce
+   pass; profiler); ``[k4b-batch]`` K4b at B = 8 (mixed lengths) and 64 on
+   clusters of 2 and of 4 CTAs in turns (``bwd_other_c``); the warm train
+   step; ``[profile]`` its device time by kernel;
 10. unidirectional GRU layers: the flagship with ``UNIDIRECTIONAL``
    overrides (every GRU layer one direction of H = 128): ``[k5f]``/``[k5b]``
    K5f and K5b against their plain versions at the five layer shapes, B =
@@ -100,7 +103,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    step card vs CPU as phase 6's; ``[uni-trainer]`` ``Trainer.train`` at B =
    64 with 5 K5f and 5 K5b launches a step and no other GRU kernel;
    ``[time]`` K5f (B = 16; B = 8 masked) and K5b (B = 64) per layer against
-   plain, bound and a unidirectional cuDNN ``nn.GRU``, K5f's us a step;
+   plain, bound and a unidirectional cuDNN ``nn.GRU``, K5f's us a step, K5b
+   by phase (``K5B_PHASES``) and ``[k5b-batch]`` on clusters of 2 and of 4
+   at B = 64;
    ``[k5f-batch]`` K5f's five layers back to back at B = 16, masked B = 8
    and B = 64, each at the cluster size it takes there; the warm decode and
    train step; ``[profile]`` the train
@@ -184,6 +189,13 @@ K7_SOURCE = "tpu_slu_torch/csrc/beam_decode.cu"
 K7_REPLACES = "tpu_slu/ops/pallas_beam.py:152"
 K4B_SOURCE = "tpu_slu_torch/csrc/bigru_masked_bwd.cu"
 K4B_REPLACES = "tpu_slu/ops/pallas_gru.py:400"
+# K4b's and K5b's kernels by phase (one source, one set of kernels): the h_prev gather, the gate
+# pass, the dh chain (the backward cluster recurrence of gru_cluster_bwd.cuh), the GEMM core in its
+# three layouts, dW's reduce pass
+K4B_PHASES = {"h_prev": "masked_hprev_kernel", "gates": "bwd_gates_kernel", "chain": "gru_cluster_bwd_kernel",
+              "core gi/gh": "gemm_kernel<0, 0", "core dX": "gemm_kernel<0, 1", "core dW": "gemm_kernel<1, 1",
+              "reduce": "dw_reduce_kernel"}
+K5B_PHASES = K4B_PHASES
 K5F_SOURCE = "tpu_slu_torch/csrc/bigru_masked_fwd.cu"
 K5F_REPLACES = "tpu_slu/ops/pallas_gru.py:138"
 K5B_SOURCE = "tpu_slu_torch/csrc/bigru_masked_bwd.cu"
@@ -225,10 +237,19 @@ _TILE_C4 = ("if (C == 4) return nb == 1 ? launch_gru_cluster<4, 1, POOL, TRAIN>(
 _OTHER_C = [(_RULE_2DIR, _RULE_2DIR.replace("4 * 8 * B <= 3 * sms", "4 * 8 * B > 3 * sms")),
             (_TILE_C4, _TILE_C4.replace(" : cudaErrorInvalidValue", " : nb == 4 ? launch_gru_cluster<4, 4, POOL, "
                                                                     "TRAIN>(a, ndir, st) : cudaErrorInvalidValue"))]
+# the backward chain (K4b, K5b) on the cluster size its rule does not pick, with the 2- and 4-row
+# tiles C = 4 then takes at B = 64 (K5b and K4b)
+_RULE_BWD = "cudaError_t err = gru_cluster_size(a.B, ndir, &C);"
+_TILE_BWD_C4 = "if (C == 4) return nb == 1 ? launch_gru_cluster_bwd<4, 1>(a, ndir, st) : cudaErrorInvalidValue;"
+_BWD_OTHER_C = [(_RULE_BWD, _RULE_BWD + "\n  C = 6 - C;"),
+                (_TILE_BWD_C4, _TILE_BWD_C4.replace(
+                    " : cudaErrorInvalidValue", " : nb == 2 ? launch_gru_cluster_bwd<4, 2>(a, ndir, st) : nb == 4 ? "
+                    "launch_gru_cluster_bwd<4, 4>(a, ndir, st) : cudaErrorInvalidValue"))]
 VARIANTS = {
     "k1_other_c": ("bigru_shared_fwd.cu", _OTHER_C, []),
     "k2_other_c": ("bigru_trainpool_fwd.cu", _OTHER_C, []),
     "k4f_other_c": ("bigru_masked_fwd.cu", _OTHER_C, []),
+    "bwd_other_c": ("bigru_masked_bwd.cu", _BWD_OTHER_C, []),
     # K7 recording its first utterance's clocks by phase (tsl_beam_trace)
     "k7_trace": ("beam_decode.cu", [], ["-DTSL_TRACE"]),
 }
@@ -407,8 +428,9 @@ def device_ms(fn, reps: int = 10, name: str | None = None) -> float:
 
 def device_split(fn, names: dict, reps: int = 5) -> dict:
     """Device time a call in ms of the kernels whose names hold each value of
-    ``names`` (the first that matches), keyed as ``names``, from
-    ``torch.profiler`` over ``reps`` warm calls; "other" holds the rest."""
+    ``names`` (a string or a tuple of strings; the first key that matches),
+    keyed as ``names``, from ``torch.profiler`` over ``reps`` warm calls;
+    "other" holds the rest."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -422,7 +444,8 @@ def device_split(fn, names: dict, reps: int = 5) -> dict:
     for e in prof.key_averages():
         if e.device_type.name != "CUDA" or getattr(e, "is_user_annotation", False):
             continue
-        key = next((k for k, n in names.items() if n in e.key), "other")
+        key = next((k for k, n in names.items() if any(v in e.key for v in ((n,) if isinstance(n, str) else n))),
+                   "other")
         split[key] += e.self_device_time_total / reps / 1e3
     if not any(split[k] for k in names):
         raise AssertionError(f"the profiler saw none of {list(names.values())}")
@@ -678,17 +701,73 @@ def k4f_layer(rng, dev, D: int, T: int, B: int):
     return launch, check
 
 
-def cluster_ab(what: str, layers_of, dev, card: str, other_lib, batches) -> dict:
-    """``[<what>-batch]``: a two-direction cluster kernel's layers (K1, K2 or
-    K4f; ``layers_of(B)`` gives their ``(launch, check)`` pairs and serial
-    steps) back to back at clusters of 2 and of 4 CTAs, in turns (the size
+def bwd_layer(rng, dev, ndir: int, D: int, T: int, B: int, lengths=None):
+    """K4b (``ndir`` 2) or K5b (1) at one layer shape, H = 128, seeded
+    weights, input and cotangent, ``lengths`` (B,) or None for T in every
+    row (K4b: all T), called through a library's ``tsl_bigru_masked_bwd``
+    or ``tsl_gru1_bwd``: ``(launch, check)`` as :func:`k1_layer`'s;
+    ``check`` holds dX and every weight and bias gradient within
+    ``GRAD_TOL`` of its largest element, and dX exactly 0 past each length."""
+    import numpy as np
+    import torch
+
+    from tpu_slu_torch.ops import _build
+    from tpu_slu_torch.ops.bigru_masked import bigru_masked_bwd_reference, bigru_masked_fwd
+    from tpu_slu_torch.ops.gru1 import gru1_bwd_reference, gru1_fwd
+
+    H, names = 128, ("weight_ih", "bias_ih", "weight_hh", "bias_hh")
+    params, parts = k1_case(rng, 1, D, T, B, H, dev)
+    dirs = ("fwd", "bwd")[:ndir]
+    params = {d: params[d] for d in dirs}
+    x = parts[0].transpose(0, 1).contiguous()
+    if ndir == 2 and lengths is None:
+        lengths = [T] * B
+    n = None if lengths is None else torch.from_numpy(np.asarray(lengths, np.int64)).to(dev)
+    with torch.inference_mode():
+        out = bigru_masked_fwd(params, x, n) if ndir == 2 else gru1_fwd(params, x, n)
+    dy = torch.from_numpy(rng.standard_normal((B, T, ndir * H)).astype(np.float32)).to(dev)
+
+    def empty(*shape):
+        return torch.empty(shape, device=dev, dtype=torch.float32)
+
+    dx = empty(B, T, D)
+    grads = {d: {"weight_ih": empty(3 * H, D), "bias_ih": empty(3 * H), "weight_hh": empty(3 * H, H),
+                 "bias_hh": empty(3 * H)} for d in dirs}
+    scratch = [empty(ndir, B, T, H), empty(ndir, B, T, 3 * H), empty(ndir, B, T, 3 * H), empty(ndir, B, T, 4 * H),
+               empty(_build.partial_floats(D, 0, H, B * T, ndir))]  # hp, buf_a, buf_b, gates, partial
+    ptrs = ([x.data_ptr(), D, None if n is None else n.data_ptr(), out.data_ptr(), dy.data_ptr()]
+            + [params[d][k].data_ptr() for d in dirs for k in names] + [dx.data_ptr()]
+            + [grads[d][k].data_ptr() for d in dirs for k in names] + [t.data_ptr() for t in scratch])
+
+    def launch(lib):
+        entry = lib.tsl_bigru_masked_bwd if ndir == 2 else lib.tsl_gru1_bwd
+        return entry(*ptrs, T, B, H, torch.cuda.current_stream(dev).cuda_stream)
+
+    def check():
+        rdx, rgrads = (bigru_masked_bwd_reference if ndir == 2 else gru1_bwd_reference)(params, x, out, n, dy)
+        pairs = [("dX", dx, rdx)] + [(f"{d}.{k}", grads[d][k], rgrads[d][k]) for d in dirs for k in names]
+        for what, g, r in pairs:
+            if not rel_err(g, r) <= GRAD_TOL:
+                raise AssertionError(f"{'K4b' if ndir == 2 else 'K5b'} T={T} B={B}: {what} off its plain "
+                                     f"version by {rel_err(g, r):.3g} of its largest element")
+        if n is not None and not (dx[torch.arange(T, device=dev)[None, :] >= n[:, None]] == 0).all():
+            raise AssertionError(f"{'K4b' if ndir == 2 else 'K5b'} T={T} B={B}: dX past a length is not 0")
+    return launch, check
+
+
+def cluster_ab(what: str, layers_of, dev, card: str, other_lib, batches, rule_of=None) -> dict:
+    """``[<what>-batch]``: a cluster kernel's layers (K1, K2, K4f, or the
+    backward chain's K4b and K5b; ``layers_of(B)`` gives their ``(launch,
+    check)`` pairs and serial steps) back to back at clusters of 2 and of 4
+    CTAs, in turns (the size
     the rule takes at that B first, the other, the other, the first) at each
     batch; each size takes the smallest batch tile that keeps the grid in one
     wave. The rule's size runs in the port's library, the other in
     ``other_lib``, the kernel's ``*_other_c`` variant (``VARIANTS``: the
-    two-direction rule inverted). Both sizes' outputs are held against the
-    plain version first. Returns {"B=..": {"C": rule's size, "C=2": [ms, ms],
-    "C=4": [ms, ms]}}."""
+    two-direction rule inverted; ``rule_of(B)``, the rule's size, defaults
+    to that rule). Both sizes' outputs are held against the plain version
+    first. Returns {"B=..": {"C": rule's size, "C=2": [ms, ms], "C=4": [ms,
+    ms]}}."""
     import torch
 
     from tpu_slu_torch.ops import _build
@@ -697,7 +776,7 @@ def cluster_ab(what: str, layers_of, dev, card: str, other_lib, batches) -> dict
     out = {}
     for B in batches:
         layers, steps = layers_of(B)
-        rule = bigru_cluster_size(B)  # the two-direction rule of gru_cluster.cuh, K1's, K2's and K4f's
+        rule = (rule_of or bigru_cluster_size)(B)  # default: the two-direction rule of gru_cluster.cuh
         other = 6 - rule
         libs = {rule: _build.library(), other: other_lib}
 
@@ -741,6 +820,26 @@ def k4f_cluster_ab(dev, card: str, rng, other_lib, batches=(1, SERVE_BATCH, 64))
     the served batch of 8 and 64 (:func:`cluster_ab`)."""
     return cluster_ab("K4f", lambda B: ([k4f_layer(rng, dev, n * d, T, B) for _, d, n, T, _ in FLAGSHIP_LAYERS],
                                         K1_STEPS), dev, card, other_lib, batches)
+
+
+def bwd_cluster_ab(what: str, dev, card: str, rng, other_lib, batches) -> dict:
+    """``[k4b-batch]`` / ``[k5b-batch]``: K4b at the seq2seq encoder layer
+    (T = 25, D = 256, mixed lengths below B = 64) or K5b's five layers (every
+    row T) at each batch, on clusters of 2 and of 4 CTAs in turns
+    (:func:`cluster_ab`; the rule's size the forward's, the other from the
+    ``bwd_other_c`` variant)."""
+    from tpu_slu_torch.ops.gru1 import gru1_cluster_size
+
+    ndir = 2 if what == "K4b" else 1
+
+    def layers_of(B):
+        if ndir == 2:
+            lengths = None if B >= 64 else [25] + rng.integers(1, 26, B - 1).tolist()
+            return [bwd_layer(rng, dev, 2, 256, 25, B, lengths)], 25
+        return [bwd_layer(rng, dev, 1, D, T, B) for _, D, T in UNI_SHAPES], sum(T for *_, T in UNI_SHAPES)
+
+    return cluster_ab(what, layers_of, dev, card, other_lib, batches,
+                      rule_of=None if ndir == 2 else gru1_cluster_size)
 
 
 def phase_train(dev, card: str, rng, k2_other) -> tuple[list[dict], int]:
@@ -1161,46 +1260,77 @@ def k7_round_split(trace_lib, dec, keys, values, U: int, ms: float, card: str) -
     return split
 
 
+def tie_tolerance(steps: int, scores) -> float:
+    """How far apart two f32 beam searches may score the same hypotheses
+    after ``steps`` steps, given the beams' ``scores`` (any iterable of
+    floats), derived from the length of the sum, not fitted to any case.
+
+    A beam's score after n steps is the f32 running sum s_k = fl(s_{k-1} +
+    lp_{k-1}), k = 1..n, of its n per-step log-probabilities. Each addition
+    rounds by at most half a spacing of its result, and every lp <= 0, so
+    |s_k| never exceeds |s_n|; a spacing of f32 at |s| is at most 2^-23 |s|.
+    So one search's score lies within n 2^-24 |s_n| of the exact sum of its
+    own log-probabilities, and two searches, each rounding its own sums, lie
+    within n 2^-23 |s_n| of each other. Their log-probabilities differ too,
+    evaluated in other orders: with every lp of one sign, a relative error
+    of a few units in each adds up to the same relative error of the sum,
+    whatever n, for which 4 spacings of the score are allowed. Together (n +
+    4) 2^-23 max |s|, and at least 1e-5 for scores near 0."""
+    return max((steps + 4) * 2**-23 * max(abs(float(s)) for s in scores), 1e-5)
+
+
+def parting_step(run, ref_run, U: int, b: int) -> int:
+    """The step u < U of row ``b`` at which two beam searches' beams first
+    differ (their beams after u steps were equal), found by bisection over
+    searches of fewer steps; ``run(n)`` and ``ref_run(n)`` as in
+    ``compare_searches``. The row's tokens must differ after U steps."""
+    import torch
+
+    def differ(n: int) -> bool:
+        return not torch.equal(run(n)[1][:, b], ref_run(n)[1][:, b])
+
+    lo, hi = 0, U - 1  # differ(hi + 1); lo == 0 or not differ(lo)
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if differ(mid + 1):
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
 def compare_searches(what: str, run, ref_run, U: int) -> tuple[object, object, list[int], list[str]]:
     """Hold a beam search against a reference: ``run(n)`` and ``ref_run(n)``
     give (scores (W, B), tokens (W, B, n)) of searches of n steps, on the CPU.
 
     A row whose tokens are equal passes. A row whose tokens differ is
-    followed back (searches of fewer steps, a bisection) to a step u whose
-    beams differ while those of step u - 1 were equal, so both ranked
-    extensions of the same hypotheses there: the two beams' sorted scores
-    must then agree within f32 rounding of the score (4 spacings, at least
-    1e-5), i.e. the two took different members of a tie; anything else
-    raises. Returns both full results, the rows that passed whole, and a
-    note for each row that parted at a tie (not compared after it)."""
+    followed back (``parting_step``) to a step u whose beams differ while
+    those of step u - 1 were equal, so both ranked extensions of the same
+    hypotheses there: the two beams' sorted scores must then agree within
+    the f32 drift of u + 1 summed steps (``tie_tolerance``), i.e. the two
+    took different members of a tie; anything else raises. Returns both
+    full results, the rows that passed whole, and a note for each row that
+    parted at a tie (not compared after it)."""
     import torch
 
     got, ref = run(U), ref_run(U)
     rows, notes = [], []
-
-    def differ(n: int, b: int) -> bool:
-        return not torch.equal(run(n)[1][:, b], ref_run(n)[1][:, b])
-
     for b in range(ref[1].shape[1]):
         if torch.equal(got[1][:, b], ref[1][:, b]):
             rows.append(b)
             continue
-        lo, hi = 0, U - 1  # differ(hi + 1, b); lo == 0 or not differ(lo, b)
-        while lo < hi:
-            mid = (lo + hi) // 2
-            if differ(mid + 1, b):
-                hi = mid
-            else:
-                lo = mid + 1
+        lo = parting_step(run, ref_run, U, b)
         gs, rs = run(lo + 1)[0][:, b].double(), ref_run(lo + 1)[0][:, b].double()
-        eps = max(4 * 2**-23 * rs.abs().max().item(), 1e-5)
+        eps = tie_tolerance(lo + 1, rs.tolist())
         gap = (gs - rs).abs().max().item()
         if gap > eps:
             raise AssertionError(f"{what}: row {b}'s beams differ at step {lo}, equal before it, with sorted "
                                  f"scores {gs.tolist()} against the reference's "
-                                 f"{rs.tolist()}: {gap:.3g} apart, more than f32 rounding ({eps:.3g})")
+                                 f"{rs.tolist()}: {gap:.3g} apart, more than the f32 drift of {lo + 1} "
+                                 f"summed steps ({eps:.3g})")
         notes.append(f"row {b} parts from the reference at step {lo} of {U}, where the two took different members "
-                     f"of a tie (beam scores within {gap:.3g}, f32 rounding {eps:.3g}); equal before it")
+                     f"of a tie (beam scores within {gap:.3g}, f32 drift of {lo + 1} steps {eps:.3g}); equal "
+                     f"before it")
     return got, ref, rows, notes
 
 
@@ -1575,9 +1705,10 @@ def s2s_batches(rng, n: int, B: int, labels: list, U: int = S2S_U) -> list[dict]
     return out
 
 
-def phase_s2s_train(dev, card: str, rng) -> dict:
+def phase_s2s_train(dev, card: str, rng, bwd_other) -> dict:
     """Phase 9: the seq2seq train step. Returns K4b's JSON entry; its
-    launches are those of ``Trainer.train``."""
+    launches are those of ``Trainer.train``; ``bwd_other`` is the
+    ``bwd_other_c`` variant for ``[k4b-batch]``."""
     import numpy as np
     import torch
 
@@ -1589,7 +1720,7 @@ def phase_s2s_train(dev, card: str, rng) -> dict:
         bigru_masked_bwd,
         bigru_masked_bwd_reference,
     )
-    from tpu_slu_torch.ops.bigru_shared import bigru_shared, bigru_shared_bwd, bigru_trainpool
+    from tpu_slu_torch.ops.bigru_shared import bigru_cluster_size, bigru_shared, bigru_shared_bwd, bigru_trainpool
     from tpu_slu_torch.training import Trainer
 
     # 9.1 K4b against its plain version on the card
@@ -1605,8 +1736,10 @@ def phase_s2s_train(dev, card: str, rng) -> dict:
     B, T, D, H = 64, 25, 256, 128  # the seq2seq encoder layer at 4 s of audio
     mixed = rng.integers(2, T + 1, 8)
     mixed[:3] = T, 0, 1
+    waves = rng.integers(0, T + 1, 133)  # tiles of several rows, of different lengths
+    waves[:3] = T, 0, 1
     cases = [("flagship layer", B, T, D, H, [T] * B), ("mixed lengths", 8, T, D, H, mixed.tolist()),
-             ("odd small", 5, 7, 12, 16, [7, 0, 1, 3, 6])]
+             ("mixed, B=133", 133, T, D, H, waves.tolist()), ("odd small", 5, 7, 12, 16, [7, 0, 1, 3, 6])]
     k4b_err = 0.0
     for name, Bc, Tc, Dc, Hc, lengths in cases:
         params, x, n, out, dy = k4b_case(Bc, Tc, Dc, Hc, lengths)
@@ -1627,9 +1760,9 @@ def phase_s2s_train(dev, card: str, rng) -> dict:
         tail = torch.arange(Tc, device=dev)[None, :] >= n[:, None]
         if not (dx[tail] == 0).all():
             raise AssertionError(f"K4b {name}: dX past a row's length is not exactly 0")
-        print(f"[k4b] {name:14s} B={Bc:2d} T={Tc:2d} D={Dc:3d} H={Hc:3d} lengths "
-              f"{lengths if Bc <= 8 else 'all ' + str(Tc)}: dX and the 8 weight and bias gradients within "
-              f"{worst:.3g} of each largest element, dX exactly 0 past each length")
+        shown = lengths if Bc <= 8 else f"all {Tc}" if min(lengths) == Tc else f"mixed, 0 to {Tc}"
+        print(f"[k4b] {name:14s} B={Bc:3d} T={Tc:2d} D={Dc:3d} H={Hc:3d} lengths {shown}: dX and the 8 weight and "
+              f"bias gradients within {worst:.3g} of each largest element, dX exactly 0 past each length")
     print(f"[k4b] within {GRAD_TOL} of each tensor's largest element; max abs err {k4b_err:.3g}")
 
     # 9.2 one flagship seq2seq train step, card against the CPU plain path, B = 16
@@ -1748,6 +1881,12 @@ def phase_s2s_train(dev, card: str, rng) -> dict:
     print(f"[time] K4b seq2seq encoder layer B={B} T={T} D={D} H={H}: kernel {kern:.4f} ms, plain {pl:.3f} ms, "
           f"cuDNN nn.GRU backward {lib:.4f} ms, bound {k4b_bound:.4f} ms ({k4b_by}: {w[0] / 1e9:.2f} GFLOP, "
           f"{w[1] / 1e6:.2f} MB) on {card}")
+    k4b_split = device_split(lambda: bigru_masked_bwd(params, x, out, n, dy), K4B_PHASES)
+    print(f"[time] K4b seq2seq encoder layer B={B} T={T} by phase (profiler, device ms a call): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in k4b_split.items())
+          + f"; the chain {1e3 * k4b_split['chain'] / T:.3f} us a step on clusters of {bigru_cluster_size(B)} on "
+          f"{card}")
+    k4b_ab = bwd_cluster_ab("K4b", dev, card, rng, bwd_other, (SERVE_BATCH, 64))
     batch = {k: torch.from_numpy(v).to(dev) for k, v in data.loader[0].items()}
     step_ms = cuda_ms(lambda: trainer.train_step(batch), reps=10, warmup=2)
     print(f"[time] warm seq2seq train step B={B}, 4 s, U={S2S_U} (forward, backward, masked Adam): median "
@@ -1756,13 +1895,15 @@ def phase_s2s_train(dev, card: str, rng) -> dict:
                   reps=5, top=12)
     return {"name": "bigru_masked_bwd", "route": "cuda", "source": K4B_SOURCE, "replaces": K4B_REPLACES,
             "launches": launches["K4b"], "max_abs_err": k4b_err, "ms": kern, "plain_ms": pl,
-            "bound_ms": k4b_bound, "bound_by": k4b_by, "library_ms": lib}
+            "bound_ms": k4b_bound, "bound_by": k4b_by, "library_ms": lib, "phase_ms": k4b_split,
+            "ab_cluster": k4b_ab}
 
 
-def phase_uni(dev, card: str, rng) -> list[dict]:
+def phase_uni(dev, card: str, rng, bwd_other) -> list[dict]:
     """Phase 10: the flagship with every GRU layer unidirectional
     (``UNIDIRECTIONAL``), decode, serve and train. Returns K5f's and K5b's
-    JSON entries; their launches are those of ``Trainer.train``."""
+    JSON entries; their launches are those of ``Trainer.train``;
+    ``bwd_other`` is the ``bwd_other_c`` variant for ``[k5b-batch]``."""
     import numpy as np
     import torch
 
@@ -1971,6 +2112,19 @@ def phase_uni(dev, card: str, rng) -> list[dict]:
         per_step = f", {1e3 * a / steps:.3f} us a step" if what.startswith("k5f") else ""
         print(f"[time] {what} five layers: kernel {a:.4f} ms{per_step}, plain {b:.3f} ms, cuDNN {lib:.4f} ms, "
               f"bound {bounds[what][0]:.4f} ms ({bounds[what][1]}) on {card}")
+    # K5b's five layers at B = 64 by phase, and on clusters of 2 and of 4
+    k5b_cases = []
+    for _, D, T in UNI_SHAPES:
+        params, x, _ = layer_case(64, T, D, H, None)
+        with torch.inference_mode():
+            out = gru1_fwd(params, x)
+        k5b_cases.append((params, x, out, torch.from_numpy(rng.standard_normal((64, T, H)).astype(np.float32)).to(dev)))
+    k5b_split = device_split(lambda: [gru1_bwd(p, x, o, None, d) for p, x, o, d in k5b_cases], K5B_PHASES)
+    print(f"[time] K5b five layers B=64 by phase (profiler, device ms a call): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in k5b_split.items())
+          + f"; the chain {1e3 * k5b_split['chain'] / steps:.3f} us a step on clusters of {gru1_cluster_size(64)} "
+          f"on {card}")
+    k5b_ab = bwd_cluster_ab("K5b", dev, card, rng, bwd_other, (64,))
 
     # 10.7 K5f by batch, each at the cluster size the kernel takes there (4 CTAs while every row gets a
     # cluster of its own in one wave of the SMs, else 2): the five layers back to back, two turns, at
@@ -2015,7 +2169,8 @@ def phase_uni(dev, card: str, rng) -> list[dict]:
          "masked_library_ms": tot["k5f masked"][2]},
         {"name": "gru1_bwd", "route": "cuda", "source": K5B_SOURCE, "replaces": K5B_REPLACES,
          "launches": launches["K5b"], "max_abs_err": k5b_err, "ms": tot["k5b"][0], "plain_ms": tot["k5b"][1],
-         "bound_ms": bounds["k5b"][0], "bound_by": bounds["k5b"][1], "library_ms": tot["k5b"][2]},
+         "bound_ms": bounds["k5b"][0], "bound_by": bounds["k5b"][1], "library_ms": tot["k5b"][2],
+         "phase_ms": k5b_split, "ab_cluster": k5b_ab},
     ]
 
 
@@ -2492,10 +2647,10 @@ def main() -> None:
     k7 = phase_seq2seq(dev, card, rng, variants["k7_trace"])
 
     # 9. seq2seq train step
-    k4b = phase_s2s_train(dev, card, rng)
+    k4b = phase_s2s_train(dev, card, rng, variants["bwd_other_c"])
 
     # 10. unidirectional GRU layers: decode, serve and train
-    uni = phase_uni(dev, card, rng)
+    uni = phase_uni(dev, card, rng, variants["bwd_other_c"])
 
     # 11. the exact-shape eval path's routes: K8 and K6
     routes = phase_routes(dev, card, rng)

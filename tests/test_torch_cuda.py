@@ -1061,7 +1061,8 @@ def test_k7_global_plan_matches_plain(dev, W):
     and its 200 steps: the global plan, one launch; tokens equal the plain
     search's, or a row parts from it only at a tie (``compare_searches``:
     where the two first differ, the row's sorted beam scores agree within
-    f32 rounding; a random decoder scores permuted hypotheses alike)."""
+    the f32 drift of the summed steps; a random decoder scores permuted
+    hypotheses alike)."""
     from chip_smoke import compare_searches
 
     dec, keys, values = k7_inputs(W + 2, 2, 25, *FLAGSHIP_DECODER, dev)
@@ -1083,32 +1084,40 @@ def test_k7_global_plan_matches_plain(dev, W):
     torch.testing.assert_close(scores[:, rows], ref_scores[:, rows], rtol=1e-5, atol=1e-4)
 
 
+# B, W, U: either side of the smem plan's edge at U = 24, and the widest smem beam at the flagship's
+# U = 200 (a seeded case whose rows part from the plain search at ties, each within the f32 drift of
+# its summed steps by an f64 replay, tools/k7_tie_replay.py)
+_K7_PLAN_EDGES = [pytest.param(33, 27, 24, id="27-33"), pytest.param(33, 28, 24, id="28-33"),
+                  pytest.param(133, 27, 24, id="27-133"), pytest.param(133, 28, 24, id="28-133"),
+                  pytest.param(133, 25, 200, id="25-133-U200")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [33, 133])
-@pytest.mark.parametrize("W", [27, 28])
-def test_k7_plan_boundary_on_small_clusters(dev, B, W):
-    """Either side of the smem plan's edge at the flagship decoder and U =
-    24 steps: W = 27, the widest smem beam, and W = 28, whose plan fits a
+@pytest.mark.parametrize("B,W,U", _K7_PLAN_EDGES)
+def test_k7_plan_boundary_on_small_clusters(dev, B, W, U):
+    """Either side of the smem plan's edge at the flagship decoder: at U =
+    24 steps W = 27, the widest smem beam, and W = 28, whose plan fits a
     block alone but not beside a one-CTA cluster's bias slices, so takes
-    the global plan; at batches whose smem plan takes clusters of 3 CTAs or
-    fewer, where each CTA's bias slices are the largest (B = 133: one CTA
-    an utterance, two waves). One launch; tokens equal the plain search's,
-    or a row parts from it only at a tie (``compare_searches``), scores
-    within rtol 1e-5 atol 1e-4."""
+    the global plan; at U = 200, W = 25, the widest smem beam there; at
+    batches whose smem plan takes clusters of 3 CTAs or fewer, where each
+    CTA's bias slices are the largest (B = 133: one CTA an utterance, two
+    waves). One launch; tokens equal the plain search's, or a row parts
+    from it only at a tie within the f32 drift of its summed steps
+    (``compare_searches``), scores within rtol 1e-5 atol 1e-4."""
     from chip_smoke import compare_searches
     from tpu_slu_torch.ops import _build
 
-    U = 24
+    edge = {24: 27, 200: 25}[U]  # the widest smem beam at U steps
     plan = _build.library().tsl_beam_decode_smem_bytes
-    assert plan(27, *FLAGSHIP_DECODER, U) <= SMEM_LIMIT < plan(28, *FLAGSHIP_DECODER, U)
-    assert beam_cluster_size(B, 25, 27, *FLAGSHIP_DECODER, U) <= 3
+    assert plan(edge, *FLAGSHIP_DECODER, U) <= SMEM_LIMIT < plan(edge + 1, *FLAGSHIP_DECODER, U)
+    assert beam_cluster_size(B, 25, edge, *FLAGSHIP_DECODER, U) <= 3
     dec, keys, values = k7_inputs(B + W, B, 25, *FLAGSHIP_DECODER, dev)
     n = torch.from_numpy(np.random.default_rng(B).integers(1, 26, B)).to(dev)
     before = beam_decode.launches, beam_decode.launches_global
     with torch.inference_mode():
         beam_decode(dec, keys, values, n, W, U)
     torch.cuda.synchronize()
-    assert (beam_decode.launches - before[0], beam_decode.launches_global - before[1]) == (1, int(W == 28))
+    assert (beam_decode.launches - before[0], beam_decode.launches_global - before[1]) == (1, int(W > edge))
 
     def search(fn):
         def steps(n_steps):
@@ -1117,7 +1126,7 @@ def test_k7_plan_boundary_on_small_clusters(dev, B, W):
         return steps
 
     (scores, _), (ref_scores, _), rows, _ = compare_searches(
-        f"K7 W={W} B={B}", search(beam_decode), search(beam_search_reference), U)
+        f"K7 W={W} B={B} U={U}", search(beam_decode), search(beam_search_reference), U)
     torch.testing.assert_close(scores[:, rows], ref_scores[:, rows], rtol=1e-5, atol=1e-4)
 
 
@@ -1193,8 +1202,9 @@ def _flagship_seq2seq_pair(dev):
 
 def _hold_against_the_cpu(card, cpu, x, W, **kw):
     """The card's decode against the CPU's plain path: beam-0 tokens equal
-    (a row that parts at a tie within f32 rounding passes, as
-    ``chip_smoke.compare_searches`` has it), scores within 1e-3 relative."""
+    (a row that parts at a tie within the f32 drift of its summed steps
+    passes, as ``chip_smoke.compare_searches`` has it), scores within 1e-3
+    relative."""
     import dataclasses
 
     from chip_smoke import compare_searches
@@ -1607,3 +1617,99 @@ def test_k5f_rejects_a_width_past_its_registers(dev):
     with pytest.raises(ValueError):
         gru1_fwd(wide, x_wide)
     assert gru1.launches == before
+
+
+# ---------------------------------------------------------------------------
+# K4b's and K5b's dh chain on the backward cluster recurrence
+# ---------------------------------------------------------------------------
+
+# On an H100's 132 SMs the backward chain takes the forward's cluster sizes: K5b (one direction)
+# clusters of 4 to B = 33, then of 2 with batch tiles of 1 row to B = 66, 2 to 132, 4 to 264 and 8
+# past; K4b (two directions) _CLUSTER_EDGES' sizes and tiles
+_K5B_EDGES = [33, 34, 66, 67, 133, 265]
+
+
+def _tile_lengths(seed, B, T):
+    """Seeded lengths in [0, T] where every run of three rows holds T, 0
+    and 1, so that each batch tile of two rows or more mixes walks of T,
+    none and one step."""
+    n = np.random.default_rng(seed).integers(0, T + 1, B)
+    n[0::3], n[1::3], n[2::3] = T, 0, 1
+    n[3::5] = np.random.default_rng(seed + 1).integers(2, T, len(n[3::5]))
+    return n
+
+
+@pytest.mark.cuda
+def test_bwd_chain_batches_reach_both_cluster_sizes(dev):
+    """The chain takes the forward's cluster size (gru_cluster_bwd.cuh); the
+    batches of the tests below reach clusters of 2 and of 4 CTAs for each
+    number of directions."""
+    assert {gru1_cluster_size(B) for B in [1, 3, 8] + _K5B_EDGES} == {2, 4}
+    assert {bigru_cluster_size(B) for B in [1, 3, 8] + _CLUSTER_EDGES} == {2, 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", sorted([1, 3, 8] + _CLUSTER_EDGES))
+def test_k4b_cluster_chain_matches_plain(dev, B):
+    """K4b at the batches where the chain's cluster size or batch tile
+    changes, each tile mixing rows of length 0, 1 and T: dX and the eight
+    weight and bias gradients within 1e-4 of each largest element, dX
+    exactly 0 past each length, one launch, and a second call equal to the
+    first bit for bit."""
+    T, D, H = 25, 60, 128
+    params, x, _ = k4_inputs(60, B, T, D, H, dev)
+    n = torch.from_numpy(_tile_lengths(61, B, T)).to(dev)
+    with torch.inference_mode():
+        out = bigru_masked(params, x, n)
+    dy = torch.from_numpy(np.random.default_rng(62).standard_normal((B, T, 2 * H)).astype(np.float32)).to(dev)
+    before = bigru_masked_bwd.launches
+    got = bigru_masked_bwd(params, x, out, n, dy)
+    again = bigru_masked_bwd(params, x, out, n, dy)
+    torch.cuda.synchronize()
+    assert bigru_masked_bwd.launches == before + 2
+    ref = bigru_masked_bwd_reference(params, x, out, n, dy)
+    _assert_grads_close(((got[0],), got[1]), ((ref[0],), ref[1]))
+    _assert_grads_equal(((got[0],), got[1]), ((again[0],), again[1]))
+    for b, nb in enumerate(n.tolist()):
+        assert (got[0][b, nb:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("B", sorted([1, 3, 8, 16] + _K5B_EDGES))
+def test_k5b_cluster_chain_matches_plain(dev, B, masked):
+    """K5b at the batches where the chain's cluster size or batch tile
+    changes, every row T or each tile mixing rows of length 0, 1 and T:
+    dX and the four gradients within 1e-4 of each largest element, dX
+    exactly 0 past each length, one launch, and a second call equal to the
+    first bit for bit."""
+    T, D, H = 25, 60, 128
+    params, x, _ = k5_inputs(63, B, T, D, H, dev)
+    n = torch.from_numpy(_tile_lengths(64, B, T)).to(dev) if masked else None
+    with torch.inference_mode():
+        out = gru1_fwd(params, x, n)
+    dy = torch.from_numpy(np.random.default_rng(65).standard_normal((B, T, H)).astype(np.float32)).to(dev)
+    before = gru1_bwd.launches
+    got = gru1_bwd(params, x, out, n, dy)
+    again = gru1_bwd(params, x, out, n, dy)
+    torch.cuda.synchronize()
+    assert gru1_bwd.launches == before + 2
+    ref = gru1_bwd_reference(params, x, out, n, dy)
+    _assert_grads_close(((got[0],), got[1]), ((ref[0],), ref[1]))
+    _assert_grads_equal(((got[0],), got[1]), ((again[0],), again[1]))
+    for b, nb in enumerate([T] * B if n is None else n.tolist()):
+        assert (got[0][b, nb:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [13, 34, 133])
+def test_k3_repeats_bit_for_bit_at_the_cluster_edges(dev, B):
+    """K3, whose one-CTA chain stays as it was beside K4b's and K5b's cluster
+    chain, at batches whose tiles hold 1, 2 and 8 rows: within 1e-4 of its
+    plain version, a second call equal to the first bit for bit."""
+    params, parts, hp_f, hp_b, dy, kw = _bwd_case(66, (128, 128), 25, B, 128, dev, True)
+    got = bigru_shared_bwd(params, parts, hp_f, hp_b, *dy, **kw)
+    again = bigru_shared_bwd(params, parts, hp_f, hp_b, *dy, **kw)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, bigru_shared_bwd_reference(params, parts, hp_f, hp_b, *dy, **kw))
+    _assert_grads_equal(got, again)

@@ -1,22 +1,29 @@
 #!/usr/bin/env python3
 """A/Bs of the port's cluster kernels on one GPU: the cluster size of K1, K2
-and K4f, those kernels and K5f against another checkout's, K7's cluster
-size by batch, and K7's step with parts of its design taken out.
+and K4f, those kernels, K5f, K4b and K5b against another checkout's, K7's
+cluster size by batch, and K7's step with parts of its design taken out.
 
     python3 tools/torch_cluster_ab.py [--k1-batches 1 2 4 8 12 16 64]
-        [--k2-batches 16 64] [--k4f-batches 1 8 64] [--parent DIR]
+        [--k2-batches 16 64] [--k4f-batches 1 8 64] [--k4b-batches 8 64]
+        [--k5b-batches 64] [--parent DIR]
         [--k7-sizes] [--k7-variants base skip_gi skip_gh no_kv no_cache ...]
 
 ``--k1-batches``, ``--k2-batches``, ``--k4f-batches``: the kernel's
 flagship layers (K4f's with mixed lengths) on clusters of 2 and of 4 CTAs
 in turns at each batch (``chip_smoke.cluster_ab``, the other size from the
 smoke's ``k1_other_c``, ``k2_other_c`` or ``k4f_other_c`` variant).
+``--k4b-batches``, ``--k5b-batches``: the same for the backward chain, K4b
+at the seq2seq encoder layer (mixed lengths below B = 64) and K5b's five
+layers (``chip_smoke.bwd_cluster_ab``, the ``bwd_other_c`` variant).
 ``--parent DIR``: the kernel library of the checkout at DIR (e.g. the
 parent commit unpacked under ``build/``), built with that checkout's own
 ``_build.py``, against this tree's, in turns parent, this, this, parent:
 K1's five layers at B = 16, K2's four at B = 64, K4f's five at B = 8 with
-mixed lengths and K5f's five at B = 16, each output held against its plain
-version. ``--k7-sizes``: the cluster size K7
+mixed lengths, K5f's five at B = 16, K3's five at B = 64 (through its
+wrapper, the library swapped in), K4b at the seq2seq encoder layer (B =
+64, T = 25, D = 256) and K5b's five layers at B = 64, each output held
+against its plain version; K4b and K5b also by phase (``chip_smoke.device_split``
+over ``K4B_PHASES``), in the same turns. ``--k7-sizes``: the cluster size K7
 takes at each batch at the flagship decoder, W = 4, 4 s. ``--k7-variants``:
 each variant is ``tpu_slu_torch/csrc/beam_decode.cu`` with one text edit
 (``VARIANTS``) and ``TSL_TRACE`` defined, compiled alone into
@@ -41,6 +48,7 @@ FLAG = (2, 256, 100, 200, 102)  # all_real_seq2seq.cfg's decoder: layers, H, K, 
 _DOT_GI = "dot_rows<G, 3>(wi, in, off_in, in4, lane, ai);"
 _DOT_GH = "dot_rows<G, 3>(wh, hprev, off_h, Hp / 4, lane, ah);"
 _UNROLL = "#pragma unroll 2\n  for (int c = lane; c < n4; c += kLanes)"
+PARENT_CHAIN = "masked_bwd_chain_kernel"  # K4b's and K5b's one-CTA chain, before the cluster chain
 # name -> [(text in beam_decode.cu or a header it includes, its replacement)]
 VARIANTS = {
     "base": [],
@@ -95,8 +103,9 @@ def k7_variants(names: list[str], dev, card: str) -> None:
 
 
 def parent_ab(parent: str, dev, card: str) -> None:
-    """``[parent]``: this tree's K1, K2, K4f and K5f against the library of
-    the checkout at ``parent``, through the same C entry points, in turns."""
+    """``[parent]``: this tree's K1, K2, K4f, K5f, K3, K4b and K5b against the
+    library of the checkout at ``parent``, through the same C entry points,
+    in turns."""
     import importlib.util
     import statistics
 
@@ -130,6 +139,36 @@ def parent_ab(parent: str, dev, card: str) -> None:
                 raise AssertionError(f"K5f T={T} B={B} disagrees with its plain version")
         return launch, check
 
+    def k3_layer(d, n_parts, T, B, fused):
+        # K3 through its wrapper, with the library to time swapped in for the call
+        from tpu_slu_torch.ops.bigru_shared import (_shift_hp, bigru_shared, bigru_shared_bwd,
+                                                    bigru_shared_bwd_reference, bigru_trainpool)
+
+        params, parts = cs.k1_case(rng, n_parts, d, T, B, 128, dev)
+        kw = {"pool": 2, "drop_p": 0.5, "seed": int(rng.integers(2**32))} if fused else {}
+        if fused:
+            hp_f, hp_b, o_f, _ = bigru_trainpool(params, parts, **kw)
+        else:
+            o_f, o_b = bigru_shared(params, parts)[:2]
+            hp_f, hp_b = _shift_hp(o_f, o_b)
+        dy = [torch.from_numpy(rng.standard_normal(tuple(o_f.shape)).astype(np.float32)).to(dev) for _ in range(2)]
+        got = {}
+
+        def launch(lib):
+            real, _build._lib = _build._lib, lib
+            try:
+                got["v"] = bigru_shared_bwd(params, parts, hp_f, hp_b, *dy, **kw)
+            finally:
+                _build._lib = real
+            return 0
+
+        def check():
+            (dxs, grads), (rdxs, rgrads) = got["v"], bigru_shared_bwd_reference(params, parts, hp_f, hp_b, *dy, **kw)
+            pairs = list(zip(dxs, rdxs)) + [(grads[k][n], rgrads[k][n]) for k in grads for n in grads[k]]
+            if not all(cs.rel_err(g, r) <= cs.GRAD_TOL for g, r in pairs):
+                raise AssertionError(f"K3 T={T} B={B} disagrees with its plain version")
+        return launch, check
+
     kernels = {
         "K1 five layers B=16": ([cs.k1_layer(rng, dev, d, n, T, 16, pool) for _, d, n, T, pool in cs.FLAGSHIP_LAYERS],
                                 cs.K1_STEPS),
@@ -138,6 +177,11 @@ def parent_ab(parent: str, dev, card: str) -> None:
         f"K4f five layers B={cs.SERVE_BATCH} mixed lengths": (
             [cs.k4f_layer(rng, dev, n * d, T, cs.SERVE_BATCH) for _, d, n, T, _ in cs.FLAGSHIP_LAYERS], cs.K1_STEPS),
         "K5f five layers B=16": ([k5f_layer(D, T, 16) for _, D, T in cs.UNI_SHAPES], sum(T for *_, T in cs.UNI_SHAPES)),
+        "K3 five layers B=64": ([k3_layer(d, n, T, 64, name != cs.INTENT_SHAPE[0])
+                                 for name, d, n, T in cs.ENC_SHAPES + [cs.INTENT_SHAPE]], cs.K1_STEPS),
+        "K4b seq2seq encoder layer B=64": ([cs.bwd_layer(rng, dev, 2, 256, 25, 64)], 25),
+        "K5b five layers B=64": ([cs.bwd_layer(rng, dev, 1, D, T, 64) for _, D, T in cs.UNI_SHAPES],
+                                 sum(T for *_, T in cs.UNI_SHAPES)),
     }
     for what, (layers, steps) in kernels.items():
         def run(lib, layers=layers):
@@ -158,6 +202,12 @@ def parent_ab(parent: str, dev, card: str) -> None:
               f"{turns['this'][1]:.4f}, parent {turns['parent'][1]:.4f} ms "
               f"({1e3 * statistics.mean(turns['parent']) / steps:.3f} against "
               f"{1e3 * statistics.mean(turns['this']) / steps:.3f} us a step) on {card}")
+        if what.startswith(("K4b", "K5b")):  # by phase, each tree's chain under its own name
+            phases = {**cs.K4B_PHASES, "chain": (cs.K4B_PHASES["chain"], PARENT_CHAIN)}
+            for k in ("parent", "this", "this", "parent"):
+                split = cs.device_split(run(libs[k]), phases)
+                print(f"[parent] {what} by phase, {k} (profiler, device ms a call): "
+                      + ", ".join(f"{p} {v:.4f}" for p, v in split.items()) + f"; sum {sum(split.values()):.4f}")
 
 
 def main() -> None:
@@ -165,6 +215,8 @@ def main() -> None:
     ap.add_argument("--k1-batches", type=int, nargs="*", default=[])
     ap.add_argument("--k2-batches", type=int, nargs="*", default=[])
     ap.add_argument("--k4f-batches", type=int, nargs="*", default=[])
+    ap.add_argument("--k4b-batches", type=int, nargs="*", default=[])
+    ap.add_argument("--k5b-batches", type=int, nargs="*", default=[])
     ap.add_argument("--parent", help="a checkout whose kernel library to time against this tree's")
     ap.add_argument("--k7-sizes", action="store_true")
     ap.add_argument("--k7-variants", nargs="*", default=[], choices=sorted(VARIANTS))
@@ -186,6 +238,11 @@ def main() -> None:
             other = cs.load_variant(f"{name}_other_c", *cs.start_variant(f"{name}_other_c",
                                                                         *cs.VARIANTS[f"{name}_other_c"]))
             ab(dev, card, np.random.default_rng(0), other, tuple(batches))
+    if args.k4b_batches or args.k5b_batches:
+        other = cs.load_variant("bwd_other_c", *cs.start_variant("bwd_other_c", *cs.VARIANTS["bwd_other_c"]))
+        for what, batches in (("K4b", args.k4b_batches), ("K5b", args.k5b_batches)):
+            if batches:
+                cs.bwd_cluster_ab(what, dev, card, np.random.default_rng(0), other, tuple(batches))
     if args.parent:
         parent_ab(args.parent, dev, card)
     if args.k7_sizes:

@@ -25,11 +25,14 @@
 //      rows by the GEMM core of bigru_gemm.cuh, one launch; the gate tensor
 //      [gh_n r(1-r), z, n, r] (bigru_bwd_common.cuh). The logistic sigmoid,
 //      as K4f uses.
-//   2. The serial dh chain: one CTA per (batch tile, direction), W_hh in
-//      shared memory; a row's chain walks its valid steps only, the forward
-//      direction's gradient t = n_b-1..0, the backward direction's t =
-//      0..n_b-1. Each step is dh <- dgh W_hh + dh z and writes dgi and dgh;
-//      the CTA then writes exact zeros to both at t >= n_b.
+//   2. The serial dh chain, on the backward cluster recurrence of
+//      gru_cluster_bwd.cuh: a thread-block cluster of C CTAs per (batch
+//      tile, direction), each holding its hidden units' columns of W_hh in
+//      registers and sending each step's dgh to the others by st.async; a
+//      row's chain walks its valid steps only, the forward direction's
+//      gradient t = n_b-1..0, the backward direction's t = 0..n_b-1. Each
+//      step is dh <- dgh W_hh + dh z and writes dgi and dgh; exact zeros
+//      go to both at t >= n_b.
 //   3. Products (the GEMM core, K3's): dX = sum_dir dgi W_ih into one
 //      tensor; dW_ih = dgi^T x, dW_hh = dgh^T h_prev, db the column sums,
 //      over row chunks summed in chunk order. Padded rows
@@ -40,10 +43,9 @@
 // `pallas_call` at :261), the custom-VJP backward of every unidirectional
 // GRU layer (`_gru1_seq_for` :617-644). It is the VJP of K5f
 // (bigru_masked_fwd.cu, NDIR = 1): the same three phases with one
-// direction (the chain kernel's NDIR = 1, its own name in a trace): x (B,
-// T, D), the forward output (B, T, H) and dy (B, T, H) -> dX, dW_ih, db_ih,
-// dW_hh, db_hh; h_prev is
-// out[b, t-1] (0 at t = 0), the chain walks t = n_b-1..0. The TPU kernel
+// direction: x (B, T, D), the forward output (B, T, H) and dy (B, T, H) ->
+// dX, dW_ih, db_ih, dW_hh, db_hh; h_prev is out[b, t-1] (0 at t = 0), the
+// chain walks t = n_b-1..0. The TPU kernel
 // takes time-flipped x, h_prev and dy and carries dh and the dW sums across
 // its sequential time blocks; here nothing is flipped and dW is phase 3's
 // fixed-order reduction.
@@ -53,11 +55,13 @@
 // holds ~0.3 GFLOP in 2 x 25 serial steps side by side; the rest are the
 // gate recompute and the dX/dW products, f32 FMAs on the GEMM core
 // (bigru_gemm.cuh). What the design does about it: everything without a
-// serial dependence leaves the chain, and the dW reduction splits its 1,600
-// rows into enough chunks to give every SM two CTAs.
+// serial dependence leaves the chain, whose step runs on C SMs with its
+// weights in registers, and the dW reduction splits its 1,600 rows into
+// enough chunks to give every SM two CTAs.
 // f32 operands and accumulation throughout.
 
 #include "bigru_bwd_common.cuh"
+#include "gru_cluster_bwd.cuh"
 
 namespace {
 
@@ -93,143 +97,6 @@ __global__ void masked_hprev_kernel(const float* __restrict__ out,
   }
 }
 
-// Phase 2: one CTA per (batch tile of NB rows, direction), blockDim.x >= 3H;
-// NDIR = 1: the forward direction alone (K5b).
-// Thread e < NB*H owns element (b, i) of dh through the row's valid steps;
-// thread tid < 3H owns output column j = tid % H of the group g = tid / H of
-// W_hh's rows in the recurrent product dgh W_hh (K3's bwd_chain_kernel).
-// Step s of row b is t = n_b - 1 - s (forward direction) or t = s
-// (backward); a row past its walk idles while the tile's longest finishes.
-template <int NB, int NDIR>
-__global__ void masked_bwd_chain_kernel(const float* __restrict__ gates,  // (NDIR, B*T, 4H)
-                                        const float* __restrict__ hp,     // (NDIR, B*T, H)
-                                        const float* __restrict__ dy,     // (B, T, NDIR*H)
-                                        const long long* __restrict__ lengths,
-                                        const float* __restrict__ whh_f,
-                                        const float* __restrict__ whh_b,
-                                        float* __restrict__ dgi,  // (NDIR, B*T, 3H)
-                                        float* __restrict__ dgh, int T, int B, int H) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ int n_s[NB];
-  const int H3 = 3 * H;
-  float* w_s = smem;                // [3H][H], torch layout
-  float* dgh_s = w_s + H3 * H;      // [NB][3H]
-  float* part_s = dgh_s + NB * H3;  // [3][NB][H]
-
-  const int dir = NDIR == 1 ? 0 : blockIdx.y;
-  const int b0 = blockIdx.x * NB;
-  const int nb = min(NB, B - b0);
-  const size_t M = (size_t)B * T;
-  const float* __restrict__ whh = dir == 0 ? whh_f : whh_b;
-  const float* __restrict__ gd = gates + dir * M * 4 * H;
-  const float* __restrict__ hpd = hp + dir * M * H;
-  const float* __restrict__ dyd = dy + dir * H;
-  float* __restrict__ dgi_d = dgi + dir * M * H3;
-  float* __restrict__ dgh_d = dgh + dir * M * H3;
-  const int tid = threadIdx.x, nt = blockDim.x;
-
-  for (int e = tid; e < H3 * H; e += nt) w_s[e] = whh[e];
-  for (int e = tid; e < NB * H3; e += nt) dgh_s[e] = 0.0f;
-  if (tid < NB) n_s[tid] = tid < nb ? row_len(lengths, b0 + tid, T) : 0;
-  constexpr int kIt = (NB + 2) / 3;
-  float dh[kIt];
-#pragma unroll
-  for (int it = 0; it < kIt; ++it) dh[it] = 0.0f;
-  const int g = tid / H, j = tid % H;
-  __syncthreads();
-  int nmax = 0;
-#pragma unroll
-  for (int b = 0; b < NB; ++b) nmax = max(nmax, n_s[b]);
-
-  for (int s = 0; s < nmax; ++s) {
-#pragma unroll
-    for (int it = 0; it < kIt; ++it) {
-      const int e = tid + it * nt;
-      if (e < nb * H) {
-        const int b = e / H, i = e % H, n = n_s[b];
-        if (s < n) {
-          const int t = dir == 0 ? n - 1 - s : s;
-          const size_t row = (size_t)(b0 + b) * T + t;
-          const float* gr = gd + row * 4 * H;
-          const float rfac = gr[i], z = gr[H + i], ng = gr[2 * H + i], r = gr[3 * H + i];
-          const float d = dh[it] + dyd[row * NDIR * H + i];
-          const float h_prev = hpd[row * H + i];
-          const float dn = d * (1.0f - z) * (1.0f - ng * ng);
-          const float dz = d * (h_prev - ng) * z * (1.0f - z);
-          const float dr = dn * rfac;
-          const float dnr = dn * r;
-          float* o = dgi_d + row * H3;
-          o[i] = dr;
-          o[H + i] = dz;
-          o[2 * H + i] = dn;
-          o = dgh_d + row * H3;
-          o[i] = dr;
-          o[H + i] = dz;
-          o[2 * H + i] = dnr;
-          float* sd = dgh_s + b * H3;
-          sd[i] = dr;
-          sd[H + i] = dz;
-          sd[2 * H + i] = dnr;
-          dh[it] = d * z;
-        }
-      }
-    }
-    __syncthreads();
-    if (tid < H3) {
-      float acc[NB];
-#pragma unroll
-      for (int b = 0; b < NB; ++b) acc[b] = 0.0f;
-      const float* wcol = w_s + (size_t)g * H * H + j;
-      const float* dg = dgh_s + g * H;
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float wv = wcol[(size_t)k * H];
-#pragma unroll
-        for (int b = 0; b < NB; ++b) acc[b] = fmaf(dg[b * H3 + k], wv, acc[b]);
-      }
-#pragma unroll
-      for (int b = 0; b < NB; ++b)
-        if (b < nb) part_s[(g * NB + b) * H + j] = acc[b];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int it = 0; it < kIt; ++it) {
-      const int e = tid + it * nt;
-      if (e < nb * H) {
-        const int b = e / H, i = e % H;
-        if (s < n_s[b])
-          dh[it] += part_s[b * H + i] + part_s[(NB + b) * H + i] + part_s[(2 * NB + b) * H + i];
-      }
-    }
-  }
-  // the padded frames t >= n_b of every row of the tile
-  const size_t per_row = (size_t)T * H3;
-  for (size_t e = tid; e < (size_t)nb * per_row; e += nt) {
-    const int b = (int)(e / per_row);
-    const size_t r = e % per_row;
-    if ((int)(r / H3) >= n_s[b]) {
-      const size_t off = (size_t)(b0 + b) * per_row + r;
-      dgi_d[off] = 0.0f;
-      dgh_d[off] = 0.0f;
-    }
-  }
-}
-
-template <int NB, int NDIR>
-cudaError_t launch_masked_chain(const float* gates, const float* hp, const float* dy,
-                                const long long* lengths, const float* whh_f, const float* whh_b,
-                                float* dgi, float* dgh, int T, int B, int H, cudaStream_t st) {
-  const size_t smem = sizeof(float) * ((size_t)3 * H * H + (size_t)NB * 3 * H + (size_t)3 * NB * H);
-  cudaError_t err = cudaFuncSetAttribute(masked_bwd_chain_kernel<NB, NDIR>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int threads = (3 * H + 31) / 32 * 32;
-  dim3 grid((B + NB - 1) / NB, NDIR);
-  masked_bwd_chain_kernel<NB, NDIR><<<grid, threads, smem, st>>>(gates, hp, dy, lengths, whh_f,
-                                                                 whh_b, dgi, dgh, T, B, H);
-  return cudaGetLastError();
-}
-
 // The three phases for NDIR directions; the _b operands are unused at NDIR = 1.
 template <int NDIR>
 cudaError_t masked_bwd(const float* x, int D, const long long* lengths, const float* out,
@@ -261,27 +128,35 @@ cudaError_t masked_bwd(const float* x, int D, const long long* lengths, const fl
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  // 2. the serial dh chain; dgi and dgh overwrite gi and gh
-  int nb = 8;
-  err = pick_batch_tile(B, &nb, NDIR);
-  if (err != cudaSuccess) return err;
-#define TSL_CHAIN(NBV)                                                                         \
-  launch_masked_chain<NBV, NDIR>(gates, hp, dy, lengths, whh_f, whh_b, buf_a, buf_b, T, B, H, \
-                                 st)
-  switch (nb) {
-    case 1:
-      err = TSL_CHAIN(1);
-      break;
-    case 2:
-      err = TSL_CHAIN(2);
-      break;
-    case 4:
-      err = TSL_CHAIN(4);
-      break;
-    default:
-      err = TSL_CHAIN(8);
-  }
-#undef TSL_CHAIN
+  // 2. the serial dh chain on the backward cluster recurrence; dgi and dgh
+  // overwrite gi and gh. Direction d's rows start d * M rows into each
+  // (NDIR, B*T, .) buffer, and at d * H into dy's (B, T, NDIR*H) rows
+  ClusterBwdRec a = {};
+  a.gates = gates;
+  a.hp = hp;
+  a.dy = dy;
+  a.dgi = buf_a;
+  a.dgh = buf_b;
+  a.whh[0] = whh_f;
+  a.whh[1] = whh_b;
+  a.lengths = lengths;
+  a.gates_dir = NDIR == 2 ? M * 4 * H : 0;
+  a.hp_dir = NDIR == 2 ? M * H : 0;
+  a.dy_dir = H;
+  a.dg_dir = NDIR == 2 ? M * H3 : 0;
+  a.gates_b = T * 4 * H;
+  a.gates_t = 4 * H;
+  a.hp_b = T * H;
+  a.hp_t = H;
+  a.dy_b = T * NDIR * H;
+  a.dy_t = NDIR * H;
+  a.dg_b = T * H3;
+  a.dg_t = H3;
+  a.T = T;
+  a.B = B;
+  a.H = H;
+  a.up = 2;  // the backward direction's gradient walks t = 0..n_b-1
+  err = gru_cluster_bwd(a, NDIR, st);
   if (err != cudaSuccess) return err;
 
   // 3. products

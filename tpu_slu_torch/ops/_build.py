@@ -25,9 +25,10 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # The widest hidden size the card's recurrent kernels take: each holds a
 # direction's W_hh (3H x H floats), or its cluster's slice of it, in one SM's
 # shared memory or registers (K1, K2, K4f and K5f, the cluster recurrence of
-# csrc/gru_cluster.cuh: registers sized for 128; K3, K4b, K5b and K6: 3H
-# rows in 227 KB of shared memory). The JAX package takes any H; no config
-# in experiments/ uses one past 128.
+# csrc/gru_cluster.cuh, and K4b's and K5b's chain, its backward in
+# csrc/gru_cluster_bwd.cuh: registers sized for 128; K3 and K6: 3H rows in
+# 227 KB of shared memory). The JAX package takes any H; no config in
+# experiments/ uses one past 128.
 MAX_H = 128
 
 _lock = threading.Lock()

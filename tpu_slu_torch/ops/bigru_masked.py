@@ -131,8 +131,8 @@ def check_layer(what: str, params: dict, x: torch.Tensor, n: torch.Tensor | None
     if T < 1 or B < 1 or H % 4 != 0:
         raise ValueError(f"{what}: kernel needs T, B >= 1 and H % 4 == 0 (T={T}, B={B}, H={H})")
     if H > _build.MAX_H:
-        raise ValueError(f"{what}: the card's kernel holds W_hh in one SM for H <= {_build.MAX_H}, "
-                         f"got H={H}")
+        raise ValueError(f"{what}: the card's kernels hold their slice of W_hh in registers sized for "
+                         f"H <= {_build.MAX_H}, got H={H}")
     if len(dirs) * B * T * 3 * H >= 2**31 or B * T * max(D, width) >= 2**31:
         raise ValueError(f"{what}: B*T*H too large for the kernel's int indexing "
                          f"(B={B}, T={T}, H={H})")
