@@ -18,10 +18,13 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    end's convs and their gradients on the card against an f64 conv on the
    CPU (f32, not TF32);
 4. golden decode: the committed toy checkpoint ``tests/assets/golden`` decodes
-   its six wavs exactly on the card, five K1 launches per call;
+   its six wavs exactly on the card through the composed front end and K1
+   (five K1 launches a call) and through K8 and K6 (one K8 and five K6);
 5. flagship slice: ``decode_intents`` at the width of
    ``experiments/no_unfreezing.cfg`` with seeded random weights at B = 1 and
-   16, logits held against the same model on the CPU, then warm timings of
+   16 on the default routes (five K1 and, with the fused front end, one K8
+   launch a call: K8's count in the kernels line), logits held against the
+   same model on the CPU, then warm timings of
    ``predict_intents`` (and its ``[profile]`` at B = 16) and of K1 alone
    against its plain version, with its us a step and cluster size;
    ``[k1-batch]`` K1's five layers on clusters of 2 and of 4 CTAs in turns
@@ -113,12 +116,17 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 11. the exact-shape eval path's two routes: ``[k8]`` K8 (the fused sinc
    front end) against its plain version (the cuDNN conv, |.|, ceil max
    pool, act) at the flagship front end (B = 1, 16, 128 on 4 s, 16 on
-   3.3 s, ReLU) and the JAX tests' small shapes, within ``CONV_RTOL`` of
-   the largest output; ``[time]`` K8, plain, one cuDNN conv alone and the
-   bound at B = 1, 16, 128; ``[ab-frontend]`` the A/B of the two front-end
-   routes (alone, then the warm decode) in turns P, C, C, P that sets the
+   3.3 s, ReLU, 300 on 1 s) and the JAX tests' small shapes, within
+   ``CONV_RTOL`` of the largest output; ``[time]`` K8's launch plan, K8,
+   plain, one cuDNN conv alone and the bound at B = 1, 16, 128, with the
+   share of the bound reached, by graph replays of one call (the kernels
+   line's numbers) and of 10 calls (amortized, also in the line);
+   ``[ab-frontend]`` the A/B of the two front-end routes (alone, by device
+   time and by the host's time to enqueue it, then the warm decode) in
+   turns P, C, C, P that sets the
    default; ``[k6]`` K6 (K1's row-stacked layout) against its plain version
-   and K1 at the five layer shapes, B = 1 and 16, pool 1/2 avg/max, with
+   and K1 at the five layer shapes, B = 1 and 16, pool 1/2 avg/max, with its
+   cluster size and
    ``[ab-layout]`` K1 against K6 in turns, then the warm decode; ``[time]``
    K6, plain, cuDNN ``nn.GRU`` and bound; ``[routes]`` the flagship decode
    at B = 1 and 16 through K8 and K6 (1 K8 and 5 K6 launches a call, no
@@ -230,13 +238,13 @@ def smi() -> str:
 # Developer copies of one kernel source each, for the A/Bs and the K7 trace: name -> (source in
 # tpu_slu_torch/csrc, [(text, its replacement)], nvcc flags). Never the port's library.
 _RULE_2DIR = "*C = (ndir == 1 ? 4 * B <= sms : 4 * 8 * B <= 3 * sms) ? 4 : 2;"
-_TILE_C4 = ("if (C == 4) return nb == 1 ? launch_gru_cluster<4, 1, POOL, TRAIN>(a, ndir, st) : "
+_TILE_C4 = ("if (C == 4) return nb == 1 ? launch_gru_cluster<4, 1, POOL, TRAIN, ROWS>(a, ndir, st) : "
             "cudaErrorInvalidValue;")
 # the two-direction cluster recurrence (K1, K2, K4f) on the cluster size the rule does not pick
 # (2 <-> 4), with the 4-row tile C = 4 then takes at B = 64; only the ndir = 2 branch changes
 _OTHER_C = [(_RULE_2DIR, _RULE_2DIR.replace("4 * 8 * B <= 3 * sms", "4 * 8 * B > 3 * sms")),
             (_TILE_C4, _TILE_C4.replace(" : cudaErrorInvalidValue", " : nb == 4 ? launch_gru_cluster<4, 4, POOL, "
-                                                                    "TRAIN>(a, ndir, st) : cudaErrorInvalidValue"))]
+                                                                    "TRAIN, ROWS>(a, ndir, st) : cudaErrorInvalidValue"))]
 # the backward chain (K4b, K5b) on the cluster size its rule does not pick, with the 2- and 4-row
 # tiles C = 4 then takes at B = 64 (K5b and K4b)
 _RULE_BWD = "cudaError_t err = gru_cluster_size(a.B, ndir, &C);"
@@ -398,23 +406,46 @@ def cudnn_gru_ms(D: int, T: int, B: int, H: int, dev, lengths=None, backward=Fal
         return cuda_ms(lambda: gru(x), reps=20, warmup=3)
 
 
-def graph_ms(fn, reps: int = 20) -> float:
-    """Device time of ``fn`` a call in ms: ``fn`` captured once into a CUDA
-    graph, then the median of ``reps`` replays between CUDA events. A replay
-    runs ``fn``'s kernels back to back, so a route of many small launches is
-    not charged for the host's enqueueing, which CUDA events around a plain
-    call would include."""
+def graph_ms(fn, reps: int = 20, calls: int = 1) -> float:
+    """Device time of ``fn`` a call in ms: ``calls`` calls of ``fn`` captured
+    once into a CUDA graph, then the median of ``reps`` replays between CUDA
+    events, over ``calls``. A replay runs ``fn``'s kernels back to back, so a
+    route of many small launches is not charged for the host's enqueueing,
+    which CUDA events around a plain call would include; ``calls`` > 1
+    spreads the replay's own launch over the calls."""
     import torch
+
+    def body():
+        for _ in range(calls):
+            fn()
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        body()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
+        body()
+    return cuda_ms(graph.replay, reps=reps, warmup=2) / calls
+
+
+def host_ms(fn, reps: int = 50, warmup: int = 3) -> float:
+    """Median host time of ``fn`` in ms, the clock around each call, the
+    device drained between calls: what the host spends enqueueing a call
+    that does not wait for the device."""
+    import torch
+
+    for _ in range(warmup):
         fn()
-    return cuda_ms(graph.replay, reps=reps, warmup=2)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - start))
+    torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def device_ms(fn, reps: int = 10, name: str | None = None) -> float:
@@ -619,28 +650,29 @@ def step_vs_cpu(dev, rng, tag: str, **overrides) -> None:
           f"differ by more than {STEP_PARAM_ATOL}")
 
 
-def k1_layer(rng, dev, d: int, n_parts: int, T: int, B: int, pool: int):
-    """K1 at one flagship layer shape, called through a library's
-    ``tsl_bigru_shared_fwd``: ``(launch(lib) -> error code, check())``;
-    ``check`` raises unless the last launch's outputs match the plain
-    version."""
+def k1_layer(rng, dev, d: int, n_parts: int, T: int, B: int, pool: int, rowstack: bool = False):
+    """K1 (K6 with ``rowstack``) at one flagship layer shape, called through a
+    library's ``tsl_bigru_shared_fwd`` (``tsl_bigru_shared_fwd_rs``):
+    ``(launch(lib) -> error code, check())``; ``check`` raises unless the
+    last launch's outputs match the plain version."""
     import torch
 
-    from tpu_slu_torch.ops.bigru_shared import _part_ptrs, _ptrs, bigru_shared_reference
+    from tpu_slu_torch.ops.bigru_shared import (_part_ptrs, _ptrs, bigru_shared_reference,
+                                                bigru_shared_rowstack_reference)
 
     params, parts = k1_case(rng, n_parts, d, T, B, 128, dev)
     gi = torch.empty((2, T, B, 384), device=dev)
     out = torch.empty((2, -(-T // pool), B, 128), device=dev)
 
     def launch(lib):
-        return lib.tsl_bigru_shared_fwd(*_part_ptrs(parts), *_ptrs(params), gi.data_ptr(), out[0].data_ptr(),
-                                        out[1].data_ptr(), T, B, 128, pool, 0,
-                                        torch.cuda.current_stream(dev).cuda_stream)
+        fn = lib.tsl_bigru_shared_fwd_rs if rowstack else lib.tsl_bigru_shared_fwd
+        return fn(*_part_ptrs(parts), *_ptrs(params), gi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), T, B,
+                  128, pool, 0, torch.cuda.current_stream(dev).cuda_stream)
 
     def check():
-        ref = bigru_shared_reference(params, parts, pool=pool)
+        ref = (bigru_shared_rowstack_reference if rowstack else bigru_shared_reference)(params, parts, pool=pool)
         if not all(torch.allclose(g, r, atol=ATOL, rtol=RTOL) for g, r in zip(out, ref)):
-            raise AssertionError(f"K1 T={T} B={B} disagrees with its plain version")
+            raise AssertionError(f"{'K6' if rowstack else 'K1'} T={T} B={B} disagrees with its plain version")
     return launch, check
 
 
@@ -739,7 +771,7 @@ def bwd_layer(rng, dev, ndir: int, D: int, T: int, B: int, lengths=None):
             + [params[d][k].data_ptr() for d in dirs for k in names] + [dx.data_ptr()]
             + [grads[d][k].data_ptr() for d in dirs for k in names] + [t.data_ptr() for t in scratch])
 
-    def launch(lib):
+    def launch(lib, scratch=scratch):  # holds the workspaces: the launch writes them by address
         entry = lib.tsl_bigru_masked_bwd if ndir == 2 else lib.tsl_gru1_bwd
         return entry(*ptrs, T, B, H, torch.cuda.current_stream(dev).cuda_stream)
 
@@ -2196,10 +2228,11 @@ def faster(ab: dict, routes, B_list) -> str | None:
     return a if wins == {True} else b if wins == {False} else None
 
 
-def phase_routes(dev, card: str, rng) -> list[dict]:
+def phase_routes(dev, card: str, rng, k8_main: int) -> list[dict]:
     """Phase 11: K8 (the fused sinc front end) and K6 (K1's row-stacked
     layout), the two routes of the exact-shape eval path. Returns their
-    JSON entries; their launches are those of the flagship decode through
+    JSON entries: K8's launches are ``k8_main``, those of phase 5's decode
+    on the default route; K6's are those of the flagship decode through
     both (11.5)."""
     import numpy as np
     import torch
@@ -2207,8 +2240,9 @@ def phase_routes(dev, card: str, rng) -> list[dict]:
     from tpu_slu_torch.models.encoder import DEFAULT_FRONTEND, DEFAULT_GRU_LAYOUT, apply_stack
     from tpu_slu_torch.models.flagship import flagship_model
     from tpu_slu_torch.ops import _build
-    from tpu_slu_torch.ops.bigru_shared import bigru_shared, bigru_shared_rowstack_reference
-    from tpu_slu_torch.ops.frontend_fused import sinc_frontend_fused, sinc_frontend_reference
+    from tpu_slu_torch.ops.bigru_shared import bigru_cluster_size, bigru_shared, bigru_shared_rowstack_reference
+    from tpu_slu_torch.ops.frontend_fused import (PLAN_ARGS, frontend_plan, sinc_frontend_fused,
+                                                  sinc_frontend_reference)
     from tpu_slu_torch.ops.sinc import mel_init, sinc_filters
 
     flagship_kw = dict(filt_dim=401, fs=16000, stride=80, padding=200, pool=2, act="leaky_relu")
@@ -2224,7 +2258,7 @@ def phase_routes(dev, card: str, rng) -> list[dict]:
     for name, B, T, F, kw in [("flagship 4 s", 1, 64000, 80, flagship_kw), ("flagship 4 s", 16, 64000, 80, flagship_kw),
                               ("flagship 3.3 s", 16, 52800, 80, flagship_kw),
                               ("flagship 4 s relu", 16, 64000, 80, {**flagship_kw, "act": "relu"}),
-                              ("flagship 4 s", 128, 64000, 80, flagship_kw),
+                              ("flagship 4 s", 128, 64000, 80, flagship_kw), ("flagship 1 s", 300, 16000, 80, flagship_kw),
                               ("small", 3, 1600, 16, small_kw), ("small ragged", 3, 1555, 16, small_kw)]:
         b1, band, x = k8_case(B, T, F)
         before = sinc_frontend_fused.launches
@@ -2243,12 +2277,15 @@ def phase_routes(dev, card: str, rng) -> list[dict]:
               f"out {tuple(got.shape)}, max abs err {(got - ref).abs().max().item():.3g} (rel {e:.3g}, limit "
               f"{CONV_RTOL})")
 
-    # 11.2 K8's device time at 4 s, by CUDA graph replay (both routes also compute the
-    # filter bank, ~20 small launches whose host time CUDA events around a call would
-    # charge): the kernel alone (its entry point on a precomputed filter bank), its
-    # route with the filter bank, its plain version (the composed route), one cuDNN conv
-    # call alone (TF32 off; without |.|, pool and act) and the bound
+    # 11.2 K8's device time at 4 s, by CUDA graph replay (both routes also compute the filter
+    # bank, ~20 small launches whose host time CUDA events around a call would charge): the
+    # kernel alone (its entry point on a precomputed filter bank, on the wrapper's plan), its
+    # route with the filter bank, its plain version (the composed route), one cuDNN conv call
+    # alone (TF32 off; without |.|, pool and act) and the bound. Each is timed with one call
+    # a replay (the numbers of the kernels line) and amortized over 10 calls a replay, which
+    # spreads the replay's own launch (several us) over the calls
     lib_k = _build.library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     k8_ms = {}
     for B in (1, 16, 128):
         b1, band, x = k8_case(B, 64000, 80)
@@ -2256,27 +2293,39 @@ def phase_routes(dev, card: str, rng) -> list[dict]:
         filt4 = filt[:, None, None, :]
         x4 = x[:, None, None, :]
         out = torch.empty((B, 80, 400), device=dev)
+        plan = frontend_plan(B, 64000, 80, 401, 80, 200, 2, sms)
 
         def kernel_alone():
             _build.check(lib_k.tsl_sinc_frontend_fwd(
                 x.data_ptr(), filt.data_ptr(), out.data_ptr(), B, 64000, 80, 401, 80, 200, 2, 1,
-                torch.cuda.current_stream(dev).cuda_stream), "K8")
+                *(plan[k] for k in PLAN_ARGS), torch.cuda.current_stream(dev).cuda_stream), "K8")
 
+        fns = {"kernel": kernel_alone,
+               "route": lambda: sinc_frontend_fused(b1, band, x, **flagship_kw),
+               "plain": lambda: sinc_frontend_reference(b1, band, x, **flagship_kw),
+               "cudnn": lambda: torch.cudnn_convolution(x4, filt4, (0, 200), (1, 80), (1, 1), 1, False, False,
+                                                        False)}
         with torch.inference_mode():
-            kern = graph_ms(kernel_alone)
-            route = graph_ms(lambda: sinc_frontend_fused(b1, band, x, **flagship_kw))
-            plain_ms = graph_ms(lambda: sinc_frontend_reference(b1, band, x, **flagship_kw))
-            lib = graph_ms(lambda: torch.cudnn_convolution(x4, filt4, (0, 200), (1, 80), (1, 1), 1, False, False,
-                                                           False))
-            prof = device_ms(lambda: sinc_frontend_fused(b1, band, x, **flagship_kw), name="sinc_frontend_kernel")
-            events = cuda_ms(lambda: sinc_frontend_fused(b1, band, x, **flagship_kw), reps=20, warmup=3)
+            t = {(k, calls): graph_ms(fn, calls=calls) for calls in (1, 10) for k, fn in fns.items()}
+            prof = device_ms(fns["route"], name="sinc_frontend_kernel")
+            events = cuda_ms(fns["route"], reps=20, warmup=3)
         t_out, t_pool = 800, 400
         w = (2.0 * B * t_out * 80 * 401, 4.0 * (B * 64000 + 80 * 401 + 2 * 80 + B * t_pool * 80))
-        k8_ms[B] = (kern, plain_ms, lib, *bound(*w))
-        print(f"[time] K8 flagship B={B:3d} 4 s, device time (graph replay): kernel {kern:.4f} ms (torch.profiler "
-              f"{prof:.4f}), with the filter bank {route:.4f} ms (CUDA events around the call {events:.4f}); plain "
-              f"(filter bank, cuDNN conv, |.|, pool, act) {plain_ms:.4f} ms; cuDNN conv alone {lib:.4f} ms; bound "
-              f"{k8_ms[B][3]:.4f} ms ({k8_ms[B][4]}: {w[0] / 1e9:.3f} GFLOP, {w[1] / 1e6:.2f} MB) on {card}")
+        k8_ms[B] = dict(ms=t["kernel", 1], plain=t["plain", 1], lib=t["cudnn", 1], ms10=t["kernel", 10],
+                        lib10=t["cudnn", 10], prof=prof)
+        k8_ms[B]["bound"], k8_ms[B]["by"] = bound(*w)
+        print(f"[time] K8 flagship B={B:3d} 4 s, plan: items of {plan['rows']} conv rows x {plan['ftile']} filters "
+              f"({plan['nft']} filter tiles), taps in {plan['ksplit']} groups, {plan['grid']} CTAs of "
+              f"{plan['threads']} threads, {plan['smem']} bytes of shared memory, {B * plan['nrt'] * plan['nft']} items")
+        for calls in (1, 10):
+            print(f"[time] K8 flagship B={B:3d} 4 s, device time (graph replay, {calls} call{'s' * (calls > 1)} a "
+                  f"replay): kernel {t['kernel', calls]:.5f} ms, with the filter bank {t['route', calls]:.4f} ms; "
+                  f"plain (filter bank, cuDNN conv, |.|, pool, act) {t['plain', calls]:.4f} ms; cuDNN conv alone "
+                  f"{t['cudnn', calls]:.5f} ms; bound {k8_ms[B]['bound']:.5f} ms ({k8_ms[B]['by']}: "
+                  f"{w[0] / 1e9:.3f} GFLOP, {w[1] / 1e6:.2f} MB), {k8_ms[B]['bound'] / t['kernel', calls]:.1%} of "
+                  f"it reached, on {card}")
+        print(f"[time] K8 flagship B={B:3d} 4 s: kernel {prof:.5f} ms by torch.profiler; the route "
+              f"{events:.4f} ms by CUDA events around the call, on {card}")
 
     # 11.3 the A/B that sets the front end's default: the composed route (P) against
     # K8 (C) over the front end's five specs, then the whole warm decode, in turns P, C, C, P
@@ -2307,8 +2356,10 @@ def phase_routes(dev, card: str, rng) -> list[dict]:
     ab_front = ab_turns(fronts, (1, 16, 128), front, timer=graph_ms)
     ab_front_dec = ab_turns(fronts, (1, 16), decode("frontend"), timer=device_ms)
     ab_front_wall = ab_turns(fronts, (1, 16), decode("frontend"))
+    ab_front_host = ab_turns(fronts, (1, 16), front, timer=host_ms)
     enc.frontend = DEFAULT_FRONTEND
     for what, ab, Bs in (("front end alone, device ms (graph replay)", ab_front, (1, 16, 128)),
+                         ("front end alone, host ms to enqueue it", ab_front_host, (1, 16)),
                          ("warm predict_intents, device ms", ab_front_dec, (1, 16)),
                          ("warm predict_intents, CUDA events", ab_front_wall, (1, 16))):
         for B in Bs:
@@ -2348,7 +2399,8 @@ def phase_routes(dev, card: str, rng) -> list[dict]:
                     return lambda: bigru_shared(params, parts, pool=pool, pool_method=method, layout=lay)
                 t = ab_layer[B, name, pool, method] = ab_turns(layouts, (1,), layer,
                                                                timer=lambda fn: cuda_ms(fn, reps=10, warmup=3))
-                print(f"[k6] {name:11s} B={B:2d} D={n_parts * d:3d} T={T:3d} pool={pool}/{method}: max abs err "
+                print(f"[k6] {name:11s} B={B:2d} D={n_parts * d:3d} T={T:3d} pool={pool}/{method}, clusters of "
+                      f"{bigru_cluster_size(B)}: max abs err "
                       f"{err:.3g} vs plain, {k1_diff:.3g} vs K1; [ab-layout] ms in turns P, C, C, P: K1 "
                       f"{t[1, 'split'][0]:.4f}, K6 {t[1, 'rowstack'][0]:.4f}, {t[1, 'rowstack'][1]:.4f}, K1 "
                       f"{t[1, 'split'][1]:.4f}")
@@ -2386,7 +2438,8 @@ def phase_routes(dev, card: str, rng) -> list[dict]:
               f"{plain_ms:.3f} ms, cuDNN nn.GRU {lib:.4f} ms, bound {bound(*w)[0]:.4f} ms")
     k6_bound = bound(*k6_work)
     print(f"[time] K6 five flagship layers B=16: kernel {k6_tot[0]:.4f} ms, plain {k6_tot[1]:.3f} ms, cuDNN "
-          f"nn.GRU {k6_tot[2]:.4f} ms, bound {k6_bound[0]:.4f} ms ({k6_bound[1]}) on {card}")
+          f"nn.GRU {k6_tot[2]:.4f} ms, bound {k6_bound[0]:.4f} ms ({k6_bound[1]}), {k6_bound[0] / k6_tot[0]:.1%} "
+          f"of it reached, on {card}")
 
     # 11.5 the main path of this phase: the flagship decode at B = 1 and 16 through K8
     # and K6, counts set to 0 just before and read just after; logits against the CPU
@@ -2413,11 +2466,19 @@ def phase_routes(dev, card: str, rng) -> list[dict]:
     print(f"[routes] launches of the two decodes: {main}")
     return [
         {"name": "sinc_frontend_fused", "route": "cuda", "source": K8_SOURCE, "replaces": K8_REPLACES,
-         "launches": main["K8"], "max_abs_err": k8_err, "ms": k8_ms[16][0], "plain_ms": k8_ms[16][1],
-         "bound_ms": k8_ms[16][3], "bound_by": k8_ms[16][4], "library_ms": k8_ms[16][2],
-         "ms_b1": k8_ms[1][0], "plain_ms_b1": k8_ms[1][1], "ms_b128": k8_ms[128][0], "plain_ms_b128": k8_ms[128][1],
+         "launches": k8_main, "launches_routes": main["K8"], "max_abs_err": k8_err, "ms": k8_ms[16]["ms"],
+         "plain_ms": k8_ms[16]["plain"], "bound_ms": k8_ms[16]["bound"], "bound_by": k8_ms[16]["by"],
+         "library_ms": k8_ms[16]["lib"],
+         **{f"{k}_b{B}": k8_ms[B][v] for B in (1, 128) for k, v in (("ms", "ms"), ("plain_ms", "plain"),
+                                                                    ("library_ms", "lib"))},
+         # amortized: 10 calls a graph replay; and the kernel's own time by torch.profiler
+         **{f"{k}_b{B}": k8_ms[B][v] for B in (1, 16, 128) for k, v in (("ms_10_calls", "ms10"),
+                                                                        ("library_ms_10_calls", "lib10"),
+                                                                        ("ms_profiler", "prof"))},
          "ab_frontend_device": {f"{r} B={B}": v for (B, r), v in ab_front.items()},
          "ab_frontend_decode_device": {f"{r} B={B}": v for (B, r), v in ab_front_dec.items()},
+         "ab_frontend_decode_wall": {f"{r} B={B}": v for (B, r), v in ab_front_wall.items()},
+         "ab_frontend_host": {f"{r} B={B}": v for (B, r), v in ab_front_host.items()},
          "default": DEFAULT_FRONTEND},
         {"name": "bigru_shared_fwd_rs", "route": "cuda", "source": K6_SOURCE, "replaces": K6_REPLACES,
          "launches": main["K6"], "max_abs_err": k6_err, "ms": k6_tot[0], "plain_ms": k6_tot[1],
@@ -2443,10 +2504,12 @@ def main() -> None:
 
     from tpu_slu_torch import read_config
     from tpu_slu_torch.data.audio import read_wav
+    from tpu_slu_torch.models.encoder import DEFAULT_FRONTEND, DEFAULT_GRU_LAYOUT
     from tpu_slu_torch.models.flagship import flagship_model
     from tpu_slu_torch.ops import _build
     from tpu_slu_torch.ops.bigru_shared import bigru_cluster_size, bigru_shared, bigru_shared_reference
     from tpu_slu_torch.ops.conv import conv1d
+    from tpu_slu_torch.ops.frontend_fused import sinc_frontend_fused
     from tpu_slu_torch.ops.sinc import mel_init, sinc_filters
     from tpu_slu_torch.serving import load_trained_model
 
@@ -2558,17 +2621,24 @@ def main() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
     with open(os.path.join(GOLDEN, "expected.json")) as f:
         expected = json.load(f)["expected"]
+    enc = golden.pretrained_model
     for case in expected:
         wav, fs = read_wav(os.path.join(GOLDEN, case["wav"]))
         assert fs == 16000
-        before = bigru_shared.launches
-        decoded = golden.decode_intents(wav[None, :])[0]
-        launched = bigru_shared.launches - before
         want = [case["action"], case["object"], case["location"]]
-        if decoded != want or launched != 5:
-            raise AssertionError(f"golden {case['wav']}: decoded {decoded}, want {want}; "
-                                 f"K1 launches {launched}, want 5")
-        print(f"[golden] {case['wav']}: {decoded} exact, K1 launches +{launched}")
+        for routes in (("composed", "split"), ("fused", "rowstack")):  # K1; K8 and K6
+            enc.frontend, enc.gru_layout = routes
+            before = sinc_frontend_fused.launches, bigru_shared.launches, bigru_shared.launches_rowstack
+            decoded = golden.decode_intents(wav[None, :])[0]
+            launched = tuple(a - b for a, b in zip(
+                (sinc_frontend_fused.launches, bigru_shared.launches, bigru_shared.launches_rowstack), before))
+            want_launches = (0, 5, 0) if routes[0] == "composed" else (1, 0, 5)
+            if decoded != want or launched != want_launches:
+                raise AssertionError(f"golden {case['wav']} through {routes}: decoded {decoded}, want {want}; "
+                                     f"K8, K1, K6 launches {launched}, want {want_launches}")
+            print(f"[golden] {case['wav']} through {routes[0]} / {routes[1]}: {decoded} exact, K8, K1, K6 "
+                  f"launches +{launched}")
+    enc.frontend, enc.gru_layout = DEFAULT_FRONTEND, DEFAULT_GRU_LAYOUT
 
     # 5. flagship slice at no_unfreezing.cfg widths, seeded random weights
     cpu_model = flagship_model("cpu")
@@ -2576,18 +2646,20 @@ def main() -> None:
     x = (0.1 * np.random.default_rng(1).standard_normal((16, 4 * 16000))).astype(np.float32)
     batches = {1: x[:1], 16: x}
 
-    bigru_shared.launches = 0
+    bigru_shared.launches = sinc_frontend_fused.launches = 0
     decoded = {B: model.decode_intents(xb) for B, xb in batches.items()}
     torch.cuda.synchronize()
-    launches = bigru_shared.launches
-    if launches != 5 * len(batches):
-        raise AssertionError(f"flagship decode launched K1 {launches} times, want {5 * len(batches)}")
+    launches, k8_launches = bigru_shared.launches, sinc_frontend_fused.launches
+    want_k8 = len(batches) if DEFAULT_FRONTEND == "fused" else 0
+    if (launches, k8_launches) != (5 * len(batches), want_k8):
+        raise AssertionError(f"flagship decode on the default route launched K1 {launches} and K8 {k8_launches} "
+                             f"times, want {5 * len(batches)} and {want_k8}")
     vocab = model.Sy_intent
     for B, dec in decoded.items():
         assert len(dec) == B and all(len(d) == 3 for d in dec), dec
         assert all(v in vocab[s] for d in dec for s, v in zip(vocab, d)), dec
     print(f"[flagship] decode_intents B=1 -> {decoded[1]}; B=16 -> {len(decoded[16])} decodes; "
-          f"K1 launches {launches}")
+          f"K1 launches {launches}, K8 launches {k8_launches} (front end {DEFAULT_FRONTEND!r})")
 
     for B, xb in batches.items():
         logits, preds = model.predict_intents(xb)
@@ -2653,7 +2725,7 @@ def main() -> None:
     uni = phase_uni(dev, card, rng, variants["bwd_other_c"])
 
     # 11. the exact-shape eval path's routes: K8 and K6
-    routes = phase_routes(dev, card, rng)
+    routes = phase_routes(dev, card, rng, k8_launches)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_slu"))
     if loaded:

@@ -86,6 +86,16 @@ def test_the_backward_chain_is_the_cluster_kernel():
     assert "bwd_chain_kernel" in _kernels_of("bigru_shared_bwd.cu")
 
 
+def test_k6_runs_the_cluster_recurrence():
+    """K6's recurrence is K1's cluster kernel with the row-stacked flag; the
+    one-CTA recurrence it ran before is gone from every source."""
+    assert "gru_cluster_kernel" in _kernels_of("bigru_shared_fwd.cu")
+    for fn in os.listdir(_build.CSRC):
+        assert "bigru_rec_kernel" not in _kernels_of(fn), fn
+    with open(os.path.join(_build.CSRC, "bigru_shared_fwd.cu")) as f:
+        assert f.read().count("gru_cluster_rec<true, false, true>") == 1
+
+
 @pytest.mark.parametrize("steps,score", [(1, -3.0), (24, -60.5), (56, -252.0), (200, -903.25)])
 def test_tie_tolerance_is_the_drift_of_the_summed_steps(steps, score):
     """(steps + 4) spacings of the largest score, 2^-23 |s| a spacing, and

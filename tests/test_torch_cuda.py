@@ -1290,13 +1290,17 @@ def test_trainer_test_decodes_a_long_seq2seq_batch(dev, tmp_path):
 # K8, the fused sinc front end
 # ---------------------------------------------------------------------------
 
-K8_CASES = [  # B, T, F, K, S, pad, pool
-    (1, 64000, 80, 401, 80, 200, 2),  # the flagship's front end on 4 s of audio
+K8_CASES = [  # B, T, F, K, S, pad, pool; the launch plan each reaches: test_torch_frontend_plan.py
+    (1, 64000, 80, 401, 80, 200, 2),  # the flagship's front end on 4 s: at B=1 the filters split over CTAs
     (16, 64000, 80, 401, 80, 200, 2),
-    (16, 52800, 80, 401, 80, 200, 2),  # 3.3 s: a ragged last pooling window
-    (3, 1600, 16, 31, 10, 15, 2),  # tests/test_pallas_shared.py's shapes
+    (16, 52800, 80, 401, 80, 200, 2),  # 3.3 s: a part-filled last row tile
+    (40, 52880, 80, 401, 80, 200, 2),  # 661 conv rows: a last window of one row, pooled in registers
+    (64, 64000, 80, 401, 80, 200, 2),  # pooled in registers, F past its last filter tile, items a CTA
+    (300, 16000, 80, 401, 80, 200, 2),  # 1 s at B=300: each CTA walks several row tiles
+    (2, 401, 80, 401, 80, 0, 2),  # one conv row
+    (3, 1600, 16, 31, 10, 15, 2),  # tests/test_pallas_shared.py's shapes, the scalar-stride path (S=10)
     (3, 1555, 16, 31, 10, 15, 2),
-    (2, 4000, 100, 61, 7, 30, 3),  # F past one filter tile, a pool that does not divide 32
+    (2, 4000, 100, 61, 7, 30, 3),  # F=100, not a multiple of the filter tile; S=7; a pool that does not divide 8
 ]
 
 
@@ -1364,6 +1368,8 @@ def test_k8_rejects_what_it_does_not_take(dev, fault):
 
 
 @pytest.mark.cuda
+# B <= 12 takes clusters of 4 CTAs on an H100 (B = 1, 3), B > 12 clusters of 2 (16: one-row tiles; 100:
+# 4-row tiles; 300: 8-row tiles over more than one wave); bigru_shared.bigru_cluster_size
 @pytest.mark.parametrize("B,T", [(1, 1), (1, 21), (1, 400), (3, 21), (16, 400), (100, 21), (300, 21)])
 @pytest.mark.parametrize("pool,method", POOLS)
 @pytest.mark.parametrize("dims", [(60,), (128, 128)], ids=["parts1", "parts2"])

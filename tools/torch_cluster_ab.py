@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""A/Bs of the port's cluster kernels on one GPU: the cluster size of K1, K2
-and K4f, those kernels, K5f, K4b and K5b against another checkout's, K7's
-cluster size by batch, and K7's step with parts of its design taken out.
+"""A/Bs of the port's kernels on one GPU: the cluster size of K1, K2 and K4f,
+those kernels, K5f, K4b, K5b, K6 and K8 against another checkout's, K7's
+cluster size by batch, K7's step with parts of its design taken out, and
+K8's launch plans.
 
     python3 tools/torch_cluster_ab.py [--k1-batches 1 2 4 8 12 16 64]
         [--k2-batches 16 64] [--k4f-batches 1 8 64] [--k4b-batches 8 64]
-        [--k5b-batches 64] [--parent DIR]
+        [--k5b-batches 64] [--parent DIR] [--k8-plans 1 16 128 8:16000 ...]
+        [--k8-launch]
         [--k7-sizes] [--k7-variants base skip_gi skip_gh no_kv no_cache ...]
 
 ``--k1-batches``, ``--k2-batches``, ``--k4f-batches``: the kernel's
@@ -21,10 +23,21 @@ parent commit unpacked under ``build/``), built with that checkout's own
 K1's five layers at B = 16, K2's four at B = 64, K4f's five at B = 8 with
 mixed lengths, K5f's five at B = 16, K3's five at B = 64 (through its
 wrapper, the library swapped in), K4b at the seq2seq encoder layer (B =
-64, T = 25, D = 256) and K5b's five layers at B = 64, each output held
-against its plain version; K4b and K5b also by phase (``chip_smoke.device_split``
-over ``K4B_PHASES``), in the same turns. ``--k7-sizes``: the cluster size K7
-takes at each batch at the flagship decoder, W = 4, 4 s. ``--k7-variants``:
+64, T = 25, D = 256), K5b's five layers at B = 64, K6's five at B = 1 and
+16 and K8 alone on 4 s at B = 1, 16 and 128 (each tree's K8 on its own
+entry point's arguments; this tree's on ``frontend_plan``'s plan; by CUDA
+graph replays of one launch and, amortized, of 10 launches, beside one
+cuDNN f32 conv alone on the same inputs), each output held against its
+plain version; K4b and K5b also by phase (``chip_smoke.device_split``
+over ``K4B_PHASES``), in the same turns. ``--k8-plans``: K8 alone at the
+flagship front end at each shape, ``B`` (4 s) or ``B:T`` (T samples), on
+every plan ``frontend_plans`` admits, each timed by replays of 10
+launches and held against the plain version, ranked by time beside the
+model's cost and the plan ``frontend_plan`` picks, and the fastest plan of
+two families alone (the whole list in ``build/k8_plans_B<B>_T<T>.txt``).
+``--k8-launch``: what a graph replay of one call measures (``k8_launch``).
+``--k7-sizes``: the cluster size K7 takes at each batch at the flagship
+decoder, W = 4, 4 s. ``--k7-variants``:
 each variant is ``tpu_slu_torch/csrc/beam_decode.cu`` with one text edit
 (``VARIANTS``) and ``TSL_TRACE`` defined, compiled alone into
 ``build/variants/`` (``chip_smoke.start_variant``) and swapped in for the
@@ -102,10 +115,136 @@ def k7_variants(names: list[str], dev, card: str) -> None:
         _build._lib = real
 
 
+def k8_case(rng, B: int, dev, T: int = 64000):
+    """K8's flagship inputs on T samples (4 s) at batch B: (filter bank, x,
+    out, the plain version's (B, F, t_pool) output)."""
+    import numpy as np
+    import torch
+
+    from tpu_slu_torch.ops.frontend_fused import sinc_frontend_reference
+    from tpu_slu_torch.ops.sinc import mel_init, sinc_filters
+
+    b1, band = (torch.from_numpy(a).to(dev) for a in mel_init(80, 16000))
+    x = torch.from_numpy((0.1 * rng.standard_normal((B, T))).astype(np.float32)).to(dev)
+    filt = sinc_filters(b1, band, 401, 16000).contiguous()
+    ref = sinc_frontend_reference(b1, band, x, filt_dim=401, fs=16000, stride=80, padding=200, pool=2)
+    return filt, x, torch.empty(ref.transpose(1, 2).shape, device=dev), ref.transpose(1, 2)
+
+
+def k8_plans(shapes, dev, card: str) -> None:
+    """``[k8-plans]``: K8 alone on every admitted plan at each ``B`` (4 s) or
+    ``B:T`` shape."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from tpu_slu_torch.ops import _build
+    from tpu_slu_torch.ops.frontend_fused import PLAN_ARGS, frontend_plan, frontend_plans
+
+    lib = _build.library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    for B, T in ((int(a), int(b or 64000)) for a, _, b in (s.partition(":") for s in shapes)):
+        filt, x, out, ref = k8_case(np.random.default_rng(B + T), B, dev, T)
+        shape = (B, T, 80, 401, 80, 200, 2)
+        chosen = frontend_plan(*shape, sms)
+        rows = []
+        for plan in frontend_plans(*shape, sms):
+            def launch(plan=plan):
+                _build.check(lib.tsl_sinc_frontend_fwd(
+                    x.data_ptr(), filt.data_ptr(), out.data_ptr(), *shape, 1, *(plan[k] for k in PLAN_ARGS),
+                    torch.cuda.current_stream(dev).cuda_stream), f"K8 plan {plan}")
+            out.fill_(float("nan"))
+            ms = cs.graph_ms(launch, calls=10)
+            err = cs.rel_err(out, ref)
+            if not err <= cs.CONV_RTOL:
+                raise AssertionError(f"K8 B={B} plan {plan}: off its plain version by {err:.3g}")
+            rows.append((ms, plan))
+        rows.sort(key=lambda r: r[0])
+        rank = [p for _, p in rows].index(chosen)
+        keys = ("rows", "ftile", "ksplit", "threads", "grid", "smem", "cost")
+        with open(os.path.join(HERE, "build", f"k8_plans_B{B}_T{T}.txt"), "w") as f:
+            for ms, p in rows:
+                f.write(f"{ms:.5f} ms " + " ".join(f"{k}={p[k]:.0f}" for k in keys) + "\n")
+        for ms, p in rows[:6] + [rows[rank]]:
+            print(f"[k8-plans] B={B:3d} T={T}: {ms:.5f} ms " + " ".join(f"{k}={p[k]:.0f}" for k in keys)
+                  + (" (frontend_plan's)" if p is chosen else ""))
+        print(f"[k8-plans] B={B:3d} T={T}: frontend_plan's plan ranks {rank + 1} of {len(rows)}, "
+              f"{rows[rank][0]:.5f} against the fastest {rows[0][0]:.5f} ms ({rows[rank][0] / rows[0][0]:.3f}x) "
+              f"on {card}")
+        # the fastest plan of two families alone: the whole bank in one tap group, and
+        # 16-filter tiles with the taps in 16 groups
+        two = min(ms for ms, p in rows if (p["ftile"], p["ksplit"]) in ((80, 1), (16, 16)))
+        print(f"[k8-plans] B={B:3d} T={T}: the fastest plan of the whole bank in one tap group or of 16 filters "
+              f"with the taps in 16 groups {two:.5f} ms ({two / rows[0][0]:.3f}x) on {card}")
+
+
+def k8_launch(dev, card: str) -> None:
+    """``[k8-launch]``: what a CUDA graph replay of one call measures, for K8
+    alone and one cuDNN f32 conv alone on 4 s at B = 1, 16 and 128: the
+    replay between CUDA events on an idle device (the host's graph launch
+    falls inside the events), the same replay queued behind a ~50 us sleep
+    kernel (its launch hidden behind the sleep: device time alone), a
+    replay of 10 calls over 10, and torch.profiler's kernel time of direct
+    launches."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from tpu_slu_torch.ops import _build
+    from tpu_slu_torch.ops.frontend_fused import PLAN_ARGS, frontend_plan
+
+    lib = _build.library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for B in (1, 16, 128):
+        filt, x, out, ref = k8_case(np.random.default_rng(B), B, dev)
+        shape = (B, 64000, 80, 401, 80, 200, 2)
+        plan = frontend_plan(*shape, sms)
+        x4, filt4 = x[:, None, None, :], filt[:, None, None, :]
+
+        def k8():
+            _build.check(lib.tsl_sinc_frontend_fwd(x.data_ptr(), filt.data_ptr(), out.data_ptr(), *shape, 1,
+                                                   *(plan[k] for k in PLAN_ARGS),
+                                                   torch.cuda.current_stream(dev).cuda_stream), "K8")
+
+        def cudnn():  # TF32 off, without |.|, pool and act
+            torch.cudnn_convolution(x4, filt4, (0, 200), (1, 80), (1, 1), 1, False, False, False)
+
+        for name, fn in (("K8", k8), ("cuDNN conv", cudnn)):
+            with torch.inference_mode():
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    fn()
+                torch.cuda.current_stream().wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    fn()
+                idle = cs.cuda_ms(graph.replay, reps=20)
+                behind = []
+                for _ in range(22):
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    torch.cuda._sleep(100_000)
+                    start.record()
+                    graph.replay()
+                    end.record()
+                    end.synchronize()
+                    behind.append(start.elapsed_time(end))
+                ten = cs.graph_ms(fn, calls=10)
+                prof = cs.device_ms(fn)
+            if name == "K8" and not cs.rel_err(out, ref) <= cs.CONV_RTOL:
+                raise AssertionError(f"K8 B={B} disagrees with its plain version")
+            print(f"[k8-launch] {name:10s} B={B:3d} 4 s, ms a call: one call a replay {idle:.5f} (device idle), "
+                  f"{statistics.median(behind[2:]):.5f} (behind a sleep kernel); 10 calls a replay {ten:.5f}; "
+                  f"torch.profiler {prof:.5f} on {card}")
+
+
 def parent_ab(parent: str, dev, card: str) -> None:
-    """``[parent]``: this tree's K1, K2, K4f, K5f, K3, K4b and K5b against the
-    library of the checkout at ``parent``, through the same C entry points,
-    in turns."""
+    """``[parent]``: this tree's K1, K2, K4f, K5f, K3, K4b, K5b, K6 and K8
+    against the library of the checkout at ``parent``, through the same C
+    entry points, in turns."""
     import importlib.util
     import statistics
 
@@ -114,6 +253,7 @@ def parent_ab(parent: str, dev, card: str) -> None:
 
     import chip_smoke as cs
     from tpu_slu_torch.ops import _build
+    from tpu_slu_torch.ops.frontend_fused import PLAN_ARGS, frontend_plan
     from tpu_slu_torch.ops.gru1 import gru1_reference
 
     spec = importlib.util.spec_from_file_location(
@@ -169,9 +309,34 @@ def parent_ab(parent: str, dev, card: str) -> None:
                 raise AssertionError(f"K3 T={T} B={B} disagrees with its plain version")
         return launch, check
 
+    def k8_alone(B):
+        filt, x, out, ref = k8_case(rng, B, dev)
+        shape = (B, 64000, 80, 401, 80, 200, 2, 1)
+        plan = frontend_plan(*shape[:-1], torch.cuda.get_device_properties(dev).multi_processor_count)
+
+        def launch(lib):
+            args = (x.data_ptr(), filt.data_ptr(), out.data_ptr(), *shape)
+            st = torch.cuda.current_stream(dev).cuda_stream
+            if lib is libs["parent"]:  # the parent's entry point takes no plan
+                return lib.tsl_sinc_frontend_fwd(*args, st)
+            return lib.tsl_sinc_frontend_fwd(*args, *(plan[k] for k in PLAN_ARGS), st)
+
+        def check():
+            if not cs.rel_err(out, ref) <= cs.CONV_RTOL:
+                raise AssertionError(f"K8 B={B} disagrees with its plain version")
+
+        x4, filt4 = x[:, None, None, :], filt[:, None, None, :]
+
+        def cudnn():  # the conv alone, TF32 off, without |.|, pool and act
+            with torch.inference_mode():
+                torch.cudnn_convolution(x4, filt4, (0, 200), (1, 80), (1, 1), 1, False, False, False)
+        return launch, check, cudnn
+
     kernels = {
         "K1 five layers B=16": ([cs.k1_layer(rng, dev, d, n, T, 16, pool) for _, d, n, T, pool in cs.FLAGSHIP_LAYERS],
                                 cs.K1_STEPS),
+        **{f"K6 five layers B={B}": ([cs.k1_layer(rng, dev, d, n, T, B, pool, rowstack=True)
+                                      for _, d, n, T, pool in cs.FLAGSHIP_LAYERS], cs.K1_STEPS) for B in (1, 16)},
         "K2 four layers B=64": ([cs.k2_layer(rng, dev, d, n, T, 64) for _, d, n, T in cs.ENC_SHAPES],
                                 sum(T for *_, T in cs.ENC_SHAPES)),
         f"K4f five layers B={cs.SERVE_BATCH} mixed lengths": (
@@ -182,26 +347,34 @@ def parent_ab(parent: str, dev, card: str) -> None:
         "K4b seq2seq encoder layer B=64": ([cs.bwd_layer(rng, dev, 2, 256, 25, 64)], 25),
         "K5b five layers B=64": ([cs.bwd_layer(rng, dev, 1, D, T, 64) for _, D, T in cs.UNI_SHAPES],
                                  sum(T for *_, T in cs.UNI_SHAPES)),
+        **{f"K8 alone B={B} 4 s": ([k8_alone(B)], None) for B in (1, 16, 128)},
     }
     for what, (layers, steps) in kernels.items():
         def run(lib, layers=layers):
             def f():
-                for launch, _ in layers:
+                for launch, *_ in layers:
                     _build.check(launch(lib), what)
             return f
 
         for lib in libs.values():
             run(lib)()
             torch.cuda.synchronize()
-            for _, check in layers:
+            for _, check, *_ in layers:
                 check()
-        turns = {k: [] for k in libs}
-        for k in ("parent", "this", "this", "parent"):
-            turns[k].append(cs.cuda_ms(run(libs[k]), reps=10, warmup=2))
-        print(f"[parent] {what}, in turns: parent {turns['parent'][0]:.4f}, this {turns['this'][0]:.4f}, "
-              f"{turns['this'][1]:.4f}, parent {turns['parent'][1]:.4f} ms "
-              f"({1e3 * statistics.mean(turns['parent']) / steps:.3f} against "
-              f"{1e3 * statistics.mean(turns['this']) / steps:.3f} us a step) on {card}")
+        # K8 by graph replay of one call and of 10 calls (amortized), beside one cuDNN f32 conv
+        # alone on the same inputs; the others by CUDA events
+        timers = ({f"graph replay, {c} call{'s' * (c > 1)} a replay": lambda fn, c=c: cs.graph_ms(fn, calls=c)
+                   for c in (1, 10)} if what.startswith("K8") else {"": lambda fn: cs.cuda_ms(fn, reps=10, warmup=2)})
+        for how, timer in timers.items():
+            turns = {k: [] for k in libs}
+            for k in ("parent", "this", "this", "parent"):
+                turns[k].append(timer(run(libs[k])))
+            per_step = (f" ({1e3 * statistics.mean(turns['parent']) / steps:.3f} against "
+                        f"{1e3 * statistics.mean(turns['this']) / steps:.3f} us a step)" if steps else "")
+            extra = (f", cuDNN conv alone {timer(layers[0][2]):.5f} ms" if what.startswith("K8") else "")
+            print(f"[parent] {what}{', ' + how if how else ''}, in turns: parent {turns['parent'][0]:.5f}, this "
+                  f"{turns['this'][0]:.5f}, {turns['this'][1]:.5f}, parent {turns['parent'][1]:.5f} ms{per_step}"
+                  f"{extra} on {card}")
         if what.startswith(("K4b", "K5b")):  # by phase, each tree's chain under its own name
             phases = {**cs.K4B_PHASES, "chain": (cs.K4B_PHASES["chain"], PARENT_CHAIN)}
             for k in ("parent", "this", "this", "parent"):
@@ -218,6 +391,8 @@ def main() -> None:
     ap.add_argument("--k4b-batches", type=int, nargs="*", default=[])
     ap.add_argument("--k5b-batches", type=int, nargs="*", default=[])
     ap.add_argument("--parent", help="a checkout whose kernel library to time against this tree's")
+    ap.add_argument("--k8-plans", nargs="*", default=[], help="shapes B (4 s) or B:T")
+    ap.add_argument("--k8-launch", action="store_true")
     ap.add_argument("--k7-sizes", action="store_true")
     ap.add_argument("--k7-variants", nargs="*", default=[], choices=sorted(VARIANTS))
     args = ap.parse_args()
@@ -245,6 +420,10 @@ def main() -> None:
                 cs.bwd_cluster_ab(what, dev, card, np.random.default_rng(0), other, tuple(batches))
     if args.parent:
         parent_ab(args.parent, dev, card)
+    if args.k8_plans:
+        k8_plans(args.k8_plans, dev, card)
+    if args.k8_launch:
+        k8_launch(dev, card)
     if args.k7_sizes:
         from tpu_slu_torch.ops.beam_fused import beam_cluster_size
 

@@ -45,6 +45,8 @@
 
 #include <algorithm>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kBK = 8;          // depth of a k slice
@@ -86,19 +88,6 @@ struct GemmArgs {
   int nprob;
   int kchunk;  // 0: no split of the reduction
 };
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // Copies the R x kBK slice (rows r0.., k0..) of an operand into s[kk][r]
 // (row pitch R + kPad), zeros past rmax and kmax. Consecutive threads take

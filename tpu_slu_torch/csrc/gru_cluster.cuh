@@ -1,9 +1,10 @@
 // The cluster recurrence of a GRU layer, for sm_90a: one template that every
-// forward recurrence on the port's default routes instantiates. K1
-// (bigru_shared_fwd.cu: two directions, time-major, a ceil pool in the
-// epilogue), K2 (bigru_trainpool_fwd.cu: K1's layer in training, with h_prev
-// stored and the hash dropout before the pool), K4f (bigru_masked_fwd.cu:
-// two directions, batch-major, valid lengths) and K5f (the same file: one
+// forward recurrence of the port instantiates. K1 (bigru_shared_fwd.cu: two
+// directions, time-major, a ceil pool in the epilogue), K6 (the same file:
+// K1's layer on the row-stacked gi, the ROWS flag), K2
+// (bigru_trainpool_fwd.cu: K1's layer in training, with h_prev stored and
+// the hash dropout before the pool), K4f (bigru_masked_fwd.cu: two
+// directions, batch-major, valid lengths) and K5f (the same file: one
 // direction, batch-major, valid lengths). The input projection gi = x W_ih^T
 // + b_ih has run before it, on the GEMM core (bigru_gemm.cuh), over all rows
 // at once.
@@ -107,7 +108,12 @@ using ClusterArgs = std::conditional_t<TRAIN, ClusterTrainRec, ClusterRec>;
 // kKeepAll, writes (or pools) keep_hash(seed, salt of dir, t, row, unit) ?
 // h * inv_keep : 0 at the natural frame t and global batch row: K3
 // (bigru_shared_bwd.cu) regenerates the same mask from the same coordinates.
-template <int C, int NB, bool POOL, bool TRAIN>
+// ROWS (K6's row-stacked gi; no lengths): step s of either direction reads
+// gi at s * gi_t, the backward rows being stored pre-reversed, and the r and
+// z columns of the recurrent product take no b_hh (folded into gi); only
+// the n column adds b_hh's, inside r * (W_hn h + b_hn). The flag keeps
+// ClusterRec at its 128 bytes.
+template <int C, int NB, bool POOL, bool TRAIN, bool ROWS = false>
 __global__ void __launch_bounds__(kGruMaxH / C * kUnitLanes)
     gru_cluster_kernel(const ClusterArgs<TRAIN> a) {
   static_assert(NB <= kUnitLanes, "one lane of a unit per batch row");
@@ -135,7 +141,7 @@ __global__ void __launch_bounds__(kGruMaxH / C * kUnitLanes)
   float bias[3];
 #pragma unroll
   for (int g = 0; g < 3; ++g) {
-    bias[g] = unit ? bhh[g * H + col] : 0.0f;
+    bias[g] = unit && (!ROWS || g == 2) ? bhh[g * H + col] : 0.0f;
 #pragma unroll
     for (int i = 0; i < kJ; ++i) {
       const int j = lane + kUnitLanes * i;
@@ -182,7 +188,7 @@ __global__ void __launch_bounds__(kGruMaxH / C * kUnitLanes)
   auto fetch = [&](int s) {  // step s's gi into its ring slot; zeros past the row's length
     if (mine) {
       const bool ok = s < n_mine;
-      const float* g = ok ? gib + frame(s) * a.gi_t : gib;
+      const float* g = ok ? gib + (ROWS ? s : frame(s)) * a.gi_t : gib;
 #pragma unroll
       for (int k = 0; k < 3; ++k) cp_async4(&gi_s[s % kRing][k][lane][u], g + k * H, ok);
     }
@@ -304,7 +310,7 @@ __global__ void __launch_bounds__(kGruMaxH / C * kUnitLanes)
   cluster.sync();  // no CTA leaves while a peer may still address its shared memory
 }
 
-template <int C, int NB, bool POOL, bool TRAIN>
+template <int C, int NB, bool POOL, bool TRAIN, bool ROWS>
 cudaError_t launch_gru_cluster(const ClusterArgs<TRAIN>& a, int ndir, cudaStream_t st) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(ndir * ((a.B + NB - 1) / NB) * C));
@@ -317,7 +323,7 @@ cudaError_t launch_gru_cluster(const ClusterArgs<TRAIN>& a, int ndir, cudaStream
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, gru_cluster_kernel<C, NB, POOL, TRAIN>, a);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, gru_cluster_kernel<C, NB, POOL, TRAIN, ROWS>, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -341,27 +347,28 @@ inline cudaError_t gru_cluster_size(int B, int ndir, int* C) {
 
 // The recurrence on clusters of C CTAs at the batch tile pick_batch_tile
 // chooses for ndir * C CTAs a tile; POOL: a.pool > 1; TRAIN: the epilogue of
-// the train forward (no lengths). The rule above takes C = 4 only where that
-// tile is one row, and C = 2 at any tile.
-template <bool POOL, bool TRAIN>
+// the train forward (no lengths); ROWS: K6's row-stacked gi (no lengths).
+// The rule above takes C = 4 only where that tile is one row, and C = 2 at
+// any tile.
+template <bool POOL, bool TRAIN, bool ROWS = false>
 cudaError_t gru_cluster_rec(const ClusterArgs<TRAIN>& a, int ndir, int C, cudaStream_t st) {
   if (a.H % 4 != 0 || a.H > kGruMaxH || (ndir != 1 && ndir != 2) || POOL != (a.pool > 1) ||
-      (POOL && a.lengths != nullptr) || (TRAIN && a.lengths != nullptr) || a.pool < 1)
+      (POOL && a.lengths != nullptr) || ((TRAIN || ROWS) && a.lengths != nullptr) || a.pool < 1)
     return cudaErrorInvalidValue;
   int nb = 8;
   cudaError_t err = pick_batch_tile(a.B, &nb, ndir * C);
   if (err != cudaSuccess) return err;
-  if (C == 4) return nb == 1 ? launch_gru_cluster<4, 1, POOL, TRAIN>(a, ndir, st) : cudaErrorInvalidValue;
+  if (C == 4) return nb == 1 ? launch_gru_cluster<4, 1, POOL, TRAIN, ROWS>(a, ndir, st) : cudaErrorInvalidValue;
   if (C != 2) return cudaErrorInvalidValue;
   switch (nb) {
     case 1:
-      return launch_gru_cluster<2, 1, POOL, TRAIN>(a, ndir, st);
+      return launch_gru_cluster<2, 1, POOL, TRAIN, ROWS>(a, ndir, st);
     case 2:
-      return launch_gru_cluster<2, 2, POOL, TRAIN>(a, ndir, st);
+      return launch_gru_cluster<2, 2, POOL, TRAIN, ROWS>(a, ndir, st);
     case 4:
-      return launch_gru_cluster<2, 4, POOL, TRAIN>(a, ndir, st);
+      return launch_gru_cluster<2, 4, POOL, TRAIN, ROWS>(a, ndir, st);
     default:
-      return launch_gru_cluster<2, 8, POOL, TRAIN>(a, ndir, st);
+      return launch_gru_cluster<2, 8, POOL, TRAIN, ROWS>(a, ndir, st);
   }
 }
 

@@ -19,135 +19,266 @@
 // im2col matrix is the contiguous window xpad[t*S : t*S + K], so A is a
 // strided view of the waveform (M = B * t_out rows, depth K) and B is the
 // filter bank (N = F). No padded copy and no im2col matrix is made: the left
-// and right pads are index masks on the staged window.
+// and right pads are zero-filled copies of the staged window.
 //
 // What bounds it on this card: the f32 operations, 2 * B * t_out * F * K
 // (0.82 GFLOP at B = 16 on 4 s of audio, 0.012 ms at 67 TFLOP/s), against
-// 6.3 MB of input, filters and pooled output (0.002 ms at 3.35 TB/s). The
-// unfused composition also writes and reads back the full-rate (B, F,
-// t_out) conv output and pays three more launches.
+// 6.3 MB of input, filters and pooled output (0.002 ms at 3.35 TB/s). No
+// tensor cores: the front end is held to f32, and TF32 keeps ~3 decimal
+// digits.
 //
-// What the design does about it (a plain f32 SIMT tiling; no tensor cores:
-// the front end is held to f32, and TF32 keeps ~3 decimal digits):
-//   * One CTA per (tile of pooled rows, example, tile of 80 filters). Its
-//     conv rows come in sub-tiles of kRT = 32; pool | rows a CTA owns, so
-//     no pooling window straddles two CTAs. At B = 1 the 400 pooled rows of
-//     4 s give 25 CTAs.
-//   * A sub-tile's window of the waveform, (kRT - 1) * S + K samples (11.5
-//     KB at the flagship's S = 80, K = 401), is staged in shared memory
-//     once; the filters follow in chunks of at most 80 taps x 80 filters
-//     (25.9 KB), never the whole bank.
-//   * 128 threads, each 4 rows x 5 filters of accumulators: per tap 9
-//     shared-memory reads (broadcasts, conflict-free) for 20 FMAs.
-//   * The epilogue takes |.|, masks rows at t_out with -inf, max-pools into
-//     a per-CTA pooled accumulator, applies the activation and writes the
-//     pooled rows, so the full-rate conv output never reaches device memory.
-// Measured on an H100 SXM (700 W; PERF.md): 0.069 / 0.090 / 0.468 ms at B =
-// 1 / 16 / 128 on 4 s, against 0.030 / 0.086 / 0.575 ms for cuDNN's f32 conv
-// alone; with 4 warps a CTA, 25 CTAs at B = 1 leave most of the card idle.
+// What the design does about it (a register-tiled f32 SIMT implicit GEMM):
+//   * A work item is (example, tile of RT conv rows, tile of FT filters); RT
+//     is a whole number of pooling windows, so no window straddles two
+//     items. The grid is persistent, at most one CTA an SM: CTA c owns
+//     filter tile c % nft for its whole life and walks the (example, row
+//     tile) items c / nft, c / nft + grid / nft, ... The plan (RT, FT, the
+//     tap split KS, the grid, the shared-memory bytes) is one pure Python
+//     function, `frontend_plan` in ops/frontend_fused.py, checked here. On
+//     4 s of audio it takes, on an H100, 16-filter tiles of 32 rows with the
+//     taps split 16 ways at B = 1 (125 CTAs), and the whole bank in items of
+//     104 rows at B = 16 (128 CTAs, one item each) and of 96 rows at B = 128
+//     (~9 items a CTA).
+//   * The filter tile is resident in shared memory, loaded once a CTA,
+//     tap-major ([k][f]) and zero-padded to a multiple of 4 taps (80 x 404
+//     floats, 135 KB with its pitch, at the flagship's whole bank); a warp
+//     copies 8 taps x 4 filters at a time into a pitch whose quarter is odd,
+//     so that the copies' writes fall in distinct banks.
+//   * The waveform windows, (RT - 1) S + K samples an item, come through a
+//     ring of two stages by cp.async (16-byte copies where S, pad and T are
+//     multiples of 4), zero-filled outside [0, T): the next item's copy
+//     overlaps this item's FMAs.
+//   * Each thread holds 8 consecutive rows x 4 filters of accumulators (32).
+//     With S % 4 == 0 (the flagship's 80) one 128-bit shared load of x covers
+//     4 taps of a row (row r's window starts at r S in the staged segment),
+//     and one 128-bit load of the tap-major filters covers the thread's 4
+//     filters at one tap: a group of 4 taps is 12 loads for 128 FMAs. Other
+//     strides read x a tap at a time (8 loads a tap for 32 FMAs).
+//   * The epilogue: where one group holds the whole taps (KS = 1) and the
+//     pool divides 8 (the flagship's 2), |.|, the rows at or past t_out at
+//     -inf, the max over each window and the activation run in registers and
+//     the pooled rows go through a shared tile to coalesced stores; else each
+//     tap group's sums go to the tile, and the threads that write the pooled
+//     rows add them in a fixed order first. The full-rate conv output never
+//     reaches device memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRT = 32;       // conv rows of a sub-tile
-constexpr int kFT = 80;       // filters of a CTA
-constexpr int kFP = kFT + 1;  // pitch of a staged filter tap row and of the epilogue tile
-constexpr int kKC = 80;       // most taps of a staged filter chunk
+constexpr int kRowsT = 8;   // conv rows a thread holds
+constexpr int kFiltT = 4;   // filters a thread holds: one float4 of a tap row
+constexpr int kRing = 2;    // waveform windows in the cp.async ring
+constexpr int kMaxThreads = 384;
+constexpr size_t kSmemLimit = 232448;
 
 struct Dims {
-  int T, F, K, S, pad, t_out, pool, t_pool, PR, nchunk, kc, leaky;
+  int B, T, F, K, S, pad, pool, leaky;
+  int t_out, t_pool;
+  int RT, FT, KS;      // the plan: conv rows and filters of an item, tap groups
+  int NRG, NFG, K4;    // row groups RT / 8, filter groups FT / 4, taps padded to 4
+  int FP, EP;          // pitches: a tap row of the filter tile, a filter's row of the epilogue's tile
+  int win, nrt, nft;   // floats of a window, row tiles of an example, filter tiles
+  int vec_copy;        // 16-byte copies of the waveform
 };
 
-// Floats of dynamic shared memory: the waveform window, the filter chunk
-// (reused by the epilogue tile), the pooled accumulator.
-inline size_t smem_floats(const Dims& d) {
-  return (size_t)(kRT - 1) * d.S + d.K + (size_t)kKC * kFP + (size_t)d.PR * kFT;
+inline int window_floats(int RT, int S, int K4) { return ((RT - 1) * S + K4 + 3) / 4 * 4; }
+inline int filter_pitch(int FT) { return FT / 4 % 2 ? FT : FT + 4; }
+
+// Pitch of a filter's row in the epilogue's tile: the item's pooled rows where
+// they are pooled in registers (KS == 1, pool 1, 2, 4 or 8), else its conv
+// rows; one more, odd, against bank conflicts.
+inline int tile_pitch(int RT, int KS, int pool) {
+  return (KS == 1 && kRowsT % pool == 0 ? RT / pool : RT) + 1;
 }
 
-__global__ void __launch_bounds__(kThreads) sinc_frontend_kernel(
+// Floats of dynamic shared memory: the filter tile, the window ring, the
+// epilogue's tile (KS x FT rows: the pooled rows, or each tap group's sums).
+inline size_t smem_floats(int RT, int FT, int KS, int win, int K4, int pool) {
+  return (size_t)filter_pitch(FT) * K4 + (size_t)kRing * win +
+         (size_t)KS * FT * tile_pitch(RT, KS, pool);
+}
+
+__device__ __forceinline__ float comp(const float4& v, int t) {
+  return t == 0 ? v.x : t == 1 ? v.y : t == 2 ? v.z : v.w;
+}
+
+// Item `it`'s window into xs: samples [s0, s0 + win) of example it / nrt,
+// s0 = (it % nrt) RT S - pad, zeros outside [0, T).
+__device__ __forceinline__ void stage_window(float* xs, const float* __restrict__ x, const Dims& d,
+                                             int it) {
+  const int b = it / d.nrt, rt = it % d.nrt;
+  const long long s0 = (long long)rt * d.RT * d.S - d.pad;
+  const float* xb = x + (size_t)b * d.T;
+  if (d.vec_copy) {
+    for (int c = threadIdx.x; c < d.win / 4; c += blockDim.x) {
+      const long long g = s0 + 4 * c;
+      const bool ok = g >= 0 && g + 4 <= d.T;
+      cp_async16(xs + 4 * c, ok ? xb + g : xb, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < d.win; i += blockDim.x) {
+      const long long g = s0 + i;
+      const bool ok = g >= 0 && g < d.T;
+      cp_async4(xs + i, ok ? xb + g : xb, ok);
+    }
+  }
+}
+
+__device__ __forceinline__ float act(float v, int leaky) {
+  return leaky ? (v >= 0.0f ? v : 0.2f * v) : fmaxf(v, 0.0f);
+}
+
+// VEC: S % 4 == 0, x read by 128-bit loads of 4 taps a row; else a tap at a
+// time.
+template <bool VEC>
+__global__ void __launch_bounds__(kMaxThreads, 1) sinc_frontend_kernel(
     const float* __restrict__ x,     // (B, T)
     const float* __restrict__ filt,  // (F, K)
     float* __restrict__ out,         // (B, F, t_pool)
-    Dims d) {
+    const Dims d) {
   extern __shared__ __align__(16) float smem[];
-  const int win = (kRT - 1) * d.S + d.K;
-  float* xs = smem;          // [win]
-  float* ws = xs + win;      // [kKC][kFP]; the epilogue's [kRT][kFP] after the taps
-  float* pacc = ws + kKC * kFP;  // [PR][kFT]
+  const int FT = d.FT, FP = d.FP, EP = d.EP, RT = d.RT, K4 = d.K4;
+  float* ws = smem;                          // [K4][FP]
+  float* ring = ws + (size_t)FP * K4;        // [kRing][win]
+  float* tile = ring + kRing * d.win;        // [KS][FT][EP]: pooled rows, or raw sums
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int ftile = blockIdx.x % d.nft, per_tile = gridDim.x / d.nft;
+  const int f0 = ftile * FT;
+  const int n_items = d.B * d.nrt;
+  int it = blockIdx.x / d.nft;
+  if (it >= n_items) return;
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int b = blockIdx.y, f0 = blockIdx.z * kFT;
-  const int p0 = blockIdx.x * d.PR;
-  const int np = min(d.PR, d.t_pool - p0);       // pooled rows of this CTA
-  const int r_begin = p0 * d.pool;
-  const int r_end = min((p0 + np) * d.pool, d.t_out);  // conv rows of this CTA
-  const float* __restrict__ xb = x + (size_t)b * d.T;
-
-  for (int e = tid; e < d.PR * kFT; e += kThreads) pacc[e] = -INFINITY;
-
-  for (int r0 = r_begin; r0 < r_end; r0 += kRT) {
-    __syncthreads();  // the previous sub-tile is done with xs, ws and pacc
-    const long long s0 = (long long)r0 * d.S - d.pad;  // x index of the window's first sample
-    for (int i = tid; i < win; i += kThreads) {
-      const long long g = s0 + i;
-      xs[i] = (g >= 0 && g < d.T) ? __ldg(xb + g) : 0.0f;
-    }
-    float acc[4][5] = {};
-    for (int c = 0; c < d.nchunk; ++c) {
-      const int k0 = c * d.kc, klen = min(d.kc, d.K - k0);
-      __syncthreads();  // the previous chunk is consumed
-      for (int e = tid; e < kFT * klen; e += kThreads) {
-        const int f = e / klen, kk = e % klen;
-        ws[kk * kFP + f] = f0 + f < d.F ? __ldg(filt + (size_t)(f0 + f) * d.K + k0 + kk) : 0.0f;
-      }
-      __syncthreads();
-      const float* xk = xs + k0;
-#pragma unroll 4
-      for (int kk = 0; kk < klen; ++kk) {
-        float a[4], w[5];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = xk[(ty + 8 * i) * d.S + kk];
-#pragma unroll
-        for (int j = 0; j < 5; ++j) w[j] = ws[kk * kFP + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 5; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+  // the filter tile, once: a warp copies 8 taps x 4 filters at a time, so the
+  // reads take 32-byte runs of 4 filter rows and, FP / 4 being odd, the
+  // writes fall in 32 distinct banks; each CTA starts at another filter, so
+  // that the CTAs' first reads spread over the bank's lines
+  {
+    const int warp = tid / 32, nwarps = nt / 32, kk = tid % 8, ff = tid % 32 / 8;
+    for (int i = 0; i < FT; i += 4) {
+      const int f = (i + 4 * (int)blockIdx.x) % FT + ff;
+      for (int k = 8 * warp + kk; k < K4; k += 8 * nwarps) {
+        const bool ok = k < d.K && f0 + f < d.F;
+        cp_async4(ws + k * FP + f, ok ? filt + (size_t)(f0 + f) * d.K + k : filt, ok);
       }
     }
-    // epilogue of the sub-tile: |.| with the rows past this CTA's (and t_out)
-    // at -inf, then the max over each pooling window's rows in the sub-tile
-    __syncthreads();
-    float* ys = ws;  // [kRT][kFP]
+  }
+  stage_window(ring, x, d, it);
+  cp_async_commit();
+  if (it + per_tile < n_items) stage_window(ring + d.win, x, d, it + per_tile);
+  cp_async_commit();
+
+  // this thread's part of the tile: rows 8 rg .. 8 rg + 7, filters 4 fc ..
+  // 4 fc + 3, tap group ks
+  const int fc = tid % d.NFG, rg = tid / d.NFG % d.NRG, ks = tid / (d.NFG * d.NRG);
+  const bool computes = ks < d.KS;
+  // this group's share of the taps: quads [g0, g1)
+  const int S = d.S, KQ = K4 / 4, per = (KQ + d.KS - 1) / d.KS;
+  const int g0 = min(KQ, ks * per), g1 = min(KQ, g0 + per);
+  const int pool = d.pool, NP = RT / pool;  // pooled rows of an item
+  const bool reg_pool = d.KS == 1 && kRowsT % pool == 0;  // pooled in registers
+  const int fv = min(FT, d.F - f0);
+
+  for (int n = 0; it < n_items; ++n, it += per_tile) {
+    cp_async_wait<1>();
+    __syncthreads();  // item n's window (and the filter tile) have landed
+    const float* xs = ring + (n % kRing) * d.win;
+    const int b = it / d.nrt, rt = it % d.nrt;
+    const int r_lim = d.t_out - rt * RT;  // rows of this item inside [0, t_out)
+    const int p0 = rt * NP, np = min(NP, d.t_pool - p0);
+    float acc[kRowsT][kFiltT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 8 * i;
+    for (int i = 0; i < kRowsT; ++i)
 #pragma unroll
-      for (int j = 0; j < 5; ++j)
-        ys[r * kFP + tx + 16 * j] = r0 + r < r_end ? fabsf(acc[i][j]) : -INFINITY;
+      for (int j = 0; j < kFiltT; ++j) acc[i][j] = 0.0f;
+    if (computes) {
+      const float* xr = xs + kRowsT * rg * S + 4 * g0;
+      const float* wr = ws + (size_t)4 * g0 * FP + 4 * fc;
+#pragma unroll 2
+      for (int q = g0; q < g1; ++q, xr += 4, wr += 4 * FP) {
+        float4 xv[kRowsT];
+        if constexpr (VEC) {
+#pragma unroll
+          for (int i = 0; i < kRowsT; ++i) xv[i] = *reinterpret_cast<const float4*>(xr + i * S);
+        }
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const float4 w = *reinterpret_cast<const float4*>(wr + t * FP);
+#pragma unroll
+          for (int i = 0; i < kRowsT; ++i) {
+            float a;
+            if constexpr (VEC) a = comp(xv[i], t);
+            else a = xr[i * S + t];
+            acc[i][0] = fmaf(a, w.x, acc[i][0]);
+            acc[i][1] = fmaf(a, w.y, acc[i][1]);
+            acc[i][2] = fmaf(a, w.z, acc[i][2]);
+            acc[i][3] = fmaf(a, w.w, acc[i][3]);
+          }
+        }
+      }
+      // into the tile: where the item's sums are whole (KS == 1) and the
+      // windows lie within a thread's 8 rows (pool 1, 2, 4 or 8), |.| with
+      // the rows at or past t_out at -inf, pooled in registers, activated;
+      // else each tap group's raw sums
+#pragma unroll
+      for (int j = 0; j < kFiltT; ++j) {
+        float* tf = tile + ((size_t)ks * FT + kFiltT * fc + j) * EP;
+        if (reg_pool) {
+          float m = 0.0f;
+#pragma unroll
+          for (int i = 0; i < kRowsT; ++i) {
+            const float v = kRowsT * rg + i < r_lim ? fabsf(acc[i][j]) : -INFINITY;
+            m = (i & (pool - 1)) == 0 ? v : fmaxf(m, v);
+            if ((i & (pool - 1)) == pool - 1) tf[(kRowsT * rg + i) / pool] = act(m, d.leaky);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < kRowsT; ++i) tf[kRowsT * rg + i] = acc[i][j];
+        }
+      }
     }
-    __syncthreads();
-    for (int e = tid; e < np * kFT; e += kThreads) {
-      const int pr = e / kFT, f = e % kFT;
-      const int lo = max((p0 + pr) * d.pool, r0), hi = min((p0 + pr + 1) * d.pool, r0 + kRT);
-      float m = pacc[e];
-      for (int r = lo; r < hi; ++r) m = fmaxf(m, ys[(r - r0) * kFP + f]);
-      pacc[e] = m;
+    __syncthreads();  // the tile is whole, and xs is free
+    if (it + 2 * per_tile < n_items) stage_window(ring + (n % kRing) * d.win, x, d, it + 2 * per_tile);
+    cp_async_commit();
+
+    // the pooled rows out, neighbouring threads on neighbouring p; from the
+    // raw sums: the tap groups' sum in a fixed order, |.|, the rows at or
+    // past t_out out, the max over each window, the activation
+    for (int e = tid; e < fv * np; e += nt) {
+      const int f = e / np, p = e % np;
+      float v;
+      if (reg_pool) {
+        v = tile[f * EP + p];
+      } else {
+        float m = -INFINITY;
+        for (int q = 0; q < pool; ++q) {
+          const int r = p * pool + q;
+          if (r < r_lim) {
+            float sum = 0.0f;
+            for (int k = 0; k < d.KS; ++k) sum += tile[((size_t)k * FT + f) * EP + r];
+            m = fmaxf(m, fabsf(sum));
+          }
+        }
+        v = act(m, d.leaky);
+      }
+      out[((size_t)b * d.F + f0 + f) * d.t_pool + p0 + p] = v;
     }
   }
-  __syncthreads();
-  // the activation, and the pooled rows out, neighbouring threads on neighbouring p
-  for (int e = tid; e < np * kFT; e += kThreads) {
-    const int f = e / np, pr = e % np;
-    if (f0 + f >= d.F) continue;
-    float v = pacc[pr * kFT + f];
-    v = d.leaky ? (v >= 0.0f ? v : 0.2f * v) : fmaxf(v, 0.0f);
-    out[((size_t)b * d.F + f0 + f) * d.t_pool + p0 + pr] = v;
-  }
+  cp_async_wait<0>();
+}
+
+template <bool VEC>
+cudaError_t launch_frontend(const float* x, const float* filt, float* out, const Dims& d, int grid,
+                            int threads, size_t smem, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(sinc_frontend_kernel<VEC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  sinc_frontend_kernel<VEC><<<grid, threads, smem, st>>>(x, filt, out, d);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -157,35 +288,56 @@ extern "C" {
 // The fused front end of B waveforms x (B, T) f32 with the filter bank filt
 // (F, K) f32 (row-major, `sinc_filters`), conv stride S and padding pad, a
 // ceil max pool of `pool` rows and leaky ReLU (slope 0.2; leaky == 0:
-// ReLU). Writes out (B, F, ceil(t_out / pool)) f32, t_out = (T + 2 pad - K) /
-// S + 1 >= 1. Returns cudaSuccess (0) or the first error of the launch; does
-// not synchronise.
+// ReLU), on the launch plan of ops/frontend_fused.py `frontend_plan`: items
+// of `rows` conv rows (a multiple of 8 and of pool) and `ftile` filters (a
+// multiple of 4), the taps split over `ksplit` thread groups, `grid` CTAs
+// (a multiple of the filter tiles) of ksplit * rows / 8 * ftile / 4 threads
+// rounded up to a warp, `smem`
+// bytes of dynamic shared memory (checked against the plan's). Writes out
+// (B, F, ceil(t_out / pool)) f32, t_out = (T + 2 pad - K) / S + 1 >= 1.
+// Returns cudaSuccess (0), cudaErrorInvalidValue for arguments or a plan it
+// does not take, or the first error of the launch; does not synchronise.
 int tsl_sinc_frontend_fwd(const float* x, const float* filt, float* out, int B, int T, int F,
-                          int K, int S, int pad, int pool, int leaky, void* stream) {
+                          int K, int S, int pad, int pool, int leaky, int rows, int ftile,
+                          int ksplit, int grid, int smem, void* stream) {
   if (B < 1 || T < 1 || F < 1 || K < 1 || S < 1 || pad < 0 || pool < 1)
     return (int)cudaErrorInvalidValue;
   const long long t_out = ((long long)T + 2LL * pad - K) / S + 1;
   if ((long long)T + 2LL * pad < K || t_out < 1) return (int)cudaErrorInvalidValue;
   Dims d;
+  d.B = B;
   d.T = T;
   d.F = F;
   d.K = K;
   d.S = S;
   d.pad = pad;
-  d.t_out = (int)t_out;
   d.pool = pool;
-  d.t_pool = (d.t_out + pool - 1) / pool;
-  d.PR = pool <= kRT ? kRT / pool : 1;  // pooled rows of a CTA
-  d.nchunk = (K + kKC - 1) / kKC;
-  d.kc = (K + d.nchunk - 1) / d.nchunk;  // taps of a chunk, as even as the chunks allow
   d.leaky = leaky;
-  const size_t smem = sizeof(float) * smem_floats(d);
-  cudaError_t err = cudaFuncSetAttribute(sinc_frontend_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((d.t_pool + d.PR - 1) / d.PR, B, (F + kFT - 1) / kFT);
-  sinc_frontend_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(x, filt, out, d);
-  return (int)cudaGetLastError();
+  d.t_out = (int)t_out;
+  d.t_pool = (d.t_out + pool - 1) / pool;
+  d.RT = rows;
+  d.FT = ftile;
+  d.KS = ksplit;
+  d.K4 = (K + 3) / 4 * 4;
+  if (rows < kRowsT || rows % kRowsT != 0 || rows % pool != 0 || ftile < kFiltT ||
+      ftile % kFiltT != 0 || ksplit < 1 || ksplit > d.K4 / 4)
+    return (int)cudaErrorInvalidValue;
+  d.NRG = rows / kRowsT;
+  d.NFG = ftile / kFiltT;
+  d.FP = filter_pitch(ftile);
+  d.EP = tile_pitch(rows, ksplit, pool);
+  d.win = window_floats(rows, S, d.K4);
+  d.nrt = (d.t_out + rows - 1) / rows;
+  d.nft = (F + ftile - 1) / ftile;
+  d.vec_copy = S % 4 == 0 && pad % 4 == 0 && T % 4 == 0 && (uintptr_t)x % 16 == 0;
+  const int threads = (ksplit * d.NRG * d.NFG + 31) / 32 * 32;
+  const size_t bytes = sizeof(float) * smem_floats(rows, ftile, ksplit, d.win, d.K4, pool);
+  if (threads > kMaxThreads || (size_t)smem != bytes || bytes > kSmemLimit || grid < d.nft ||
+      grid % d.nft != 0 || (long long)B * T >= (1LL << 31) || (long long)B * F * d.t_pool >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)(S % 4 == 0 ? launch_frontend<true>(x, filt, out, d, grid, threads, bytes, st)
+                          : launch_frontend<false>(x, filt, out, d, grid, threads, bytes, st));
 }
 
 }  // extern "C"

@@ -48,9 +48,19 @@ from tpu_slu_torch.ops.sinc import mel_init, sinc_conv
 
 FRONTENDS = ("fused", "composed")
 # the routes of the exact-shape eval path that a PretrainedModel takes unless
-# told otherwise, chosen by a same-process A/B on the card (PERF.md): K8's
-# route was slower than the composed one at B = 1, and K6 within 2% of K1
-DEFAULT_FRONTEND = "composed"
+# told otherwise, chosen by chip_smoke.py's same-process A/B `[ab-frontend]`
+# and `[ab-layout]` (turns P, C, C, P) on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md section 6): K8's route beat the composed one alone on 4 s by graph
+# replay, 0.0805, 0.0764 against 0.0996, 0.1085 ms at B = 1, 0.1240, 0.1227
+# against 0.1680, 0.1653 at B = 16, 0.3245, 0.3216 against 0.7266, 0.7245 at
+# B = 128, and in the warm decode's device time, 1.0019, 1.0022 against
+# 1.0241, 1.0242 ms at B = 1, 1.2601, 1.2605 against 1.3048, 1.3032 at B = 16,
+# and took no more of the host's time to enqueue (0.7888, 0.7512 against
+# 1.2942, 0.6820 ms at B = 1, 0.7232, 0.6972 against 0.7682, 0.8106 at B = 16);
+# K6 tied K1 in the warm decode (1.0039, 1.0039 against 1.0023, 1.0023 ms at
+# B = 1; 1.2513, 1.2421 against 1.2600, 1.2603 at B = 16), so the layout stays
+# K1's
+DEFAULT_FRONTEND = "fused"
 DEFAULT_GRU_LAYOUT = "split"
 
 

@@ -24,9 +24,9 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 # The widest hidden size the card's recurrent kernels take: each holds a
 # direction's W_hh (3H x H floats), or its cluster's slice of it, in one SM's
-# shared memory or registers (K1, K2, K4f and K5f, the cluster recurrence of
-# csrc/gru_cluster.cuh, and K4b's and K5b's chain, its backward in
-# csrc/gru_cluster_bwd.cuh: registers sized for 128; K3 and K6: 3H rows in
+# shared memory or registers (K1, K2, K4f, K5f and K6, the cluster recurrence
+# of csrc/gru_cluster.cuh, and K4b's and K5b's chain, its backward in
+# csrc/gru_cluster_bwd.cuh: registers sized for 128; K3's chain: 3H rows in
 # 227 KB of shared memory). The JAX package takes any H; no config in
 # experiments/ uses one past 128.
 MAX_H = 128
@@ -55,7 +55,7 @@ _SIGNATURES = {
     "tsl_beam_decode": (_I, [_P] * 12 + [_I] * 9 + [_P]),
     "tsl_beam_cluster_size": (_I, [_I] * 9),
     "tsl_beam_decode_smem_bytes": (ctypes.c_longlong, [_I] * 7),
-    "tsl_sinc_frontend_fwd": (_I, [_P] * 3 + [_I] * 8 + [_P]),
+    "tsl_sinc_frontend_fwd": (_I, [_P] * 3 + [_I] * 13 + [_P]),
     "tsl_bigru_shared_cluster_size": (_I, [_I]),
     "tsl_bigru_shared_fwd_rs": (_I, [_P, _I, _P, _I] + [_P] * 8 + [_P] * 3 + [_I] * 5 + [_P]),
     "tsl_gemm_proj": (_I, [_P, _I, _P, _I, _P, _P, _P, _I, _I, _P]),

@@ -13,12 +13,12 @@ plain PyTorch version on a CPU tensor, and keeps a count of its launches:
 
 * K1, eval/unpooled forward: :func:`bigru_shared_fwd`, counted on
   ``bigru_shared.launches`` (``csrc/bigru_shared_fwd.cu``, its recurrence
-  ``csrc/gru_cluster.cuh``, the cluster recurrence K2, K4f and K5f share);
+  ``csrc/gru_cluster.cuh``, the cluster recurrence K2, K4f, K5f and K6 share);
 * K6, the same forward in the row-stacked layout (``layout="rowstack"``:
   both directions' gi in one (T, 2B, 3H) array, the backward rows
   pre-reversed, b_hh's r and z columns folded into b_ih):
   :func:`bigru_shared_fwd`, counted on ``bigru_shared.launches_rowstack``
-  (the same source);
+  (the same source; K1's cluster recurrence with the template's ROWS flag);
 * K2, train forward with hash dropout and avg pool: :func:`bigru_trainpool`
   (``csrc/bigru_trainpool_fwd.cu``: K1's cluster recurrence with h_prev
   stored and the dropout applied in its epilogue);
@@ -271,8 +271,9 @@ def _check_cuda(what: str, params: dict, parts: tuple, extra=()) -> tuple[int, i
     if T < 1 or B < 1 or H % 4 != 0:
         raise ValueError(f"{what}: kernel needs T, B >= 1 and H % 4 == 0 (T={T}, B={B}, H={H})")
     if H > _build.MAX_H:
-        raise ValueError(f"{what}: the card's kernel holds W_hh in one SM for H <= {_build.MAX_H}, "
-                         f"got H={H}")
+        raise ValueError(f"{what}: the card's kernels hold W_hh's cluster slices in registers (K1, K2, "
+                         f"K6) and K3's chain a direction's W_hh in one SM's shared memory, for H <= "
+                         f"{_build.MAX_H}, got H={H}")
     if 2 * T * B * 4 * H >= 2**31 or T * B * max(D, H) >= 2**31:
         raise ValueError(f"{what}: T*B*H too large for the kernel's int indexing (T={T}, B={B}, H={H})")
     return T, B, H
@@ -296,7 +297,7 @@ def _part_ptrs(parts) -> list:
 
 
 def bigru_cluster_size(B: int) -> int:
-    """The CTAs in a cluster of the two-direction recurrence (K1, K2 and K4f)
+    """The CTAs in a cluster of the two-direction recurrence (K1, K2, K4f and K6)
     at batch B on the current card: 4 while both directions' clusters of 4
     (8 B CTAs) fill at most three quarters of its SMs, else 2."""
     C = _build.library().tsl_bigru_shared_cluster_size(B)
@@ -314,7 +315,7 @@ def bigru_shared_fwd(params: dict, parts, *, pool: int = 1, pool_method: str = "
     :func:`bigru_shared_reference` or
     :func:`bigru_shared_rowstack_reference`; CUDA tensors launch the kernel
     on the current stream without synchronising, and anything the kernel
-    does not take raises, H past 128 too. K1's recurrence runs on
+    does not take raises, H past 128 too. Both layouts' recurrence runs on
     thread-block clusters whose size follows the batch
     (:func:`bigru_cluster_size`). Records no autograd graph on CUDA.
     """
