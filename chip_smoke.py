@@ -116,7 +116,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 11. the exact-shape eval path's two routes: ``[k8]`` K8 (the fused sinc
    front end) against its plain version (the cuDNN conv, |.|, ceil max
    pool, act) at the flagship front end (B = 1, 16, 128 on 4 s, 16 on
-   3.3 s, ReLU, 300 on 1 s) and the JAX tests' small shapes, within
+   3.3 s, ReLU, 300 on 1 s, and phase 12's test pass, 64 on 2.25 s) and
+   the JAX tests' small shapes, within
    ``CONV_RTOL`` of the largest output; ``[time]`` K8's launch plan, K8,
    plain, one cuDNN conv alone and the bound at B = 1, 16, 128, with the
    share of the bound reached, by graph replays of one call (the kernels
@@ -130,7 +131,30 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    ``[ab-layout]`` K1 against K6 in turns, then the warm decode; ``[time]``
    K6, plain, cuDNN ``nn.GRU`` and bound; ``[routes]`` the flagship decode
    at B = 1 and 16 through K8 and K6 (1 K8 and 5 K6 launches a call, no
-   K1), logits within ``LOGIT_ATOL`` of the CPU's.
+   K1), logits within ``LOGIT_ATOL`` of the CPU's;
+12. ASR pre-training at the width of ``no_unfreezing.cfg``
+   (``pretraining_type`` 2, 42 phonemes, 10,000 words, seeded random
+   weights): ``[asr]`` K1, K2 and K3 against their plain versions at the
+   main path's own shapes (B = 64, the four encoder layers at 2.25 s,
+   ``asr_shapes``) with phases 3 and 6's holds, then one train step
+   (dropout on) on 2.25 s at B = 16 and at B = 64 on the card against the
+   CPU plain path, the loss within ``STEP_LOSS_ATOL``, every gradient
+   within ``GRAD_TOL`` of its largest element (the sinc parameters' against
+   an f64 step on the card's front-end branches); ``[asr-trainer]`` ``Trainer(PretrainedModel).train`` over seeded batches
+   of B = 64 (``asr_batches``: -1 labels, two weight-0 rows a batch) with 4
+   K2 and 4 K3 launches a step and no other GRU kernel, then
+   ``Trainer.test`` with 1 K8 and 4 K1 a batch (the kernels line's
+   ``launches_asr_train``/``launches_asr_test``), and ``[asr-test]`` its
+   first batch's four values and posteriors against a CPU copy's plain
+   path (``asr_eval_vs_cpu``: logits within ``LOGIT_ATOL``); ``[asr-serve]``
+   ``save_checkpoint``, a ``Model(config)`` whose encoder loads
+   ``pretraining/model_state.npz`` bit-equal to the trained one, one SLU
+   epoch, ``save_checkpoint`` and ``load_trained_model``, whose decode at
+   B = 16 equals the in-memory model's; ``[time]`` the warm ASR step at B =
+   64 (median, min and max of 10) and its ``[profile]``; ``[asr-cli]`` ``python -m tpu_slu_torch.cli``
+   in subprocesses on the card, ``--pretrain``, ``--train``, ``--train
+   --restart``, ``--decode``, with the flagship cfg cut to ``CLI_CUTS`` on
+   the tiny tree of ``write_cli_tree``, each file written and read back.
 
 Beside each kernel's time the script prints its plain version's, a cuDNN
 ``torch.nn.GRU`` call's where one computes the same function (timed as a
@@ -310,8 +334,8 @@ def load_variant(name: str, proc: subprocess.Popen, path: str):
     return lib
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median device time of ``fn`` in ms, CUDA events around each call."""
+def cuda_times(fn, reps: int, warmup: int = 2) -> list[float]:
+    """Device time of each of ``reps`` warm calls of ``fn`` in ms, CUDA events around each call."""
     import torch
 
     for _ in range(warmup):
@@ -325,7 +349,12 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median device time of ``fn`` in ms, CUDA events around each call."""
+    return statistics.median(cuda_times(fn, reps, warmup))
 
 
 def k1_case(rng, n_parts, d, T, B, H, dev):
@@ -2259,6 +2288,7 @@ def phase_routes(dev, card: str, rng, k8_main: int) -> list[dict]:
                               ("flagship 3.3 s", 16, 52800, 80, flagship_kw),
                               ("flagship 4 s relu", 16, 64000, 80, {**flagship_kw, "act": "relu"}),
                               ("flagship 4 s", 128, 64000, 80, flagship_kw), ("flagship 1 s", 300, 16000, 80, flagship_kw),
+                              ("ASR test 2.25 s", 64, ASR_T, 80, flagship_kw),
                               ("small", 3, 1600, 16, small_kw), ("small ragged", 3, 1555, 16, small_kw)]:
         b1, band, x = k8_case(B, T, F)
         before = sinc_frontend_fused.launches
@@ -2487,6 +2517,406 @@ def phase_routes(dev, card: str, rng, k8_main: int) -> list[dict]:
          "ab_layout_decode_device": {f"{r} B={B}": v for (B, r), v in ab_layout_dec.items()},
          "default": DEFAULT_GRU_LAYOUT},
     ]
+
+
+# the ASR step of experiments/no_unfreezing.cfg: pretraining_type 2 (phoneme + word), 42 phonemes, 10,000
+# words, crops of pretraining_length_mean = 2.25 s
+ASR_T = 36000
+ASR_PHONES = ["AA", "IY", "K", "T", "S", "N", "sil"]
+ASR_WORDS = ["turn", "on", "the", "lights", "music", "kitchen", ""]
+FSC_SLOTS = {"action": ["activate", "deactivate", "increase"], "object": ["lights", "music", "heat"],
+             "location": ["kitchen", "bedroom", "none"]}
+# the CLI leg's cuts of the flagship cfg: one epoch of each, batches of 8, and the tree of write_cli_tree
+CLI_CUTS = {"pretraining_num_epochs": 1, "training_num_epochs": 1, "pretraining_batch_size": 8,
+            "training_batch_size": 8}
+
+
+def asr_shapes(T: int = ASR_T) -> list[tuple[str, int, int, int]]:
+    """The four encoder bi-GRU layers of an ASR batch of ``T`` samples, as
+    ``ENC_SHAPES`` gives them at 4 s: the sinc conv (401 taps, stride 80,
+    padding 200) and its ceil max pool 2, then a ceil avg pool 2 after each
+    layer (the length-keeping convs between change no T)."""
+    t = -(-((T + 2 * 200 - 401) // 80 + 1) // 2)
+    out = []
+    for name, d, n_parts, _ in ENC_SHAPES:
+        out.append((name, d, n_parts, t))
+        t = -(-t // 2)
+    return out
+
+
+def asr_batches(rng, n: int, B: int, T: int, num_phonemes: int, vocabulary_size: int, phone_ds: int,
+                word_ds: int) -> list[dict]:
+    """Seeded waveforms and frame labels in the loader's ASR batch format:
+    ``y_phoneme``/``y_word`` of ``ceil(T / ds)`` frames, about a fifth of
+    them -1 (ignored); the last two rows of each batch are batch padding
+    (zero waves, length 0, weight 0, every label -1)."""
+    import numpy as np
+
+    tp, tw = -(-T // phone_ds), -(-T // word_ds)
+    out = []
+    for _ in range(n):
+        x = (0.1 * rng.standard_normal((B, T))).astype(np.float32)
+        yp = rng.integers(0, num_phonemes, (B, tp)).astype(np.int32)
+        yw = rng.integers(0, vocabulary_size, (B, tw)).astype(np.int32)
+        yp[rng.random((B, tp)) < 0.2] = -1
+        yw[rng.random((B, tw)) < 0.2] = -1
+        w = np.ones(B, np.float32)
+        lengths = np.full(B, T, np.int32)
+        pad = slice(B - 2, B)
+        x[pad], yp[pad], yw[pad], w[pad], lengths[pad] = 0.0, -1, -1, 0.0, 0
+        out.append({"x": x, "y_phoneme": yp, "y_word": yw, "w": w, "len": lengths})
+    return out
+
+
+def write_cli_tree(root: str, rng) -> tuple[str, str]:
+    """A tiny FSC-style SLU tree (12 train, 4 valid and 4 test rows of 1-2 s,
+    an empty synthetic split) and LibriSpeech-style ASR tree (4 aligned
+    utterances of 1.5-3 s a split, phones with stress digits and silence, and
+    unaligned words), written with the port's own ``write_wav`` and
+    ``write_textgrid``; returns (slu_path, asr_path)."""
+    import numpy as np
+
+    from tpu_slu_torch.data.audio import write_wav
+    from tpu_slu_torch.data.textgrid import write_textgrid
+
+    fs = 16000
+    slu, asr = os.path.join(root, "fsc"), os.path.join(root, "librispeech")
+    os.makedirs(os.path.join(slu, "data"))
+    os.makedirs(os.path.join(slu, "wavs"))
+    cols = ["path", "speakerId", "transcription", *FSC_SLOTS]
+    for split, n in (("train", 12), ("valid", 4), ("test", 4)):
+        lines = [",".join(cols)]
+        for i in range(n):
+            slots = [vals[int(rng.integers(len(vals)))] for vals in FSC_SLOTS.values()]
+            rel = f"wavs/{split}_{i}.wav"
+            wave = 0.1 * rng.standard_normal(int(fs * rng.uniform(1.0, 2.0)))
+            write_wav(os.path.join(slu, rel), wave, fs)
+            lines.append(",".join([rel, f"spk{i % 3}", " ".join(slots), *slots]))
+        with open(os.path.join(slu, "data", f"{split}_data.csv"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    with open(os.path.join(slu, "data", "synthetic_data.csv"), "w") as f:
+        f.write(",".join(cols) + "\n")
+    for split in ("train-clean-100", "dev-clean", "test-clean"):
+        for kind in ("text", "audio"):
+            os.makedirs(os.path.join(asr, kind, split, "1", "2"))
+        for i in range(4):
+            dur = float(rng.uniform(1.5, 3.0))
+            bounds = np.linspace(0.0, dur, 7)
+            phones, words = [], []
+            for a, b in zip(bounds[:-1], bounds[1:]):
+                p = ASR_PHONES[int(rng.integers(len(ASR_PHONES)))]
+                phones.append((float(a), float(b), p if p == "sil" else p + str(int(rng.integers(3)))))
+                words.append((float(a), float(b), ASR_WORDS[int(rng.integers(len(ASR_WORDS)))]))
+            stem = os.path.join(split, "1", "2", f"utt{i}")
+            write_textgrid(os.path.join(asr, "text", stem + ".TextGrid"), {"words": words, "phones": phones}, dur)
+            write_wav(os.path.join(asr, "audio", stem + ".wav"), 0.1 * rng.standard_normal(int(fs * dur)), fs)
+    return slu, asr
+
+
+def write_cli_cfg(path: str, template: str, **values) -> None:
+    """``template`` (a cfg file) with the ``key=value`` lines of ``values``
+    replaced; raises on a key the template does not set."""
+    with open(template) as f:
+        lines = f.read().splitlines()
+    for key, value in values.items():
+        hits = [i for i, line in enumerate(lines) if line.split("=")[0].strip() == key]
+        if len(hits) != 1:
+            raise KeyError(f"{template} sets {key!r} {len(hits)} times")
+        lines[hits[0]] = f"{key}={value}"
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def asr_step_vs_cpu(dev, config, batch: dict) -> None:
+    """One ASR train step (dropout on) of seeded random weights on ``batch``,
+    card against the CPU plain path, with phase 6's holds: the loss within
+    ``STEP_LOSS_ATOL``, every gradient within ``GRAD_TOL`` of its largest
+    element, the sinc parameters' against an f64 step on the card's
+    front-end branches."""
+    import torch
+
+    from tpu_slu_torch.models.encoder import PretrainedModel, encoder_loss
+
+    cpu_model = PretrainedModel(config, generator=torch.Generator().manual_seed(3)).train()
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    B = len(batch["w"])
+
+    def step(model, where, dtype=torch.float32):
+        b = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+        model.zero_grad(set_to_none=True)
+        pl, wl, pa, wa = encoder_loss(model, b["x"].to(dtype), b["y_phoneme"].long(), b["y_word"].long(),
+                                      train=True, generator=torch.Generator().manual_seed(5),
+                                      weights=b["w"].to(dtype))
+        (pl + wl).backward()
+        return (pl + wl).item(), {n: p.grad for n, p in model.named_parameters()}
+
+    l_cpu, g_cpu = step(cpu_model, torch.device("cpu"))
+    branches = FrontEndBranches()
+    with branches.record():
+        l_card, g_card = step(card_model, dev)
+    m64 = copy.deepcopy(cpu_model).double()
+    g64_own = step(m64, torch.device("cpu"), torch.float64)[1]
+    with branches.replay():
+        g64 = {n: g for n, g in step(m64, torch.device("cpu"), torch.float64)[1].items() if n.endswith(SINC_PARAMS)}
+    if not abs(l_card - l_cpu) <= STEP_LOSS_ATOL:
+        raise AssertionError(f"ASR step B={B}: loss card {l_card} vs CPU {l_cpu}")
+    worst = 0.0
+    for n, g in g_cpu.items():
+        e = rel_err(g_card[n].cpu().double(), g64[n]) if n in g64 else rel_err(g_card[n].cpu(), g)
+        worst = max(worst, e)
+        if not e <= GRAD_TOL:
+            raise AssertionError(f"ASR step B={B}: gradient of {n} off the {'f64' if n in g64 else 'CPU'} "
+                                 f"reference's by {e:.3g} of its largest")
+    for n, r in g64.items():
+        print(f"[asr] B={B} {n} gradient vs f64 on the card's branches, of its largest element: card "
+              f"{rel_err(g_card[n].cpu().double(), r):.3g}; CPU f32 vs f64 on its own "
+              f"{rel_err(g_cpu[n].double(), g64_own[n]):.3g}")
+    print(f"[asr] train step B={B}, 2.25 s, 10k words, card vs CPU: loss {l_card:.6f} vs {l_cpu:.6f} (atol "
+          f"{STEP_LOSS_ATOL}); every gradient within {worst:.3g} of its largest element (limit {GRAD_TOL}; the "
+          f"sinc parameters' against the f64 step on the card's branches, {branches.flips} branches parted)")
+
+
+def asr_eval_vs_cpu(model, batch: dict) -> str:
+    """The test pass's four values (``encoder_loss`` in eval mode) and the
+    posteriors of ``model`` (on the card, eval mode) on ``batch``, against a
+    CPU copy's plain path: the logits within ``LOGIT_ATOL``, the losses
+    within ``STEP_LOSS_ATOL``, each accuracy within the share of its valid
+    frames whose argmax the two sides part on. Returns what it held."""
+    import torch
+
+    from tpu_slu_torch.models.encoder import encoder_loss
+
+    def run(enc):
+        b = {k: torch.from_numpy(v).to(enc.device) for k, v in batch.items()}
+        with torch.no_grad():
+            values = encoder_loss(enc, b["x"], b["y_phoneme"].long(), b["y_word"].long(), weights=b["w"])
+            return [v.item() for v in values], [p.cpu() for p in enc.compute_posteriors(b["x"])]
+
+    (card, card_post), (cpu, cpu_post) = run(model.eval()), run(copy.deepcopy(model).cpu().eval())
+    w = torch.from_numpy(batch["w"])
+    notes = []
+    for i, (what, y) in enumerate((("phoneme", batch["y_phoneme"]), ("word", batch["y_word"]))):
+        g, r = card_post[i], cpu_post[i]
+        err = (g - r).abs().max().item()
+        if g.shape != r.shape or not err <= LOGIT_ATOL:
+            raise AssertionError(f"ASR test pass: {what} logits {tuple(g.shape)} card vs CPU max abs err {err:.3g} "
+                                 f"> {LOGIT_ATOL}")
+        t = min(g.shape[1], y.shape[1])
+        valid = (torch.from_numpy(y[:, :t]) != -1) & (w[:, None] > 0)
+        flips = int(((g[:, :t].argmax(-1) != r[:, :t].argmax(-1)) & valid).sum())
+        loss_err, acc_err = abs(card[i] - cpu[i]), abs(card[2 + i] - cpu[2 + i])
+        if not (loss_err <= STEP_LOSS_ATOL and acc_err <= flips / max(int(valid.sum()), 1) + 1e-6):
+            raise AssertionError(f"ASR test pass: {what} loss, acc card {card[i]}, {card[2 + i]} vs CPU {cpu[i]}, "
+                                 f"{cpu[2 + i]} ({flips} argmax flips)")
+        notes.append(f"{what} logits {tuple(g.shape)} max abs err {err:.3g} (atol {LOGIT_ATOL}), loss "
+                     f"{card[i]:.6f} vs {cpu[i]:.6f} (atol {STEP_LOSS_ATOL}), acc {card[2 + i]:.6f} vs "
+                     f"{cpu[2 + i]:.6f} ({flips} argmax flips)")
+    return "; ".join(notes)
+
+
+def phase_asr(dev, card: str, rng) -> dict:
+    """Phase 12: ASR pre-training at the width of ``no_unfreezing.cfg``
+    (``pretraining_type`` 2, 42 phonemes, 10,000 words), then the path on
+    to a served model. Returns, by kernel name, the launches of the ASR
+    Trainer's train and test passes (12.3), its main path, and the largest
+    errors of K1, K2 and K3 at its shapes (12.1)."""
+    import ast
+
+    import numpy as np
+    import torch
+
+    from tpu_slu_torch import read_config
+    from tpu_slu_torch.models.encoder import PretrainedModel
+    from tpu_slu_torch.models.flagship import FLAGSHIP_CFG, FLAGSHIP_VOCAB
+    from tpu_slu_torch.models.slu import Model
+    from tpu_slu_torch.ops.bigru_masked import bigru_masked
+    from tpu_slu_torch.ops.bigru_shared import (
+        bigru_shared,
+        bigru_shared_bwd,
+        bigru_shared_bwd_reference,
+        bigru_shared_reference,
+        bigru_trainpool,
+        bigru_trainpool_reference,
+    )
+    from tpu_slu_torch.ops.frontend_fused import sinc_frontend_fused
+    from tpu_slu_torch.serving import load_trained_model
+    from tpu_slu_torch.training import Trainer
+
+    def asr_config(folder):
+        config = read_config(FLAGSHIP_CFG, make_dirs=False)
+        config.folder, config.num_phonemes = folder, 42
+        assert (config.pretraining_type, config.vocabulary_size) == (2, 10000)
+        return config
+
+    def batches(n, B):
+        c = asr_config("")
+        return asr_batches(rng, n, B, ASR_T, 42, c.vocabulary_size, c.phone_downsample_factor,
+                           c.word_downsample_factor)
+
+    # 12.1 the main path's GRU kernels at its own shapes (B = 64, the four encoder layers at 2.25 s)
+    # against their plain versions, with phases 3 and 6's holds: K1 (the test pass, avg pool 2), K2
+    # (dropout 0.5, pool 2) and K3 fused on K2's outputs; K8 at (64, 2.25 s) is held in phase 11.1
+    B_main = asr_config("").pretraining_batch_size
+    errs = dict.fromkeys(("K1", "K2", "K3"), 0.0)
+    for name, d, n_parts, T in asr_shapes():
+        params, parts = k1_case(rng, n_parts, d, T, B_main, 128, dev)
+        got, ref = bigru_shared(params, parts, pool=2)[:2], bigru_shared_reference(params, parts, pool=2)
+        errs["K1"] = max(errs["K1"], *((g - r).abs().max().item() for g, r in zip(got, ref)))
+        if not all(g.shape == r.shape and torch.allclose(g, r, atol=ATOL, rtol=RTOL) for g, r in zip(got, ref)):
+            raise AssertionError(f"K1 {name} T={T} B={B_main}: off its plain version")
+        seed = int(rng.integers(2**32))
+        got = bigru_trainpool(params, parts, pool=2, drop_p=0.5, seed=seed)
+        ref = bigru_trainpool_reference(params, parts, pool=2, drop_p=0.5, seed=seed)
+        errs["K2"] = max(errs["K2"], *((g - r).abs().max().item() for g, r in zip(got, ref)))
+        if not (all(g.shape == r.shape and torch.allclose(g, r, atol=ATOL, rtol=RTOL) for g, r in zip(got, ref))
+                and all(same_zeros(g, r) for g, r in zip(got[2:], ref[2:]))):
+            raise AssertionError(f"K2 {name} T={T} B={B_main}: off its plain version or its zero pattern")
+        dy = [torch.from_numpy(rng.standard_normal(tuple(got[2].shape)).astype(np.float32)).to(dev)
+              for _ in range(2)]
+        kw = {"pool": 2, "drop_p": 0.5, "seed": seed}
+        dxs, grads = bigru_shared_bwd(params, parts, got[0], got[1], *dy, **kw)
+        rdxs, rgrads = bigru_shared_bwd_reference(params, parts, got[0], got[1], *dy, **kw)
+        pairs = list(zip(dxs, rdxs)) + [(grads[dd][n], rgrads[dd][n]) for dd in grads for n in grads[dd]]
+        k3 = max(rel_err(g, r) for g, r in pairs)
+        errs["K3"] = max(errs["K3"], *((g - r).abs().max().item() for g, r in pairs))
+        if not (all(g.shape == r.shape for g, r in pairs) and k3 <= GRAD_TOL):
+            raise AssertionError(f"K3 {name} T={T} B={B_main}: off its plain version by {k3:.3g} of the largest")
+        print(f"[asr] {name:10s} T={T:3d} B={B_main} D={n_parts * d:3d}: K1 and K2 within atol {ATOL} rtol "
+              f"{RTOL} (K2's zero pattern equal), K3's dX, dW, db within {k3:.3g} of each largest (limit "
+              f"{GRAD_TOL})")
+    print(f"[asr] the path's GRU kernels at its shapes: max abs err K1 {errs['K1']:.3g}, K2 {errs['K2']:.3g}, "
+          f"K3 {errs['K3']:.3g}")
+
+    # 12.2 one ASR train step on 2.25 s at B = 16 and at the main path's B = 64, card against the CPU
+    for B_step in (16, B_main):
+        asr_step_vs_cpu(dev, asr_config(""), batches(1, B_step)[0])
+
+    # 12.3 the main path: Trainer(PretrainedModel).train over B = 64 batches, then Trainer.test
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_asr_")
+    try:
+        config = asr_config(tmp)
+        model = PretrainedModel(config, generator=torch.Generator().manual_seed(1)).to(dev)
+        trainer = Trainer(model, config, generator=torch.Generator().manual_seed(7))
+        data = Batches(batches(3, config.pretraining_batch_size))
+        counters = {"K1": bigru_shared, "K2": bigru_trainpool, "K3": bigru_shared_bwd, "K4f": bigru_masked,
+                    "K8": sinc_frontend_fused}
+        for c in counters.values():
+            c.launches = 0
+        result = trainer.train(data)
+        torch.cuda.synchronize()
+        train_launches = {k: c.launches for k, c in counters.items()}
+        steps = len(data.loader)
+        if train_launches != {"K1": 0, "K2": 4 * steps, "K3": 4 * steps, "K4f": 0, "K8": 0}:
+            raise AssertionError(f"ASR Trainer.train over {steps} steps launched {train_launches}; want 4 K2 "
+                                 "and 4 K3 a step and nothing else")
+        if not all(np.isfinite(result)):
+            raise AssertionError(f"ASR Trainer.train: {result}")
+        with open(os.path.join(tmp, "pretraining", "log.csv")) as f:
+            header = f.readline().strip()
+        if not header.startswith(",phone_loss,phone_acc,word_loss,word_acc,set,examples_per_sec,steps"):
+            raise AssertionError(f"ASR log.csv header {header!r}")
+        for c in counters.values():
+            c.launches = 0
+        tested = trainer.test(data)
+        torch.cuda.synchronize()
+        test_launches = {k: c.launches for k, c in counters.items()}
+        if test_launches != {"K1": 4 * steps, "K2": 0, "K3": 0, "K4f": 0, "K8": steps}:
+            raise AssertionError(f"ASR Trainer.test over {steps} batches launched {test_launches}; want 1 K8 "
+                                 "and 4 K1 a batch and nothing else")
+        if not all(np.isfinite(tested)):
+            raise AssertionError(f"ASR Trainer.test: {tested}")
+        held = asr_eval_vs_cpu(model, data.loader[0])
+        print(f"[asr-trainer] Trainer(PretrainedModel).train at no_unfreezing.cfg width, B={len(data.loader[0]['w'])}"
+              f", 2.25 s, {steps} steps with -1 labels and 2 weight-0 rows a batch: (phone_acc, phone_loss, "
+              f"word_acc, word_loss) {tuple(round(v, 4) for v in result)}; launches {train_launches}; "
+              f"Trainer.test {tuple(round(v, 4) for v in tested)}, launches {test_launches}; log.csv {header}")
+        print(f"[asr-test] the test pass on its first batch (B={len(data.loader[0]['w'])}, 2.25 s: K8 and 4 K1 on "
+              f"the card) against the CPU plain path on the same weights: {held}")
+
+        # 12.4 save, an SLU Model on the saved encoder, one SLU epoch, save, serve
+        trainer.save_checkpoint()
+        slu_config = asr_config(tmp)
+        Model.attach_vocab(slu_config, FLAGSHIP_VOCAB)
+        slu = Model(slu_config, seed=2).to(dev)
+        trained, loaded = model.state_dict(), slu.pretrained_model.state_dict()
+        if list(trained) != list(loaded) or not all(torch.equal(trained[k], loaded[k]) for k in trained):
+            raise AssertionError("Model(config) did not load pretraining/model_state.npz bit for bit")
+        slu_trainer = Trainer(slu, slu_config, generator=torch.Generator().manual_seed(8))
+        slu_data = Batches(synthetic_batches(rng, 2, 16, slu.values_per_slot))
+        acc, loss = slu_trainer.train(slu_data)
+        slu_trainer.save_checkpoint()
+        served = load_trained_model(asr_config(tmp), device=dev)
+        x16 = slu_data.loader[0]["x"]
+        want, got = slu.decode_intents(x16), served.decode_intents(x16)
+        if got != want:
+            raise AssertionError(f"load_trained_model decodes {got[:2]}... where the trained model decodes "
+                                 f"{want[:2]}...")
+        print(f"[asr-serve] Model(config) loaded pretraining/model_state.npz bit-equal to the trained encoder; "
+              f"one SLU epoch (loss {loss:.4f}), save_checkpoint, load_trained_model: decode_intents at B=16 "
+              f"equal to the in-memory model's ({want[0]}, ...)")
+
+        # 12.6 the warm ASR step at B = 64 and its profile
+        batch = trainer._to_device(data.loader[0])
+        times = sorted(cuda_times(lambda: trainer.train_step(batch), reps=10, warmup=2))
+        print(f"[time] warm ASR train step B=64, 2.25 s, 10k words (forward, backward, Adam): median "
+              f"{statistics.median(times):.3f} ms of 10 (CUDA events; min {times[0]:.3f}, max {times[-1]:.3f}) "
+              f"on {card}")
+        profile_calls(lambda: trainer.train_step(batch), "ASR train step B=64, 2.25 s", card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 12.5 the CLI end to end on the card, in subprocesses
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        slu_path, asr_path = write_cli_tree(tmp, rng)
+        folder, cfg = os.path.join(tmp, "exp"), os.path.join(tmp, "exp.cfg")
+        write_cli_cfg(cfg, FLAGSHIP_CFG, folder=folder, asr_path=asr_path, slu_path=slu_path, **CLI_CUTS)
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+
+        def cli(*args):
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-m", "tpu_slu_torch.cli", *args, "--config_path", cfg],
+                                 cwd=HERE, env=env, capture_output=True, text=True, timeout=300)
+            if out.returncode != 0:
+                raise AssertionError(f"cli {' '.join(args)} exited {out.returncode}: {out.stderr[-2000:]}")
+            return out.stdout, time.perf_counter() - t0
+
+        took = {}
+        for leg in (("--pretrain",), ("--train",), ("--train", "--restart")):
+            out, took[" ".join(leg)] = cli(*leg)
+            if "Could not" in out or (leg[-1] == "--restart" and "No previous model" in out):
+                raise AssertionError(f"cli {' '.join(leg)}: {out[-1500:]}")
+        wav = os.path.join(slu_path, "wavs", "test_0.wav")
+        out, took["--decode"] = cli("--decode", "--wav", wav)
+        decoded = ast.literal_eval(out.strip().splitlines()[-1])
+        with open(os.path.join(folder, "training", "vocab.json")) as f:
+            vocab = json.load(f)
+        if len(decoded) != 3 or not all(v in vocab["Sy_intent"][s] for s, v in zip(vocab["Sy_intent"], decoded)):
+            raise AssertionError(f"cli --decode printed {decoded}")
+        files = {sub: sorted(os.listdir(os.path.join(folder, sub))) for sub in ("pretraining", "training")}
+        want_files = {"pretraining": ["log.csv", "model_state.npz", "phonemes.txt", "trainer_state.npz",
+                                      "words.txt"],
+                      "training": ["log.csv", "model_state.npz", "trainer_state.npz", "vocab.json"]}
+        if files != want_files:
+            raise AssertionError(f"cli wrote {files}, want {want_files}")
+        with np.load(os.path.join(folder, "training", "trainer_state.npz")) as f:
+            epoch = int(f["epoch"])
+        rows = {}
+        for sub in files:
+            with open(os.path.join(folder, sub, "log.csv")) as f:
+                rows[sub] = len(f.read().splitlines()) - 1
+        if epoch != 2 or rows != {"pretraining": 2, "training": 3}:
+            raise AssertionError(f"after --train --restart: epoch {epoch} (want 2), log.csv rows {rows}")
+        print(f"[asr-cli] python -m tpu_slu_torch.cli on the card, no_unfreezing.cfg cut to "
+              f"{CLI_CUTS} on a tree of 12/4/4 FSC-style rows and 4 aligned utterances a split: --pretrain, "
+              f"--train, --train --restart (epoch read back, 2 saved), --decode -> {decoded}; wrote {files}; "
+              f"log.csv rows {rows}; seconds a leg {({k: round(v, 1) for k, v in took.items()})}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"bigru_shared_fwd": {"launches_asr_test": test_launches["K1"], "max_abs_err_asr": errs["K1"]},
+            "bigru_trainpool_fwd": {"launches_asr_train": train_launches["K2"], "max_abs_err_asr": errs["K2"]},
+            "bigru_shared_bwd": {"launches_asr_train": train_launches["K3"], "max_abs_err_asr": errs["K3"]},
+            "sinc_frontend_fused": {"launches_asr_test": test_launches["K8"]}}
 
 
 def main() -> None:
@@ -2727,18 +3157,24 @@ def main() -> None:
     # 11. the exact-shape eval path's routes: K8 and K6
     routes = phase_routes(dev, card, rng, k8_launches)
 
+    # 12. ASR pre-training, and on to a served model
+    asr = phase_asr(dev, card, rng)
+
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_slu"))
     if loaded:
         raise AssertionError(f"the port loaded modules of JAX or of the JAX package: {loaded}")
     print(card)
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "bigru_shared_fwd", "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
         "launches": k1_train_launches, "launches_decode": launches, "max_abs_err": max_err,
         "ms": totals[16][0], "plain_ms": totals[16][1], "bound_ms": k1_bound, "bound_by": k1_by,
         "library_ms": totals[16][2], "us_per_step": 1e3 * totals[16][0] / K1_STEPS, "ms_b1": totals[1][0],
         "library_ms_b1": totals[1][2], "cluster_by_batch": {str(B): bigru_cluster_size(B) for B in (1, 16, 64)},
         "ab_cluster": k1_ab,
-    }] + train_kernels + [k4f, k7, k4b] + uni + routes}))
+    }] + train_kernels + [k4f, k7, k4b] + uni + routes
+    for entry in kernels:
+        entry.update(asr.get(entry["name"], {}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 

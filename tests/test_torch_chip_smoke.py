@@ -154,3 +154,125 @@ def test_compare_searches_takes_a_tie_within_the_drift(apart, passes):
     else:
         with pytest.raises(AssertionError, match="f32 drift of 4 summed steps"):
             chip_smoke.compare_searches("case", run, ref_run, U)
+
+
+def test_asr_batches_carry_ignored_labels_and_padding_rows(tmp_path):
+    """``asr_batches``: labels of ``ceil(T / ds)`` frames in range or -1,
+    about a fifth -1; the last two rows zero waves of length 0 and weight 0
+    with every label -1; the port's ASR step trains on them at a small
+    width (finite losses, the padding rows without any gradient)."""
+    import torch
+
+    from __graft_entry__ import _make_config
+    from tpu_slu_torch.models.encoder import PretrainedModel, encoder_loss
+    from tpu_slu_torch.training import Trainer
+
+    rng = np.random.default_rng(0)
+    batches = chip_smoke.asr_batches(rng, 2, 6, 4000, 8, 64, 80, 320)
+    for b in batches:
+        assert b["x"].shape == (6, 4000) and b["y_phoneme"].shape == (6, 50) and b["y_word"].shape == (6, 13)
+        for y, top in ((b["y_phoneme"], 8), (b["y_word"], 64)):
+            assert y.dtype == np.int32 and y.min() == -1 and y.max() < top
+            assert 0.1 < (y[:4] == -1).mean() < 0.3 and (y[4:] == -1).all()
+        assert list(b["w"]) == [1] * 4 + [0] * 2 and list(b["len"]) == [4000] * 4 + [0] * 2
+        assert not b["x"][4:].any()
+    config = _make_config(str(tmp_path), small=True)
+    config.pretraining_type = 2
+    trainer = Trainer(PretrainedModel(config), config)
+    losses = trainer.train_step(trainer._to_device(batches[0]))
+    assert all(np.isfinite(v.item()) for v in losses)
+    padded = {k: v[4:] for k, v in batches[1].items()}  # only the padding rows: no gradient at all
+    trainer.optimizer.zero_grad(set_to_none=True)
+    pl, wl, _, _ = encoder_loss(trainer.model, torch.from_numpy(padded["x"]),
+                                torch.from_numpy(padded["y_phoneme"]).long(),
+                                torch.from_numpy(padded["y_word"]).long(), weights=torch.from_numpy(padded["w"]))
+    (pl + wl).backward()
+    assert pl.item() == wl.item() == 0.0
+    assert all(not p.grad.any() for p in trainer.model.parameters() if p.grad is not None)
+
+
+def test_cli_tree_reads_in_both_packages(tmp_path):
+    """``write_cli_tree``'s tree gives equal datasets in the port and the JAX
+    package (the CLI leg's data), and ``write_cli_cfg`` cuts the flagship cfg
+    as ``CLI_CUTS`` says."""
+    from tests.test_torch_data import _assert_batches_equal, _epochs
+    from tpu_slu import read_config as jax_read_config
+    from tpu_slu.data import datasets as jdata
+    from tpu_slu_torch.config import read_config
+    from tpu_slu_torch.data import datasets as tdata
+    from tpu_slu_torch.models.flagship import FLAGSHIP_CFG
+
+    slu, asr = chip_smoke.write_cli_tree(str(tmp_path / "tree"), np.random.default_rng(3))
+    with pytest.raises(KeyError):
+        chip_smoke.write_cli_cfg(str(tmp_path / "bad.cfg"), FLAGSHIP_CFG, no_such_key=1)
+    out = {}
+    for pkg, read, data in (("jax", jax_read_config, jdata), ("port", read_config, tdata)):
+        cfg = str(tmp_path / f"{pkg}.cfg")
+        chip_smoke.write_cli_cfg(cfg, FLAGSHIP_CFG, folder=str(tmp_path / pkg), asr_path=asr, slu_path=slu,
+                                 **chip_smoke.CLI_CUTS)
+        config = read(cfg)
+        assert {k: getattr(config, k) for k in chip_smoke.CLI_CUTS} == chip_smoke.CLI_CUTS
+        np.random.seed(config.seed)
+        out[pkg] = (config, _epochs(data.get_SLU_datasets(config), 1) + _epochs(data.get_ASR_datasets(config), 1))
+    (jc, jb), (tc, tb) = out["jax"], out["port"]
+    assert tc.Sy_intent == jc.Sy_intent and tc.num_phonemes == jc.num_phonemes
+    assert [len(b) for b in tb] == [2, 1, 1, 1, 1, 1]
+    for got, want in zip(tb, jb):
+        _assert_batches_equal(got, want)
+
+
+def test_asr_shapes_are_the_encoders_gru_inputs():
+    """``asr_shapes``: each encoder bi-GRU layer's input frames at 2.25 s (and
+    at 4 s, ``ENC_SHAPES``' T) as the port's ``frames_through`` counts them on
+    the flagship cfg, with ``ENC_SHAPES``' widths."""
+    from tpu_slu_torch.config import read_config
+    from tpu_slu_torch.models.encoder import EncoderArch, frames_through
+    from tpu_slu_torch.models.flagship import FLAGSHIP_CFG
+
+    config = read_config(FLAGSHIP_CFG, make_dirs=False)
+    config.num_phonemes = 42
+    arch = EncoderArch.from_config(config)
+    specs = arch.phoneme_layers + arch.word_layers
+    grus = [i for i, s in enumerate(specs) if s.kind == "gru"]
+    assert len(grus) == len(chip_smoke.ENC_SHAPES) == 4
+    for T in (chip_smoke.ASR_T, 64000):
+        want = [int(frames_through(specs[:i], T)) for i in grus]
+        assert [t for *_, t in chip_smoke.asr_shapes(T)] == want
+    assert [s[:3] for s in chip_smoke.asr_shapes()] == [s[:3] for s in chip_smoke.ENC_SHAPES]
+    assert [s[3] for s in chip_smoke.asr_shapes(64000)] == [s[3] for s in chip_smoke.ENC_SHAPES]
+    assert [s[3] for s in chip_smoke.asr_shapes()] == [225, 113, 57, 29]
+
+
+@pytest.mark.parametrize("perturb", [0.0, 1e-2])
+def test_asr_eval_vs_cpu_holds_the_test_pass_against_a_copy(tmp_path, monkeypatch, perturb):
+    """``asr_eval_vs_cpu`` on the CPU at a small width: a model held against
+    its own copy passes with no argmax flips; a copy whose word head is moved
+    by ``perturb`` fails on the logits."""
+    import copy
+    import types
+
+    import torch
+
+    from __graft_entry__ import _make_config
+    from tpu_slu_torch.models.encoder import PretrainedModel
+
+    config = _make_config(str(tmp_path), small=True)
+    config.pretraining_type = 2
+    model = PretrainedModel(config)
+    batch = chip_smoke.asr_batches(np.random.default_rng(1), 1, 6, 4000, model.arch.num_phonemes,
+                                   config.vocabulary_size, config.phone_downsample_factor,
+                                   config.word_downsample_factor)[0]
+
+    def moved(m):
+        out = copy.deepcopy(m)
+        with torch.no_grad():
+            out.word_linear.bias += perturb
+        return out
+
+    monkeypatch.setattr(chip_smoke, "copy", types.SimpleNamespace(deepcopy=moved))
+    if perturb:
+        with pytest.raises(AssertionError, match="word logits"):
+            chip_smoke.asr_eval_vs_cpu(model, batch)
+    else:
+        held = chip_smoke.asr_eval_vs_cpu(model, batch)
+        assert held.count("max abs err 0 ") == 2 and held.count("(0 argmax flips)") == 2

@@ -1,5 +1,5 @@
-"""The PyTorch port decodes, serves and trains (both heads, and a unidirectional model) without jax,
-pandas or any ``tpu_slu`` module.
+"""The PyTorch port decodes, serves and trains (both heads, and a unidirectional model), pre-trains,
+saves and reloads, and runs its CLI's training legs without jax, pandas or any ``tpu_slu`` module.
 
 Checked in a fresh interpreter: this test process has imported jax already.
 """
@@ -78,12 +78,25 @@ try:
         loader = [batch]
     acc, loss = Trainer(s2s_model, config).train(S2SData())
     assert np.isfinite(loss) and acc == 0.0
+    # ASR pre-training, its checkpoint under a Model, and the CLI's training legs on a tiny tree
+    import chip_smoke
+    from tpu_slu_torch import cli
+    slu, asr = chip_smoke.write_cli_tree(os.path.join(tmp, "tree"), np.random.default_rng(0))
+    cfg = os.path.join(tmp, "cli.cfg")
+    chip_smoke.write_cli_cfg(cfg, os.path.join("tests", "assets", "golden", "experiment.cfg.template"),
+                             folder=os.path.join(tmp, "cli"), asr_path=asr, slu_path=slu, pretraining_type=2,
+                             pretraining_num_epochs=1, training_num_epochs=1)
+    for leg in (["--pretrain"], ["--train"], ["--train", "--restart"]):
+        cli.main(leg + ["--config_path", cfg, "--device", "cpu"])
+    trained = load_trained_model(read_config(cfg), device="cpu")
+    cli_files = {sub: sorted(os.listdir(os.path.join(tmp, "cli", sub))) for sub in ("pretraining", "training")}
+    cli_decode = trained.decode_intents(read_wav(os.path.join(slu, "wavs", "test_0.wav"))[0])[0]
 finally:
     shutil.rmtree(tmp)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pandas", "tpu_slu"))
 print(json.dumps({"decoded": decoded, "served": served,
                   "want": [case["action"], case["object"], case["location"]], "s2s": s2s, "uni": uni,
-                  "forbidden": loaded}))
+                  "cli_files": cli_files, "cli_decode": cli_decode, "forbidden": loaded}))
 """
 
 
@@ -98,4 +111,8 @@ def test_port_imports_neither_jax_nor_pandas():
     assert result["decoded"] == result["served"] == result["want"]
     assert result["s2s"][0] == result["s2s"][1]
     assert result["uni"] == [3, True]
+    assert result["cli_files"] == {
+        "pretraining": ["log.csv", "model_state.npz", "phonemes.txt", "trainer_state.npz", "words.txt"],
+        "training": ["log.csv", "model_state.npz", "trainer_state.npz", "vocab.json"]}
+    assert len(result["cli_decode"]) == 3
     assert result["forbidden"] == []

@@ -17,10 +17,17 @@ The mapping needs no architecture, only the leaf names:
   level) maps ``w_ih`` -> ``weight_ih`` transposed, the attention's
   ``key``/``query``/``value`` become ``*_linear``, and
   ``decoder/initial_state`` (layers, H) keeps its name and layout.
+
+:func:`params_to_jax` is the exact inverse: a port ``state_dict`` (of the
+whole model, or of the bare encoder that ``pretraining/model_state.npz``
+holds) -> the JAX pytree, bit for bit. :func:`jax_leaf` names the JAX leaf
+of one port parameter, which the optimizer's export
+(``training/optim.py``) also follows.
 """
 
 from __future__ import annotations
 
+import re
 from collections.abc import Mapping
 
 import numpy as np
@@ -36,13 +43,19 @@ def read_npz(path: str) -> dict[str, np.ndarray]:
         return {k: data[k] for k in data.files}
 
 
-def _flatten(tree, prefix: str = "") -> dict:
+def flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
+    """A nested dict (or list) of arrays -> ``{"a/b/c": array}``, the dict
+    keys of each level sorted, as the JAX package writes a checkpoint."""
+    out = {}
     if isinstance(tree, Mapping):
-        out = {}
-        for k, v in tree.items():
-            out.update(_flatten(v, f"{prefix}{k}/"))
-        return out
-    return {prefix.rstrip("/"): np.asarray(tree)}
+        for k in sorted(tree):
+            out.update(flatten(tree[k], f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flatten(v, f"{prefix}{i}/"))
+    else:
+        out[prefix.rstrip("/")] = np.asarray(tree)
+    return out
 
 
 def params_from_jax(tree_or_flat) -> dict[str, torch.Tensor]:
@@ -53,7 +66,7 @@ def params_from_jax(tree_or_flat) -> dict[str, torch.Tensor]:
     on a missing key, an extra key or a wrong shape.
     """
     out = {}
-    for path, arr in _flatten(tree_or_flat).items():
+    for path, arr in flatten(tree_or_flat).items():
         *head, leaf = path.split("/")
         arr = np.asarray(arr, np.float32)
         if head[:1] == ["encoder"]:
@@ -84,3 +97,48 @@ def params_from_jax(tree_or_flat) -> dict[str, torch.Tensor]:
             raise KeyError(f"no port parameter for the JAX leaf {path!r}")
         out[".".join([*head, name])] = torch.from_numpy(np.array(arr, order="C"))
     return out
+
+
+_PORT_GRU = re.compile(r"(weight|bias)_(ih|hh)(_l0(_reverse)?)?")
+
+
+def jax_leaf(name: str, ndim: int) -> tuple[str, bool]:
+    """A port parameter name -> (its JAX ``/``-path, whether the JAX array is
+    the port's transposed): the inverse of :func:`params_from_jax`'s map."""
+    *head, leaf = name.split(".")
+    gru = _PORT_GRU.fullmatch(leaf)
+    if gru and (gru.group(3) or head[:3] == ["decoder", "rnn", "layers"]):
+        if gru.group(3):  # a direction of a (bi)GRU layer; a GRUCell has none
+            head.append("bwd" if gru.group(4) else "fwd")
+        out, transposed = f"{'w' if gru.group(1) == 'weight' else 'b'}_{gru.group(2)}", gru.group(1) == "weight"
+    elif name == "decoder.initial_state" or leaf in ("filt_b1", "filt_band"):
+        out, transposed = leaf, False
+    elif leaf == "weight":
+        out, transposed = "w", ndim == 2
+    elif leaf == "bias":
+        out, transposed = "b", False
+    else:
+        raise KeyError(f"no JAX leaf for the port parameter {name!r}")
+    if head[:2] == ["encoder", "layers"]:
+        del head[1]
+    elif head[:3] == ["decoder", "rnn", "layers"]:
+        del head[2]
+    elif head[:2] == ["decoder", "attention"] and len(head) == 3 and head[2].endswith("_linear"):
+        head[2] = head[2][: -len("_linear")]
+    return "/".join([*head, out]), transposed
+
+
+def params_to_jax(state_dict: Mapping) -> dict:
+    """A port ``state_dict`` -> the JAX package's nested-dict param tree of
+    numpy arrays, which ``params_from_jax`` maps back bit for bit and the
+    JAX ``load_pytree`` reads from a ``.npz``."""
+    tree: dict = {}
+    for name, t in state_dict.items():
+        arr = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+        path, transposed = jax_leaf(name, arr.ndim)
+        node = tree
+        *head, leaf = path.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[leaf] = np.ascontiguousarray(arr.T if transposed else arr)
+    return tree

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 from torch import nn
 from torch.nn.utils import skip_init
@@ -504,6 +505,19 @@ def apply_stack(layers: nn.ModuleList, specs, out, *, train: bool = False,
     return out
 
 
+def _btc(out) -> torch.Tensor:
+    return parts_to_btc(out) if isinstance(out, PartsTM) else out
+
+
+def encoder_phoneme_features(encoder: "PretrainedModel", x: torch.Tensor, *, train: bool = False,
+                             generator: torch.Generator | None = None,
+                             lengths: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, T) waveform -> (B, T/phone_ds, phoneme_feat_dim) phoneme-rate
+    features; ``train`` and ``lengths`` as :func:`encoder_features`."""
+    return _btc(apply_stack(encoder.phoneme_layers, encoder.arch.phoneme_layers, x[:, None, :],
+                            train=train, generator=generator, n=lengths, **encoder.routes()))
+
+
 def encoder_features(encoder: "PretrainedModel", x: torch.Tensor, *, train: bool = False,
                      generator: torch.Generator | None = None,
                      lengths: torch.Tensor | None = None) -> torch.Tensor:
@@ -516,13 +530,72 @@ def encoder_features(encoder: "PretrainedModel", x: torch.Tensor, *, train: bool
     T = lengths_b, and its frames past ``arch.num_frames(lengths_b)`` are 0.
     """
     arch = encoder.arch
-    routes = {"frontend": encoder.frontend, "gru_layout": encoder.gru_layout}
     out = apply_stack(encoder.phoneme_layers, arch.phoneme_layers, x[:, None, :], train=train,
-                      generator=generator, n=lengths, **routes)
+                      generator=generator, n=lengths, **encoder.routes())
     n = None if lengths is None else frames_through(arch.phoneme_layers, lengths)
-    out = apply_stack(encoder.word_layers, arch.word_layers, out, train=train, generator=generator,
-                      n=n, **routes)
-    return parts_to_btc(out) if isinstance(out, PartsTM) else out
+    return _btc(apply_stack(encoder.word_layers, arch.word_layers, out, train=train, generator=generator,
+                            n=n, **encoder.routes()))
+
+
+def encoder_posteriors(encoder: "PretrainedModel", x: torch.Tensor, *,
+                       lengths: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(phoneme_logits (B, t_phone, num_phonemes), word_logits (B, t_word,
+    vocabulary_size)) in eval mode (reference ``compute_posteriors``). The
+    phoneme head reads the phoneme stack's output; the word stack takes its
+    parts as they are."""
+    arch = encoder.arch
+    out = apply_stack(encoder.phoneme_layers, arch.phoneme_layers, x[:, None, :], n=lengths,
+                      **encoder.routes())
+    phoneme_logits = encoder.phoneme_linear(_btc(out))
+    n = None if lengths is None else frames_through(arch.phoneme_layers, lengths)
+    out = apply_stack(encoder.word_layers, arch.word_layers, out, n=n, **encoder.routes())
+    return phoneme_logits, encoder.word_linear(_btc(out))
+
+
+def masked_frame_ce(logits: torch.Tensor, y: torch.Tensor,
+                    weights: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Frame-wise cross-entropy with ignore index -1 (JAX
+    ``_masked_frame_ce``): ``logits`` (B, T, C), ``y`` (B, T) int, ``weights``
+    (B,) per example (weight-0 rows take no part in the loss, the accuracy or
+    the gradient). Returns (mean loss, accuracy) over the valid weighted
+    frames. The loss is ``logsumexp - logit of the label``: one pass over
+    the logits, no log-softmax tensor and no one-hot."""
+    valid = (y != -1).to(logits.dtype)
+    if weights is not None:
+        valid = valid * weights.to(logits.dtype)[:, None]
+    y_safe = torch.where(y != -1, y, 0).long()
+    nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, y_safe[..., None])[..., 0]
+    denom = torch.clamp(valid.sum(), min=1.0)
+    loss = (nll * valid).sum() / denom
+    acc = ((logits.detach().argmax(-1) == y_safe).to(logits.dtype) * valid).sum() / denom
+    return loss, acc
+
+
+def encoder_loss(encoder: "PretrainedModel", x: torch.Tensor, y_phoneme: torch.Tensor,
+                 y_word: torch.Tensor, *, train: bool = False, generator: torch.Generator | None = None,
+                 weights: torch.Tensor | None = None):
+    """ASR pre-training losses (JAX ``encoder_loss``, reference
+    ``PretrainedModel.forward``): (phoneme_loss, word_loss, phoneme_acc,
+    word_acc). ``y_phoneme`` (B, t_p) and ``y_word`` (B, t_w) are frame labels
+    at the two stacks' rates, -1 where ignored; each head is trimmed to the
+    shorter of its frames and its labels. At ``pretraining_type == 1`` the word
+    stack does not run and its loss and accuracy are 0. The stacks run
+    unmasked (every row at the batch's T), as JAX's do; ``train`` and
+    ``generator`` as :func:`apply_stack`."""
+    arch = encoder.arch
+    out = apply_stack(encoder.phoneme_layers, arch.phoneme_layers, x[:, None, :], train=train,
+                      generator=generator, **encoder.routes())
+    h = _btc(out)
+    t = min(h.shape[1], y_phoneme.shape[1])
+    phoneme_loss, phoneme_acc = masked_frame_ce(encoder.phoneme_linear(h[:, :t]), y_phoneme[:, :t], weights)
+    if arch.pretraining_type == 1:
+        zero = phoneme_loss.new_zeros(())
+        return phoneme_loss, zero, phoneme_acc, zero
+    h = _btc(apply_stack(encoder.word_layers, arch.word_layers, out, train=train, generator=generator,
+                         **encoder.routes()))
+    t = min(h.shape[1], y_word.shape[1])
+    word_loss, word_acc = masked_frame_ce(encoder.word_linear(h[:, :t]), y_word[:, :t], weights)
+    return phoneme_loss, word_loss, phoneme_acc, word_acc
 
 
 class PretrainedModel(nn.Module):
@@ -532,7 +605,8 @@ class PretrainedModel(nn.Module):
 
     ``frontend`` and ``gru_layout`` are the routes of the exact-shape eval
     path (:func:`apply_stack`); plain attributes, which a caller may also
-    set after construction."""
+    set after construction. Without a ``num_phonemes`` on the config (no
+    ``phonemes.txt`` read yet) the phoneme head has the JAX package's 42."""
 
     def __init__(self, config, generator: torch.Generator | None = None, *,
                  frontend: str = DEFAULT_FRONTEND, gru_layout: str = DEFAULT_GRU_LAYOUT):
@@ -547,5 +621,26 @@ class PretrainedModel(nn.Module):
         self.phoneme_linear = make_linear(self.arch.phoneme_feat_dim, self.arch.num_phonemes, gen)
         self.word_linear = make_linear(self.arch.word_feat_dim, self.arch.vocabulary_size, gen)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return encoder_features(self, x)
+    def routes(self) -> dict:
+        return {"frontend": self.frontend, "gru_layout": self.gru_layout}
+
+    @property
+    def device(self) -> torch.device:
+        return self.phoneme_linear.weight.device
+
+    def _put(self, a, dtype):
+        return torch.as_tensor(a if torch.is_tensor(a) else np.asarray(a), dtype=dtype, device=self.device)
+
+    def compute_features(self, x) -> torch.Tensor:
+        """(B, T) waveform -> word-rate features, eval mode."""
+        return encoder_features(self, self._put(x, torch.float32))
+
+    def compute_posteriors(self, x) -> tuple[torch.Tensor, torch.Tensor]:
+        """(B, T) waveform -> (phoneme_logits, word_logits), eval mode."""
+        return encoder_posteriors(self, self._put(x, torch.float32))
+
+    def forward(self, x, y_phoneme, y_word):
+        """(phoneme_loss, word_loss, phoneme_acc, word_acc) of a batch in
+        eval mode, as JAX's ``PretrainedModel.__call__``."""
+        return encoder_loss(self, self._put(x, torch.float32), self._put(y_phoneme, torch.int64),
+                            self._put(y_word, torch.int64))

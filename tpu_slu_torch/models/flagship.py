@@ -38,6 +38,15 @@ UNIDIRECTIONAL = {"phone_rnn_bidirectional": False, "word_rnn_bidirectional": Fa
 # tpu_slu/data/datasets.py: <sos>, the sorted set of the semantics' characters
 # and string.printable (the semantics are printable), <eos>
 SEQ2SEQ_LABELS = ["<sos>"] + sorted(set(string.printable)) + ["<eos>"]
+# the fixed-slot vocabulary, shaped as Fluent Speech Commands' (Model.attach_vocab)
+FLAGSHIP_VOCAB = {
+    "seq2seq": False,
+    "Sy_intent": {"action": {f"a{i}": i for i in range(6)},
+                  "object": {f"o{i}": i for i in range(14)},
+                  "location": {f"l{i}": i for i in range(4)}},
+    "values_per_slot": [6, 14, 4],
+    "num_phonemes": 42,
+}
 
 
 def flagship_model(device=None, seed: int = 0, cfg: str = FLAGSHIP_CFG, **overrides) -> Model:
@@ -49,14 +58,7 @@ def flagship_model(device=None, seed: int = 0, cfg: str = FLAGSHIP_CFG, **overri
     config = read_config(cfg, make_dirs=False)
     for k, v in overrides.items():
         setattr(config, k, v)
-    Model.attach_vocab(config, {
-        "seq2seq": False,
-        "Sy_intent": {"action": {f"a{i}": i for i in range(6)},
-                      "object": {f"o{i}": i for i in range(14)},
-                      "location": {f"l{i}": i for i in range(4)}},
-        "values_per_slot": [6, 14, 4],
-        "num_phonemes": 42,
-    })
+    Model.attach_vocab(config, FLAGSHIP_VOCAB)
     return Model(config, seed=seed, load_pretrained=False).eval().to(device)
 
 

@@ -418,6 +418,16 @@ class Model(nn.Module):
                 )
             self.pretrained_model.load_state_dict(state, strict=True)
 
+    def vocab_dict(self) -> dict:
+        """The inference vocabulary as JSON (``vocab.json``), which
+        :meth:`attach_vocab` reads back (JAX ``slu.py:806``)."""
+        return {
+            "seq2seq": self.seq2seq,
+            "Sy_intent": self.Sy_intent,
+            "values_per_slot": None if self.seq2seq else list(self.values_per_slot),
+            "num_phonemes": self.encoder_arch.num_phonemes,
+        }
+
     @staticmethod
     def attach_vocab(config, vocab: dict):
         """Apply a saved vocab dict (``vocab.json``) to a config in place of the dataset."""

@@ -8,13 +8,22 @@ moments and bias-correction step 1. The JAX package reproduces that with a
 its value, moments and step count untouched, every parameter keeps
 ``requires_grad`` (so frozen layers' gradients are computed and count in the
 clipping norm, as in the JAX train step), and freezing changes no graph.
+
+Its state goes to and comes from a checkpoint as the JAX package's flat
+Adam state (``flat_adam_init``): ``m``, ``v`` and ``step``, each one (P,)
+vector over every parameter in ``ravel_pytree``'s leaf order of the JAX
+param tree, each leaf laid out as JAX lays it (a GRU or Linear weight
+transposed), ``step`` int32 per element.
 """
 
 from __future__ import annotations
 
 from collections import defaultdict
 
+import numpy as np
 import torch
+
+from tpu_slu_torch.models.convert import jax_leaf
 
 
 class MaskedAdam(torch.optim.Optimizer):
@@ -40,6 +49,62 @@ class MaskedAdam(torch.optim.Optimizer):
         if missing:
             raise KeyError(f"mask has no entry for {sorted(missing)[:3]}")
         self._on = [mask[n] > 0.0 for n in self.names]
+
+    def _jax_order(self) -> list[tuple[torch.Tensor, bool]]:
+        """(parameter, transposed in JAX) in the leaf order of JAX's flat
+        vector: the JAX paths' components sorted level by level, as jax
+        flattens dicts (layer "10" before "2")."""
+        leaves = []
+        for name, p in zip(self.names, self.param_groups[0]["params"]):
+            path, transposed = jax_leaf(name, p.ndim)
+            leaves.append((path.split("/"), p, transposed))
+        leaves.sort(key=lambda e: e[0])
+        return [(p, t) for _, p, t in leaves]
+
+    def export_flat(self) -> dict[str, np.ndarray]:
+        """The JAX flat Adam state ``{"m", "v": float32 (P,), "step": int32 (P,)}``;
+        a parameter that never stepped has zeros."""
+        out = {"m": [], "v": [], "step": []}
+        for p, transposed in self._jax_order():
+            st = self.state.get(p, {})
+            for k in ("m", "v"):
+                a = st[k].detach().cpu().numpy() if st else np.zeros(tuple(p.shape), np.float32)
+                out[k].append((a.T if transposed else a).reshape(-1))
+            out["step"].append(np.full(p.numel(), st.get("step", 0), np.int32))
+        return {k: np.concatenate(v) if v else np.zeros(0, np.float32 if k != "step" else np.int32)
+                for k, v in out.items()}
+
+    def import_flat(self, flat: dict) -> None:
+        """Take the state :meth:`export_flat` (or the JAX Trainer) wrote. A
+        parameter whose steps are 0 gets no state; the others resume from
+        their saved step. Raises, changing nothing, on a wrong length or a
+        step that varies within a parameter."""
+        order = self._jax_order()
+        total = sum(p.numel() for p, _ in order)
+        arrays = {k: np.asarray(flat[k]) for k in ("m", "v", "step")}
+        for k, a in arrays.items():
+            if a.shape != (total,):
+                raise ValueError(f"optimizer state {k!r} has shape {a.shape}, want ({total},)")
+        states, pos = [], 0
+        for p, transposed in order:
+            n, seg = p.numel(), slice(pos, pos + p.numel())
+            pos += n
+            steps = arrays["step"][seg]
+            if n and (steps != steps[0]).any():
+                raise ValueError("optimizer step counts vary within one parameter")
+            step = int(steps[0]) if n else 0
+            if step == 0:
+                states.append((p, {}))
+                continue
+            shape = tuple(p.shape)[::-1] if transposed else tuple(p.shape)
+            mv = {k: torch.from_numpy(np.ascontiguousarray(
+                arrays[k][seg].reshape(shape).T if transposed else arrays[k][seg].reshape(shape))).to(p)
+                for k in ("m", "v")}
+            states.append((p, {"step": step, **mv}))
+        self.state.clear()
+        for p, st in states:
+            if st:
+                self.state[p].update(st)
 
     @torch.no_grad()
     def step(self, closure=None):

@@ -1,32 +1,52 @@
-"""Training engine of the SLU models (fixed-slot and seq2seq), on one device.
+"""Training engine on one device: ASR pre-training and both SLU heads.
 
-Port of the SLU branch of ``tpu_slu/training/trainer.py``: masked Adam over
-the ULMFiT schedule, per-epoch train and test passes over a dataset's
-batches, a ``log.csv`` row per pass with the JAX Trainer's columns, and
-``unfreeze_one_layer()`` at the end of each training epoch. For a seq2seq
+Port of ``tpu_slu/training/trainer.py``. ``Trainer(model, config)`` takes a
+:class:`~tpu_slu_torch.models.encoder.PretrainedModel` (ASR pre-training:
+``pretraining_lr``, the ``pretraining/`` folder, the loss of
+``pretraining_type`` 1, 2 or 3, every parameter trained) or a
+:class:`~tpu_slu_torch.models.slu.Model` (SLU training: ``training_lr``,
+the ``training/`` folder, masked Adam over the ULMFiT schedule and
+``unfreeze_one_layer()`` at the end of each training epoch). Each pass
+writes a ``log.csv`` row with the JAX Trainer's columns. For a seq2seq
 model the test pass adds, from epoch ``decode_acc_from_epoch`` on (default
 2), the exact-match accuracy of beam-search decodes against the targets.
 
-A dataset is anything whose ``.loader`` yields batches in the JAX package's
-``BatchLoader`` format: dicts of numpy arrays ``x`` (B, T) float32, ``w``
-(B,) float32 (1 for a real example, 0 for batch padding), ``len`` (B,)
-sample counts, and ``y_intent``: (B, n_slots) int for the fixed-slot model;
-(B, U, L) float32 one-hot targets for the seq2seq model, with ``y_len``
-(B,) their true lengths. The port has no data pipeline of its own yet.
+A dataset is a ``data.datasets`` dataset, or anything whose ``.loader``
+yields batches in its ``BatchLoader`` format: dicts of numpy arrays ``x``
+(B, T) float32, ``w`` (B,) float32 (1 for a real example, 0 for batch
+padding), ``len`` (B,) sample counts, and the labels: ``y_phoneme`` and
+``y_word`` (B, t) int frame labels (-1 ignored) for ASR; ``y_intent`` (B,
+n_slots) int for the fixed-slot model, (B, U, L) float32 one-hot targets
+with ``y_len`` (B,) their true lengths for the seq2seq model.
+
+Checkpoints are the JAX Trainer's files, which either package reads:
+``model_state.npz`` (the param tree), ``trainer_state.npz`` (the flat Adam
+state ``opt/{m,v,step}``, ``epoch``, ``unfreezing_index``,
+``unfrozen_count``) and, for an SLU model, ``vocab.json``. As in JAX, a
+resumed run restores neither the step count nor the loader's epoch: its
+first epoch reshuffles from ``seed + 0``, and so equals the uninterrupted
+run's epoch only over the same batches (and at dropout 0, whose masks come
+from ``generator``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import csv
+import json
 import os
 import time
 
 import numpy as np
 import torch
 
+from tpu_slu_torch.models.convert import params_from_jax, params_to_jax
+from tpu_slu_torch.models.encoder import PretrainedModel, encoder_loss
 from tpu_slu_torch.models.slu import Model
+from tpu_slu_torch.training.checkpoint import check_backend, load_pytree, save_pytree
 from tpu_slu_torch.training.optim import MaskedAdam, clip_grad_norm
+
+ASR_METRICS = ("phone_loss", "phone_acc", "word_loss", "word_acc")
 
 
 def _weighted_mean(total, count):
@@ -83,20 +103,31 @@ def write_log_csv(path: str, rows: list[dict]) -> None:
 
 
 class Trainer:
-    """``Trainer(model, config).train(dataset)`` / ``.test(dataset)`` for the
-    SLU :class:`~tpu_slu_torch.models.slu.Model` (either head), on the
+    """``Trainer(model, config).train(dataset)`` / ``.test(dataset)`` on the
     device the model lies on. Dropout masks and seeds come from
     ``generator`` (a CPU generator seeded with the config's seed by
     default)."""
 
-    def __init__(self, model: Model, config, generator: torch.Generator | None = None):
-        if not isinstance(model, Model):
-            raise NotImplementedError("the port's Trainer trains the SLU Model only")
+    def __init__(self, model, config, generator: torch.Generator | None = None):
+        check_backend(config)
         self.model = model
         self.config = config
-        self.lr = config.training_lr
-        self.checkpoint_path = os.path.join(config.folder, "training")
+        self.is_pretraining = isinstance(model, PretrainedModel)
+        if self.is_pretraining:
+            if config.pretraining_type not in (1, 2, 3):
+                raise ValueError(
+                    f"pretraining_type={config.pretraining_type} has no pre-training loss; use "
+                    "1 (phoneme), 2 (phoneme+word) or 3 (word), or skip --pretrain")
+            self.lr = config.pretraining_lr
+            self.checkpoint_path = os.path.join(config.folder, "pretraining")
+        elif isinstance(model, Model):
+            self.lr = config.training_lr
+            self.checkpoint_path = os.path.join(config.folder, "training")
+        else:
+            raise TypeError(f"the Trainer trains a PretrainedModel or a Model, not {type(model).__name__}")
         os.makedirs(self.checkpoint_path, exist_ok=True)
+        self._model_ckpt = os.path.join(self.checkpoint_path, "model_state.npz")
+        self._trainer_ckpt = os.path.join(self.checkpoint_path, "trainer_state.npz")
         self.epoch = 0
         self._rows: list[dict] = []
         self.generator = generator if generator is not None else torch.Generator().manual_seed(config.seed)
@@ -105,7 +136,9 @@ class Trainer:
         self.optimizer = MaskedAdam(model.named_parameters(), self.lr)
 
     def _to_device(self, batch: dict) -> dict:
-        dtypes = {"x": torch.float32, "y_intent": torch.float32 if self.model.seq2seq else torch.int64,
+        seq2seq = not self.is_pretraining and self.model.seq2seq
+        dtypes = {"x": torch.float32, "y_intent": torch.float32 if seq2seq else torch.int64,
+                  "y_phoneme": torch.int64, "y_word": torch.int64,
                   "w": torch.float32, "len": torch.int64, "y_len": torch.int64}
         return {k: torch.as_tensor(np.asarray(batch[k]), dtype=dt).to(self.device, non_blocking=True)
                 for k, dt in dtypes.items() if k in batch}
@@ -114,25 +147,119 @@ class Trainer:
         for batch in dataset.loader:
             yield float(np.asarray(batch["w"]).sum()), self._to_device(batch)
 
-    def train_step(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """One masked-Adam step on a device batch; returns (loss, acc) on the
-        device, detached."""
+    def train_step(self, batch: dict) -> tuple[torch.Tensor, ...]:
+        """One Adam step on a device batch; returns, detached on the device,
+        (loss, acc) for an SLU model and (phone_loss, word_loss, phone_acc,
+        word_acc) for ASR. The ASR loss is the phoneme loss, their sum or
+        the word loss at ``pretraining_type`` 1, 2 or 3, every parameter
+        trained; the SLU step is masked by the ULMFiT schedule. Both clip the
+        gradients' global norm at ``gradient_clip_norm``."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        loss, acc = self.model.loss(batch["x"], batch["y_intent"], train=True, weights=batch["w"],
-                                    lengths=batch.get("len"), y_len=batch.get("y_len"),
-                                    generator=self.generator)
+        if self.is_pretraining:
+            out = encoder_loss(self.model, batch["x"], batch["y_phoneme"], batch["y_word"], train=True,
+                               generator=self.generator, weights=batch.get("w"))
+            pl, wl = out[0], out[1]
+            loss = {1: pl, 2: pl + wl, 3: wl}[self.config.pretraining_type]
+        else:
+            out = self.model.loss(batch["x"], batch["y_intent"], train=True, weights=batch["w"],
+                                  lengths=batch.get("len"), y_len=batch.get("y_len"),
+                                  generator=self.generator)
+            loss = out[0]
         loss.backward()
         clip_grad_norm(self.model.parameters(), self.clip)
         self.optimizer.step()
-        return loss.detach(), acc.detach()
+        return tuple(t.detach() for t in out)
 
     def log(self, results: dict) -> None:
         self._rows.append(results)
         write_log_csv(os.path.join(self.checkpoint_path, "log.csv"), self._rows)
 
+    # -- checkpoints (JAX trainer.py:383-442) ----------------------------------
+
+    def _jax_params(self) -> dict:
+        return params_to_jax(self.model.state_dict())
+
+    def _trainer_tree(self) -> dict:
+        return {
+            "opt": self.optimizer.export_flat(),
+            "epoch": np.asarray(self.epoch, np.int32),
+            "unfreezing_index": np.asarray(getattr(self.model, "unfreezing_index", 0), np.int32),
+            "unfrozen_count": np.asarray(getattr(self.model, "_unfrozen_count", 0), np.int32),
+        }
+
+    def load_checkpoint(self) -> None:
+        """Resume from the folder's checkpoint, as the JAX Trainer does: with
+        no model file, or one that does not fit the model, say so and start
+        from scratch; with a model but an unreadable trainer state, keep the
+        model and start the optimizer fresh."""
+        if not os.path.exists(self._model_ckpt):
+            print("No previous model; starting from scratch")
+            return
+        try:
+            tree = load_pytree(self._model_ckpt, self._jax_params())
+            self.model.load_state_dict(params_from_jax(tree), strict=True)
+        except Exception as e:  # the reference's semantics: fall back to scratch
+            print(f"Could not load previous model; starting from scratch ({e})")
+            return
+        if os.path.exists(self._trainer_ckpt):
+            try:
+                state = load_pytree(self._trainer_ckpt, self._trainer_tree())
+                self.optimizer.import_flat(state["opt"])
+                self.epoch = int(state["epoch"])
+                if not self.is_pretraining:
+                    self.model.unfreezing_index = int(state["unfreezing_index"])
+                    self.model._unfrozen_count = int(state["unfrozen_count"])
+            except Exception as e:
+                print(f"Could not load trainer state; optimizer starts fresh ({e})")
+
+    def save_checkpoint(self) -> None:
+        """Write ``model_state.npz``, ``vocab.json`` (an SLU model) and
+        ``trainer_state.npz``; a failure is printed, not raised (JAX's)."""
+        try:
+            save_pytree(self._model_ckpt, self._jax_params())
+            if not self.is_pretraining:
+                with open(os.path.join(self.checkpoint_path, "vocab.json"), "w") as f:
+                    json.dump(self.model.vocab_dict(), f)
+            save_pytree(self._trainer_ckpt, self._trainer_tree())
+        except Exception as e:
+            print(f"Could not save model ({e})")
+
+    # -- epochs ------------------------------------------------------------------
+
     def train(self, dataset, print_interval: int = 100):
-        """One epoch; returns (intent_acc, intent_loss)."""
+        """One epoch; returns (phone_acc, phone_loss, word_acc, word_loss) for
+        ASR, (intent_acc, intent_loss) for SLU. The branch is the model's: the
+        dataset must hold batches of that kind."""
+        if self.is_pretraining:
+            return self._train_asr(dataset, print_interval)
+        return self._train_slu(dataset, print_interval)
+
+    def _train_asr(self, dataset, print_interval):
+        totals = dict.fromkeys(ASR_METRICS, 0.0)
+        num_examples = 0.0
+        t0 = time.time()
+        timer = StepTimer(self.device)
+        for idx, (bs, batch) in enumerate(self._batches(dataset)):
+            num_examples += bs
+            with timer.step():
+                pl, wl, pa, wa = self.train_step(batch)
+            for k, v in zip(ASR_METRICS, (pl, pa, wl, wa)):
+                totals[k] = totals[k] + v * bs
+            if idx % print_interval == 0:
+                print(f"phoneme loss: {float(pl)}")
+                print(f"word loss: {float(wl)}")
+                print(f"phoneme acc: {float(pa)}")
+                print(f"word acc: {float(wa)}")
+        results = {k: _weighted_mean(float(v), num_examples) for k, v in totals.items()}
+        results["set"] = "train"
+        results["examples_per_sec"] = num_examples / max(time.time() - t0, 1e-9)
+        results.update(timer.summary())
+        self.log(results)
+        self.epoch += 1
+        return results["phone_acc"], results["phone_loss"], results["word_acc"], results["word_loss"]
+
+    def _train_slu(self, dataset, print_interval):
         total_loss = total_acc = 0.0
         num_examples = 0.0
         t0 = time.time()
@@ -162,12 +289,15 @@ class Trainer:
 
     @torch.no_grad()
     def test(self, dataset, log_set: str = "valid"):
-        """Loss and accuracy without dropout; returns (intent_acc, intent_loss).
-        A seq2seq model's accuracy is the exact match of
+        """Loss and accuracy without dropout: (phone_acc, phone_loss,
+        word_acc, word_loss) for ASR, (intent_acc, intent_loss) for SLU. A
+        seq2seq model's accuracy is the exact match of
         ``decode_intents(x, lengths=len)`` against the targets' strings, from
         epoch ``decode_acc_from_epoch`` (default 2) on, and 0 before it
         (JAX ``trainer.py:584-624``)."""
         self.model.eval()
+        if self.is_pretraining:
+            return self._test_asr(dataset, log_set)
         total_loss = total_acc = 0.0
         num_examples = 0.0
         decode = self.model.seq2seq and self.epoch >= getattr(self.config, "decode_acc_from_epoch", 2)
@@ -196,3 +326,17 @@ class Trainer:
         }
         self.log(results)
         return results["intent_acc"], results["intent_loss"]
+
+    def _test_asr(self, dataset, log_set):
+        totals = dict.fromkeys(ASR_METRICS, 0.0)
+        num_examples = 0.0
+        for bs, batch in self._batches(dataset):
+            num_examples += bs
+            pl, wl, pa, wa = encoder_loss(self.model, batch["x"], batch["y_phoneme"], batch["y_word"],
+                                          weights=batch.get("w"))
+            for k, v in zip(ASR_METRICS, (pl, pa, wl, wa)):
+                totals[k] = totals[k] + v * bs
+        results = {k: _weighted_mean(float(v), num_examples) for k, v in totals.items()}
+        results["set"] = log_set
+        self.log(results)
+        return results["phone_acc"], results["phone_loss"], results["word_acc"], results["word_loss"]
