@@ -116,7 +116,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 11. the exact-shape eval path's two routes: ``[k8]`` K8 (the fused sinc
    front end) against its plain version (the cuDNN conv, |.|, ceil max
    pool, act) at the flagship front end (B = 1, 16, 128 on 4 s, 16 on
-   3.3 s, ReLU, 300 on 1 s, and phase 12's test pass, 64 on 2.25 s) and
+   3.3 s, ReLU, 300 on 1 s, phase 12's test pass, 64 on 2.25 s, and phase
+   13's data-parallel test, 8 on 4 s) and
    the JAX tests' small shapes, within
    ``CONV_RTOL`` of the largest output; ``[time]`` K8's launch plan, K8,
    plain, one cuDNN conv alone and the bound at B = 1, 16, 128, with the
@@ -154,7 +155,32 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    64 (median, min and max of 10) and its ``[profile]``; ``[asr-cli]`` ``python -m tpu_slu_torch.cli``
    in subprocesses on the card, ``--pretrain``, ``--train``, ``--train
    --restart``, ``--decode``, with the flagship cfg cut to ``CLI_CUTS`` on
-   the tiny tree of ``write_cli_tree``, each file written and read back.
+   the tiny tree of ``write_cli_tree``, each file written and read back;
+13. data-parallel training and evaluation (``tpu_slu_torch.parallel``) and
+   the first-epoch trace: ``[dp-kernels]`` K1, K2 and K3 against their
+   plain versions at the batches a rank gives them here (B = 8 and 32) at
+   the flagship's five layer shapes on 4 s and the ASR encoder's four on
+   2.25 s (``hold_gru_layer``, phases 3 and 6's limits); ``[dp-world1]``
+   three ``Trainer`` steps of the ``no_unfreezing.cfg`` fixed-slot model at
+   B = 64 on 4 s under an NCCL group of one rank (``init_from_env``) equal
+   three steps of a Trainer made without a group, bit for bit (parameters
+   and Adam state; cuDNN deterministic for both), at 1 K1, 4 K2 and 5 K3
+   launches a step, the two steps' kernels by the profiler and their
+   difference, and both warm steps in turns P, C, C, P; ``[dp-2rank]`` two ranks (``python3 chip_smoke.py
+   --dp-rank``) on the one card over gloo on CUDA tensors (NCCL refuses two
+   ranks on one GPU), 32 rows each of a 64-row batch with a weight-0 row,
+   one step of the fixed-slot model on 4 s and of the ASR model
+   (``pretraining_type`` 2, 2.25 s, the ranks' valid frames unequal): the
+   ranks' gradients and parameters bit-equal, and against the one-process
+   B = 64 step every gradient within ``STEP_GRAD_TOL`` of its largest
+   element and the parameters within ``STEP_PARAM_ATOL`` where the first
+   Adam step's sign is settled; ``[dp-test]`` a 2-rank ``Trainer.test`` of
+   the ``all_real_seq2seq.cfg`` model at ``decode_acc_from_epoch`` 0 on 32
+   utterances of 1.0-4.0 s against the one-process test: the loss within
+   1e-5 relative, every decoded string equal, K4f and one K7 a batch on
+   each rank; ``[profile-dir]`` epoch 0 of ``Trainer.train`` with
+   ``profile_dir`` set: its trace's CUDA kernel events name K1, K2 and K3
+   as often as their launch counters count, and epoch 1 writes no trace.
 
 Beside each kernel's time the script prints its plain version's, a cuDNN
 ``torch.nn.GRU`` call's where one computes the same function (timed as a
@@ -512,10 +538,9 @@ def device_split(fn, names: dict, reps: int = 5) -> dict:
     return split
 
 
-def profile_calls(fn, what: str, card: str, reps: int = 10, top: int = 8) -> None:
-    """Trace ``reps`` warm calls with ``torch.profiler``: device busy time a
-    call, the device's idle share of the traced wall time, and the kernels
-    that take the most device time."""
+def kernel_table(fn, reps: int = 10) -> tuple[float, dict]:
+    """(traced wall ms a call, {kernel name: (launches a call, device ms a
+    call)}) of ``reps`` warm calls of ``fn`` under ``torch.profiler``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -527,16 +552,21 @@ def profile_calls(fn, what: str, card: str, reps: int = 10, top: int = 8) -> Non
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
-    kernels = [e for e in prof.key_averages()
-               if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)]
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in kernels) / reps / 1e3
-    launches = sum(e.count for e in kernels) / reps
+    return wall, {e.key: (e.count / reps, e.self_device_time_total / reps / 1e3) for e in prof.key_averages()
+                  if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)}
+
+
+def profile_calls(fn, what: str, card: str, reps: int = 10, top: int = 8) -> None:
+    """Trace ``reps`` warm calls with ``torch.profiler``: device busy time a
+    call, the device's idle share of the traced wall time, and the kernels
+    that take the most device time."""
+    wall, kernels = kernel_table(fn, reps)
+    busy = sum(ms for _, ms in kernels.values())
+    launches = sum(n for n, _ in kernels.values())
     print(f"[profile] {what}: traced wall {wall:.3f} ms a call, device busy {busy:.3f} ms, idle share "
           f"{1 - busy / wall:.3f}, {launches:.0f} kernel launches a call, on {card}")
-    for e in kernels[:top]:
-        print(f"[profile]   {e.self_device_time_total / reps / 1e3:8.4f} ms  {e.count / reps:5.1f} "
-              f"launches  {e.key[:80]}")
+    for key, (n, ms) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]:
+        print(f"[profile]   {ms:8.4f} ms  {n:5.1f} launches  {key[:80]}")
 
 
 def rel_err(g, r) -> float:
@@ -2284,7 +2314,8 @@ def phase_routes(dev, card: str, rng, k8_main: int) -> list[dict]:
     # 11.1 K8 against its plain version (the cuDNN conv, |.|, ceil max pool, act)
     k8_err = 0.0
     small_kw = dict(filt_dim=31, fs=16000, stride=10, padding=15, pool=2)
-    for name, B, T, F, kw in [("flagship 4 s", 1, 64000, 80, flagship_kw), ("flagship 4 s", 16, 64000, 80, flagship_kw),
+    for name, B, T, F, kw in [("flagship 4 s", 1, 64000, 80, flagship_kw), ("flagship 4 s", 8, 64000, 80, flagship_kw),
+                              ("flagship 4 s", 16, 64000, 80, flagship_kw),
                               ("flagship 3.3 s", 16, 52800, 80, flagship_kw),
                               ("flagship 4 s relu", 16, 64000, 80, {**flagship_kw, "act": "relu"}),
                               ("flagship 4 s", 128, 64000, 80, flagship_kw), ("flagship 1 s", 300, 16000, 80, flagship_kw),
@@ -2544,6 +2575,60 @@ def asr_shapes(T: int = ASR_T) -> list[tuple[str, int, int, int]]:
     return out
 
 
+def hold_gru_layer(rng, dev, name: str, d: int, n_parts: int, T: int, B: int) -> dict:
+    """K1, K2 and K3 at one bi-GRU layer's shape against their plain
+    versions, with phases 3 and 6's limits, as the train and test passes
+    run them: an encoder layer K1 with its avg pool 2, K2 at dropout 0.5
+    and pool 2 (its zero pattern equal) and K3 fused on K2's outputs; the
+    intent layer (``INTENT_SHAPE``, no pool) K1 and K3 plain on K1's
+    outputs. Returns each kernel's largest abs error, and K3's largest
+    error over its tensor's largest element as ``"K3 rel"``."""
+    import numpy as np
+    import torch
+
+    from tpu_slu_torch.ops.bigru_shared import (
+        _shift_hp,
+        bigru_shared,
+        bigru_shared_bwd,
+        bigru_shared_bwd_reference,
+        bigru_shared_reference,
+        bigru_trainpool,
+        bigru_trainpool_reference,
+    )
+
+    def close(got, ref):
+        return all(g.shape == r.shape and torch.allclose(g, r, atol=ATOL, rtol=RTOL) for g, r in zip(got, ref))
+
+    intent = name == INTENT_SHAPE[0]
+    params, parts = k1_case(rng, n_parts, d, T, B, 128, dev)
+    got = bigru_shared(params, parts, pool=1 if intent else 2)[:2]
+    ref = bigru_shared_reference(params, parts, pool=1 if intent else 2)
+    err = {"K1": max((g - r).abs().max().item() for g, r in zip(got, ref)), "K2": 0.0}
+    if not close(got, ref):
+        raise AssertionError(f"K1 {name} T={T} B={B}: off its plain version by {err['K1']:.3g}")
+    if intent:
+        hp_f, hp_b = _shift_hp(*got)
+        out, kw = got[0], {}
+    else:
+        kw = {"pool": 2, "drop_p": 0.5, "seed": int(rng.integers(2**32))}
+        got = bigru_trainpool(params, parts, **kw)
+        ref = bigru_trainpool_reference(params, parts, **kw)
+        err["K2"] = max((g - r).abs().max().item() for g, r in zip(got, ref))
+        if not (close(got, ref) and all(same_zeros(g, r) for g, r in zip(got[2:], ref[2:]))):
+            raise AssertionError(f"K2 {name} T={T} B={B}: off its plain version ({err['K2']:.3g}) or its "
+                                 "zero pattern")
+        hp_f, hp_b, out = got[0], got[1], got[2]
+    dy = [torch.from_numpy(rng.standard_normal(tuple(out.shape)).astype(np.float32)).to(dev) for _ in range(2)]
+    dxs, grads = bigru_shared_bwd(params, parts, hp_f, hp_b, *dy, **kw)
+    rdxs, rgrads = bigru_shared_bwd_reference(params, parts, hp_f, hp_b, *dy, **kw)
+    pairs = list(zip(dxs, rdxs)) + [(grads[dd][n], rgrads[dd][n]) for dd in grads for n in grads[dd]]
+    err["K3"] = max((g - r).abs().max().item() for g, r in pairs)
+    err["K3 rel"] = max(rel_err(g, r) for g, r in pairs)
+    if not (all(g.shape == r.shape for g, r in pairs) and err["K3 rel"] <= GRAD_TOL):
+        raise AssertionError(f"K3 {name} T={T} B={B}: off its plain version by {err['K3 rel']:.3g} of the largest")
+    return err
+
+
 def asr_batches(rng, n: int, B: int, T: int, num_phonemes: int, vocabulary_size: int, phone_ds: int,
                 word_ds: int) -> list[dict]:
     """Seeded waveforms and frame labels in the loader's ASR batch format:
@@ -2570,7 +2655,8 @@ def asr_batches(rng, n: int, B: int, T: int, num_phonemes: int, vocabulary_size:
 
 def write_cli_tree(root: str, rng) -> tuple[str, str]:
     """A tiny FSC-style SLU tree (12 train, 4 valid and 4 test rows of 1-2 s,
-    an empty synthetic split) and LibriSpeech-style ASR tree (4 aligned
+    an empty synthetic split; the train rows hold every slot value, as the
+    slot vocabulary is the train split's) and LibriSpeech-style ASR tree (4 aligned
     utterances of 1.5-3 s a split, phones with stress digits and silence, and
     unaligned words), written with the port's own ``write_wav`` and
     ``write_textgrid``; returns (slu_path, asr_path)."""
@@ -2587,7 +2673,8 @@ def write_cli_tree(root: str, rng) -> tuple[str, str]:
     for split, n in (("train", 12), ("valid", 4), ("test", 4)):
         lines = [",".join(cols)]
         for i in range(n):
-            slots = [vals[int(rng.integers(len(vals)))] for vals in FSC_SLOTS.values()]
+            slots = [vals[i] if split == "train" and i < len(vals) else vals[int(rng.integers(len(vals)))]
+                     for vals in FSC_SLOTS.values()]
             rel = f"wavs/{split}_{i}.wav"
             wave = 0.1 * rng.standard_normal(int(fs * rng.uniform(1.0, 2.0)))
             write_wav(os.path.join(slu, rel), wave, fs)
@@ -2730,14 +2817,7 @@ def phase_asr(dev, card: str, rng) -> dict:
     from tpu_slu_torch.models.flagship import FLAGSHIP_CFG, FLAGSHIP_VOCAB
     from tpu_slu_torch.models.slu import Model
     from tpu_slu_torch.ops.bigru_masked import bigru_masked
-    from tpu_slu_torch.ops.bigru_shared import (
-        bigru_shared,
-        bigru_shared_bwd,
-        bigru_shared_bwd_reference,
-        bigru_shared_reference,
-        bigru_trainpool,
-        bigru_trainpool_reference,
-    )
+    from tpu_slu_torch.ops.bigru_shared import bigru_shared, bigru_shared_bwd, bigru_trainpool
     from tpu_slu_torch.ops.frontend_fused import sinc_frontend_fused
     from tpu_slu_torch.serving import load_trained_model
     from tpu_slu_torch.training import Trainer
@@ -2759,31 +2839,11 @@ def phase_asr(dev, card: str, rng) -> dict:
     B_main = asr_config("").pretraining_batch_size
     errs = dict.fromkeys(("K1", "K2", "K3"), 0.0)
     for name, d, n_parts, T in asr_shapes():
-        params, parts = k1_case(rng, n_parts, d, T, B_main, 128, dev)
-        got, ref = bigru_shared(params, parts, pool=2)[:2], bigru_shared_reference(params, parts, pool=2)
-        errs["K1"] = max(errs["K1"], *((g - r).abs().max().item() for g, r in zip(got, ref)))
-        if not all(g.shape == r.shape and torch.allclose(g, r, atol=ATOL, rtol=RTOL) for g, r in zip(got, ref)):
-            raise AssertionError(f"K1 {name} T={T} B={B_main}: off its plain version")
-        seed = int(rng.integers(2**32))
-        got = bigru_trainpool(params, parts, pool=2, drop_p=0.5, seed=seed)
-        ref = bigru_trainpool_reference(params, parts, pool=2, drop_p=0.5, seed=seed)
-        errs["K2"] = max(errs["K2"], *((g - r).abs().max().item() for g, r in zip(got, ref)))
-        if not (all(g.shape == r.shape and torch.allclose(g, r, atol=ATOL, rtol=RTOL) for g, r in zip(got, ref))
-                and all(same_zeros(g, r) for g, r in zip(got[2:], ref[2:]))):
-            raise AssertionError(f"K2 {name} T={T} B={B_main}: off its plain version or its zero pattern")
-        dy = [torch.from_numpy(rng.standard_normal(tuple(got[2].shape)).astype(np.float32)).to(dev)
-              for _ in range(2)]
-        kw = {"pool": 2, "drop_p": 0.5, "seed": seed}
-        dxs, grads = bigru_shared_bwd(params, parts, got[0], got[1], *dy, **kw)
-        rdxs, rgrads = bigru_shared_bwd_reference(params, parts, got[0], got[1], *dy, **kw)
-        pairs = list(zip(dxs, rdxs)) + [(grads[dd][n], rgrads[dd][n]) for dd in grads for n in grads[dd]]
-        k3 = max(rel_err(g, r) for g, r in pairs)
-        errs["K3"] = max(errs["K3"], *((g - r).abs().max().item() for g, r in pairs))
-        if not (all(g.shape == r.shape for g, r in pairs) and k3 <= GRAD_TOL):
-            raise AssertionError(f"K3 {name} T={T} B={B_main}: off its plain version by {k3:.3g} of the largest")
+        e = hold_gru_layer(rng, dev, name, d, n_parts, T, B_main)
+        errs = {k: max(v, e[k]) for k, v in errs.items()}
         print(f"[asr] {name:10s} T={T:3d} B={B_main} D={n_parts * d:3d}: K1 and K2 within atol {ATOL} rtol "
-              f"{RTOL} (K2's zero pattern equal), K3's dX, dW, db within {k3:.3g} of each largest (limit "
-              f"{GRAD_TOL})")
+              f"{RTOL} (K2's zero pattern equal), K3's dX, dW, db within {e['K3 rel']:.3g} of each largest "
+              f"(limit {GRAD_TOL})")
     print(f"[asr] the path's GRU kernels at its shapes: max abs err K1 {errs['K1']:.3g}, K2 {errs['K2']:.3g}, "
           f"K3 {errs['K3']:.3g}")
 
@@ -2917,6 +2977,446 @@ def phase_asr(dev, card: str, rng) -> dict:
             "bigru_trainpool_fwd": {"launches_asr_train": train_launches["K2"], "max_abs_err_asr": errs["K2"]},
             "bigru_shared_bwd": {"launches_asr_train": train_launches["K3"], "max_abs_err_asr": errs["K3"]},
             "sinc_frontend_fused": {"launches_asr_test": test_launches["K8"]}}
+
+
+# -- phase 13: data-parallel training and evaluation, and the first-epoch trace ----------
+
+# dropout off where a data-parallel step is held against the one-process step: a rank's
+# rows get other masks than the same rows of one batch (the hash takes the local row)
+DP_NO_DROPOUT = {"phone_rnn_drop": [0.0, 0.0], "word_rnn_drop": [0.0, 0.0], "intent_rnn_drop": [0.0]}
+DP_B = 64  # the global batch of [dp-world1] and [dp-2rank]; each of the two ranks takes 32 rows
+DP_TEST_N, DP_TEST_B = 32, 8  # [dp-test]: utterances, and the batch of a rank and of the one-process test
+
+
+def step_kernel(name: str) -> str | None:
+    """The hand-written kernel of the fixed-slot train step that a traced
+    kernel ``name`` is, by the one launch each wrapper call makes: K2's and
+    K1's recurrence (``gru_cluster_kernel`` with and without its TRAIN flag,
+    the fourth template argument), K3's chain (``bwd_chain_kernel``); else None."""
+    if "bwd_chain_kernel" in name:
+        return "K3"
+    if "gru_cluster_kernel<" in name:
+        train = name.split("gru_cluster_kernel<", 1)[1].split(">", 1)[0].split(",")[3].strip()
+        return "K2" if train in ("true", "1") else "K1"
+    return None
+
+
+def dp_test_data(rng, labels: list, n: int = DP_TEST_N):
+    """``n`` seeded utterances of 1.0-4.0 s and label strings of 14
+    characters, as (wave, label ids) items. Every label has one length: the
+    seq2seq loss pads a batch's targets to its longest, so a rank's batch
+    would otherwise differ from the same rows in a larger batch."""
+    import numpy as np
+
+    sos, eos = labels.index("<sos>"), labels.index("<eos>")
+    chars = [i for i, c in enumerate(labels) if len(c) == 1 and c.isprintable()]
+    return [((0.1 * rng.standard_normal(int(rng.integers(16000, 64001)))).astype(np.float32),
+             [sos] + [chars[int(i)] for i in rng.integers(0, len(chars), 14)] + [eos]) for _ in range(n)]
+
+
+def dp_test_set(items, labels: list, B: int):
+    """``items`` as a seq2seq test set in the loader's format (``BatchLoader``,
+    the shard of the process group when one is up), every batch padded to
+    4 s: the loss runs the encoder unmasked, so a rank's batch padded to a
+    shorter bucket than another's would change its rows."""
+    import numpy as np
+
+    from tpu_slu_torch.data.datasets import CollateWavsSLU
+    from tpu_slu_torch.data.loader import BatchLoader
+
+    collate = CollateWavsSLU(labels, True, B)
+
+    def one_bucket(chunk):
+        b = collate(chunk)
+        return {**b, "x": np.pad(b["x"], ((0, 0), (0, 4 * 16000 - b["x"].shape[1])))}
+
+    return Batches(BatchLoader(list(enumerate(items)), B, lambda c: {**one_bucket([it for _, it in c]),
+                                                                       "i": np.array([i for i, _ in c])},
+                               shuffle=False))
+
+
+def dp_models(dev, seed: int) -> dict:
+    """The three models of phase 13's rank runs, each with its config, on
+    ``dev``: the fixed-slot and ASR models of ``no_unfreezing.cfg`` at
+    dropout 0 and the seq2seq model of ``all_real_seq2seq.cfg``, from ``seed``."""
+    import torch
+
+    from tpu_slu_torch import read_config
+    from tpu_slu_torch.models.encoder import PretrainedModel
+    from tpu_slu_torch.models.flagship import FLAGSHIP_CFG, flagship_model, flagship_seq2seq_model
+
+    fixed = flagship_model(dev, seed=seed, **DP_NO_DROPOUT)
+    config = read_config(FLAGSHIP_CFG, make_dirs=False)
+    config.num_phonemes = 42
+    for k, v in DP_NO_DROPOUT.items():
+        setattr(config, k, v)
+    asr = PretrainedModel(config, generator=torch.Generator().manual_seed(seed)).to(dev)
+    s2s = flagship_seq2seq_model(dev, seed=seed)
+    return {"fixed": (fixed, fixed.config), "asr": (asr, config), "s2s": (s2s, s2s.config)}
+
+
+def dp_step(trainer, batch: dict, dev) -> dict:
+    """One ``train_step`` on a host batch, with its counts summed over the
+    ranks as ``Trainer.train`` gives them: its values, the gradients the
+    optimizer took (summed over the ranks) and the parameters after it, on
+    the host."""
+    import torch
+
+    from tpu_slu_torch import parallel
+
+    totals = parallel.host_all_reduce(trainer.counts(batch)) if trainer.world > 1 else None
+    out = trainer.train_step({k: torch.from_numpy(v).to(dev) for k, v in batch.items()}, totals)
+    return {"values": [float(v) for v in out],
+            "grads": {n: None if p.grad is None else p.grad.detach().cpu()
+                      for n, p in trainer.model.named_parameters()},
+            "params": {n: p.detach().cpu().clone() for n, p in trainer.model.named_parameters()}}
+
+
+def dp_test_run(trainer, items, labels: list, B: int) -> dict:
+    """``Trainer.test`` of the seq2seq model over ``items`` (this process's
+    shard), with the strings each batch decoded, by item index, and the
+    launches of K1, K8, K4f and K7 it made."""
+    import torch
+
+    from tpu_slu_torch.ops.beam_fused import beam_decode
+    from tpu_slu_torch.ops.bigru_masked import bigru_masked
+    from tpu_slu_torch.ops.bigru_shared import bigru_shared
+    from tpu_slu_torch.ops.frontend_fused import sinc_frontend_fused
+
+    model = trainer.model
+    data = dp_test_set(items, labels, B)
+    decoded, decode = [], model.decode_intents
+
+    def recording(*a, **kw):
+        out = decode(*a, **kw)
+        decoded.extend(out)
+        return out
+
+    counters = (bigru_shared, sinc_frontend_fused, bigru_masked, beam_decode)
+    for c in counters:
+        c.launches = 0
+    model.decode_intents = recording
+    try:
+        acc, loss = trainer.test(data)
+    finally:
+        del model.decode_intents
+    torch.cuda.synchronize()
+    # a batch decodes all its rows; its real rows come first
+    strings, k = {}, 0
+    for b in data.loader:
+        n = int(b["w"].sum())
+        strings.update(zip(b["i"][:n].tolist(), decoded[k:k + n]))
+        k += len(b["w"])
+    return {"acc": acc, "loss": loss, "strings": strings,
+            "launches": dict(zip(("K1", "K8", "K4f", "K7"), (c.launches for c in counters))),
+            "batches": len(data.loader)}
+
+
+def dp_rank(args_path: str) -> None:
+    """One rank of ``[dp-2rank]`` and ``[dp-test]`` (``python3 chip_smoke.py
+    --dp-rank ARGS``, started by ``phase_dp``): gloo on the one card's CUDA
+    tensors (NCCL refuses two ranks on one GPU). One step of the fixed-slot
+    and the ASR Trainer on its 32 rows of the 64-row batches, then a
+    data-parallel ``Trainer.test`` of the seq2seq model; the results go to
+    ``<out>/rank<r>.pt``."""
+    import datetime
+
+    sys.path.insert(0, HERE)
+    import torch
+
+    from tpu_slu_torch import parallel
+    from tpu_slu_torch.training import Trainer
+
+    with open(args_path) as f:
+        args = json.load(f)
+    dev = parallel.init_from_env("cuda:0", backend="gloo", init_method="file://" + args["rdv"],
+                                 timeout=datetime.timedelta(seconds=300))
+    try:
+        r = parallel.rank()
+        inputs = torch.load(args["inputs"], weights_only=False)
+        models = dp_models(dev, seed=10 + r)  # rank 0's weights are loaded, then broadcast by the Trainer
+        for what, (model, config) in models.items():
+            if r == 0:
+                model.load_state_dict(inputs[what]["state"])
+            config.folder, config.decode_acc_from_epoch = os.path.join(args["out"], f"{what}{r}"), 0
+        out, half = {}, DP_B // parallel.world()
+        for what in ("fixed", "asr"):
+            model, config = models[what]
+            trainer = Trainer(model, config, generator=torch.Generator().manual_seed(7))
+            out[what] = dp_step(trainer, {k: v[r * half:(r + 1) * half] for k, v in inputs[what]["batch"].items()},
+                                dev)
+        s2s, config = models["s2s"]
+        out["s2s"] = dp_test_run(Trainer(s2s, config), inputs["s2s"]["items"], s2s.Sy_intent, DP_TEST_B)
+        out["modules"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_slu"))
+        torch.save(out, os.path.join(args["out"], f"rank{r}.pt"))
+        parallel.barrier()
+    finally:
+        parallel.destroy()
+
+
+def grads_close(got: dict, want: dict, lr: float) -> tuple[float, float, int]:
+    """(the worst gradient error over its tensor's largest element, the
+    worst parameter error where the first Adam step's sign is settled, the
+    count of elements where it is not): an element whose one-process
+    gradient lies within ``STEP_GRAD_TOL`` of its tensor's largest may take
+    the other sign under f32 noise and move by up to 2 lr."""
+    worst_g, worst_p, unsettled = 0.0, 0.0, 0
+    for n, g in want["grads"].items():
+        if g is None:
+            assert got["grads"][n] is None, n
+            continue
+        worst_g = max(worst_g, rel_err(got["grads"][n], g))
+        settled = g.abs() > STEP_GRAD_TOL * g.abs().max()
+        unsettled += int((~settled).sum())
+        d = (got["params"][n] - want["params"][n]).abs()
+        worst_p = max(worst_p, d[settled].max().item() if settled.any() else 0.0)
+        if not (d <= 2 * lr + STEP_PARAM_ATOL).all():
+            raise AssertionError(f"{n}: a parameter moved by more than one Adam step from the one-process step's")
+    return worst_g, worst_p, unsettled
+
+
+def phase_dp(dev, card: str, rng) -> dict:
+    """Phase 13: data-parallel training and evaluation, and the first-epoch
+    trace. Returns, by kernel name, the launches of the data-parallel step
+    and test."""
+    import numpy as np
+    import torch
+
+    from tpu_slu_torch import parallel
+    from tpu_slu_torch.models.flagship import FLAGSHIP_CFG, flagship_model
+    from tpu_slu_torch.ops.bigru_shared import bigru_shared, bigru_shared_bwd, bigru_trainpool
+    from tpu_slu_torch.training import Trainer
+
+    counters = {"K1": bigru_shared, "K2": bigru_trainpool, "K3": bigru_shared_bwd}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        # 13.0 [dp-kernels]: K1, K2 and K3 at the batches a rank gives them in this phase, against
+        # their plain versions: B = 8 ([dp-test]) and 32 ([dp-2rank]), at the flagship's five layer
+        # shapes on 4 s and the ASR encoder's four on 2.25 s; K8 at (8, 4 s) is held in phase 11.1
+        errs = dict.fromkeys(("K1", "K2", "K3", "K3 rel"), 0.0)
+        for shapes in (ENC_SHAPES + [INTENT_SHAPE], asr_shapes()):
+            for B in (DP_TEST_B, DP_B // 2):
+                for name, d, n_parts, T in shapes:
+                    e = hold_gru_layer(rng, dev, name, d, n_parts, T, B)
+                    errs = {k: max(v, e[k]) for k, v in errs.items()}
+        print(f"[dp-kernels] K1, K2 and K3 at B={DP_TEST_B} and {DP_B // 2}, the flagship's five layers on 4 s "
+              f"and the ASR encoder's four on 2.25 s: K1 and K2 within atol {ATOL} rtol {RTOL} (K2's zero "
+              f"pattern equal), max abs err K1 {errs['K1']:.3g}, K2 {errs['K2']:.3g}; K3's dX, dW, db within "
+              f"{errs['K3 rel']:.3g} of each largest (limit {GRAD_TOL}), max abs err {errs['K3']:.3g}")
+
+        # 13.1 [dp-world1]: three steps of a Trainer made under an NCCL group of one rank against
+        # the same three steps of a Trainer made before the group, bit for bit; cuDNN's deterministic
+        # algorithms for all, and two one-process runs first, which must agree to the bit
+        torch.backends.cudnn.deterministic = True
+        base = flagship_model("cpu", seed=3)
+        base.config.folder = tmp
+        data = synthetic_batches(rng, 3, DP_B, base.values_per_slot)
+        trainers = {}
+        for side in ("plain", "again", "dp"):
+            if side == "dp":
+                os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                                  MASTER_PORT=str(free_port()))
+                if parallel.init_from_env(dev) != torch.device("cuda", 0):
+                    raise AssertionError("init_from_env did not give rank 0 the card")
+            trainer = Trainer(copy.deepcopy(base).to(dev), base.config, generator=torch.Generator().manual_seed(7))
+            assert trainer.world == 1 and torch.distributed.is_initialized() == (side == "dp")
+            for c in counters.values():
+                c.launches = 0
+            trainer.train(Batches(data))
+            torch.cuda.synchronize()
+            dp_launched = {k: c.launches for k, c in counters.items()}
+            if dp_launched != {"K1": 3, "K2": 12, "K3": 15}:
+                raise AssertionError(f"[dp-world1] {side}: three steps launched {dp_launched}; want 1 K1, 4 K2, "
+                                     "5 K3 a step")
+            trainers[side] = trainer
+        backend = torch.distributed.get_backend()
+        plain = trainers["plain"]
+        for side in ("again", "dp"):
+            other = trainers[side]
+            for (n, p), q in zip(plain.model.named_parameters(), other.model.parameters()):
+                if not torch.equal(p, q):
+                    raise AssertionError(f"[dp-world1] {n}: the {side} run's parameters differ from the "
+                                         "one-process run's")
+            for k, v in plain.optimizer.export_flat().items():
+                if not np.array_equal(v, other.optimizer.export_flat()[k]):
+                    raise AssertionError(f"[dp-world1] the {side} run's Adam {k} differs")
+        dp = trainers["dp"]
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in data[0].items()}
+        turns = [cuda_ms(lambda t=t: t.train_step(batch), reps=10, warmup=2) for t in (plain, dp, dp, plain)]
+        (wall_p, kern_p), (wall_c, kern_c) = (kernel_table(lambda t=t: t.train_step(batch)) for t in (plain, dp))
+        busy_p, busy_c = (sum(ms for _, ms in k.values()) for k in (kern_p, kern_c))
+        n_p, n_c = (sum(n for n, _ in k.values()) for k in (kern_p, kern_c))
+        # launches a step are means over the traced steps: a kernel differs when they part by one or more
+        added = {}
+        for name in set(kern_c) | set(kern_p):
+            (n1, ms1), (n0, ms0) = kern_c.get(name, (0, 0)), kern_p.get(name, (0, 0))
+            if round(n1 - n0):
+                added[name] = (n1 - n0, ms1 - ms0)
+        print(f"[profile] the train step B={DP_B}, a group of one rank / no group (10 warm steps each): traced wall "
+              f"{wall_c:.3f} / {wall_p:.3f} ms, device busy {busy_c:.4f} / {busy_p:.4f} ms, idle share "
+              f"{1 - busy_c / wall_c:.3f} / {1 - busy_p / wall_p:.3f}, {n_c:.0f} / {n_p:.0f} kernel launches a step; "
+              f"kernels whose launches a step differ by one or more (group side minus no group): "
+              + ("; ".join(f"{n:+.0f} {k[:70]} ({ms:+.4f} ms)" for k, (n, ms) in added.items()) or "none")
+              + f", on {card}")
+        print(f"[dp-world1] {backend} world 1 (init_from_env), no_unfreezing.cfg fixed-slot model, B={DP_B} on "
+              f"4 s: three Trainer steps under the group (one rank: no broadcast, no gradient all-reduce) equal "
+              f"three steps of a Trainer made without one bit for bit, parameters and Adam state (cuDNN "
+              f"deterministic for both); launches "
+              f"{dp_launched} in 3 steps; warm step in turns P, C, C, P: "
+              f"{', '.join(f'{t:.3f}' for t in turns)} ms (median of 10, CUDA events) on {card}; a second "
+              f"one-process run equal to the first bit for bit too")
+        parallel.destroy()
+        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+            os.environ.pop(k)
+        torch.backends.cudnn.deterministic = deterministic
+
+        # 13.2 the one-process references of [dp-2rank] and [dp-test], and the ranks' inputs
+        models = dp_models("cpu", seed=1)
+        (fixed, _), (asr, asr_cfg), (s2s, _) = models.values()
+        # one weight-0 row among rank 1's rows; the ASR batch's last two rows are padding (rank 1's)
+        fixed_batch = synthetic_batches(rng, 1, DP_B, fixed.values_per_slot)[0]
+        fixed_batch["w"][DP_B - 5] = 0.0
+        asr_batch = asr_batches(rng, 1, DP_B, ASR_T, 42, asr_cfg.vocabulary_size, asr_cfg.phone_downsample_factor,
+                                asr_cfg.word_downsample_factor)[0]
+        items = dp_test_data(rng, s2s.Sy_intent)
+        inputs = {"fixed": {"state": fixed.state_dict(), "batch": fixed_batch},
+                  "asr": {"state": asr.state_dict(), "batch": asr_batch},
+                  "s2s": {"state": s2s.state_dict(), "items": items}}
+        inputs_path = os.path.join(tmp, "inputs.pt")
+        torch.save(inputs, inputs_path)
+        args = {"out": tmp, "rdv": os.path.join(tmp, "rendezvous"), "inputs": inputs_path}
+        args_path = os.path.join(tmp, "args.json")
+        with open(args_path, "w") as f:
+            json.dump(args, f)
+        t0 = time.perf_counter()
+        procs = []
+        for r in range(2):
+            env = {**os.environ, "RANK": str(r), "WORLD_SIZE": "2", "LOCAL_RANK": "0"}
+            log = open(os.path.join(tmp, f"rank{r}.log"), "w")
+            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", args_path],
+                                          cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT))
+            log.close()
+        single = {}
+        for what, (model, config) in models.items():
+            model.to(dev)
+            config.folder, config.decode_acc_from_epoch = os.path.join(tmp, what), 0
+            trainer = Trainer(model, config, generator=torch.Generator().manual_seed(7))
+            single[what] = (dp_test_run(trainer, items, s2s.Sy_intent, DP_TEST_B) if what == "s2s"
+                            else dp_step(trainer, inputs[what]["batch"], dev))
+        try:
+            for p in procs:
+                p.wait(timeout=300)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        if any(p.returncode for p in procs):
+            logs = "".join(open(os.path.join(tmp, f"rank{r}.log")).read()[-3000:] for r in range(2))
+            raise AssertionError(f"[dp-2rank] a rank failed: {[p.returncode for p in procs]}\n{logs}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+        took = time.perf_counter() - t0
+        if any(rk["modules"] for rk in ranks):
+            raise AssertionError(f"a rank loaded modules of JAX or of the JAX package: {ranks[0]['modules']}")
+
+        # 13.3 [dp-2rank]: each rank's step against the one-process B=64 step, the ranks bit-equal
+        for what in ("fixed", "asr"):
+            a, b = ranks[0][what], ranks[1][what]
+            for key in ("grads", "params"):
+                for n, v in a[key].items():
+                    if not (v is None and b[key][n] is None or torch.equal(v, b[key][n])):
+                        raise AssertionError(f"[dp-2rank] {what}: the ranks' {key} of {n} differ")
+            lr = (asr_cfg.pretraining_lr if what == "asr" else fixed.config.training_lr)
+            g_err, p_err, unsettled = grads_close(a, single[what], lr)
+            # the values are each rank's shares of the global batch's: they sum to the one-process values
+            shares = [x + y for x, y in zip(a["values"], b["values"])]
+            v_err = max(abs(x - y) for x, y in zip(shares, single[what]["values"]))
+            if not (g_err <= STEP_GRAD_TOL and p_err <= STEP_PARAM_ATOL and v_err <= STEP_LOSS_ATOL):
+                raise AssertionError(f"[dp-2rank] {what}: gradients {g_err:.3g} (limit {STEP_GRAD_TOL}), "
+                                     f"parameters {p_err:.3g} (limit {STEP_PARAM_ATOL}), values {v_err:.3g} "
+                                     f"(limit {STEP_LOSS_ATOL}) off the one-process step")
+            batch, half = inputs[what]["batch"], DP_B // 2
+            w = [float(batch["w"][r * half:(r + 1) * half].sum()) for r in range(2)]
+            frames = ([int((batch["y_phoneme"][r * half:(r + 1) * half] != -1).sum()) for r in range(2)]
+                      if what == "asr" else None)
+            print(f"[dp-2rank] {what} ({'ASR pretraining_type 2, 2.25 s' if what == 'asr' else 'fixed-slot, 4 s'}), "
+                  f"2 ranks on the one card over gloo on CUDA tensors (NCCL refuses two ranks on one GPU), "
+                  f"{half} of the {DP_B} rows each (weights {w}{'; valid phoneme frames ' + str(frames) if frames else ''}): "
+                  f"the ranks' gradients and parameters bit-equal; against the one-process B={DP_B} step, every "
+                  f"gradient within {g_err:.3g} of its tensor's largest element (limit {STEP_GRAD_TOL}), the "
+                  f"parameters within {p_err:.3g} where the first Adam step's sign is settled (limit "
+                  f"{STEP_PARAM_ATOL}; {unsettled} elements with a gradient within {STEP_GRAD_TOL} of the "
+                  f"largest are held to one step), the ranks' shares summing to the step's values within "
+                  f"{v_err:.3g} (limit {STEP_LOSS_ATOL})")
+
+        # 13.4 [dp-test]: the data-parallel test against the one-process test
+        want = single["s2s"]
+        got = [rk["s2s"] for rk in ranks]
+        strings = {**got[0]["strings"], **got[1]["strings"]}
+        if strings != want["strings"] or len(strings) != DP_TEST_N:
+            raise AssertionError("[dp-test] the ranks decoded other strings than the one process")
+        for g in got:
+            if g["acc"] != want["acc"] or not abs(g["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"]):
+                raise AssertionError(f"[dp-test] acc {g['acc']} loss {float(g['loss'])!r} against {want['acc']} "
+                                     f"{float(want['loss'])!r}")
+            if not (g["launches"]["K4f"] > 0 and g["launches"]["K7"] == g["batches"]):
+                raise AssertionError(f"[dp-test] a rank launched {g['launches']} over {g['batches']} batches")
+        print(f"[dp-test] all_real_seq2seq.cfg model, Trainer.test at decode_acc_from_epoch 0 on {DP_TEST_N} "
+              f"utterances of 1.0-4.0 s, {DP_TEST_B} a batch on each of 2 ranks (gloo, one card) and in one "
+              f"process: loss {float(got[0]['loss'])!r} against {float(want['loss'])!r} (limit 1e-5 relative), acc "
+              f"{got[0]['acc']}, all {len(strings)} decoded strings equal; launches a rank "
+              f"{[g['launches'] for g in got]} over {got[0]['batches']} batches (one process: "
+              f"{want['launches']}); the two ranks and the references took {took:.1f} s")
+
+        # 13.5 [profile-dir]: epoch 0 of Trainer.train under profile_dir, its trace against the counters
+        model = flagship_model(dev, seed=4)
+        model.config.folder = os.path.join(tmp, "profiled")
+        model.config.profile_dir = os.path.join(tmp, "profile")
+        trainer = Trainer(model, model.config)
+        data = Batches(synthetic_batches(rng, 2, DP_B, model.values_per_slot))
+        for c in counters.values():
+            c.launches = 0
+        trainer.train(data)
+        torch.cuda.synchronize()
+        launched = {k: c.launches for k, c in counters.items()}
+        trace = os.path.join(model.config.profile_dir, "rank0.train.pt.trace.json")
+        with open(trace) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+        seen = {k: 0 for k in counters}
+        for e in events:
+            k = step_kernel(e["name"])
+            if k:
+                seen[k] += 1
+        if seen != launched or not all(launched.values()):
+            raise AssertionError(f"[profile-dir] the trace's kernels {seen} against the launch counters {launched}")
+        trainer.train(data)
+        files = os.listdir(model.config.profile_dir)
+        if files != ["rank0.train.pt.trace.json"]:
+            raise AssertionError(f"[profile-dir] after epoch 1: {files}")
+        print(f"[profile-dir] epoch 0 of Trainer.train (no_unfreezing.cfg, B={DP_B}, 2 steps) under "
+              f"profile_dir: {os.path.basename(trace)}, {len(events)} CUDA kernel events; the hand-written "
+              f"kernels of the step by name {seen} equal the launch counters {launched}; epoch 1 wrote no trace")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        parallel.destroy()
+        shutil.rmtree(tmp, ignore_errors=True)
+    step = {k: v // 3 for k, v in dp_launched.items()}
+    test = got[0]["launches"]
+    return {"bigru_shared_fwd": {"launches_dp_step": step["K1"], "launches_dp_test": test["K1"]},
+            "bigru_trainpool_fwd": {"launches_dp_step": step["K2"]},
+            "bigru_shared_bwd": {"launches_dp_step": step["K3"]},
+            "bigru_masked_fwd": {"launches_dp_test": test["K4f"]},
+            "beam_decode": {"launches_dp_test": test["K7"]},
+            "sinc_frontend_fused": {"launches_dp_test": test["K8"]}}
+
+
+def free_port() -> int:
+    """A free TCP port on localhost, for the env:// rendezvous of a one-rank group."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def main() -> None:
@@ -3160,6 +3660,9 @@ def main() -> None:
     # 12. ASR pre-training, and on to a served model
     asr = phase_asr(dev, card, rng)
 
+    # 13. data-parallel training and evaluation, and the first-epoch trace
+    dp = phase_dp(dev, card, rng)
+
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_slu"))
     if loaded:
         raise AssertionError(f"the port loaded modules of JAX or of the JAX package: {loaded}")
@@ -3174,10 +3677,14 @@ def main() -> None:
     }] + train_kernels + [k4f, k7, k4b] + uni + routes
     for entry in kernels:
         entry.update(asr.get(entry["name"], {}))
+        entry.update(dp.get(entry["name"], {}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:
+        dp_rank(sys.argv[2])
+    else:
+        main()

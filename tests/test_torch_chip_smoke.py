@@ -276,3 +276,19 @@ def test_asr_eval_vs_cpu_holds_the_test_pass_against_a_copy(tmp_path, monkeypatc
     else:
         held = chip_smoke.asr_eval_vs_cpu(model, batch)
         assert held.count("max abs err 0 ") == 2 and held.count("(0 argmax flips)") == 2
+
+
+def test_the_profile_dir_check_tells_the_step_kernels_apart():
+    """Phase 13's ``[profile-dir]`` counts K1, K2 and K3 in a trace by the
+    one kernel each wrapper call launches: the cluster recurrence without
+    and with its TRAIN flag (the template's fourth parameter), and K3's
+    chain; the names it matches are kernels the sources define."""
+    assert chip_smoke.step_kernel("void gru_cluster_kernel<2, 8, true, true, false>(ClusterArgs<true>)") == "K2"
+    assert chip_smoke.step_kernel("void gru_cluster_kernel<4, 1, false, false, false>(ClusterArgs<false>)") == "K1"
+    assert chip_smoke.step_kernel("void bwd_chain_kernel<8>(float const*, float const*)") == "K3"
+    assert chip_smoke.step_kernel("void gemm_kernel<0, 0, 128, 128, 8>(GemmArgs)") is None
+    for source, name in (("bigru_shared_fwd.cu", "gru_cluster_kernel"), ("bigru_trainpool_fwd.cu", "gru_cluster_kernel"),
+                         ("bigru_shared_bwd.cu", "bwd_chain_kernel")):
+        assert name in _kernels_of(source), (source, name)
+    with open(os.path.join(_build.CSRC, "gru_cluster.cuh")) as f:
+        assert "template <int C, int NB, bool POOL, bool TRAIN, bool ROWS = false>\n__global__" in f.read()

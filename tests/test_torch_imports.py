@@ -1,5 +1,6 @@
 """The PyTorch port decodes, serves and trains (both heads, and a unidirectional model), pre-trains,
-saves and reloads, and runs its CLI's training legs without jax, pandas or any ``tpu_slu`` module.
+saves and reloads, and runs its CLI's training legs without jax, pandas or any ``tpu_slu`` module;
+its data-parallel and profiling modules import none of them either.
 
 Checked in a fresh interpreter: this test process has imported jax already.
 """
@@ -13,6 +14,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = r"""
 import json, os, shutil, sys, tempfile
 import tpu_slu_torch
+import tpu_slu_torch.parallel
+import tpu_slu_torch.utils.profiling
 from tpu_slu_torch import load_trained_model, read_config, read_wav
 
 golden = os.path.join("tests", "assets", "golden")

@@ -16,6 +16,15 @@ folder's checkpoint. ``--decode`` prints the intent of one wav (a list of
 slot values, or a seq2seq model's semantics string) from ``training/``.
 The files are the JAX package's: either package reads what the other
 wrote. Runs on the GPU unless ``--device`` says otherwise.
+
+Data-parallel training runs one process a GPU under ``torchrun``:
+
+    torchrun --nproc_per_node=N -m tpu_slu_torch.cli --train --config_path exp.cfg
+
+Each rank trains on its shard of every epoch at the config's batch size
+(the global batch is N times it; ``tpu_slu_torch.parallel``); rank 0 writes
+the files. With ``--device cpu`` the ranks run on the CPU over gloo.
+``--decode`` runs on rank 0 alone.
 """
 
 from __future__ import annotations
@@ -24,8 +33,8 @@ import argparse
 
 import numpy as np
 
+from tpu_slu_torch import parallel
 from tpu_slu_torch.config import read_config
-from tpu_slu_torch.device import entry_device
 
 
 def pretrain(config, device, restart: bool) -> None:
@@ -88,20 +97,23 @@ def main(argv=None):
     if args.decode and not args.wav:
         parser.error("--decode requires --wav")
 
-    device = entry_device(args.device)
-    config = read_config(args.config_path)
-    np.random.seed(config.seed)
-    if args.pretrain:
-        pretrain(config, device, args.restart)
-    if args.train:
-        train(config, device, args.restart)
-    if args.decode:
-        from tpu_slu_torch.data.audio import read_wav
-        from tpu_slu_torch.serving import load_trained_model
+    device = parallel.init_from_env(args.device)
+    try:
+        config = read_config(args.config_path)
+        np.random.seed(config.seed)
+        if args.pretrain:
+            pretrain(config, device, args.restart)
+        if args.train:
+            train(config, device, args.restart)
+        if args.decode and parallel.rank() == 0:
+            from tpu_slu_torch.data.audio import read_wav
+            from tpu_slu_torch.serving import load_trained_model
 
-        model = load_trained_model(config, device=device)
-        signal, _ = read_wav(args.wav)
-        print(model.decode_intents(signal[None, :])[0])
+            model = load_trained_model(config, device=device)
+            signal, _ = read_wav(args.wav)
+            print(model.decode_intents(signal[None, :])[0])
+    finally:
+        parallel.destroy()
 
 
 if __name__ == "__main__":

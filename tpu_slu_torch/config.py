@@ -101,12 +101,8 @@ def read_config(config_file: str, make_dirs: bool = True) -> Config:
 
     if make_dirs:
         # Archive experiment info (reference data.py:29-33; shutil instead of
-        # `cp` through a shell).
-        if not os.path.isdir(config.folder):
-            os.makedirs(config.folder)
-            os.mkdir(os.path.join(config.folder, "pretraining"))
-            os.mkdir(os.path.join(config.folder, "training"))
-        # The subdirs may be missing if the folder pre-existed partially.
+        # `cp` through a shell). exist_ok: the ranks of a data-parallel run
+        # read the config at once.
         for sub in ("pretraining", "training"):
             os.makedirs(os.path.join(config.folder, sub), exist_ok=True)
         shutil.copyfile(config_file, os.path.join(config.folder, "experiment.cfg"))
@@ -280,7 +276,8 @@ def read_config(config_file: str, make_dirs: bool = True) -> Config:
         config.checkpoint_backend = parser.get("training", "checkpoint_backend")
     except configparser.Error:
         config.checkpoint_backend = "npz"
-    # Extension: jax.profiler trace directory for epoch-0 steps (off = None).
+    # Extension: torch.profiler trace directory of the first epoch's train
+    # pass (off = None; utils/profiling.py).
     try:
         config.profile_dir = parser.get("training", "profile_dir")
         if config.profile_dir == "None":
@@ -295,9 +292,10 @@ def read_config(config_file: str, make_dirs: bool = True) -> Config:
         config.decode_acc_from_epoch = parser.getint("training", "decode_acc_from_epoch")
     except configparser.Error:
         config.decode_acc_from_epoch = 2
-    # Extension: tensor parallelism degree. >1 builds a (data, model) mesh
-    # and column-shards the phoneme/word vocab-head matrices over the model
-    # axis (parallel/mesh.py); everything else replicates. 1 = pure DP.
+    # Extension: tensor parallelism degree. The JAX package builds a (data,
+    # model) mesh at >1 and column-shards the vocab heads over the model
+    # axis; the port has no such sharding yet and refuses >1 with several
+    # ranks (parallel/dist.py check_model_parallel). 1 = pure DP.
     try:
         config.model_parallel = parser.getint("training", "model_parallel")
     except configparser.Error:

@@ -6,10 +6,11 @@ batch is padded to ``batch_size`` with zero rows whose weight ``w`` is 0, so
 a step sees few distinct shapes. Batches are collated on a thread pool and
 prefetched.
 
-The shard of a process (one of several training the same model) is given
-explicitly, ``process_index``/``process_count``, and is 0/1 by default;
-nothing asks a runtime for it. The two options mirror JAX's loader: the
-port trains on one process, and nothing in it sets them yet.
+The shard of a process (one of several training the same model) is the
+rank's and the world's of the ``torch.distributed`` group once one is up
+(``tpu_slu_torch.parallel``), else 0/1, as JAX's loader takes its process
+index and count from the runtime; explicit ``process_index``/``process_count``
+win.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import concurrent.futures as cf
 import threading
 
 import numpy as np
+
+from tpu_slu_torch.parallel.dist import rank, world
 
 WAVE_BUCKET_QUANT = 8000  # 0.5 s at 16 kHz: the wave bucket of batches, bucket=True decodes and the server
 
@@ -53,16 +56,20 @@ class BatchLoader:
     ``shuffle``; with ``process_count`` > 1 every process takes the same
     permutation, wrapped so that each gets ``ceil(n / process_count)``
     examples, and the strided shard ``process_index::process_count``; a
-    wrapped duplicate gets weight 0. Batches are made on ``num_threads``
+    wrapped duplicate gets weight 0. Both default to the process group's
+    rank and world, read at each pass (0 and 1 without a group); give both
+    or neither. Batches are made on ``num_threads``
     threads, ``prefetch`` in flight: a dataset whose items draw from one generator
     (the augment, the ASR crop) draws in the order the threads reach them,
     as JAX's does; ``num_threads = 1`` makes the draws reproducible.
     """
 
     def __init__(self, dataset, batch_size: int, collate, shuffle: bool = True, seed: int = 0,
-                 num_threads: int = 8, prefetch: int = 2, process_index: int = 0,
-                 process_count: int = 1):
-        if not 0 <= process_index < process_count:
+                 num_threads: int = 8, prefetch: int = 2, process_index: int | None = None,
+                 process_count: int | None = None):
+        if (process_index is None) != (process_count is None):
+            raise ValueError("give both process_index and process_count, or neither")
+        if process_count is not None and not 0 <= process_index < process_count:
             raise ValueError(f"process_index {process_index} outside 0..{process_count - 1}")
         self.dataset = dataset
         self.batch_size = batch_size
@@ -71,10 +78,17 @@ class BatchLoader:
         self.seed = seed
         self.num_threads = num_threads
         self.prefetch = prefetch
-        self.process_index = process_index
-        self.process_count = process_count
+        self._shard_of = None if process_count is None else (process_index, process_count)
         self._epoch = 0
         self._lock = threading.Lock()
+
+    @property
+    def process_index(self) -> int:
+        return rank() if self._shard_of is None else self._shard_of[0]
+
+    @property
+    def process_count(self) -> int:
+        return world() if self._shard_of is None else self._shard_of[1]
 
     def __len__(self):
         n = -(-len(self.dataset) // self.process_count)
@@ -86,12 +100,12 @@ class BatchLoader:
         if self.shuffle:
             np.random.default_rng(self.seed + epoch).shuffle(order)
         dup = np.zeros(len(order), bool)
-        pcount = self.process_count
+        pindex, pcount = self.process_index, self.process_count
         if pcount > 1:
             extra = -(-len(order) // pcount) * pcount - len(order)
             order = np.concatenate([order, order[:extra]])
             dup = np.concatenate([dup, np.ones(extra, bool)])
-            order, dup = order[self.process_index::pcount], dup[self.process_index::pcount]
+            order, dup = order[pindex::pcount], dup[pindex::pcount]
         return order, dup
 
     def _make_batch(self, idx_list, dup_flags):

@@ -552,20 +552,22 @@ def encoder_posteriors(encoder: "PretrainedModel", x: torch.Tensor, *,
     return phoneme_logits, encoder.word_linear(_btc(out))
 
 
-def masked_frame_ce(logits: torch.Tensor, y: torch.Tensor,
-                    weights: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+def masked_frame_ce(logits: torch.Tensor, y: torch.Tensor, weights: torch.Tensor | None = None,
+                    denom: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Frame-wise cross-entropy with ignore index -1 (JAX
     ``_masked_frame_ce``): ``logits`` (B, T, C), ``y`` (B, T) int, ``weights``
     (B,) per example (weight-0 rows take no part in the loss, the accuracy or
     the gradient). Returns (mean loss, accuracy) over the valid weighted
-    frames. The loss is ``logsumexp - logit of the label``: one pass over
+    frames; ``denom`` (the valid frames of a data-parallel step's global
+    batch) in place of their count makes them this batch's shares of the
+    global means. The loss is ``logsumexp - logit of the label``: one pass over
     the logits, no log-softmax tensor and no one-hot."""
     valid = (y != -1).to(logits.dtype)
     if weights is not None:
         valid = valid * weights.to(logits.dtype)[:, None]
     y_safe = torch.where(y != -1, y, 0).long()
     nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, y_safe[..., None])[..., 0]
-    denom = torch.clamp(valid.sum(), min=1.0)
+    denom = torch.clamp(valid.sum(), min=1.0) if denom is None else max(float(denom), 1.0)
     loss = (nll * valid).sum() / denom
     acc = ((logits.detach().argmax(-1) == y_safe).to(logits.dtype) * valid).sum() / denom
     return loss, acc
@@ -573,13 +575,15 @@ def masked_frame_ce(logits: torch.Tensor, y: torch.Tensor,
 
 def encoder_loss(encoder: "PretrainedModel", x: torch.Tensor, y_phoneme: torch.Tensor,
                  y_word: torch.Tensor, *, train: bool = False, generator: torch.Generator | None = None,
-                 weights: torch.Tensor | None = None):
+                 weights: torch.Tensor | None = None, denoms: tuple[float, float] | None = None):
     """ASR pre-training losses (JAX ``encoder_loss``, reference
     ``PretrainedModel.forward``): (phoneme_loss, word_loss, phoneme_acc,
     word_acc). ``y_phoneme`` (B, t_p) and ``y_word`` (B, t_w) are frame labels
     at the two stacks' rates, -1 where ignored; each head is trimmed to the
-    shorter of its frames and its labels. At ``pretraining_type == 1`` the word
-    stack does not run and its loss and accuracy are 0. The stacks run
+    shorter of its frames and its labels. ``denoms``, the (phoneme, word)
+    valid frames of a data-parallel step's global batch, make the four
+    values this batch's shares of the global ones (:func:`masked_frame_ce`).
+    At ``pretraining_type == 1`` the word stack does not run and its loss and accuracy are 0. The stacks run
     unmasked (every row at the batch's T), as JAX's do; ``train`` and
     ``generator`` as :func:`apply_stack`."""
     arch = encoder.arch
@@ -587,14 +591,15 @@ def encoder_loss(encoder: "PretrainedModel", x: torch.Tensor, y_phoneme: torch.T
                       generator=generator, **encoder.routes())
     h = _btc(out)
     t = min(h.shape[1], y_phoneme.shape[1])
-    phoneme_loss, phoneme_acc = masked_frame_ce(encoder.phoneme_linear(h[:, :t]), y_phoneme[:, :t], weights)
+    dp, dw = (None, None) if denoms is None else denoms
+    phoneme_loss, phoneme_acc = masked_frame_ce(encoder.phoneme_linear(h[:, :t]), y_phoneme[:, :t], weights, dp)
     if arch.pretraining_type == 1:
         zero = phoneme_loss.new_zeros(())
         return phoneme_loss, zero, phoneme_acc, zero
     h = _btc(apply_stack(encoder.word_layers, arch.word_layers, out, train=train, generator=generator,
                          **encoder.routes()))
     t = min(h.shape[1], y_word.shape[1])
-    word_loss, word_acc = masked_frame_ce(encoder.word_linear(h[:, :t]), y_word[:, :t], weights)
+    word_loss, word_acc = masked_frame_ce(encoder.word_linear(h[:, :t]), y_word[:, :t], weights, dw)
     return phoneme_loss, word_loss, phoneme_acc, word_acc
 
 

@@ -125,12 +125,16 @@ def frame_mask_from_lengths(encoder_arch, lengths: torch.Tensor, t_frames: int,
 
 
 def intent_loss_acc(logits: torch.Tensor, y_intent: torch.Tensor, values_per_slot,
-                    weights: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                    weights: torch.Tensor | None = None,
+                    denom: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-slot cross-entropy summed over slots, and the all-slots-correct
     accuracy, both as means over the examples weighted by ``weights`` (B,)
-    (1 for a real example, 0 for batch padding; all ones by default)."""
+    (1 for a real example, 0 for batch padding; all ones by default).
+    ``denom``, the weight sum of a larger batch this one is a part of (a
+    data-parallel step's global batch), takes the place of ``w.sum()``: the
+    results are then this part's shares of that batch's means. At least 1."""
     w = logits.new_ones(logits.shape[0]) if weights is None else weights.to(logits.dtype)
-    denom = torch.clamp(w.sum(), min=1.0)
+    denom = torch.clamp(w.sum(), min=1.0) if denom is None else max(float(denom), 1.0)
     loss = logits.new_zeros(())
     correct = None
     for slot, sub in enumerate(logits.split(list(values_per_slot), dim=1)):
@@ -450,10 +454,13 @@ class Model(nn.Module):
     def loss(self, x: torch.Tensor, y_intent: torch.Tensor, *, train: bool,
              weights: torch.Tensor | None = None, lengths: torch.Tensor | None = None,
              generator: torch.Generator | None = None,
-             y_len: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+             y_len: torch.Tensor | None = None,
+             denom: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         """(loss, acc) of a batch on the model's device: the JAX Trainer's
         loss (``trainer.py:280-326``), the mean over the examples weighted by
-        ``weights`` (B,) (all ones by default). ``lengths`` (B,) sample
+        ``weights`` (B,) (all ones by default); with ``denom`` (the weight
+        sum of a data-parallel step's global batch) in place of the weights'
+        sum, this batch's shares of the global means. ``lengths`` (B,) sample
         counts leave the frames of batch padding out when the config's
         ``mask_padding`` is on: out of the max over time (fixed-slot), out of
         attention (seq2seq).
@@ -474,7 +481,8 @@ class Model(nn.Module):
                                      train=train, generator=generator, enc_mask=enc_mask,
                                      num_steps=None if y_len is None else y_len.max())
             w = log_p.new_ones(log_p.shape[0]) if weights is None else weights.to(log_p.dtype)
-            return -(log_p * w).sum() / torch.clamp(w.sum(), min=1.0), log_p.new_zeros(())
+            d = torch.clamp(w.sum(), min=1.0) if denom is None else max(float(denom), 1.0)
+            return -(log_p * w).sum() / d, log_p.new_zeros(())
         fm = None
         if mask_padding:
             t_out = frames_through(self.intent_arch.layers, feats.shape[1])
@@ -482,7 +490,7 @@ class Model(nn.Module):
         logits = intent_logits(self.intent_layers, self.intent_arch, feats, frame_mask=fm,
                                train=train, generator=generator,
                                gru_layout=self.pretrained_model.gru_layout)
-        return intent_loss_acc(logits, y_intent, self.values_per_slot, weights)
+        return intent_loss_acc(logits, y_intent, self.values_per_slot, weights, denom)
 
     def forward(self, x, y_intent, training: bool = False, *, weights=None, lengths=None,
                 y_len=None, generator: torch.Generator | None = None):

@@ -4,12 +4,16 @@ The library exposes plain ``extern "C"`` entry points, so the build needs no
 PyTorch headers and takes seconds: one ``nvcc -c`` per source, all started
 together, then one link. It runs at first use (the first CUDA call), never
 at import, and is rebuilt whenever a hash of the sources changes: the hash
-is part of the library's file name under ``build/``.
+is part of the library's file name under ``build/``. Processes that start
+together (the ranks of a data-parallel run) build once: the first takes a
+lock file beside the library and compiles, the others wait on the lock and
+load its library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -89,11 +93,22 @@ def source_hash() -> str:
 
 def build(verbose: bool = False) -> str:
     """Compile the sources into ``build/tpu_slu_torch/libkernels-<hash>.so``
-    unless that file exists; returns its path. Raises with nvcc's stderr."""
+    unless that file exists; returns its path. Raises with nvcc's stderr.
+    The compile holds an exclusive ``fcntl`` lock on ``<library>.lock``: a
+    process that finds it held waits, then takes the library the holder
+    built."""
     out = os.path.join(BUILD_DIR, f"libkernels-{source_hash()}.so")
     if os.path.isfile(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(f"{out}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not os.path.isfile(out):
+            _compile(out, verbose)
+    return out
+
+
+def _compile(out: str, verbose: bool) -> None:
     tmp = f"{out}.{os.getpid()}.tmp"
     nvcc = _nvcc()
     procs = []
@@ -119,7 +134,6 @@ def build(verbose: bool = False) -> str:
             if os.path.exists(obj):
                 os.remove(obj)
     os.replace(tmp, out)
-    return out
 
 
 def library():

@@ -1,4 +1,4 @@
-"""Training engine on one device: ASR pre-training and both SLU heads.
+"""Training engine: ASR pre-training and both SLU heads, on one device or data-parallel.
 
 Port of ``tpu_slu/training/trainer.py``. ``Trainer(model, config)`` takes a
 :class:`~tpu_slu_torch.models.encoder.PretrainedModel` (ASR pre-training:
@@ -27,11 +27,24 @@ resumed run restores neither the step count nor the loader's epoch: its
 first epoch reshuffles from ``seed + 0``, and so equals the uninterrupted
 run's epoch only over the same batches (and at dropout 0, whose masks come
 from ``generator``).
+
+Data parallelism (``tpu_slu_torch.parallel``, one process a GPU under
+``torchrun``): with a process group of W ranks up, each rank reads its
+shard of every epoch at the config's batch size, and a step is the
+single-device step on the union of the ranks' batches. The host counts of
+the step's denominators (the weight sum; for ASR also each head's valid
+label frames) are summed over the ranks in one small host all-reduce; each
+rank's loss is its rows' share of the global batch's loss (its sum over
+the global denominator), and one flat all-reduce sums the gradients, so
+the clip sees the global gradient and ``MaskedAdam`` steps alike on every
+rank. The model is broadcast from rank 0 at construction, each rank's
+dropout generator is seeded from (``seed``, rank), rank 0 keeping
+``seed``, and the epoch metrics are summed over the ranks. Only rank 0
+writes ``log.csv`` and the checkpoints; every rank reads them.
 """
 
 from __future__ import annotations
 
-import contextlib
 import csv
 import json
 import os
@@ -40,11 +53,15 @@ import time
 import numpy as np
 import torch
 
+from tpu_slu_torch import parallel
 from tpu_slu_torch.models.convert import params_from_jax, params_to_jax
 from tpu_slu_torch.models.encoder import PretrainedModel, encoder_loss
 from tpu_slu_torch.models.slu import Model
 from tpu_slu_torch.training.checkpoint import check_backend, load_pytree, save_pytree
 from tpu_slu_torch.training.optim import MaskedAdam, clip_grad_norm
+from tpu_slu_torch.utils.profiling import StepTimer, profile_trace
+
+__all__ = ["StepTimer", "Trainer", "write_log_csv"]
 
 ASR_METRICS = ("phone_loss", "phone_acc", "word_loss", "word_acc")
 
@@ -53,34 +70,10 @@ def _weighted_mean(total, count):
     return total / max(count, 1e-9)
 
 
-class StepTimer:
-    """Wall-clock step timer with a percentile summary. On a CUDA device each
-    step ends in a synchronise, so a step's time is the device's."""
-
-    def __init__(self, device: torch.device | None = None):
-        self._times: list[float] = []
-        self._sync = device is not None and device.type == "cuda"
-
-    @contextlib.contextmanager
-    def step(self):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self._sync:
-                torch.cuda.synchronize()
-            self._times.append(time.perf_counter() - t0)
-
-    def summary(self) -> dict:
-        if not self._times:
-            return {}
-        t = np.asarray(self._times) * 1000.0
-        return {
-            "steps": len(t),
-            "step_ms_p50": float(np.percentile(t, 50)),
-            "step_ms_p99": float(np.percentile(t, 99)),
-            "step_ms_mean": float(t.mean()),
-        }
+def rank_seed(seed: int, rank: int) -> int:
+    """The dropout seed of ``rank``: ``seed`` itself at rank 0 (so one rank
+    trains as one process does), else a draw from ``SeedSequence([seed, rank])``."""
+    return seed if rank == 0 else int(np.random.SeedSequence([seed, rank]).generate_state(1)[0])
 
 
 def write_log_csv(path: str, rows: list[dict]) -> None:
@@ -104,12 +97,22 @@ def write_log_csv(path: str, rows: list[dict]) -> None:
 
 class Trainer:
     """``Trainer(model, config).train(dataset)`` / ``.test(dataset)`` on the
-    device the model lies on. Dropout masks and seeds come from
-    ``generator`` (a CPU generator seeded with the config's seed by
-    default)."""
+    device the model lies on, data-parallel over the ranks when a process
+    group is up. Dropout masks and seeds come from ``generator`` (a CPU
+    generator seeded with :func:`rank_seed` of the config's seed by default)."""
 
     def __init__(self, model, config, generator: torch.Generator | None = None):
         check_backend(config)
+        self.world, self.rank = parallel.world(), parallel.rank()
+        if self.world > 1:
+            if not getattr(config, "data_parallel", True):
+                raise ValueError(f"data_parallel=False with {self.world} ranks: each rank would train its "
+                                 "own replica; set data_parallel=True or run one process")
+            n_devices = int(getattr(config, "n_devices", 0) or 0)
+            if n_devices and n_devices != self.world:
+                raise ValueError(f"n_devices={n_devices} but {self.world} ranks are running; launch "
+                                 f"torchrun --nproc_per_node={n_devices}, or drop n_devices")
+        parallel.check_model_parallel(config)
         self.model = model
         self.config = config
         self.is_pretraining = isinstance(model, PretrainedModel)
@@ -130,9 +133,13 @@ class Trainer:
         self._trainer_ckpt = os.path.join(self.checkpoint_path, "trainer_state.npz")
         self.epoch = 0
         self._rows: list[dict] = []
-        self.generator = generator if generator is not None else torch.Generator().manual_seed(config.seed)
+        if generator is None:
+            generator = torch.Generator().manual_seed(rank_seed(config.seed, self.rank))
+        self.generator = generator
         self.clip = getattr(config, "gradient_clip_norm", 0.0)
         self.device = model.device
+        if self.world > 1:
+            parallel.broadcast_module(model)
         self.optimizer = MaskedAdam(model.named_parameters(), self.lr)
 
     def _to_device(self, batch: dict) -> dict:
@@ -143,37 +150,79 @@ class Trainer:
         return {k: torch.as_tensor(np.asarray(batch[k]), dtype=dt).to(self.device, non_blocking=True)
                 for k, dt in dtypes.items() if k in batch}
 
-    def _batches(self, dataset):
-        for batch in dataset.loader:
-            yield float(np.asarray(batch["w"]).sum()), self._to_device(batch)
+    def counts(self, batch: dict) -> np.ndarray:
+        """The host counts behind a batch's means: its weight sum, and for
+        ASR each head's weighted valid label frames after the loss's trim to
+        the encoder's frames (``encoder_loss``). Read from the batch's host
+        arrays, before the copy to the device, so the count syncs nothing."""
+        w = np.asarray(batch["w"], np.float64)
+        if not self.is_pretraining:
+            return np.array([w.sum()])
+        t_wave, arch = np.shape(batch["x"])[1], self.model.arch
+        out = [w.sum()]
+        for key, upto in (("y_phoneme", "phoneme"), ("y_word", "word")):
+            y = np.asarray(batch[key])
+            y = y[:, :min(int(arch.num_frames(t_wave, upto=upto)), y.shape[1])]
+            out.append(float(((y != -1) * w[:, None]).sum()))
+        return np.array(out)
 
-    def train_step(self, batch: dict) -> tuple[torch.Tensor, ...]:
+    def _batches(self, dataset):
+        """(this rank's weight sum, the global batch's, the batch's counts
+        summed over the ranks or None on one rank, device batch) of each
+        batch of ``dataset``. A step's values are weighted by the global sum:
+        on several ranks they are this rank's shares of the global means."""
+        for batch in dataset.loader:
+            counts = self.counts(batch)
+            totals = parallel.host_all_reduce(counts) if self.world > 1 else None
+            bs = float(counts[0])
+            yield bs, bs if totals is None else float(totals[0]), totals, self._to_device(batch)
+
+    def _losses(self, batch: dict, totals, train: bool):
+        """The ASR values or the SLU (loss, acc) of a device batch; with the
+        global ``totals`` (:meth:`counts` summed over the ranks), its shares
+        of the global batch's."""
+        if self.is_pretraining:
+            return encoder_loss(self.model, batch["x"], batch["y_phoneme"], batch["y_word"], train=train,
+                                generator=self.generator if train else None, weights=batch.get("w"),
+                                denoms=None if totals is None else (totals[1], totals[2]))
+        return self.model.loss(batch["x"], batch["y_intent"], train=train, weights=batch["w"],
+                               lengths=batch.get("len"), y_len=batch.get("y_len"),
+                               generator=self.generator if train else None,
+                               denom=None if totals is None else totals[0])
+
+    def train_step(self, batch: dict, totals: np.ndarray | None = None) -> tuple[torch.Tensor, ...]:
         """One Adam step on a device batch; returns, detached on the device,
         (loss, acc) for an SLU model and (phone_loss, word_loss, phone_acc,
         word_acc) for ASR. The ASR loss is the phoneme loss, their sum or
         the word loss at ``pretraining_type`` 1, 2 or 3, every parameter
         trained; the SLU step is masked by the ULMFiT schedule. Both clip the
-        gradients' global norm at ``gradient_clip_norm``."""
+        gradients' global norm at ``gradient_clip_norm``. With several ranks
+        the values are this rank's shares of the global batch's, ``totals``
+        (required there) the batch's :meth:`counts` of its host arrays summed
+        over the ranks (:func:`~tpu_slu_torch.parallel.host_all_reduce`); the
+        gradients are summed over the ranks before the clip."""
+        if self.world > 1 and totals is None:
+            raise ValueError(f"train_step on {self.world} ranks needs the batch's totals: "
+                             "parallel.host_all_reduce(trainer.counts(host_batch))")
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
+        out = self._losses(batch, totals, train=True)
         if self.is_pretraining:
-            out = encoder_loss(self.model, batch["x"], batch["y_phoneme"], batch["y_word"], train=True,
-                               generator=self.generator, weights=batch.get("w"))
             pl, wl = out[0], out[1]
             loss = {1: pl, 2: pl + wl, 3: wl}[self.config.pretraining_type]
         else:
-            out = self.model.loss(batch["x"], batch["y_intent"], train=True, weights=batch["w"],
-                                  lengths=batch.get("len"), y_len=batch.get("y_len"),
-                                  generator=self.generator)
             loss = out[0]
         loss.backward()
+        if self.world > 1:
+            parallel.all_reduce_grads(self.model.parameters())
         clip_grad_norm(self.model.parameters(), self.clip)
         self.optimizer.step()
         return tuple(t.detach() for t in out)
 
     def log(self, results: dict) -> None:
         self._rows.append(results)
-        write_log_csv(os.path.join(self.checkpoint_path, "log.csv"), self._rows)
+        if self.rank == 0:
+            write_log_csv(os.path.join(self.checkpoint_path, "log.csv"), self._rows)
 
     # -- checkpoints (JAX trainer.py:383-442) ----------------------------------
 
@@ -215,43 +264,57 @@ class Trainer:
 
     def save_checkpoint(self) -> None:
         """Write ``model_state.npz``, ``vocab.json`` (an SLU model) and
-        ``trainer_state.npz``; a failure is printed, not raised (JAX's)."""
-        try:
-            save_pytree(self._model_ckpt, self._jax_params())
-            if not self.is_pretraining:
-                with open(os.path.join(self.checkpoint_path, "vocab.json"), "w") as f:
-                    json.dump(self.model.vocab_dict(), f)
-            save_pytree(self._trainer_ckpt, self._trainer_tree())
-        except Exception as e:
-            print(f"Could not save model ({e})")
+        ``trainer_state.npz``; a failure is printed, not raised (JAX's).
+        Rank 0 writes; every rank then waits for it."""
+        if self.rank == 0:
+            try:
+                save_pytree(self._model_ckpt, self._jax_params())
+                if not self.is_pretraining:
+                    with open(os.path.join(self.checkpoint_path, "vocab.json"), "w") as f:
+                        json.dump(self.model.vocab_dict(), f)
+                save_pytree(self._trainer_ckpt, self._trainer_tree())
+            except Exception as e:
+                print(f"Could not save model ({e})")
+        if self.world > 1:
+            parallel.barrier()
 
     # -- epochs ------------------------------------------------------------------
 
     def train(self, dataset, print_interval: int = 100):
         """One epoch; returns (phone_acc, phone_loss, word_acc, word_loss) for
         ASR, (intent_acc, intent_loss) for SLU. The branch is the model's: the
-        dataset must hold batches of that kind."""
-        if self.is_pretraining:
-            return self._train_asr(dataset, print_interval)
-        return self._train_slu(dataset, print_interval)
+        dataset must hold batches of that kind. The first epoch (``epoch``
+        0) runs under :func:`profile_trace` when the config sets
+        ``profile_dir``."""
+        logdir = getattr(self.config, "profile_dir", None) if self.epoch == 0 else None
+        with profile_trace(logdir, "train", self.device):
+            if self.is_pretraining:
+                return self._train_asr(dataset, print_interval)
+            return self._train_slu(dataset, print_interval)
+
+    def _print_step(self, names, values) -> None:
+        """The JAX Trainer's progress lines, of the global batch's values
+        (summed over the ranks: each rank's are its shares), from rank 0."""
+        values = parallel.all_hosts_sum([float(v) for v in values])
+        if self.rank == 0:
+            for name, v in zip(names, values):
+                print(f"{name}: {float(v)}")
 
     def _train_asr(self, dataset, print_interval):
         totals = dict.fromkeys(ASR_METRICS, 0.0)
         num_examples = 0.0
         t0 = time.time()
         timer = StepTimer(self.device)
-        for idx, (bs, batch) in enumerate(self._batches(dataset)):
+        for idx, (bs, g, counts, batch) in enumerate(self._batches(dataset)):
             num_examples += bs
             with timer.step():
-                pl, wl, pa, wa = self.train_step(batch)
+                pl, wl, pa, wa = self.train_step(batch, counts)
             for k, v in zip(ASR_METRICS, (pl, pa, wl, wa)):
-                totals[k] = totals[k] + v * bs
+                totals[k] = totals[k] + v * g
             if idx % print_interval == 0:
-                print(f"phoneme loss: {float(pl)}")
-                print(f"word loss: {float(wl)}")
-                print(f"phoneme acc: {float(pa)}")
-                print(f"word acc: {float(wa)}")
-        results = {k: _weighted_mean(float(v), num_examples) for k, v in totals.items()}
+                self._print_step(("phoneme loss", "word loss", "phoneme acc", "word acc"), (pl, wl, pa, wa))
+        *sums, num_examples = parallel.all_hosts_sum(list(totals.values()) + [num_examples])
+        results = {k: _weighted_mean(float(v), num_examples) for k, v in zip(totals, sums)}
         results["set"] = "train"
         results["examples_per_sec"] = num_examples / max(time.time() - t0, 1e-9)
         results.update(timer.summary())
@@ -264,18 +327,19 @@ class Trainer:
         num_examples = 0.0
         t0 = time.time()
         timer = StepTimer(self.device)
-        self.model.print_frozen()
+        if self.rank == 0:
+            self.model.print_frozen()
         self.optimizer.set_mask(self.model.trainable_mask())
-        for idx, (bs, batch) in enumerate(self._batches(dataset)):
+        for idx, (bs, g, counts, batch) in enumerate(self._batches(dataset)):
             num_examples += bs
             with timer.step():
-                loss, acc = self.train_step(batch)
-            total_loss = total_loss + loss * bs
-            total_acc = total_acc + acc * bs
+                loss, acc = self.train_step(batch, counts)
+            total_loss = total_loss + loss * g
+            total_acc = total_acc + acc * g
             if idx % print_interval == 0:
-                print(f"intent loss: {float(loss)}")
-                print(f"intent acc: {float(acc)}")
+                self._print_step(("intent loss", "intent acc"), (loss, acc))
         self.model.unfreeze_one_layer()
+        total_loss, total_acc, num_examples = parallel.all_hosts_sum([total_loss, total_acc, num_examples])
         results = {
             "intent_loss": _weighted_mean(float(total_loss), num_examples),
             "intent_acc": _weighted_mean(float(total_acc), num_examples),
@@ -294,31 +358,34 @@ class Trainer:
         seq2seq model's accuracy is the exact match of
         ``decode_intents(x, lengths=len)`` against the targets' strings, from
         epoch ``decode_acc_from_epoch`` (default 2) on, and 0 before it
-        (JAX ``trainer.py:584-624``)."""
+        (JAX ``trainer.py:584-624``); each rank decodes its own shard."""
         self.model.eval()
         if self.is_pretraining:
             return self._test_asr(dataset, log_set)
+        return self._test_slu(dataset, log_set)
+
+    def _test_slu(self, dataset, log_set):
         total_loss = total_acc = 0.0
         num_examples = 0.0
         decode = self.model.seq2seq and self.epoch >= getattr(self.config, "decode_acc_from_epoch", 2)
-        for idx, (bs, batch) in enumerate(self._batches(dataset)):
+        for idx, (bs, g, counts, batch) in enumerate(self._batches(dataset)):
             num_examples += bs
-            loss, acc = self.model.loss(batch["x"], batch["y_intent"], train=False,
-                                        weights=batch["w"], lengths=batch.get("len"),
-                                        y_len=batch.get("y_len"))
-            total_loss = total_loss + loss * bs
-            total_acc = total_acc + acc * bs
-            if decode:
-                n_real = int(bs)
+            loss, acc = self._losses(batch, counts, train=False)
+            total_loss = total_loss + loss * g
+            total_acc = total_acc + acc * g
+            n_real = int(bs)
+            if decode and n_real:
                 guesses = np.array(self.model.decode_intents(batch["x"], lengths=batch.get("len"))[:n_real])
                 y_host = batch["y_intent"][:n_real].cpu().numpy()
                 truths = np.array([self.model.one_hot_to_string(y, self.model.Sy_intent) for y in y_host])
                 match = float((guesses == truths).mean())
                 total_acc = total_acc + match * bs
-                print(f"decoding batch {idx}")
-                print(f"acc: {match}")
-                print(f"guess: {guesses[0]}")
-                print(f"truth: {truths[0]}")
+                if self.rank == 0:
+                    print(f"decoding batch {idx}")
+                    print(f"acc: {match}")
+                    print(f"guess: {guesses[0]}")
+                    print(f"truth: {truths[0]}")
+        total_loss, total_acc, num_examples = parallel.all_hosts_sum([total_loss, total_acc, num_examples])
         results = {
             "intent_loss": _weighted_mean(float(total_loss), num_examples),
             "intent_acc": _weighted_mean(float(total_acc), num_examples),
@@ -330,13 +397,13 @@ class Trainer:
     def _test_asr(self, dataset, log_set):
         totals = dict.fromkeys(ASR_METRICS, 0.0)
         num_examples = 0.0
-        for bs, batch in self._batches(dataset):
+        for bs, g, counts, batch in self._batches(dataset):
             num_examples += bs
-            pl, wl, pa, wa = encoder_loss(self.model, batch["x"], batch["y_phoneme"], batch["y_word"],
-                                          weights=batch.get("w"))
+            pl, wl, pa, wa = self._losses(batch, counts, train=False)
             for k, v in zip(ASR_METRICS, (pl, pa, wl, wa)):
-                totals[k] = totals[k] + v * bs
-        results = {k: _weighted_mean(float(v), num_examples) for k, v in totals.items()}
+                totals[k] = totals[k] + v * g
+        *sums, num_examples = parallel.all_hosts_sum(list(totals.values()) + [num_examples])
+        results = {k: _weighted_mean(float(v), num_examples) for k, v in zip(totals, sums)}
         results["set"] = log_set
         self.log(results)
         return results["phone_acc"], results["phone_loss"], results["word_acc"], results["word_loss"]
