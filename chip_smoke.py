@@ -180,7 +180,29 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    1e-5 relative, every decoded string equal, K4f and one K7 a batch on
    each rank; ``[profile-dir]`` epoch 0 of ``Trainer.train`` with
    ``profile_dir`` set: its trace's CUDA kernel events name K1, K2 and K3
-   as often as their launch counters count, and epoch 1 writes no trace.
+   as often as their launch counters count, and epoch 1 writes no trace;
+14. ``compute_dtype=bfloat16`` (``[bf16]``): K1, K2 and K3's bf16
+   instantiations against their plain versions on the card (K1 at the five
+   flagship layers, B = 16, 4 s; K2 at the four encoder layers and K3 at
+   the five, B = 64, 4 s; all three at the ASR encoder's four, B = 64,
+   2.25 s), each output and gradient within ``BF16_RATIO`` of the plain
+   version's bf16-vs-f32 gap (relative Frobenius distance) and
+   ``BF16_ULPS`` of its largest element; one bf16 train step of the
+   fixed-slot and of the ASR model (B = 16) against the CPU's, the loss
+   within ``BF16_LOSS_RTOL``, the ASR gradient within ``BF16_FLOOR`` times
+   the noise floor of bf16 (two CPU bf16 steps on inputs a few f32 ulps
+   apart), the fixed-slot one within ``BF16_STEP_FAR`` (its max over time
+   jumps; ``bf16_step_vs_cpu`` says why); ``[bf16-trainer]`` ``Trainer.train`` and
+   ``Trainer.test`` at ``compute_dtype=bfloat16``, fixed-slot (B = 64: 1
+   K1, 4 K2, 5 K3 a step, all bf16; the test pass 5 bf16 K1 a batch) and
+   ASR (4 K2, 4 K3 a step); ``[time]`` both warm steps at bf16 beside f32
+   in turns, with their busy time, idle share and launches, the bf16
+   step's trace naming the bf16 K1, K2 and K3 as often as their counters
+   count, and K1 (five layers, B = 16), K2 (four, B = 64) and K3 (five,
+   B = 64) at bf16 beside f32 in turns, with the bf16 plain version, cuDNN's
+   bf16 ``nn.GRU`` and the bf16 bound (``bound_bf16``: the products at the
+   bf16 tensor-core peak, the gate math at the f32 one, the streams at 2
+   bytes a value); the kernels line gains the three bf16 entries.
 
 Beside each kernel's time the script prints its plain version's, a cuDNN
 ``torch.nn.GRU`` call's where one computes the same function (timed as a
@@ -254,6 +276,11 @@ K4B_PHASES = {"h_prev": "masked_hprev_kernel", "gates": "bwd_gates_kernel", "cha
               "core gi/gh": "gemm_kernel<0, 0", "core dX": "gemm_kernel<0, 1", "core dW": "gemm_kernel<1, 1",
               "reduce": "dw_reduce_kernel"}
 K5B_PHASES = K4B_PHASES
+# K3's kernels by phase at bf16: the same, the products on the core's mixed kernel, and dX's
+# rounded sum of the two directions
+K3_BF16_PHASES = {"gates": "bwd_gates_kernel", "chain": "bwd_chain_kernel", "core gi/gh": "gemm_kernel_mixed<0, 0",
+                  "core dX": "gemm_kernel_mixed<0, 1", "dX sum": "dx_pair_sum_kernel",
+                  "core dW": "gemm_kernel_mixed<1, 1", "reduce": "dw_reduce_kernel"}
 K5F_SOURCE = "tpu_slu_torch/csrc/bigru_masked_fwd.cu"
 K5F_REPLACES = "tpu_slu/ops/pallas_gru.py:138"
 K5B_SOURCE = "tpu_slu_torch/csrc/bigru_masked_bwd.cu"
@@ -274,6 +301,7 @@ SERVE_BATCH = 8  # the IntentServer's max_batch: a served batch is (8, 4 s bucke
 # the card's published peaks at 700 W (NVIDIA H100 SXM data sheet): f32 outside the
 # tensor cores, and HBM3
 PEAK_F32 = 67e12
+PEAK_BF16 = 989e12  # dense bf16 tensor-core products, f32 accumulation
 PEAK_BYTES = 3.35e12
 GATE_OPS = 20  # f32 operations per gate element and direction: 2 sigmoids, a tanh, ~8 adds and products
 
@@ -288,13 +316,13 @@ def smi() -> str:
 # Developer copies of one kernel source each, for the A/Bs and the K7 trace: name -> (source in
 # tpu_slu_torch/csrc, [(text, its replacement)], nvcc flags). Never the port's library.
 _RULE_2DIR = "*C = (ndir == 1 ? 4 * B <= sms : 4 * 8 * B <= 3 * sms) ? 4 : 2;"
-_TILE_C4 = ("if (C == 4) return nb == 1 ? launch_gru_cluster<4, 1, POOL, TRAIN, ROWS>(a, ndir, st) : "
+_TILE_C4 = ("if (C == 4) return nb == 1 ? launch_gru_cluster<4, 1, POOL, TRAIN, ROWS, TS>(a, ndir, st) : "
             "cudaErrorInvalidValue;")
 # the two-direction cluster recurrence (K1, K2, K4f) on the cluster size the rule does not pick
 # (2 <-> 4), with the 4-row tile C = 4 then takes at B = 64; only the ndir = 2 branch changes
 _OTHER_C = [(_RULE_2DIR, _RULE_2DIR.replace("4 * 8 * B <= 3 * sms", "4 * 8 * B > 3 * sms")),
             (_TILE_C4, _TILE_C4.replace(" : cudaErrorInvalidValue", " : nb == 4 ? launch_gru_cluster<4, 4, POOL, "
-                                                                    "TRAIN, ROWS>(a, ndir, st) : cudaErrorInvalidValue"))]
+                                                                    "TRAIN, ROWS, TS>(a, ndir, st) : cudaErrorInvalidValue"))]
 # the backward chain (K4b, K5b) on the cluster size its rule does not pick, with the 2- and 4-row
 # tiles C = 4 then takes at B = 64 (K5b and K4b)
 _RULE_BWD = "cudaError_t err = gru_cluster_size(a.B, ndir, &C);"
@@ -418,36 +446,48 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def bound_bf16(product_flops: float, other_flops: float, nbytes: float) -> tuple[float, str]:
+    """``bound`` for work on bf16 operands: the products (bf16 x bf16,
+    accumulated in f32) at the bf16 tensor-core peak, the rest (the gate
+    math) at the f32 peak, against the bytes over the memory rate."""
+    t_ops = (product_flops / PEAK_BF16 + other_flops / PEAK_F32) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def gru_weight_floats(D: int, H: int, dirs: int = 2) -> int:
     return dirs * (3 * H * D + 3 * H * H + 6 * H)
 
 
 def gru_fwd_work(rows: int, D: int, H: int, in_floats: int, out_floats: int,
-                 dirs: int = 2) -> tuple[float, float]:
+                 dirs: int = 2, stream_bytes: int = 4) -> tuple[float, float]:
     """FLOPs and bytes of a GRU layer's forward over ``rows`` (t, b) rows of
     width D and ``dirs`` directions: per row and direction the input
     projection and the recurrent product (2 * 3H * (D + H)) and the gate
     math (GATE_OPS per element); each input read once, each output written
-    once, f32."""
+    once, the f32 weights and the streams at ``stream_bytes`` a value (2 at
+    bf16)."""
     flops = dirs * rows * (2 * 3 * H * (D + H) + GATE_OPS * H)
-    return flops, 4 * (in_floats + gru_weight_floats(D, H, dirs) + out_floats)
+    return flops, stream_bytes * (in_floats + out_floats) + 4 * gru_weight_floats(D, H, dirs)
 
 
 def cudnn_gru_ms(D: int, T: int, B: int, H: int, dev, lengths=None, backward=False,
-                 bidirectional=True) -> float:
+                 bidirectional=True, dtype=None) -> float:
     """Median ms of one cuDNN ``torch.nn.GRU`` call at (T, B, D), a
     yardstick the port never calls; with ``lengths``, over
     ``pack_padded_sequence`` of the rows with n_b > 0 (it takes no empty
-    row); ``backward``: the backward alone, input and weight gradients. Its
-    input comes from a generator of its own, so that the phases' seeded data
-    do not depend on which yardsticks ran."""
+    row); ``backward``: the backward alone, input and weight gradients;
+    ``dtype`` (default f32) the GRU's and its input's. Its input comes from a
+    generator of its own, so that the phases' seeded data do not depend on
+    which yardsticks ran."""
     import numpy as np
     import torch
     from torch.nn.utils.rnn import pack_padded_sequence
 
-    gru = torch.nn.GRU(D, H, bidirectional=bidirectional).to(dev)
+    dtype = dtype or torch.float32
+    gru = torch.nn.GRU(D, H, bidirectional=bidirectional).to(dev, dtype)
     x = np.random.default_rng(T * B + D).standard_normal((T, B, D)).astype("float32")
-    x = torch.from_numpy(x).to(dev)
+    x = torch.from_numpy(x).to(dev, dtype)
     if backward:
         x.requires_grad_()
         out, _ = gru(x)
@@ -3410,6 +3450,438 @@ def phase_dp(dev, card: str, rng) -> dict:
             "sinc_frontend_fused": {"launches_dp_test": test["K8"]}}
 
 
+# compute_dtype=bfloat16: K1, K2 and K3 on bf16 streams (phase 14)
+BF16_RATIO = 0.25  # bf16 kernel vs plain: at most this share of the plain version's bf16-vs-f32 gap (Frobenius)
+BF16_ULPS = 2.0**-6  # ... and within 4 bf16 ulps of the plain result's largest element
+BF16_LOSS_RTOL = 1e-3  # one bf16 train step, card vs CPU: the loss
+BF16_NUDGE = 2.0**-22  # the noise floor's step: each sample moved by this share of itself (4 f32 ulps)
+BF16_FLOOR = 2.0  # one bf16 ASR train step, card vs CPU: its gradient within this many times the noise floor
+BF16_STEP_FAR = 0.5  # one bf16 fixed-slot step, card vs CPU: its gradient within this relative distance
+BF16_SOURCES = {"K1": (K1_SOURCE, K1_REPLACES, "bigru_shared_fwd_bf16"),
+                "K2": (K2_SOURCE, K2_REPLACES, "bigru_trainpool_fwd_bf16"),
+                "K3": (K3_SOURCE, K3_REPLACES, "bigru_shared_bwd_bf16")}
+
+
+def bf16_hold(what: str, got, ref, ref32) -> float:
+    """``got`` (a bf16 kernel's output) against ``ref`` (its plain version
+    at bf16), the yardstick ``ref32`` (the plain version on f32 copies of
+    the same inputs): the relative Frobenius distance at most ``BF16_RATIO``
+    of the bf16-vs-f32 gap, and within ``BF16_ULPS`` of the largest element.
+    Returns the ratio of the distances."""
+    g, r, r32 = (t.detach().double().cpu() for t in (got, ref, ref32))
+    if g.shape != r.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(g.shape)} against {ref.dtype} {tuple(r.shape)}")
+    gap = ((r - r32).norm() / r32.norm().clamp_min(1e-30)).item()
+    dist = ((g - r).norm() / r.norm().clamp_min(1e-30)).item()
+    if not (gap > 0.0 and dist <= BF16_RATIO * gap and (g - r).abs().max().item() <= BF16_ULPS * r.abs().max().item()):
+        raise AssertionError(f"{what}: {dist:.3g} from the plain version at bf16, whose gap to f32 is {gap:.3g} "
+                             f"(limit {BF16_RATIO} of it); max abs {(g - r).abs().max().item():.3g} against the "
+                             f"largest {r.abs().max().item():.3g}")
+    return dist / gap
+
+
+def bf16_layer(rng, dev, name: str, d: int, n_parts: int, T: int, B: int, kernels) -> dict:
+    """The bf16 kernels of ``kernels`` (of "K1", "K2", "K3") at one bi-GRU
+    layer's shape against their plain versions (``bf16_hold``), as the bf16
+    train and test passes run them: an encoder layer K1 with its avg pool 2,
+    K2 at dropout 0.5 and pool 2 (its zero pattern equal) and K3 fused on
+    K2's plain outputs; the intent layer (``INTENT_SHAPE``) K1 unpooled and
+    K3 plain on K1's plain outputs. Returns each kernel's largest ratio and
+    largest abs error, and the layer's inputs for timing."""
+    import numpy as np
+    import torch
+
+    from tpu_slu_torch.ops.bigru_shared import (
+        _shift_hp,
+        bigru_shared,
+        bigru_shared_bwd,
+        bigru_shared_bwd_reference,
+        bigru_shared_reference,
+        bigru_trainpool,
+        bigru_trainpool_reference,
+    )
+
+    bf = torch.bfloat16
+    intent = name == INTENT_SHAPE[0]
+    params, parts32 = k1_case(rng, n_parts, d, T, B, 128, dev)
+    parts = tuple(p.to(bf) for p in parts32)
+    parts32 = tuple(p.float() for p in parts)
+    out = {"ratio": {}, "err": {}, "params": params, "parts": parts}
+
+    def hold(k, pairs):
+        pairs = list(pairs)
+        out["ratio"][k] = max(bf16_hold(f"{k} bf16 {name} T={T} B={B} {w}", g, r, r32) for w, g, r, r32 in pairs)
+        out["err"][k] = max((g.float() - r.float()).abs().max().item() for _, g, r, _ in pairs)
+
+    pool = 1 if intent else 2
+    out["pool"] = pool
+    if "K1" in kernels:
+        got = bigru_shared(params, parts, pool=pool)[:2]
+        hold("K1", zip(("h_f", "h_b"), got, bigru_shared_reference(params, parts, pool=pool),
+                       bigru_shared_reference(params, parts32, pool=pool)))
+    if intent:
+        h_f, h_b = bigru_shared_reference(params, parts)
+        hp, hp32, kw, To = _shift_hp(h_f, h_b), _shift_hp(h_f.float(), h_b.float()), {}, T
+    else:
+        kw, To = {"pool": 2, "drop_p": 0.5, "seed": int(rng.integers(2**32))}, -(-T // 2)
+        ref = bigru_trainpool_reference(params, parts, **kw)
+        if "K2" in kernels:
+            got = bigru_trainpool(params, parts, **kw)
+            hold("K2", zip(("hp_f", "hp_b", "pooled_f", "pooled_b"), got, ref,
+                           bigru_trainpool_reference(params, parts32, **kw)))
+            if not all(same_zeros(g.float(), r.float()) for g, r in zip(got[2:], ref[2:])):
+                raise AssertionError(f"K2 bf16 {name} T={T} B={B}: dropout zero pattern differs")
+        hp, hp32 = ref[:2], tuple(h.float() for h in ref[:2])
+    out["bwd"] = (hp, [torch.from_numpy(rng.standard_normal((To, B, 128)).astype(np.float32)).to(dev, bf)
+                       for _ in range(2)], kw)
+    if "K3" in kernels:
+        dy = out["bwd"][1]
+        dxs, grads = bigru_shared_bwd(params, parts, *hp, *dy, **kw)
+        rdxs, rgrads = bigru_shared_bwd_reference(params, parts, *hp, *dy, **kw)
+        r32dxs, r32grads = bigru_shared_bwd_reference(params, parts32, *hp32, *(t.float() for t in dy), **kw)
+        pairs = [(f"dx{i}", g, r, r32) for i, (g, r, r32) in enumerate(zip(dxs, rdxs, r32dxs))]
+        pairs += [(f"{dd}.{n}", grads[dd][n], rgrads[dd][n], r32grads[dd][n]) for dd in grads for n in grads[dd]]
+        if not all(g.dtype == bf for _, g, *_ in pairs[:len(dxs)]) or any(
+                g.dtype != torch.float32 for _, g, *_ in pairs[len(dxs):]):
+            raise AssertionError(f"K3 bf16 {name}: dX must be bf16 and the weight gradients f32")
+        hold("K3", pairs)
+    torch.cuda.synchronize()
+    return out
+
+
+def bf16_layer_call(k: str, held: dict, which: str):
+    """A call of kernel ``k`` ("K1", "K2", "K3") on a ``bf16_layer``'s inputs:
+    ``which`` "bf16" (its bf16 parts and residuals), "f32" (f32 copies of
+    them: the f32 kernel) or "plain" (the bf16 plain version)."""
+    import torch
+
+    from tpu_slu_torch.ops.bigru_shared import (
+        bigru_shared,
+        bigru_shared_bwd,
+        bigru_shared_bwd_reference,
+        bigru_shared_reference,
+        bigru_trainpool,
+        bigru_trainpool_reference,
+    )
+
+    params, parts = held["params"], held["parts"]
+    hp, dy, kw = held["bwd"]
+    if which == "f32":
+        parts, hp, dy = (tuple(t.float() for t in ts) for ts in (parts, hp, dy))
+    plain = which == "plain"
+    if k == "K1":
+        pool = held["pool"]
+        fn = bigru_shared_reference if plain else bigru_shared
+        return lambda: fn(params, parts, pool=pool)
+    if k == "K2":
+        fn = bigru_trainpool_reference if plain else bigru_trainpool
+        return lambda: fn(params, parts, pool=2, drop_p=0.5, seed=11)
+    fn = bigru_shared_bwd_reference if plain else bigru_shared_bwd
+    return lambda: fn(params, parts, *hp, *dy, **kw)
+
+
+def bf16_step_vs_cpu(dev, rng, kind: str) -> dict:
+    """One train step at ``compute_dtype=bfloat16`` (B = 16), card against
+    the CPU plain path from equal weights and equal dropout masks: the
+    fixed-slot model of ``no_pretraining.cfg`` on 4 s (the intent layer's
+    dropout 0, the encoder's 0.5) or the ASR model of ``no_unfreezing.cfg``
+    on 2.25 s (dropout on). The loss within ``BF16_LOSS_RTOL`` relative.
+
+    The whole gradient (every parameter's, as one vector; each finite) is
+    held by its relative Frobenius distance from the CPU's bf16 one against
+    the noise floor of bf16 itself: the distance between two CPU bf16 steps
+    whose inputs differ at the f32 level, every sample of the waveforms
+    moved by ``BF16_NUDGE`` of itself and every weight by one f32 ulp, up or
+    down at random. f32 differences of that size (the card's cuDNN convs and
+    kernels sum in another order) round some values in every layer to the
+    other bf16, and the bf16 recurrences spread them over 5 layers and 400
+    steps, forward and backward: the two steps then part by about the
+    bf16-vs-f32 gap itself (on an H100, PERF.md section 6), so a quarter of
+    that gap (``BF16_RATIO``, the kernels' bound) cannot hold for a step.
+    The limit is ``BF16_FLOOR`` times that floor, or ``BF16_RATIO`` of the
+    gap where that is larger, for the ASR step. The fixed-slot loss takes a
+    max over time, so its gradient is not continuous in the inputs: where
+    bf16 noise moves a max to another frame the gradient jumps (on an H100,
+    25.6 gaps from the CPU's with a floor of 5.2 in one of six seeded
+    batches); its gradient is held only to ``BF16_STEP_FAR``, which a wrong
+    kernel or route breaks, and its distance from the floor is reported.
+    Each gradient alone is reported. Returns the whole gradient's distance
+    and floor as shares of its gap, the largest gradient's, and the
+    losses."""
+    import numpy as np
+    import torch
+
+    from tpu_slu_torch import read_config
+    from tpu_slu_torch.models.encoder import PretrainedModel, encoder_loss
+    from tpu_slu_torch.models.flagship import FLAGSHIP_CFG, TRAIN_CFG, flagship_model
+
+    bf = torch.bfloat16
+    if kind == "fixed-slot":
+        cpu_model = flagship_model("cpu", cfg=TRAIN_CFG, intent_rnn_drop=[0.0]).train()
+        batch = synthetic_batches(rng, 1, 16, cpu_model.values_per_slot)[0]
+    else:
+        config = read_config(FLAGSHIP_CFG, make_dirs=False)
+        config.num_phonemes = 42
+        cpu_model = PretrainedModel(config, generator=torch.Generator().manual_seed(3)).train()
+        batch = asr_batches(rng, 1, 16, ASR_T, 42, config.vocabulary_size, config.phone_downsample_factor,
+                            config.word_downsample_factor)[0]
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    sign = np.where(rng.random(batch["x"].shape) < 0.5, -1.0, 1.0)
+    nudged = dict(batch, x=(batch["x"] * (1.0 + BF16_NUDGE * sign)).astype(np.float32))
+    nudged_model = copy.deepcopy(cpu_model)
+    with torch.no_grad():
+        for p in nudged_model.parameters():
+            up = torch.from_numpy(rng.random(tuple(p.shape)) < 0.5)
+            p.copy_(torch.nextafter(p, torch.where(up, torch.inf, -torch.inf)))
+
+    def step(model, where, dtype, b=batch):
+        b = {k: torch.from_numpy(v).to(where) for k, v in b.items()}
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator().manual_seed(5)
+        if kind == "fixed-slot":
+            loss, _ = model.loss(b["x"], b["y_intent"], train=True, weights=b["w"], lengths=b["len"],
+                                 generator=gen, compute_dtype=dtype)
+        else:
+            pl, wl, _, _ = encoder_loss(model, b["x"], b["y_phoneme"].long(), b["y_word"].long(), train=True,
+                                        generator=gen, weights=b["w"], compute_dtype=dtype)
+            loss = pl + wl
+        if loss.dtype != torch.float32:
+            raise AssertionError(f"bf16 {kind} step: the loss is {loss.dtype}")
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()
+                             if p.grad is not None}
+
+    l_card, g_card = step(card_model, dev, bf)
+    l_cpu, g_cpu = step(cpu_model, torch.device("cpu"), bf)
+    l_nudge, g_nudge = step(nudged_model, torch.device("cpu"), bf, nudged)
+    l32, g32 = step(cpu_model, torch.device("cpu"), None)
+    if not abs(l_card - l_cpu) <= BF16_LOSS_RTOL * abs(l_cpu):
+        raise AssertionError(f"bf16 {kind} step: loss card {l_card} vs CPU {l_cpu}")
+
+    def dist(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    if set(g_card) != set(g_cpu) or not all(torch.isfinite(g).all() for g in g_card.values()):
+        raise AssertionError(f"bf16 {kind} step: the card's gradients are not finite or not the CPU's parameters")
+    ratio, floor = {}, {}  # each gradient's distance and noise floor, as shares of its bf16-vs-f32 gap
+    for n, g in g_cpu.items():
+        gap = dist(g, g32[n])
+        ratio[n], floor[n] = dist(g_card[n], g) / gap, dist(g_nudge[n], g) / gap
+    names = sorted(g_cpu)
+
+    def whole(g):
+        return torch.cat([g[n].flatten() for n in names])
+
+    gap, d, fl = dist(whole(g_cpu), whole(g32)), dist(whole(g_card), whole(g_cpu)), dist(whole(g_nudge), whole(g_cpu))
+    limit = BF16_STEP_FAR if kind == "fixed-slot" else max(BF16_RATIO * gap, BF16_FLOOR * fl)
+    if not (gap > 0.0 and d <= limit):
+        raise AssertionError(f"bf16 {kind} step: the gradient {d:.3g} from the CPU's bf16 one, whose gap to f32 is "
+                             f"{gap:.3g} and noise floor {fl:.3g} (limit {limit:.3g})")
+    worst = max(ratio, key=ratio.get)
+    print(f"[bf16] {kind} train step B=16 at compute_dtype=bfloat16, card vs CPU: loss {l_card:.6f} vs {l_cpu:.6f} "
+          f"(limit {BF16_LOSS_RTOL} relative; the CPU's f32 loss {l32:.6f}, its bf16 loss on the nudged inputs "
+          f"{l_nudge:.6f}); the whole gradient {d:.3g} from the CPU's bf16 one (limit {limit:.3g}), {d / gap:.3g} of "
+          f"its bf16-vs-f32 gap {gap:.3g}, the noise floor {fl / gap:.3g} of it; each gradient {min(ratio.values()):.3g}-{ratio[worst]:.3g} of its gap (the "
+          f"largest {worst}), its floor {min(floor.values()):.3g}-{max(floor.values()):.3g}")
+    return {"ratio": d / gap, "floor": fl / gap, "ratio_by_gradient": ratio[worst], "loss": (l_card, l_cpu, l32)}
+
+
+def phase_bf16(dev, card: str, rng) -> list[dict]:
+    """Phase 14: ``compute_dtype=bfloat16``. Returns the kernels line's
+    entries of K1, K2 and K3's bf16 instantiations."""
+    import numpy as np
+    import torch
+
+    from tpu_slu_torch import read_config
+    from tpu_slu_torch.models.encoder import PretrainedModel
+    from tpu_slu_torch.models.flagship import FLAGSHIP_CFG, TRAIN_CFG, flagship_model
+    from tpu_slu_torch.ops.bigru_shared import (
+        bigru_shared,
+        bigru_shared_bwd,
+        bigru_shared_bwd_reference,
+        bigru_shared_reference,
+        bigru_trainpool,
+        bigru_trainpool_reference,
+    )
+    from tpu_slu_torch.training import Trainer
+
+    bf = torch.bfloat16
+    t_phase = time.perf_counter()
+    # 14.1 the bf16 kernels against their plain versions: K1 at the five flagship layers (B = 16, 4 s),
+    # K2 at the four encoder layers and K3 at the five (B = 64, 4 s), all three at the ASR encoder's
+    # four (B = 64, 2.25 s)
+    ratio, err = dict.fromkeys(("K1", "K2", "K3"), 0.0), dict.fromkeys(("K1", "K2", "K3"), 0.0)
+    timed = {"K1": [], "K2": [], "K3": []}
+    plan = [(16, ("K1",), [s[:4] for s in FLAGSHIP_LAYERS], "4 s", "K1"),
+            (64, ("K2", "K3"), ENC_SHAPES + [INTENT_SHAPE], "4 s", "K23"),
+            (64, ("K1", "K2", "K3"), asr_shapes(), "2.25 s", None)]
+    for B, kernels, shapes, audio, keep in plan:
+        for name, d, n_parts, T in shapes:
+            held = bf16_layer(rng, dev, name, d, n_parts, T, B, [k for k in kernels if not (
+                k == "K2" and name == INTENT_SHAPE[0])])
+            for k, v in held["ratio"].items():
+                ratio[k], err[k] = max(ratio[k], v), max(err[k], held["err"][k])
+            if keep:
+                for k in kernels:
+                    if not (k == "K2" and name == INTENT_SHAPE[0]):
+                        timed[k].append((name, d, n_parts, T, B, held))
+            print(f"[bf16] {name:11s} T={T:3d} B={B:2d} ({audio}): "
+                  + ", ".join(f"{k} {held['ratio'][k]:.3g}" for k in held["ratio"])
+                  + f" of the plain version's bf16-vs-f32 gap (limit {BF16_RATIO}), within {BF16_ULPS:.4g} of "
+                  "the largest element")
+    print(f"[bf16] the bf16 kernels against their plain versions: largest share of the gap K1 {ratio['K1']:.3g}, "
+          f"K2 {ratio['K2']:.3g}, K3 {ratio['K3']:.3g}; max abs err K1 {err['K1']:.3g}, K2 {err['K2']:.3g}, "
+          f"K3 {err['K3']:.3g}")
+
+    # 14.2 one bf16 train step of each model against the CPU
+    steps = {kind: bf16_step_vs_cpu(dev, rng, kind) for kind in ("fixed-slot", "ASR")}
+
+    # 14.3 the main path: Trainer.train at compute_dtype=bfloat16, fixed-slot and ASR, B = 64; the counts
+    # of the bf16 instantiations set to 0 just before each and read just after
+    counters = {"K1": bigru_shared, "K2": bigru_trainpool, "K3": bigru_shared_bwd}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bf16_")
+    try:
+        model = flagship_model(dev, cfg=TRAIN_CFG, seed=1)
+        config = model.config
+        config.folder, config.compute_dtype = os.path.join(tmp, "slu"), "bfloat16"
+        trainer = Trainer(model, config, generator=torch.Generator().manual_seed(7))
+        data = Batches(synthetic_batches(rng, 3, config.training_batch_size, model.values_per_slot))
+        for c in counters.values():
+            c.launches = c.launches_bf16 = 0
+        acc, loss = trainer.train(data)
+        torch.cuda.synchronize()
+        launches = {k: (c.launches_bf16, c.launches) for k, c in counters.items()}
+        n = len(data.loader)
+        if launches != {"K1": (n, n), "K2": (4 * n, 4 * n), "K3": (5 * n, 5 * n)} or not np.isfinite(loss):
+            raise AssertionError(f"bf16 Trainer.train over {n} steps: (bf16, all) launches {launches}, loss {loss}")
+        for c in counters.values():
+            c.launches = c.launches_bf16 = 0
+        t_acc, t_loss = trainer.test(data)
+        test_launches = {k: (c.launches_bf16, c.launches) for k, c in counters.items()}
+        if test_launches != {"K1": (5 * n, 5 * n), "K2": (0, 0), "K3": (0, 0)} or not np.isfinite(t_loss):
+            raise AssertionError(f"bf16 Trainer.test over {n} batches: launches {test_launches}, loss {t_loss}")
+        print(f"[bf16-trainer] Trainer.train at no_pretraining.cfg width and compute_dtype=bfloat16, "
+              f"B={config.training_batch_size}, {n} steps: loss {loss:.4f} acc {acc:.3f}; (bf16, all) launches "
+              f"{launches}; Trainer.test loss {t_loss:.4f}, launches {test_launches}")
+        main_launches = {k: v[0] for k, v in launches.items()}
+
+        asr_cfg = read_config(FLAGSHIP_CFG, make_dirs=False)
+        asr_cfg.folder, asr_cfg.num_phonemes, asr_cfg.compute_dtype = os.path.join(tmp, "asr"), 42, "bfloat16"
+        asr_model = PretrainedModel(asr_cfg, generator=torch.Generator().manual_seed(1)).to(dev)
+        asr_trainer = Trainer(asr_model, asr_cfg, generator=torch.Generator().manual_seed(7))
+        asr_data = Batches(asr_batches(rng, 2, asr_cfg.pretraining_batch_size, ASR_T, 42, asr_cfg.vocabulary_size,
+                                       asr_cfg.phone_downsample_factor, asr_cfg.word_downsample_factor))
+        for c in counters.values():
+            c.launches = c.launches_bf16 = 0
+        asr_out = asr_trainer.train(asr_data)
+        torch.cuda.synchronize()
+        asr_launches = {k: (c.launches_bf16, c.launches) for k, c in counters.items()}
+        n = len(asr_data.loader)
+        if asr_launches != {"K1": (0, 0), "K2": (4 * n, 4 * n), "K3": (4 * n, 4 * n)} or not np.isfinite(asr_out[1]):
+            raise AssertionError(f"bf16 ASR Trainer.train over {n} steps: launches {asr_launches}, {asr_out}")
+        asr_test = asr_trainer.test(asr_data)
+        print(f"[bf16-trainer] ASR Trainer.train at compute_dtype=bfloat16, B={asr_cfg.pretraining_batch_size}, "
+              f"{n} steps: phone loss {asr_out[1]:.4f} word loss {asr_out[3]:.4f}; (bf16, all) launches "
+              f"{asr_launches}; Trainer.test phone loss {asr_test[1]:.4f}")
+
+        # 14.4 the warm steps at bf16 beside f32, in turns f32, bf16, bf16, f32; each bf16 step's profile
+        # names the bf16 instantiations of K1, K2 and K3 as often as their counters count
+        f32_trainer = Trainer(model, copy.copy(config), generator=torch.Generator().manual_seed(7))
+        f32_trainer.compute_dtype = None
+        asr_f32 = Trainer(asr_model, copy.copy(asr_cfg), generator=torch.Generator().manual_seed(7))
+        asr_f32.compute_dtype = None
+        cases = {"fixed-slot": (f32_trainer, trainer, data.loader[0], 4.0),
+                 "ASR": (asr_f32, asr_trainer, asr_data.loader[0], ASR_T / 16000)}
+        step_times = {}
+        for kind, (t32, t16, host_batch, secs) in cases.items():
+            batch = t16._to_device(host_batch)
+            times = {"f32": [], "bf16": []}
+            for which in ("f32", "bf16", "bf16", "f32"):
+                t = t32 if which == "f32" else t16
+                times[which] += cuda_times(lambda: t.train_step(batch), reps=5, warmup=1)
+            for c in counters.values():
+                c.launches = c.launches_bf16 = 0
+            wall, table = kernel_table(lambda: t16.train_step(batch), reps=3)
+            # kernel_table makes one warm call before it traces its reps
+            want = {k: c.launches_bf16 * 3 // 4 for k, c in counters.items()}
+            named = {f"{k}{' bf16' if bf16 else ''}": 0 for k in counters for bf16 in (True, False)}
+            for key, (n, _) in table.items():
+                if step_kernel(key):
+                    named[f"{step_kernel(key)}{' bf16' if 'bfloat16' in key else ''}"] += round(3 * n)
+            got = {k: named[f"{k} bf16"] for k in counters}
+            if got != want or any(named[k] for k in counters):
+                raise AssertionError(f"bf16 {kind} step profile: bf16 instantiations {got}, f32 ones "
+                                     f"{ {k: named[k] for k in counters} }, counted {want} over 3 steps")
+            busy, n_launch = sum(ms for _, ms in table.values()), round(sum(n for n, _ in table.values()))
+            wall32, table32 = kernel_table(lambda: t32.train_step(batch), reps=3)
+            busy32, n32 = sum(ms for _, ms in table32.values()), round(sum(n for n, _ in table32.values()))
+            step_times[kind] = {"bf16_ms": statistics.median(times["bf16"]), "f32_ms": statistics.median(times["f32"]),
+                                "bf16_busy_ms": busy, "bf16_idle_share": 1 - busy / wall, "bf16_launches": n_launch,
+                                "f32_busy_ms": busy32, "f32_idle_share": 1 - busy32 / wall32, "f32_launches": n32}
+            st = step_times[kind]
+            print(f"[time] warm {kind} train step B={t16.model.config.training_batch_size if kind == 'fixed-slot' else asr_cfg.pretraining_batch_size}"
+                  f" on {secs:g} s, in turns f32, bf16, bf16, f32 (CUDA events, 5 a turn): bf16 median "
+                  f"{st['bf16_ms']:.3f} ms, f32 {st['f32_ms']:.3f} ms; profiler: bf16 busy {busy:.3f} ms, idle share "
+                  f"{st['bf16_idle_share']:.3f}, {n_launch} launches a step; f32 busy {busy32:.3f} ms, idle share "
+                  f"{st['f32_idle_share']:.3f}, {n32} launches; the bf16 step's trace names the bf16 K1, K2, K3 "
+                  f"{got} times over 3 steps, as counted, and no f32 one, on {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 14.5 K1 (five layers, B = 16), K2 (four, B = 64) and K3 (five, B = 64) at bf16 beside f32, in turns,
+    # with the bf16 plain version, cuDNN's bf16 nn.GRU and the bf16 bound (their device time by the
+    # profiler is tools/torch_cluster_ab.py --bf16's: in this long process the profiler drops events)
+    entries = []
+    for k, layers in timed.items():
+        ms = {"bf16": 0.0, "f32": 0.0, "plain": 0.0, "lib": 0.0}
+        work = [0.0, 0.0, 0.0]  # product FLOPs, gate FLOPs, bytes
+        for name, d, n_parts, T, B, held in layers:
+            D, H = n_parts * d, 128
+            pool = 1 if name == INTENT_SHAPE[0] else 2
+            if k == "K3":
+                To = held["bwd"][1][0].shape[0]
+                w = (2 * T * B * 2 * 3 * H * (3 * D + 3 * H), 2 * T * B * 2 * GATE_OPS * H,
+                     2 * (2 * T * B * D + 2 * T * B * H + 2 * To * B * H) + 4 * 2 * gru_weight_floats(D, H))
+            else:
+                out = 2 * -(-T // pool) * B * H + (2 * T * B * H if k == "K2" else 0)
+                w = gru_fwd_work(T * B, D, H, T * B * D, out, stream_bytes=2)
+                w = (w[0] - 2 * T * B * GATE_OPS * H, 2 * T * B * GATE_OPS * H, w[1])
+            lib = cudnn_gru_ms(D, T, B, H, dev, backward=k == "K3", dtype=bf)
+            t = {"f32": [], "bf16": []}
+            for which in ("f32", "bf16", "bf16", "f32"):
+                t[which].append(cuda_ms(bf16_layer_call(k, held, which), reps=10, warmup=1))
+            p_ms = cuda_ms(bf16_layer_call(k, held, "plain"), reps=1, warmup=0)
+            for key, v in (("bf16", statistics.median(t["bf16"])), ("f32", statistics.median(t["f32"])),
+                           ("plain", p_ms), ("lib", lib)):
+                ms[key] += v
+            work = [a + b for a, b in zip(work, w)]
+            print(f"[time] {k} bf16 {name:11s} B={B} T={T:3d}: bf16 {statistics.median(t['bf16']):.4f} ms, f32 "
+                  f"{statistics.median(t['f32']):.4f} ms (in turns), plain bf16 {p_ms:.3f} ms, cuDNN bf16 nn.GRU"
+                  f"{' backward' if k == 'K3' else ''} {lib:.4f} ms, bound {bound_bf16(*w)[0]:.4f} ms "
+                  f"({bound_bf16(*w)[1]})")
+        b_ms, b_by = bound_bf16(*work)
+        B = layers[0][4]
+        print(f"[time] {k} at bf16, {len(layers)} flagship layers B={B}: kernel {ms['bf16']:.4f} ms beside f32 "
+              f"{ms['f32']:.4f} ms (in turns, CUDA events around each call; their device time alone: "
+              f"tools/torch_cluster_ab.py --bf16), plain bf16 {ms['plain']:.3f} ms, cuDNN bf16 nn.GRU "
+              f"{ms['lib']:.4f} ms, bound {b_ms:.4f} ms ({b_by}) on {card}")
+        source, replaces, name = BF16_SOURCES[k]
+        entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": main_launches[k], "max_abs_err": err[k], "ms": ms["bf16"], "plain_ms": ms["plain"],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": ms["lib"],
+            "library_call": "cuDNN nn.GRU in bf16" + (", backward" if k == "K3" else ", unpooled") + ": the nearest "
+                            "call, not the same rounding",
+            "f32_ms": ms["f32"], "batch": B, "max_gap_ratio": ratio[k],
+            "launches_asr_train": asr_launches[k][0]})
+    # the bf16 steps, on the first entry: against the CPU (the largest gradient's distance and noise floor,
+    # as shares of the bf16-vs-f32 gap) and beside f32 on the card
+    entries[0].update({"step_ratio": {kind: v["ratio"] for kind, v in steps.items()},
+                       "step_floor": {kind: v["floor"] for kind, v in steps.items()}, "steps": step_times})
+    print(f"[bf16] phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
 def free_port() -> int:
     """A free TCP port on localhost, for the env:// rendezvous of a one-rank group."""
     import socket
@@ -3663,6 +4135,9 @@ def main() -> None:
     # 13. data-parallel training and evaluation, and the first-epoch trace
     dp = phase_dp(dev, card, rng)
 
+    # 14. compute_dtype=bfloat16: K1, K2 and K3 on bf16 streams
+    bf16 = phase_bf16(dev, card, rng)
+
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_slu"))
     if loaded:
         raise AssertionError(f"the port loaded modules of JAX or of the JAX package: {loaded}")
@@ -3678,6 +4153,7 @@ def main() -> None:
     for entry in kernels:
         entry.update(asr.get(entry["name"], {}))
         entry.update(dp.get(entry["name"], {}))
+    kernels += bf16
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

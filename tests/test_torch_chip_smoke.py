@@ -66,6 +66,7 @@ def _kernels_of(source: str) -> set:
 
 
 @pytest.mark.parametrize("phases,source", [("K3_PHASES", "bigru_shared_bwd.cu"),
+                                           ("K3_BF16_PHASES", "bigru_shared_bwd.cu"),
                                            ("K4B_PHASES", "bigru_masked_bwd.cu"),
                                            ("K5B_PHASES", "bigru_masked_bwd.cu")])
 def test_phase_splits_name_kernels_of_their_source(phases, source):
@@ -291,4 +292,5 @@ def test_the_profile_dir_check_tells_the_step_kernels_apart():
                          ("bigru_shared_bwd.cu", "bwd_chain_kernel")):
         assert name in _kernels_of(source), (source, name)
     with open(os.path.join(_build.CSRC, "gru_cluster.cuh")) as f:
-        assert "template <int C, int NB, bool POOL, bool TRAIN, bool ROWS = false>\n__global__" in f.read()
+        assert ("template <int C, int NB, bool POOL, bool TRAIN, bool ROWS = false, typename TS = float>\n"
+                "__global__") in f.read()

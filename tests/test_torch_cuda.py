@@ -404,6 +404,189 @@ def test_k2_k3_reject_what_they_do_not_take(dev, kernel, fault):
 
 
 # ---------------------------------------------------------------------------
+# K1, K2 and K3 on bf16 streams (compute_dtype=bfloat16)
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+
+
+def assert_bf16_close(got, ref, ref32):
+    """The bf16 bounds: ``got`` (the kernel at bf16) within a quarter of the
+    plain version's bf16-vs-f32 gap of the plain bf16 result, by relative
+    Frobenius distance, and within 4 bf16 ulps of the largest element
+    (2^-6 max|ref|)."""
+    g, r, r32 = got.double(), ref.double(), ref32.double()
+    assert g.shape == r.shape and got.dtype == ref.dtype
+    gap = ((r - r32).norm() / r32.norm().clamp_min(1e-30)).item()
+    dist = ((g - r).norm() / r.norm().clamp_min(1e-30)).item()
+    assert dist <= 0.25 * gap, (dist, gap)
+    assert (g - r).abs().max().item() <= 2.0**-6 * r.abs().max().item()
+
+
+def bf16_case(seed, dims, T, B, H, dev):
+    """K1's inputs with bf16 parts, and the same parts in f32 (exact)."""
+    params, parts = k1_inputs(seed, dims, T, B, H, dev)
+    parts16 = [p.to(BF16) for p in parts]
+    return params, parts16, [p.float() for p in parts16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(1, 25), (16, 400), (16, 25), (64, 100), (300, 21)])
+@pytest.mark.parametrize("pool,method", POOLS)
+@pytest.mark.parametrize("dims", [(60,), (128, 128)], ids=["parts1", "parts2"])
+def test_bf16_k1_matches_plain(dev, dims, pool, method, B, T):
+    """K1's bf16 entry against the plain bf16 version; bf16 outputs."""
+    params, parts, parts32 = bf16_case(20, dims, T, B, 128, dev)
+    before = bigru_shared.launches
+    got = bigru_shared(params, parts, pool=pool, pool_method=method)[:2]
+    torch.cuda.synchronize()
+    assert bigru_shared.launches == before + 1
+    ref = bigru_shared_reference(params, parts, pool=pool, pool_method=method)
+    ref32 = bigru_shared_reference(params, parts32, pool=pool, pool_method=method)
+    for g, r, r32 in zip(got, ref, ref32):
+        assert g.dtype == BF16
+        assert_bf16_close(g, r, r32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(1, 25), (16, 400), (64, 200), (64, 25), (300, 21)])
+@pytest.mark.parametrize("dims", [(60,), (128, 128)], ids=["parts1", "parts2"])
+def test_bf16_k2_matches_plain(dev, dims, B, T):
+    """K2's bf16 entry: h_prev and the pooled outputs, bf16, and the dropout
+    zero pattern equal to the plain version's."""
+    params, parts, parts32 = bf16_case(21, dims, T, B, 128, dev)
+    for pool, p in ((2, 0.5), (2, 0.0), (1, 0.5)):
+        before = bigru_trainpool.launches
+        got = bigru_trainpool(params, parts, pool=pool, drop_p=p, seed=99 + B)
+        torch.cuda.synchronize()
+        assert bigru_trainpool.launches == before + 1
+        ref = bigru_trainpool_reference(params, parts, pool=pool, drop_p=p, seed=99 + B)
+        ref32 = bigru_trainpool_reference(params, parts32, pool=pool, drop_p=p, seed=99 + B)
+        for g, r, r32 in zip(got, ref, ref32):
+            assert g.dtype == BF16
+            assert_bf16_close(g, r, r32)
+        for g, r in zip(got[2:], ref[2:]):
+            assert_same_zeros(g.float(), r.float())
+
+
+def _bf16_bwd_case(seed, dims, T, B, H, dev, fused):
+    """K3's inputs at bf16 (the residuals of the plain bf16 forward, bf16
+    cotangents), and the same in f32."""
+    params, parts, parts32 = bf16_case(seed, dims, T, B, H, dev)
+    rng = np.random.default_rng(seed + 1)
+    kw = {"pool": 2, "drop_p": 0.5, "seed": seed} if fused else {}
+    if fused:
+        hp_f, hp_b = bigru_trainpool_reference(params, parts, **kw)[:2]
+        To = -(-T // 2)
+    else:
+        o_f, o_b = bigru_shared_reference(params, parts)
+        hp_f = torch.cat([torch.zeros_like(o_f[:1]), o_f[:-1]])
+        hp_b = torch.cat([o_b[1:], torch.zeros_like(o_b[:1])])
+        To = T
+    dy = [torch.from_numpy(rng.standard_normal((To, B, H)).astype(np.float32)).to(dev).to(BF16)
+          for _ in range(2)]
+    return params, parts, parts32, hp_f, hp_b, dy, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(1, 25), (16, 400), (64, 200), (64, 25), (300, 21)])
+@pytest.mark.parametrize("dims", [(60,), (128, 128)], ids=["parts1", "parts2"])
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "plain"])
+def test_bf16_k3_matches_plain(dev, dims, B, T, fused):
+    """K3's bf16 entry: bf16 dX, f32 weight and bias gradients, against the
+    plain bf16 version, the yardstick the plain version on f32 copies of
+    the same inputs."""
+    params, parts, parts32, hp_f, hp_b, dy, kw = _bf16_bwd_case(22, dims, T, B, 128, dev, fused)
+    before = bigru_shared_bwd.launches
+    dxs, grads = bigru_shared_bwd(params, parts, hp_f, hp_b, *dy, **kw)
+    torch.cuda.synchronize()
+    assert bigru_shared_bwd.launches == before + 1
+    rdxs, rgrads = bigru_shared_bwd_reference(params, parts, hp_f, hp_b, *dy, **kw)
+    f32 = [t.float() for t in (hp_f, hp_b, *dy)]
+    r32dxs, r32grads = bigru_shared_bwd_reference(params, parts32, *f32, **kw)
+    for g, r, r32 in zip(dxs, rdxs, r32dxs):
+        assert g.dtype == BF16
+        assert_bf16_close(g, r, r32)
+    for d in grads:
+        for n in grads[d]:
+            assert grads[d][n].dtype == torch.float32
+            assert_bf16_close(grads[d][n], rgrads[d][n], r32grads[d][n])
+
+
+@pytest.mark.cuda
+def test_bf16_k3_repeats_bit_for_bit(dev):
+    """K3 at bf16 sums its weight gradients in a fixed order too."""
+    params, parts, _, hp_f, hp_b, dy, kw = _bf16_bwd_case(23, (128, 128), 200, 64, 128, dev, True)
+    a = bigru_shared_bwd(params, parts, hp_f, hp_b, *dy, **kw)
+    b = bigru_shared_bwd(params, parts, hp_f, hp_b, *dy, **kw)
+    for x, y in zip(a[0], b[0]):
+        assert torch.equal(x, y)
+    for d in a[1]:
+        for n in a[1][d]:
+            assert torch.equal(a[1][d][n], b[1][d][n]), (d, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["mixed_parts", "bf16_weight", "f32_hp", "f32_dy", "rowstack"])
+def test_bf16_kernels_refuse_mixed_dtypes(dev, fault):
+    """bf16 streams take f32 weights, and every stream of a call one dtype;
+    K6 takes f32 only. Nothing launches."""
+    params, parts, _, hp_f, hp_b, dy, kw = _bf16_bwd_case(24, (8, 8), 9, 2, 8, dev, True)
+    counts = (bigru_shared.launches, bigru_shared.launches_rowstack, bigru_trainpool.launches,
+              bigru_shared_bwd.launches)
+    with pytest.raises(TypeError):
+        if fault == "mixed_parts":
+            bigru_shared(params, [parts[0], parts[1].float()])
+        elif fault == "bf16_weight":
+            params["fwd"]["weight_hh"] = params["fwd"]["weight_hh"].to(BF16)
+            bigru_trainpool(params, parts, **kw)
+        elif fault == "rowstack":
+            bigru_shared_fwd(params, parts, layout="rowstack")
+        else:
+            hp_f, dy[0] = (hp_f.float(), dy[0]) if fault == "f32_hp" else (hp_f, dy[0].float())
+            bigru_shared_bwd(params, parts, hp_f, hp_b, *dy, **kw)
+    torch.cuda.synchronize()
+    assert (bigru_shared.launches, bigru_shared.launches_rowstack, bigru_trainpool.launches,
+            bigru_shared_bwd.launches) == counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kwargs", [{"train": True}, {"train": True, "pool": 2, "drop_p": 0.5, "seed": 3},
+                                    {"pool": 2}])
+def test_bf16_layer_gradients_through_the_functions(dev, kwargs):
+    """bf16 parts through the autograd Functions: bf16 outputs, a bf16
+    gradient into the parts and f32 ones into the weights, equal to the
+    wrappers' plain versions on the same card within the bf16 bounds."""
+    T, B, H, dims = 37, 5, 128, (128, 128)
+    params, parts, parts32 = bf16_case(25, dims, T, B, H, dev)
+    outs = {}
+    for name, ps in (("card", parts), ("plain", parts), ("f32", parts32)):
+        tp, tx = _leaves(params, ps)
+        if name == "card":
+            out = bigru_shared(tp, tx, **kwargs)[:2]
+        else:
+            cpu = [x.detach().cpu().requires_grad_() for x in tx]
+            cp = {d: {n: t.detach().cpu().requires_grad_() for n, t in tp[d].items()} for d in tp}
+            tp, tx = cp, cpu
+            out = bigru_shared(tp, tx, **kwargs)[:2]
+        rng = np.random.default_rng(26)
+        cot = [torch.from_numpy(rng.standard_normal(tuple(o.shape)).astype(np.float32)).to(BF16)
+               .to(o.device, o.dtype) for o in out]  # the same values at either dtype
+        torch.autograd.backward(out, cot)
+        outs[name] = ([o.detach().cpu() for o in out], [x.grad.cpu() for x in tx],
+                      [tp[d][n].grad.cpu() for d in tp for n in tp[d]])
+    for o in outs["card"][0]:
+        assert o.dtype == BF16
+    for g in outs["card"][1]:
+        assert g.dtype == BF16
+    for g in outs["card"][2]:
+        assert g.dtype == torch.float32
+    for k in range(3):
+        for g, r, r32 in zip(outs["card"][k], outs["plain"][k], outs["f32"][k]):
+            assert_bf16_close(g, r, r32)
+
+
+# ---------------------------------------------------------------------------
 # K4f: the length-masked bi-GRU forward
 # ---------------------------------------------------------------------------
 

@@ -1,4 +1,5 @@
-"""The PyTorch port decodes, serves and trains (both heads, and a unidirectional model), pre-trains,
+"""The PyTorch port decodes, serves and trains (both heads, a unidirectional model, and at
+``compute_dtype=bfloat16``), pre-trains,
 saves and reloads, and runs its CLI's training legs without jax, pandas or any ``tpu_slu`` module;
 its data-parallel and profiling modules import none of them either.
 
@@ -50,6 +51,12 @@ try:
         loader = [batch]
     acc, loss = Trainer(model, config).train(Data())
     assert np.isfinite(loss)
+    # the same step at compute_dtype=bfloat16 (K1, K2 and K3 on bf16 streams)
+    config.compute_dtype = "bfloat16"
+    trainer = Trainer(model, config)
+    acc, loss = trainer.train(Data())
+    bf16 = [str(trainer.compute_dtype), bool(np.isfinite(loss))]
+    config.compute_dtype = "float32"
     # the flagship's unidirectional model (K5f and K5b on a card): a decode and a train step
     from tpu_slu_torch.models.flagship import TRAIN_CFG, UNIDIRECTIONAL, flagship_model
     uni = flagship_model("cpu", **UNIDIRECTIONAL).decode_intents(wav[:8000])[0]
@@ -98,7 +105,7 @@ finally:
     shutil.rmtree(tmp)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pandas", "tpu_slu"))
 print(json.dumps({"decoded": decoded, "served": served,
-                  "want": [case["action"], case["object"], case["location"]], "s2s": s2s, "uni": uni,
+                  "want": [case["action"], case["object"], case["location"]], "s2s": s2s, "uni": uni, "bf16": bf16,
                   "cli_files": cli_files, "cli_decode": cli_decode, "forbidden": loaded}))
 """
 
@@ -114,6 +121,7 @@ def test_port_imports_neither_jax_nor_pandas():
     assert result["decoded"] == result["served"] == result["want"]
     assert result["s2s"][0] == result["s2s"][1]
     assert result["uni"] == [3, True]
+    assert result["bf16"] == ["torch.bfloat16", True]
     assert result["cli_files"] == {
         "pretraining": ["log.csv", "model_state.npz", "phonemes.txt", "trainer_state.npz", "words.txt"],
         "training": ["log.csv", "model_state.npz", "trainer_state.npz", "vocab.json"]}

@@ -7,7 +7,7 @@ K8's launch plans.
     python3 tools/torch_cluster_ab.py [--k1-batches 1 2 4 8 12 16 64]
         [--k2-batches 16 64] [--k4f-batches 1 8 64] [--k4b-batches 8 64]
         [--k5b-batches 64] [--parent DIR] [--k8-plans 1 16 128 8:16000 ...]
-        [--k8-launch]
+        [--k8-launch] [--bf16]
         [--k7-sizes] [--k7-variants base skip_gi skip_gh no_kv no_cache ...]
 
 ``--k1-batches``, ``--k2-batches``, ``--k4f-batches``: the kernel's
@@ -28,14 +28,15 @@ wrapper, the library swapped in), K4b at the seq2seq encoder layer (B =
 entry point's arguments; this tree's on ``frontend_plan``'s plan; by CUDA
 graph replays of one launch and, amortized, of 10 launches, beside one
 cuDNN f32 conv alone on the same inputs), each output held against its
-plain version; K4b and K5b also by phase (``chip_smoke.device_split``
-over ``K4B_PHASES``), in the same turns. ``--k8-plans``: K8 alone at the
-flagship front end at each shape, ``B`` (4 s) or ``B:T`` (T samples), on
+plain version; K3, K4b and K5b also by phase (``chip_smoke.device_split``
+over ``K3_PHASES`` and ``K4B_PHASES``), in the same turns. ``--k8-plans``:
+K8 alone at the flagship front end at each shape, ``B`` (4 s) or ``B:T`` (T samples), on
 every plan ``frontend_plans`` admits, each timed by replays of 10
 launches and held against the plain version, ranked by time beside the
 model's cost and the plan ``frontend_plan`` picks, and the fastest plan of
 two families alone (the whole list in ``build/k8_plans_B<B>_T<T>.txt``).
 ``--k8-launch``: what a graph replay of one call measures (``k8_launch``).
+``--bf16``: K1, K2 and K3 at bf16 beside f32 by device time (``bf16_ab``).
 ``--k7-sizes``: the cluster size K7 takes at each batch at the flagship
 decoder, W = 4, 4 s. ``--k7-variants``:
 each variant is ``tpu_slu_torch/csrc/beam_decode.cu`` with one text edit
@@ -317,7 +318,7 @@ def parent_ab(parent: str, dev, card: str) -> None:
         def launch(lib):
             args = (x.data_ptr(), filt.data_ptr(), out.data_ptr(), *shape)
             st = torch.cuda.current_stream(dev).cuda_stream
-            if lib is libs["parent"]:  # the parent's entry point takes no plan
+            if len(lib.tsl_sinc_frontend_fwd.argtypes) == len(args) + 1:  # an entry point before the plan
                 return lib.tsl_sinc_frontend_fwd(*args, st)
             return lib.tsl_sinc_frontend_fwd(*args, *(plan[k] for k in PLAN_ARGS), st)
 
@@ -375,11 +376,40 @@ def parent_ab(parent: str, dev, card: str) -> None:
             print(f"[parent] {what}{', ' + how if how else ''}, in turns: parent {turns['parent'][0]:.5f}, this "
                   f"{turns['this'][0]:.5f}, {turns['this'][1]:.5f}, parent {turns['parent'][1]:.5f} ms{per_step}"
                   f"{extra} on {card}")
-        if what.startswith(("K4b", "K5b")):  # by phase, each tree's chain under its own name
-            phases = {**cs.K4B_PHASES, "chain": (cs.K4B_PHASES["chain"], PARENT_CHAIN)}
+        if what.startswith(("K3", "K4b", "K5b")):  # by phase, each tree's chain under its own name
+            phases = (cs.K3_PHASES if what.startswith("K3") else
+                      {**cs.K4B_PHASES, "chain": (cs.K4B_PHASES["chain"], PARENT_CHAIN)})
             for k in ("parent", "this", "this", "parent"):
                 split = cs.device_split(run(libs[k]), phases)
                 print(f"[parent] {what} by phase, {k} (profiler, device ms a call): "
+                      + ", ".join(f"{p} {v:.4f}" for p, v in split.items()) + f"; sum {sum(split.values()):.4f}")
+
+
+def bf16_ab(dev, card: str) -> None:
+    """``[bf16]``: K1 (five layers, B = 16), K2 (four, B = 64) and K3 (five,
+    B = 64) at bf16 beside f32 on the same values (``chip_smoke.bf16_layer``,
+    each held against its plain version first), by their device time
+    (profiler) in turns f32, bf16, bf16, f32; K3 also by phase."""
+    import numpy as np
+
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(0)
+    plan = {"K1": (16, [s[:4] for s in cs.FLAGSHIP_LAYERS]), "K2": (64, cs.ENC_SHAPES),
+            "K3": (64, cs.ENC_SHAPES + [cs.INTENT_SHAPE])}
+    for k, (B, shapes) in plan.items():
+        held = [cs.bf16_layer(rng, dev, name, d, n, T, B, (k,)) for name, d, n, T in shapes]
+        calls = {which: [cs.bf16_layer_call(k, h, which) for h in held] for which in ("f32", "bf16")}
+        turns = {"f32": [], "bf16": []}
+        for which in ("f32", "bf16", "bf16", "f32"):
+            turns[which].append(cs.device_ms(lambda fns=calls[which]: [f() for f in fns], reps=5))
+        print(f"[bf16] {k} {len(shapes)} layers B={B}, device time (profiler) in turns: f32 {turns['f32'][0]:.4f}, "
+              f"bf16 {turns['bf16'][0]:.4f}, {turns['bf16'][1]:.4f}, f32 {turns['f32'][1]:.4f} ms on {card}")
+        if k == "K3":
+            for which in ("f32", "bf16", "bf16", "f32"):
+                split = cs.device_split(lambda fns=calls[which]: [f() for f in fns],
+                                        cs.K3_BF16_PHASES if which == "bf16" else cs.K3_PHASES, reps=5)
+                print(f"[bf16] K3 {which} by phase (profiler, device ms a step): "
                       + ", ".join(f"{p} {v:.4f}" for p, v in split.items()) + f"; sum {sum(split.values()):.4f}")
 
 
@@ -391,6 +421,7 @@ def main() -> None:
     ap.add_argument("--k4b-batches", type=int, nargs="*", default=[])
     ap.add_argument("--k5b-batches", type=int, nargs="*", default=[])
     ap.add_argument("--parent", help="a checkout whose kernel library to time against this tree's")
+    ap.add_argument("--bf16", action="store_true", help="K1, K2 and K3 at bf16 beside f32, device time")
     ap.add_argument("--k8-plans", nargs="*", default=[], help="shapes B (4 s) or B:T")
     ap.add_argument("--k8-launch", action="store_true")
     ap.add_argument("--k7-sizes", action="store_true")
@@ -420,6 +451,8 @@ def main() -> None:
                 cs.bwd_cluster_ab(what, dev, card, np.random.default_rng(0), other, tuple(batches))
     if args.parent:
         parent_ab(args.parent, dev, card)
+    if args.bf16:
+        bf16_ab(dev, card)
     if args.k8_plans:
         k8_plans(args.k8_plans, dev, card)
     if args.k8_launch:

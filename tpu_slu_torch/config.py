@@ -253,7 +253,8 @@ def read_config(config_file: str, make_dirs: bool = True) -> Config:
         config.gru_impl = "auto"
     # Extension: compute dtype for the GRU gate streams ("float32" default;
     # "bfloat16" halves the dominant HBM traffic — hidden-state recurrence
-    # and losses stay float32 either way).
+    # and losses stay float32 either way). The port's Trainer reads it
+    # (training/trainer.py compute_dtype_of); any other value is float32.
     try:
         config.compute_dtype = parser.get("training", "compute_dtype")
     except configparser.Error:

@@ -3,9 +3,10 @@
 // bigru_masked_fwd.cu, K4b and K5b bigru_masked_bwd.cu): the logistic
 // sigmoid, the dropout hash (K2's epilogue in gru_cluster.cuh, the gate pass
 // of the backward kernels) and the choice of batch tile; the input
-// projection is the GEMM core's (bigru_gemm.cuh). Everything is f32 with
-// f32 accumulation. Included by each source; the anonymous namespace gives
-// each its own copy.
+// projection is the GEMM core's (bigru_gemm.cuh); the conversions between
+// a stream's storage type (f32, or bf16 at compute_dtype=bfloat16) and the
+// f32 arithmetic. Arithmetic is f32 with f32 accumulation. Included by each
+// source; the anonymous namespace gives each its own copy.
 
 #pragma once
 
@@ -17,6 +18,19 @@
 namespace {
 
 __device__ __forceinline__ float sigmoid_(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// x stored as T: itself, or rounded to the nearest even bf16
+template <typename T>
+__device__ __forceinline__ T from_f32(float x) {
+  if constexpr (std::is_same_v<T, float>) {
+    return x;
+  } else {
+    return __float2bfloat16_rn(x);
+  }
+}
 
 // Dropout keep decision of the fused train path at natural (t, b, h):
 // `_keep_mask` of tpu_slu/ops/pallas_gru.py, bit for bit (two rounds of a

@@ -33,7 +33,22 @@
 //   * one launch serves several problems (both directions, gi and gh of
 //     phase 1, the parts of dW), so small layers still fill the SMs; dW's row
 //     chunks are as many as give every SM two CTAs.
-// f32 operands and f32 FMAs throughout, no TF32.
+// f32 FMAs throughout, no TF32.
+//
+// bf16 storage (compute_dtype=bfloat16, K1, K2 and K3 only): an operand
+// may be read as bf16 (the parts, h_prev), or as f32 rounded to bf16 on the
+// way (the f32 master weights W_ih and W_hh, and dX's dgi, as the TPU
+// kernel rounds them before its products), and dX may be written as bf16.
+// Such an operand is not copied by cp.async: each thread loads its elements
+// of the slice two slices ahead into registers, widens them to f32 (exact),
+// multiplies the current slice, then stores them into the ring's f32 tile,
+// so the loads are in flight during the products and the inner loop is the
+// f32 one. A bf16 x bf16 product is exact in f32, so this is a bf16 MMA
+// with f32 accumulation up to the order of the sums. The f32 products keep
+// their own kernel, `gemm_kernel`, the code it was; the bf16 ones run
+// `gemm_kernel_mixed`, its copy with the register path (one template for
+// both moved the f32 instantiations' registers on an H100: gi/gh and dW
+// spilled, and K4b's and K5b's core phases ran 4-7% slower).
 //
 // Included by bigru_common.cuh; the anonymous namespace gives each source
 // its own copy.
@@ -43,7 +58,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cuda_bf16.h>
+
 #include <algorithm>
+#include <type_traits>
 
 #include "cp_async.cuh"
 
@@ -55,6 +73,36 @@ constexpr int kPad = 4;         // floats of padding after each k row of a tile
 constexpr int kMaxProblems = 4;
 constexpr int kLayK = 0;        // element (r, k) at p[r * ld + k]
 constexpr int kLayR = 1;        // element (r, k) at p[k * ld + r]
+// how the core reads an operand
+constexpr int kOpF32 = 0;       // f32, by cp.async
+constexpr int kOpBF16 = 1;      // bf16, through registers, widened to f32
+constexpr int kOpRound = 2;     // f32 rounded to bf16 (round to nearest even), through registers
+
+template <int MODE>
+struct OpElem {
+  using T = float;
+};
+template <>
+struct OpElem<kOpBF16> {
+  using T = __nv_bfloat16;
+};
+
+// T in a parameter that takes no part in deducing T (a null pointer may be passed there).
+template <typename T>
+struct Same {
+  using type = T;
+};
+template <typename T>
+using same_t = typename Same<T>::type;
+
+// The mode that reads an operand stored as T as it is.
+template <typename T>
+constexpr int kOpOf = std::is_same_v<T, __nv_bfloat16> ? kOpBF16 : kOpF32;
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 
 // One product C (M x N) = sum over up to two k segments of A_s (M x K_s)
 // times B_s (K_s x N), A's element (m, k) and B's (n, k) read in the layouts
@@ -66,6 +114,8 @@ constexpr int kLayR = 1;        // element (r, k) at p[k * ld + r]
 //   db (non-null): db[m] = the sum of A(m, k) over the reduction.
 // With the launch's kchunk > 0 the (single) segment is cut into row chunks of
 // kchunk along k; chunk c writes out, out2 and db shifted by c * chunk_stride.
+// An operand or output stored as bf16 (gemm_kernel_mixed's modes) is passed
+// as its address in the float* field; bias, fold and db are f32.
 struct GemmProblem {
   const float* a0;
   const float* b0;
@@ -134,6 +184,83 @@ __device__ __forceinline__ void store4(const GemmProblem& P, size_t row, size_t 
       P.out[shift + row * P.ldo + c] = v[j];
     } else {
       P.out2[shift + row * P.ldo2 + (c - ns)] = v[j];
+    }
+  }
+}
+
+// The R x kBK slice of an operand read in mode MODE (kOpBF16 or kOpRound)
+// into registers as f32, in load_slice's order of elements; zeros past rmax
+// and kmax.
+template <int L, int R, int NT, int MODE>
+__device__ __forceinline__ void fetch_slice(float (&v)[R * kBK / NT],
+                                            const typename OpElem<MODE>::T* p, int ld, int r0,
+                                            int rmax, int k0, int kmax, int tid) {
+  constexpr int kPer = R * kBK / NT;
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int e = tid + q * NT;
+    const int r = L == kLayK ? e / kBK : e % R;
+    const int kk = L == kLayK ? e % kBK : e / R;
+    const int gr = r0 + r, gk = k0 + kk;
+    float x = 0.0f;
+    if (gr < rmax && gk < kmax) {
+      const size_t i = L == kLayK ? (size_t)gr * ld + gk : (size_t)gk * ld + gr;
+      if constexpr (MODE == kOpBF16) {
+        x = __bfloat162float(p[i]);
+      } else {
+        x = bf16_round(p[i]);
+      }
+    }
+    v[q] = x;
+  }
+}
+
+// fetch_slice's registers into the slice's stage, laid out as load_slice lays it.
+template <int L, int R, int NT>
+__device__ __forceinline__ void put_slice(float* s, const float (&v)[R * kBK / NT], int tid) {
+  constexpr int kPer = R * kBK / NT;
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int e = tid + q * NT;
+    const int r = L == kLayK ? e / kBK : e % R;
+    const int kk = L == kLayK ? e % kBK : e / R;
+    s[kk * (R + kPad) + r] = v[q];
+  }
+}
+
+// store4 for bf16 outputs (gemm_kernel_mixed's OBF): v rounded to the
+// nearest even bf16, out and out2 holding bf16 addresses.
+__device__ __forceinline__ void store4_bf16(const GemmProblem& P, size_t row, size_t shift, int n,
+                                            const float (&v)[4]) {
+  const int N = P.N, ns = P.n_split;
+  __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(P.out);
+  __nv_bfloat16* out2 = reinterpret_cast<__nv_bfloat16*>(P.out2);
+  __nv_bfloat16* q;
+  int end;
+  if (n >= ns) {
+    q = out2 + shift + row * P.ldo2 + (n - ns);
+    end = N - n;
+  } else {
+    q = out + shift + row * P.ldo + n;
+    end = min(N, ns) - n;
+  }
+  if (end >= 4 && (reinterpret_cast<uintptr_t>(q) & 7) == 0) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 w;
+    w.x = *reinterpret_cast<const unsigned*>(&lo);
+    w.y = *reinterpret_cast<const unsigned*>(&hi);
+    *reinterpret_cast<uint2*>(q) = w;
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = n + j;
+    if (c >= N) break;
+    if (c < ns) {
+      out[shift + row * P.ldo + c] = __float2bfloat16_rn(v[j]);
+    } else {
+      out2[shift + row * P.ldo2 + (c - ns)] = __float2bfloat16_rn(v[j]);
     }
   }
 }
@@ -277,6 +404,173 @@ __global__ void __launch_bounds__((BM / 8) * (BN / TN), 2)
   }
 }
 
+// gemm_kernel with the operands read in modes MA and MB (kOpF32 by
+// cp.async; kOpBF16 and kOpRound through registers, fetch_slice two slices
+// ahead, put_slice after the current slice's products) and bf16 outputs
+// with OBF; the tiles, the ring and the epilogue are gemm_kernel's.
+template <int LA, int LB, int BM, int BN, int TN, int MA, int MB, bool OBF>
+__global__ void __launch_bounds__((BM / 8) * (BN / TN), 2)
+    gemm_kernel_mixed(const __grid_constant__ GemmArgs args) {
+  using TA = typename OpElem<MA>::T;
+  using TB = typename OpElem<MB>::T;
+  constexpr bool kRegA = MA != kOpF32, kRegB = MB != kOpF32;
+  constexpr int NT = (BM / 8) * (BN / TN);
+  constexpr int WX = BN / TN / 8;       // warps across a row of the tile
+  constexpr int HW = BN / (TN / 4);     // columns between a thread's float4 blocks
+  constexpr int LDA = BM + kPad, LDB = BN + kPad;
+  constexpr int kGroups = NT / BM;  // db: threads per row of A
+  __shared__ __align__(16) float As[kStages][kBK * LDA];
+  __shared__ __align__(16) float Bs[kStages][kBK * LDB];
+  __shared__ float db_s[kGroups][BM];
+
+  const GemmProblem& P = args.p[blockIdx.z % args.nprob];
+  const int chunk = blockIdx.z / args.nprob;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  if (m0 >= P.M || n0 >= P.N) return;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int ty = (warp / WX) * 4 + lane / 8;
+  const int tx = (warp % WX) * 8 + lane % 8;
+
+  // the segments, cut to this CTA's chunk of the reduction
+  const TA* a0 = reinterpret_cast<const TA*>(P.a0);
+  const TB* b0 = reinterpret_cast<const TB*>(P.b0);
+  int K0 = P.K0;
+  const int K1 = args.kchunk ? 0 : P.K1;
+  size_t shift = 0;
+  if (args.kchunk) {
+    const int kb = chunk * args.kchunk;
+    K0 = min(args.kchunk, P.K0 - kb);
+    a0 += LA == kLayK ? (size_t)kb : (size_t)kb * P.lda0;
+    b0 += LB == kLayK ? (size_t)kb : (size_t)kb * P.ldb0;
+    shift = (size_t)chunk * P.chunk_stride;
+  }
+  const int nt0 = (K0 + kBK - 1) / kBK;
+  const int ntiles = nt0 + (K1 + kBK - 1) / kBK;
+  const bool take_db = P.db != nullptr && blockIdx.x == 0;
+
+  // slice q: an f32 operand by cp.async into its stage; a register operand
+  // into ra or rb, stored into the stage by land(q) once the current slice's
+  // products are done
+  float ra[kRegA ? BM * kBK / NT : 1], rb[kRegB ? BN * kBK / NT : 1];
+  auto issue = [&](int q) {
+    const bool s1 = q >= nt0;
+    const int k0 = (s1 ? q - nt0 : q) * kBK;
+    const int st = q % kStages;
+    const TA* a = s1 ? reinterpret_cast<const TA*>(P.a1) : a0;
+    const TB* b = s1 ? reinterpret_cast<const TB*>(P.b1) : b0;
+    if constexpr (kRegA) {
+      fetch_slice<LA, BM, NT, MA>(ra, a, s1 ? P.lda1 : P.lda0, m0, P.M, k0, s1 ? K1 : K0, tid);
+    } else {
+      load_slice<LA, BM, NT>(As[st], a, s1 ? P.lda1 : P.lda0, m0, P.M, k0, s1 ? K1 : K0, tid);
+    }
+    if constexpr (kRegB) {
+      fetch_slice<LB, BN, NT, MB>(rb, b, s1 ? P.ldb1 : P.ldb0, n0, P.N, k0, s1 ? K1 : K0, tid);
+    } else {
+      load_slice<LB, BN, NT>(Bs[st], b, s1 ? P.ldb1 : P.ldb0, n0, P.N, k0, s1 ? K1 : K0, tid);
+    }
+  };
+  auto land = [&](int q) {
+    if constexpr (kRegA) put_slice<LA, BM, NT>(As[q % kStages], ra, tid);
+    if constexpr (kRegB) put_slice<LB, BN, NT>(Bs[q % kStages], rb, tid);
+  };
+
+  float acc[8][TN];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+  float dbacc = 0.0f;
+
+#pragma unroll
+  for (int q = 0; q < kStages - 1; ++q) {
+    if (q < ntiles) {
+      issue(q);
+      land(q);
+    }
+    cp_async_commit();
+  }
+  for (int q = 0; q < ntiles; ++q) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // slice q has landed; slice q - 1's stage is free
+    if (q + kStages - 1 < ntiles) issue(q + kStages - 1);
+    cp_async_commit();
+    const float* as = As[q % kStages];
+    const float* bs = Bs[q % kStages];
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float4 x0 = *reinterpret_cast<const float4*>(as + kk * LDA + ty * 4);
+      const float4 x1 = *reinterpret_cast<const float4*>(as + kk * LDA + BM / 2 + ty * 4);
+      const float a[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+      float b[TN];
+#pragma unroll
+      for (int h = 0; h < TN / 4; ++h) {
+        const float4 y = *reinterpret_cast<const float4*>(bs + kk * LDB + h * HW + tx * 4);
+        b[4 * h] = y.x;
+        b[4 * h + 1] = y.y;
+        b[4 * h + 2] = y.z;
+        b[4 * h + 3] = y.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (take_db) {  // thread (g, r) sums rows kk = g, g + kGroups, ... of A's column r
+#pragma unroll
+      for (int kk = tid / BM; kk < kBK; kk += kGroups) dbacc += as[kk * LDA + tid % BM];
+    }
+    // slice q + 2's stage was last read in iteration q - 1, before this
+    // iteration's barrier
+    if constexpr (kRegA || kRegB) {
+      if (q + kStages - 1 < ntiles) land(q + kStages - 1);
+    }
+  }
+  cp_async_wait<0>();
+
+  if (take_db) {
+    db_s[tid / BM][tid % BM] = dbacc;
+    __syncthreads();
+    if (tid < BM && m0 + tid < P.M) {
+      float s = 0.0f;
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) s += db_s[g][tid];
+      P.db[shift + m0 + tid] = s;
+    }
+  }
+
+  const int T = P.rs_B > 0 ? P.M / P.rs_B : 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i < 4 ? ty * 4 + i : BM / 2 + ty * 4 + i - 4);
+    if (m >= P.M) continue;
+    size_t row = m;
+    if (P.rs_B > 0) {
+      const int t = m / P.rs_B, b = m % P.rs_B;
+      row = (size_t)(P.rs_dir ? T - 1 - t : t) * 2 * P.rs_B + (size_t)P.rs_dir * P.rs_B + b;
+    }
+#pragma unroll
+    for (int h = 0; h < TN / 4; ++h) {
+      const int n = n0 + h * HW + tx * 4;
+      if (n >= P.N) continue;
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = n + j;
+        v[j] = acc[i][h * 4 + j];
+        if (P.bias != nullptr && c < P.N) {
+          v[j] += P.bias[c];
+          if (c < P.fold_n) v[j] += P.fold[c];
+        }
+      }
+      if constexpr (OBF) {
+        store4_bf16(P, row, shift, n, v);
+      } else {
+        store4(P, row, shift, n, v);
+      }
+    }
+  }
+}
+
 inline cudaError_t sm_count(int* sms) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -285,8 +579,9 @@ inline cudaError_t sm_count(int* sms) {
 }
 
 // Launches the core over args' problems and `nchunks` row chunks, with the
-// 128 x BN tile (BN 64 or 128).
-template <int LA, int LB>
+// 128 x BN tile (BN 64 or 128): gemm_kernel, or gemm_kernel_mixed with the
+// operands read in modes MA and MB and bf16 outputs with OBF.
+template <int LA, int LB, int MA = kOpF32, int MB = kOpF32, bool OBF = false>
 cudaError_t launch_gemm(const GemmArgs& args, int nchunks, int bn, cudaStream_t st) {
   int M = 0, N = 0;
   for (int i = 0; i < args.nprob; ++i) {
@@ -295,10 +590,17 @@ cudaError_t launch_gemm(const GemmArgs& args, int nchunks, int bn, cudaStream_t 
   }
   if (M == 0 || N == 0) return cudaSuccess;
   const unsigned z = (unsigned)(args.nprob * nchunks);
-  if (bn == 64) {
-    gemm_kernel<LA, LB, 128, 64, 4><<<dim3((N + 63) / 64, (M + 127) / 128, z), 256, 0, st>>>(args);
+  const dim3 g64((N + 63) / 64, (M + 127) / 128, z), g128((N + 127) / 128, (M + 127) / 128, z);
+  if constexpr (MA == kOpF32 && MB == kOpF32 && !OBF) {
+    if (bn == 64) {
+      gemm_kernel<LA, LB, 128, 64, 4><<<g64, 256, 0, st>>>(args);
+    } else {
+      gemm_kernel<LA, LB, 128, 128, 8><<<g128, 256, 0, st>>>(args);
+    }
+  } else if (bn == 64) {
+    gemm_kernel_mixed<LA, LB, 128, 64, 4, MA, MB, OBF><<<g64, 256, 0, st>>>(args);
   } else {
-    gemm_kernel<LA, LB, 128, 128, 8><<<dim3((N + 127) / 128, (M + 127) / 128, z), 256, 0, st>>>(args);
+    gemm_kernel_mixed<LA, LB, 128, 128, 8, MA, MB, OBF><<<g128, 256, 0, st>>>(args);
   }
   return cudaGetLastError();
 }
@@ -315,18 +617,20 @@ inline int pick_bn(const GemmArgs& args, int sms) {
   return N <= 64 || wide < sms ? 64 : 128;
 }
 
-// gi (or gh) of one direction: [x1 | x2] (M x d1, M x d2) times w^T (w: N x
-// (d1 + d2), torch layout) plus b, into out (M x N).
-inline GemmProblem proj_problem(const float* x1, int d1, const float* x2, int d2, const float* w,
+// gi (or gh) of one direction: [x1 | x2] (M x d1, M x d2; f32 or bf16)
+// times w^T (w: N x (d1 + d2), torch layout, f32) plus b, into out (M x N,
+// f32).
+template <typename T>
+inline GemmProblem proj_problem(const T* x1, int d1, const same_t<T>* x2, int d2, const float* w,
                                 const float* b, float* out, int M, int N) {
   GemmProblem P = {};
-  P.a0 = x1;
+  P.a0 = reinterpret_cast<const float*>(x1);
   P.lda0 = d1;
   P.b0 = w;
   P.ldb0 = d1 + d2;
   P.K0 = d1;
   if (d2 > 0) {
-    P.a1 = x2;
+    P.a1 = reinterpret_cast<const float*>(x2);
     P.lda1 = d2;
     P.b1 = w + d1;
     P.ldb1 = d1 + d2;
@@ -341,16 +645,22 @@ inline GemmProblem proj_problem(const float* x1, int d1, const float* x2, int d2
   return P;
 }
 
+// The projections of args, their x (or h_prev) operands stored as T: f32,
+// or bf16 with the f32 weights rounded to bf16 as they are read.
+template <typename T = float>
 inline cudaError_t launch_proj(const GemmArgs& args, cudaStream_t st) {
   int sms = 0;
   cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
-  return launch_gemm<kLayK, kLayK>(args, 1, pick_bn(args, sms), st);
+  constexpr bool kBF = kOpOf<T> == kOpBF16;
+  return launch_gemm<kLayK, kLayK, kOpOf<T>, kBF ? kOpRound : kOpF32>(args, 1, pick_bn(args, sms),
+                                                                     st);
 }
 
 // gi of both directions (ndir = 2, out (2, M, N)) or of the _f operands
-// alone (ndir = 1).
-inline cudaError_t launch_gi_proj(const float* x1, int d1, const float* x2, int d2,
+// alone (ndir = 1); x f32 or bf16, gi f32.
+template <typename T>
+inline cudaError_t launch_gi_proj(const T* x1, int d1, const same_t<T>* x2, int d2,
                                   const float* w_f, const float* b_f, const float* w_b,
                                   const float* b_b, float* out, int M, int N, int ndir,
                                   cudaStream_t st) {
@@ -358,7 +668,7 @@ inline cudaError_t launch_gi_proj(const float* x1, int d1, const float* x2, int 
   args.nprob = ndir;
   args.p[0] = proj_problem(x1, d1, x2, d2, w_f, b_f, out, M, N);
   if (ndir == 2) args.p[1] = proj_problem(x1, d1, x2, d2, w_b, b_b, out + (size_t)M * N, M, N);
-  return launch_proj(args, st);
+  return launch_proj<T>(args, st);
 }
 
 // The row-stacked projection of K6 over both directions of T x B rows, b_hh's
@@ -414,6 +724,64 @@ inline cudaError_t launch_dx(const float* dgi, const float* wih_f, const float* 
   return launch_gemm<kLayK, kLayR>(args, 1, pick_bn(args, sms), st);
 }
 
+// dX of both directions at bf16, rounded as the TPU kernel rounds it: each
+// direction's dgi (f32, rounded to bf16 as it is read) times its bf16 W_ih
+// into ITS OWN bf16 rows, pair[dir] (M x D), then their sum rounded again
+// (the TPU kernel writes each direction's dX in bf16 and XLA adds the two,
+// pallas_gru.py:1433-1436 and :1536).
+__global__ void dx_pair_sum_kernel(const __nv_bfloat16* __restrict__ pair, int M, int D, int d1,
+                                   __nv_bfloat16* __restrict__ dx1,
+                                   __nv_bfloat16* __restrict__ dx2) {
+  const size_t total = (size_t)M * D;
+  const int d2 = D - d1;
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const __nv_bfloat16 v =
+        __float2bfloat16_rn(__bfloat162float(pair[e]) + __bfloat162float(pair[total + e]));
+    const size_t m = e / D;
+    const int n = (int)(e % D);
+    if (n < d1) {
+      dx1[m * d1 + n] = v;
+    } else {
+      dx2[m * d2 + (n - d1)] = v;
+    }
+  }
+}
+
+// dx (split at d1 into dx1 and dx2, bf16) of the two directions' dgi (2, M,
+// H3, f32) and W_ih (H3 x D, f32), both rounded to bf16 as they are read,
+// through `pair` (2 x M x D bf16).
+inline cudaError_t launch_dx_bf16(const float* dgi, const float* wih_f, const float* wih_b,
+                                  __nv_bfloat16* dx1, int d1,
+                                  __nv_bfloat16* dx2, int d2, __nv_bfloat16* pair, int M, int H3,
+                                  cudaStream_t st) {
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const int D = d1 + d2;
+  GemmArgs args = {};
+  args.nprob = 2;
+  for (int d = 0; d < 2; ++d) {
+    GemmProblem& P = args.p[d];
+    P.a0 = dgi + (size_t)d * M * H3;
+    P.lda0 = H3;
+    P.b0 = d ? wih_b : wih_f;
+    P.ldb0 = D;
+    P.K0 = H3;
+    P.M = M;
+    P.N = D;
+    P.out = reinterpret_cast<float*>(pair + (size_t)d * M * D);
+    P.ldo = D;
+    P.n_split = D;
+  }
+  err = launch_gemm<kLayK, kLayR, kOpRound, kOpRound, true>(args, 1, pick_bn(args, sms), st);
+  if (err != cudaSuccess) return err;
+  const size_t total = (size_t)M * D;
+  const int blocks = (int)std::min<size_t>((total + 255) / 256, (size_t)sms * 8);
+  dx_pair_sum_kernel<<<blocks, 256, 0, st>>>(pair, M, D, d1, dx1, dx2);
+  return cudaGetLastError();
+}
+
 // The split of dW's reduction over M rows for outputs of H3 rows and parts
 // of d1 and d2 columns in ndir directions: the column tile, the row chunk
 // (a multiple of kBK, at least 64 rows) and the number of chunks, as many
@@ -462,13 +830,14 @@ inline long long dw_partial_floats(int H3, int d1, int d2, int M, int ndir, int 
   return (long long)S * dw_slot_floats(H3, d1 + d2, ndir);
 }
 
-// dW (H3, d1 + d2) and db (H3) of each direction: A[dir] (M x H3) summed
-// against X_dir = [x1 | x2] (x*_f for dir 0, x*_b for dir 1) over the M rows,
-// by row chunks into `partial`, then the reduce pass.
-inline cudaError_t weight_grads(const float* A, int H3, const float* x1_f, const float* x2_f,
-                         const float* x1_b, const float* x2_b, int d1, int d2, float* partial,
-                         float* dw_f, float* db_f, float* dw_b, float* db_b, int M, int sms,
-                         cudaStream_t st, int ndir = 2) {
+// dW (H3, d1 + d2) and db (H3) of each direction: A[dir] (M x H3, f32)
+// summed against X_dir = [x1 | x2] (x*_f for dir 0, x*_b for dir 1; f32 or
+// bf16) over the M rows, by row chunks into `partial`, then the reduce pass.
+template <typename T>
+inline cudaError_t weight_grads(const float* A, int H3, const T* x1_f, const same_t<T>* x2_f,
+                                const same_t<T>* x1_b, const same_t<T>* x2_b, int d1, int d2,
+                                float* partial, float* dw_f, float* db_f, float* dw_b,
+                                float* db_b, int M, int sms, cudaStream_t st, int ndir = 2) {
   const int D = d1 + d2;
   int bn = 0, chunk = 0, S = 0;
   dw_plan(H3, d1, d2, M, ndir, sms, &bn, &chunk, &S);
@@ -483,7 +852,8 @@ inline cudaError_t weight_grads(const float* A, int H3, const float* x1_f, const
       GemmProblem& P = args.p[args.nprob++];
       P.a0 = A + (size_t)dir * M * H3;
       P.lda0 = H3;
-      P.b0 = p == 0 ? (dir == 0 ? x1_f : x1_b) : (dir == 0 ? x2_f : x2_b);
+      P.b0 = reinterpret_cast<const float*>(p == 0 ? (dir == 0 ? x1_f : x1_b)
+                                                   : (dir == 0 ? x2_f : x2_b));
       P.ldb0 = dp;
       P.K0 = M;
       P.M = H3;
@@ -495,7 +865,7 @@ inline cudaError_t weight_grads(const float* A, int H3, const float* x1_f, const
       P.chunk_stride = slot;
     }
   }
-  cudaError_t err = launch_gemm<kLayR, kLayR>(args, S, bn, st);
+  cudaError_t err = launch_gemm<kLayR, kLayR, kOpF32, kOpOf<T>>(args, S, bn, st);
   if (err != cudaSuccess) return err;
   const size_t total = (size_t)slot;
   const int blocks = (int)std::min<size_t>((total + 255) / 256, (size_t)sms * 8);

@@ -123,7 +123,7 @@ cudaError_t masked_bwd(const float* x, int D, const long long* lengths, const fl
   err = launch_gi_gh(x, D, nullptr, 0, hp, hp_b, wih_f, bih_f, whh_f, bhh_f, wih_b, bih_b, whh_b,
                      bhh_b, buf_a, buf_b, M, H, NDIR, st);
   if (err != cudaSuccess) return err;
-  bwd_gates_kernel<<<grid_for((size_t)NDIR * M * H, sms), 256, 0, st>>>(
+  bwd_gates_kernel<float><<<grid_for((size_t)NDIR * M * H, sms), 256, 0, st>>>(
       buf_a, buf_b, gates, nullptr, nullptr, nullptr, T, B, H, 1, 0, 0u, kKeepAll, 1.0f, NDIR);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;

@@ -49,6 +49,19 @@
 // from a 3-stage cp.async ring, phase 1's four products (gi and gh of both
 // directions) in one launch, dW split into as many row chunks as give every
 // SM two CTAs, db summed from the tiles already in shared memory.
+//
+// At compute_dtype=bfloat16 (`tsl_bigru_shared_bwd_bf16`) x, h_prev, the
+// cotangents and dX are bf16, the f32 weights are rounded to bf16 as they
+// are read, and the TPU kernel's rounding points (pallas_gru.py:1384-1441)
+// are kept: phase 1 recomputes the gates from bf16 x and h_prev against the
+// rounded weights, and widens the (pooled
+// or full-rate) cotangents to an f32 dY; the chain holds W_hh as bf16 in
+// shared memory (96 KB at H = 128, half the f32 chain's) and rounds dgh to
+// bf16 before each product with it, its dh carry and dgi and dgh f32; dX
+// reads the f32 dgi rounded to bf16, each direction's stored as bf16 and
+// their sum rounded again, as the TPU kernel and XLA do; dW_ih = x^T dgi
+// and dW_hh = h_prev^T dgh take the f32 dgi and dgh, and every weight and
+// bias gradient is f32.
 
 #include "bigru_bwd_common.cuh"
 
@@ -153,20 +166,190 @@ __global__ void bwd_chain_kernel(const float* __restrict__ gates,
   }
 }
 
+// bwd_chain_kernel at bf16 (its own copy, so that the f32 kernel's code
+// stays as it was): h_prev bf16, W_hh rounded to bf16 into shared memory
+// (96 KB at H = 128, half the f32 kernel's), the dgh of the recurrent
+// product rounded to bf16; dY, the dh carry, dgi and dgh f32.
 template <int NB>
-cudaError_t launch_chain(const float* gates, const float* hp_f, const float* hp_b,
-                         const float* dy_f, const float* dy_b, const float* whh_f,
-                         const float* whh_b, float* dgi, float* dgh, int T, int B, int H,
-                         cudaStream_t st) {
-  const size_t smem = sizeof(float) * ((size_t)3 * H * H + (size_t)NB * 3 * H + (size_t)3 * NB * H);
-  cudaError_t err = cudaFuncSetAttribute(bwd_chain_kernel<NB>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+__global__ void bwd_chain_kernel_bf16(const float* __restrict__ gates,
+                                      const __nv_bfloat16* __restrict__ hp_f,
+                                      const __nv_bfloat16* __restrict__ hp_b,
+                                      const float* __restrict__ dy_f, const float* __restrict__ dy_b,
+                                      const float* __restrict__ whh_f,
+                                      const float* __restrict__ whh_b, float* __restrict__ dgi,
+                                      float* __restrict__ dgh, int T, int B, int H) {
+  extern __shared__ __align__(16) unsigned char chain_smem[];
+  const int H3 = 3 * H;
+  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(chain_smem);  // [3H][H], torch layout
+  float* dgh_s = reinterpret_cast<float*>(chain_smem + sizeof(__nv_bfloat16) * H3 * H);  // [NB][3H]
+  float* part_s = dgh_s + NB * H3;  // [3][NB][H]
+
+  const int dir = blockIdx.y;
+  const int b0 = blockIdx.x * NB;
+  const int nb = min(NB, B - b0);
+  const size_t M = (size_t)T * B;
+  const float* __restrict__ whh = dir == 0 ? whh_f : whh_b;
+  const __nv_bfloat16* __restrict__ hp = dir == 0 ? hp_f : hp_b;
+  const float* __restrict__ dy = dir == 0 ? dy_f : dy_b;
+  const float* __restrict__ gd = gates + dir * M * 4 * H;
+  float* __restrict__ dgi_d = dgi + dir * M * H3;
+  float* __restrict__ dgh_d = dgh + dir * M * H3;
+  const int tid = threadIdx.x, nt = blockDim.x;
+
+  for (int e = tid; e < H3 * H; e += nt) w_s[e] = __float2bfloat16_rn(whh[e]);
+  constexpr int kIt = (NB + 2) / 3;
+  float dh[kIt];
+#pragma unroll
+  for (int it = 0; it < kIt; ++it) dh[it] = 0.0f;
+  const int g = tid / H, j = tid % H;
+  __syncthreads();
+
+  for (int s = 0; s < T; ++s) {
+    const int t = dir == 0 ? T - 1 - s : s;
+#pragma unroll
+    for (int it = 0; it < kIt; ++it) {
+      const int e = tid + it * nt;
+      if (e < nb * H) {
+        const int b = e / H, i = e % H;
+        const size_t row = (size_t)t * B + b0 + b;
+        const float* gr = gd + row * 4 * H;
+        const float rfac = gr[i], z = gr[H + i], n = gr[2 * H + i], r = gr[3 * H + i];
+        const float d = dh[it] + dy[row * H + i];
+        const float h_prev = to_f32(hp[row * H + i]);
+        const float dn = d * (1.0f - z) * (1.0f - n * n);
+        const float dz = d * (h_prev - n) * z * (1.0f - z);
+        const float dr = dn * rfac;
+        const float dnr = dn * r;
+        float* o = dgi_d + row * H3;
+        o[i] = dr;
+        o[H + i] = dz;
+        o[2 * H + i] = dn;
+        o = dgh_d + row * H3;
+        o[i] = dr;
+        o[H + i] = dz;
+        o[2 * H + i] = dnr;
+        float* sd = dgh_s + b * H3;  // the recurrent product's operand
+        sd[i] = bf16_round(dr);
+        sd[H + i] = bf16_round(dz);
+        sd[2 * H + i] = bf16_round(dnr);
+        dh[it] = d * z;
+      }
+    }
+    __syncthreads();
+    if (tid < H3) {
+      float acc[NB];
+#pragma unroll
+      for (int b = 0; b < NB; ++b) acc[b] = 0.0f;
+      const __nv_bfloat16* wcol = w_s + (size_t)g * H * H + j;
+      const float* dg = dgh_s + g * H;
+#pragma unroll 4
+      for (int k = 0; k < H; ++k) {
+        const float wv = to_f32(wcol[(size_t)k * H]);
+#pragma unroll
+        for (int b = 0; b < NB; ++b) acc[b] = fmaf(dg[b * H3 + k], wv, acc[b]);
+      }
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        if (b < nb) part_s[(g * NB + b) * H + j] = acc[b];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int it = 0; it < kIt; ++it) {
+      const int e = tid + it * nt;
+      if (e < nb * H) {
+        const int b = e / H, i = e % H;
+        dh[it] += part_s[b * H + i] + part_s[(NB + b) * H + i] + part_s[(2 * NB + b) * H + i];
+      }
+    }
+  }
+}
+
+template <int NB, typename TS>
+cudaError_t launch_chain(const float* gates, const TS* hp_f, const TS* hp_b, const float* dy_f,
+                         const float* dy_b, const float* whh_f, const float* whh_b, float* dgi,
+                         float* dgh, int T, int B, int H, cudaStream_t st) {
+  const size_t smem = sizeof(TS) * (size_t)3 * H * H +
+                      sizeof(float) * ((size_t)NB * 3 * H + (size_t)3 * NB * H);
   const int threads = (3 * H + 31) / 32 * 32;
-  dim3 grid((B + NB - 1) / NB, 2);
-  bwd_chain_kernel<NB><<<grid, threads, smem, st>>>(gates, hp_f, hp_b, dy_f, dy_b, whh_f, whh_b,
-                                                    dgi, dgh, T, B, H);
-  return cudaGetLastError();
+  const dim3 grid((B + NB - 1) / NB, 2);
+  auto run = [&](auto kernel) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, threads, smem, st>>>(gates, hp_f, hp_b, dy_f, dy_b, whh_f, whh_b, dgi, dgh, T,
+                                        B, H);
+    return cudaGetLastError();
+  };
+  if constexpr (std::is_same_v<TS, float>) {
+    return run(bwd_chain_kernel<NB>);
+  } else {
+    return run(bwd_chain_kernel_bf16<NB>);
+  }
+}
+
+// The three phases on streams of type TS (f32, or bf16; see the top).
+template <typename TS>
+cudaError_t shared_bwd(const TS* x1, int d1, const TS* x2, int d2, const TS* hp_f,
+                       const TS* hp_b, const TS* dy_f, const TS* dy_b, const float* wih_f,
+                       const float* bih_f, const float* whh_f, const float* bhh_f,
+                       const float* wih_b, const float* bih_b, const float* whh_b,
+                       const float* bhh_b, TS* dx1, TS* dx2,
+                       float* dwih_f, float* dbih_f, float* dwhh_f, float* dbhh_f,
+                       float* dwih_b, float* dbih_b, float* dwhh_b, float* dbhh_b, float* buf_a,
+                       float* buf_b, float* gates, float* dyx, float* partial, TS* pair, int T,
+                       int B, int H, int pool, int fused, unsigned int seed, unsigned int thresh,
+                       float inv_keep, cudaStream_t st) {
+  constexpr bool kBF = !std::is_same_v<TS, float>;
+  const int M = T * B, H3 = 3 * H;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+
+  // 1. gates (and the expanded cotangent; at bf16 the widened one in plain mode too)
+  err = launch_gi_gh(x1, d1, x2, d2, hp_f, hp_b, wih_f, bih_f, whh_f, bhh_f, wih_b, bih_b, whh_b,
+                     bhh_b, buf_a, buf_b, M, H, 2, st);
+  if (err != cudaSuccess) return err;
+  bwd_gates_kernel<TS><<<grid_for((size_t)2 * M * H, sms), 256, 0, st>>>(
+      buf_a, buf_b, gates, dy_f, dy_b, dyx, T, B, H, pool, fused, seed, thresh, inv_keep, 2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  // 2. the serial dh chain; dgi and dgh overwrite gi and gh
+  const bool widened = fused || kBF;
+  const float* cf = widened ? dyx : reinterpret_cast<const float*>(dy_f);
+  const float* cb = widened ? dyx + (size_t)M * H : reinterpret_cast<const float*>(dy_b);
+  int nb = 8;
+  err = pick_batch_tile(B, &nb);
+  if (err != cudaSuccess) return err;
+  switch (nb) {
+    case 1:
+      err = launch_chain<1>(gates, hp_f, hp_b, cf, cb, whh_f, whh_b, buf_a, buf_b, T, B, H, st);
+      break;
+    case 2:
+      err = launch_chain<2>(gates, hp_f, hp_b, cf, cb, whh_f, whh_b, buf_a, buf_b, T, B, H, st);
+      break;
+    case 4:
+      err = launch_chain<4>(gates, hp_f, hp_b, cf, cb, whh_f, whh_b, buf_a, buf_b, T, B, H, st);
+      break;
+    default:
+      err = launch_chain<8>(gates, hp_f, hp_b, cf, cb, whh_f, whh_b, buf_a, buf_b, T, B, H, st);
+  }
+  if (err != cudaSuccess) return err;
+
+  // 3. products; at bf16 each direction's dX goes through `pair` first
+  if constexpr (kBF) {
+    err = launch_dx_bf16(buf_a, wih_f, wih_b, dx1, d1, dx2, d2, pair, M, H3, st);
+  } else {
+    err = launch_dx(buf_a, wih_f, wih_b, dx1, d1, dx2, d2, M, H3, 2, st);
+  }
+  if (err != cudaSuccess) return err;
+  err = weight_grads(buf_a, H3, x1, x2, x1, x2, d1, d2, partial, dwih_f, dbih_f, dwih_b, dbih_b,
+                     M, sms, st);
+  if (err != cudaSuccess) return err;
+  return weight_grads(buf_b, H3, hp_f, nullptr, hp_b, nullptr, H, 0, partial, dwhh_f, dbhh_f,
+                      dwhh_b, dbhh_b, M, sms, st);
 }
 
 }  // namespace
@@ -208,52 +391,33 @@ int tsl_bigru_shared_bwd(
     float* buf_a, float* buf_b, float* gates, float* dyx, float* partial,
     int T, int B, int H, int pool, int fused, unsigned int seed, unsigned int thresh,
     float inv_keep, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int M = T * B, H3 = 3 * H;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
+  return (int)shared_bwd<float>(x1, d1, x2, d2, hp_f, hp_b, dy_f, dy_b, wih_f, bih_f, whh_f, bhh_f,
+                                wih_b, bih_b, whh_b, bhh_b, dx1, dx2, dwih_f, dbih_f, dwhh_f,
+                                dbhh_f, dwih_b, dbih_b, dwhh_b, dbhh_b, buf_a, buf_b, gates, dyx,
+                                partial, nullptr, T, B, H, pool, fused, seed, thresh, inv_keep,
+                                (cudaStream_t)stream);
+}
 
-  // 1. gates (and the expanded cotangent)
-  err = launch_gi_gh(x1, d1, x2, d2, hp_f, hp_b, wih_f, bih_f, whh_f, bhh_f, wih_b, bih_b, whh_b,
-                     bhh_b, buf_a, buf_b, M, H, 2, st);
-  if (err != cudaSuccess) return (int)err;
-  bwd_gates_kernel<<<grid_for((size_t)2 * M * H, sms), 256, 0, st>>>(
-      buf_a, buf_b, gates, dy_f, dy_b, dyx, T, B, H, pool, fused, seed, thresh, inv_keep, 2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  // 2. the serial dh chain; dgi and dgh overwrite gi and gh
-  const float* cf = fused ? dyx : dy_f;
-  const float* cb = fused ? dyx + (size_t)M * H : dy_b;
-  int nb = 8;
-  err = pick_batch_tile(B, &nb);
-  if (err != cudaSuccess) return (int)err;
-  switch (nb) {
-    case 1:
-      err = launch_chain<1>(gates, hp_f, hp_b, cf, cb, whh_f, whh_b, buf_a, buf_b, T, B, H, st);
-      break;
-    case 2:
-      err = launch_chain<2>(gates, hp_f, hp_b, cf, cb, whh_f, whh_b, buf_a, buf_b, T, B, H, st);
-      break;
-    case 4:
-      err = launch_chain<4>(gates, hp_f, hp_b, cf, cb, whh_f, whh_b, buf_a, buf_b, T, B, H, st);
-      break;
-    default:
-      err = launch_chain<8>(gates, hp_f, hp_b, cf, cb, whh_f, whh_b, buf_a, buf_b, T, B, H, st);
-  }
-  if (err != cudaSuccess) return (int)err;
-
-  // 3. products
-  err = launch_dx(buf_a, wih_f, wih_b, dx1, d1, dx2, d2, M, H3, 2, st);
-  if (err != cudaSuccess) return (int)err;
-  err = weight_grads(buf_a, H3, x1, x2, x1, x2, d1, d2, partial, dwih_f, dbih_f, dwih_b, dbih_b,
-                     M, sms, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)weight_grads(buf_b, H3, hp_f, nullptr, hp_b, nullptr, H, 0, partial, dwhh_f,
-                           dbhh_f, dwhh_b, dbhh_b, M, sms, st);
+// tsl_bigru_shared_bwd on bf16 storage: x1, x2, hp_f, hp_b, dy_f, dy_b, dx1
+// and dx2 are bf16; the weights (rounded to bf16 as they are read), the
+// biases, the weight and bias gradients and the scratch f32. dyx (2*T*B*H floats) is needed in plain
+// mode too: the chain reads the cotangents widened to f32 there; pair
+// (2*T*B*(d1 + d2) bf16) holds each direction's dX before their sum.
+int tsl_bigru_shared_bwd_bf16(
+    const __nv_bfloat16* x1, int d1, const __nv_bfloat16* x2, int d2,
+    const __nv_bfloat16* hp_f, const __nv_bfloat16* hp_b, const __nv_bfloat16* dy_f,
+    const __nv_bfloat16* dy_b, const float* wih_f, const float* bih_f, const float* whh_f,
+    const float* bhh_f, const float* wih_b, const float* bih_b, const float* whh_b,
+    const float* bhh_b, __nv_bfloat16* dx1,
+    __nv_bfloat16* dx2, float* dwih_f, float* dbih_f, float* dwhh_f, float* dbhh_f,
+    float* dwih_b, float* dbih_b, float* dwhh_b, float* dbhh_b, float* buf_a, float* buf_b,
+    float* gates, float* dyx, float* partial, __nv_bfloat16* pair, int T, int B, int H,
+    int pool, int fused, unsigned int seed, unsigned int thresh, float inv_keep, void* stream) {
+  return (int)shared_bwd<__nv_bfloat16>(x1, d1, x2, d2, hp_f, hp_b, dy_f, dy_b, wih_f, bih_f,
+                                        whh_f, bhh_f, wih_b, bih_b, whh_b, bhh_b, dx1, dx2, dwih_f,
+                                        dbih_f, dwhh_f, dbhh_f, dwih_b, dbih_b, dwhh_b, dbhh_b,
+                                        buf_a, buf_b, gates, dyx, partial, pair, T, B, H, pool,
+                                        fused, seed, thresh, inv_keep, (cudaStream_t)stream);
 }
 
 }  // extern "C"

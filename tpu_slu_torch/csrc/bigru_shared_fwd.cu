@@ -43,8 +43,18 @@
 //     one-CTA design it replaced read all of W_hh (192 KB at H = 128) from
 //     shared memory every step behind two CTA barriers, a ~2.6 us step at
 //     B = 16 on 32 of 132 SMs.
-//   * f32 operands and f32 accumulation throughout (no tensor cores).
+//   * f32 arithmetic and accumulation throughout (no tensor cores).
 // H <= 128 (the W_hh slice's registers), H % 4 == 0.
+//
+// At compute_dtype=bfloat16 (`tsl_bigru_shared_fwd_bf16`, the test pass and
+// the intent layer's train forward of a bf16 trainer) the parts and the
+// outputs are bf16, the weights, the biases and the gi scratch f32: the
+// projection reads the bf16 parts and W_ih rounded to bf16 into the GEMM
+// core's f32 tiles (its mixed kernel), and the
+// recurrence is the template's bf16 instantiation, which rounds h to bf16
+// for the recurrent product only and rounds each output once, after the
+// pool (the TPU kernel's points, pallas_gru.py:796-860). The bound is the
+// same serial chain; half the stream bytes.
 //
 // K6, the row-stacked layout (`tsl_bigru_shared_fwd_rs`), replaces the TPU
 // kernel `_mk_shared_fwd_kernel_rs` (tpu_slu/ops/pallas_gru.py:887,
@@ -148,6 +158,21 @@ int tsl_bigru_shared_fwd_rs(
   return (int)bigru_forward_rs(x1, d1, x2, d2, wih_f, bih_f, whh_f, bhh_f, wih_b, bih_b, whh_b,
                                bhh_b, gi_scratch, out_f, out_b, T, B, H, pool, pool_max,
                                (cudaStream_t)stream);
+}
+
+// tsl_bigru_shared_fwd on bf16 storage: x1, x2, out_f and out_b are bf16;
+// the weights (rounded to bf16 as they are read), the biases and gi_scratch
+// f32, as there. The outputs are h rounded to bf16 once, after the pool of
+// the f32 h.
+int tsl_bigru_shared_fwd_bf16(
+    const __nv_bfloat16* x1, int d1, const __nv_bfloat16* x2, int d2,
+    const float* wih_f, const float* bih_f, const float* whh_f, const float* bhh_f,
+    const float* wih_b, const float* bih_b, const float* whh_b, const float* bhh_b,
+    float* gi_scratch, __nv_bfloat16* out_f, __nv_bfloat16* out_b,
+    int T, int B, int H, int pool, int pool_max, void* stream) {
+  return (int)bigru_cluster_forward<false, __nv_bfloat16>(
+      x1, d1, x2, d2, wih_f, bih_f, whh_f, bhh_f, wih_b, bih_b, whh_b, bhh_b, gi_scratch, out_f,
+      out_b, nullptr, nullptr, T, B, H, pool, pool_max, 0u, kKeepAll, 1.0f, (cudaStream_t)stream);
 }
 
 }  // extern "C"

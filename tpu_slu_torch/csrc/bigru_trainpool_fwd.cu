@@ -36,6 +36,13 @@
 // unit) stores h_prev, drops and pools in registers, and writes the
 // output at the pooled rate. C and the batch tile follow the batch as
 // K1's (`gru_cluster_size(B, 2)`). f32 throughout; H <= 128, H % 4 == 0.
+//
+// At compute_dtype=bfloat16 (`tsl_bigru_trainpool_fwd_bf16`) the parts,
+// h_prev and the pooled outputs are bf16, as the TPU kernel stores them
+// (pallas_gru.py:1196-1230), and the f32 weights are rounded to bf16 as
+// they are read: the template's bf16 instantiation keeps
+// the f32 carry, rounds h for the recurrent product, stores h_prev rounded,
+// and drops and pools the f32 h before it rounds the pooled value once.
 
 #include "bigru_common.cuh"
 #include "gru_cluster.cuh"
@@ -59,6 +66,21 @@ int tsl_bigru_trainpool_fwd(
                                           bih_b, whh_b, bhh_b, gi_scratch, out_f, out_b, hp_f,
                                           hp_b, T, B, H, pool, 0, seed, thresh, inv_keep,
                                           (cudaStream_t)stream);
+}
+
+// tsl_bigru_trainpool_fwd on bf16 storage: x1, x2, hp_f, hp_b, out_f and
+// out_b are bf16; the weights (rounded to bf16 as they are read), the
+// biases and gi_scratch f32.
+int tsl_bigru_trainpool_fwd_bf16(
+    const __nv_bfloat16* x1, int d1, const __nv_bfloat16* x2, int d2,
+    const float* wih_f, const float* bih_f, const float* whh_f, const float* bhh_f,
+    const float* wih_b, const float* bih_b, const float* whh_b, const float* bhh_b,
+    float* gi_scratch, __nv_bfloat16* hp_f,
+    __nv_bfloat16* hp_b, __nv_bfloat16* out_f, __nv_bfloat16* out_b, int T, int B, int H,
+    int pool, unsigned int seed, unsigned int thresh, float inv_keep, void* stream) {
+  return (int)bigru_cluster_forward<true, __nv_bfloat16>(
+      x1, d1, x2, d2, wih_f, bih_f, whh_f, bhh_f, wih_b, bih_b, whh_b, bhh_b, gi_scratch, out_f,
+      out_b, hp_f, hp_b, T, B, H, pool, 0, seed, thresh, inv_keep, (cudaStream_t)stream);
 }
 
 }  // extern "C"

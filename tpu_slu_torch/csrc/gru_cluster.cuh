@@ -46,7 +46,18 @@
 //     further waves. H <= 128 (the slice's registers are sized for it),
 //     H % 4 == 0.
 // Rows with valid lengths step to the tile's largest length and write zeros
-// at t >= n_b (pool 1: K4f, K5f). f32 operands and accumulation.
+// at t >= n_b (pool 1: K4f, K5f). f32 arithmetic and accumulation.
+//
+// The stream type TS (K1 and K2 at compute_dtype=bfloat16: bf16, as the TPU
+// kernels round at pallas_gru.py:796-829 and :1196-1230): W_hh's slice is
+// rounded to bf16 as it is read into its registers (kept as f32 words, so
+// the matvec is the f32 one); gi stays an f32
+// scratch; each lane keeps its f32 carry h for n + z (h - n), and the h it
+// sends to the cluster for the next step's product is rounded to bf16 (the
+// values stay f32 words, so the exchange and the inner loop are the f32
+// ones); outputs and h_prev are stored rounded once, the pool (and K2's
+// dropout) taken on the f32 h first. The f32 instantiations keep the
+// registers and the times they had (PERF.md section 6).
 
 #pragma once
 
@@ -70,28 +81,36 @@ constexpr int kRing = 4;        // steps of gi in flight a lane
 // layouts differ only in the strides. 128 bytes: a kernel parameter past
 // that made nvcc recompute the step loop's 64-bit addresses every step
 // (K1 and K5f ~2% slower on an H100), so the train epilogue's fields live
-// in ClusterTrainRec, the parameter of the TRAIN instantiations alone.
-struct ClusterRec {
+// in ClusterTrainRec, the parameter of the TRAIN instantiations alone. TS is
+// the streams' storage type (f32, or bf16): its pointers take the f32 ones'
+// places, so neither struct grows.
+template <typename TS>
+struct ClusterRecT {
   const float* gi;           // x W_ih^T + b_ih: 3H floats a (row, frame)
   long long gi_dir, gi_b, gi_t;
   const long long* lengths;  // (B,) valid frames, clamped to [0, T]; null: T in every row
   const float* whh[2];       // (3H, H), torch layout
   const float* bhh[2];       // (3H)
-  float* out[2];             // H floats a (row, pooled frame)
+  TS* out[2];                // H values a (row, pooled frame)
   long long out_b, out_t;
   int T, B, H;
   int pool, pool_max;        // ceil pool of `pool` frames, avg or max; 1 with lengths
 };
+using ClusterRec = ClusterRecT<float>;
+static_assert(sizeof(ClusterRec) == 128 && sizeof(ClusterRecT<__nv_bfloat16>) == 128,
+              "the recurrence's parameter stays within 128 bytes");
 
-struct ClusterTrainRec : ClusterRec {
-  float* hp[2];              // H floats a (row, frame), the h each step started from
+template <typename TS>
+struct ClusterTrainRecT : ClusterRecT<TS> {
+  TS* hp[2];                 // H values a (row, frame), the h each step started from
   long long hp_b, hp_t;
   uint32_t seed, thresh;     // the dropout hash's seed, round((1 - p) 2^24)
   float inv_keep;            // 1 / (1 - p)
 };
+using ClusterTrainRec = ClusterTrainRecT<float>;
 
-template <bool TRAIN>
-using ClusterArgs = std::conditional_t<TRAIN, ClusterTrainRec, ClusterRec>;
+template <bool TRAIN, typename TS = float>
+using ClusterArgs = std::conditional_t<TRAIN, ClusterTrainRecT<TS>, ClusterRecT<TS>>;
 
 // CTA c = rank in its cluster of C owns units [c H/C, (c+1) H/C) of batch
 // tile (cluster % tiles) of direction (cluster / tiles), NB rows; thread u * 8
@@ -113,9 +132,12 @@ using ClusterArgs = std::conditional_t<TRAIN, ClusterTrainRec, ClusterRec>;
 // z columns of the recurrent product take no b_hh (folded into gi); only
 // the n column adds b_hh's, inside r * (W_hn h + b_hn). The flag keeps
 // ClusterRec at its 128 bytes.
-template <int C, int NB, bool POOL, bool TRAIN, bool ROWS = false>
+// TS: the streams' storage type (f32; bf16 for K1 and K2 at
+// compute_dtype=bfloat16, W_hh then rounded to bf16 in the registers).
+template <int C, int NB, bool POOL, bool TRAIN, bool ROWS = false, typename TS = float>
 __global__ void __launch_bounds__(kGruMaxH / C * kUnitLanes)
-    gru_cluster_kernel(const ClusterArgs<TRAIN> a) {
+    gru_cluster_kernel(const ClusterArgs<TRAIN, TS> a) {
+  constexpr bool kBF = !std::is_same_v<TS, float>;
   static_assert(NB <= kUnitLanes, "one lane of a unit per batch row");
   constexpr int kJ = kGruMaxH / 4 / kUnitLanes;  // float4 chunks of a row a lane holds
   __shared__ __align__(16) float h_s[2][NB][kGruMaxH];
@@ -148,6 +170,10 @@ __global__ void __launch_bounds__(kGruMaxH / C * kUnitLanes)
       w[g][i] = unit && j < H4
                     ? reinterpret_cast<const float4*>(whh + (size_t)(g * H + col) * H)[j]
                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if constexpr (kBF) {  // the bf16 product's operand
+        w[g][i] = make_float4(bf16_round(w[g][i].x), bf16_round(w[g][i].y), bf16_round(w[g][i].z),
+                              bf16_round(w[g][i].w));
+      }
     }
   }
   for (int e = tid; e < 2 * NB * kGruMaxH; e += blockDim.x) (&h_s[0][0][0])[e] = 0.0f;
@@ -181,8 +207,8 @@ __global__ void __launch_bounds__(kGruMaxH / C * kUnitLanes)
   const int n_mine = mine ? n_s[lane] : 0;
   const int row = b0 + (mine ? lane : 0);
   const float* gib = a.gi + dir * a.gi_dir + row * a.gi_b + col;
-  float* ob = (dir == 0 ? a.out[0] : a.out[1]) + row * a.out_b + col;
-  float* hpb = nullptr;
+  TS* ob = (dir == 0 ? a.out[0] : a.out[1]) + row * a.out_b + col;
+  TS* hpb = nullptr;
   if constexpr (TRAIN) hpb = (dir == 0 ? a.hp[0] : a.hp[1]) + row * a.hp_b + col;
   auto frame = [&](int s) { return dir == 0 ? s : n_mine - 1 - s; };  // of step s < n_mine
   auto fetch = [&](int s) {  // step s's gi into its ring slot; zeros past the row's length
@@ -261,13 +287,14 @@ __global__ void __launch_bounds__(kGruMaxH / C * kUnitLanes)
         const float ng = tanhf(gs[2 * gstride] + rg * gh[2]);
         v = ng + zg * (hprev - ng);
         t = frame(s);
-        if constexpr (TRAIN) hpb[t * a.hp_t] = hprev;
+        if constexpr (TRAIN) hpb[t * a.hp_t] = from_f32<TS>(hprev);
         hprev = v;
       }
       if (s + 1 < nmax) {  // every row sends every step, so a step's byte count is fixed
         const unsigned off = (unsigned)(((p ^ 1) * NB + lane) * kGruMaxH + col) * 4u;
+        const float hs = kBF ? bf16_round(hprev) : hprev;  // the product's operand
 #pragma unroll
-        for (int r = 0; r < C; ++r) st_async(peer_h[r] + off, hprev, peer_bar[r] + 8 * (p ^ 1));
+        for (int r = 0; r < C; ++r) st_async(peer_h[r] + off, hs, peer_bar[r] + 8 * (p ^ 1));
       }
       if constexpr (TRAIN) {
         if (a.thresh < kKeepAll)
@@ -279,7 +306,7 @@ __global__ void __launch_bounds__(kGruMaxH / C * kUnitLanes)
         const bool last = dir == 0 ? r == cnt - 1 : r == 0;
         const float acc_v = first ? v : (a.pool_max ? fmaxf(pacc, v) : pacc + v);
         if (last) {
-          ob[wi * a.out_t] = a.pool_max ? acc_v : acc_v / (float)cnt;
+          ob[wi * a.out_t] = from_f32<TS>(a.pool_max ? acc_v : acc_v / (float)cnt);
         } else {
           pacc = acc_v;
         }
@@ -293,7 +320,7 @@ __global__ void __launch_bounds__(kGruMaxH / C * kUnitLanes)
           r = cnt - 1;
         }
       } else {
-        ob[t * a.out_t] = v;  // zeros past the row's length
+        ob[t * a.out_t] = from_f32<TS>(v);  // zeros past the row's length
       }
     }
     fetch(s + kRing - 1);
@@ -301,17 +328,17 @@ __global__ void __launch_bounds__(kGruMaxH / C * kUnitLanes)
   cp_async_wait<0>();
   // frames [nmax, T) of every row of the tile, this CTA's units (lengths only)
   if (unit) {
-    float* od = dir == 0 ? a.out[0] : a.out[1];
+    TS* od = dir == 0 ? a.out[0] : a.out[1];
     for (int e = lane; e < nb * (T - nmax); e += kUnitLanes) {
       const int b = e / (T - nmax), t = nmax + e % (T - nmax);
-      od[(b0 + b) * a.out_b + t * a.out_t + col] = 0.0f;
+      od[(b0 + b) * a.out_b + t * a.out_t + col] = from_f32<TS>(0.0f);
     }
   }
   cluster.sync();  // no CTA leaves while a peer may still address its shared memory
 }
 
-template <int C, int NB, bool POOL, bool TRAIN, bool ROWS>
-cudaError_t launch_gru_cluster(const ClusterArgs<TRAIN>& a, int ndir, cudaStream_t st) {
+template <int C, int NB, bool POOL, bool TRAIN, bool ROWS, typename TS>
+cudaError_t launch_gru_cluster(const ClusterArgs<TRAIN, TS>& a, int ndir, cudaStream_t st) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(ndir * ((a.B + NB - 1) / NB) * C));
   cfg.blockDim = dim3((unsigned)((a.H / C * kUnitLanes + 31) / 32 * 32));
@@ -323,7 +350,7 @@ cudaError_t launch_gru_cluster(const ClusterArgs<TRAIN>& a, int ndir, cudaStream
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, gru_cluster_kernel<C, NB, POOL, TRAIN, ROWS>, a);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, gru_cluster_kernel<C, NB, POOL, TRAIN, ROWS, TS>, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -347,28 +374,28 @@ inline cudaError_t gru_cluster_size(int B, int ndir, int* C) {
 
 // The recurrence on clusters of C CTAs at the batch tile pick_batch_tile
 // chooses for ndir * C CTAs a tile; POOL: a.pool > 1; TRAIN: the epilogue of
-// the train forward (no lengths); ROWS: K6's row-stacked gi (no lengths).
-// The rule above takes C = 4 only where that tile is one row, and C = 2 at
-// any tile.
-template <bool POOL, bool TRAIN, bool ROWS = false>
-cudaError_t gru_cluster_rec(const ClusterArgs<TRAIN>& a, int ndir, int C, cudaStream_t st) {
+// the train forward (no lengths); ROWS: K6's row-stacked gi (no lengths); TS
+// the streams' type. The rule above takes C = 4 only where that tile is one
+// row, and C = 2 at any tile.
+template <bool POOL, bool TRAIN, bool ROWS = false, typename TS = float>
+cudaError_t gru_cluster_rec(const ClusterArgs<TRAIN, TS>& a, int ndir, int C, cudaStream_t st) {
   if (a.H % 4 != 0 || a.H > kGruMaxH || (ndir != 1 && ndir != 2) || POOL != (a.pool > 1) ||
       (POOL && a.lengths != nullptr) || ((TRAIN || ROWS) && a.lengths != nullptr) || a.pool < 1)
     return cudaErrorInvalidValue;
   int nb = 8;
   cudaError_t err = pick_batch_tile(a.B, &nb, ndir * C);
   if (err != cudaSuccess) return err;
-  if (C == 4) return nb == 1 ? launch_gru_cluster<4, 1, POOL, TRAIN, ROWS>(a, ndir, st) : cudaErrorInvalidValue;
+  if (C == 4) return nb == 1 ? launch_gru_cluster<4, 1, POOL, TRAIN, ROWS, TS>(a, ndir, st) : cudaErrorInvalidValue;
   if (C != 2) return cudaErrorInvalidValue;
   switch (nb) {
     case 1:
-      return launch_gru_cluster<2, 1, POOL, TRAIN, ROWS>(a, ndir, st);
+      return launch_gru_cluster<2, 1, POOL, TRAIN, ROWS, TS>(a, ndir, st);
     case 2:
-      return launch_gru_cluster<2, 2, POOL, TRAIN, ROWS>(a, ndir, st);
+      return launch_gru_cluster<2, 2, POOL, TRAIN, ROWS, TS>(a, ndir, st);
     case 4:
-      return launch_gru_cluster<2, 4, POOL, TRAIN, ROWS>(a, ndir, st);
+      return launch_gru_cluster<2, 4, POOL, TRAIN, ROWS, TS>(a, ndir, st);
     default:
-      return launch_gru_cluster<2, 8, POOL, TRAIN, ROWS>(a, ndir, st);
+      return launch_gru_cluster<2, 8, POOL, TRAIN, ROWS, TS>(a, ndir, st);
   }
 }
 
@@ -378,22 +405,25 @@ cudaError_t gru_cluster_rec(const ClusterArgs<TRAIN>& a, int ndir, int C, cudaSt
 // directions' clusters in one grid, on clusters of the size
 // gru_cluster_size(B, 2) picks. Outputs (ceil(T/pool), B, H) a direction;
 // TRAIN: hp_f and hp_b (T, B, H) and the dropout (seed, thresh, inv_keep)
-// as ClusterRec's; else they are unused.
-template <bool TRAIN>
-cudaError_t bigru_cluster_forward(const float* x1, int d1, const float* x2, int d2,
-                                  const float* wih_f, const float* bih_f, const float* whh_f,
-                                  const float* bhh_f, const float* wih_b, const float* bih_b,
-                                  const float* whh_b, const float* bhh_b, float* gi,
-                                  float* out_f, float* out_b, float* hp_f, float* hp_b, int T,
-                                  int B, int H, int pool, int pool_max, uint32_t seed,
-                                  uint32_t thresh, float inv_keep, cudaStream_t st) {
+// as ClusterRec's; else they are unused. TS: the parts' and the outputs'
+// type (f32, or bf16: the f32 weights are then rounded to bf16 as they are
+// read); the weights, the biases and gi are f32.
+template <bool TRAIN, typename TS = float>
+cudaError_t bigru_cluster_forward(const TS* x1, int d1, const TS* x2, int d2, const float* wih_f,
+                                  const float* bih_f, const float* whh_f, const float* bhh_f,
+                                  const float* wih_b, const float* bih_b, const float* whh_b,
+                                  const float* bhh_b, float* gi, TS* out_f, TS* out_b,
+                                  same_t<TS>* hp_f, same_t<TS>* hp_b, int T, int B, int H, int pool,
+                                  int pool_max,
+                                  uint32_t seed, uint32_t thresh, float inv_keep,
+                                  cudaStream_t st) {
   if (H % 4 != 0 || H > kGruMaxH) return cudaErrorInvalidValue;
   int C = 4;
   cudaError_t err = gru_cluster_size(B, 2, &C);
   if (err != cudaSuccess) return err;
   err = launch_gi_proj(x1, d1, x2, d2, wih_f, bih_f, wih_b, bih_b, gi, T * B, 3 * H, 2, st);
   if (err != cudaSuccess) return err;
-  ClusterArgs<TRAIN> a = {};
+  ClusterArgs<TRAIN, TS> a = {};
   a.gi = gi;
   a.gi_dir = (long long)T * B * 3 * H;
   a.gi_b = 3 * H;
@@ -420,8 +450,8 @@ cudaError_t bigru_cluster_forward(const float* x1, int d1, const float* x2, int 
   a.H = H;
   a.pool = pool;
   a.pool_max = pool_max;
-  return pool > 1 ? gru_cluster_rec<true, TRAIN>(a, 2, C, st)
-                  : gru_cluster_rec<false, TRAIN>(a, 2, C, st);
+  return pool > 1 ? gru_cluster_rec<true, TRAIN, false, TS>(a, 2, C, st)
+                  : gru_cluster_rec<false, TRAIN, false, TS>(a, 2, C, st);
 }
 
 }  // namespace

@@ -15,6 +15,14 @@ the layer (``ops/bigru_shared.py``). A unidirectional GRU layer (a config's
 ``*_rnn_bidirectional=False``) takes and returns batch-major (B, T, C)
 (``ops/gru1.py``); its dropout and downsample run after it, as in JAX.
 
+``compute_dtype=torch.bfloat16`` (a trainer's ``compute_dtype=bfloat16``)
+casts each bidirectional GRU layer's input streams to bf16, as JAX's
+``_apply_stack`` does on the TPU's Pallas path (``encoder.py:361-362``):
+the layers then run K1, K2 and K3 on bf16 streams, the front end stays f32,
+and the heads widen their input to their weights' dtype, where JAX
+promotes. Unidirectional layers and the length-exact branch take no
+``compute_dtype`` (:data:`BF16_UNPORTED`).
+
 Two routes of the exact-shape eval path are settings of
 :class:`PretrainedModel`, passed down to :func:`apply_stack` by its
 callers: ``frontend`` (``"fused"``: the sinc conv, |.|, max pool and
@@ -63,6 +71,11 @@ FRONTENDS = ("fused", "composed")
 # K1's
 DEFAULT_FRONTEND = "fused"
 DEFAULT_GRU_LAYOUT = "split"
+# what compute_dtype=bfloat16 does not reach yet: the layers that run K4f/K4b
+# and K5f/K5b (their kernels take f32 only)
+BF16_UNPORTED = ("compute_dtype=bfloat16 is ported for bidirectional GRU layers on the fixed-slot and ASR "
+                 "trainers only; the seq2seq encoder (K4f/K4b) and unidirectional layers (K5f/K5b) at "
+                 "bf16 are ROADMAP Queue 1 item 7")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -318,9 +331,11 @@ def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None) -> tor
     return torch.where(keep.to(x.device), x / (1.0 - p), 0.0)
 
 
-def _gru_block(layer, tail, out, *, train: bool, generator, layout: str):
+def _gru_block(layer, tail, out, *, train: bool, generator, layout: str,
+               compute_dtype: torch.dtype | None = None):
     """One bi-GRU block ([gru] + ``tail``, the trailing [select, dropout,
     downsample] when present) over part streams; returns the next parts.
+    ``compute_dtype`` casts the input streams first (JAX ``encoder.py:361``).
 
     Eval: a ceil avg/max downsample fuses into the layer (K1). Train: a ceil
     avg downsample and the block's dropout fuse into the layer (K2 forward,
@@ -329,6 +344,8 @@ def _gru_block(layer, tail, out, *, train: bool, generator, layout: str):
     returns full-rate streams (K1, K3) and the dropout (a Bernoulli mask from
     ``generator``) and the downsample follow it.
     """
+    if compute_dtype is not None:
+        out = PartsTM(p.to(compute_dtype) for p in out)
     drop_p, method, factor = 0.0, "none", 1
     if tail:
         drop_p = tail[1].h[0]
@@ -426,7 +443,8 @@ def _fuses_frontend(spec: LayerSpec, tail) -> bool:
 
 def apply_stack(layers: nn.ModuleList, specs, out, *, train: bool = False,
                 generator: torch.Generator | None = None, n: torch.Tensor | None = None,
-                frontend: str = DEFAULT_FRONTEND, gru_layout: str = DEFAULT_GRU_LAYOUT):
+                frontend: str = DEFAULT_FRONTEND, gru_layout: str = DEFAULT_GRU_LAYOUT,
+                compute_dtype: torch.dtype | None = None):
     """Run a LayerSpec stack. Conv specs take (B, C, T); a bidirectional GRU
     takes time-major parts (or (B, T, C), which it turns time-major); a
     unidirectional GRU and the rest of the RNN specs take (B, T, C), parts
@@ -442,9 +460,15 @@ def apply_stack(layers: nn.ModuleList, specs, out, *, train: bool = False,
     [abs, pool, act, dropout] after it as one K8 call (dropout is a no-op in
     eval), where JAX's gate allows; ``gru_layout`` is every bidirectional
     layer's ``bigru_shared`` layout. The length-exact branch and training
-    keep the composed front end, as in JAX."""
+    keep the composed front end, as in JAX.
+
+    ``compute_dtype`` (None or ``torch.bfloat16``) casts every bidirectional
+    layer's input streams to it; the other specs keep their dtypes. It
+    raises with ``n`` or a unidirectional layer (:data:`BF16_UNPORTED`)."""
     if frontend not in FRONTENDS:
         raise ValueError(f"frontend must be one of {FRONTENDS}, got {frontend!r}")
+    if compute_dtype is not None and (n is not None or any(s.kind == "gru" and not s.h[2] for s in specs)):
+        raise ValueError(BF16_UNPORTED)
     if n is not None:
         return _apply_stack_masked(layers, specs, out, n, train=train, generator=generator)
     specs = list(specs)
@@ -463,7 +487,8 @@ def apply_stack(layers: nn.ModuleList, specs, out, *, train: bool = False,
                 idx += 3
             else:
                 tail = []
-            out = _gru_block(layer, tail, out, train=train, generator=generator, layout=gru_layout)
+            out = _gru_block(layer, tail, out, train=train, generator=generator, layout=gru_layout,
+                             compute_dtype=compute_dtype)
             continue
         if isinstance(out, PartsTM):
             out = parts_to_btc(out)
@@ -511,19 +536,23 @@ def _btc(out) -> torch.Tensor:
 
 def encoder_phoneme_features(encoder: "PretrainedModel", x: torch.Tensor, *, train: bool = False,
                              generator: torch.Generator | None = None,
-                             lengths: torch.Tensor | None = None) -> torch.Tensor:
+                             lengths: torch.Tensor | None = None,
+                             compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """(B, T) waveform -> (B, T/phone_ds, phoneme_feat_dim) phoneme-rate
-    features; ``train`` and ``lengths`` as :func:`encoder_features`."""
+    features; ``train``, ``lengths`` and ``compute_dtype`` as
+    :func:`encoder_features`."""
     return _btc(apply_stack(encoder.phoneme_layers, encoder.arch.phoneme_layers, x[:, None, :],
-                            train=train, generator=generator, n=lengths, **encoder.routes()))
+                            train=train, generator=generator, n=lengths, compute_dtype=compute_dtype,
+                            **encoder.routes()))
 
 
 def encoder_features(encoder: "PretrainedModel", x: torch.Tensor, *, train: bool = False,
                      generator: torch.Generator | None = None,
-                     lengths: torch.Tensor | None = None) -> torch.Tensor:
+                     lengths: torch.Tensor | None = None,
+                     compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """(B, T) waveform -> (B, T/word_ds, word_feat_dim) word-rate features
-    (reference ``PretrainedModel.compute_features``); ``train`` as
-    :func:`apply_stack`.
+    (reference ``PretrainedModel.compute_features``); ``train`` and
+    ``compute_dtype`` as :func:`apply_stack` (at bf16 the features are bf16).
 
     ``lengths`` (B,) int64 sample counts select the length-exact path: row
     b's features equal, frame for frame, those of the example alone at
@@ -531,10 +560,10 @@ def encoder_features(encoder: "PretrainedModel", x: torch.Tensor, *, train: bool
     """
     arch = encoder.arch
     out = apply_stack(encoder.phoneme_layers, arch.phoneme_layers, x[:, None, :], train=train,
-                      generator=generator, n=lengths, **encoder.routes())
+                      generator=generator, n=lengths, compute_dtype=compute_dtype, **encoder.routes())
     n = None if lengths is None else frames_through(arch.phoneme_layers, lengths)
     return _btc(apply_stack(encoder.word_layers, arch.word_layers, out, train=train, generator=generator,
-                            n=n, **encoder.routes()))
+                            n=n, compute_dtype=compute_dtype, **encoder.routes()))
 
 
 def encoder_posteriors(encoder: "PretrainedModel", x: torch.Tensor, *,
@@ -575,7 +604,8 @@ def masked_frame_ce(logits: torch.Tensor, y: torch.Tensor, weights: torch.Tensor
 
 def encoder_loss(encoder: "PretrainedModel", x: torch.Tensor, y_phoneme: torch.Tensor,
                  y_word: torch.Tensor, *, train: bool = False, generator: torch.Generator | None = None,
-                 weights: torch.Tensor | None = None, denoms: tuple[float, float] | None = None):
+                 weights: torch.Tensor | None = None, denoms: tuple[float, float] | None = None,
+                 compute_dtype: torch.dtype | None = None):
     """ASR pre-training losses (JAX ``encoder_loss``, reference
     ``PretrainedModel.forward``): (phoneme_loss, word_loss, phoneme_acc,
     word_acc). ``y_phoneme`` (B, t_p) and ``y_word`` (B, t_w) are frame labels
@@ -584,22 +614,26 @@ def encoder_loss(encoder: "PretrainedModel", x: torch.Tensor, y_phoneme: torch.T
     valid frames of a data-parallel step's global batch, make the four
     values this batch's shares of the global ones (:func:`masked_frame_ce`).
     At ``pretraining_type == 1`` the word stack does not run and its loss and accuracy are 0. The stacks run
-    unmasked (every row at the batch's T), as JAX's do; ``train`` and
-    ``generator`` as :func:`apply_stack`."""
+    unmasked (every row at the batch's T), as JAX's do; ``train``,
+    ``generator`` and ``compute_dtype`` as :func:`apply_stack`. The heads
+    take their input in their weights' dtype (at bf16 it is widened, where
+    JAX promotes: ``encoder.py:592``, ``:605``), so the losses are f32."""
     arch = encoder.arch
     out = apply_stack(encoder.phoneme_layers, arch.phoneme_layers, x[:, None, :], train=train,
-                      generator=generator, **encoder.routes())
+                      generator=generator, compute_dtype=compute_dtype, **encoder.routes())
     h = _btc(out)
     t = min(h.shape[1], y_phoneme.shape[1])
     dp, dw = (None, None) if denoms is None else denoms
-    phoneme_loss, phoneme_acc = masked_frame_ce(encoder.phoneme_linear(h[:, :t]), y_phoneme[:, :t], weights, dp)
+    lin = encoder.phoneme_linear
+    phoneme_loss, phoneme_acc = masked_frame_ce(lin(h[:, :t].to(lin.weight.dtype)), y_phoneme[:, :t], weights, dp)
     if arch.pretraining_type == 1:
         zero = phoneme_loss.new_zeros(())
         return phoneme_loss, zero, phoneme_acc, zero
     h = _btc(apply_stack(encoder.word_layers, arch.word_layers, out, train=train, generator=generator,
-                         **encoder.routes()))
+                         compute_dtype=compute_dtype, **encoder.routes()))
     t = min(h.shape[1], y_word.shape[1])
-    word_loss, word_acc = masked_frame_ce(encoder.word_linear(h[:, :t]), y_word[:, :t], weights, dw)
+    lin = encoder.word_linear
+    word_loss, word_acc = masked_frame_ce(lin(h[:, :t].to(lin.weight.dtype)), y_word[:, :t], weights, dw)
     return phoneme_loss, word_loss, phoneme_acc, word_acc
 
 

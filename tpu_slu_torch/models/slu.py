@@ -26,6 +26,7 @@ from torch.nn.utils import skip_init
 from tpu_slu_torch.data.loader import WAVE_BUCKET_QUANT, pad_to_bucket
 from tpu_slu_torch.models.convert import params_from_jax, read_npz
 from tpu_slu_torch.models.encoder import (
+    BF16_UNPORTED,
     DEFAULT_FRONTEND,
     DEFAULT_GRU_LAYOUT,
     LayerSpec,
@@ -92,13 +93,16 @@ def intent_logits(layers: nn.ModuleList, arch: IntentArch, feats: torch.Tensor,
     its own length, and the max over time covers its valid frames only,
     their count clipped to [1, T_out] (a batch-fill row stays finite).
     ``gru_layout`` is the bidirectional layers' kernel layout (K1 or K6).
+    bf16 features (a bf16 trainer's) run the head's GRU layers at bf16, as
+    JAX's do by inheritance; the linear takes them in its weight's dtype
+    (f32: where JAX promotes at ``slu.py:101``), so the logits are f32.
     """
     out = apply_stack(layers, arch.layers, feats, train=train, generator=generator, n=n_frames,
                       gru_layout=gru_layout)
     if isinstance(out, PartsTM):
         out = parts_to_btc(out)
     lin = layers[arch.linear_index]
-    out = F.linear(out, lin.weight, lin.bias)
+    out = F.linear(out.to(lin.weight.dtype), lin.weight, lin.bias)
     if n_frames is not None:
         n = torch.clamp(frames_through(arch.layers, n_frames), 1, out.shape[1])
         frame_mask = torch.arange(out.shape[1], device=out.device)[None, :] < n[:, None]
@@ -455,7 +459,8 @@ class Model(nn.Module):
              weights: torch.Tensor | None = None, lengths: torch.Tensor | None = None,
              generator: torch.Generator | None = None,
              y_len: torch.Tensor | None = None,
-             denom: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+             denom: float | None = None,
+             compute_dtype: torch.dtype | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         """(loss, acc) of a batch on the model's device: the JAX Trainer's
         loss (``trainer.py:280-326``), the mean over the examples weighted by
         ``weights`` (B,) (all ones by default); with ``denom`` (the weight
@@ -471,8 +476,15 @@ class Model(nn.Module):
         the steps past ``max(y_len)`` masked when ``y_len`` (B,) is given,
         and an accuracy of 0 (the JAX Trainer's; ``Trainer.test`` adds the
         decode's exact match). Its encoder layer runs unmasked (n = T), as
-        the JAX train path runs it."""
-        feats = encoder_features(self.pretrained_model, x, train=train, generator=generator)
+        the JAX train path runs it.
+
+        ``compute_dtype`` (``torch.bfloat16`` under a bf16 trainer) runs the
+        GRU layers on bf16 streams (:func:`~tpu_slu_torch.models.encoder.apply_stack`);
+        the seq2seq head refuses it (``BF16_UNPORTED``)."""
+        if compute_dtype is not None and self.seq2seq:
+            raise ValueError(BF16_UNPORTED)
+        feats = encoder_features(self.pretrained_model, x, train=train, generator=generator,
+                                 compute_dtype=compute_dtype)
         mask_padding = getattr(self.config, "mask_padding", True) and lengths is not None
         if self.seq2seq:
             enc_mask = (frame_mask_from_lengths(self.encoder_arch, lengths, feats.shape[1])

@@ -50,6 +50,13 @@ _SIGNATURES = {
     "tsl_bigru_shared_bwd": (_I, [_P, _I, _P, _I] + [_P] * 4 + [_P] * 8 + [_P] * 2 + [_P] * 8
                              + [_P] * 5 + [_I] * 5 + [_U, _U, _F, _P]),
     "tsl_bigru_shared_bwd_partial_floats": (ctypes.c_longlong, [_I] * 5),
+    # the same entry points on bf16 streams (compute_dtype=bfloat16): the same arguments, and
+    # K3's dX scratch `pair` after `partial`
+    "tsl_bigru_shared_fwd_bf16": (_I, [_P, _I, _P, _I] + [_P] * 8 + [_P] * 3 + [_I] * 5 + [_P]),
+    "tsl_bigru_trainpool_fwd_bf16": (_I, [_P, _I, _P, _I] + [_P] * 8 + [_P] * 5 + [_I] * 4
+                                     + [_U, _U, _F, _P]),
+    "tsl_bigru_shared_bwd_bf16": (_I, [_P, _I, _P, _I] + [_P] * 4 + [_P] * 8 + [_P] * 2 + [_P] * 8
+                                  + [_P] * 6 + [_I] * 5 + [_U, _U, _F, _P]),
     "tsl_bigru_masked_fwd": (_I, [_P, _I, _P] + [_P] * 8 + [_P] * 2 + [_I] * 3 + [_P]),
     "tsl_bigru_masked_bwd": (_I, [_P, _I, _P, _P, _P] + [_P] * 8 + [_P] * 9 + [_P] * 5 + [_I] * 3
                              + [_P]),

@@ -28,6 +28,20 @@ plain PyTorch version on a CPU tensor, and keeps a count of its launches:
 :func:`bigru_shared` routes a call as the JAX function does, through
 ``torch.autograd.Function`` s whose forward and backward are those wrappers
 whenever a gradient is needed, on either device.
+
+Streams are float32, or bfloat16 (a trainer's ``compute_dtype=bfloat16``):
+K1, K2 and K3 and their plain versions then take bf16 parts with the f32
+master weights, return bf16 streams (h, h_prev, pooled outputs, dX) and f32
+weight gradients, and round where the TPU kernels round at that dtype
+(``pallas_gru.py:796-860``, ``:1196-1230``, ``:1384-1441``): W_ih and W_hh
+are rounded to bf16, each product accumulates in f32, gi and the carry h
+stay f32, h is rounded for the recurrent product only, the backward chain
+rounds dgh before its product with W_hh, and a pooled output is rounded
+once, after the pool (and dropout) of the f32 h. The plain versions do it
+in f32 arithmetic (round to bf16, back to f32, an f32 product: a bf16 x
+bf16 product is exact in f32). On the card the wrapper launches the
+kernels' bf16 entry points, which round the f32 weights as they read them;
+K6 (the row-stacked layout) takes f32 only.
 """
 
 from __future__ import annotations
@@ -45,12 +59,20 @@ _NAMES = ("weight_ih", "bias_ih", "weight_hh", "bias_hh")
 LAYOUTS = ("split", "rowstack")  # K1's gi layout, K6's
 
 
+STREAM_DTYPES = (torch.float32, torch.bfloat16)  # what the kernels take (the plain versions: any float)
+
+
 def _check_args(parts, pool: int, pool_method: str, layout: str = "split") -> tuple:
     parts = tuple(parts)
     if len(parts) not in (1, 2):
         raise ValueError(f"bigru_shared takes 1 or 2 part streams, got {len(parts)}")
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    if any(x.dtype != parts[0].dtype for x in parts):
+        raise TypeError(f"bigru_shared takes parts of one dtype, got {[x.dtype for x in parts]}")
+    if layout == "rowstack" and parts[0].dtype != torch.float32:
+        raise TypeError("the row-stacked layout (K6) takes float32 parts only; bfloat16 runs the split "
+                        "layout (K1)")
     if pool < 1:
         raise ValueError(f"pool must be >= 1, got {pool}")
     if pool_method not in ("avg", "max"):
@@ -82,6 +104,29 @@ def _input_projection(p: dict, parts) -> torch.Tensor:
     return gi
 
 
+def is_bf16(parts) -> bool:
+    """Whether the part streams are bf16 (checked by :func:`_check_args`)."""
+    return parts[0].dtype == torch.bfloat16
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to the nearest even bf16, back in f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def widen(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 tensor in f32 (exact); any other as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def _as_f32(params: dict, parts) -> tuple:
+    """The plain versions' operands at bf16: the parts in f32 (exact), and
+    W_ih and W_hh rounded to bf16 in f32, the biases as they are."""
+    rounded = {d: {n: round_bf16(t) if n.startswith("weight") else t for n, t in params[d].items()}
+               for d in params}
+    return rounded, tuple(x.float() for x in parts)
+
+
 def _shift_hp(h_f: torch.Tensor, h_b: torch.Tensor) -> tuple:
     """Each direction's previous-step h at natural t: h_f[t-1] and h_b[t+1],
     zero where the direction's walk starts."""
@@ -100,15 +145,18 @@ def bigru_shared_reference(params: dict, parts, *, pool: int = 1, pool_method: s
     ``params``: ``{"fwd": d, "bwd": d}`` with ``d`` holding ``weight_ih``
     (3H, D), ``weight_hh`` (3H, H), ``bias_ih`` and ``bias_hh`` (3H,), torch
     layout. Returns ``(h_f, h_b)``, each ``(ceil(T/pool), B, H)``, natural time
-    order.
+    order, of the parts' dtype (bf16: rounded after the pool of the f32 h).
     """
     parts = _check_args(parts, pool, pool_method)
+    dtype, bf = parts[0].dtype, is_bf16(parts)
+    if bf:
+        params, parts = _as_f32(params, parts)
     outs = []
     for name in _DIRS:
         p = params[name]
         h = gru_direction(_input_projection(p, parts), p["weight_hh"], p["bias_hh"],
-                          reverse=name == "bwd")
-        outs.append(downsample(h, pool_method, pool, time_axis=0))
+                          reverse=name == "bwd", round_h=bf)
+        outs.append(downsample(h, pool_method, pool, time_axis=0).to(dtype))
     return outs[0], outs[1]
 
 
@@ -152,15 +200,19 @@ def bigru_trainpool_reference(params: dict, parts, *, pool: int, drop_p: float, 
     ``seed``), then the ceil avg-pool. Returns ``(hp_f, hp_b, pooled_f,
     pooled_b)``: ``hp_*`` (T, B, H) is each direction's previous-step h at
     natural t, zero where its walk starts; ``pooled_*`` is (ceil(T/pool), B, H).
+    All four are of the parts' dtype (bf16: each rounded once, the pooled
+    ones after the dropout and the pool of the f32 h).
     """
     parts = _check_args(parts, pool, "avg")
     _check_drop(drop_p, seed)
-    T, B = parts[0].shape[:2]
+    dtype, bf = parts[0].dtype, is_bf16(parts)
+    if bf:
+        params, parts = _as_f32(params, parts)
     hs = {}
     for name in _DIRS:
         p = params[name]
         hs[name] = gru_direction(_input_projection(p, parts), p["weight_hh"], p["bias_hh"],
-                                 reverse=name == "bwd")
+                                 reverse=name == "bwd", round_h=bf)
     hp_f, hp_b = _shift_hp(hs["fwd"], hs["bwd"])
     pooled = []
     for name in _DIRS:
@@ -168,8 +220,8 @@ def bigru_trainpool_reference(params: dict, parts, *, pool: int, drop_p: float, 
         if drop_p > 0.0:
             keep = keep_mask(seed, _SALTS[name], 0, h.shape, keep_threshold(drop_p), h.device)
             h = torch.where(keep, h * (1.0 / (1.0 - drop_p)), 0.0)
-        pooled.append(downsample(h, "avg", pool, time_axis=0))
-    return hp_f, hp_b, pooled[0], pooled[1]
+        pooled.append(downsample(h, "avg", pool, time_axis=0).to(dtype))
+    return hp_f.to(dtype), hp_b.to(dtype), pooled[0], pooled[1]
 
 
 def expand_pooled_cotangent(dy: torch.Tensor, T: int, *, pool: int, drop_p: float, seed,
@@ -177,7 +229,9 @@ def expand_pooled_cotangent(dy: torch.Tensor, T: int, *, pool: int, drop_p: floa
     """The VJP of K2's dropout + ceil avg-pool: a pooled (ceil(T/pool), B, H)
     cotangent -> the full-rate (T, B, H) one. Divided by each window's
     in-range count, broadcast over the window, cut at T, and masked with the
-    keep mask regenerated from ``seed``."""
+    keep mask regenerated from ``seed``. A bf16 cotangent is widened to f32
+    first: the result is f32."""
+    dy = widen(dy)
     B, H = dy.shape[1:]
     cnt = torch.clamp(T - pool * torch.arange(dy.shape[0], device=dy.device), max=pool)
     d = (dy / cnt[:, None, None].to(dy.dtype)).repeat_interleave(pool, dim=0)[:T]
@@ -197,13 +251,23 @@ def bigru_shared_bwd_reference(params: dict, parts, hp_f, hp_b, dy_f, dy_b, *, p
     (T, B, H) cotangents of the unpooled forward. Fused mode: they are the
     POOLED cotangents of :func:`bigru_trainpool_reference`, expanded by
     :func:`expand_pooled_cotangent`. Returns ``(dxs, grads)``: one (T, B, D_p)
-    gradient per part, and ``{"fwd": {...}, "bwd": {...}}`` keyed like
-    ``params``.
+    gradient per part, of the parts' dtype, and ``{"fwd": {...}, "bwd":
+    {...}}`` keyed like ``params``, f32. At bf16 (parts, ``hp_*`` and
+    ``dy_*`` bf16) the gates come from bf16 x and h_prev against the rounded
+    weights, dgh is rounded for the chain's product, each direction's dX
+    (the rounded dgi against the rounded W_ih) is rounded, and so is their
+    sum, as the TPU kernel's bf16 outputs and XLA's sum of them are; the
+    weight gradients take the f32 dgi and dgh.
     """
     parts = _check_args(parts, pool, "avg")
     fused = pool > 1 or drop_p > 0.0
     if fused:
         _check_drop(drop_p, seed)
+    dtype, bf = parts[0].dtype, is_bf16(parts)
+    if bf:
+        params, parts = _as_f32(params, parts)
+        hp_f, hp_b, dy_f, dy_b = (t.float() for t in (hp_f, hp_b, dy_f, dy_b))
+    rnd = round_bf16 if bf else (lambda t: t)
     T, B = parts[0].shape[:2]
     x = torch.cat(parts, dim=-1).reshape(T * B, -1)
     dx = 0.0
@@ -229,15 +293,15 @@ def bigru_shared_bwd_reference(params: dict, parts, hp_f, hp_b, dy_f, dy_b, *, p
             dz = d * (hp[t] - n[t]) * z[t] * (1.0 - z[t])
             dr = dn * rfac[t]
             dgi[t] = torch.cat([dr, dz, dn], dim=-1)
-            dh = torch.matmul(torch.cat([dr, dz, dn * r[t]], dim=-1), p["weight_hh"]) + d * z[t]
+            dh = torch.matmul(rnd(torch.cat([dr, dz, dn * r[t]], dim=-1)), p["weight_hh"]) + d * z[t]
         dgh = torch.cat([dgi[..., :2 * H], dgi[..., 2 * H:] * r], dim=-1).reshape(T * B, 3 * H)
         dgi = dgi.reshape(T * B, 3 * H)
-        dx = dx + torch.matmul(dgi, p["weight_ih"])
+        dx = dx + rnd(torch.matmul(rnd(dgi), p["weight_ih"]))  # bf16: each direction's rounded
         grads[name] = {"weight_ih": torch.matmul(dgi.t(), x), "bias_ih": dgi.sum(0),
                        "weight_hh": torch.matmul(dgh.t(), hp.reshape(T * B, H)),
                        "bias_hh": dgh.sum(0)}
     dxs = torch.split(dx.reshape(T, B, -1), [x.shape[-1] for x in parts], dim=-1)
-    return tuple(d.contiguous() for d in dxs), grads
+    return tuple(d.to(dtype).contiguous() for d in dxs), grads  # bf16: their sum rounded
 
 
 # ---------------------------------------------------------------------------
@@ -246,16 +310,21 @@ def bigru_shared_bwd_reference(params: dict, parts, hp_f, hp_b, dy_f, dy_b, *, p
 
 
 def _check_cuda(what: str, params: dict, parts: tuple, extra=()) -> tuple[int, int, int]:
+    """Shapes, devices and dtypes the kernels take: float32 everything, or
+    bfloat16 streams (the parts and ``extra``) with float32 weights."""
     dev = parts[0].device
     T, B = parts[0].shape[:2]
-    tensors = [(f"part {i}", x) for i, x in enumerate(parts)]
-    tensors += [(f"{d}.{n}", params[d][n]) for d in _DIRS for n in _NAMES]
-    tensors += list(extra)
-    for name, x in tensors:
+    stream = parts[0].dtype
+    tensors = [(f"part {i}", x, stream) for i, x in enumerate(parts)]
+    tensors += [(f"{d}.{n}", params[d][n], torch.float32) for d in _DIRS for n in _NAMES]
+    tensors += [(name, x, stream) for name, x in extra]
+    for name, x, dtype in tensors:
         if x.device != dev:
             raise ValueError(f"{what}: {name} is on {x.device}, part 0 on {dev}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{what}: {name} is {x.dtype}; the kernel takes float32")
+        if stream not in STREAM_DTYPES or x.dtype != dtype:
+            raise TypeError(f"{what}: {name} is {x.dtype}; the kernel takes float32 streams and weights, "
+                            f"or bfloat16 streams (parts, h_prev, cotangents) with float32 weights; "
+                            f"part 0 is {stream}")
         if not x.is_contiguous():
             raise ValueError(f"{what}: {name} is not contiguous")
     for i, x in enumerate(parts):
@@ -288,6 +357,7 @@ def _device_of(parts) -> torch.device:
 
 def _ptrs(params: dict) -> list[int]:
     return [params[d][n].data_ptr() for d in _DIRS for n in _NAMES]
+
 
 
 def _part_ptrs(parts) -> list:
@@ -326,21 +396,24 @@ def bigru_shared_fwd(params: dict, parts, *, pool: int = 1, pool_method: str = "
         return ref(params, parts, pool=pool, pool_method=pool_method)
     T, B, H = _check_cuda("bigru_shared_fwd", params, parts)
     lib = _build.library()
-    dev = parts[0].device
+    dev, bf = parts[0].device, is_bf16(parts)
     To = -(-T // pool)
     gi = torch.empty((2, T, B, 3 * H), device=dev, dtype=torch.float32)
-    h_f = torch.empty((To, B, H), device=dev, dtype=torch.float32)
-    h_b = torch.empty((To, B, H), device=dev, dtype=torch.float32)
-    fn = lib.tsl_bigru_shared_fwd_rs if rowstack else lib.tsl_bigru_shared_fwd
+    h_f = torch.empty((To, B, H), device=dev, dtype=parts[0].dtype)
+    h_b = torch.empty((To, B, H), device=dev, dtype=parts[0].dtype)
+    fn = (lib.tsl_bigru_shared_fwd_rs if rowstack else
+          lib.tsl_bigru_shared_fwd_bf16 if bf else lib.tsl_bigru_shared_fwd)
     err = fn(
         *_part_ptrs(parts), *_ptrs(params), gi.data_ptr(), h_f.data_ptr(), h_b.data_ptr(),
         T, B, H, pool, int(pool_method == "max"), torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(err, f"bigru_shared_fwd (layout {layout}, T={T}, B={B}, H={H}, pool={pool})")
+    _build.check(err, f"bigru_shared_fwd (layout {layout}, {parts[0].dtype}, T={T}, B={B}, H={H}, "
+                      f"pool={pool})")
     if rowstack:
         bigru_shared.launches_rowstack += 1
     else:
         bigru_shared.launches += 1
+        bigru_shared.launches_bf16 += bf
     return h_f, h_b
 
 
@@ -361,22 +434,25 @@ def bigru_trainpool(params: dict, parts, *, pool: int, drop_p: float, seed: int)
         return bigru_trainpool_reference(params, parts, pool=pool, drop_p=drop_p, seed=seed)
     T, B, H = _check_cuda("bigru_trainpool", params, parts)
     lib = _build.library()
-    dev = parts[0].device
+    dev, bf, dtype = parts[0].device, is_bf16(parts), parts[0].dtype
     To = -(-T // pool)
     gi = torch.empty((2, T, B, 3 * H), device=dev, dtype=torch.float32)
-    hp_f, hp_b = (torch.empty((T, B, H), device=dev, dtype=torch.float32) for _ in range(2))
-    p_f, p_b = (torch.empty((To, B, H), device=dev, dtype=torch.float32) for _ in range(2))
-    err = lib.tsl_bigru_trainpool_fwd(
+    hp_f, hp_b = (torch.empty((T, B, H), device=dev, dtype=dtype) for _ in range(2))
+    p_f, p_b = (torch.empty((To, B, H), device=dev, dtype=dtype) for _ in range(2))
+    fn = lib.tsl_bigru_trainpool_fwd_bf16 if bf else lib.tsl_bigru_trainpool_fwd
+    err = fn(
         *_part_ptrs(parts), *_ptrs(params), gi.data_ptr(), hp_f.data_ptr(), hp_b.data_ptr(),
         p_f.data_ptr(), p_b.data_ptr(), T, B, H, pool, int(seed), keep_threshold(drop_p),
         1.0 / (1.0 - drop_p), torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(err, f"bigru_trainpool (T={T}, B={B}, H={H}, pool={pool}, p={drop_p})")
+    _build.check(err, f"bigru_trainpool ({dtype}, T={T}, B={B}, H={H}, pool={pool}, p={drop_p})")
     bigru_trainpool.launches += 1
+    bigru_trainpool.launches_bf16 += bf
     return hp_f, hp_b, p_f, p_b
 
 
 bigru_trainpool.launches = 0  # wrapper calls that launched K2
+bigru_trainpool.launches_bf16 = 0  # ... its bf16 instantiation (counted in launches too)
 
 
 def bigru_shared_bwd(params: dict, parts, hp_f, hp_b, dy_f, dy_b, *, pool: int = 1,
@@ -385,7 +461,8 @@ def bigru_shared_bwd(params: dict, parts, hp_f, hp_b, dy_f, dy_b, *, pool: int =
 
     CPU tensors take the plain version; CUDA tensors launch the kernel on the
     current stream without synchronising. The weight gradients are summed in
-    a fixed order, so repeated calls on one card agree bit for bit.
+    a fixed order, so repeated calls on one card agree bit for bit. At bf16
+    the parts, ``hp_*`` and ``dy_*`` are bf16 and so are the dxs.
     """
     parts = _check_args(parts, pool, "avg")
     fused = pool > 1 or drop_p > 0.0
@@ -404,34 +481,40 @@ def bigru_shared_bwd(params: dict, parts, hp_f, hp_b, dy_f, dy_b, *, pool: int =
         if tuple(x.shape) != shape:
             raise ValueError(f"bigru_shared_bwd: {name} has shape {tuple(x.shape)}, want {shape}")
     lib = _build.library()
-    dev = parts[0].device
+    dev, bf = parts[0].device, is_bf16(parts)
 
     def empty(*shape):
         return torch.empty(shape, device=dev, dtype=torch.float32)
 
-    dxs = [empty(T, B, x.shape[-1]) for x in parts]
+    dxs = [torch.empty((T, B, x.shape[-1]), device=dev, dtype=x.dtype) for x in parts]
     D = sum(x.shape[-1] for x in parts)
     grads = {d: {"weight_ih": empty(3 * H, D), "bias_ih": empty(3 * H),
                  "weight_hh": empty(3 * H, H), "bias_hh": empty(3 * H)} for d in _DIRS}
     buf_a, buf_b = empty(2, T, B, 3 * H), empty(2, T, B, 3 * H)
     gates = empty(2, T, B, 4 * H)
-    dyx = empty(2, T, B, H) if fused else None
+    dyx = empty(2, T, B, H) if fused or bf else None  # at bf16 the chain reads dY widened to f32
     partial = empty(_build.partial_floats(parts[0].shape[-1], D - parts[0].shape[-1], H, T * B, 2))
-    err = lib.tsl_bigru_shared_bwd(
+    fn = lib.tsl_bigru_shared_bwd_bf16 if bf else lib.tsl_bigru_shared_bwd
+    # at bf16 each direction's dX, rounded, before their sum is rounded
+    pair = [torch.empty((2, T * B, D), device=dev, dtype=torch.bfloat16).data_ptr()] if bf else []
+    err = fn(
         *_part_ptrs(parts), hp_f.data_ptr(), hp_b.data_ptr(), dy_f.data_ptr(), dy_b.data_ptr(),
         *_ptrs(params), dxs[0].data_ptr(), dxs[1].data_ptr() if len(dxs) == 2 else None,
         *[grads[d][n].data_ptr() for d in _DIRS for n in _NAMES],
         buf_a.data_ptr(), buf_b.data_ptr(), gates.data_ptr(),
-        None if dyx is None else dyx.data_ptr(), partial.data_ptr(),
+        None if dyx is None else dyx.data_ptr(), partial.data_ptr(), *pair,
         T, B, H, pool, int(fused), int(seed or 0), keep_threshold(drop_p),
         1.0 / (1.0 - drop_p), torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(err, f"bigru_shared_bwd (T={T}, B={B}, H={H}, pool={pool}, p={drop_p})")
+    _build.check(err, f"bigru_shared_bwd ({parts[0].dtype}, T={T}, B={B}, H={H}, pool={pool}, "
+                      f"p={drop_p})")
     bigru_shared_bwd.launches += 1
+    bigru_shared_bwd.launches_bf16 += bf
     return tuple(dxs), grads
 
 
 bigru_shared_bwd.launches = 0  # wrapper calls that launched K3
+bigru_shared_bwd.launches_bf16 = 0  # ... its bf16 instantiation (counted in launches too)
 
 
 # ---------------------------------------------------------------------------
@@ -510,12 +593,13 @@ class _PooledEvalCore(torch.autograd.Function):
         parts, weights = saved[:ctx.n_parts], saved[ctx.n_parts:]
         params = _params(weights)
         h_f, h_b = bigru_shared_fwd(params, parts, layout=ctx.layout)
-        with torch.enable_grad():
-            full = [h.detach().requires_grad_() for h in (h_f, h_b)]
+        with torch.enable_grad():  # the pool's VJP in f32, its result in the streams' dtype
+            full = [widen(h.detach()).requires_grad_() for h in (h_f, h_b)]
             pooled = [downsample(h, ctx.pool_method, ctx.pool, time_axis=0) for h in full]
-            df, db = torch.autograd.grad(pooled, full, (dy_f, dy_b))
+            df, db = torch.autograd.grad(pooled, full, (widen(dy_f), widen(dy_b)))
         hp_f, hp_b = _shift_hp(h_f, h_b)
-        dxs, grads = bigru_shared_bwd(params, parts, hp_f, hp_b, df.contiguous(), db.contiguous())
+        dxs, grads = bigru_shared_bwd(params, parts, hp_f, hp_b, df.to(h_f.dtype).contiguous(),
+                                      db.to(h_f.dtype).contiguous())
         return (None, None, None, None, *_grad_outputs(dxs, grads))
 
 
@@ -574,4 +658,5 @@ def bigru_shared(params: dict, parts, *, train: bool = False, pool: int = 1,
 
 
 bigru_shared.launches = 0  # wrapper calls that launched K1 (bigru_shared_fwd, layout "split")
+bigru_shared.launches_bf16 = 0  # ... its bf16 instantiation (counted in launches too)
 bigru_shared.launches_rowstack = 0  # ... that launched K6 (layout "rowstack")

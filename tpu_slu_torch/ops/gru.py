@@ -37,17 +37,19 @@ def gru_cell_step(p: dict, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 
 
 def gru_direction(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
-                  reverse: bool) -> torch.Tensor:
+                  reverse: bool, round_h: bool = False) -> torch.Tensor:
     """Recurrence over time-major gi (T, B, 3H) -> (T, B, H), h0 = 0.
 
     ``reverse`` walks t = T-1..0; outputs stay in natural time order.
+    ``round_h`` rounds h to bf16 (and back to f32) for the recurrent product
+    only, the carry staying f32: the bf16 kernels' product.
     """
     T, B, _ = gi.shape
     H = w_hh.shape[1]
     h = gi.new_zeros((B, H))
     out = gi.new_empty((T, B, H))
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        gh = torch.addmm(b_hh, h, w_hh.t())
+        gh = torch.addmm(b_hh, h.to(torch.bfloat16).float() if round_h else h, w_hh.t())
         h = gate_update(gi[t], gh, h)
         out[t] = h
     return out

@@ -28,6 +28,16 @@ first epoch reshuffles from ``seed + 0``, and so equals the uninterrupted
 run's epoch only over the same batches (and at dropout 0, whose masks come
 from ``generator``).
 
+``compute_dtype=bfloat16`` in the config's ``[training]`` (any other value
+is f32, as in JAX) runs the train step's and the test pass's GRU layers on
+bf16 streams (K1, K2 and K3 at bf16; ``models/encoder.py`` ``apply_stack``),
+as JAX's Trainer passes ``compute_dtype`` to every loss
+(``trainer.py:209-213``). The master weights, the Adam state, the
+checkpoints, the losses and the front end stay f32; decoding
+(``decode_intents``, the server) ignores the setting. A seq2seq model or a
+unidirectional GRU layer at bf16 raises in ``Trainer(...)``: their kernels
+take f32 only (ROADMAP Queue 1 item 7).
+
 Data parallelism (``tpu_slu_torch.parallel``, one process a GPU under
 ``torchrun``): with a process group of W ranks up, each rank reads its
 shard of every epoch at the config's batch size, and a step is the
@@ -55,7 +65,7 @@ import torch
 
 from tpu_slu_torch import parallel
 from tpu_slu_torch.models.convert import params_from_jax, params_to_jax
-from tpu_slu_torch.models.encoder import PretrainedModel, encoder_loss
+from tpu_slu_torch.models.encoder import BF16_UNPORTED, PretrainedModel, encoder_loss
 from tpu_slu_torch.models.slu import Model
 from tpu_slu_torch.training.checkpoint import check_backend, load_pytree, save_pytree
 from tpu_slu_torch.training.optim import MaskedAdam, clip_grad_norm
@@ -68,6 +78,28 @@ ASR_METRICS = ("phone_loss", "phone_acc", "word_loss", "word_acc")
 
 def _weighted_mean(total, count):
     return total / max(count, 1e-9)
+
+
+def compute_dtype_of(config) -> torch.dtype | None:
+    """``torch.bfloat16`` when the config's ``compute_dtype`` is
+    ``"bfloat16"``, else None (f32), as JAX's Trainer reads it."""
+    return torch.bfloat16 if getattr(config, "compute_dtype", "float32") == "bfloat16" else None
+
+
+def check_bf16(model) -> None:
+    """Raise (:data:`~tpu_slu_torch.models.encoder.BF16_UNPORTED`) for what
+    bf16 does not reach yet: a seq2seq model, or any unidirectional GRU layer."""
+    archs = [model.arch if isinstance(model, PretrainedModel) else model.encoder_arch]
+    if isinstance(model, Model):
+        if model.seq2seq:
+            raise ValueError(f"{BF16_UNPORTED}: this is a seq2seq model")
+        archs.append(model.intent_arch)
+    for arch in archs:
+        for layers in (getattr(arch, "phoneme_layers", ()), getattr(arch, "word_layers", ()),
+                       getattr(arch, "layers", ())):
+            uni = [s.name for s in layers if s.kind == "gru" and not s.h[2]]
+            if uni:
+                raise ValueError(f"{BF16_UNPORTED}: unidirectional layers {uni}")
 
 
 def rank_seed(seed: int, rank: int) -> int:
@@ -128,6 +160,9 @@ class Trainer:
             self.checkpoint_path = os.path.join(config.folder, "training")
         else:
             raise TypeError(f"the Trainer trains a PretrainedModel or a Model, not {type(model).__name__}")
+        self.compute_dtype = compute_dtype_of(config)
+        if self.compute_dtype is not None:
+            check_bf16(model)
         os.makedirs(self.checkpoint_path, exist_ok=True)
         self._model_ckpt = os.path.join(self.checkpoint_path, "model_state.npz")
         self._trainer_ckpt = os.path.join(self.checkpoint_path, "trainer_state.npz")
@@ -184,11 +219,13 @@ class Trainer:
         if self.is_pretraining:
             return encoder_loss(self.model, batch["x"], batch["y_phoneme"], batch["y_word"], train=train,
                                 generator=self.generator if train else None, weights=batch.get("w"),
-                                denoms=None if totals is None else (totals[1], totals[2]))
+                                denoms=None if totals is None else (totals[1], totals[2]),
+                                compute_dtype=self.compute_dtype)
         return self.model.loss(batch["x"], batch["y_intent"], train=train, weights=batch["w"],
                                lengths=batch.get("len"), y_len=batch.get("y_len"),
                                generator=self.generator if train else None,
-                               denom=None if totals is None else totals[0])
+                               denom=None if totals is None else totals[0],
+                               compute_dtype=self.compute_dtype)
 
     def train_step(self, batch: dict, totals: np.ndarray | None = None) -> tuple[torch.Tensor, ...]:
         """One Adam step on a device batch; returns, detached on the device,
