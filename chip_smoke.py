@@ -202,7 +202,28 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    B = 64) at bf16 beside f32 in turns, with the bf16 plain version, cuDNN's
    bf16 ``nn.GRU`` and the bf16 bound (``bound_bf16``: the products at the
    bf16 tensor-core peak, the gate math at the f32 one, the streams at 2
-   bytes a value); the kernels line gains the three bf16 entries.
+   bytes a value); the kernels line gains the three bf16 entries. Its
+   second half (``phase_bf16_more``) does the same for K6, K4f, K4b, K5f
+   and K5b: ``[bf16-k6]`` K6 at the five flagship layers (B = 16) and the
+   train intent layer (B = 64), ``[bf16-k4f]`` K4f at the served (8, 4 s)
+   shape with mixed lengths and the seq2seq encoder layer (B = 64, T = 25,
+   D = 256), ``[bf16-k4b]`` K4b at that layer, ``[bf16-k5f]`` and
+   ``[bf16-k5b]`` at the unidirectional flagship's five layers (B = 64),
+   each within ``BF16_RATIO`` of its plain version's gap; one bf16 step of
+   the seq2seq model (B = 64, U = 32) and of the unidirectional one (B = 64)
+   against the CPU within ``BF16_FLOOR`` times the noise floor (the
+   unidirectional one, a fixed-slot loss, within ``BF16_STEP_FAR``) and of
+   the fixed-slot model on the row-stacked layout (B = 16, within
+   ``BF16_STEP_FAR``); ``[bf16-trainer]`` the three models' ``Trainer.train``
+   and ``Trainer.test`` at bf16, B = 64 (seq2seq: 4 K2, 4 K3, 1 K4f, 1 K4b a
+   step, 4 K1 and 1 K4f a test batch; unidirectional: 5 K5f, 5 K5b a step, 5
+   K5f a test batch; row-stacked: 1 K6, 4 K2, 5 K3 a step, 5 K6 a test
+   batch; all bf16); ``[time]`` each warm step beside its f32 twin in turns
+   (busy, idle share, launches; the bf16 trace's recurrences all bf16, as
+   many as counted) and each kernel at bf16 beside f32, its plain version,
+   cuDNN's bf16 ``nn.GRU`` and its bf16 bound; the kernels line gains their
+   five bf16 entries, and the f32 entries of K6, K4f, K4b, K5f and K5b their
+   bf16 errors.
 
 Beside each kernel's time the script prints its plain version's, a cuDNN
 ``torch.nn.GRU`` call's where one computes the same function (timed as a
@@ -281,6 +302,12 @@ K5B_PHASES = K4B_PHASES
 K3_BF16_PHASES = {"gates": "bwd_gates_kernel", "chain": "bwd_chain_kernel", "core gi/gh": "gemm_kernel_mixed<0, 0",
                   "core dX": "gemm_kernel_mixed<0, 1", "dX sum": "dx_pair_sum_kernel",
                   "core dW": "gemm_kernel_mixed<1, 1", "reduce": "dw_reduce_kernel"}
+# K4b's and K5b's kernels by phase at bf16: the same, the products on the core's mixed kernel
+# (dW_hh's on the f32 one: it reads the widened h_prev), and K4b's rounded dX sum
+K4B_BF16_PHASES = {"h_prev": "masked_hprev_kernel", "gates": "bwd_gates_kernel", "chain": "gru_cluster_bwd_kernel",
+                   "core gi/gh": "gemm_kernel_mixed<0, 0", "core dX": "gemm_kernel_mixed<0, 1",
+                   "dX sum": "dx_pair_sum_kernel", "core dW_ih": "gemm_kernel_mixed<1, 1",
+                   "core dW_hh": "gemm_kernel<1, 1", "reduce": "dw_reduce_kernel"}
 K5F_SOURCE = "tpu_slu_torch/csrc/bigru_masked_fwd.cu"
 K5F_REPLACES = "tpu_slu/ops/pallas_gru.py:138"
 K5B_SOURCE = "tpu_slu_torch/csrc/bigru_masked_bwd.cu"
@@ -326,11 +353,11 @@ _OTHER_C = [(_RULE_2DIR, _RULE_2DIR.replace("4 * 8 * B <= 3 * sms", "4 * 8 * B >
 # the backward chain (K4b, K5b) on the cluster size its rule does not pick, with the 2- and 4-row
 # tiles C = 4 then takes at B = 64 (K5b and K4b)
 _RULE_BWD = "cudaError_t err = gru_cluster_size(a.B, ndir, &C);"
-_TILE_BWD_C4 = "if (C == 4) return nb == 1 ? launch_gru_cluster_bwd<4, 1>(a, ndir, st) : cudaErrorInvalidValue;"
+_TILE_BWD_C4 = "if (C == 4) return nb == 1 ? launch_gru_cluster_bwd<4, 1, BF>(a, ndir, st) : cudaErrorInvalidValue;"
 _BWD_OTHER_C = [(_RULE_BWD, _RULE_BWD + "\n  C = 6 - C;"),
                 (_TILE_BWD_C4, _TILE_BWD_C4.replace(
-                    " : cudaErrorInvalidValue", " : nb == 2 ? launch_gru_cluster_bwd<4, 2>(a, ndir, st) : nb == 4 ? "
-                    "launch_gru_cluster_bwd<4, 4>(a, ndir, st) : cudaErrorInvalidValue"))]
+                    " : cudaErrorInvalidValue", " : nb == 2 ? launch_gru_cluster_bwd<4, 2, BF>(a, ndir, st) : nb == 4 ? "
+                    "launch_gru_cluster_bwd<4, 4, BF>(a, ndir, st) : cudaErrorInvalidValue"))]
 VARIANTS = {
     "k1_other_c": ("bigru_shared_fwd.cu", _OTHER_C, []),
     "k2_other_c": ("bigru_trainpool_fwd.cu", _OTHER_C, []),
@@ -594,6 +621,29 @@ def kernel_table(fn, reps: int = 10) -> tuple[float, dict]:
         wall = (time.perf_counter() - t0) * 1e3 / reps
     return wall, {e.key: (e.count / reps, e.self_device_time_total / reps / 1e3) for e in prof.key_averages()
                   if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)}
+
+
+def counted_trace(fn, reset, check, what: str, tries: int = 3) -> tuple[float, dict, int]:
+    """``kernel_table(fn, reps=3)`` of a trace that holds what the launch
+    counters count: ``reset()`` zeroes the counters before each trace, and
+    ``check(table)`` returns None, or (message, short): short when the trace
+    only lacks launches the counters counted. The profiler drops kernel
+    events now and then late in a long process (the whole smoke's bf16
+    fixed-slot trace once missed 2 of 12 K2 launches), which would also
+    under-report the busy time read from it, so a short trace is taken again,
+    up to ``tries`` times, each shortfall printed; any other mismatch, or
+    the last short trace, raises. Returns (wall, table, traces taken)."""
+    for attempt in range(1, tries + 1):
+        reset()
+        wall, table = kernel_table(fn, reps=3)
+        fault = check(table)
+        if fault is None:
+            return wall, table, attempt
+        message, short = fault
+        if not short or attempt == tries:
+            raise AssertionError(f"{what}: {message}")
+        print(f"[profile] {what}: trace {attempt} of {tries} is short of the counted launches: {message}")
+    raise AssertionError(what)  # not reached
 
 
 def profile_calls(fn, what: str, card: str, reps: int = 10, top: int = 8) -> None:
@@ -3580,12 +3630,16 @@ def bf16_layer_call(k: str, held: dict, which: str):
     return lambda: fn(params, parts, *hp, *dy, **kw)
 
 
-def bf16_step_vs_cpu(dev, rng, kind: str) -> dict:
-    """One train step at ``compute_dtype=bfloat16`` (B = 16), card against
+def bf16_step_vs_cpu(dev, rng, kind: str, B: int = 16) -> dict:
+    """One train step at ``compute_dtype=bfloat16`` (batch B), card against
     the CPU plain path from equal weights and equal dropout masks: the
     fixed-slot model of ``no_pretraining.cfg`` on 4 s (the intent layer's
-    dropout 0, the encoder's 0.5) or the ASR model of ``no_unfreezing.cfg``
-    on 2.25 s (dropout on). The loss within ``BF16_LOSS_RTOL`` relative.
+    dropout 0, the encoder's 0.5), that model with every GRU layer
+    unidirectional (``unidirectional``, K5f/K5b) or on ``gru_layout``
+    "rowstack" (``rowstack``, K6), the seq2seq model of
+    ``all_real_seq2seq.cfg`` on 4 s at U = ``S2S_U`` (dropout on; K4f/K4b),
+    or the ASR model of ``no_unfreezing.cfg`` on 2.25 s (dropout on). The
+    loss within ``BF16_LOSS_RTOL`` relative.
 
     The whole gradient (every parameter's, as one vector; each finite) is
     held by its relative Frobenius distance from the CPU's bf16 one against
@@ -3599,7 +3653,8 @@ def bf16_step_vs_cpu(dev, rng, kind: str) -> dict:
     bf16-vs-f32 gap itself (on an H100, PERF.md section 6), so a quarter of
     that gap (``BF16_RATIO``, the kernels' bound) cannot hold for a step.
     The limit is ``BF16_FLOOR`` times that floor, or ``BF16_RATIO`` of the
-    gap where that is larger, for the ASR step. The fixed-slot loss takes a
+    gap where that is larger, for the ASR and the seq2seq step. The
+    fixed-slot loss (all three fixed-slot kinds) takes a
     max over time, so its gradient is not continuous in the inputs: where
     bf16 noise moves a max to another frame the gradient jumps (on an H100,
     25.6 gaps from the CPU's with a floor of 5.2 in one of six seeded
@@ -3613,17 +3668,25 @@ def bf16_step_vs_cpu(dev, rng, kind: str) -> dict:
 
     from tpu_slu_torch import read_config
     from tpu_slu_torch.models.encoder import PretrainedModel, encoder_loss
-    from tpu_slu_torch.models.flagship import FLAGSHIP_CFG, TRAIN_CFG, flagship_model
+    from tpu_slu_torch.models.flagship import (FLAGSHIP_CFG, TRAIN_CFG, UNIDIRECTIONAL, flagship_model,
+                                               flagship_seq2seq_model)
 
     bf = torch.bfloat16
-    if kind == "fixed-slot":
-        cpu_model = flagship_model("cpu", cfg=TRAIN_CFG, intent_rnn_drop=[0.0]).train()
-        batch = synthetic_batches(rng, 1, 16, cpu_model.values_per_slot)[0]
+    fixed_slot = kind in ("fixed-slot", "unidirectional", "rowstack")
+    if fixed_slot:
+        cpu_model = flagship_model("cpu", cfg=TRAIN_CFG, intent_rnn_drop=[0.0],
+                                   **(UNIDIRECTIONAL if kind == "unidirectional" else {})).train()
+        if kind == "rowstack":
+            cpu_model.pretrained_model.gru_layout = "rowstack"
+        batch = synthetic_batches(rng, 1, B, cpu_model.values_per_slot)[0]
+    elif kind == "seq2seq":
+        cpu_model = flagship_seq2seq_model("cpu").train()
+        batch = s2s_batches(rng, 1, B, cpu_model.Sy_intent)[0]
     else:
         config = read_config(FLAGSHIP_CFG, make_dirs=False)
         config.num_phonemes = 42
         cpu_model = PretrainedModel(config, generator=torch.Generator().manual_seed(3)).train()
-        batch = asr_batches(rng, 1, 16, ASR_T, 42, config.vocabulary_size, config.phone_downsample_factor,
+        batch = asr_batches(rng, 1, B, ASR_T, 42, config.vocabulary_size, config.phone_downsample_factor,
                             config.word_downsample_factor)[0]
     card_model = copy.deepcopy(cpu_model).to(dev)
     sign = np.where(rng.random(batch["x"].shape) < 0.5, -1.0, 1.0)
@@ -3638,9 +3701,12 @@ def bf16_step_vs_cpu(dev, rng, kind: str) -> dict:
         b = {k: torch.from_numpy(v).to(where) for k, v in b.items()}
         model.zero_grad(set_to_none=True)
         gen = torch.Generator().manual_seed(5)
-        if kind == "fixed-slot":
+        if fixed_slot:
             loss, _ = model.loss(b["x"], b["y_intent"], train=True, weights=b["w"], lengths=b["len"],
                                  generator=gen, compute_dtype=dtype)
+        elif kind == "seq2seq":
+            loss, _ = model.loss(b["x"], b["y_intent"], train=True, weights=b["w"], lengths=b["len"],
+                                 y_len=b["y_len"], generator=gen, compute_dtype=dtype)
         else:
             pl, wl, _, _ = encoder_loss(model, b["x"], b["y_phoneme"].long(), b["y_word"].long(), train=True,
                                         generator=gen, weights=b["w"], compute_dtype=dtype)
@@ -3665,7 +3731,7 @@ def bf16_step_vs_cpu(dev, rng, kind: str) -> dict:
         raise AssertionError(f"bf16 {kind} step: the card's gradients are not finite or not the CPU's parameters")
     ratio, floor = {}, {}  # each gradient's distance and noise floor, as shares of its bf16-vs-f32 gap
     for n, g in g_cpu.items():
-        gap = dist(g, g32[n])
+        gap = max(dist(g, g32[n]), 1e-30)
         ratio[n], floor[n] = dist(g_card[n], g) / gap, dist(g_nudge[n], g) / gap
     names = sorted(g_cpu)
 
@@ -3673,12 +3739,12 @@ def bf16_step_vs_cpu(dev, rng, kind: str) -> dict:
         return torch.cat([g[n].flatten() for n in names])
 
     gap, d, fl = dist(whole(g_cpu), whole(g32)), dist(whole(g_card), whole(g_cpu)), dist(whole(g_nudge), whole(g_cpu))
-    limit = BF16_STEP_FAR if kind == "fixed-slot" else max(BF16_RATIO * gap, BF16_FLOOR * fl)
+    limit = BF16_STEP_FAR if fixed_slot else max(BF16_RATIO * gap, BF16_FLOOR * fl)
     if not (gap > 0.0 and d <= limit):
         raise AssertionError(f"bf16 {kind} step: the gradient {d:.3g} from the CPU's bf16 one, whose gap to f32 is "
                              f"{gap:.3g} and noise floor {fl:.3g} (limit {limit:.3g})")
     worst = max(ratio, key=ratio.get)
-    print(f"[bf16] {kind} train step B=16 at compute_dtype=bfloat16, card vs CPU: loss {l_card:.6f} vs {l_cpu:.6f} "
+    print(f"[bf16] {kind} train step B={B} at compute_dtype=bfloat16, card vs CPU: loss {l_card:.6f} vs {l_cpu:.6f} "
           f"(limit {BF16_LOSS_RTOL} relative; the CPU's f32 loss {l32:.6f}, its bf16 loss on the nudged inputs "
           f"{l_nudge:.6f}); the whole gradient {d:.3g} from the CPU's bf16 one (limit {limit:.3g}), {d / gap:.3g} of "
           f"its bf16-vs-f32 gap {gap:.3g}, the noise floor {fl / gap:.3g} of it; each gradient {min(ratio.values()):.3g}-{ratio[worst]:.3g} of its gap (the "
@@ -3799,19 +3865,26 @@ def phase_bf16(dev, card: str, rng) -> list[dict]:
             for which in ("f32", "bf16", "bf16", "f32"):
                 t = t32 if which == "f32" else t16
                 times[which] += cuda_times(lambda: t.train_step(batch), reps=5, warmup=1)
-            for c in counters.values():
-                c.launches = c.launches_bf16 = 0
-            wall, table = kernel_table(lambda: t16.train_step(batch), reps=3)
-            # kernel_table makes one warm call before it traces its reps
-            want = {k: c.launches_bf16 * 3 // 4 for k, c in counters.items()}
-            named = {f"{k}{' bf16' if bf16 else ''}": 0 for k in counters for bf16 in (True, False)}
-            for key, (n, _) in table.items():
-                if step_kernel(key):
-                    named[f"{step_kernel(key)}{' bf16' if 'bfloat16' in key else ''}"] += round(3 * n)
-            got = {k: named[f"{k} bf16"] for k in counters}
-            if got != want or any(named[k] for k in counters):
-                raise AssertionError(f"bf16 {kind} step profile: bf16 instantiations {got}, f32 ones "
-                                     f"{ {k: named[k] for k in counters} }, counted {want} over 3 steps")
+            def reset():
+                for c in counters.values():
+                    c.launches = c.launches_bf16 = 0
+
+            def check(table):
+                # kernel_table makes one warm call before it traces its reps
+                want = {k: c.launches_bf16 * 3 // 4 for k, c in counters.items()}
+                named = {f"{k}{' bf16' if bf16 else ''}": 0 for k in counters for bf16 in (True, False)}
+                for key, (n, _) in table.items():
+                    if step_kernel(key):
+                        named[f"{step_kernel(key)}{' bf16' if 'bfloat16' in key else ''}"] += round(3 * n)
+                got = {k: named[f"{k} bf16"] for k in counters}
+                if got == want and not any(named[k] for k in counters):
+                    return None
+                return (f"bf16 instantiations {got}, f32 ones { {k: named[k] for k in counters} }, counted {want} "
+                        f"over 3 steps", not any(named[k] for k in counters) and all(got[k] <= want[k] for k in got))
+
+            wall, table, traces = counted_trace(lambda: t16.train_step(batch), reset, check,
+                                                f"bf16 {kind} step profile")
+            got = {k: c.launches_bf16 * 3 // 4 for k, c in counters.items()}
             busy, n_launch = sum(ms for _, ms in table.values()), round(sum(n for n, _ in table.values()))
             wall32, table32 = kernel_table(lambda: t32.train_step(batch), reps=3)
             busy32, n32 = sum(ms for _, ms in table32.values()), round(sum(n for n, _ in table32.values()))
@@ -3823,8 +3896,8 @@ def phase_bf16(dev, card: str, rng) -> list[dict]:
                   f" on {secs:g} s, in turns f32, bf16, bf16, f32 (CUDA events, 5 a turn): bf16 median "
                   f"{st['bf16_ms']:.3f} ms, f32 {st['f32_ms']:.3f} ms; profiler: bf16 busy {busy:.3f} ms, idle share "
                   f"{st['bf16_idle_share']:.3f}, {n_launch} launches a step; f32 busy {busy32:.3f} ms, idle share "
-                  f"{st['f32_idle_share']:.3f}, {n32} launches; the bf16 step's trace names the bf16 K1, K2, K3 "
-                  f"{got} times over 3 steps, as counted, and no f32 one, on {card}")
+                  f"{st['f32_idle_share']:.3f}, {n32} launches; the bf16 step's trace (of {traces} taken) names the "
+                  f"bf16 K1, K2, K3 {got} times over 3 steps, as counted, and no f32 one, on {card}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3880,6 +3953,327 @@ def phase_bf16(dev, card: str, rng) -> list[dict]:
                        "step_floor": {kind: v["floor"] for kind, v in steps.items()}, "steps": step_times})
     print(f"[bf16] phase 14 took {time.perf_counter() - t_phase:.1f} s")
     return entries
+
+
+# compute_dtype=bfloat16 for K4f, K4b, K5f, K5b and K6 (phase 14, second half)
+BF16_MORE_SOURCES = {"K6": (K6_SOURCE, K6_REPLACES, "bigru_shared_fwd_rs_bf16"),
+                     "K4f": (K4F_SOURCE, K4F_REPLACES, "bigru_masked_fwd_bf16"),
+                     "K4b": (K4B_SOURCE, K4B_REPLACES, "bigru_masked_bwd_bf16"),
+                     "K5f": (K5F_SOURCE, K5F_REPLACES, "gru1_fwd_bf16"),
+                     "K5b": (K5B_SOURCE, K5B_REPLACES, "gru1_bwd_bf16")}
+S2S_LAYER = ("s2s_encoder0", 256, 25)  # the seq2seq encoder layer: its input width and frames on 4 s
+
+
+def bf16_more_case(rng, dev, k: str, name: str, D: int, T: int, B: int, *, n_parts: int = 1, pool: int = 1,
+                   lengths=None) -> dict:
+    """Kernel ``k`` (K6, K4f, K4b, K5f or K5b) at one layer shape, H = 128,
+    on bf16 streams, held against its plain version at bf16 (``bf16_hold``;
+    the yardstick the plain version on f32 copies of the same inputs): K6
+    on ``n_parts`` parts with a ``pool``; K4f with ``lengths`` (B,) (None:
+    every row T) and exact zeros past each; K4b (every row T) and K5b on
+    their forward kernel's bf16 output and a seeded bf16 cotangent; K5f and
+    K5b on every row T. Returns the largest ratio and abs error, the calls
+    "bf16" (the bf16 wrapper), "f32" (the f32 kernel on the f32 copies) and
+    "plain" (the bf16 plain version) on the same inputs, the work of
+    ``bound_bf16`` and the cuDNN bf16 yardstick's keyword arguments."""
+    import numpy as np
+    import torch
+
+    from tpu_slu_torch.ops.bigru_masked import (
+        bigru_masked_bwd,
+        bigru_masked_bwd_reference,
+        bigru_masked_fwd,
+        bigru_masked_reference,
+    )
+    from tpu_slu_torch.ops.bigru_shared import bigru_shared_fwd, bigru_shared_rowstack_reference
+    from tpu_slu_torch.ops.gru1 import gru1_bwd, gru1_bwd_reference, gru1_fwd, gru1_reference
+
+    bf, H = torch.bfloat16, 128
+    params, parts32 = k1_case(rng, n_parts, D // n_parts, T, B, H, dev)
+    ndir = 1 if k.startswith("K5") else 2
+    if ndir == 1:
+        params = {"fwd": params["fwd"]}
+    lib = {"dtype": bf, "bidirectional": ndir == 2, "backward": k.endswith("b")}
+    if k == "K6":
+        ins = {"bf16": tuple(p.to(bf) for p in parts32)}
+        ins["f32"] = tuple(p.float() for p in ins["bf16"])
+        calls = {w: (lambda w=w: bigru_shared_fwd(params, ins[w], pool=pool, layout="rowstack")) for w in ins}
+        calls["plain"] = lambda: bigru_shared_rowstack_reference(params, ins["bf16"], pool=pool)
+        ref32 = bigru_shared_rowstack_reference(params, ins["f32"], pool=pool)
+        rows, out_vals = T * B, 2 * -(-T // pool) * B * H
+        w = gru_fwd_work(rows, D, H, rows * D, out_vals, stream_bytes=2)
+    else:
+        x16 = parts32[0].transpose(0, 1).contiguous().to(bf)
+        n = None
+        if ndir == 2:
+            n = torch.from_numpy(np.asarray([T] * B if lengths is None else lengths, np.int64)).to(dev)
+            lib["lengths"] = None if lengths is None else list(lengths)
+        fwd, fwd_ref = (bigru_masked_fwd, bigru_masked_reference) if ndir == 2 else (gru1_fwd, gru1_reference)
+        ins = {"bf16": (x16,), "f32": (x16.float(),)}
+        rows = B * T if n is None else int(n.sum())
+        if k.endswith("f"):
+            calls = {w: (lambda w=w: fwd(params, ins[w][0], n)) for w in ins}
+            calls["plain"] = lambda: fwd_ref(params, x16, n)
+            ref32 = fwd_ref(params, ins["f32"][0], n)
+            w = gru_fwd_work(rows, D, H, rows * D, B * T * ndir * H, dirs=ndir, stream_bytes=2)
+        else:
+            with torch.inference_mode():
+                out = fwd(params, x16, n)
+            dy = torch.from_numpy(rng.standard_normal((B, T, ndir * H)).astype(np.float32)).to(dev, bf)
+            ins = {"bf16": (x16, out, dy), "f32": (x16.float(), out.float(), dy.float())}
+            bwd, bwd_ref = (bigru_masked_bwd, bigru_masked_bwd_reference) if ndir == 2 else (gru1_bwd,
+                                                                                            gru1_bwd_reference)
+            calls = {w: (lambda w=w: bwd(params, ins[w][0], ins[w][1], n, ins[w][2])) for w in ins}
+            calls["plain"] = lambda: bwd_ref(params, *ins["bf16"][:2], n, ins["bf16"][2])
+            ref32 = bwd_ref(params, *ins["f32"][:2], n, ins["f32"][2])
+            # per row and direction: gi and gh recomputed, the dh chain, dX, dW_ih, dW_hh (2 * 3H * (3D + 3H))
+            # and the gate derivatives; in: x, out, dy (bf16), the weights; out: dX (bf16), the weight gradients
+            w = (ndir * rows * (2 * 3 * H * (3 * D + 3 * H) + 2 * GATE_OPS * H),
+                 2 * (2 * B * T * D + 2 * ndir * B * T * H) + 4 * 2 * gru_weight_floats(D, H, dirs=ndir))
+    gates = ndir * rows * GATE_OPS * H * (2 if k.endswith("b") else 1)
+    work = (w[0] - gates, gates, w[1])
+    got, ref = calls["bf16"](), calls["plain"]()
+    if k.endswith("b"):
+        (got, grads), (ref, rgrads), (ref32, r32grads) = got, ref, ref32
+        pairs = [("dx", got, ref, ref32)] + [(f"{d}.{p}", grads[d][p], rgrads[d][p], r32grads[d][p])
+                                             for d in grads for p in grads[d]]
+        if got.dtype != bf or any(g.dtype != torch.float32 for _, g, *_ in pairs[1:]):
+            raise AssertionError(f"{k} bf16 {name}: dX must be bf16 and the weight gradients f32")
+    else:
+        pairs = [(f"out{i}", g, r, r32) for i, (g, r, r32) in
+                 enumerate(zip(*((t,) if torch.is_tensor(t) else t for t in (got, ref, ref32))))]
+    torch.cuda.synchronize()
+    ratio = max(bf16_hold(f"{k} bf16 {name} T={T} B={B} {what}", g, r, r32) for what, g, r, r32 in pairs)
+    err = max((g.float() - r.float()).abs().max().item() for _, g, r, _ in pairs)
+    if lengths is not None:
+        t = torch.arange(T, device=dev)[None, :]
+        if not (pairs[0][1][t >= n[:, None]] == 0).all():
+            raise AssertionError(f"{k} bf16 {name} T={T} B={B}: a frame past its row's length is not 0")
+    return {"ratio": ratio, "err": err, "calls": calls, "work": work, "lib": lib, "shape": (name, D, T, B)}
+
+
+def recurrence_of(name: str) -> tuple[str, bool] | None:
+    """("forward" or "chain", whether its streams are bf16) of a traced
+    kernel that is a GRU recurrence, the one launch each wrapper call of a
+    recurrent kernel makes: the cluster recurrence (``gru_cluster_kernel``:
+    K1, K2, K4f, K5f, K6), K3's chain (``bwd_chain_kernel``,
+    ``bwd_chain_kernel_bf16``), K4b's and K5b's (``gru_cluster_bwd_kernel``,
+    bf16 by its last template argument); else None."""
+    if "gru_cluster_bwd_kernel<" in name:
+        last = name.split("gru_cluster_bwd_kernel<", 1)[1].split(">", 1)[0].split(",")[-1].strip()
+        return "chain", last in ("true", "1", "(bool)1")
+    if "bwd_chain_kernel" in name:
+        return "chain", "bwd_chain_kernel_bf16" in name
+    if "gru_cluster_kernel<" in name:
+        return "forward", "bfloat16" in name
+    return None
+
+
+def phase_bf16_more(dev, card: str, rng) -> tuple[list[dict], dict]:
+    """Phase 14, second half: K6, K4f, K4b, K5f and K5b on bf16 streams.
+    Returns the kernels line's entries of their bf16 instantiations, and the
+    bf16 errors of each (largest share of the gap, max abs error) by the
+    name of its f32 entry."""
+    import numpy as np
+    import torch
+
+    from tpu_slu_torch.models.flagship import TRAIN_CFG, UNIDIRECTIONAL, flagship_model, flagship_seq2seq_model
+    from tpu_slu_torch.ops.bigru_masked import bigru_masked, bigru_masked_bwd
+    from tpu_slu_torch.ops.bigru_shared import bigru_shared, bigru_shared_bwd, bigru_trainpool
+    from tpu_slu_torch.ops.gru1 import gru1, gru1_bwd
+    from tpu_slu_torch.training import Trainer
+
+    t_phase = time.perf_counter()
+    # 14.6 the bf16 kernels against their plain versions: K6 at the five flagship layers (B = 16) and the
+    # train intent layer (B = 64, unpooled); K4f at the served shape (B = 8, mixed lengths) and the seq2seq
+    # encoder layer (B = 64, T = 25, D = 256), K4b at that layer; K5f and K5b at the unidirectional
+    # flagship's five layers (B = 64); all on 4 s. The first set of each kernel is timed below
+    s2s_name, s2s_D, s2s_T = S2S_LAYER
+    served = []
+    for _, d, n_parts, T, _ in FLAGSHIP_LAYERS:
+        lengths = rng.integers(1, T + 1, SERVE_BATCH)
+        lengths[0], lengths[-1] = T, 0
+        served.append(lengths.tolist())
+    plan = {
+        "K6": ([(name, d * n, T, 16, {"n_parts": n, "pool": pool}) for name, d, n, T, pool in FLAGSHIP_LAYERS],
+               [(f"{INTENT_SHAPE[0]} train", INTENT_SHAPE[1] * INTENT_SHAPE[2], INTENT_SHAPE[3], 64,
+                 {"n_parts": INTENT_SHAPE[2]})]),
+        "K4f": ([(name, d * n, T, SERVE_BATCH, {"lengths": m}) for (name, d, n, T, _), m in zip(FLAGSHIP_LAYERS, served)],
+                [(s2s_name, s2s_D, s2s_T, 64, {})]),
+        "K4b": ([(s2s_name, s2s_D, s2s_T, 64, {})], []),
+        "K5f": ([(name, D, T, 64, {}) for name, D, T in UNI_SHAPES], []),
+        "K5b": ([(name, D, T, 64, {}) for name, D, T in UNI_SHAPES], []),
+    }
+    held, errs = {k: [] for k in plan}, {}
+    for k, (timed, extra) in plan.items():
+        ratio, err = 0.0, 0.0
+        for i, (name, D, T, B, kw) in enumerate(timed + extra):
+            case = bf16_more_case(rng, dev, k, name, D, T, B, **kw)
+            ratio, err = max(ratio, case["ratio"]), max(err, case["err"])
+            if i < len(timed):
+                held[k].append(case)
+            else:
+                del case["calls"]
+            mixed = f", lengths {kw['lengths']}" if kw.get("lengths") else ""
+            print(f"[bf16-{k.lower()}] {name:18s} D={D:3d} T={T:3d} B={B:2d}{mixed}: {case['ratio']:.3g} of the plain "
+                  f"version's bf16-vs-f32 gap (limit {BF16_RATIO}), max abs err {case['err']:.3g}, within "
+                  f"{BF16_ULPS:.4g} of the largest element")
+        errs[k] = {"ratio": ratio, "err": err}
+    print("[bf16] K6, K4f, K4b, K5f, K5b at bf16 against their plain versions: largest share of the gap "
+          + ", ".join(f"{k} {v['ratio']:.3g}" for k, v in errs.items()) + "; max abs err "
+          + ", ".join(f"{k} {v['err']:.3g}" for k, v in errs.items()))
+
+    # 14.7 one bf16 train step against the CPU's: seq2seq (B = 64, U = S2S_U), unidirectional (B = 64),
+    # the fixed-slot model on the row-stacked layout (B = 16)
+    steps = {kind: bf16_step_vs_cpu(dev, rng, kind, B) for kind, B in
+             (("seq2seq", 64), ("unidirectional", 64), ("rowstack", 16))}
+
+    # 14.8 the main paths: Trainer.train and Trainer.test at compute_dtype=bfloat16 of the seq2seq,
+    # the unidirectional and the row-stacked fixed-slot model, B = 64, each wrapper's counts set to 0
+    # just before each and read just after
+    counters = {"K1": bigru_shared, "K2": bigru_trainpool, "K3": bigru_shared_bwd, "K4f": bigru_masked,
+                "K4b": bigru_masked_bwd, "K5f": gru1, "K5b": gru1_bwd}
+
+    def zero():
+        for c in counters.values():
+            c.launches = c.launches_bf16 = 0
+        bigru_shared.launches_rowstack = 0
+
+    def counts() -> dict:
+        """(bf16 launches, all launches) of each kernel that launched; K1's
+        and K6's bf16 launches share a counter, so a run takes one of them."""
+        torch.cuda.synchronize()
+        out = {k: (c.launches_bf16, c.launches) for k, c in counters.items()}
+        if bigru_shared.launches_rowstack:
+            if bigru_shared.launches:
+                raise AssertionError("a bf16 run launched both K1 and K6")
+            out["K6"] = (out.pop("K1")[0], bigru_shared.launches_rowstack)
+        return {k: v for k, v in out.items() if v != (0, 0)}
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bf16_more_")
+    trainers, main_launches = {}, {}
+    try:
+        kinds = {"seq2seq": flagship_seq2seq_model(dev, seed=1),
+                 "unidirectional": flagship_model(dev, cfg=TRAIN_CFG, seed=1, **UNIDIRECTIONAL),
+                 "rowstack": flagship_model(dev, cfg=TRAIN_CFG, seed=1)}
+        kinds["rowstack"].pretrained_model.gru_layout = "rowstack"
+        for kind, model in kinds.items():
+            config = model.config
+            config.folder, config.compute_dtype = os.path.join(tmp, kind), "bfloat16"
+            trainer = Trainer(model, config, generator=torch.Generator().manual_seed(7))
+            B = config.training_batch_size
+            data = Batches(s2s_batches(rng, 2, B, model.Sy_intent) if kind == "seq2seq"
+                           else synthetic_batches(rng, 2, B, model.values_per_slot))
+            n = len(data.loader)
+            zero()
+            _, loss = trainer.train(data)
+            train_launches = counts()
+            zero()
+            _, t_loss = trainer.test(data)
+            test_launches = counts()
+            want = {"seq2seq": ({"K2": (4 * n, 4 * n), "K3": (4 * n, 4 * n), "K4f": (n, n), "K4b": (n, n)},
+                                {"K1": (4 * n, 4 * n), "K4f": (n, n)}),
+                    "unidirectional": ({"K5f": (5 * n, 5 * n), "K5b": (5 * n, 5 * n)}, {"K5f": (5 * n, 5 * n)}),
+                    "rowstack": ({"K6": (n, n), "K2": (4 * n, 4 * n), "K3": (5 * n, 5 * n)},
+                                 {"K6": (5 * n, 5 * n)})}[kind]
+            if (train_launches, test_launches) != want or not (np.isfinite(loss) and np.isfinite(t_loss)):
+                raise AssertionError(f"bf16 {kind} Trainer over {n} batches: (bf16, all) launches train "
+                                     f"{train_launches}, test {test_launches}, want {want}; losses {loss}, {t_loss}")
+            print(f"[bf16-trainer] {kind} Trainer.train at compute_dtype=bfloat16, B={B}, 4 s, {n} steps: loss "
+                  f"{loss:.4f}, (bf16, all) launches {train_launches}; Trainer.test loss {t_loss:.4f}, launches "
+                  f"{test_launches}")
+            for k, (bf16_n, _) in train_launches.items():
+                main_launches.setdefault(k, bf16_n)
+            trainers[kind] = (trainer, data.loader[0])
+
+        # 14.9 each warm step at bf16 beside its f32 twin, in turns f32, bf16, bf16, f32; the bf16 step's
+        # trace holds as many bf16 recurrences (forward and chain) as the counters count, and no f32 one
+        step_times = {}
+        for kind, (t16, host_batch) in trainers.items():
+            t32 = Trainer(t16.model, copy.copy(t16.model.config), generator=torch.Generator().manual_seed(7))
+            t32.compute_dtype = None
+            batch = t16._to_device(host_batch)
+            times = {"f32": [], "bf16": []}
+            for which in ("f32", "bf16", "bf16", "f32"):
+                t = t32 if which == "f32" else t16
+                times[which] += cuda_times(lambda: t.train_step(batch), reps=5, warmup=1)
+            def counted():  # kernel_table makes one warm call before it traces its reps
+                want = {"forward": sum(counters[k].launches_bf16 for k in ("K1", "K2", "K4f", "K5f")),
+                        "chain": sum(counters[k].launches_bf16 for k in ("K3", "K4b", "K5b"))}
+                return {k: v * 3 // 4 for k, v in want.items()}
+
+            def check(table):
+                want = counted()
+                seen = {(r, b16): 0 for r in want for b16 in (True, False)}
+                for key, (n, _) in table.items():
+                    if recurrence_of(key):
+                        seen[recurrence_of(key)] += round(3 * n)
+                f32 = seen["forward", False] or seen["chain", False]
+                if {r: seen[r, True] for r in want} == want and not f32:
+                    return None
+                return (f"recurrences (kind, bf16) {seen} over 3 steps, counted bf16 {want}",
+                        not f32 and all(seen[r, True] <= want[r] for r in want))
+
+            wall, table, traces = counted_trace(lambda: t16.train_step(batch), zero, check,
+                                                f"bf16 {kind} step profile")
+            want = counted()
+            busy, n_launch = sum(ms for _, ms in table.values()), round(sum(n for n, _ in table.values()))
+            wall32, table32 = kernel_table(lambda: t32.train_step(batch), reps=3)
+            busy32, n32 = sum(ms for _, ms in table32.values()), round(sum(n for n, _ in table32.values()))
+            st = step_times[kind] = {
+                "bf16_ms": statistics.median(times["bf16"]), "f32_ms": statistics.median(times["f32"]),
+                "bf16_busy_ms": busy, "bf16_idle_share": 1 - busy / wall, "bf16_launches": n_launch,
+                "f32_busy_ms": busy32, "f32_idle_share": 1 - busy32 / wall32, "f32_launches": n32}
+            print(f"[time] warm {kind} train step B={t16.model.config.training_batch_size} on 4 s, in turns f32, "
+                  f"bf16, bf16, f32 (CUDA events, 5 a turn): bf16 median {st['bf16_ms']:.3f} ms, f32 "
+                  f"{st['f32_ms']:.3f} ms; profiler: bf16 busy {busy:.3f} ms, idle share {st['bf16_idle_share']:.3f}, "
+                  f"{n_launch} launches a step; f32 busy {busy32:.3f} ms, idle share {st['f32_idle_share']:.3f}, "
+                  f"{n32} launches; the bf16 step's trace (of {traces} taken) holds {want} bf16 recurrences over 3 "
+                  f"steps, as counted, and no f32 one, on {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 14.10 each kernel's timed set at bf16 beside f32, in turns, with the bf16 plain version, cuDNN's bf16
+    # nn.GRU and the bf16 bound (their device time by the profiler: tools/torch_cluster_ab.py --bf16)
+    entries = []
+    for k, cases in held.items():
+        ms = {"bf16": 0.0, "f32": 0.0, "plain": 0.0, "lib": 0.0}
+        work = [0.0, 0.0, 0.0]
+        for case in cases:
+            name, D, T, B = case["shape"]
+            t = {"f32": [], "bf16": []}
+            for which in ("f32", "bf16", "bf16", "f32"):
+                t[which].append(cuda_ms(case["calls"][which], reps=10, warmup=1))
+            p_ms = cuda_ms(case["calls"]["plain"], reps=1, warmup=0)
+            lib = cudnn_gru_ms(D, T, B, 128, dev, **case["lib"])
+            for key, v in (("bf16", statistics.median(t["bf16"])), ("f32", statistics.median(t["f32"])),
+                           ("plain", p_ms), ("lib", lib)):
+                ms[key] += v
+            work = [a + b for a, b in zip(work, case["work"])]
+            b_ms, b_by = bound_bf16(*case["work"])
+            print(f"[time] {k} bf16 {name:11s} B={B} T={T:3d}: bf16 {statistics.median(t['bf16']):.4f} ms, f32 "
+                  f"{statistics.median(t['f32']):.4f} ms (in turns), plain bf16 {p_ms:.3f} ms, cuDNN bf16 nn.GRU "
+                  f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        b_ms, b_by = bound_bf16(*work)
+        B = cases[0]["shape"][3]
+        print(f"[time] {k} at bf16, {len(cases)} layer{'s' * (len(cases) > 1)} B={B}: kernel {ms['bf16']:.4f} ms beside "
+              f"f32 {ms['f32']:.4f} ms (in turns, CUDA events around each call), plain bf16 {ms['plain']:.3f} ms, "
+              f"cuDNN bf16 nn.GRU {ms['lib']:.4f} ms, bound {b_ms:.4f} ms ({b_by}) on {card}")
+        source, replaces, name = BF16_MORE_SOURCES[k]
+        entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": main_launches[k], "max_abs_err": errs[k]["err"], "ms": ms["bf16"], "plain_ms": ms["plain"],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": ms["lib"],
+            "library_call": "cuDNN nn.GRU in bf16" + (", backward" if k.endswith("b") else "")
+                            + (", one direction" if k.startswith("K5") else "") + ": the nearest call, not the "
+                            "same rounding", "f32_ms": ms["f32"], "batch": B, "max_gap_ratio": errs[k]["ratio"]})
+    entries[0].update({"step_ratio": {kind: v["ratio"] for kind, v in steps.items()},
+                       "step_floor": {kind: v["floor"] for kind, v in steps.items()}, "steps": step_times})
+    print(f"[bf16] phase 14's second half took {time.perf_counter() - t_phase:.1f} s")
+    f32_names = {"K6": "bigru_shared_fwd_rs", "K4f": "bigru_masked_fwd", "K4b": "bigru_masked_bwd",
+                 "K5f": "gru1_fwd", "K5b": "gru1_bwd"}
+    return entries, {f32_names[k]: {"max_abs_err_bf16": v["err"], "max_gap_ratio_bf16": v["ratio"]}
+                     for k, v in errs.items()}
 
 
 def free_port() -> int:
@@ -4135,8 +4529,9 @@ def main() -> None:
     # 13. data-parallel training and evaluation, and the first-epoch trace
     dp = phase_dp(dev, card, rng)
 
-    # 14. compute_dtype=bfloat16: K1, K2 and K3 on bf16 streams
+    # 14. compute_dtype=bfloat16: K1, K2 and K3 on bf16 streams, then K6, K4f, K4b, K5f and K5b
     bf16 = phase_bf16(dev, card, rng)
+    bf16_more, bf16_errs = phase_bf16_more(dev, card, rng)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_slu"))
     if loaded:
@@ -4153,7 +4548,8 @@ def main() -> None:
     for entry in kernels:
         entry.update(asr.get(entry["name"], {}))
         entry.update(dp.get(entry["name"], {}))
-    kernels += bf16
+        entry.update(bf16_errs.get(entry["name"], {}))
+    kernels += bf16 + bf16_more
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -154,7 +154,8 @@ def test_layer_matches_jax_pallas_at_bf16(rng, dims, route):
 def test_k3_wrapper_takes_bf16_streams_and_returns_f32_weight_gradients(rng):
     """The backward wrapper's dtype contract: bf16 parts, h_prev and
     cotangents in; bf16 dX and f32 gradients out; the fused mode's pooled
-    cotangent is widened before its window divide."""
+    cotangent is widened before its window divide. Mixed parts raise; the
+    row-stacked layout (K6) takes bf16 parts and returns bf16 streams."""
     T, B, H = 7, 2, 8
     _, port_p = make_params(rng, 10, H)
     parts = [torch.from_numpy(x).to(BF16) for x in make_parts(rng, (4, 6), T, B)]
@@ -166,8 +167,9 @@ def test_k3_wrapper_takes_bf16_streams_and_returns_f32_weight_gradients(rng):
         assert all(g.dtype == torch.float32 for gd in grads.values() for g in gd.values())
     with pytest.raises(TypeError):
         bigru_shared(port_p, [parts[0], parts[1].float()])
-    with pytest.raises(TypeError):
-        bigru_shared(port_p, parts, layout="rowstack")
+    for kw, To in (({}, T), ({"pool": 2}, 4)):
+        h_f, h_b, _ = bigru_shared(port_p, parts, layout="rowstack", **kw)
+        assert h_f.dtype == h_b.dtype == BF16 and h_f.shape == h_b.shape == (To, B, H)
 
 
 def test_float64_steps_stay_float64(tmp_path):
@@ -424,31 +426,64 @@ def test_a_bf16_cfg_decodes_and_serves_what_the_f32_cfg_does(tmp_path):
     assert results["float32"][1:] == results["bfloat16"][1:]
 
 
-@pytest.mark.parametrize("kind", ["seq2seq", "unidirectional", "asr_unidirectional"])
-def test_the_trainer_refuses_bf16_where_its_kernels_are_f32(tmp_path, kind):
-    """A seq2seq model (K4f and K4b) or a unidirectional layer (K5f and
-    K5b), fixed-slot or ASR, at bf16: ``Trainer(...)`` raises a ValueError
-    that names ROADMAP Queue 1 item 7, on any device, and so do the loss
-    functions themselves; at float32 the same model takes a Trainer."""
+def _flagship_of(kind: str, folder: str, dtype: str):
+    """The flagship model of ``kind`` on the CPU at dropout 0 and its config
+    at ``compute_dtype`` ``dtype``: the seq2seq model, or the fixed-slot
+    model with every GRU layer unidirectional, or that model's encoder
+    (``asr_unidirectional``, ``pretraining_type`` 2)."""
+    no_dropout = {"phone_rnn_drop": [0.0, 0.0], "word_rnn_drop": [0.0, 0.0], "cnn_drop": [0.0, 0.0, 0.0]}
     if kind == "seq2seq":
-        model = flagship_seq2seq_model("cpu")
+        model = flagship_seq2seq_model("cpu", seq2seq_dropout=0.0, **no_dropout)
     else:
-        model = flagship_model("cpu", cfg=TRAIN_CFG, **UNIDIRECTIONAL)
+        model = flagship_model("cpu", cfg=TRAIN_CFG, intent_rnn_drop=[0.0], **no_dropout, **UNIDIRECTIONAL)
     config = model.config
-    config.folder, config.compute_dtype = str(tmp_path), "bfloat16"
+    config.folder, config.compute_dtype = folder, dtype
     if kind == "asr_unidirectional":
         config.pretraining_type = 2
         model = model.pretrained_model
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 7"):
-        Trainer(model, config)
-    x = torch.zeros(1, 4000)
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 7"):
-        if kind == "seq2seq":
-            model.loss(x, torch.zeros(1, 2, len(model.Sy_intent)), train=False, compute_dtype=BF16)
-        elif kind == "unidirectional":
-            model.loss(x, torch.zeros(1, 3, dtype=torch.int64), train=False, compute_dtype=BF16)
-        else:
-            encoder_loss(model, x, torch.zeros(1, 5, dtype=torch.int64), torch.zeros(1, 2, dtype=torch.int64),
-                         compute_dtype=BF16)
-    config.compute_dtype = "float32"
-    assert Trainer(model, config).compute_dtype is None
+    return model, config
+
+
+@pytest.mark.parametrize("kind", ["seq2seq", "unidirectional", "asr_unidirectional"])
+def test_the_trainer_takes_bf16_for_every_model_kind(tmp_path, kind):
+    """A seq2seq model (K4f and K4b at bf16) or one with unidirectional
+    layers (K5f and K5b), fixed-slot or ASR, at the flagship's widths: a
+    bf16 ``Trainer(...)`` takes a CPU train step and a test pass on 0.25 s,
+    B = 2. From equal weights on the same batch its losses are finite,
+    differ from the f32 Trainer's (bf16 acts) and lie within 1e-2 relative
+    of them; its parameters stay f32 and move. The loss functions take
+    ``compute_dtype=BF16`` and return f32 losses."""
+    rng = np.random.default_rng(4)
+    model, _ = _flagship_of(kind, str(tmp_path / "probe"), "float32")
+    x = (0.1 * rng.standard_normal((2, 4000))).astype(np.float32)
+    batch = {"x": x, "w": np.ones(2, np.float32), "len": np.full(2, 4000)}
+    if kind == "seq2seq":
+        L = len(model.Sy_intent)
+        batch.update(y_intent=np.eye(L, dtype=np.float32)[rng.integers(1, L, (2, 5))], y_len=np.array([5, 3]))
+    elif kind == "unidirectional":
+        batch["y_intent"] = np.stack([rng.integers(0, v, 2) for v in model.values_per_slot], 1)
+    else:
+        t_p, t_w = int(model.arch.num_frames(4000, upto="phoneme")), int(model.arch.num_frames(4000))
+        batch.update(y_phoneme=rng.integers(-1, 42, (2, t_p)),
+                     y_word=rng.integers(-1, model.arch.vocabulary_size, (2, t_w)))
+    losses = {}
+    for dtype in ("float32", "bfloat16"):
+        model, config = _flagship_of(kind, str(tmp_path / dtype), dtype)
+        trainer = Trainer(model, config)
+        assert trainer.compute_dtype == (BF16 if dtype == "bfloat16" else None)
+        before = copy.deepcopy(model.state_dict())
+        losses[dtype] = (trainer.train(_Data([copy.deepcopy(batch)]))[1],
+                         trainer.test(_Data([copy.deepcopy(batch)]))[1])
+        after = model.state_dict()
+        assert all(t.dtype == torch.float32 for t in after.values())
+        assert any(not torch.equal(before[k], after[k]) for k in after)
+    for a, b in zip(losses["float32"], losses["bfloat16"]):
+        assert np.isfinite(b) and a != b and abs(a - b) <= 1e-2 * abs(a), (a, b)
+    xt = torch.from_numpy(x)
+    if kind == "asr_unidirectional":
+        out = encoder_loss(model, xt, torch.from_numpy(batch["y_phoneme"]), torch.from_numpy(batch["y_word"]),
+                           compute_dtype=BF16)
+    else:
+        y = torch.from_numpy(batch["y_intent"])
+        out = model.loss(xt, y if kind == "seq2seq" else y.long(), train=False, compute_dtype=BF16)[:1]
+    assert all(v.dtype == torch.float32 and torch.isfinite(v) for v in out)

@@ -68,6 +68,7 @@ def _kernels_of(source: str) -> set:
 @pytest.mark.parametrize("phases,source", [("K3_PHASES", "bigru_shared_bwd.cu"),
                                            ("K3_BF16_PHASES", "bigru_shared_bwd.cu"),
                                            ("K4B_PHASES", "bigru_masked_bwd.cu"),
+                                           ("K4B_BF16_PHASES", "bigru_masked_bwd.cu"),
                                            ("K5B_PHASES", "bigru_masked_bwd.cu")])
 def test_phase_splits_name_kernels_of_their_source(phases, source):
     """Every kernel name of a phase split (``device_split`` matches them in
@@ -88,13 +89,14 @@ def test_the_backward_chain_is_the_cluster_kernel():
 
 
 def test_k6_runs_the_cluster_recurrence():
-    """K6's recurrence is K1's cluster kernel with the row-stacked flag; the
+    """K6's recurrence is K1's cluster kernel with the row-stacked flag, at
+    the parts' stream type (f32, or bf16 since K6 has a bf16 form); the
     one-CTA recurrence it ran before is gone from every source."""
     assert "gru_cluster_kernel" in _kernels_of("bigru_shared_fwd.cu")
     for fn in os.listdir(_build.CSRC):
         assert "bigru_rec_kernel" not in _kernels_of(fn), fn
     with open(os.path.join(_build.CSRC, "bigru_shared_fwd.cu")) as f:
-        assert f.read().count("gru_cluster_rec<true, false, true>") == 1
+        assert f.read().count("gru_cluster_rec<true, false, true, TS>") == 1
 
 
 @pytest.mark.parametrize("steps,score", [(1, -3.0), (24, -60.5), (56, -252.0), (200, -903.25)])
@@ -294,3 +296,46 @@ def test_the_profile_dir_check_tells_the_step_kernels_apart():
     with open(os.path.join(_build.CSRC, "gru_cluster.cuh")) as f:
         assert ("template <int C, int NB, bool POOL, bool TRAIN, bool ROWS = false, typename TS = float>\n"
                 "__global__") in f.read()
+
+
+def test_the_bf16_step_check_tells_recurrences_apart():
+    """Phase 14's warm bf16 steps count the GRU recurrences in a trace by
+    the one kernel each wrapper call launches, forward or chain, bf16 or
+    f32: the cluster recurrence by its stream type, K3's chain by its
+    kernel, K4b's and K5b's by the backward template's last argument; the
+    names it matches are kernels the sources define."""
+    assert chip_smoke.recurrence_of(
+        "void gru_cluster_kernel<2, 1, false, false, true, __nv_bfloat16>(ClusterRecT<__nv_bfloat16>)") == (
+        "forward", True)
+    assert chip_smoke.recurrence_of("void gru_cluster_kernel<4, 1, true, false, false, float>(ClusterRecT<float>)") == (
+        "forward", False)
+    assert chip_smoke.recurrence_of("void gru_cluster_bwd_kernel<2, 8, true>(ClusterBwdRec)") == ("chain", True)
+    assert chip_smoke.recurrence_of("void gru_cluster_bwd_kernel<2, 8, false>(ClusterBwdRec)") == ("chain", False)
+    assert chip_smoke.recurrence_of("void bwd_chain_kernel_bf16<8>(float const*)") == ("chain", True)
+    assert chip_smoke.recurrence_of("void bwd_chain_kernel<8>(float const*)") == ("chain", False)
+    assert chip_smoke.recurrence_of("void gemm_kernel_mixed<0, 0, 128, 64, 4, 1, 2, false>(GemmArgs)") is None
+    assert {"gru_cluster_bwd_kernel", "masked_hprev_kernel_bf16"} <= _kernels_of("bigru_masked_bwd.cu")
+    assert {"gru_cluster_kernel", "bwd_chain_kernel_bf16"} <= (_kernels_of("bigru_shared_fwd.cu")
+                                                               | _kernels_of("bigru_shared_bwd.cu"))
+
+
+def test_counted_trace_retakes_a_short_trace_and_raises_on_anything_else(monkeypatch):
+    """``counted_trace`` takes a trace again only while it is short of the
+    counted launches (the profiler dropped events): it returns the first
+    complete one, raises on the last short one, and raises at once on any
+    other mismatch."""
+    traces = iter([{"k": (9, 0.1)}, {"k": (10, 0.1)}, {"k": (12, 0.1)}, {"k": (13, 0.1)}])
+    monkeypatch.setattr(chip_smoke, "kernel_table", lambda fn, reps: (1.0, next(traces)))
+    resets = []
+
+    def check(table):
+        n = table["k"][0]
+        return None if n == 10 else (f"{n} against 10", n < 10)
+
+    wall, table, taken = chip_smoke.counted_trace(lambda: None, lambda: resets.append(1), check, "what")
+    assert (table["k"][0], taken, len(resets)) == (10, 2, 2)
+    with pytest.raises(AssertionError, match="12 against 10"):
+        chip_smoke.counted_trace(lambda: None, lambda: None, check, "what")
+    traces = iter([{"k": (9, 0.1)}] * 3)
+    with pytest.raises(AssertionError, match="9 against 10"):
+        chip_smoke.counted_trace(lambda: None, lambda: None, check, "what", tries=3)

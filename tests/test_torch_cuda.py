@@ -527,27 +527,42 @@ def test_bf16_k3_repeats_bit_for_bit(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fault", ["mixed_parts", "bf16_weight", "f32_hp", "f32_dy", "rowstack"])
+@pytest.mark.parametrize("fault", ["mixed_parts", "bf16_weight", "f32_hp", "f32_dy", "rowstack", "masked_f32_dy",
+                                   "uni_bf16_weight"])
 def test_bf16_kernels_refuse_mixed_dtypes(dev, fault):
-    """bf16 streams take f32 weights, and every stream of a call one dtype;
-    K6 takes f32 only. Nothing launches."""
+    """bf16 streams take f32 weights, and every stream of a call one dtype:
+    K1, K2 and K3; K6 (``rowstack``: a bf16 weight); K4b (an f32 dy beside
+    a bf16 x) and K5f (a bf16 weight). Nothing launches."""
     params, parts, _, hp_f, hp_b, dy, kw = _bf16_bwd_case(24, (8, 8), 9, 2, 8, dev, True)
-    counts = (bigru_shared.launches, bigru_shared.launches_rowstack, bigru_trainpool.launches,
-              bigru_shared_bwd.launches)
+    x = torch.cat(parts, dim=-1).transpose(0, 1).contiguous()
+    n = torch.tensor([9, 4], device=dev)
+    counters = (bigru_shared, bigru_trainpool, bigru_shared_bwd, bigru_masked, bigru_masked_bwd, gru1, gru1_bwd)
+
+    def counts():
+        return [c.launches for c in counters] + [bigru_shared.launches_rowstack] + [c.launches_bf16 for c in counters]
+
+    if fault == "masked_f32_dy":
+        with torch.inference_mode():
+            out = bigru_masked(params, x, n)
+    before = counts()
     with pytest.raises(TypeError):
         if fault == "mixed_parts":
             bigru_shared(params, [parts[0], parts[1].float()])
-        elif fault == "bf16_weight":
+        elif fault in ("bf16_weight", "rowstack", "uni_bf16_weight"):
             params["fwd"]["weight_hh"] = params["fwd"]["weight_hh"].to(BF16)
-            bigru_trainpool(params, parts, **kw)
-        elif fault == "rowstack":
-            bigru_shared_fwd(params, parts, layout="rowstack")
+            if fault == "bf16_weight":
+                bigru_trainpool(params, parts, **kw)
+            elif fault == "rowstack":
+                bigru_shared_fwd(params, parts, layout="rowstack")
+            else:
+                gru1({"fwd": params["fwd"]}, x, n)
+        elif fault == "masked_f32_dy":
+            bigru_masked_bwd(params, x, out, n, torch.zeros(out.shape, device=dev))
         else:
             hp_f, dy[0] = (hp_f.float(), dy[0]) if fault == "f32_hp" else (hp_f, dy[0].float())
             bigru_shared_bwd(params, parts, hp_f, hp_b, *dy, **kw)
     torch.cuda.synchronize()
-    assert (bigru_shared.launches, bigru_shared.launches_rowstack, bigru_trainpool.launches,
-            bigru_shared_bwd.launches) == counts
+    assert counts() == before
 
 
 @pytest.mark.cuda
@@ -915,6 +930,157 @@ def test_k5_rejects_what_it_does_not_take(dev, fault):
         with pytest.raises((TypeError, ValueError)):
             gru1_bwd(params, x, out, n, dy)
     assert (gru1.launches, gru1_bwd.launches) == counts
+
+
+# ---------------------------------------------------------------------------
+# K4f, K4b, K5f, K5b and K6 on bf16 streams (compute_dtype=bfloat16)
+# ---------------------------------------------------------------------------
+
+
+def _bf16_masked_case(seed, ndir, B, T, D, H, dev):
+    """K4's inputs (``ndir`` 2) or K5's (1) with a bf16 x, that x in f32
+    (exact), the length vectors to try (every row T, then K4f's: T and 0 in
+    each, and 1 where B > 2), and a seeded bf16 cotangent."""
+    params, x, lengths = k4_inputs(seed, B, T, D, H, dev)
+    if B > 2:
+        lengths[0][1] = 1
+    if ndir == 1:
+        params = {"fwd": params["fwd"]}
+    x16 = x.to(BF16)
+    rng = np.random.default_rng(seed + 1)
+    dy = torch.from_numpy(rng.standard_normal((B, T, ndir * H)).astype(np.float32)).to(dev).to(BF16)
+    return params, x16, x16.float(), [torch.full((B,), T, device=dev)] + lengths, dy
+
+
+_BF16_MASKED_SHAPES = [(1, 25), (8, 400), (8, 25), (64, 25), (133, 21)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", _BF16_MASKED_SHAPES)
+def test_bf16_k4f_matches_plain(dev, B, T):
+    """K4f's bf16 entry against the plain bf16 version (the yardstick the
+    plain version on the f32 copy of x): a bf16 output within the bf16
+    bounds, exact zeros past each row's length, one launch counted on
+    ``launches`` and ``launches_bf16``."""
+    D = 60 if T == 400 else 256
+    params, x, x32, lengths, _ = _bf16_masked_case(50, 2, B, T, D, 128, dev)
+    for n in lengths:
+        before = (bigru_masked.launches, bigru_masked.launches_bf16)
+        with torch.inference_mode():
+            got = bigru_masked(params, x, n)
+        torch.cuda.synchronize()
+        assert (bigru_masked.launches, bigru_masked.launches_bf16) == (before[0] + 1, before[1] + 1)
+        assert got.dtype == BF16
+        assert_bf16_close(got, bigru_masked_reference(params, x, n), bigru_masked_reference(params, x32, n))
+        for b, nb in enumerate(n.tolist()):
+            assert (got[b, nb:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", _BF16_MASKED_SHAPES)
+def test_bf16_k5f_matches_plain(dev, B, T):
+    """K5f's bf16 entry, as K4f's, with and without lengths."""
+    D = 60 if T == 400 else 128
+    params, x, x32, lengths, _ = _bf16_masked_case(51, 1, B, T, D, 128, dev)
+    for n in [None] + lengths[1:]:
+        before = (gru1.launches, gru1.launches_bf16)
+        with torch.inference_mode():
+            got = gru1(params, x, n)
+        torch.cuda.synchronize()
+        assert (gru1.launches, gru1.launches_bf16) == (before[0] + 1, before[1] + 1)
+        assert got.dtype == BF16
+        assert_bf16_close(got, gru1_reference(params, x, n), gru1_reference(params, x32, n))
+        for b, nb in enumerate([T] * B if n is None else n.tolist()):
+            assert (got[b, nb:] == 0).all()
+
+
+def _bf16_bwd_holds(got, ref, ref32, lengths):
+    """dX (bf16) and the weight and bias gradients (f32) of a bf16 backward
+    within the bf16 bounds; dX exactly 0 past each row's length."""
+    (dx, grads), (rdx, rgrads), (r32dx, r32grads) = got, ref, ref32
+    assert dx.dtype == BF16
+    assert_bf16_close(dx, rdx, r32dx)
+    for d in grads:
+        for k in grads[d]:
+            assert grads[d][k].dtype == torch.float32
+            assert_bf16_close(grads[d][k], rgrads[d][k], r32grads[d][k])
+    for b, nb in enumerate(lengths):
+        assert (dx[b, nb:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", _BF16_MASKED_SHAPES)
+def test_bf16_k4b_matches_plain(dev, B, T):
+    """K4b's bf16 entry on the bf16 K4f's output against the plain bf16
+    version: bf16 dX (each direction's rounded, then their sum), f32
+    weight and bias gradients, within the bf16 bounds."""
+    D = 60 if T == 400 else 256
+    params, x, x32, lengths, dy = _bf16_masked_case(52, 2, B, T, D, 128, dev)
+    for n in lengths:
+        with torch.inference_mode():
+            out = bigru_masked(params, x, n)
+        before = (bigru_masked_bwd.launches, bigru_masked_bwd.launches_bf16)
+        got = bigru_masked_bwd(params, x, out, n, dy)
+        torch.cuda.synchronize()
+        assert (bigru_masked_bwd.launches, bigru_masked_bwd.launches_bf16) == (before[0] + 1, before[1] + 1)
+        _bf16_bwd_holds(got, bigru_masked_bwd_reference(params, x, out, n, dy),
+                        bigru_masked_bwd_reference(params, x32, out.float(), n, dy.float()), n.tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", _BF16_MASKED_SHAPES)
+def test_bf16_k5b_matches_plain(dev, B, T):
+    """K5b's bf16 entry, as K4b's (its one dX rounded once), with and
+    without lengths."""
+    D = 60 if T == 400 else 128
+    params, x, x32, lengths, dy = _bf16_masked_case(53, 1, B, T, D, 128, dev)
+    for n in [None] + lengths[1:]:
+        with torch.inference_mode():
+            out = gru1(params, x, n)
+        before = (gru1_bwd.launches, gru1_bwd.launches_bf16)
+        got = gru1_bwd(params, x, out, n, dy)
+        torch.cuda.synchronize()
+        assert (gru1_bwd.launches, gru1_bwd.launches_bf16) == (before[0] + 1, before[1] + 1)
+        _bf16_bwd_holds(got, gru1_bwd_reference(params, x, out, n, dy),
+                        gru1_bwd_reference(params, x32, out.float(), n, dy.float()),
+                        [T] * B if n is None else n.tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndir", [2, 1], ids=["k4b", "k5b"])
+def test_bf16_k4b_k5b_repeat_bit_for_bit(dev, ndir):
+    """K4b and K5b at bf16 sum their weight gradients in a fixed order too:
+    two calls on the same inputs agree bit for bit (the seq2seq encoder
+    layer's shape, and K5b's at B = 64)."""
+    D, T = (256, 25) if ndir == 2 else (128, 100)
+    params, x, _, (n, *_), dy = _bf16_masked_case(54, ndir, 64, T, D, 128, dev)
+    fwd, bwd = (bigru_masked, bigru_masked_bwd) if ndir == 2 else (gru1, gru1_bwd)
+    with torch.inference_mode():
+        out = fwd(params, x, n)
+    a, b = bwd(params, x, out, n, dy), bwd(params, x, out, n, dy)
+    assert torch.equal(a[0], b[0])
+    assert all(torch.equal(a[1][d][k], b[1][d][k]) for d in a[1] for k in a[1][d])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(1, 25), (16, 400), (16, 25), (64, 100)])
+@pytest.mark.parametrize("pool,method", POOLS)
+@pytest.mark.parametrize("dims", [(60,), (128, 128)], ids=["parts1", "parts2"])
+def test_bf16_k6_matches_plain(dev, dims, pool, method, B, T):
+    """K6's bf16 entry (``layout="rowstack"``) against its plain bf16
+    version: bf16 outputs within the bf16 bounds, one launch counted on
+    ``launches_rowstack`` and ``launches_bf16`` (K1's ``launches`` not)."""
+    params, parts, parts32 = bf16_case(55, dims, T, B, 128, dev)
+    before = (bigru_shared.launches_rowstack, bigru_shared.launches_bf16, bigru_shared.launches)
+    got = bigru_shared(params, parts, pool=pool, pool_method=method, layout="rowstack")[:2]
+    torch.cuda.synchronize()
+    assert (bigru_shared.launches_rowstack, bigru_shared.launches_bf16, bigru_shared.launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    ref = bigru_shared_rowstack_reference(params, parts, pool=pool, pool_method=method)
+    ref32 = bigru_shared_rowstack_reference(params, parts32, pool=pool, pool_method=method)
+    for g, r, r32 in zip(got, ref, ref32):
+        assert g.dtype == BF16
+        assert_bf16_close(g, r, r32)
 
 
 @pytest.mark.cuda

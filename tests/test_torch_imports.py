@@ -1,5 +1,5 @@
 """The PyTorch port decodes, serves and trains (both heads, a unidirectional model, and at
-``compute_dtype=bfloat16``), pre-trains,
+``compute_dtype=bfloat16``, the seq2seq head too), pre-trains,
 saves and reloads, and runs its CLI's training legs without jax, pandas or any ``tpu_slu`` module;
 its data-parallel and profiling modules import none of them either.
 
@@ -88,6 +88,11 @@ try:
         loader = [batch]
     acc, loss = Trainer(s2s_model, config).train(S2SData())
     assert np.isfinite(loss) and acc == 0.0
+    # the same seq2seq step at compute_dtype=bfloat16 (K4f and K4b on bf16 streams)
+    config.compute_dtype = "bfloat16"
+    trainer = Trainer(s2s_model, config)
+    acc, loss = trainer.train(S2SData())
+    bf16 += [str(trainer.compute_dtype), bool(np.isfinite(loss)), acc]
     # ASR pre-training, its checkpoint under a Model, and the CLI's training legs on a tiny tree
     import chip_smoke
     from tpu_slu_torch import cli
@@ -121,7 +126,7 @@ def test_port_imports_neither_jax_nor_pandas():
     assert result["decoded"] == result["served"] == result["want"]
     assert result["s2s"][0] == result["s2s"][1]
     assert result["uni"] == [3, True]
-    assert result["bf16"] == ["torch.bfloat16", True]
+    assert result["bf16"] == ["torch.bfloat16", True, "torch.bfloat16", True, 0.0]
     assert result["cli_files"] == {
         "pretraining": ["log.csv", "model_state.npz", "phonemes.txt", "trainer_state.npz", "words.txt"],
         "training": ["log.csv", "model_state.npz", "trainer_state.npz", "vocab.json"]}

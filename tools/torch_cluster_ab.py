@@ -36,7 +36,7 @@ launches and held against the plain version, ranked by time beside the
 model's cost and the plan ``frontend_plan`` picks, and the fastest plan of
 two families alone (the whole list in ``build/k8_plans_B<B>_T<T>.txt``).
 ``--k8-launch``: what a graph replay of one call measures (``k8_launch``).
-``--bf16``: K1, K2 and K3 at bf16 beside f32 by device time (``bf16_ab``).
+``--bf16``: K1-K6 at bf16 beside f32 by device time (``bf16_ab``).
 ``--k7-sizes``: the cluster size K7 takes at each batch at the flagship
 decoder, W = 4, 4 s. ``--k7-variants``:
 each variant is ``tpu_slu_torch/csrc/beam_decode.cu`` with one text edit
@@ -389,12 +389,40 @@ def bf16_ab(dev, card: str) -> None:
     """``[bf16]``: K1 (five layers, B = 16), K2 (four, B = 64) and K3 (five,
     B = 64) at bf16 beside f32 on the same values (``chip_smoke.bf16_layer``,
     each held against its plain version first), by their device time
-    (profiler) in turns f32, bf16, bf16, f32; K3 also by phase."""
+    (profiler) in turns f32, bf16, bf16, f32; K3 also by phase. Then K6
+    (five layers, B = 16), K4f (five, B = 8, mixed lengths), K4b (the seq2seq
+    encoder layer, B = 64), K5f (five unidirectional layers, B = 16) and K5b
+    (five, B = 64), the shapes of PERF.md's table, the same way
+    (``chip_smoke.bf16_more_case``); K4b and K5b also by phase."""
     import numpy as np
 
     import chip_smoke as cs
 
     rng = np.random.default_rng(0)
+    more = {"K6": [(name, d * n, T, 16, {"n_parts": n, "pool": pool}) for name, d, n, T, pool in cs.FLAGSHIP_LAYERS],
+            "K4f": [], "K4b": [(*cs.S2S_LAYER, 64, {})],
+            "K5f": [(name, D, T, 16, {}) for name, D, T in cs.UNI_SHAPES],
+            "K5b": [(name, D, T, 64, {}) for name, D, T in cs.UNI_SHAPES]}
+    for name, d, n, T, _ in cs.FLAGSHIP_LAYERS:
+        lengths = rng.integers(1, T + 1, cs.SERVE_BATCH)
+        lengths[0], lengths[-1] = T, 0
+        more["K4f"].append((name, d * n, T, cs.SERVE_BATCH, {"lengths": lengths.tolist()}))
+    for k, shapes in more.items():
+        held = [cs.bf16_more_case(rng, dev, k, name, D, T, B, **kw) for name, D, T, B, kw in shapes]
+        calls = {which: [h["calls"][which] for h in held] for which in ("f32", "bf16")}
+        turns = {"f32": [], "bf16": []}
+        for which in ("f32", "bf16", "bf16", "f32"):
+            turns[which].append(cs.device_ms(lambda fns=calls[which]: [f() for f in fns], reps=5))
+        print(f"[bf16] {k} {len(shapes)} layer{'s' * (len(shapes) > 1)} B={shapes[0][3]}, device time (profiler) in "
+              f"turns: f32 {turns['f32'][0]:.4f}, bf16 {turns['bf16'][0]:.4f}, {turns['bf16'][1]:.4f}, f32 "
+              f"{turns['f32'][1]:.4f} ms; largest share of the bf16-vs-f32 gap {max(h['ratio'] for h in held):.3g} "
+              f"on {card}")
+        if k in ("K4b", "K5b"):
+            for which in ("f32", "bf16", "bf16", "f32"):
+                split = cs.device_split(lambda fns=calls[which]: [f() for f in fns],
+                                        cs.K4B_BF16_PHASES if which == "bf16" else cs.K4B_PHASES, reps=5)
+                print(f"[bf16] {k} {which} by phase (profiler, device ms a call): "
+                      + ", ".join(f"{p} {v:.4f}" for p, v in split.items()) + f"; sum {sum(split.values()):.4f}")
     plan = {"K1": (16, [s[:4] for s in cs.FLAGSHIP_LAYERS]), "K2": (64, cs.ENC_SHAPES),
             "K3": (64, cs.ENC_SHAPES + [cs.INTENT_SHAPE])}
     for k, (B, shapes) in plan.items():
@@ -421,7 +449,7 @@ def main() -> None:
     ap.add_argument("--k4b-batches", type=int, nargs="*", default=[])
     ap.add_argument("--k5b-batches", type=int, nargs="*", default=[])
     ap.add_argument("--parent", help="a checkout whose kernel library to time against this tree's")
-    ap.add_argument("--bf16", action="store_true", help="K1, K2 and K3 at bf16 beside f32, device time")
+    ap.add_argument("--bf16", action="store_true", help="K1-K6 at bf16 beside f32, device time")
     ap.add_argument("--k8-plans", nargs="*", default=[], help="shapes B (4 s) or B:T")
     ap.add_argument("--k8-launch", action="store_true")
     ap.add_argument("--k7-sizes", action="store_true")

@@ -35,7 +35,7 @@
 //     chunks are as many as give every SM two CTAs.
 // f32 FMAs throughout, no TF32.
 //
-// bf16 storage (compute_dtype=bfloat16, K1, K2 and K3 only): an operand
+// bf16 storage (compute_dtype=bfloat16: K1-K6 on bf16 streams): an operand
 // may be read as bf16 (the parts, h_prev), or as f32 rounded to bf16 on the
 // way (the f32 master weights W_ih and W_hh, and dX's dgi, as the TPU
 // kernel rounds them before its products), and dX may be written as bf16.
@@ -672,8 +672,10 @@ inline cudaError_t launch_gi_proj(const T* x1, int d1, const same_t<T>* x2, int 
 }
 
 // The row-stacked projection of K6 over both directions of T x B rows, b_hh's
-// r and z columns folded into b_ih.
-inline cudaError_t launch_gi_proj_rs(const float* x1, int d1, const float* x2, int d2,
+// r and z columns folded into b_ih; x f32 or bf16 (the weights then rounded
+// to bf16 as they are read), gi f32.
+template <typename TX = float>
+inline cudaError_t launch_gi_proj_rs(const TX* x1, int d1, const same_t<TX>* x2, int d2,
                                      const float* w_f, const float* b_f, const float* bhh_f,
                                      const float* w_b, const float* b_b, const float* bhh_b,
                                      float* out, int T, int B, int N, cudaStream_t st) {
@@ -687,7 +689,7 @@ inline cudaError_t launch_gi_proj_rs(const float* x1, int d1, const float* x2, i
     P.rs_B = B;
     P.rs_dir = d;
   }
-  return launch_proj(args, st);
+  return launch_proj<TX>(args, st);
 }
 
 // dx = sum_dir dgi[dir] W_ih_dir over k < H3, for n < D = d1 + d2; column n
@@ -750,16 +752,34 @@ __global__ void dx_pair_sum_kernel(const __nv_bfloat16* __restrict__ pair, int M
 
 // dx (split at d1 into dx1 and dx2, bf16) of the two directions' dgi (2, M,
 // H3, f32) and W_ih (H3 x D, f32), both rounded to bf16 as they are read,
-// through `pair` (2 x M x D bf16).
+// through `pair` (2 x M x D bf16). One direction (ndir = 1, K5b): its dX
+// rounded once, straight into dx1 and dx2; `pair` is not read.
 inline cudaError_t launch_dx_bf16(const float* dgi, const float* wih_f, const float* wih_b,
                                   __nv_bfloat16* dx1, int d1,
                                   __nv_bfloat16* dx2, int d2, __nv_bfloat16* pair, int M, int H3,
-                                  cudaStream_t st) {
+                                  cudaStream_t st, int ndir = 2) {
   int sms = 0;
   cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   const int D = d1 + d2;
   GemmArgs args = {};
+  if (ndir == 1) {
+    args.nprob = 1;
+    GemmProblem& P = args.p[0];
+    P.a0 = dgi;
+    P.lda0 = H3;
+    P.b0 = wih_f;
+    P.ldb0 = D;
+    P.K0 = H3;
+    P.M = M;
+    P.N = D;
+    P.out = reinterpret_cast<float*>(dx1);
+    P.ldo = d1;
+    P.out2 = reinterpret_cast<float*>(dx2);
+    P.ldo2 = d2;
+    P.n_split = d1;
+    return launch_gemm<kLayK, kLayR, kOpRound, kOpRound, true>(args, 1, pick_bn(args, sms), st);
+  }
   args.nprob = 2;
   for (int d = 0; d < 2; ++d) {
     GemmProblem& P = args.p[d];

@@ -58,6 +58,14 @@
 // (4 while every batch row gets a cluster of its own within one wave, else
 // 2); gru_cluster.cuh gives the A/Bs behind both. f32 operands and
 // accumulation throughout; H <= 128, H % 4 == 0.
+//
+// At compute_dtype=bfloat16 (`tsl_bigru_masked_fwd_bf16`, the seq2seq
+// encoder layer of a bf16 trainer; `tsl_gru1_fwd_bf16`, its unidirectional
+// layers) x and the output are bf16 and the TPU kernels' rounding points
+// are kept (pallas_gru.py:349-362, :154-161): the projection reads the bf16
+// x and W_ih rounded to bf16 (the GEMM core's mixed kernel), gi and the
+// carry stay f32, h is rounded for the recurrent product only (the
+// template's bf16 instantiation) and once for the output.
 
 #include "bigru_common.cuh"
 #include "gru_cluster.cuh"
@@ -68,11 +76,13 @@ namespace {
 // direction into the (ndir, B, T, 3H) scratch gi, then the batch-major
 // masked recurrence on clusters of the size gru_cluster_size(B, ndir)
 // picks, direction d writing columns [d H, (d + 1) H) of the (B, T, ndir H)
-// output.
-cudaError_t masked_forward(int ndir, const float* x, int D, const long long* lengths,
+// output. TS: x's and the output's type (f32, or bf16: the f32 weights
+// rounded to bf16 as they are read); the weights, the biases and gi f32.
+template <typename TS = float>
+cudaError_t masked_forward(int ndir, const TS* x, int D, const long long* lengths,
                            const float* wih_f, const float* bih_f, const float* whh_f,
                            const float* bhh_f, const float* wih_b, const float* bih_b,
-                           const float* whh_b, const float* bhh_b, float* gi, float* out, int T,
+                           const float* whh_b, const float* bhh_b, float* gi, TS* out, int T,
                            int B, int H, cudaStream_t st) {
   if (H % 4 != 0 || H > kGruMaxH) return cudaErrorInvalidValue;
   int C = 4;
@@ -80,7 +90,7 @@ cudaError_t masked_forward(int ndir, const float* x, int D, const long long* len
   if (err != cudaSuccess) return err;
   err = launch_gi_proj(x, D, nullptr, 0, wih_f, bih_f, wih_b, bih_b, gi, B * T, 3 * H, ndir, st);
   if (err != cudaSuccess) return err;
-  ClusterRec a = {};
+  ClusterRecT<TS> a = {};
   a.gi = gi;
   a.gi_dir = (long long)B * T * 3 * H;
   a.gi_b = (long long)T * 3 * H;
@@ -98,7 +108,7 @@ cudaError_t masked_forward(int ndir, const float* x, int D, const long long* len
   a.B = B;
   a.H = H;
   a.pool = 1;
-  return gru_cluster_rec<false, false>(a, ndir, C, st);
+  return gru_cluster_rec<false, false, false, TS>(a, ndir, C, st);
 }
 
 }  // namespace
@@ -130,6 +140,27 @@ int tsl_bigru_masked_fwd(
 int tsl_gru1_fwd(const float* x, int D, const long long* lengths, const float* wih,
                  const float* bih, const float* whh, const float* bhh, float* gi_scratch,
                  float* out, int T, int B, int H, void* stream) {
+  return (int)masked_forward(1, x, D, lengths, wih, bih, whh, bhh, nullptr, nullptr, nullptr,
+                             nullptr, gi_scratch, out, T, B, H, (cudaStream_t)stream);
+}
+
+// tsl_bigru_masked_fwd and tsl_gru1_fwd on bf16 storage (compute_dtype=
+// bfloat16): x and out bf16; the weights (rounded to bf16 as they are
+// read), the biases and gi_scratch f32, as there. h is rounded to bf16 for
+// the recurrent product only and once for its output; a row still writes
+// exact zeros past its length.
+int tsl_bigru_masked_fwd_bf16(
+    const __nv_bfloat16* x, int D, const long long* lengths,
+    const float* wih_f, const float* bih_f, const float* whh_f, const float* bhh_f,
+    const float* wih_b, const float* bih_b, const float* whh_b, const float* bhh_b,
+    float* gi_scratch, __nv_bfloat16* out, int T, int B, int H, void* stream) {
+  return (int)masked_forward(2, x, D, lengths, wih_f, bih_f, whh_f, bhh_f, wih_b, bih_b, whh_b,
+                             bhh_b, gi_scratch, out, T, B, H, (cudaStream_t)stream);
+}
+
+int tsl_gru1_fwd_bf16(const __nv_bfloat16* x, int D, const long long* lengths, const float* wih,
+                      const float* bih, const float* whh, const float* bhh, float* gi_scratch,
+                      __nv_bfloat16* out, int T, int B, int H, void* stream) {
   return (int)masked_forward(1, x, D, lengths, wih, bih, whh, bhh, nullptr, nullptr, nullptr,
                              nullptr, gi_scratch, out, T, B, H, (cudaStream_t)stream);
 }

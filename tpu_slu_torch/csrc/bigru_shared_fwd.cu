@@ -70,7 +70,12 @@
 // on the r and z columns), on the same clusters, with strides gi_dir = B 3H,
 // gi_b = 3H, gi_t = 2B 3H. What K6 changes on this card is the scratch
 // layout (both directions' rows of a step adjacent) and two fewer bias adds
-// a gate column a step; its bound and its step are K1's.
+// a gate column a step; its bound and its step are K1's. At bf16
+// (`tsl_bigru_shared_fwd_rs_bf16`, a bf16 trainer's intent layer and test
+// pass on this layout) it rounds where the TPU kernel does
+// (pallas_gru.py:924-995): the projection of bf16 parts against W_ih
+// rounded to bf16 (the mixed GEMM), the fold in f32, h rounded for the
+// recurrent products only, outputs rounded once, after the pool.
 
 #include "bigru_common.cuh"
 #include "gru_cluster.cuh"
@@ -78,12 +83,14 @@
 namespace {
 
 // K6: the row-stacked input projection, then the cluster recurrence on it at
-// the cluster size gru_cluster_size(B, 2) picks.
-inline cudaError_t bigru_forward_rs(const float* x1, int d1, const float* x2, int d2,
+// the cluster size gru_cluster_size(B, 2) picks; TS the parts' and the
+// outputs' type (f32, or bf16 as K1's bf16 entry takes them).
+template <typename TS = float>
+inline cudaError_t bigru_forward_rs(const TS* x1, int d1, const TS* x2, int d2,
                                     const float* wih_f, const float* bih_f, const float* whh_f,
                                     const float* bhh_f, const float* wih_b, const float* bih_b,
                                     const float* whh_b, const float* bhh_b, float* gi_scratch,
-                                    float* out_f, float* out_b, int T, int B, int H, int pool,
+                                    TS* out_f, TS* out_b, int T, int B, int H, int pool,
                                     int pool_max, cudaStream_t st) {
   if (H % 4 != 0 || H > kGruMaxH) return cudaErrorInvalidValue;
   int C = 4;
@@ -92,7 +99,7 @@ inline cudaError_t bigru_forward_rs(const float* x1, int d1, const float* x2, in
   err = launch_gi_proj_rs(x1, d1, x2, d2, wih_f, bih_f, bhh_f, wih_b, bih_b, bhh_b, gi_scratch, T,
                           B, 3 * H, st);
   if (err != cudaSuccess) return err;
-  ClusterRec a = {};
+  ClusterRecT<TS> a = {};
   a.gi = gi_scratch;
   a.gi_dir = (long long)B * 3 * H;
   a.gi_b = 3 * H;
@@ -110,8 +117,8 @@ inline cudaError_t bigru_forward_rs(const float* x1, int d1, const float* x2, in
   a.H = H;
   a.pool = pool;
   a.pool_max = pool_max;
-  return pool > 1 ? gru_cluster_rec<true, false, true>(a, 2, C, st)
-                  : gru_cluster_rec<false, false, true>(a, 2, C, st);
+  return pool > 1 ? gru_cluster_rec<true, false, true, TS>(a, 2, C, st)
+                  : gru_cluster_rec<false, false, true, TS>(a, 2, C, st);
 }
 
 }  // namespace
@@ -173,6 +180,22 @@ int tsl_bigru_shared_fwd_bf16(
   return (int)bigru_cluster_forward<false, __nv_bfloat16>(
       x1, d1, x2, d2, wih_f, bih_f, whh_f, bhh_f, wih_b, bih_b, whh_b, bhh_b, gi_scratch, out_f,
       out_b, nullptr, nullptr, T, B, H, pool, pool_max, 0u, kKeepAll, 1.0f, (cudaStream_t)stream);
+}
+
+// K6 on bf16 storage (tsl_bigru_shared_fwd_rs as tsl_bigru_shared_fwd_bf16
+// takes K1's): x1, x2, out_f and out_b bf16; the weights (rounded to bf16 as
+// they are read), the biases (b_hh's r and z columns folded into b_ih in
+// f32) and gi_scratch f32. The outputs are h rounded to bf16 once, after the
+// pool of the f32 h.
+int tsl_bigru_shared_fwd_rs_bf16(
+    const __nv_bfloat16* x1, int d1, const __nv_bfloat16* x2, int d2,
+    const float* wih_f, const float* bih_f, const float* whh_f, const float* bhh_f,
+    const float* wih_b, const float* bih_b, const float* whh_b, const float* bhh_b,
+    float* gi_scratch, __nv_bfloat16* out_f, __nv_bfloat16* out_b,
+    int T, int B, int H, int pool, int pool_max, void* stream) {
+  return (int)bigru_forward_rs<__nv_bfloat16>(x1, d1, x2, d2, wih_f, bih_f, whh_f, bhh_f, wih_b,
+                                              bih_b, whh_b, bhh_b, gi_scratch, out_f, out_b, T, B,
+                                              H, pool, pool_max, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -39,6 +39,14 @@
 //     sums do not depend on C.
 // H <= 128 (the column's registers are sized for it), H % 4 == 0. f32
 // operands and accumulation.
+//
+// BF (K4b and K5b at compute_dtype=bfloat16, the TPU kernels' points,
+// pallas_gru.py:471 and :233): each unit's column of W_hh is rounded to
+// bf16 as it is read into its registers (kept as f32 words, so the dot is
+// the f32 one), and the dgh values a lane sends to the cluster for the next
+// step's product are rounded to bf16; the dgi and dgh it stores for phase
+// 3's dW, the carry and the element math stay f32. The f32 instantiation
+// keeps the registers and the time it had.
 
 #pragma once
 
@@ -85,7 +93,7 @@ __host__ __device__ constexpr int bwd_smem_floats() {
 // Step s reads the rows' dgh of step s - 1 from dg_s[s & 1]; the lanes that
 // run the element math send the step's dgh to every CTA's dg_s[(s + 1) & 1]
 // by st.async, whose bytes complete that buffer's mbarrier there.
-template <int C, int NB>
+template <int C, int NB, bool BF = false>
 __global__ void __launch_bounds__(kGruMaxH / C * kUnitLanes)
     gru_cluster_bwd_kernel(const ClusterBwdRec a) {
   static_assert(NB <= kUnitLanes, "one lane of a unit per batch row");
@@ -120,6 +128,10 @@ __global__ void __launch_bounds__(kGruMaxH / C * kUnitLanes)
     if (unit && j < n4) {
       const float* wc = whh + (size_t)(4 * j) * H + col;
       w[i] = make_float4(wc[0], wc[H], wc[2 * H], wc[3 * H]);
+      if constexpr (BF) {  // the bf16 product's operand
+        w[i] = make_float4(bf16_round(w[i].x), bf16_round(w[i].y), bf16_round(w[i].z),
+                           bf16_round(w[i].w));
+      }
     }
   }
   for (int e = tid; e < 2 * NB * kRow; e += blockDim.x) dg_s[e] = 0.0f;
@@ -238,6 +250,11 @@ __global__ void __launch_bounds__(kGruMaxH / C * kUnitLanes)
       if (s + 1 < nmax) {  // every row sends every step, so a step's byte count is fixed
         const unsigned off = (unsigned)(((p ^ 1) * NB + lane) * kRow + col) * 4u;
         const unsigned gate = (unsigned)H * 4u;
+        if constexpr (BF) {  // the next step's product reads dgh rounded to bf16
+          dr = bf16_round(dr);
+          dz = bf16_round(dz);
+          dnr = bf16_round(dnr);
+        }
 #pragma unroll
         for (int r = 0; r < C; ++r) {
           const unsigned bar = peer_bar[r] + 8 * (p ^ 1);
@@ -267,10 +284,10 @@ __global__ void __launch_bounds__(kGruMaxH / C * kUnitLanes)
   cluster.sync();  // no CTA leaves while a peer may still address its shared memory
 }
 
-template <int C, int NB>
+template <int C, int NB, bool BF>
 cudaError_t launch_gru_cluster_bwd(const ClusterBwdRec& a, int ndir, cudaStream_t st) {
   const int smem = (int)sizeof(float) * bwd_smem_floats<C, NB>();
-  cudaError_t err = cudaFuncSetAttribute(gru_cluster_bwd_kernel<C, NB>,
+  cudaError_t err = cudaFuncSetAttribute(gru_cluster_bwd_kernel<C, NB, BF>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
@@ -285,7 +302,7 @@ cudaError_t launch_gru_cluster_bwd(const ClusterBwdRec& a, int ndir, cudaStream_
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, gru_cluster_bwd_kernel<C, NB>, a);
+  err = cudaLaunchKernelEx(&cfg, gru_cluster_bwd_kernel<C, NB, BF>, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -296,24 +313,25 @@ cudaError_t launch_gru_cluster_bwd(const ClusterBwdRec& a, int ndir, cudaStream_
 // row. The forward's rule won at each shape of an A/B on an H100
 // (tools/torch_cluster_ab.py): K5b's five layers at B = 64, C = 2 by 15%;
 // K4b's layer at B = 64, C = 2 by 9%, and at B = 8 with mixed lengths,
-// C = 4 by 5%.
-inline cudaError_t gru_cluster_bwd(const ClusterBwdRec& a, int ndir, cudaStream_t st) {
+// C = 4 by 5%. BF: the bf16 instantiation (see the top).
+template <bool BF = false>
+cudaError_t gru_cluster_bwd(const ClusterBwdRec& a, int ndir, cudaStream_t st) {
   if (a.H % 4 != 0 || a.H > kGruMaxH || (ndir != 1 && ndir != 2)) return cudaErrorInvalidValue;
   int C = 2, nb = 8;
   cudaError_t err = gru_cluster_size(a.B, ndir, &C);
   if (err != cudaSuccess) return err;
   err = pick_batch_tile(a.B, &nb, ndir * C);
   if (err != cudaSuccess) return err;
-  if (C == 4) return nb == 1 ? launch_gru_cluster_bwd<4, 1>(a, ndir, st) : cudaErrorInvalidValue;
+  if (C == 4) return nb == 1 ? launch_gru_cluster_bwd<4, 1, BF>(a, ndir, st) : cudaErrorInvalidValue;
   switch (nb) {
     case 1:
-      return launch_gru_cluster_bwd<2, 1>(a, ndir, st);
+      return launch_gru_cluster_bwd<2, 1, BF>(a, ndir, st);
     case 2:
-      return launch_gru_cluster_bwd<2, 2>(a, ndir, st);
+      return launch_gru_cluster_bwd<2, 2, BF>(a, ndir, st);
     case 4:
-      return launch_gru_cluster_bwd<2, 4>(a, ndir, st);
+      return launch_gru_cluster_bwd<2, 4, BF>(a, ndir, st);
     default:
-      return launch_gru_cluster_bwd<2, 8>(a, ndir, st);
+      return launch_gru_cluster_bwd<2, 8, BF>(a, ndir, st);
   }
 }
 

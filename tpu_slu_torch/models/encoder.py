@@ -16,12 +16,13 @@ the layer (``ops/bigru_shared.py``). A unidirectional GRU layer (a config's
 (``ops/gru1.py``); its dropout and downsample run after it, as in JAX.
 
 ``compute_dtype=torch.bfloat16`` (a trainer's ``compute_dtype=bfloat16``)
-casts each bidirectional GRU layer's input streams to bf16, as JAX's
-``_apply_stack`` does on the TPU's Pallas path (``encoder.py:361-362``):
-the layers then run K1, K2 and K3 on bf16 streams, the front end stays f32,
-and the heads widen their input to their weights' dtype, where JAX
-promotes. Unidirectional layers and the length-exact branch take no
-``compute_dtype`` (:data:`BF16_UNPORTED`).
+casts each GRU layer's input to bf16, as JAX's ``_apply_stack`` does on the
+TPU's Pallas path (``encoder.py:361-362``, ``:464-465``): the bidirectional
+layers then run K1 (or K6), K2 and K3 on bf16 streams, the unidirectional
+ones K5f and K5b, the length-exact branch K4f and K5f; the dropout and the
+pools after a layer act on its bf16 output, as XLA's do; the front end
+stays f32, and the heads widen their input to their weights' dtype, where
+JAX promotes.
 
 Two routes of the exact-shape eval path are settings of
 :class:`PretrainedModel`, passed down to :func:`apply_stack` by its
@@ -71,11 +72,6 @@ FRONTENDS = ("fused", "composed")
 # K1's
 DEFAULT_FRONTEND = "fused"
 DEFAULT_GRU_LAYOUT = "split"
-# what compute_dtype=bfloat16 does not reach yet: the layers that run K4f/K4b
-# and K5f/K5b (their kernels take f32 only)
-BF16_UNPORTED = ("compute_dtype=bfloat16 is ported for bidirectional GRU layers on the fixed-slot and ASR "
-                 "trainers only; the seq2seq encoder (K4f/K4b) and unidirectional layers (K5f/K5b) at "
-                 "bf16 are ROADMAP Queue 1 item 7")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -324,11 +320,13 @@ def draw_seed(generator: torch.Generator) -> int:
 def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None) -> torch.Tensor:
     """Inverted dropout with a Bernoulli keep mask drawn from ``generator``
     on the generator's device (so a card run and a CPU run with equal
-    generators drop the same elements): ``where(keep, x / (1 - p), 0)``."""
+    generators drop the same elements): ``where(keep, x / (1 - p), 0)``,
+    1 - p in x's dtype (a bf16 x divides by it rounded to bf16, as JAX's
+    weakly typed ``x / keep_p`` does)."""
     if generator is None:
         raise ValueError(f"dropout of rate {p} in training needs a generator")
     keep = torch.rand(x.shape, generator=generator, device=generator.device) < 1.0 - p
-    return torch.where(keep.to(x.device), x / (1.0 - p), 0.0)
+    return torch.where(keep.to(x.device), x / torch.tensor(1.0 - p, dtype=x.dtype), 0.0)
 
 
 def _gru_block(layer, tail, out, *, train: bool, generator, layout: str,
@@ -381,7 +379,7 @@ def zero_time_tail(out: torch.Tensor, n: torch.Tensor, time_axis: int) -> torch.
 
 
 def _apply_stack_masked(layers: nn.ModuleList, specs, out, n: torch.Tensor, *, train: bool,
-                        generator: torch.Generator | None):
+                        generator: torch.Generator | None, compute_dtype: torch.dtype | None = None):
     """The length-exact branch of :func:`apply_stack` (the JAX
     ``_apply_stack`` with ``n``): every op computes as if each example were
     cropped to its own ``n_b`` valid samples (before the convs) or frames
@@ -391,7 +389,8 @@ def _apply_stack_masked(layers: nn.ModuleList, specs, out, n: torch.Tensor, *, t
     shared-stream chain is not taken. Conv specs
     take (B, C, T), RNN specs (B, T, C); returns (B, T, C). The counts
     follow :func:`frames_through`, spec by spec, with ``//`` flooring on
-    int64 tensors as JAX's does (a row with n_b = 0 stays at 0 frames)."""
+    int64 tensors as JAX's does (a row with n_b = 0 stays at 0 frames).
+    ``compute_dtype`` casts each GRU layer's input (JAX ``encoder.py:464``)."""
     if isinstance(out, PartsTM):
         out = parts_to_btc(out)
     for spec in specs:
@@ -416,6 +415,8 @@ def _apply_stack_masked(layers: nn.ModuleList, specs, out, n: torch.Tensor, *, t
         elif spec.kind == "ncl2nlc":
             out = out.transpose(1, 2)  # (B, C, T) -> (B, T, C)
         elif spec.kind == "gru":
+            if compute_dtype is not None:
+                out = out.to(compute_dtype)
             out = (bigru_masked if spec.h[2] else gru1)(layer.params(), out.contiguous(), n)
         elif spec.kind == "select":
             pass  # the GRU returns its sequence
@@ -462,15 +463,14 @@ def apply_stack(layers: nn.ModuleList, specs, out, *, train: bool = False,
     layer's ``bigru_shared`` layout. The length-exact branch and training
     keep the composed front end, as in JAX.
 
-    ``compute_dtype`` (None or ``torch.bfloat16``) casts every bidirectional
-    layer's input streams to it; the other specs keep their dtypes. It
-    raises with ``n`` or a unidirectional layer (:data:`BF16_UNPORTED`)."""
+    ``compute_dtype`` (None or ``torch.bfloat16``) casts every GRU layer's
+    input to it, bidirectional or not, on either branch; the specs after a
+    layer act on its output in that dtype, the front end keeps its own."""
     if frontend not in FRONTENDS:
         raise ValueError(f"frontend must be one of {FRONTENDS}, got {frontend!r}")
-    if compute_dtype is not None and (n is not None or any(s.kind == "gru" and not s.h[2] for s in specs)):
-        raise ValueError(BF16_UNPORTED)
     if n is not None:
-        return _apply_stack_masked(layers, specs, out, n, train=train, generator=generator)
+        return _apply_stack_masked(layers, specs, out, n, train=train, generator=generator,
+                                   compute_dtype=compute_dtype)
     specs = list(specs)
     idx = 0
     while idx < len(specs):
@@ -517,6 +517,8 @@ def apply_stack(layers: nn.ModuleList, specs, out, *, train: bool = False,
             if train and spec.h[0] > 0.0:
                 out = dropout(out, spec.h[0], generator)
         elif spec.kind == "gru":  # unidirectional: JAX's generic gru_apply branch
+            if compute_dtype is not None:
+                out = out.to(compute_dtype)
             out = gru1(layer.params(), out.contiguous())
         elif spec.kind == "select":
             pass  # the GRU returns its sequence

@@ -26,7 +26,6 @@ from torch.nn.utils import skip_init
 from tpu_slu_torch.data.loader import WAVE_BUCKET_QUANT, pad_to_bucket
 from tpu_slu_torch.models.convert import params_from_jax, read_npz
 from tpu_slu_torch.models.encoder import (
-    BF16_UNPORTED,
     DEFAULT_FRONTEND,
     DEFAULT_GRU_LAYOUT,
     LayerSpec,
@@ -264,7 +263,8 @@ def seq2seq_encode(encoder: Seq2SeqEncoder, arch: Seq2SeqArch, feats: torch.Tens
     Each layer is :func:`bigru_masked` (K4f forward and K4b backward on the
     card, the TPU's route too; their plain versions on the CPU). ``train``
     applies dropout of rate ``arch.dropout`` after each layer (JAX
-    ``slu.py:251-255``), its masks drawn from ``generator``."""
+    ``slu.py:251-255``), its masks drawn from ``generator``. bf16 feats (a
+    bf16 trainer's) run the layers and their dropout at bf16."""
     B, T, _ = feats.shape
     n = n_frames if n_frames is not None else torch.full((B,), T, dtype=torch.int64,
                                                          device=feats.device)
@@ -479,10 +479,11 @@ class Model(nn.Module):
         the JAX train path runs it.
 
         ``compute_dtype`` (``torch.bfloat16`` under a bf16 trainer) runs the
-        GRU layers on bf16 streams (:func:`~tpu_slu_torch.models.encoder.apply_stack`);
-        the seq2seq head refuses it (``BF16_UNPORTED``)."""
-        if compute_dtype is not None and self.seq2seq:
-            raise ValueError(BF16_UNPORTED)
+        encoder's GRU layers on bf16 streams (:func:`~tpu_slu_torch.models.encoder.apply_stack`);
+        the heads' GRU layers then take the bf16 features as they are (the
+        seq2seq encoder's too, K4f and K4b at bf16), as JAX's do by
+        inheritance, and each head's linears widen them to f32 where JAX
+        promotes, so the loss is f32."""
         feats = encoder_features(self.pretrained_model, x, train=train, generator=generator,
                                  compute_dtype=compute_dtype)
         mask_padding = getattr(self.config, "mask_padding", True) and lengths is not None

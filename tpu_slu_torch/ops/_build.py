@@ -69,6 +69,15 @@ _SIGNATURES = {
     "tsl_sinc_frontend_fwd": (_I, [_P] * 3 + [_I] * 13 + [_P]),
     "tsl_bigru_shared_cluster_size": (_I, [_I]),
     "tsl_bigru_shared_fwd_rs": (_I, [_P, _I, _P, _I] + [_P] * 8 + [_P] * 3 + [_I] * 5 + [_P]),
+    # K6, K4f, K5f, K4b and K5b on bf16 streams: the f32 entries' arguments, and the
+    # backward's bf16 scratch (hp16, dyx and, with two directions, pair) after `partial`
+    "tsl_bigru_shared_fwd_rs_bf16": (_I, [_P, _I, _P, _I] + [_P] * 8 + [_P] * 3 + [_I] * 5 + [_P]),
+    "tsl_bigru_masked_fwd_bf16": (_I, [_P, _I, _P] + [_P] * 8 + [_P] * 2 + [_I] * 3 + [_P]),
+    "tsl_gru1_fwd_bf16": (_I, [_P, _I, _P] + [_P] * 4 + [_P] * 2 + [_I] * 3 + [_P]),
+    "tsl_bigru_masked_bwd_bf16": (_I, [_P, _I, _P, _P, _P] + [_P] * 8 + [_P] * 9 + [_P] * 5 + [_P] * 3
+                                  + [_I] * 3 + [_P]),
+    "tsl_gru1_bwd_bf16": (_I, [_P, _I, _P, _P, _P] + [_P] * 4 + [_P] * 5 + [_P] * 5 + [_P] * 2 + [_I] * 3
+                          + [_P]),
     "tsl_gemm_proj": (_I, [_P, _I, _P, _I, _P, _P, _P, _I, _I, _P]),
     "tsl_gemm_dx": (_I, [_P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P]),
     "tsl_gemm_dw": (_I, [_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _P]),

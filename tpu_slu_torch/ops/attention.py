@@ -17,10 +17,21 @@ import torch.nn.functional as F
 
 def attention_kv(attn, encoder_states: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Encoder states (B, T, E) -> (keys (B, T, K), values (B, T, V)),
-    projected once: they are the same at every decode step."""
-    keys = F.linear(encoder_states, attn.key_linear.weight, attn.key_linear.bias)
-    values = F.linear(encoder_states, attn.value_linear.weight, attn.value_linear.bias)
+    projected once: they are the same at every decode step. bf16 states (a
+    bf16 trainer's encoder) are widened to the weights' dtype by each
+    projection, where JAX promotes them (``tpu_slu/ops/attention.py:33-34``):
+    so each projection's gradient is rounded to bf16 before the two are
+    summed, as JAX's two promotions transpose."""
+    keys = F.linear(_promoted(encoder_states, attn.key_linear.weight), attn.key_linear.weight,
+                    attn.key_linear.bias)
+    values = F.linear(_promoted(encoder_states, attn.value_linear.weight), attn.value_linear.weight,
+                      attn.value_linear.bias)
     return keys, values
+
+
+def _promoted(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """A bf16 x in the weight's dtype; any other x as it is."""
+    return x.to(weight.dtype) if x.dtype == torch.bfloat16 else x
 
 
 def attend_kv(attn, keys: torch.Tensor, values: torch.Tensor, decoder_state: torch.Tensor,

@@ -21,6 +21,17 @@ plain PyTorch version on a CPU tensor, and keeps a count of its launches:
 :func:`bigru_masked` routes a call through a ``torch.autograd.Function``
 whose forward and backward are those wrappers whenever a gradient is needed,
 on either device.
+
+x (and the backward's ``out`` and ``dy``) is float32, or bfloat16 (the
+seq2seq encoder of a ``compute_dtype=bfloat16`` trainer, its unidirectional
+layers): the kernels and their plain versions then take the f32 master
+weights, return bf16 streams (the output, dX) and f32 weight gradients, and
+round where the TPU kernels round at that dtype (``pallas_gru.py:349-362``,
+``:440-495``; K5's ``:154-161``, ``:206-244``): W_ih and W_hh rounded to
+bf16, f32 accumulation, h rounded for the recurrent product only, dgh for
+the chain's product only, each direction's dX rounded and their sum rounded
+again, dW from the f32 dgi and dgh. Each wrapper counts its bf16 launches on
+``launches_bf16`` too.
 """
 
 from __future__ import annotations
@@ -28,15 +39,26 @@ from __future__ import annotations
 import torch
 
 from tpu_slu_torch.ops import _build
-from tpu_slu_torch.ops.gru import gru_apply_masked
+from tpu_slu_torch.ops.bigru_shared import STREAM_DTYPES, _as_f32, round_bf16
+from tpu_slu_torch.ops.gru import gru_apply, gru_apply_masked
 
 _DIRS = ("fwd", "bwd")
 _NAMES = ("weight_ih", "bias_ih", "weight_hh", "bias_hh")
+BF16 = torch.bfloat16
 
 
-# K4f's function in plain PyTorch (``reverse_padded`` plus one forward walk per
-# direction, as the JAX scan branch); autograd through and through
-bigru_masked_reference = gru_apply_masked
+def bigru_masked_reference(params: dict, x: torch.Tensor, n: torch.Tensor | None) -> torch.Tensor:
+    """K4f's function in plain PyTorch: ``gru_apply_masked`` (``reverse_padded``
+    plus one forward walk per direction, as the JAX scan branch), or
+    ``gru_apply`` with ``n`` None; with ``{"fwd"}`` params K5f's. A bf16 x
+    runs on f32 copies with W_ih and W_hh rounded to bf16 and h rounded for
+    the recurrent product, its output rounded to bf16 once. Autograd through
+    and through."""
+    bf = x.dtype == BF16
+    if bf:
+        params, (x,) = _as_f32(params, (x,))
+    out = gru_apply(params, x, round_h=bf) if n is None else gru_apply_masked(params, x, n, round_h=bf)
+    return out.to(BF16) if bf else out
 
 
 def bigru_masked_bwd_reference(params: dict, x: torch.Tensor, out: torch.Tensor, n: torch.Tensor,
@@ -53,8 +75,16 @@ def bigru_masked_bwd_reference(params: dict, x: torch.Tensor, out: torch.Tensor,
     the direction's first step (t = 0 and t = n_b - 1). ``dy``, shaped as
     ``out``, is the cotangent; at t >= n_b the output is a constant 0, so
     ``dy`` there is ignored and dX there is 0. Returns ``(dx (B, T, D),
-    grads)``, ``grads`` keyed like ``params``.
+    grads)``, ``grads`` keyed like ``params``. At bf16 (x, ``out`` and ``dy``
+    bf16) the gates come from bf16 x and h_prev against the rounded weights,
+    dgh is rounded for the chain's product, each direction's dX (the rounded
+    dgi against the rounded W_ih) is rounded and so is their sum; the
+    weight gradients take the f32 dgi and dgh.
     """
+    dtype, bf = x.dtype, x.dtype == BF16
+    if bf:
+        params, (x, out, dy) = _as_f32(params, (x, out, dy))
+    rnd = round_bf16 if bf else (lambda t: t)
     B, T, D = x.shape
     H = params["fwd"]["weight_hh"].shape[1]
     t = torch.arange(T, device=x.device)
@@ -89,14 +119,14 @@ def bigru_masked_bwd_reference(params: dict, x: torch.Tensor, out: torch.Tensor,
             dr = dn * rfac[:, s]
             dgi[:, s] = torch.where(v, torch.cat([dr, dz, dn], dim=-1), 0.0)
             dgh_s = torch.cat([dr, dz, dn * r[:, s]], dim=-1)
-            dh = torch.where(v, torch.matmul(dgh_s, p["weight_hh"]) + d * z[:, s], 0.0)
+            dh = torch.where(v, torch.matmul(rnd(dgh_s), p["weight_hh"]) + d * z[:, s], 0.0)
         dgh = torch.cat([dgi[..., :2 * H], dgi[..., 2 * H:] * r], dim=-1).reshape(B * T, 3 * H)
         dgi = dgi.reshape(B * T, 3 * H)
-        dx = dx + torch.matmul(dgi, p["weight_ih"])
+        dx = dx + rnd(torch.matmul(rnd(dgi), p["weight_ih"]))  # bf16: each direction's rounded
         grads[name] = {"weight_ih": torch.matmul(dgi.t(), xf), "bias_ih": dgi.sum(0),
                        "weight_hh": torch.matmul(dgh.t(), hp.reshape(B * T, H)),
                        "bias_hh": dgh.sum(0)}
-    return dx.reshape(B, T, D), grads
+    return dx.reshape(B, T, D).to(dtype), grads  # bf16: their sum rounded
 
 
 def check_layer(what: str, params: dict, x: torch.Tensor, n: torch.Tensor | None,
@@ -104,17 +134,21 @@ def check_layer(what: str, params: dict, x: torch.Tensor, n: torch.Tensor | None
     """(B, T, D, H) of a CUDA call of the masked layer kernels (K4f, K4b with
     ``params`` of both directions; K5f, K5b with ``{"fwd"}``), or raise with
     the reason the kernel cannot take it; ``extra`` are (name, tensor)
-    pairs shaped as the output. ``n`` None: every row has T frames."""
+    pairs shaped as the output. ``n`` None: every row has T frames. x and
+    ``extra`` are float32, or all bfloat16; the weights float32."""
     if x.dim() != 3:
         raise ValueError(f"{what}: x has shape {tuple(x.shape)}, want (B, T, D)")
     B, T, D = x.shape
     dirs = [d for d in _DIRS if d in params]
-    tensors = [("x", x)] + [(f"{d}.{k}", params[d][k]) for d in dirs for k in _NAMES] + list(extra)
-    for name, t in tensors:
+    stream = x.dtype
+    tensors = [("x", x, stream)] + [(f"{d}.{k}", params[d][k], torch.float32) for d in dirs for k in _NAMES]
+    tensors += [(name, t, stream) for name, t in extra]
+    for name, t, dtype in tensors:
         if t.device != x.device:
             raise ValueError(f"{what}: {name} is on {t.device}, x on {x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{what}: {name} is {t.dtype}; the kernel takes float32")
+        if stream not in STREAM_DTYPES or t.dtype != dtype:
+            raise TypeError(f"{what}: {name} is {t.dtype}; the kernel takes float32 streams and weights, "
+                            f"or bfloat16 streams (x, out, dy) with float32 weights; x is {stream}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} is not contiguous")
     H = params["fwd"]["weight_hh"].shape[-1]
@@ -176,21 +210,24 @@ def bigru_masked_fwd(params: dict, x: torch.Tensor, n: torch.Tensor) -> torch.Te
     clusters whose size follows the batch as K1's does
     (``bigru_shared.bigru_cluster_size``); each batch tile steps to its
     longest row and writes exact zeros past each row's length. Records no
-    autograd graph on CUDA.
+    autograd graph on CUDA. A bf16 x gives a bf16 output.
     """
     if device_of("bigru_masked", x).type == "cpu":
         return bigru_masked_reference(params, x, n)
     B, T, D, H = check_layer("bigru_masked", params, x, n)
     lib = _build.library()
+    bf = x.dtype == BF16
     lengths = n.to(torch.int64).contiguous()
     gi = torch.empty((2, B, T, 3 * H), device=x.device, dtype=torch.float32)
-    out = torch.empty((B, T, 2 * H), device=x.device, dtype=torch.float32)
-    err = lib.tsl_bigru_masked_fwd(
+    out = torch.empty((B, T, 2 * H), device=x.device, dtype=x.dtype)
+    fn = lib.tsl_bigru_masked_fwd_bf16 if bf else lib.tsl_bigru_masked_fwd
+    err = fn(
         x.data_ptr(), D, lengths.data_ptr(), *[t.data_ptr() for t in _weights(params)],
         gi.data_ptr(), out.data_ptr(), T, B, H, torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(err, f"bigru_masked (B={B}, T={T}, H={H})")
+    _build.check(err, f"bigru_masked ({x.dtype}, B={B}, T={T}, H={H})")
     bigru_masked.launches += 1
+    bigru_masked.launches_bf16 += bf
     return out
 
 
@@ -201,36 +238,57 @@ def bigru_masked_bwd(params: dict, x: torch.Tensor, out: torch.Tensor, n: torch.
     CPU tensors take the plain version; CUDA tensors launch the kernel on the
     current stream without synchronising, and anything the kernel does not
     take raises. The weight gradients are summed in a fixed order, so
-    repeated calls on one card agree bit for bit.
+    repeated calls on one card agree bit for bit. At bf16 (x, ``out`` and
+    ``dy`` bf16) dx is bf16, the weight gradients f32.
     """
     if device_of("bigru_masked", x).type == "cpu":
         return bigru_masked_bwd_reference(params, x, out, n, dy)
     B, T, D, H = check_layer("bigru_masked", params, x, n, [("out", out), ("dy", dy)])
     lib = _build.library()
     lengths = n.to(torch.int64).contiguous()
+    bf = x.dtype == BF16
 
     def empty(*shape):
         return torch.empty(shape, device=x.device, dtype=torch.float32)
 
-    dx = empty(B, T, D)
+    dx = torch.empty((B, T, D), device=x.device, dtype=x.dtype)
     grads = {d: {"weight_ih": empty(3 * H, D), "bias_ih": empty(3 * H),
                  "weight_hh": empty(3 * H, H), "bias_hh": empty(3 * H)} for d in _DIRS}
-    hp, gates = empty(2, B, T, H), empty(2, B, T, 4 * H)
-    buf_a, buf_b = empty(2, B, T, 3 * H), empty(2, B, T, 3 * H)
-    partial = empty(_build.partial_floats(D, 0, H, B * T, 2))
-    err = lib.tsl_bigru_masked_bwd(
+    scratch = bwd_scratch(x, 2, H)
+    fn = lib.tsl_bigru_masked_bwd_bf16 if bf else lib.tsl_bigru_masked_bwd
+    err = fn(
         x.data_ptr(), D, lengths.data_ptr(), out.data_ptr(), dy.data_ptr(),
         *[t.data_ptr() for t in _weights(params)],
         dx.data_ptr(), *[grads[d][k].data_ptr() for d in _DIRS for k in _NAMES],
-        hp.data_ptr(), buf_a.data_ptr(), buf_b.data_ptr(), gates.data_ptr(), partial.data_ptr(),
-        T, B, H, torch.cuda.current_stream(x.device).cuda_stream,
+        *[t.data_ptr() for t in scratch], T, B, H, torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(err, f"bigru_masked_bwd (B={B}, T={T}, H={H})")
+    _build.check(err, f"bigru_masked_bwd ({x.dtype}, B={B}, T={T}, H={H})")
     bigru_masked_bwd.launches += 1
+    bigru_masked_bwd.launches_bf16 += bf
     return dx, grads
 
 
+def bwd_scratch(x: torch.Tensor, ndir: int, H: int) -> list[torch.Tensor]:
+    """The workspaces of K4b (``ndir`` 2) or K5b (1) for x (B, T, D), in the
+    entry points' order: hp, buf_a, buf_b, gates and partial (f32), and for
+    a bf16 x also hp16 (bf16), dyx (f32) and, with two directions, pair
+    (bf16). Hold them until the launch has run: it writes them by address."""
+    B, T, D = x.shape
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, device=x.device, dtype=dtype)
+
+    scratch = [empty(ndir, B, T, H), empty(ndir, B, T, 3 * H), empty(ndir, B, T, 3 * H),
+               empty(ndir, B, T, 4 * H), empty(_build.partial_floats(D, 0, H, B * T, ndir))]
+    if x.dtype == BF16:
+        scratch += [empty(ndir, B, T, H, dtype=BF16), empty(ndir, B, T, H)]
+        if ndir == 2:
+            scratch.append(empty(2, B * T, D, dtype=BF16))
+    return scratch
+
+
 bigru_masked_bwd.launches = 0  # wrapper calls that launched K4b
+bigru_masked_bwd.launches_bf16 = 0  # ... its bf16 instantiation (counted in launches too)
 
 
 class _MaskedCore(torch.autograd.Function):
@@ -269,3 +327,4 @@ def bigru_masked(params: dict, x: torch.Tensor, n: torch.Tensor) -> torch.Tensor
 
 
 bigru_masked.launches = 0  # wrapper calls that launched K4f (bigru_masked_fwd)
+bigru_masked.launches_bf16 = 0  # ... its bf16 instantiation (counted in launches too)

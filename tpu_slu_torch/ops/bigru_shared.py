@@ -41,7 +41,8 @@ once, after the pool (and dropout) of the f32 h. The plain versions do it
 in f32 arithmetic (round to bf16, back to f32, an f32 product: a bf16 x
 bf16 product is exact in f32). On the card the wrapper launches the
 kernels' bf16 entry points, which round the f32 weights as they read them;
-K6 (the row-stacked layout) takes f32 only.
+K6 (the row-stacked layout) too, with b_hh's r and z columns folded into
+b_ih in f32 (``pallas_gru.py:924-995``, ``:1036-1037``).
 """
 
 from __future__ import annotations
@@ -70,9 +71,6 @@ def _check_args(parts, pool: int, pool_method: str, layout: str = "split") -> tu
         raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
     if any(x.dtype != parts[0].dtype for x in parts):
         raise TypeError(f"bigru_shared takes parts of one dtype, got {[x.dtype for x in parts]}")
-    if layout == "rowstack" and parts[0].dtype != torch.float32:
-        raise TypeError("the row-stacked layout (K6) takes float32 parts only; bfloat16 runs the split "
-                        "layout (K1)")
     if pool < 1:
         raise ValueError(f"pool must be >= 1, got {pool}")
     if pool_method not in ("avg", "max"):
@@ -167,8 +165,13 @@ def bigru_shared_rowstack_reference(params: dict, parts, *, pool: int = 1, pool_
     backward rows B:2B pre-reversed (row u holds t = T - 1 - u), with b_hh's
     r and z columns folded into b_ih; a loop over u updates the (2B, H)
     carry of both directions, b_hh's n column added to the recurrent product
-    inside r * (.). Same contract as :func:`bigru_shared_reference`."""
+    inside r * (.). Same contract as :func:`bigru_shared_reference`, bf16
+    too (the fold in f32, h rounded for the products)."""
     parts = _check_args(parts, pool, pool_method)
+    dtype, bf = parts[0].dtype, is_bf16(parts)
+    if bf:
+        params, parts = _as_f32(params, parts)
+    rnd = round_bf16 if bf else (lambda t: t)
     B = parts[0].shape[1]
     H = params["fwd"]["weight_hh"].shape[1]
     gis = []
@@ -182,16 +185,16 @@ def bigru_shared_rowstack_reference(params: dict, parts, *, pool: int = 1, pool_
     h = gi2.new_zeros((2 * B, H))
     out = gi2.new_empty((gi2.shape[0], 2 * B, H))
     for u in range(gi2.shape[0]):
-        gh = torch.cat([torch.mm(h[:B], params["fwd"]["weight_hh"].t()),
-                        torch.mm(h[B:], params["bwd"]["weight_hh"].t())])
+        gh = torch.cat([torch.mm(rnd(h[:B]), params["fwd"]["weight_hh"].t()),
+                        torch.mm(rnd(h[B:]), params["bwd"]["weight_hh"].t())])
         g = gi2[u]
         rz = torch.sigmoid(g[:, :2 * H] + gh[:, :2 * H])
         r, z = rz[:, :H], rz[:, H:]
         n = torch.tanh(g[:, 2 * H:] + r * (gh[:, 2 * H:] + bn))
         h = n + z * (h - n)
         out[u] = h
-    return (downsample(out[:, :B], pool_method, pool, time_axis=0),
-            downsample(out[:, B:].flip(0), pool_method, pool, time_axis=0))
+    return (downsample(out[:, :B], pool_method, pool, time_axis=0).to(dtype),
+            downsample(out[:, B:].flip(0), pool_method, pool, time_axis=0).to(dtype))
 
 
 def bigru_trainpool_reference(params: dict, parts, *, pool: int, drop_p: float, seed: int):
@@ -401,8 +404,9 @@ def bigru_shared_fwd(params: dict, parts, *, pool: int = 1, pool_method: str = "
     gi = torch.empty((2, T, B, 3 * H), device=dev, dtype=torch.float32)
     h_f = torch.empty((To, B, H), device=dev, dtype=parts[0].dtype)
     h_b = torch.empty((To, B, H), device=dev, dtype=parts[0].dtype)
-    fn = (lib.tsl_bigru_shared_fwd_rs if rowstack else
-          lib.tsl_bigru_shared_fwd_bf16 if bf else lib.tsl_bigru_shared_fwd)
+    fn = {(False, False): lib.tsl_bigru_shared_fwd, (False, True): lib.tsl_bigru_shared_fwd_bf16,
+          (True, False): lib.tsl_bigru_shared_fwd_rs, (True, True): lib.tsl_bigru_shared_fwd_rs_bf16}[
+        (rowstack, bf)]
     err = fn(
         *_part_ptrs(parts), *_ptrs(params), gi.data_ptr(), h_f.data_ptr(), h_b.data_ptr(),
         T, B, H, pool, int(pool_method == "max"), torch.cuda.current_stream(dev).cuda_stream,
@@ -413,7 +417,7 @@ def bigru_shared_fwd(params: dict, parts, *, pool: int = 1, pool_method: str = "
         bigru_shared.launches_rowstack += 1
     else:
         bigru_shared.launches += 1
-        bigru_shared.launches_bf16 += bf
+    bigru_shared.launches_bf16 += bf
     return h_f, h_b
 
 
@@ -658,5 +662,5 @@ def bigru_shared(params: dict, parts, *, train: bool = False, pool: int = 1,
 
 
 bigru_shared.launches = 0  # wrapper calls that launched K1 (bigru_shared_fwd, layout "split")
-bigru_shared.launches_bf16 = 0  # ... its bf16 instantiation (counted in launches too)
 bigru_shared.launches_rowstack = 0  # ... that launched K6 (layout "rowstack")
+bigru_shared.launches_bf16 = 0  # bf16 calls of either layout (counted above too)

@@ -58,15 +58,35 @@ def max_pool1d_ceil(x, k: int):
     return F.max_pool1d(x, k, ceil_mode=True)
 
 
+def _window_sums(windows: torch.Tensor) -> torch.Tensor:
+    """The sums over the last axis of (..., k) windows. A bf16 sum is taken
+    frame by frame, rounded to bf16 after each add, as XLA's ``reduce_window``
+    of the JAX twins sums bf16 (torch's ``sum`` and ``avg_pool1d`` round
+    once, which differs from it for k > 2); any other dtype in one sum."""
+    if windows.dtype != torch.bfloat16:
+        return windows.sum(-1)
+    s = windows[..., 0]
+    for j in range(1, windows.shape[-1]):
+        s = s + windows[..., j]
+    return s
+
+
 def avg_pool1d_ceil(x, k: int):
     """``avg_pool1d(kernel_size=k, ceil_mode=True)`` on (B, C, T).
 
     With no padding, torch divides a trailing partial window by the number
-    of its elements inside the input, as the JAX twin does.
+    of its elements inside the input, as the JAX twin does; a bf16 x's
+    windows are summed as the twin sums them (:func:`_window_sums`).
     """
     if k == 1:
         return x
-    return F.avg_pool1d(x, k, ceil_mode=True)
+    if x.dtype != torch.bfloat16:
+        return F.avg_pool1d(x, k, ceil_mode=True)
+    T = x.shape[-1]
+    t_out = -(-T // k)
+    sums = _window_sums(F.pad(x, (0, t_out * k - T)).reshape(*x.shape[:-1], t_out, k))
+    counts = torch.clamp(T - k * torch.arange(t_out, device=x.device), max=k)
+    return sums / counts.to(x.dtype)
 
 
 def _valid(n, t: int):
@@ -94,14 +114,15 @@ def masked_avg_pool1d_ceil(x, k: int, n):
     Each window's sum over its frames inside [0, n_b) is divided by their
     count ``clip(n_b - m k, 0, k)``, floored at 1: torch's partial-window
     divisor of an exact-shape (T = n_b) ceil-mode avg pool, per example.
-    Output frames past the valid extent come out 0.
+    Output frames past the valid extent come out 0. A bf16 x's windows are
+    summed as the JAX twin sums them (:func:`_window_sums`).
     """
     if k == 1:
         return x
     B, C, T = x.shape
     t_out = -(-T // k)
     xm = torch.where(_valid(n, T), x, 0.0)
-    sums = F.pad(xm, (0, t_out * k - T)).reshape(B, C, t_out, k).sum(-1)
+    sums = _window_sums(F.pad(xm, (0, t_out * k - T)).reshape(B, C, t_out, k))
     m = torch.arange(t_out, device=n.device)
     counts = torch.clamp(n[:, None] - m[None, :] * k, 0, k)
     return sums / torch.clamp(counts, min=1)[:, None, :].to(x.dtype)

@@ -55,19 +55,20 @@ def gru_direction(gi: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     return out
 
 
-def _direction(p: dict, x: torch.Tensor, reverse: bool) -> torch.Tensor:
+def _direction(p: dict, x: torch.Tensor, reverse: bool, round_h: bool = False) -> torch.Tensor:
     """One direction over batch-major x (B, T, D) -> (B, T, H)."""
     gi = torch.matmul(x.transpose(0, 1), p["weight_ih"].t()) + p["bias_ih"]
-    return gru_direction(gi, p["weight_hh"], p["bias_hh"], reverse).transpose(0, 1)
+    return gru_direction(gi, p["weight_hh"], p["bias_hh"], reverse, round_h).transpose(0, 1)
 
 
-def gru_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
+def gru_apply(params: dict, x: torch.Tensor, round_h: bool = False) -> torch.Tensor:
     """GRU over batch-major x (B, T, D) -> (B, T, 2H), or (B, T, H) for a
-    unidirectional layer (``params`` without ``"bwd"``)."""
-    out_f = _direction(params["fwd"], x, False)
+    unidirectional layer (``params`` without ``"bwd"``). ``round_h`` as
+    :func:`gru_direction`."""
+    out_f = _direction(params["fwd"], x, False, round_h)
     if "bwd" not in params:
         return out_f
-    return torch.cat([out_f, _direction(params["bwd"], x, True)], dim=-1)
+    return torch.cat([out_f, _direction(params["bwd"], x, True, round_h)], dim=-1)
 
 
 def reverse_padded(x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
@@ -84,10 +85,12 @@ def reverse_padded(x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return torch.where((t[None, :] < n[:, None])[:, :, None], out, 0.0)
 
 
-def gru_apply_masked(params: dict, x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+def gru_apply_masked(params: dict, x: torch.Tensor, n: torch.Tensor,
+                     round_h: bool = False) -> torch.Tensor:
     """Length-aware GRU over x (B, T, D) with valid lengths n (B,) -> (B, T,
     H or 2H): each row equals :func:`gru_apply` on the example cropped to
-    its own length, and frames >= n_b are 0.
+    its own length, and frames >= n_b are 0. ``round_h`` as
+    :func:`gru_direction`.
 
     The forward direction is exact for valid frames as it is (h0 = 0, the
     padding sits after the prefix); the backward direction walks the
@@ -97,8 +100,8 @@ def gru_apply_masked(params: dict, x: torch.Tensor, n: torch.Tensor) -> torch.Te
     """
     t = torch.arange(x.shape[1], device=x.device)
     valid = (t[None, :] < n[:, None])[:, :, None]
-    out_f = torch.where(valid, _direction(params["fwd"], x, False), 0.0)
+    out_f = torch.where(valid, _direction(params["fwd"], x, False, round_h), 0.0)
     if "bwd" not in params:
         return out_f
-    out_b = reverse_padded(_direction(params["bwd"], reverse_padded(x, n), False), n)
+    out_b = reverse_padded(_direction(params["bwd"], reverse_padded(x, n), False, round_h), n)
     return torch.cat([out_f, out_b], dim=-1)

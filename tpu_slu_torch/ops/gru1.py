@@ -21,7 +21,10 @@ plain PyTorch version on a CPU tensor, and keeps a count of its launches:
 
 :func:`gru1` routes a call through a ``torch.autograd.Function`` whose
 forward and backward are those wrappers whenever a gradient is needed, on
-either device.
+either device. x is float32, or bfloat16 (a ``compute_dtype=bfloat16``
+trainer's), as :mod:`~tpu_slu_torch.ops.bigru_masked` takes it, with the TPU
+kernels' rounding points at that dtype; each wrapper counts its bf16
+launches on ``launches_bf16`` too.
 """
 
 from __future__ import annotations
@@ -29,17 +32,24 @@ from __future__ import annotations
 import torch
 
 from tpu_slu_torch.ops import _build
-from tpu_slu_torch.ops.bigru_masked import bigru_masked_bwd_reference, check_layer, device_of
-from tpu_slu_torch.ops.gru import gru_apply, gru_apply_masked
+from tpu_slu_torch.ops.bigru_masked import (
+    BF16,
+    bigru_masked_bwd_reference,
+    bigru_masked_reference,
+    bwd_scratch,
+    check_layer,
+    device_of,
+)
 
 _NAMES = ("weight_ih", "bias_ih", "weight_hh", "bias_hh")
 
 
 def gru1_reference(params: dict, x: torch.Tensor, n: torch.Tensor | None = None) -> torch.Tensor:
     """K5f's function in plain PyTorch: ``gru_apply_masked`` on ``{"fwd"}``
-    (``gru_apply`` without ``n``); autograd through and through."""
-    fwd = {"fwd": params["fwd"]}
-    return gru_apply(fwd, x) if n is None else gru_apply_masked(fwd, x, n)
+    (``gru_apply`` without ``n``; at bf16 with the kernel's rounding points,
+    :func:`~tpu_slu_torch.ops.bigru_masked.bigru_masked_reference`); autograd
+    through and through."""
+    return bigru_masked_reference({"fwd": params["fwd"]}, x, n)
 
 
 def gru1_bwd_reference(params: dict, x: torch.Tensor, out: torch.Tensor, n: torch.Tensor | None,
@@ -49,8 +59,8 @@ def gru1_bwd_reference(params: dict, x: torch.Tensor, out: torch.Tensor, n: torc
     ``out[:, t-1]`` (0 at t = 0), the serial dh chain over each row's valid
     steps t = n_b-1..0, then dX and the weight gradients
     (:func:`~tpu_slu_torch.ops.bigru_masked.bigru_masked_bwd_reference` with
-    one direction). ``dy`` past n_b is ignored and dX there is 0. Returns
-    ``(dx (B, T, D), {"fwd": grads})``."""
+    one direction; at bf16 its dX rounded once). ``dy`` past n_b is ignored
+    and dX there is 0. Returns ``(dx (B, T, D), {"fwd": grads})``."""
     if n is None:
         n = torch.full((x.shape[0],), x.shape[1], dtype=torch.int64, device=x.device)
     return bigru_masked_bwd_reference({"fwd": params["fwd"]}, x, out, n, dy)
@@ -84,7 +94,8 @@ def gru1_fwd(params: dict, x: torch.Tensor, n: torch.Tensor | None = None) -> to
     CUDA tensors launch the kernel on the current stream without
     synchronising; ``n`` None reads nothing on the host, a given ``n`` is
     range-checked there. Anything the kernel does not take raises, H past
-    128 too. Records no autograd graph on CUDA.
+    128 too. Records no autograd graph on CUDA. A bf16 x gives a bf16
+    output.
     """
     if device_of("gru1", x).type == "cpu":
         return gru1_reference(params, x, n)
@@ -93,15 +104,18 @@ def gru1_fwd(params: dict, x: torch.Tensor, n: torch.Tensor | None = None) -> to
     B, T, D, H = check_layer("gru1", params, x, n)
     lib = _build.library()
     p = params["fwd"]
+    bf = x.dtype == BF16
     lengths, lengths_ptr = _lengths(n)
     gi = torch.empty((B, T, 3 * H), device=x.device, dtype=torch.float32)
-    out = torch.empty((B, T, H), device=x.device, dtype=torch.float32)
-    err = lib.tsl_gru1_fwd(
+    out = torch.empty((B, T, H), device=x.device, dtype=x.dtype)
+    fn = lib.tsl_gru1_fwd_bf16 if bf else lib.tsl_gru1_fwd
+    err = fn(
         x.data_ptr(), D, lengths_ptr, *[p[k].data_ptr() for k in _NAMES],
         gi.data_ptr(), out.data_ptr(), T, B, H, torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(err, f"gru1 (B={B}, T={T}, H={H})")
+    _build.check(err, f"gru1 ({x.dtype}, B={B}, T={T}, H={H})")
     gru1.launches += 1
+    gru1.launches_bf16 += bf
     return out
 
 
@@ -112,7 +126,8 @@ def gru1_bwd(params: dict, x: torch.Tensor, out: torch.Tensor, n: torch.Tensor |
     CPU tensors take the plain version; CUDA tensors launch the kernel on the
     current stream without synchronising, and anything the kernel does not
     take raises. The weight gradients are summed in a fixed order, so
-    repeated calls on one card agree bit for bit.
+    repeated calls on one card agree bit for bit. At bf16 (x, ``out`` and
+    ``dy`` bf16) dx is bf16, the weight gradients f32.
     """
     if device_of("gru1", x).type == "cpu":
         return gru1_bwd_reference(params, x, out, n, dy)
@@ -121,30 +136,31 @@ def gru1_bwd(params: dict, x: torch.Tensor, out: torch.Tensor, n: torch.Tensor |
                          "bigru_masked_bwd's")
     B, T, D, H = check_layer("gru1_bwd", params, x, n, [("out", out), ("dy", dy)])
     lib = _build.library()
+    bf = x.dtype == BF16
 
     def empty(*shape):
         return torch.empty(shape, device=x.device, dtype=torch.float32)
 
-    dx = empty(B, T, D)
+    dx = torch.empty((B, T, D), device=x.device, dtype=x.dtype)
     grads = {"weight_ih": empty(3 * H, D), "bias_ih": empty(3 * H), "weight_hh": empty(3 * H, H),
              "bias_hh": empty(3 * H)}
-    hp, gates = empty(B, T, H), empty(B, T, 4 * H)
-    buf_a, buf_b = empty(B, T, 3 * H), empty(B, T, 3 * H)
-    partial = empty(_build.partial_floats(D, 0, H, B * T, 1))
+    scratch = bwd_scratch(x, 1, H)
     p = params["fwd"]
     lengths, lengths_ptr = _lengths(n)
-    err = lib.tsl_gru1_bwd(
+    fn = lib.tsl_gru1_bwd_bf16 if bf else lib.tsl_gru1_bwd
+    err = fn(
         x.data_ptr(), D, lengths_ptr, out.data_ptr(), dy.data_ptr(),
         *[p[k].data_ptr() for k in _NAMES], dx.data_ptr(), *[grads[k].data_ptr() for k in _NAMES],
-        hp.data_ptr(), buf_a.data_ptr(), buf_b.data_ptr(), gates.data_ptr(), partial.data_ptr(),
-        T, B, H, torch.cuda.current_stream(x.device).cuda_stream,
+        *[t.data_ptr() for t in scratch], T, B, H, torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(err, f"gru1_bwd (B={B}, T={T}, H={H})")
+    _build.check(err, f"gru1_bwd ({x.dtype}, B={B}, T={T}, H={H})")
     gru1_bwd.launches += 1
+    gru1_bwd.launches_bf16 += bf
     return dx, {"fwd": grads}
 
 
 gru1_bwd.launches = 0  # wrapper calls that launched K5b
+gru1_bwd.launches_bf16 = 0  # ... its bf16 instantiation (counted in launches too)
 
 
 class _Gru1Core(torch.autograd.Function):
@@ -185,3 +201,4 @@ def gru1(params: dict, x: torch.Tensor, n: torch.Tensor | None = None) -> torch.
 
 
 gru1.launches = 0  # wrapper calls that launched K5f (gru1_fwd)
+gru1.launches_bf16 = 0  # ... its bf16 instantiation (counted in launches too)

@@ -30,13 +30,16 @@ from ``generator``).
 
 ``compute_dtype=bfloat16`` in the config's ``[training]`` (any other value
 is f32, as in JAX) runs the train step's and the test pass's GRU layers on
-bf16 streams (K1, K2 and K3 at bf16; ``models/encoder.py`` ``apply_stack``),
-as JAX's Trainer passes ``compute_dtype`` to every loss
-(``trainer.py:209-213``). The master weights, the Adam state, the
-checkpoints, the losses and the front end stay f32; decoding
-(``decode_intents``, the server) ignores the setting. A seq2seq model or a
-unidirectional GRU layer at bf16 raises in ``Trainer(...)``: their kernels
-take f32 only (ROADMAP Queue 1 item 7).
+bf16 streams (``models/encoder.py`` ``apply_stack``), as JAX's Trainer
+passes ``compute_dtype`` to every loss (``trainer.py:209-213``), for every
+model it takes: fixed-slot, seq2seq and ASR, with bidirectional or
+unidirectional layers in any mix, on either ``gru_layout``. On the card
+every GRU kernel of those paths runs its bf16 instantiation: K1 (or K6),
+K2 and K3 for the bidirectional layers, K5f and K5b for the unidirectional
+ones, K4f and K4b for the seq2seq encoder. The master weights, the Adam
+state, the checkpoints, the losses and the front end stay f32; decoding
+(``decode_intents``, the server, the seq2seq test pass's beam search)
+ignores the setting.
 
 Data parallelism (``tpu_slu_torch.parallel``, one process a GPU under
 ``torchrun``): with a process group of W ranks up, each rank reads its
@@ -65,7 +68,7 @@ import torch
 
 from tpu_slu_torch import parallel
 from tpu_slu_torch.models.convert import params_from_jax, params_to_jax
-from tpu_slu_torch.models.encoder import BF16_UNPORTED, PretrainedModel, encoder_loss
+from tpu_slu_torch.models.encoder import PretrainedModel, encoder_loss
 from tpu_slu_torch.models.slu import Model
 from tpu_slu_torch.training.checkpoint import check_backend, load_pytree, save_pytree
 from tpu_slu_torch.training.optim import MaskedAdam, clip_grad_norm
@@ -84,22 +87,6 @@ def compute_dtype_of(config) -> torch.dtype | None:
     """``torch.bfloat16`` when the config's ``compute_dtype`` is
     ``"bfloat16"``, else None (f32), as JAX's Trainer reads it."""
     return torch.bfloat16 if getattr(config, "compute_dtype", "float32") == "bfloat16" else None
-
-
-def check_bf16(model) -> None:
-    """Raise (:data:`~tpu_slu_torch.models.encoder.BF16_UNPORTED`) for what
-    bf16 does not reach yet: a seq2seq model, or any unidirectional GRU layer."""
-    archs = [model.arch if isinstance(model, PretrainedModel) else model.encoder_arch]
-    if isinstance(model, Model):
-        if model.seq2seq:
-            raise ValueError(f"{BF16_UNPORTED}: this is a seq2seq model")
-        archs.append(model.intent_arch)
-    for arch in archs:
-        for layers in (getattr(arch, "phoneme_layers", ()), getattr(arch, "word_layers", ()),
-                       getattr(arch, "layers", ())):
-            uni = [s.name for s in layers if s.kind == "gru" and not s.h[2]]
-            if uni:
-                raise ValueError(f"{BF16_UNPORTED}: unidirectional layers {uni}")
 
 
 def rank_seed(seed: int, rank: int) -> int:
@@ -161,8 +148,6 @@ class Trainer:
         else:
             raise TypeError(f"the Trainer trains a PretrainedModel or a Model, not {type(model).__name__}")
         self.compute_dtype = compute_dtype_of(config)
-        if self.compute_dtype is not None:
-            check_bf16(model)
         os.makedirs(self.checkpoint_path, exist_ok=True)
         self._model_ckpt = os.path.join(self.checkpoint_path, "model_state.npz")
         self._trainer_ckpt = os.path.join(self.checkpoint_path, "trainer_state.npz")
