@@ -223,7 +223,24 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    many as counted) and each kernel at bf16 beside f32, its plain version,
    cuDNN's bf16 ``nn.GRU`` and its bf16 bound; the kernels line gains their
    five bf16 entries, and the f32 entries of K6, K4f, K4b, K5f and K5b their
-   bf16 errors.
+   bf16 errors;
+15. model parallelism (``tpu_slu_torch.parallel`` ``mesh`` and ``vocab``,
+   ``model_parallel`` 2): ``[mp-kernels]`` K1, K2 and K3 against their
+   plain versions at the batches a rank gives them (B = 64 and 32) at the
+   ASR encoder's four layer shapes on 2.25 s; ``[mp-1x2]`` and ``[mp-2x2]``
+   2 and 4 ranks (``python3 chip_smoke.py --mp-rank``) on the one card over
+   gloo on CUDA tensors, a (1, 2) and a (2, 2) grid, the ASR model of
+   ``no_unfreezing.cfg`` (``pretraining_type`` 2, 42 phonemes and 10,000
+   words, both heads column-sharded), one step on a data index's share of
+   a 64-row batch on 2.25 s: the ranks' gradients and parameters (heads
+   gathered) bit-equal, and against the one-process B = 64 step every
+   gradient within ``STEP_GRAD_TOL`` of its largest element and the
+   parameters within ``STEP_PARAM_ATOL`` where the first Adam step's sign
+   is settled, at 4 K2 and 4 K3 launches a rank's step; ``[mp-test]`` each
+   grid's ``Trainer.test`` on two 64-row batches within ``MP_TEST_RTOL`` of
+   one process's, at 4 K1 and 1 K8 a rank's batch (the kernels line's
+   ``launches_mp_step``/``launches_mp_test``); ``[time]`` each rank's warm
+   step beside the one-process step in turns P, C, C, P.
 
 Beside each kernel's time the script prints its plain version's, a cuDNN
 ``torch.nn.GRU`` call's where one computes the same function (timed as a
@@ -3202,6 +3219,42 @@ def dp_test_run(trainer, items, labels: list, B: int) -> dict:
             "batches": len(data.loader)}
 
 
+def start_ranks(flag: str, args_path: str, world: int, tmp: str) -> list:
+    """``world`` ranks of this script (``python3 chip_smoke.py FLAG ARGS``) on
+    the one card, rank r's output in ``<tmp>/rank<r>.log``."""
+    procs = []
+    for r in range(world):
+        env = {**os.environ, "RANK": str(r), "WORLD_SIZE": str(world), "LOCAL_RANK": "0"}
+        log = open(os.path.join(tmp, f"rank{r}.log"), "w")
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, args_path],
+                                      cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT))
+        log.close()
+    return procs
+
+
+def wait_ranks(procs: list, tmp: str, what: str, timeout: float = 300.0) -> list[dict]:
+    """Each rank's ``<tmp>/rank<r>.pt`` once all have exited 0; raise, with
+    the ends of their logs, if one failed or the time ran out (the others
+    are killed)."""
+    import torch
+
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        logs = "".join(open(os.path.join(tmp, f"rank{r}.log")).read()[-3000:] for r in range(len(procs)))
+        raise AssertionError(f"[{what}] a rank failed: {[p.returncode for p in procs]}\n{logs}")
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(len(procs))]
+    if any(rk["modules"] for rk in ranks):
+        raise AssertionError(f"[{what}] a rank loaded modules of JAX or of the JAX package: {ranks[0]['modules']}")
+    return ranks
+
+
 def dp_rank(args_path: str) -> None:
     """One rank of ``[dp-2rank]`` and ``[dp-test]`` (``python3 chip_smoke.py
     --dp-rank ARGS``, started by ``phase_dp``): gloo on the one card's CUDA
@@ -3380,13 +3433,7 @@ def phase_dp(dev, card: str, rng) -> dict:
         with open(args_path, "w") as f:
             json.dump(args, f)
         t0 = time.perf_counter()
-        procs = []
-        for r in range(2):
-            env = {**os.environ, "RANK": str(r), "WORLD_SIZE": "2", "LOCAL_RANK": "0"}
-            log = open(os.path.join(tmp, f"rank{r}.log"), "w")
-            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", args_path],
-                                          cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT))
-            log.close()
+        procs = start_ranks("--dp-rank", args_path, 2, tmp)
         single = {}
         for what, (model, config) in models.items():
             model.to(dev)
@@ -3394,20 +3441,8 @@ def phase_dp(dev, card: str, rng) -> dict:
             trainer = Trainer(model, config, generator=torch.Generator().manual_seed(7))
             single[what] = (dp_test_run(trainer, items, s2s.Sy_intent, DP_TEST_B) if what == "s2s"
                             else dp_step(trainer, inputs[what]["batch"], dev))
-        try:
-            for p in procs:
-                p.wait(timeout=300)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-        if any(p.returncode for p in procs):
-            logs = "".join(open(os.path.join(tmp, f"rank{r}.log")).read()[-3000:] for r in range(2))
-            raise AssertionError(f"[dp-2rank] a rank failed: {[p.returncode for p in procs]}\n{logs}")
-        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+        ranks = wait_ranks(procs, tmp, "dp-2rank")
         took = time.perf_counter() - t0
-        if any(rk["modules"] for rk in ranks):
-            raise AssertionError(f"a rank loaded modules of JAX or of the JAX package: {ranks[0]['modules']}")
 
         # 13.3 [dp-2rank]: each rank's step against the one-process B=64 step, the ranks bit-equal
         for what in ("fixed", "asr"):
@@ -4276,6 +4311,227 @@ def phase_bf16_more(dev, card: str, rng) -> tuple[list[dict], dict]:
                      for k, v in errs.items()}
 
 
+# -- phase 15: model parallelism, a (data, model) grid of ranks with the vocab heads sharded --
+
+MP = 2  # model_parallel of phase 15: the flagship's 42 phonemes and 10,000 words both divide it
+MP_TEST_N = 2  # [mp-test]: batches of DP_B rows; a data index takes its rows of each
+MP_TEST_RTOL = 1e-5  # [mp-test]: each of the four values against the one-process test
+
+
+def mp_config(folder: str):
+    """The ASR config of phase 15: ``no_unfreezing.cfg`` at ``pretraining_type``
+    2 (its 10,000 words), 42 phonemes, dropout 0 (a data index's rows get
+    other masks than the same rows of one batch)."""
+    from tpu_slu_torch import read_config
+    from tpu_slu_torch.models.flagship import FLAGSHIP_CFG
+
+    config = read_config(FLAGSHIP_CFG, make_dirs=False)
+    config.num_phonemes, config.pretraining_type, config.folder = 42, 2, folder
+    for k, v in DP_NO_DROPOUT.items():
+        setattr(config, k, v)
+    return config
+
+
+def mp_rows(batch: dict, grid) -> dict:
+    """A data index's contiguous share of a host batch."""
+    k = len(batch["w"]) // grid.data_size
+    return {n: a[grid.data_index * k:(grid.data_index + 1) * k] for n, a in batch.items()}
+
+
+def mp_rank(args_path: str) -> None:
+    """One rank of phase 15 (``python3 chip_smoke.py --mp-rank ARGS``): gloo on
+    the one card's CUDA tensors (NCCL refuses two ranks on one GPU), the ASR
+    Trainer at ``model_parallel`` 2 from rank 0's weights. ``Trainer.test``
+    on its data index's rows of the test batches (its K1 and K8 launches),
+    then one step on its rows of the 64-row batch (its K2 and K3 launches;
+    its values, the whole gradients and parameters, heads gathered), then
+    the warm step timed twice (turns C, C of the phase's P, C, C, P) and
+    traced (its wall, device busy time, launches and copies); the results go
+    to ``<out>/rank<r>.pt``."""
+    import datetime
+
+    sys.path.insert(0, HERE)
+    import torch
+
+    from tpu_slu_torch import parallel
+    from tpu_slu_torch.models.encoder import PretrainedModel
+    from tpu_slu_torch.ops.bigru_shared import bigru_shared, bigru_shared_bwd, bigru_trainpool
+    from tpu_slu_torch.ops.frontend_fused import sinc_frontend_fused
+    from tpu_slu_torch.parallel.mesh import gather_rows
+    from tpu_slu_torch.training import Trainer
+
+    with open(args_path) as f:
+        args = json.load(f)
+    dev = parallel.init_from_env("cuda:0", backend="gloo", init_method="file://" + args["rdv"],
+                                 timeout=datetime.timedelta(seconds=300))
+    try:
+        r = parallel.rank()
+        inputs = torch.load(args["inputs"], weights_only=False)
+        config = mp_config(os.path.join(args["out"], f"rank{r}"))
+        config.model_parallel = MP
+        model = PretrainedModel(config, generator=torch.Generator().manual_seed(10 + r)).to(dev)
+        if r == 0:
+            model.load_state_dict(inputs["state"])
+        trainer = Trainer(model, config, generator=torch.Generator().manual_seed(7))
+        g = trainer.grid
+        out = {"grid": (g.data_index, g.model_index, g.data_size, g.model_parallel),
+               "sharded": sorted(trainer.sharded)}
+
+        bigru_shared.launches = sinc_frontend_fused.launches = 0
+        test = Batches([mp_rows(b, g) for b in inputs["test"]])
+        out["test"] = trainer.test(test)
+        torch.cuda.synchronize()
+        out["launches_test"] = {"K1": bigru_shared.launches, "K8": sinc_frontend_fused.launches}
+
+        batch = mp_rows(inputs["batch"], g)
+        totals = trainer.global_counts(trainer.counts(batch)) if g.data_size > 1 else None
+        dbatch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        bigru_trainpool.launches = bigru_shared_bwd.launches = 0
+        values = trainer.train_step(dbatch, totals)
+        torch.cuda.synchronize()
+        out["launches_step"] = {"K2": bigru_trainpool.launches, "K3": bigru_shared_bwd.launches}
+        out["values"] = [float(v) for v in values]
+        out["grads"] = {n: None if p.grad is None else
+                        (gather_rows(p.grad, g) if n in trainer.sharded else p.grad).detach().cpu()
+                        for n, p in trainer.model.named_parameters()}
+        out["params"] = {n: t.detach().cpu().clone() for n, t in trainer.full_state_dict().items()}
+        out["rows"] = len(batch["w"])
+        out["step_ms"] = [cuda_ms(lambda: trainer.train_step(dbatch, totals), reps=10, warmup=2) for _ in range(2)]
+        wall, table = kernel_table(lambda: trainer.train_step(dbatch, totals), reps=5)
+        out["profile"] = {"wall": wall, "busy": sum(ms for _, ms in table.values()),
+                          "launches": sum(n for n, _ in table.values()),
+                          "memcpy": sum(ms for k, (_, ms) in table.items() if "emcpy" in k)}
+        out["modules"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_slu"))
+        torch.save(out, os.path.join(args["out"], f"rank{r}.pt"))
+        parallel.barrier()
+    finally:
+        parallel.destroy()
+
+
+def phase_mp(dev, card: str, rng) -> dict:
+    """Phase 15: ASR pre-training at ``model_parallel`` 2 on a 1x2 and a 2x2
+    grid of ranks against one process. Returns, by kernel name, the launches
+    of a rank's step and test batch."""
+    import torch
+
+    from tpu_slu_torch.models.encoder import PretrainedModel
+    from tpu_slu_torch.ops.bigru_shared import bigru_shared, bigru_shared_bwd, bigru_trainpool
+    from tpu_slu_torch.ops.frontend_fused import sinc_frontend_fused
+    from tpu_slu_torch.training import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    try:
+        # 15.0 [mp-kernels]: K1, K2 and K3 at the batches a rank gives them here (B = 64 and 32) at
+        # the ASR encoder's four layer shapes on 2.25 s, against their plain versions
+        errs = dict.fromkeys(("K1", "K2", "K3", "K3 rel"), 0.0)
+        for B in (DP_B, DP_B // 2):
+            for name, d, n_parts, T in asr_shapes():
+                e = hold_gru_layer(rng, dev, name, d, n_parts, T, B)
+                errs = {k: max(v, e[k]) for k, v in errs.items()}
+        print(f"[mp-kernels] K1, K2 and K3 at B={DP_B} and {DP_B // 2}, the ASR encoder's four layers on "
+              f"2.25 s: K1 and K2 within atol {ATOL} rtol {RTOL} (K2's zero pattern equal), max abs err K1 "
+              f"{errs['K1']:.3g}, K2 {errs['K2']:.3g}; K3's dX, dW, db within {errs['K3 rel']:.3g} of each "
+              f"largest (limit {GRAD_TOL}), max abs err {errs['K3']:.3g}")
+
+        # 15.1 the inputs and the one-process references: the test pass first, then the step
+        config = mp_config(os.path.join(tmp, "single"))
+        model = PretrainedModel(config, generator=torch.Generator().manual_seed(1))
+        shape = (ASR_T, 42, config.vocabulary_size, config.phone_downsample_factor, config.word_downsample_factor)
+        inputs = {"state": model.state_dict(), "batch": asr_batches(rng, 1, DP_B, *shape)[0],
+                  "test": asr_batches(rng, MP_TEST_N, DP_B, *shape)}
+        inputs_path = os.path.join(tmp, "inputs.pt")
+        torch.save(inputs, inputs_path)
+        single = Trainer(model.to(dev), config, generator=torch.Generator().manual_seed(7))
+        want_test = single.test(Batches(inputs["test"]))
+        want = dp_step(single, inputs["batch"], dev)
+        dbatch = {k: torch.from_numpy(v).to(dev) for k, v in inputs["batch"].items()}
+        turns = {"P": [cuda_ms(lambda: single.train_step(dbatch), reps=10, warmup=2)]}
+
+        launches = {}
+        for world in (MP, 2 * MP):
+            what = f"mp-{world // MP}x{MP}"
+            out = os.path.join(tmp, what)
+            os.makedirs(out)
+            args = {"out": out, "rdv": os.path.join(out, "rendezvous"), "inputs": inputs_path}
+            args_path = os.path.join(out, "args.json")
+            with open(args_path, "w") as f:
+                json.dump(args, f)
+            t0 = time.perf_counter()
+            ranks = wait_ranks(start_ranks("--mp-rank", args_path, world, out), out, what)
+            took = time.perf_counter() - t0
+            turns["P"].append(cuda_ms(lambda: single.train_step(dbatch), reps=10, warmup=2))
+            turns[what] = [rk["step_ms"] for rk in ranks]
+
+            # 15.2 [mp-1x2], [mp-2x2]: each rank's step against the one-process step, the ranks bit-equal
+            D = world // MP
+            grids = [rk["grid"] for rk in ranks]
+            if grids != [(r // MP, r % MP, D, MP) for r in range(world)]:
+                raise AssertionError(f"[{what}] grids {grids}")
+            heads = {f"{h}.{n}" for h in ("phoneme_linear", "word_linear") for n in ("weight", "bias")}
+            for rk in ranks:
+                if set(rk["sharded"]) != heads or rk["launches_step"] != {"K2": 4, "K3": 4}:
+                    raise AssertionError(f"[{what}] sharded {rk['sharded']}, step launches {rk['launches_step']}; "
+                                         "want both heads and 4 K2, 4 K3")
+                for key in ("grads", "params"):
+                    for n, v in ranks[0][key].items():
+                        if not (v is None and rk[key][n] is None or torch.equal(v, rk[key][n])):
+                            raise AssertionError(f"[{what}] the ranks' {key} of {n} differ")
+            g_err, p_err, unsettled = grads_close(ranks[0], want, config.pretraining_lr)
+            # each data index's values are its shares of the global batch's
+            shares = [sum(vals) for vals in zip(*(ranks[d * MP]["values"] for d in range(D)))]
+            v_err = max(abs(x - y) for x, y in zip(shares, want["values"]))
+            if not (g_err <= STEP_GRAD_TOL and p_err <= STEP_PARAM_ATOL and v_err <= STEP_LOSS_ATOL):
+                raise AssertionError(f"[{what}] gradients {g_err:.3g} (limit {STEP_GRAD_TOL}), parameters "
+                                     f"{p_err:.3g} (limit {STEP_PARAM_ATOL}), values {v_err:.3g} (limit "
+                                     f"{STEP_LOSS_ATOL}) off the one-process step")
+            print(f"[{what}] ASR pretraining_type 2, 2.25 s, no_unfreezing.cfg widths (42 phonemes, "
+                  f"{config.vocabulary_size} words, both heads column-sharded over {MP}): {world} ranks on the one "
+                  f"card over gloo on CUDA tensors (NCCL refuses two ranks on one GPU), a ({D}, {MP}) grid, "
+                  f"{ranks[0]['rows']} of the {DP_B} rows a data index; the ranks' gradients and parameters "
+                  f"(heads gathered) bit-equal; against the one-process B={DP_B} step every gradient within "
+                  f"{g_err:.3g} of its tensor's largest element (limit {STEP_GRAD_TOL}), the parameters within "
+                  f"{p_err:.3g} where the first Adam step's sign is settled (limit {STEP_PARAM_ATOL}; "
+                  f"{unsettled} elements held to one step), the data indices' shares summing to the step's "
+                  f"values within {v_err:.3g} (limit {STEP_LOSS_ATOL}); launches a rank's step "
+                  f"{ranks[0]['launches_step']}; the ranks and their start took {took:.1f} s")
+
+            # 15.3 [mp-test]: each rank's Trainer.test against the one-process test
+            test_err = 0.0
+            for rk in ranks:
+                errs = [abs(g - w) for g, w in zip(rk["test"], want_test)]
+                test_err = max(test_err, *errs)
+                if not all(e <= MP_TEST_RTOL * abs(w) for e, w in zip(errs, want_test)):
+                    raise AssertionError(f"[mp-test] {what}: {rk['test']} against {want_test}")
+                if rk["launches_test"] != {"K1": 4 * MP_TEST_N, "K8": MP_TEST_N}:
+                    raise AssertionError(f"[mp-test] {what}: launches {rk['launches_test']} over {MP_TEST_N} "
+                                         "batches; want 4 K1 and 1 K8 a batch")
+            print(f"[mp-test] {what}: Trainer.test on {MP_TEST_N} batches of {DP_B} rows, "
+                  f"{DP_B // D} a data index: every rank's (phone_acc, phone_loss, word_acc, word_loss) "
+                  f"{tuple(map(float, ranks[0]['test']))} against one process's {tuple(map(float, want_test))} "
+                  f"within "
+                  f"{test_err:.3g} (limit {MP_TEST_RTOL} relative); launches a rank {ranks[0]['launches_test']}")
+            launches = {"step": ranks[0]["launches_step"], "test": ranks[0]["launches_test"]}
+            prof = [rk["profile"] for rk in ranks]
+            print(f"[profile] {what}: each rank's warm step (5 traced): wall "
+                  + ", ".join(f"{q['wall']:.3f}" for q in prof) + " ms, device busy "
+                  + ", ".join(f"{q['busy']:.4f}" for q in prof) + " ms (copies "
+                  + ", ".join(f"{q['memcpy']:.4f}" for q in prof) + "), idle share "
+                  + ", ".join(f"{1 - q['busy'] / q['wall']:.3f}" for q in prof)
+                  + f", {prof[0]['launches']:.0f} device events a step; on {card}")
+        print(f"[time] the warm ASR step at model_parallel {MP}, B={DP_B} on 2.25 s (median of 10, CUDA events) in "
+              f"turns P, C, C, P: one process {', '.join(f'{t:.3f}' for t in turns['P'])} ms; each rank of the "
+              + "; ".join(f"{w} grid (both its turns) " + ", ".join(f"[{a:.3f}, {b:.3f}]" for a, b in v)
+                          for w, v in turns.items() if w != "P")
+              + f" ms; the ranks share one card and reach each other through the host (gloo), so these are "
+              f"not the times of a grid of GPUs; on {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"bigru_trainpool_fwd": {"launches_mp_step": launches["step"]["K2"]},
+            "bigru_shared_bwd": {"launches_mp_step": launches["step"]["K3"]},
+            "bigru_shared_fwd": {"launches_mp_test": launches["test"]["K1"] // MP_TEST_N},
+            "sinc_frontend_fused": {"launches_mp_test": launches["test"]["K8"] // MP_TEST_N}}
+
+
 def free_port() -> int:
     """A free TCP port on localhost, for the env:// rendezvous of a one-rank group."""
     import socket
@@ -4533,6 +4789,9 @@ def main() -> None:
     bf16 = phase_bf16(dev, card, rng)
     bf16_more, bf16_errs = phase_bf16_more(dev, card, rng)
 
+    # 15. model parallelism: a (data, model) grid of ranks, the vocab heads column-sharded
+    mp = phase_mp(dev, card, rng)
+
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_slu"))
     if loaded:
         raise AssertionError(f"the port loaded modules of JAX or of the JAX package: {loaded}")
@@ -4548,6 +4807,7 @@ def main() -> None:
     for entry in kernels:
         entry.update(asr.get(entry["name"], {}))
         entry.update(dp.get(entry["name"], {}))
+        entry.update(mp.get(entry["name"], {}))
         entry.update(bf16_errs.get(entry["name"], {}))
     kernels += bf16 + bf16_more
     print(json.dumps({"kernels": kernels}))
@@ -4558,5 +4818,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         dp_rank(sys.argv[2])
+    elif sys.argv[1:2] == ["--mp-rank"]:
+        mp_rank(sys.argv[2])
     else:
         main()

@@ -250,9 +250,10 @@ def test_group_shards_refusals_dropout_and_dp_inference(tmp_path):
     """In a 2-rank group: (1) ``BatchLoader`` without a shard takes the
     rank's and the world's, equal to the JAX loader's at that
     ``process_index``/``process_count`` over two epochs, weights included,
-    and explicit arguments win; (2) the Trainer refuses ``model_parallel``
-    2, ``data_parallel`` False and ``n_devices`` 3, and ``train_step``
-    refuses a batch without its global totals; (3) at dropout 0.5 the
+    and explicit arguments win; (2) the Trainer refuses ``data_parallel``
+    False and ``n_devices`` 3, ``train_step`` refuses a batch without its
+    global totals, and at ``model_parallel`` 2 the Trainer lays the two
+    ranks out as a (1, 2) grid, whose one data index reads every batch; (3) at dropout 0.5 the
     ranks' encoder features of one input differ, and rank 0's equal a
     one-process Trainer's at the same seed bit for bit; (4) ``dp_infer``
     decodes the golden seq2seq wavs to ``expected.json`` and to the
@@ -273,9 +274,9 @@ def test_group_shards_refusals_dropout_and_dp_inference(tmp_path):
         assert got["loader"] == want
         assert got["explicit"] == [b["i"].tolist() for b in JaxBatchLoader(
             list(range(10)), 3, collate, seed=5, process_index=0, process_count=1)]
-        assert set(got["refusals"]) == {"model_parallel", "data_parallel", "n_devices", "totals"}
+        assert set(got["refusals"]) == {"data_parallel", "n_devices", "totals"}
         assert "host_all_reduce" in got["refusals"]["totals"]
-        assert "ROADMAP Queue 1 item 5" in got["refusals"]["model_parallel"]
+        assert got["grid"] == (0, r, 1, 2) and got["grid_loader"] == got["explicit"]
         assert "--nproc_per_node=3" in got["refusals"]["n_devices"]
         assert got["modules"] == []
 

@@ -1,7 +1,7 @@
 """The PyTorch port decodes, serves and trains (both heads, a unidirectional model, and at
 ``compute_dtype=bfloat16``, the seq2seq head too), pre-trains,
 saves and reloads, and runs its CLI's training legs without jax, pandas or any ``tpu_slu`` module;
-its data-parallel and profiling modules import none of them either.
+its data- and model-parallel and profiling modules import none of them either.
 
 Checked in a fresh interpreter: this test process has imported jax already.
 """
@@ -16,6 +16,8 @@ SCRIPT = r"""
 import json, os, shutil, sys, tempfile
 import tpu_slu_torch
 import tpu_slu_torch.parallel
+import tpu_slu_torch.parallel.mesh
+import tpu_slu_torch.parallel.vocab
 import tpu_slu_torch.utils.profiling
 from tpu_slu_torch import load_trained_model, read_config, read_wav
 

@@ -1,4 +1,5 @@
-"""The rank processes of the port's data-parallel tests (``tests/test_torch_dp.py``).
+"""The rank processes of the port's data- and model-parallel tests
+(``tests/test_torch_dp.py``, ``tests/test_torch_mp.py``).
 
 A rank is a fresh interpreter, ``python -m tests.torch_dp_ranks <case>
 <args.json>``, started with ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` as
@@ -93,8 +94,13 @@ class Batches:
 
 
 def _state(trainer) -> dict:
-    return {"params": {k: v.detach().clone() for k, v in trainer.model.state_dict().items()},
-            "opt": trainer.optimizer.export_flat(), "epoch": trainer.epoch,
+    """The model's parameters (heads whole) and the optimizer's state as the
+    checkpoint holds it, ``/``-flattened: ``m``, ``v``, ``step`` at
+    ``model_parallel`` 1, ``m/<path>`` ... above it."""
+    from tpu_slu_torch.models.convert import flatten
+
+    return {"params": {k: v.detach().clone() for k, v in trainer.full_state_dict().items()},
+            "opt": flatten(trainer.optimizer_state()), "epoch": trainer.epoch,
             "unfreezing_index": getattr(trainer.model, "unfreezing_index", 0)}
 
 
@@ -124,7 +130,8 @@ def case_slu(args: dict, r: int) -> dict:
     if r == 0:
         model.load_state_dict(torch.load(args["init"]), strict=True)
     trainer = Trainer(model, config)
-    out = {"train": trainer.train(train), **_state(trainer), "n_batches": len(train.loader)}
+    out = {"train": trainer.train(train), **_state(trainer), "n_batches": len(train.loader),
+           "sharded": sorted(trainer.sharded)}
     if args.get("restart"):
         trainer.save_checkpoint()
         rconfig = copy.copy(config)
@@ -136,24 +143,77 @@ def case_slu(args: dict, r: int) -> dict:
 
 
 def case_asr(args: dict, r: int) -> dict:
-    """One ASR epoch and a test pass on rank r's rows ``[r::world]`` of each
-    recorded global batch (the rows the loader's shard gives the rank)."""
-    from tpu_slu_torch.models.encoder import PretrainedModel
-    from tpu_slu_torch.parallel import world
+    """One ASR epoch and a test pass on rank r's rows ``[d::D]`` of each
+    recorded global batch, d its data index and D the data size (the rows
+    the loader's shard gives the rank; at ``model_parallel`` 1, ``[r::world]``).
+    With ``args["resume"]`` (``model_parallel`` > 1): also the grid, the
+    sharded parameters and their local shapes, the checkpoint written, a
+    fresh Trainer resumed from the folder ``args["resume"]``, and the
+    encoder features of one input at dropout 0.5 under the Trainer's generator."""
+    from tpu_slu_torch.models.encoder import PretrainedModel, encoder_features
     from tpu_slu_torch.training import Trainer
 
-    W = world()
-    recorded = torch.load(args["batches"], weights_only=False)
-    mine = {k: [{n: a[r::W] for n, a in b.items()} for b in v] for k, v in recorded.items()}
     config = _config(args, os.path.join(args["out"], f"rank{r}"))
     model = PretrainedModel(config, generator=torch.Generator().manual_seed(100 + r))
     if r == 0:
         model.load_state_dict(torch.load(args["init"]), strict=True)
     trainer = Trainer(model, config)
+    d, D = trainer.grid.data_index, trainer.grid.data_size
+    recorded = torch.load(args["batches"], weights_only=False)
+    mine = {k: [{n: a[d::D] for n, a in b.items()} for b in v] for k, v in recorded.items()}
     out = {"train": trainer.train(Batches(mine["train"])), **_state(trainer)}
     out["test"] = trainer.test(Batches(mine["valid"]))
     out["counts"] = [trainer.counts(b).tolist() for b in mine["train"]]
+    if args.get("resume"):
+        g = trainer.grid
+        out["grid"] = (g.data_index, g.model_index, g.data_size, g.model_parallel)
+        out["sharded"] = sorted(trainer.sharded)
+        out["local_shapes"] = {n: tuple(p.shape) for n, p in trainer.model.named_parameters()}
+        trainer.save_checkpoint()
+        rconfig = copy.copy(config)
+        rconfig.folder = args["resume"]
+        resumed = Trainer(PretrainedModel(rconfig, generator=torch.Generator().manual_seed(200 + r)), rconfig)
+        resumed.load_checkpoint()
+        out["resumed"] = _state(resumed)
+        drop = copy.copy(config)
+        drop.cnn_drop, drop.phone_rnn_drop, drop.word_rnn_drop = [0.5] * 2, [0.5] * 2, [0.5] * 2
+        dtrainer = Trainer(PretrainedModel(drop), drop)
+        x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 6000)).astype(np.float32))
+        out["dropped"] = encoder_features(dtrainer.model, x, train=True, generator=dtrainer.generator)
     return out
+
+
+def case_vocab(args: dict, r: int) -> dict:
+    """The vocabulary-parallel frame loss of a head (6 -> 8) column-sharded
+    over every rank: this rank's logits, the loss and the accuracy, and the
+    gradients of the input and of the rank's columns. Columns 1 and 5 (one
+    in each half) are equal and large, so that many frames' maximum is a
+    tie across the shards; labels 1 and 5 are frequent, and row 2 has
+    weight 0."""
+    from torch import nn
+
+    from tpu_slu_torch import parallel
+    from tpu_slu_torch.parallel.vocab import ColumnParallelLinear, vocab_parallel_frame_ce
+
+    grid = parallel.make_grid(parallel.world())
+    gen = torch.Generator().manual_seed(0)
+    full = nn.Linear(6, 8)
+    with torch.no_grad():
+        full.weight.copy_(torch.randn(8, 6, generator=gen))
+        full.bias.copy_(torch.randn(8, generator=gen))
+        full.weight[1] *= 3.0
+        full.weight[5], full.bias[5] = full.weight[1], full.bias[1]
+    head = ColumnParallelLinear(full, grid.model_parallel, grid.model_index, grid.model_group)
+    h = torch.randn(3, 7, 6, generator=gen).requires_grad_()
+    y = torch.randint(-1, 8, (3, 7), generator=gen)
+    y[:, ::3], y[:, 1::3] = 5, 1
+    w = torch.tensor([1.0, 1.0, 0.0])
+    logits = head(h)
+    loss, acc = vocab_parallel_frame_ce(logits, y, head, w)
+    loss.backward()
+    return {"logits": logits.detach(), "loss": loss.detach(), "acc": acc, "h": h.detach(), "y": y, "w": w,
+            "dh": h.grad, "dw": head.weight.grad, "db": head.bias.grad,
+            "full": {k: v.detach().clone() for k, v in full.state_dict().items()}}
 
 
 def golden_seq2seq(folder: str, batch: int | None = None):
@@ -209,8 +269,10 @@ def golden_dataset(model, wavs, semantics, batch: int):
 def case_group(args: dict, r: int) -> dict:
     """Inside a 2-rank group: the loader's default and explicit shards, the
     Trainer's refusals (a ``train_step`` without the batch's global totals
-    among them), the ranks' dropout draws, ``dp_infer`` on the golden
-    seq2seq wavs and a data-parallel ``Trainer.test`` of the golden model."""
+    among them), the grid and sharded heads of a Trainer at
+    ``model_parallel`` 2, the ranks' dropout draws, ``dp_infer`` on the
+    golden seq2seq wavs and a data-parallel ``Trainer.test`` of the golden
+    model."""
     from tpu_slu_torch import parallel
     from tpu_slu_torch.data.loader import BatchLoader, pad_wave_batch
     from tpu_slu_torch.models.encoder import encoder_features
@@ -228,7 +290,7 @@ def case_group(args: dict, r: int) -> dict:
 
     config, model, wavs, semantics = golden_seq2seq(os.path.join(args["out"], f"golden{r}"), batch=args["batch"])
     refusals = {}
-    for key, value in (("model_parallel", 2), ("data_parallel", False), ("n_devices", 3)):
+    for key, value in (("data_parallel", False), ("n_devices", 3)):
         c = copy.copy(config)
         setattr(c, key, value)
         try:
@@ -240,6 +302,11 @@ def case_group(args: dict, r: int) -> dict:
     except ValueError as e:
         refusals["totals"] = str(e)
     out["refusals"] = refusals
+    c = copy.copy(config)
+    c.model_parallel = 2
+    g = Trainer(copy.deepcopy(model), c).grid
+    out["grid"] = (g.data_index, g.model_index, g.data_size, g.model_parallel)
+    out["grid_loader"] = [b["i"].tolist() for b in BatchLoader(list(range(args["n"])), 3, collate, seed=5)]
 
     drop = copy.copy(config)
     drop.cnn_drop, drop.phone_rnn_drop, drop.word_rnn_drop = [0.5] * 2, [0.5] * 2, [0.5] * 2
@@ -264,7 +331,8 @@ def main() -> None:
     parallel.init_from_env("cpu", init_method="file://" + args["rdv"], timeout=INIT_TIMEOUT)
     try:
         r = parallel.rank()
-        out = {"case_slu": case_slu, "case_asr": case_asr, "case_group": case_group}[f"case_{case}"](args, r)
+        cases = {"case_slu": case_slu, "case_asr": case_asr, "case_group": case_group, "case_vocab": case_vocab}
+        out = cases[f"case_{case}"](args, r)
         out["modules"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_slu"))
         torch.save(out, os.path.join(args["out"], f"rank{r}.pt"))
         parallel.barrier()

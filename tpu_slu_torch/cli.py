@@ -24,7 +24,9 @@ Data-parallel training runs one process a GPU under ``torchrun``:
 Each rank trains on its shard of every epoch at the config's batch size
 (the global batch is N times it; ``tpu_slu_torch.parallel``); rank 0 writes
 the files. With ``--device cpu`` the ranks run on the CPU over gloo.
-``--decode`` runs on rank 0 alone.
+``--decode`` runs on rank 0 alone. ``model_parallel=M`` in the cfg's
+``[training]`` lays the N ranks out as an (N/M, M) grid, the vocab heads
+column-sharded over each data index's M ranks (``parallel/mesh.py``).
 """
 
 from __future__ import annotations

@@ -293,10 +293,9 @@ def read_config(config_file: str, make_dirs: bool = True) -> Config:
         config.decode_acc_from_epoch = parser.getint("training", "decode_acc_from_epoch")
     except configparser.Error:
         config.decode_acc_from_epoch = 2
-    # Extension: tensor parallelism degree. The JAX package builds a (data,
-    # model) mesh at >1 and column-shards the vocab heads over the model
-    # axis; the port has no such sharding yet and refuses >1 with several
-    # ranks (parallel/dist.py check_model_parallel). 1 = pure DP.
+    # Extension: tensor parallelism degree. At >1 the ranks form a (data,
+    # model) grid and the vocab heads are column-sharded over the model
+    # axis, as the JAX package's mesh does (parallel/mesh.py). 1 = pure DP.
     try:
         config.model_parallel = parser.getint("training", "model_parallel")
     except configparser.Error:

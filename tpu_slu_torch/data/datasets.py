@@ -341,10 +341,13 @@ def get_ASR_datasets(config):
             word_counter.update(iv.mark for iv in tiers["words"])
         Sy_phoneme = list(phoneme_counter)
         Sy_word = [w for w, _ in word_counter.most_common(config.vocabulary_size)]
-        with open(phones_path, "w") as f:
-            f.writelines(p + "\n" for p in Sy_phoneme)
-        with open(words_path, "w") as f:
-            f.writelines(w + "\n" for w in Sy_word)
+        for path, lines in ((phones_path, Sy_phoneme), (words_path, Sy_word)):
+            # beside it, then over it: the ranks of a group each write the same
+            # file, and a rank that reads it meanwhile sees all of it or nothing
+            tmp = f"{path}.{os.getpid()}.tmp"
+            with open(tmp, "w") as f:
+                f.writelines(line + "\n" for line in lines)
+            os.replace(tmp, path)
     config.num_phonemes = len(Sy_phoneme)
     print("Done.")
     return tuple(ASRDataset(*splits[s], Sy_phoneme, Sy_word, config, shuffle=(s == "train"))

@@ -6,11 +6,12 @@ batch is padded to ``batch_size`` with zero rows whose weight ``w`` is 0, so
 a step sees few distinct shapes. Batches are collated on a thread pool and
 prefetched.
 
-The shard of a process (one of several training the same model) is the
-rank's and the world's of the ``torch.distributed`` group once one is up
-(``tpu_slu_torch.parallel``), else 0/1, as JAX's loader takes its process
-index and count from the runtime; explicit ``process_index``/``process_count``
-win.
+The shard of a process (one of several training the same model) is its
+data index and the data size of the ``torch.distributed`` grid once one is
+up (``tpu_slu_torch.parallel``: the rank and the world at
+``model_parallel`` 1, so the mp ranks of a data index read the same
+batches), else 0/1, as JAX's loader takes its process index and count from
+the runtime; explicit ``process_index``/``process_count`` win.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import threading
 
 import numpy as np
 
-from tpu_slu_torch.parallel.dist import rank, world
+from tpu_slu_torch.parallel.mesh import current
 
 WAVE_BUCKET_QUANT = 8000  # 0.5 s at 16 kHz: the wave bucket of batches, bucket=True decodes and the server
 
@@ -56,12 +57,13 @@ class BatchLoader:
     ``shuffle``; with ``process_count`` > 1 every process takes the same
     permutation, wrapped so that each gets ``ceil(n / process_count)``
     examples, and the strided shard ``process_index::process_count``; a
-    wrapped duplicate gets weight 0. Both default to the process group's
-    rank and world, read at each pass (0 and 1 without a group); give both
-    or neither. Batches are made on ``num_threads``
-    threads, ``prefetch`` in flight: a dataset whose items draw from one generator
-    (the augment, the ASR crop) draws in the order the threads reach them,
-    as JAX's does; ``num_threads = 1`` makes the draws reproducible.
+    wrapped duplicate gets weight 0. Both default to the process grid's
+    data index and data size, read at each pass (the rank and the world at
+    ``model_parallel`` 1; 0 and 1 without a group); give both or neither.
+    Batches are made on ``num_threads`` threads, ``prefetch`` in flight: a
+    dataset whose items draw from one generator (the augment, the ASR crop)
+    draws in the order the threads reach them, as JAX's does;
+    ``num_threads = 1`` makes the draws reproducible.
     """
 
     def __init__(self, dataset, batch_size: int, collate, shuffle: bool = True, seed: int = 0,
@@ -84,11 +86,11 @@ class BatchLoader:
 
     @property
     def process_index(self) -> int:
-        return rank() if self._shard_of is None else self._shard_of[0]
+        return current().data_index if self._shard_of is None else self._shard_of[0]
 
     @property
     def process_count(self) -> int:
-        return world() if self._shard_of is None else self._shard_of[1]
+        return current().data_size if self._shard_of is None else self._shard_of[1]
 
     def __len__(self):
         n = -(-len(self.dataset) // self.process_count)

@@ -131,7 +131,8 @@ def jax_leaf(name: str, ndim: int) -> tuple[str, bool]:
 def params_to_jax(state_dict: Mapping) -> dict:
     """A port ``state_dict`` -> the JAX package's nested-dict param tree of
     numpy arrays, which ``params_from_jax`` maps back bit for bit and the
-    JAX ``load_pytree`` reads from a ``.npz``."""
+    JAX ``load_pytree`` reads from a ``.npz``. Any leaves keyed by parameter
+    name go the same way (the optimizer's per-leaf state, its steps 0-d)."""
     tree: dict = {}
     for name, t in state_dict.items():
         arr = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
@@ -140,5 +141,6 @@ def params_to_jax(state_dict: Mapping) -> dict:
         *head, leaf = path.split("/")
         for k in head:
             node = node.setdefault(k, {})
-        node[leaf] = np.ascontiguousarray(arr.T if transposed else arr)
+        arr = arr.T if transposed else arr
+        node[leaf] = np.ascontiguousarray(arr).reshape(arr.shape)  # a 0-d leaf stays 0-d
     return tree

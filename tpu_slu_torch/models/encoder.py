@@ -55,6 +55,7 @@ from tpu_slu_torch.ops.conv import (
 from tpu_slu_torch.ops.frontend_fused import sinc_frontend_fused
 from tpu_slu_torch.ops.gru1 import gru1
 from tpu_slu_torch.ops.sinc import mel_init, sinc_conv
+from tpu_slu_torch.parallel.vocab import ColumnParallelLinear, vocab_parallel_frame_ce
 
 FRONTENDS = ("fused", "composed")
 # the routes of the exact-shape eval path that a PretrainedModel takes unless
@@ -604,6 +605,18 @@ def masked_frame_ce(logits: torch.Tensor, y: torch.Tensor, weights: torch.Tensor
     return loss, acc
 
 
+def head_frame_ce(head: nn.Module, h: torch.Tensor, y: torch.Tensor, weights: torch.Tensor | None = None,
+                  denom: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`masked_frame_ce` of a vocab head's logits of ``h`` (B, T, in),
+    the input widened to the head's dtype; a head column-sharded over a
+    model group (``parallel/vocab.py``, ``model_parallel`` > 1) takes the
+    vocabulary-parallel loss, equal on every rank of the group."""
+    logits = head(h.to(head.weight.dtype))
+    if isinstance(head, ColumnParallelLinear):
+        return vocab_parallel_frame_ce(logits, y, head, weights, denom)
+    return masked_frame_ce(logits, y, weights, denom)
+
+
 def encoder_loss(encoder: "PretrainedModel", x: torch.Tensor, y_phoneme: torch.Tensor,
                  y_word: torch.Tensor, *, train: bool = False, generator: torch.Generator | None = None,
                  weights: torch.Tensor | None = None, denoms: tuple[float, float] | None = None,
@@ -614,7 +627,8 @@ def encoder_loss(encoder: "PretrainedModel", x: torch.Tensor, y_phoneme: torch.T
     at the two stacks' rates, -1 where ignored; each head is trimmed to the
     shorter of its frames and its labels. ``denoms``, the (phoneme, word)
     valid frames of a data-parallel step's global batch, make the four
-    values this batch's shares of the global ones (:func:`masked_frame_ce`).
+    values this batch's shares of the global ones (:func:`masked_frame_ce`;
+    a column-sharded head, :func:`head_frame_ce`).
     At ``pretraining_type == 1`` the word stack does not run and its loss and accuracy are 0. The stacks run
     unmasked (every row at the batch's T), as JAX's do; ``train``,
     ``generator`` and ``compute_dtype`` as :func:`apply_stack`. The heads
@@ -626,16 +640,14 @@ def encoder_loss(encoder: "PretrainedModel", x: torch.Tensor, y_phoneme: torch.T
     h = _btc(out)
     t = min(h.shape[1], y_phoneme.shape[1])
     dp, dw = (None, None) if denoms is None else denoms
-    lin = encoder.phoneme_linear
-    phoneme_loss, phoneme_acc = masked_frame_ce(lin(h[:, :t].to(lin.weight.dtype)), y_phoneme[:, :t], weights, dp)
+    phoneme_loss, phoneme_acc = head_frame_ce(encoder.phoneme_linear, h[:, :t], y_phoneme[:, :t], weights, dp)
     if arch.pretraining_type == 1:
         zero = phoneme_loss.new_zeros(())
         return phoneme_loss, zero, phoneme_acc, zero
     h = _btc(apply_stack(encoder.word_layers, arch.word_layers, out, train=train, generator=generator,
                          compute_dtype=compute_dtype, **encoder.routes()))
     t = min(h.shape[1], y_word.shape[1])
-    lin = encoder.word_linear
-    word_loss, word_acc = masked_frame_ce(lin(h[:, :t].to(lin.weight.dtype)), y_word[:, :t], weights, dw)
+    word_loss, word_acc = head_frame_ce(encoder.word_linear, h[:, :t], y_word[:, :t], weights, dw)
     return phoneme_loss, word_loss, phoneme_acc, word_acc
 
 

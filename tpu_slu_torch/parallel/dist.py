@@ -11,7 +11,10 @@ strided shard ``rank::world`` of every epoch (``data/loader.py``) at the
 config's batch size, so the global batch is ``world`` times it, and the
 Trainer makes each step the single-device step on the union of the ranks'
 batches (``training/trainer.py``). JAX's single-process mesh, one process
-splitting one batch over its chips, has no counterpart here.
+splitting one batch over its chips, has no counterpart here. With
+``model_parallel`` > 1 the ranks form a (data, model) grid
+(``parallel/mesh.py``): the shard and the sums are then those of the data
+index and the data group, and the collectives below take the group.
 
 The collectives between GPUs run over NCCL, between CPU processes over gloo.
 Host numbers (a step's denominators, an epoch's metric sums, decoded
@@ -23,6 +26,7 @@ form, or a collective that times out, raises.
 from __future__ import annotations
 
 import datetime
+import functools
 import os
 
 import numpy as np
@@ -83,14 +87,18 @@ def init_from_env(device=None, *, backend: str | None = None, init_method: str |
 
 
 def destroy() -> None:
-    """Leave the process group, if one is up."""
+    """Leave the process group, if one is up, and forget its grid."""
     global _host_group
+    from tpu_slu_torch.parallel import mesh
+
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
     _host_group = None
+    mesh.forget()
 
 
-def _host() -> dist.ProcessGroup:
+def host_group() -> dist.ProcessGroup:
+    """The gloo group of the whole world, for host numbers."""
     if _host_group is None:
         raise RuntimeError("no process group: call init_from_env first")
     return _host_group
@@ -98,37 +106,43 @@ def _host() -> dist.ProcessGroup:
 
 def barrier() -> None:
     """Wait for every rank (over the host group)."""
-    dist.barrier(group=_host())
+    dist.barrier(group=host_group())
 
 
-def host_all_reduce(values) -> np.ndarray:
-    """The sum over the ranks of a few host numbers, in float64 (``values`` is left as it was)."""
+def host_all_reduce(values, group=None) -> np.ndarray:
+    """The sum over the ranks of ``group`` (a gloo group; default the host
+    group) of a few host numbers, in float64 (``values`` is left as it was)."""
     t = torch.tensor(np.asarray(values, np.float64))
-    dist.all_reduce(t, group=_host())
+    dist.all_reduce(t, group=host_group() if group is None else group)
     return t.numpy()
 
 
-def _host_allgather(values: np.ndarray) -> np.ndarray:
+def _host_allgather(values: np.ndarray, group=None) -> np.ndarray:
     t = torch.as_tensor(values)
-    parts = [torch.empty_like(t) for _ in range(world())]
-    dist.all_gather(parts, t, group=_host())
+    group = host_group() if group is None else group
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
     return torch.stack(parts).numpy()
 
 
-def all_hosts_sum(scalars, process_count: int | None = None, allgather=None) -> list:
-    """Sum metric scalars over the ranks; with one rank, ``scalars`` itself.
+def all_hosts_sum(scalars, process_count: int | None = None, allgather=None, group=None) -> list:
+    """Sum metric scalars over the ranks of ``group`` (a gloo group; default
+    the host group, every rank); with one rank, ``scalars`` itself.
 
     The port of the JAX Trainer's ``_all_hosts_sum``: every rank accumulates
     its shard's totals, and a ``log.csv`` row aggregates the global batch.
-    ``process_count`` (default :func:`world`) and ``allgather`` (a (K,)
-    array -> the (ranks, K) stack of every rank's; default over the host
-    group) are injectable, as in JAX. The scalars (floats, or 0-d tensors on
+    ``process_count`` (default the group's size) and ``allgather`` (a (K,)
+    array -> the (ranks, K) stack of every rank's; default over the group)
+    are injectable, as in JAX. The scalars (floats, or 0-d tensors on
     any device) are gathered and summed in float64."""
-    pcount = world() if process_count is None else process_count
+    if process_count is not None:
+        pcount = process_count
+    else:
+        pcount = world() if group is None else dist.get_world_size(group)
     if pcount == 1:
         return scalars
     if allgather is None:
-        allgather = _host_allgather
+        allgather = functools.partial(_host_allgather, group=group)
     stacked = np.asarray(allgather(np.asarray([float(v) for v in scalars], np.float64)), np.float64)
     if stacked.shape != (pcount, len(scalars)):
         raise ValueError(f"allgather returned {stacked.shape}, expected ({pcount}, {len(scalars)})")
@@ -141,16 +155,16 @@ def broadcast_module(module: torch.nn.Module, src: int = 0) -> None:
         dist.broadcast(t, src)
 
 
-def all_reduce_grads(params) -> None:
-    """Sum every parameter's gradient over the ranks, in one flat
-    all-reduce on the gradients' device and stream. Parameters without a
-    gradient are left without one (every rank runs the same graph, so the
-    set agrees)."""
+def all_reduce_grads(params, group=None) -> None:
+    """Sum every parameter's gradient over the ranks of ``group`` (default
+    every rank), in one flat all-reduce on the gradients' device and stream.
+    Parameters without a gradient are left without one (every rank runs the
+    same graph, so the set agrees)."""
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     torch._foreach_copy_(grads, [v.view_as(g) for v, g in zip(flat.split([g.numel() for g in grads]), grads)])
 
 
@@ -176,20 +190,5 @@ def dp_infer(fn, *inputs):
         dist.all_gather(parts, out.contiguous())
         return torch.cat(parts)
     parts = [None] * W
-    dist.all_gather_object(parts, list(out), group=_host())
+    dist.all_gather_object(parts, list(out), group=host_group())
     return [o for part in parts for o in part]
-
-
-def check_model_parallel(config) -> None:
-    """``model_parallel > 1`` shards the vocab heads over a model axis in the
-    JAX package. The port has no such sharding yet (ROADMAP Queue 1 item 5's
-    remainder): with several ranks it raises; with one it says, as JAX does,
-    that the option is ignored."""
-    mp = max(1, int(getattr(config, "model_parallel", 1) or 1))
-    if mp <= 1:
-        return
-    if world() > 1:
-        raise ValueError(f"model_parallel={mp} with {world()} ranks: the port does not shard the vocab "
-                         "heads over ranks yet (ROADMAP Queue 1 item 5's remainder, the column-sharded "
-                         "heads of tpu_slu/parallel/mesh.py); set model_parallel=1 to train data-parallel")
-    print(f"model_parallel={mp} ignored: single device")

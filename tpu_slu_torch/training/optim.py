@@ -13,7 +13,10 @@ Its state goes to and comes from a checkpoint as the JAX package's flat
 Adam state (``flat_adam_init``): ``m``, ``v`` and ``step``, each one (P,)
 vector over every parameter in ``ravel_pytree``'s leaf order of the JAX
 param tree, each leaf laid out as JAX lays it (a GRU or Linear weight
-transposed), ``step`` int32 per element.
+transposed), ``step`` int32 per element. Under ``model_parallel`` > 1 the
+JAX Trainer keeps the per-leaf state of ``adam_init`` instead (the same
+arithmetic): ``m`` and ``v`` trees shaped like the param tree, ``step`` an
+int32 scalar a leaf (:meth:`MaskedAdam.export_tree`).
 """
 
 from __future__ import annotations
@@ -22,8 +25,9 @@ from collections import defaultdict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from tpu_slu_torch.models.convert import jax_leaf
+from tpu_slu_torch.models.convert import flatten, jax_leaf, params_from_jax, params_to_jax
 
 
 class MaskedAdam(torch.optim.Optimizer):
@@ -106,6 +110,44 @@ class MaskedAdam(torch.optim.Optimizer):
             if st:
                 self.state[p].update(st)
 
+    def export_tree(self, full=None) -> dict:
+        """JAX's per-leaf Adam state ``{"m", "v": param trees, "step": a tree of
+        int32 scalars}``, each leaf at its JAX path and layout
+        (:func:`~tpu_slu_torch.models.convert.params_to_jax`); a parameter
+        that never stepped has zeros. ``full(name, t)`` gives the whole leaf
+        of a parameter's moment ``t`` (the gathered columns of a sharded
+        head; it is called for every parameter, in order, on every rank)."""
+        named = {"m": {}, "v": {}, "step": {}}
+        for name, p in zip(self.names, self.param_groups[0]["params"]):
+            st = self.state.get(p, {})
+            for k in ("m", "v"):
+                t = st[k] if st else torch.zeros_like(p)
+                named[k][name] = full(name, t) if full else t
+            named["step"][name] = np.asarray(st.get("step", 0), np.int32)
+        return {k: params_to_jax(v) for k, v in named.items()}
+
+    def import_tree(self, tree: dict, take=None) -> None:
+        """Take the state :meth:`export_tree` (or the JAX Trainer at
+        ``model_parallel`` > 1) wrote; ``take(name, t)`` gives this rank's part
+        of a whole leaf (a sharded head's columns). A parameter whose step is 0
+        gets no state. Raises, changing nothing, on a missing leaf or a
+        wrong shape."""
+        named = {k: params_from_jax(tree[k]) for k in ("m", "v")}
+        steps = flatten(tree["step"])  # as int32, not params_from_jax's float32
+        states = []
+        for name, p in zip(self.names, self.param_groups[0]["params"]):
+            mv = {k: (take(name, named[k][name]) if take else named[k][name]).to(p) for k in ("m", "v")}
+            for k, t in mv.items():
+                if t.shape != p.shape:
+                    raise ValueError(f"optimizer state {k!r} of {name} has shape {tuple(t.shape)}, "
+                                     f"want {tuple(p.shape)}")
+            step = int(steps[jax_leaf(name, p.ndim)[0]])
+            states.append((p, {"step": step, **mv} if step else {}))
+        self.state.clear()
+        for p, st in states:
+            if st:
+                self.state[p].update(st)
+
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
@@ -137,15 +179,30 @@ class MaskedAdam(torch.optim.Optimizer):
             torch._foreach_sub_(ps, upd)
 
 
-def clip_grad_norm(params, max_norm: float) -> None:
+def clip_grad_norm(params, max_norm: float, shards=(), group=None) -> None:
     """Scale every gradient by ``min(1, max_norm / (norm + 1e-9))``, the norm
     taken over all of them (the JAX train step's clip); a no-op for
-    ``max_norm <= 0``. Stays on the device: no synchronisation."""
+    ``max_norm <= 0``. Stays on the device: no synchronisation. ``shards``
+    are parameters that hold this rank's part of a parameter column-sharded
+    over the model ``group``: their squares are summed over the group, the
+    others' taken once, so the norm is the whole tree's, as JAX's
+    ``clip_grads`` sees it."""
     if max_norm <= 0.0:
         return
+    params = list(params)
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
-    norm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
+    if shards:
+        sharded = {id(p) for p in shards}
+        squares = {True: [], False: []}
+        for p in params:
+            if p.grad is not None:
+                squares[id(p) in sharded].append(torch.sum(p.grad * p.grad))
+        own = torch.stack(squares[True]).sum().reshape(1) if squares[True] else grads[0].new_zeros(1)
+        dist.all_reduce(own, group=group)
+        norm = torch.sqrt(torch.stack(squares[False] + [own[0]]).sum())
+    else:
+        norm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     torch._foreach_mul_(grads, scale)

@@ -21,7 +21,8 @@ with ``y_len`` (B,) their true lengths for the seq2seq model.
 
 Checkpoints are the JAX Trainer's files, which either package reads:
 ``model_state.npz`` (the param tree), ``trainer_state.npz`` (the flat Adam
-state ``opt/{m,v,step}``, ``epoch``, ``unfreezing_index``,
+state ``opt/{m,v,step}``, or at ``model_parallel`` > 1 the per-leaf one
+``opt/{m,v,step}/<path>``; ``epoch``, ``unfreezing_index``,
 ``unfrozen_count``) and, for an SLU model, ``vocab.json``. As in JAX, a
 resumed run restores neither the step count nor the loader's epoch: its
 first epoch reshuffles from ``seed + 0``, and so equals the uninterrupted
@@ -54,6 +55,25 @@ rank. The model is broadcast from rank 0 at construction, each rank's
 dropout generator is seeded from (``seed``, rank), rank 0 keeping
 ``seed``, and the epoch metrics are summed over the ranks. Only rank 0
 writes ``log.csv`` and the checkpoints; every rank reads them.
+
+Model parallelism (``model_parallel`` > 1 in ``[training]``, JAX's
+``trainer.py:96-135``): the ranks form a (data, model) grid
+(``parallel/mesh.py``) where ``model_parallel`` divides them; where it
+does not, or on one rank, the Trainer prints JAX's line and trains as
+above. The mp ranks of a data index read the same batches, draw the same
+dropout (the generator is seeded from the data index) and hold the column
+shards of the vocab heads whose width divides ``model_parallel``, a
+``Model``'s unused encoder heads too (JAX's ``param_shardings`` rule); the
+heads' frame loss is vocabulary-parallel (``parallel/vocab.py``). Everything
+said above of ranks then holds of data indices: the host counts and
+metrics are summed over the data group, a head shard's gradient is
+all-reduced over it, a replicated one over every rank and divided by
+``model_parallel`` (so the copies of a data index agree bit for bit where
+the card's conv backward does not), and the clip's norm adds the shards'
+squares over the model group to the replicated ones'. The checkpoints hold
+the gathered heads and JAX's per-leaf Adam state, which a run at
+``model_parallel`` 1 does not read (nor this one a flat state): the model
+loads and the optimizer starts fresh, as in JAX.
 """
 
 from __future__ import annotations
@@ -70,6 +90,7 @@ from tpu_slu_torch import parallel
 from tpu_slu_torch.models.convert import params_from_jax, params_to_jax
 from tpu_slu_torch.models.encoder import PretrainedModel, encoder_loss
 from tpu_slu_torch.models.slu import Model
+from tpu_slu_torch.parallel.mesh import gather_rows, take_rows
 from tpu_slu_torch.training.checkpoint import check_backend, load_pytree, save_pytree
 from tpu_slu_torch.training.optim import MaskedAdam, clip_grad_norm
 from tpu_slu_torch.utils.profiling import StepTimer, profile_trace
@@ -89,10 +110,11 @@ def compute_dtype_of(config) -> torch.dtype | None:
     return torch.bfloat16 if getattr(config, "compute_dtype", "float32") == "bfloat16" else None
 
 
-def rank_seed(seed: int, rank: int) -> int:
-    """The dropout seed of ``rank``: ``seed`` itself at rank 0 (so one rank
-    trains as one process does), else a draw from ``SeedSequence([seed, rank])``."""
-    return seed if rank == 0 else int(np.random.SeedSequence([seed, rank]).generate_state(1)[0])
+def data_seed(seed: int, data_index: int) -> int:
+    """The dropout seed of a data index (a rank at ``model_parallel`` 1):
+    ``seed`` itself at index 0 (so one rank trains as one process does), else
+    a draw from ``SeedSequence([seed, data_index])``."""
+    return seed if data_index == 0 else int(np.random.SeedSequence([seed, data_index]).generate_state(1)[0])
 
 
 def write_log_csv(path: str, rows: list[dict]) -> None:
@@ -117,8 +139,9 @@ def write_log_csv(path: str, rows: list[dict]) -> None:
 class Trainer:
     """``Trainer(model, config).train(dataset)`` / ``.test(dataset)`` on the
     device the model lies on, data-parallel over the ranks when a process
-    group is up. Dropout masks and seeds come from ``generator`` (a CPU
-    generator seeded with :func:`rank_seed` of the config's seed by default)."""
+    group is up, on a (data, model) grid at ``model_parallel`` > 1. Dropout
+    masks and seeds come from ``generator`` (a CPU generator seeded with
+    :func:`data_seed` of the config's seed by default)."""
 
     def __init__(self, model, config, generator: torch.Generator | None = None):
         check_backend(config)
@@ -131,7 +154,7 @@ class Trainer:
             if n_devices and n_devices != self.world:
                 raise ValueError(f"n_devices={n_devices} but {self.world} ranks are running; launch "
                                  f"torchrun --nproc_per_node={n_devices}, or drop n_devices")
-        parallel.check_model_parallel(config)
+        self.grid = parallel.grid_for(config)
         self.model = model
         self.config = config
         self.is_pretraining = isinstance(model, PretrainedModel)
@@ -154,12 +177,13 @@ class Trainer:
         self.epoch = 0
         self._rows: list[dict] = []
         if generator is None:
-            generator = torch.Generator().manual_seed(rank_seed(config.seed, self.rank))
+            generator = torch.Generator().manual_seed(data_seed(config.seed, self.grid.data_index))
         self.generator = generator
         self.clip = getattr(config, "gradient_clip_norm", 0.0)
         self.device = model.device
         if self.world > 1:
             parallel.broadcast_module(model)
+        self.sharded = parallel.shard_vocab_heads(model, self.grid)
         self.optimizer = MaskedAdam(model.named_parameters(), self.lr)
 
     def _to_device(self, batch: dict) -> dict:
@@ -188,14 +212,20 @@ class Trainer:
 
     def _batches(self, dataset):
         """(this rank's weight sum, the global batch's, the batch's counts
-        summed over the ranks or None on one rank, device batch) of each
-        batch of ``dataset``. A step's values are weighted by the global sum:
-        on several ranks they are this rank's shares of the global means."""
+        summed over the data group or None with one data index, device batch)
+        of each batch of ``dataset``. A step's values are weighted by the
+        global sum: on several data indices they are this rank's shares of the
+        global means."""
         for batch in dataset.loader:
             counts = self.counts(batch)
-            totals = parallel.host_all_reduce(counts) if self.world > 1 else None
+            totals = self.global_counts(counts) if self.grid.data_size > 1 else None
             bs = float(counts[0])
             yield bs, bs if totals is None else float(totals[0]), totals, self._to_device(batch)
+
+    def global_counts(self, counts: np.ndarray) -> np.ndarray:
+        """A batch's :meth:`counts` summed over the data group: the ``totals``
+        of :meth:`train_step` on several data indices."""
+        return parallel.host_all_reduce(counts, group=self.grid.host_data_group)
 
     def _losses(self, batch: dict, totals, train: bool):
         """The ASR values or the SLU (loss, acc) of a device batch; with the
@@ -218,14 +248,15 @@ class Trainer:
         word_acc) for ASR. The ASR loss is the phoneme loss, their sum or
         the word loss at ``pretraining_type`` 1, 2 or 3, every parameter
         trained; the SLU step is masked by the ULMFiT schedule. Both clip the
-        gradients' global norm at ``gradient_clip_norm``. With several ranks
-        the values are this rank's shares of the global batch's, ``totals``
-        (required there) the batch's :meth:`counts` of its host arrays summed
-        over the ranks (:func:`~tpu_slu_torch.parallel.host_all_reduce`); the
-        gradients are summed over the ranks before the clip."""
-        if self.world > 1 and totals is None:
-            raise ValueError(f"train_step on {self.world} ranks needs the batch's totals: "
-                             "parallel.host_all_reduce(trainer.counts(host_batch))")
+        gradients' global norm at ``gradient_clip_norm``. With several data
+        indices the values are this rank's shares of the global batch's,
+        ``totals`` (required there) the batch's :meth:`counts` of its host
+        arrays summed over the data group (:meth:`global_counts`); the
+        gradients are summed over the data group before the clip."""
+        if self.grid.data_size > 1 and totals is None:
+            raise ValueError(f"train_step on {self.grid.data_size} data indices needs the batch's totals: "
+                             "trainer.global_counts(trainer.counts(host_batch)), parallel.host_all_reduce "
+                             "over the data group")
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         out = self._losses(batch, totals, train=True)
@@ -235,11 +266,28 @@ class Trainer:
         else:
             loss = out[0]
         loss.backward()
-        if self.world > 1:
-            parallel.all_reduce_grads(self.model.parameters())
-        clip_grad_norm(self.model.parameters(), self.clip)
+        shards = self._shard_params()
+        if self.grid.model_parallel > 1:
+            self._reduce_model_parallel_grads(shards)
+        elif self.grid.data_size > 1:
+            parallel.all_reduce_grads(self.model.parameters(), group=self.grid.data_group)
+        clip_grad_norm(self.model.parameters(), self.clip, shards, self.grid.model_group)
         self.optimizer.step()
         return tuple(t.detach() for t in out)
+
+    def _reduce_model_parallel_grads(self, shards: list) -> None:
+        """Sum each gradient over the data indices. A head shard's goes over
+        its data group. A replicated parameter's is the same on the mp ranks
+        of a data index only up to the card's kernels that are not bit for
+        bit deterministic (the conv backward), so it goes over every rank and
+        is divided by ``model_parallel``: the mp copies agree bit for bit, and
+        the ranks keep equal replicas."""
+        ids = {id(p) for p in shards}
+        rest = [p for p in self.model.parameters() if id(p) not in ids]
+        parallel.all_reduce_grads(rest)
+        torch._foreach_div_([p.grad for p in rest if p.grad is not None], float(self.grid.model_parallel))
+        if self.grid.data_size > 1:
+            parallel.all_reduce_grads(shards, group=self.grid.data_group)
 
     def log(self, results: dict) -> None:
         self._rows.append(results)
@@ -248,12 +296,36 @@ class Trainer:
 
     # -- checkpoints (JAX trainer.py:383-442) ----------------------------------
 
+    def _shard_params(self) -> list:
+        return [p for n, p in self.model.named_parameters() if n in self.sharded]
+
+    def _full(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of parameter ``name``'s ``t`` (a sharded head's
+        gathered over the model group; collective there)."""
+        return gather_rows(t, self.grid) if name in self.sharded else t
+
+    def _take(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        return take_rows(t, self.grid) if name in self.sharded else t
+
+    def full_state_dict(self) -> dict[str, torch.Tensor]:
+        """The model's ``state_dict`` with every sharded head whole. Collective
+        over the model group at ``model_parallel`` > 1: every rank calls it."""
+        return {n: self._full(n, t) for n, t in self.model.state_dict().items()}
+
     def _jax_params(self) -> dict:
-        return params_to_jax(self.model.state_dict())
+        return params_to_jax(self.full_state_dict())
+
+    def optimizer_state(self) -> dict:
+        """The optimizer's state as ``trainer_state.npz`` holds it: JAX's flat
+        Adam state, or its per-leaf one at ``model_parallel`` > 1 (collective
+        there, as :meth:`full_state_dict`)."""
+        if self.grid.model_parallel > 1:
+            return self.optimizer.export_tree(self._full)
+        return self.optimizer.export_flat()
 
     def _trainer_tree(self) -> dict:
         return {
-            "opt": self.optimizer.export_flat(),
+            "opt": self.optimizer_state(),
             "epoch": np.asarray(self.epoch, np.int32),
             "unfreezing_index": np.asarray(getattr(self.model, "unfreezing_index", 0), np.int32),
             "unfrozen_count": np.asarray(getattr(self.model, "_unfrozen_count", 0), np.int32),
@@ -262,21 +334,27 @@ class Trainer:
     def load_checkpoint(self) -> None:
         """Resume from the folder's checkpoint, as the JAX Trainer does: with
         no model file, or one that does not fit the model, say so and start
-        from scratch; with a model but an unreadable trainer state, keep the
-        model and start the optimizer fresh."""
+        from scratch; with a model but an unreadable trainer state (one of
+        the other ``model_parallel`` form among them), keep the model and
+        start the optimizer fresh. Every rank calls it: at ``model_parallel``
+        > 1 each takes its columns of the heads and of their Adam state."""
         if not os.path.exists(self._model_ckpt):
             print("No previous model; starting from scratch")
             return
         try:
             tree = load_pytree(self._model_ckpt, self._jax_params())
-            self.model.load_state_dict(params_from_jax(tree), strict=True)
+            self.model.load_state_dict({n: self._take(n, t) for n, t in params_from_jax(tree).items()},
+                                       strict=True)
         except Exception as e:  # the reference's semantics: fall back to scratch
             print(f"Could not load previous model; starting from scratch ({e})")
             return
         if os.path.exists(self._trainer_ckpt):
             try:
                 state = load_pytree(self._trainer_ckpt, self._trainer_tree())
-                self.optimizer.import_flat(state["opt"])
+                if self.grid.model_parallel > 1:
+                    self.optimizer.import_tree(state["opt"], self._take)
+                else:
+                    self.optimizer.import_flat(state["opt"])
                 self.epoch = int(state["epoch"])
                 if not self.is_pretraining:
                     self.model.unfreezing_index = int(state["unfreezing_index"])
@@ -287,14 +365,17 @@ class Trainer:
     def save_checkpoint(self) -> None:
         """Write ``model_state.npz``, ``vocab.json`` (an SLU model) and
         ``trainer_state.npz``; a failure is printed, not raised (JAX's).
-        Rank 0 writes; every rank then waits for it."""
-        if self.rank == 0:
+        Rank 0 writes; every rank then waits for it. At ``model_parallel`` > 1
+        every rank gathers the heads and their Adam state first."""
+        if self.rank == 0 or self.grid.model_parallel > 1:
             try:
-                save_pytree(self._model_ckpt, self._jax_params())
-                if not self.is_pretraining:
-                    with open(os.path.join(self.checkpoint_path, "vocab.json"), "w") as f:
-                        json.dump(self.model.vocab_dict(), f)
-                save_pytree(self._trainer_ckpt, self._trainer_tree())
+                params, state = self._jax_params(), self._trainer_tree()
+                if self.rank == 0:
+                    save_pytree(self._model_ckpt, params)
+                    if not self.is_pretraining:
+                        with open(os.path.join(self.checkpoint_path, "vocab.json"), "w") as f:
+                            json.dump(self.model.vocab_dict(), f)
+                    save_pytree(self._trainer_ckpt, state)
             except Exception as e:
                 print(f"Could not save model ({e})")
         if self.world > 1:
@@ -314,10 +395,14 @@ class Trainer:
                 return self._train_asr(dataset, print_interval)
             return self._train_slu(dataset, print_interval)
 
+    def _sum(self, values) -> list:
+        """``values`` summed over the data group (each data index's shares)."""
+        return parallel.all_hosts_sum(values, group=self.grid.host_data_group)
+
     def _print_step(self, names, values) -> None:
         """The JAX Trainer's progress lines, of the global batch's values
-        (summed over the ranks: each rank's are its shares), from rank 0."""
-        values = parallel.all_hosts_sum([float(v) for v in values])
+        (summed over the data group: each rank's are its shares), from rank 0."""
+        values = self._sum([float(v) for v in values])
         if self.rank == 0:
             for name, v in zip(names, values):
                 print(f"{name}: {float(v)}")
@@ -335,7 +420,7 @@ class Trainer:
                 totals[k] = totals[k] + v * g
             if idx % print_interval == 0:
                 self._print_step(("phoneme loss", "word loss", "phoneme acc", "word acc"), (pl, wl, pa, wa))
-        *sums, num_examples = parallel.all_hosts_sum(list(totals.values()) + [num_examples])
+        *sums, num_examples = self._sum(list(totals.values()) + [num_examples])
         results = {k: _weighted_mean(float(v), num_examples) for k, v in zip(totals, sums)}
         results["set"] = "train"
         results["examples_per_sec"] = num_examples / max(time.time() - t0, 1e-9)
@@ -361,7 +446,7 @@ class Trainer:
             if idx % print_interval == 0:
                 self._print_step(("intent loss", "intent acc"), (loss, acc))
         self.model.unfreeze_one_layer()
-        total_loss, total_acc, num_examples = parallel.all_hosts_sum([total_loss, total_acc, num_examples])
+        total_loss, total_acc, num_examples = self._sum([total_loss, total_acc, num_examples])
         results = {
             "intent_loss": _weighted_mean(float(total_loss), num_examples),
             "intent_acc": _weighted_mean(float(total_acc), num_examples),
@@ -407,7 +492,7 @@ class Trainer:
                     print(f"acc: {match}")
                     print(f"guess: {guesses[0]}")
                     print(f"truth: {truths[0]}")
-        total_loss, total_acc, num_examples = parallel.all_hosts_sum([total_loss, total_acc, num_examples])
+        total_loss, total_acc, num_examples = self._sum([total_loss, total_acc, num_examples])
         results = {
             "intent_loss": _weighted_mean(float(total_loss), num_examples),
             "intent_acc": _weighted_mean(float(total_acc), num_examples),
@@ -424,7 +509,7 @@ class Trainer:
             pl, wl, pa, wa = self._losses(batch, counts, train=False)
             for k, v in zip(ASR_METRICS, (pl, pa, wl, wa)):
                 totals[k] = totals[k] + v * g
-        *sums, num_examples = parallel.all_hosts_sum(list(totals.values()) + [num_examples])
+        *sums, num_examples = self._sum(list(totals.values()) + [num_examples])
         results = {k: _weighted_mean(float(v), num_examples) for k, v in zip(totals, sums)}
         results["set"] = log_set
         self.log(results)
