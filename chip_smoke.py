@@ -11,8 +11,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    flags are left at their defaults, as a user has them;
 2. build: compiles ``tpu_slu_torch/csrc/*.cu`` with nvcc, and beside it
    developer copies of one source each (``VARIANTS``): K1, K2 and K4f on
-   the cluster size the two-direction rule does not pick, K4b's and K5b's
-   chain on the size its rule does not pick, and K7 with clocks by phase;
+   the cluster size the two-direction rule does not pick, K3's, K4b's and
+   K5b's chain on the size its rule does not pick, and K7 with clocks by
+   phase;
 3. K1 (the shared-stream bi-GRU kernel) against its plain PyTorch version
    on the card, over parts, pools, odd and even T, B and H = 128; the front
    end's convs and their gradients on the card against an f64 conv on the
@@ -34,17 +35,21 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    K2 (train forward) and K3 (backward) against their plain versions at the
    flagship layer shapes; the pooled eval path's gradients against autograd
    of the plain version; one whole train step on the card against the CPU
-   plain path (the sinc parameters' gradients, sums over every sample,
-   against an f64 CPU step that replays the card's front-end branches,
-   leaky ReLU signs and max-pool argmaxes, each side's error printed);
+   plain path (the front end's gradients, the sinc filters' and the
+   convs', against an f64 CPU step that replays the card's front-end
+   branches, leaky ReLU signs and max-pool argmaxes, each side's error
+   printed);
    ``Trainer(model, config).train(dataset)`` over seeded
    synthetic batches of B = 64 with 4 K2, 1 K1 and 5 K3 launches per step,
    then ``Trainer.test``; warm timings of the train step and of K2 (its us
    a step) and K3 against their plain versions, ``[k2-batch]`` K2's four
    layers on clusters of 2 and of 4 CTAs in turns at B = 16 and 64 (the
-   other size in the ``k2_other_c`` variant), K3's five layers by phase (the gate pass,
-   the chain, the GEMM core's launches, dW's reduce pass; profiler) and the
-   core's TFLOP/s on the products counted from the shapes;
+   other size in the ``k2_other_c`` variant), ``[k3-batch]`` K3's five
+   layers the same way at B = 16 and 64 (its chain, the backward cluster
+   recurrence, on the other size in the ``k3_other_c`` variant), K3's five
+   layers by phase (the gate pass, the chain, the GEMM core's launches, dW's
+   reduce pass; profiler) and the core's TFLOP/s on the products counted
+   from the shapes;
 7. length-exact decode and serving at the width of ``no_unfreezing.cfg``:
    K4f (the length-masked bi-GRU) against its plain version at the five
    layer shapes, B = 8, seeded mixed lengths with exact zeros past each; a
@@ -85,7 +90,7 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    them) and at an odd small shape, dX and the eight weight and bias
    gradients within ``GRAD_TOL``, dX exactly 0 past each length; ``[s2s-grad]`` one train step (B = 16, U = 32,
    dropout on) on the card against the same step on the CPU, within phase
-   6's limits (the sinc parameters against an f64 CPU step, the key bias
+   6's limits (the front end's parameters against an f64 CPU step, the key bias
    against its weight's scale); ``[s2s-trainer]`` ``Trainer.train`` at B =
    64 over seeded one-hot batches, 4 K2, 4 K3, 1 K4f, 1 K4b and no K1
    launches a step, then ``Trainer.test`` with the decode's exact match, one
@@ -140,8 +145,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    ``asr_shapes``) with phases 3 and 6's holds, then one train step
    (dropout on) on 2.25 s at B = 16 and at B = 64 on the card against the
    CPU plain path, the loss within ``STEP_LOSS_ATOL``, every gradient
-   within ``GRAD_TOL`` of its largest element (the sinc parameters' against
-   an f64 step on the card's front-end branches); ``[asr-trainer]`` ``Trainer(PretrainedModel).train`` over seeded batches
+   within ``GRAD_TOL`` of its largest element (the front end's against an
+   f64 step on the card's front-end branches); ``[asr-trainer]`` ``Trainer(PretrainedModel).train`` over seeded batches
    of B = 64 (``asr_batches``: -1 labels, two weight-0 rows a batch) with 4
    K2 and 4 K3 launches a step and no other GRU kernel, then
    ``Trainer.test`` with 1 K8 and 4 K1 a batch (the kernels line's
@@ -284,9 +289,10 @@ K2_SOURCE = "tpu_slu_torch/csrc/bigru_trainpool_fwd.cu"
 K2_REPLACES = "tpu_slu/ops/pallas_gru.py:1146"
 K3_SOURCE = "tpu_slu_torch/csrc/bigru_shared_bwd.cu"
 K3_REPLACES = "tpu_slu/ops/pallas_gru.py:1293"
-# K3's kernels by phase: the gate pass, the dh chain, the GEMM core in its three layouts (gi and gh;
-# dX; dW and db), dW's reduce pass
-K3_PHASES = {"gates": "bwd_gates_kernel", "chain": "bwd_chain_kernel", "core gi/gh": "gemm_kernel<0, 0",
+# K3's kernels by phase: the gate pass, the dh chain (the backward cluster recurrence of
+# gru_cluster_bwd.cuh, K4b's and K5b's, with its SPLIT flag), the GEMM core in its three layouts (gi
+# and gh; dX; dW and db), dW's reduce pass
+K3_PHASES = {"gates": "bwd_gates_kernel", "chain": "gru_cluster_bwd_kernel", "core gi/gh": "gemm_kernel<0, 0",
              "core dX": "gemm_kernel<0, 1", "core dW": "gemm_kernel<1, 1", "reduce": "dw_reduce_kernel"}
 # K3 vs plain, of each tensor's largest element: f32 sums over up to 25,600 rows, another order
 GRAD_TOL = 1e-4
@@ -316,7 +322,8 @@ K4B_PHASES = {"h_prev": "masked_hprev_kernel", "gates": "bwd_gates_kernel", "cha
 K5B_PHASES = K4B_PHASES
 # K3's kernels by phase at bf16: the same, the products on the core's mixed kernel, and dX's
 # rounded sum of the two directions
-K3_BF16_PHASES = {"gates": "bwd_gates_kernel", "chain": "bwd_chain_kernel", "core gi/gh": "gemm_kernel_mixed<0, 0",
+K3_BF16_PHASES = {"gates": "bwd_gates_kernel", "chain": "gru_cluster_bwd_kernel",
+                  "core gi/gh": "gemm_kernel_mixed<0, 0",
                   "core dX": "gemm_kernel_mixed<0, 1", "dX sum": "dx_pair_sum_kernel",
                   "core dW": "gemm_kernel_mixed<1, 1", "reduce": "dw_reduce_kernel"}
 # K4b's and K5b's kernels by phase at bf16: the same, the products on the core's mixed kernel
@@ -340,7 +347,6 @@ S2S_U = 32  # label steps of the seq2seq train step: the JAX bench's train shape
 # the attention's key bias shifts every frame's score alike, which the softmax cancels: its
 # gradient is 0 in exact arithmetic, and it is held against the key weight's gradient's scale
 KEY_BIAS, KEY_WEIGHT = "decoder.attention.key_linear.bias", "decoder.attention.key_linear.weight"
-SINC_PARAMS = ("filt_b1", "filt_band")  # their gradients are held against an f64 CPU reference
 SERVE_BATCH = 8  # the IntentServer's max_batch: a served batch is (8, 4 s bucket)
 # the card's published peaks at 700 W (NVIDIA H100 SXM data sheet): f32 outside the
 # tensor cores, and HBM3
@@ -367,19 +373,22 @@ _TILE_C4 = ("if (C == 4) return nb == 1 ? launch_gru_cluster<4, 1, POOL, TRAIN, 
 _OTHER_C = [(_RULE_2DIR, _RULE_2DIR.replace("4 * 8 * B <= 3 * sms", "4 * 8 * B > 3 * sms")),
             (_TILE_C4, _TILE_C4.replace(" : cudaErrorInvalidValue", " : nb == 4 ? launch_gru_cluster<4, 4, POOL, "
                                                                     "TRAIN, ROWS, TS>(a, ndir, st) : cudaErrorInvalidValue"))]
-# the backward chain (K4b, K5b) on the cluster size its rule does not pick, with the 2- and 4-row
-# tiles C = 4 then takes at B = 64 (K5b and K4b)
+# the backward chain (K3, K4b, K5b) on the cluster size its rule does not pick, with the 2- and 4-row
+# tiles C = 4 then takes at B = 64 (K5b; K3 and K4b)
 _RULE_BWD = "cudaError_t err = gru_cluster_size(a.B, ndir, &C);"
-_TILE_BWD_C4 = "if (C == 4) return nb == 1 ? launch_gru_cluster_bwd<4, 1, BF>(a, ndir, st) : cudaErrorInvalidValue;"
+_TILE_BWD_C4 = ("if (C == 4) return nb == 1 ? launch_gru_cluster_bwd<4, 1, BF, SPLIT>(a, ndir, st) : "
+                "cudaErrorInvalidValue;")
 _BWD_OTHER_C = [(_RULE_BWD, _RULE_BWD + "\n  C = 6 - C;"),
                 (_TILE_BWD_C4, _TILE_BWD_C4.replace(
-                    " : cudaErrorInvalidValue", " : nb == 2 ? launch_gru_cluster_bwd<4, 2, BF>(a, ndir, st) : nb == 4 ? "
-                    "launch_gru_cluster_bwd<4, 4, BF>(a, ndir, st) : cudaErrorInvalidValue"))]
+                    " : cudaErrorInvalidValue", " : nb == 2 ? launch_gru_cluster_bwd<4, 2, BF, SPLIT>(a, ndir, st) : "
+                    "nb == 4 ? launch_gru_cluster_bwd<4, 4, BF, SPLIT>(a, ndir, st) : cudaErrorInvalidValue"))]
 VARIANTS = {
     "k1_other_c": ("bigru_shared_fwd.cu", _OTHER_C, []),
     "k2_other_c": ("bigru_trainpool_fwd.cu", _OTHER_C, []),
     "k4f_other_c": ("bigru_masked_fwd.cu", _OTHER_C, []),
     "bwd_other_c": ("bigru_masked_bwd.cu", _BWD_OTHER_C, []),
+    # the same edits in K3's library: a variant compiles one source
+    "k3_other_c": ("bigru_shared_bwd.cu", _BWD_OTHER_C, []),
     # K7 recording its first utterance's clocks by phase (tsl_beam_trace)
     "k7_trace": ("beam_decode.cu", [], ["-DTSL_TRACE"]),
 }
@@ -733,18 +742,36 @@ def synthetic_batches(rng, n: int, B: int, values_per_slot) -> list[dict]:
              "w": np.ones(B, np.float32), "len": np.full(B, T, np.int64)} for _ in range(n)]
 
 
+def front_end_params(model) -> set:
+    """The names of the front end's parameters in ``model`` (a
+    ``PretrainedModel``, or a model that holds one as ``pretrained_model``):
+    the sinc filters and the convs of ``phoneme_layers`` before its first
+    GRU layer. Their gradients pass through the front end's branches (leaky
+    ReLU signs, max-pool argmaxes; ``FrontEndBranches``), so the train step
+    checks hold them against an f64 step on the card's branches: where the
+    CPU's f32 step takes another branch than the card's at one element, the
+    two differ by a whole branch there (up to ~2.5e-3 of the largest
+    element of the first conv's weight gradient at the ASR step's B = 64)."""
+    enc = getattr(model, "pretrained_model", model)
+    prefix = "pretrained_model." if enc is not model else ""
+    first_gru = min(spec.index for spec in enc.arch.phoneme_layers if spec.kind == "gru")
+    return {f"{prefix}phoneme_layers.{i}.{n}" for i, layer in enumerate(enc.phoneme_layers) if i < first_gru
+            for n, _ in layer.named_parameters()}
+
+
 def step_vs_cpu(dev, rng, tag: str, **overrides) -> None:
     """One whole train step of ``no_pretraining.cfg``'s model (``overrides``
     set on its config; the intent layer's dropout 0, the encoder's 0.5) at
     B = 16 on 4 s, card against the CPU plain path from equal weights and
     equal dropout masks: the loss within STEP_LOSS_ATOL, every gradient
     within STEP_GRAD_TOL of its largest element, the parameters after masked
-    Adam from equal gradients within STEP_PARAM_ATOL. The sinc parameters'
-    gradients, sums over every sample, are held against an f64 CPU step
-    that replays the card's front-end branches (``FrontEndBranches``), so
-    that a correct card cannot fail on a leaky ReLU input or a max-pool tie
-    within rounding of its branch; each side's error against the f64 step on
-    its own branches is printed beside it."""
+    Adam from equal gradients within STEP_PARAM_ATOL. The front end's
+    parameters' gradients (``front_end_params``: the sinc filters and the
+    convs) are held against an f64 CPU step that replays the card's
+    front-end branches (``FrontEndBranches``), so that a correct card cannot
+    fail on a leaky ReLU input or a max-pool tie within rounding of its
+    branch; each side's error against the f64 step on its own branches is
+    printed beside it."""
     import torch
 
     from tpu_slu_torch.models.flagship import TRAIN_CFG, flagship_model
@@ -771,7 +798,8 @@ def step_vs_cpu(dev, rng, tag: str, **overrides) -> None:
     with branches.replay():
         g64 = step(m64, torch.device("cpu"), torch.float64)[1]
     del m64
-    g64 = {n: g for n, g in g64.items() if n.endswith(SINC_PARAMS)}
+    front = front_end_params(cpu_model)
+    g64 = {n: g for n, g in g64.items() if n in front}
     print(f"[{tag}] front-end branches (leaky ReLU signs, max-pool argmaxes) where the card's step and the "
           f"f64 step part: {branches.flips}")
     if not abs(l_card - l_cpu) <= STEP_LOSS_ATOL:
@@ -809,8 +837,8 @@ def step_vs_cpu(dev, rng, tag: str, **overrides) -> None:
     if not p_err <= STEP_PARAM_ATOL:
         raise AssertionError(f"{tag}: masked Adam: card vs CPU parameters off by {p_err:.3g}")
     print(f"[{tag}] train step B=16, 4 s audio, card vs CPU: loss {l_card:.6f} vs {l_cpu:.6f} "
-          f"(atol {STEP_LOSS_ATOL}); every gradient within {worst:.3g} of its largest element, the sinc "
-          f"parameters' of the f64 reference's on the card's branches, the others' of the CPU's (limit "
+          f"(atol {STEP_LOSS_ATOL}); every gradient within {worst:.3g} of its largest element, the front "
+          f"end's of the f64 reference's on the card's branches, the others' of the CPU's (limit "
           f"{STEP_GRAD_TOL}); params after masked Adam from equal gradients within {p_err:.3g} "
           f"(atol {STEP_PARAM_ATOL}); from each side's own gradients {flips} of {n_params} would "
           f"differ by more than {STEP_PARAM_ATOL}")
@@ -1020,6 +1048,69 @@ def k4f_cluster_ab(dev, card: str, rng, other_lib, batches=(1, SERVE_BATCH, 64))
                                         K1_STEPS), dev, card, other_lib, batches)
 
 
+def k3_layer(rng, dev, d: int, n_parts: int, T: int, B: int, fused: bool, bf16: bool = False):
+    """K3 at one bi-GRU layer's shape (fused: on K2's outputs, pool 2 and
+    dropout 0.5; else plain, on K1's), through its wrapper with the library
+    to time swapped in for the call: ``(launch(lib), check)``, the check
+    holding the last launch's dX and gradients against the plain version
+    within ``GRAD_TOL`` of each largest element (``bf16``: bf16 streams,
+    held by ``bf16_hold``)."""
+    import numpy as np
+    import torch
+
+    from tpu_slu_torch.ops import _build
+    from tpu_slu_torch.ops.bigru_shared import (_shift_hp, bigru_shared, bigru_shared_bwd,
+                                                bigru_shared_bwd_reference, bigru_trainpool)
+
+    params, parts = k1_case(rng, n_parts, d, T, B, 128, dev)
+    if bf16:
+        parts = tuple(p.to(torch.bfloat16) for p in parts)
+    kw = {"pool": 2, "drop_p": 0.5, "seed": int(rng.integers(2**32))} if fused else {}
+    if fused:
+        hp_f, hp_b, o_f, _ = bigru_trainpool(params, parts, **kw)
+    else:
+        o_f, o_b = bigru_shared(params, parts)[:2]
+        hp_f, hp_b = _shift_hp(o_f, o_b)
+    dy = [torch.from_numpy(rng.standard_normal(tuple(o_f.shape)).astype(np.float32)).to(dev).to(parts[0].dtype)
+          for _ in range(2)]
+    got = {}
+
+    def launch(lib):
+        real, _build._lib = _build._lib, lib
+        try:
+            got["v"] = bigru_shared_bwd(params, parts, hp_f, hp_b, *dy, **kw)
+        finally:
+            _build._lib = real
+        return 0
+
+    def check():
+        (dxs, grads), (rdxs, rgrads) = got["v"], bigru_shared_bwd_reference(params, parts, hp_f, hp_b, *dy, **kw)
+        pairs = list(zip(dxs, rdxs)) + [(grads[k][n], rgrads[k][n]) for k in grads for n in grads[k]]
+        if bf16:
+            r32dxs, r32grads = bigru_shared_bwd_reference(params, tuple(p.float() for p in parts),
+                                                          *[t.float() for t in (hp_f, hp_b, *dy)], **kw)
+            r32 = list(r32dxs) + [r32grads[k][n] for k in grads for n in grads[k]]
+            for (g, r), r2 in zip(pairs, r32):
+                bf16_hold(f"K3 bf16 T={T} B={B}", g, r, r2)
+        elif not all(rel_err(g, r) <= GRAD_TOL for g, r in pairs):
+            raise AssertionError(f"K3 T={T} B={B} disagrees with its plain version")
+    return launch, check
+
+
+def k3_cluster_ab(dev, card: str, rng, other_lib, batches, asr: bool = False) -> dict:
+    """``[k3-batch]``: K3's five flagship layers (``asr``: the ASR encoder's
+    four, ``asr_shapes``) at each batch, their chain on clusters of 2 and of
+    4 CTAs in turns (:func:`cluster_ab`; the rule's size the two-direction
+    one, the other from the ``k3_other_c`` variant)."""
+    shapes = [(*s, True) for s in asr_shapes()] if asr else [
+        (name, d, n, T, name != INTENT_SHAPE[0]) for name, d, n, T in ENC_SHAPES + [INTENT_SHAPE]]
+
+    def layers_of(B):
+        return [k3_layer(rng, dev, d, n, T, B, fused) for _, d, n, T, fused in shapes], sum(s[3] for s in shapes)
+
+    return cluster_ab("K3 ASR" if asr else "K3", layers_of, dev, card, other_lib, batches)
+
+
 def bwd_cluster_ab(what: str, dev, card: str, rng, other_lib, batches) -> dict:
     """``[k4b-batch]`` / ``[k5b-batch]``: K4b at the seq2seq encoder layer
     (T = 25, D = 256, mixed lengths below B = 64) or K5b's five layers (every
@@ -1040,10 +1131,11 @@ def bwd_cluster_ab(what: str, dev, card: str, rng, other_lib, batches) -> dict:
                       rule_of=None if ndir == 2 else gru1_cluster_size)
 
 
-def phase_train(dev, card: str, rng, k2_other) -> tuple[list[dict], int]:
+def phase_train(dev, card: str, rng, k2_other, k3_other) -> tuple[list[dict], int]:
     """Phase 6: the flagship train step. Returns K2's and K3's JSON entries
-    and K1's launches in ``Trainer.train``; ``k2_other`` is the
-    ``k2_other_c`` variant, for ``[k2-batch]``."""
+    and K1's launches in ``Trainer.train``; ``k2_other`` and ``k3_other``
+    are the ``k2_other_c`` and ``k3_other_c`` variants, for ``[k2-batch]``
+    and ``[k3-batch]``."""
     import numpy as np
     import torch
 
@@ -1228,6 +1320,7 @@ def phase_train(dev, card: str, rng, k2_other) -> tuple[list[dict], int]:
           f"{k3_plain:.3f} ms, cuDNN nn.GRU backward {k3_lib:.4f} ms, bound {k3_bound:.4f} ms "
           f"({k3_by}) on {card}")
     k2_ab = k2_cluster_ab(dev, card, rng, k2_other)
+    k3_ab = k3_cluster_ab(dev, card, rng, k3_other, (16, 64))
     # K3 by phase: the gate pass, the chain, the GEMM core's launches and dW's reduce pass
     k3_split = device_split(lambda: [bigru_shared_bwd(p, x, hf, hb, *dy, **kw) for p, x, hf, hb, dy, kw in k3_layers],
                             K3_PHASES)
@@ -1246,7 +1339,7 @@ def phase_train(dev, card: str, rng, k2_other) -> tuple[list[dict], int]:
         {"name": "bigru_shared_bwd", "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
          "launches": launches["K3"], "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain,
          "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": k3_lib, "phase_ms": k3_split,
-         "core_gflop": core_flops / 1e9, "core_tflops": core_tflops},
+         "core_gflop": core_flops / 1e9, "core_tflops": core_tflops, "ab_cluster": k3_ab},
     ], launches["K1"]
 
 
@@ -1988,7 +2081,8 @@ def phase_s2s_train(dev, card: str, rng, bwd_other) -> dict:
     del m64
     print(f"[s2s-grad] front-end branches (leaky ReLU signs, max-pool argmaxes) where the card's step and the "
           f"f64 step part: {branches.flips}")
-    for n in [n for n in g64 if n.endswith(SINC_PARAMS)]:
+    front = front_end_params(cpu_model)
+    for n in [n for n in g64 if n in front]:
         e_card, e_cpu = rel_err(g_card[n].cpu().double(), g64[n]), rel_err(g_cpu[n].double(), g64_own[n])
         print(f"[s2s-grad] {n} gradient vs f64, of its largest element: card {e_card:.3g} (against the f64 "
               f"step with its own branches {rel_err(g_card[n].cpu().double(), g64_own[n]):.3g}), CPU f32 "
@@ -2001,19 +2095,19 @@ def phase_s2s_train(dev, card: str, rng, bwd_other) -> dict:
             if g_card[n] is not None:
                 faults.append(f"{n}: a card gradient where the CPU has none")
             continue
-        ref = g64[n] if n.endswith(SINC_PARAMS) else g.double()
+        ref = g64[n] if n in front else g.double()
         scale = g_cpu[KEY_WEIGHT].abs().max().item() if n == KEY_BIAS else ref.abs().max().item()
         e = (g_card[n].cpu().double() - ref).abs().max().item() / max(scale, 1e-30)
         worst = max(worst, e)
         if not e <= STEP_GRAD_TOL:
-            faults.append(f"{n}: off the {'f64' if n.endswith(SINC_PARAMS) else 'CPU'} reference's by {e:.3g}")
+            faults.append(f"{n}: off the {'f64' if n in front else 'CPU'} reference's by {e:.3g}")
     if not abs(l_card - l_cpu) <= STEP_LOSS_ATOL:
         faults.append(f"loss: card {l_card} vs CPU {l_cpu}")
     if faults:
         raise AssertionError("seq2seq train step, card vs CPU: " + "; ".join(faults))
     print(f"[s2s-grad] flagship seq2seq train step B=16, 4 s, U={S2S_U}, dropout 0.5, card vs CPU: loss "
           f"{l_card:.6f} vs {l_cpu:.6f} (atol {STEP_LOSS_ATOL}); every gradient within {worst:.3g} of its "
-          f"largest element (limit {STEP_GRAD_TOL}), the sinc parameters' of the f64 reference's on the "
+          f"largest element (limit {STEP_GRAD_TOL}), the front end's of the f64 reference's on the "
           f"card's front-end branches, the key bias's of the key weight's largest")
     del cpu_model, card_model, g_cpu, g_card, g64, g64_own
 
@@ -2825,8 +2919,8 @@ def asr_step_vs_cpu(dev, config, batch: dict) -> None:
     """One ASR train step (dropout on) of seeded random weights on ``batch``,
     card against the CPU plain path, with phase 6's holds: the loss within
     ``STEP_LOSS_ATOL``, every gradient within ``GRAD_TOL`` of its largest
-    element, the sinc parameters' against an f64 step on the card's
-    front-end branches."""
+    element, the front end's (``front_end_params``) against an f64 step on
+    the card's front-end branches."""
     import torch
 
     from tpu_slu_torch.models.encoder import PretrainedModel, encoder_loss
@@ -2851,7 +2945,8 @@ def asr_step_vs_cpu(dev, config, batch: dict) -> None:
     m64 = copy.deepcopy(cpu_model).double()
     g64_own = step(m64, torch.device("cpu"), torch.float64)[1]
     with branches.replay():
-        g64 = {n: g for n, g in step(m64, torch.device("cpu"), torch.float64)[1].items() if n.endswith(SINC_PARAMS)}
+        g64 = {n: g for n, g in step(m64, torch.device("cpu"), torch.float64)[1].items()
+               if n in front_end_params(cpu_model)}
     if not abs(l_card - l_cpu) <= STEP_LOSS_ATOL:
         raise AssertionError(f"ASR step B={B}: loss card {l_card} vs CPU {l_cpu}")
     worst = 0.0
@@ -2867,7 +2962,7 @@ def asr_step_vs_cpu(dev, config, batch: dict) -> None:
               f"{rel_err(g_cpu[n].double(), g64_own[n]):.3g}")
     print(f"[asr] train step B={B}, 2.25 s, 10k words, card vs CPU: loss {l_card:.6f} vs {l_cpu:.6f} (atol "
           f"{STEP_LOSS_ATOL}); every gradient within {worst:.3g} of its largest element (limit {GRAD_TOL}; the "
-          f"sinc parameters' against the f64 step on the card's branches, {branches.flips} branches parted)")
+          f"front end's against the f64 step on the card's branches, {branches.flips} branches parted)")
 
 
 def asr_eval_vs_cpu(model, batch: dict) -> str:
@@ -3099,9 +3194,11 @@ def step_kernel(name: str) -> str | None:
     """The hand-written kernel of the fixed-slot train step that a traced
     kernel ``name`` is, by the one launch each wrapper call makes: K2's and
     K1's recurrence (``gru_cluster_kernel`` with and without its TRAIN flag,
-    the fourth template argument), K3's chain (``bwd_chain_kernel``); else None."""
-    if "bwd_chain_kernel" in name:
-        return "K3"
+    the fourth template argument), K3's chain (``gru_cluster_bwd_kernel``
+    with its SPLIT flag, the fourth); else None."""
+    if "gru_cluster_bwd_kernel<" in name:
+        args = name.split("gru_cluster_bwd_kernel<", 1)[1].split(">", 1)[0].split(",")
+        return "K3" if len(args) > 3 and args[3].strip() in ("true", "1", "(bool)1") else None
     if "gru_cluster_kernel<" in name:
         train = name.split("gru_cluster_kernel<", 1)[1].split(">", 1)[0].split(",")[3].strip()
         return "K2" if train in ("true", "1") else "K1"
@@ -4091,14 +4188,12 @@ def recurrence_of(name: str) -> tuple[str, bool] | None:
     """("forward" or "chain", whether its streams are bf16) of a traced
     kernel that is a GRU recurrence, the one launch each wrapper call of a
     recurrent kernel makes: the cluster recurrence (``gru_cluster_kernel``:
-    K1, K2, K4f, K5f, K6), K3's chain (``bwd_chain_kernel``,
-    ``bwd_chain_kernel_bf16``), K4b's and K5b's (``gru_cluster_bwd_kernel``,
-    bf16 by its last template argument); else None."""
+    K1, K2, K4f, K5f, K6), the backward one (``gru_cluster_bwd_kernel``:
+    the chain of K3, K4b and K5b, bf16 by its third template argument);
+    else None."""
     if "gru_cluster_bwd_kernel<" in name:
-        last = name.split("gru_cluster_bwd_kernel<", 1)[1].split(">", 1)[0].split(",")[-1].strip()
-        return "chain", last in ("true", "1", "(bool)1")
-    if "bwd_chain_kernel" in name:
-        return "chain", "bwd_chain_kernel_bf16" in name
+        bf = name.split("gru_cluster_bwd_kernel<", 1)[1].split(">", 1)[0].split(",")[2].strip()
+        return "chain", bf in ("true", "1", "(bool)1")
     if "gru_cluster_kernel<" in name:
         return "forward", "bfloat16" in name
     return None
@@ -4762,7 +4857,7 @@ def main() -> None:
     k1_ab = k1_cluster_ab(dev, card, rng, variants["k1_other_c"])
 
     # 6. flagship train step
-    train_kernels, k1_train_launches = phase_train(dev, card, rng, variants["k2_other_c"])
+    train_kernels, k1_train_launches = phase_train(dev, card, rng, variants["k2_other_c"], variants["k3_other_c"])
 
     # 7. length-exact decode and serving
     k4f = phase_serve(dev, card, rng, golden, expected, variants["k4f_other_c"])

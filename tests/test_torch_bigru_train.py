@@ -191,9 +191,11 @@ def test_bwd_reference_matches_autograd_of_the_plain_forwards(rng, dims, mode):
 
 
 # the shapes the GEMM core's tiles cut raggedly: T*B = 75 rows (not a multiple of 128),
-# an input of 60 columns (the flagship's first layer), two parts of unequal width
+# an input of 60 columns (the flagship's first layer), two parts of unequal width; and the
+# flagship's first layer at its width, H = 128, the width the cluster chain runs at
 @pytest.mark.parametrize("mode", ["plain", "fused"])
-@pytest.mark.parametrize("dims,H", [((60,), 12), ((12, 20), 12), ((60,), 8)], ids=["d60", "parts12_20", "d60_h8"])
+@pytest.mark.parametrize("dims,H", [((60,), 12), ((12, 20), 12), ((60,), 8), ((60,), 128)],
+                         ids=["d60", "parts12_20", "d60_h8", "d60_h128"])
 def test_bwd_reference_matches_jax_vjp_at_ragged_shapes(rng, dims, H, mode):
     """K3's plain version, which the card holds the kernel against, against
     ``jax.vjp`` of ``bigru_apply_shared(train=True)`` (the Pallas kernels in

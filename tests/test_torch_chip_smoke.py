@@ -81,11 +81,37 @@ def test_phase_splits_name_kernels_of_their_source(phases, source):
 
 
 def test_the_backward_chain_is_the_cluster_kernel():
-    """K4b's and K5b's chain is the backward cluster recurrence; the one-CTA
-    chain they ran before is gone from their source, and K3 keeps its own."""
-    assert chip_smoke.K4B_PHASES["chain"] == "gru_cluster_bwd_kernel"
-    assert "masked_bwd_chain_kernel" not in _kernels_of("bigru_masked_bwd.cu")
-    assert "bwd_chain_kernel" in _kernels_of("bigru_shared_bwd.cu")
+    """K3's, K4b's and K5b's chain is the backward cluster recurrence, at f32
+    and bf16: the one-CTA chains they ran before (``masked_bwd_chain_kernel``,
+    ``bwd_chain_kernel``, ``bwd_chain_kernel_bf16``) are gone from every
+    source, and K3's source launches the cluster kernel with its SPLIT flag
+    at both stream types."""
+    for phases in ("K3_PHASES", "K3_BF16_PHASES", "K4B_PHASES", "K4B_BF16_PHASES", "K5B_PHASES"):
+        assert getattr(chip_smoke, phases)["chain"] == "gru_cluster_bwd_kernel", phases
+    for fn in os.listdir(_build.CSRC):
+        kernels = _kernels_of(fn)
+        assert not kernels & {"masked_bwd_chain_kernel", "bwd_chain_kernel", "bwd_chain_kernel_bf16"}, fn
+    assert "gru_cluster_bwd_kernel" in _kernels_of("bigru_shared_bwd.cu")
+    with open(os.path.join(_build.CSRC, "bigru_shared_bwd.cu")) as f:
+        text = f.read()
+    assert text.count("gru_cluster_bwd<kBF, true>(a, 2, st)") == 1
+    assert "template <typename TS>\ncudaError_t shared_bwd(" in text
+
+
+def test_k3_wide_hp_edits_apply_to_one_source():
+    """``tools/torch_cluster_ab.py --k3-hp``'s copy of K3 (h_prev widened
+    before the chain) edits texts that occur in exactly one source, and
+    compiles K3's."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_cluster_ab", os.path.join(os.path.dirname(_build.CSRC), "..", "tools", "torch_cluster_ab.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    texts = _sources()
+    for old, new in tool.K3_WIDE_HP:
+        assert old != new
+        assert [fn for fn, t in texts.items() if old in t] in (["bigru_shared_bwd.cu"], ["gru_cluster_bwd.cuh"]), old
 
 
 def test_k6_runs_the_cluster_recurrence():
@@ -246,6 +272,31 @@ def test_asr_shapes_are_the_encoders_gru_inputs():
     assert [s[3] for s in chip_smoke.asr_shapes()] == [225, 113, 57, 29]
 
 
+def test_front_end_params_are_the_parameters_before_the_first_gru():
+    """The train step checks hold the front end's gradients against an f64
+    step on the card's branches: ``front_end_params`` names every parameter
+    of ``phoneme_layers`` before its first GRU layer (the sinc filters and
+    the two convs), in the ASR encoder and in the SLU model that holds it,
+    and nothing past it."""
+    import torch
+
+    from tpu_slu_torch.config import read_config
+    from tpu_slu_torch.models.encoder import PretrainedModel
+    from tpu_slu_torch.models.flagship import FLAGSHIP_CFG, TRAIN_CFG, flagship_model
+
+    config = read_config(FLAGSHIP_CFG, make_dirs=False)
+    config.num_phonemes = 42
+    enc = PretrainedModel(config, generator=torch.Generator().manual_seed(0))
+    want = {"phoneme_layers.0.filt_b1", "phoneme_layers.0.filt_band", "phoneme_layers.5.weight",
+            "phoneme_layers.5.bias", "phoneme_layers.9.weight", "phoneme_layers.9.bias"}
+    assert chip_smoke.front_end_params(enc) == want
+    first_gru = min(s.index for s in enc.arch.phoneme_layers if s.kind == "gru")
+    names = [n for n, _ in enc.named_parameters()]
+    assert want == {n for n in names if n.startswith("phoneme_layers.") and int(n.split(".")[1]) < first_gru}
+    assert chip_smoke.front_end_params(flagship_model("cpu", cfg=TRAIN_CFG)) == {
+        f"pretrained_model.{n}" for n in want}
+
+
 @pytest.mark.parametrize("perturb", [0.0, 1e-2])
 def test_asr_eval_vs_cpu_holds_the_test_pass_against_a_copy(tmp_path, monkeypatch, perturb):
     """``asr_eval_vs_cpu`` on the CPU at a small width: a model held against
@@ -285,13 +336,17 @@ def test_the_profile_dir_check_tells_the_step_kernels_apart():
     """Phase 13's ``[profile-dir]`` counts K1, K2 and K3 in a trace by the
     one kernel each wrapper call launches: the cluster recurrence without
     and with its TRAIN flag (the template's fourth parameter), and K3's
-    chain; the names it matches are kernels the sources define."""
+    chain (the backward cluster recurrence with its SPLIT flag, the fourth
+    parameter); the names it matches are kernels the sources define."""
     assert chip_smoke.step_kernel("void gru_cluster_kernel<2, 8, true, true, false>(ClusterArgs<true>)") == "K2"
     assert chip_smoke.step_kernel("void gru_cluster_kernel<4, 1, false, false, false>(ClusterArgs<false>)") == "K1"
-    assert chip_smoke.step_kernel("void bwd_chain_kernel<8>(float const*, float const*)") == "K3"
+    assert chip_smoke.step_kernel("void gru_cluster_bwd_kernel<2, 2, false, true>(ClusterBwdSplitRec<float>)") == "K3"
+    assert chip_smoke.step_kernel(
+        "void gru_cluster_bwd_kernel<4, 1, true, true>(ClusterBwdSplitRec<__nv_bfloat16>)") == "K3"
+    assert chip_smoke.step_kernel("void gru_cluster_bwd_kernel<2, 8, false, false>(ClusterBwdRec)") is None
     assert chip_smoke.step_kernel("void gemm_kernel<0, 0, 128, 128, 8>(GemmArgs)") is None
     for source, name in (("bigru_shared_fwd.cu", "gru_cluster_kernel"), ("bigru_trainpool_fwd.cu", "gru_cluster_kernel"),
-                         ("bigru_shared_bwd.cu", "bwd_chain_kernel")):
+                         ("bigru_shared_bwd.cu", "gru_cluster_bwd_kernel")):
         assert name in _kernels_of(source), (source, name)
     with open(os.path.join(_build.CSRC, "gru_cluster.cuh")) as f:
         assert ("template <int C, int NB, bool POOL, bool TRAIN, bool ROWS = false, typename TS = float>\n"
@@ -301,22 +356,27 @@ def test_the_profile_dir_check_tells_the_step_kernels_apart():
 def test_the_bf16_step_check_tells_recurrences_apart():
     """Phase 14's warm bf16 steps count the GRU recurrences in a trace by
     the one kernel each wrapper call launches, forward or chain, bf16 or
-    f32: the cluster recurrence by its stream type, K3's chain by its
-    kernel, K4b's and K5b's by the backward template's last argument; the
-    names it matches are kernels the sources define."""
+    f32: the cluster recurrence by its stream type, K3's, K4b's and K5b's
+    chain by the backward template's third argument (its fourth, SPLIT,
+    tells K3's apart); the names it matches are kernels the sources define."""
     assert chip_smoke.recurrence_of(
         "void gru_cluster_kernel<2, 1, false, false, true, __nv_bfloat16>(ClusterRecT<__nv_bfloat16>)") == (
         "forward", True)
     assert chip_smoke.recurrence_of("void gru_cluster_kernel<4, 1, true, false, false, float>(ClusterRecT<float>)") == (
         "forward", False)
-    assert chip_smoke.recurrence_of("void gru_cluster_bwd_kernel<2, 8, true>(ClusterBwdRec)") == ("chain", True)
-    assert chip_smoke.recurrence_of("void gru_cluster_bwd_kernel<2, 8, false>(ClusterBwdRec)") == ("chain", False)
-    assert chip_smoke.recurrence_of("void bwd_chain_kernel_bf16<8>(float const*)") == ("chain", True)
-    assert chip_smoke.recurrence_of("void bwd_chain_kernel<8>(float const*)") == ("chain", False)
+    assert chip_smoke.recurrence_of("void gru_cluster_bwd_kernel<2, 8, true, false>(ClusterBwdRec)") == ("chain", True)
+    assert chip_smoke.recurrence_of("void gru_cluster_bwd_kernel<2, 8, false, false>(ClusterBwdRec)") == (
+        "chain", False)
+    assert chip_smoke.recurrence_of(
+        "void gru_cluster_bwd_kernel<2, 2, true, true>(ClusterBwdSplitRec<__nv_bfloat16>)") == ("chain", True)
+    assert chip_smoke.recurrence_of("void gru_cluster_bwd_kernel<2, 2, false, true>(ClusterBwdSplitRec<float>)") == (
+        "chain", False)
     assert chip_smoke.recurrence_of("void gemm_kernel_mixed<0, 0, 128, 64, 4, 1, 2, false>(GemmArgs)") is None
     assert {"gru_cluster_bwd_kernel", "masked_hprev_kernel_bf16"} <= _kernels_of("bigru_masked_bwd.cu")
-    assert {"gru_cluster_kernel", "bwd_chain_kernel_bf16"} <= (_kernels_of("bigru_shared_fwd.cu")
-                                                               | _kernels_of("bigru_shared_bwd.cu"))
+    assert {"gru_cluster_kernel", "gru_cluster_bwd_kernel"} <= (_kernels_of("bigru_shared_fwd.cu")
+                                                                | _kernels_of("bigru_shared_bwd.cu"))
+    with open(os.path.join(_build.CSRC, "gru_cluster_bwd.cuh")) as f:
+        assert "template <int C, int NB, bool BF = false, bool SPLIT = false>\n__global__" in f.read()
 
 
 def test_counted_trace_retakes_a_short_trace_and_raises_on_anything_else(monkeypatch):

@@ -2059,12 +2059,88 @@ def test_k5b_cluster_chain_matches_plain(dev, B, masked):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [13, 34, 133])
 def test_k3_repeats_bit_for_bit_at_the_cluster_edges(dev, B):
-    """K3, whose one-CTA chain stays as it was beside K4b's and K5b's cluster
-    chain, at batches whose tiles hold 1, 2 and 8 rows: within 1e-4 of its
-    plain version, a second call equal to the first bit for bit."""
+    """K3, whose chain is the backward cluster recurrence that K4b and K5b
+    run (gru_cluster_bwd.cuh with its SPLIT flag), at batches whose tiles
+    hold 1, 2 and 8 rows: within 1e-4 of its plain version, a second call
+    equal to the first bit for bit."""
     params, parts, hp_f, hp_b, dy, kw = _bwd_case(66, (128, 128), 25, B, 128, dev, True)
     got = bigru_shared_bwd(params, parts, hp_f, hp_b, *dy, **kw)
     again = bigru_shared_bwd(params, parts, hp_f, hp_b, *dy, **kw)
     torch.cuda.synchronize()
     _assert_grads_close(got, bigru_shared_bwd_reference(params, parts, hp_f, hp_b, *dy, **kw))
     _assert_grads_equal(got, again)
+
+
+@pytest.fixture(scope="module")
+def k3_other_lib():
+    """The ``k3_other_c`` copy of the kernel library (chip_smoke.VARIANTS):
+    K3 with its chain on the cluster size the rule does not pick, built with
+    nvcc beside the port's library."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    import chip_smoke
+
+    return chip_smoke.load_variant("k3_other_c", *chip_smoke.start_variant("k3_other_c",
+                                                                         *chip_smoke.VARIANTS["k3_other_c"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "plain"])
+def test_k3_at_b64_on_both_cluster_sizes(dev, k3_other_lib, dtype, fused):
+    """K3 at B = 64 on the cluster size its rule takes there (2, with
+    2-row tiles) and on the other (4, with 4-row tiles, the ``k3_other_c``
+    copy that the ``--k3-batches`` A/B times): within its bound of the plain
+    version on each, a second call equal to the first bit for bit, and the
+    two sizes equal bit for bit, since each unit's sums do not depend on C."""
+    from tpu_slu_torch.ops import _build
+
+    assert bigru_cluster_size(64) == 2
+    T, B, H = 50, 64, 128
+    if dtype == "bf16":
+        params, parts, parts32, hp_f, hp_b, dy, kw = _bf16_bwd_case(67, (128, 128), T, B, H, dev, fused)
+    else:
+        params, parts, hp_f, hp_b, dy, kw = _bwd_case(67, (128, 128), T, B, H, dev, fused)
+    runs = {}
+    for C, lib in ((2, _build.library()), (4, k3_other_lib)):
+        real, _build._lib = _build._lib, lib
+        try:
+            runs[C] = [bigru_shared_bwd(params, parts, hp_f, hp_b, *dy, **kw) for _ in range(2)]
+        finally:
+            _build._lib = real
+    torch.cuda.synchronize()
+    ref = bigru_shared_bwd_reference(params, parts, hp_f, hp_b, *dy, **kw)
+    for C, (got, again) in runs.items():
+        if dtype == "bf16":
+            r32 = bigru_shared_bwd_reference(params, parts32, *[t.float() for t in (hp_f, hp_b, *dy)], **kw)
+            for g, r, r2 in zip(got[0], ref[0], r32[0]):
+                assert_bf16_close(g, r, r2)
+            for d in got[1]:
+                for n in got[1][d]:
+                    assert_bf16_close(got[1][d][n], ref[1][d][n], r32[1][d][n])
+        else:
+            _assert_grads_close(got, ref)
+        _assert_grads_equal(got, again)
+    _assert_grads_equal(runs[2][0], runs[4][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "plain"])
+def test_bf16_k3_takes_h_prev_at_an_odd_offset(dev, fused):
+    """K3's bf16 chain reads each h_prev value through the 4-byte word that
+    holds it: contiguous bf16 h_prev views that start 2 bytes into a word
+    give the outputs of aligned copies, bit for bit."""
+    params, parts, _, hp_f, hp_b, dy, kw = _bf16_bwd_case(68, (60,), 25, 3, 16, dev, fused)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=dev, dtype=t.dtype)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 4 == 2
+        return view
+
+    got = bigru_shared_bwd(params, parts, shifted(hp_f), shifted(hp_b), *dy, **kw)
+    want = bigru_shared_bwd(params, parts, hp_f.contiguous(), hp_b.contiguous(), *dy, **kw)
+    torch.cuda.synchronize()
+    assert hp_f.data_ptr() % 4 == 0 and hp_b.data_ptr() % 4 == 0
+    _assert_grads_equal(got, want)

@@ -6,8 +6,8 @@ K8's launch plans.
 
     python3 tools/torch_cluster_ab.py [--k1-batches 1 2 4 8 12 16 64]
         [--k2-batches 16 64] [--k4f-batches 1 8 64] [--k4b-batches 8 64]
-        [--k5b-batches 64] [--parent DIR] [--k8-plans 1 16 128 8:16000 ...]
-        [--k8-launch] [--bf16]
+        [--k5b-batches 64] [--k3-batches 16 64] [--k3-hp] [--parent DIR]
+        [--k8-plans 1 16 128 8:16000 ...] [--k8-launch] [--bf16]
         [--k7-sizes] [--k7-variants base skip_gi skip_gh no_kv no_cache ...]
 
 ``--k1-batches``, ``--k2-batches``, ``--k4f-batches``: the kernel's
@@ -17,19 +17,29 @@ smoke's ``k1_other_c``, ``k2_other_c`` or ``k4f_other_c`` variant).
 ``--k4b-batches``, ``--k5b-batches``: the same for the backward chain, K4b
 at the seq2seq encoder layer (mixed lengths below B = 64) and K5b's five
 layers (``chip_smoke.bwd_cluster_ab``, the ``bwd_other_c`` variant).
+``--k3-batches``: the same for K3's chain, the five flagship layers and the
+ASR encoder's four at each batch (``chip_smoke.k3_cluster_ab``, the
+``k3_other_c`` variant: ``bwd_other_c``'s edits in K3's source).
+``--k3-hp``: K3 at bf16 with its chain reading the bf16 h_prev as it is
+(the library) against a copy that widens h_prev to f32 before the chain
+(``K3_WIDE_HP``, the ``k3_wide_hp`` variant), the flagship's five layers
+and the ASR encoder's four at B = 64, outputs equal bit for bit, device
+time in turns and by phase.
 ``--parent DIR``: the kernel library of the checkout at DIR (e.g. the
 parent commit unpacked under ``build/``), built with that checkout's own
 ``_build.py``, against this tree's, in turns parent, this, this, parent:
 K1's five layers at B = 16, K2's four at B = 64, K4f's five at B = 8 with
 mixed lengths, K5f's five at B = 16, K3's five at B = 64 (through its
-wrapper, the library swapped in), K4b at the seq2seq encoder layer (B =
-64, T = 25, D = 256), K5b's five layers at B = 64, K6's five at B = 1 and
+wrapper, the library swapped in; also at bf16, and the ASR encoder's
+four layers at B = 64), K4b at the seq2seq encoder layer (B = 64, T = 25,
+D = 256), K5b's five layers at B = 64, K6's five at B = 1 and
 16 and K8 alone on 4 s at B = 1, 16 and 128 (each tree's K8 on its own
 entry point's arguments; this tree's on ``frontend_plan``'s plan; by CUDA
 graph replays of one launch and, amortized, of 10 launches, beside one
 cuDNN f32 conv alone on the same inputs), each output held against its
 plain version; K3, K4b and K5b also by phase (``chip_smoke.device_split``
-over ``K3_PHASES`` and ``K4B_PHASES``), in the same turns. ``--k8-plans``:
+over ``K3_PHASES`` and ``K4B_PHASES``, each tree's chain under its own
+name: ``PARENT_CHAINS``), in the same turns. ``--k8-plans``:
 K8 alone at the flagship front end at each shape, ``B`` (4 s) or ``B:T`` (T samples), on
 every plan ``frontend_plans`` admits, each timed by replays of 10
 launches and held against the plain version, ranked by time beside the
@@ -62,7 +72,43 @@ FLAG = (2, 256, 100, 200, 102)  # all_real_seq2seq.cfg's decoder: layers, H, K, 
 _DOT_GI = "dot_rows<G, 3>(wi, in, off_in, in4, lane, ai);"
 _DOT_GH = "dot_rows<G, 3>(wh, hprev, off_h, Hp / 4, lane, ah);"
 _UNROLL = "#pragma unroll 2\n  for (int c = lane; c < n4; c += kLanes)"
-PARENT_CHAIN = "masked_bwd_chain_kernel"  # K4b's and K5b's one-CTA chain, before the cluster chain
+# the one-CTA chains a parent may run instead of the cluster chain: K3's (bwd_chain_kernel and its
+# bf16 copy), K4b's and K5b's (masked_bwd_chain_kernel)
+PARENT_CHAINS = ("bwd_chain_kernel",)
+# K3 at bf16 with h_prev widened to f32 before the chain, in a buffer of the copy's own, and the
+# chain reading f32 words: the other way its bf16 h_prev could reach the chain
+_WIDEN = """__global__ void widen_hp_kernel(const __nv_bfloat16* __restrict__ hp_f,
+                                const __nv_bfloat16* __restrict__ hp_b, float* __restrict__ out,
+                                size_t n) {
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < 2 * n;
+       e += (size_t)gridDim.x * blockDim.x)
+    out[e] = __bfloat162float(e < n ? hp_f[e] : hp_b[e - n]);
+}
+
+"""
+_HPS = "  a.hps[0] = hp_f;\n  a.hps[1] = hp_b;\n"
+K3_WIDE_HP = [
+    ("using BwdHp = std::conditional_t<SPLIT && BF, __nv_bfloat16, float>;", "using BwdHp = float;"),
+    ("// The three phases on streams of type TS", _WIDEN + "// The three phases on streams of type TS"),
+    (_HPS, """  if constexpr (kBF) {
+    static float* wide = nullptr;
+    static size_t cap = 0;
+    const size_t need = (size_t)2 * M * H;
+    if (cap < need) {
+      cudaFree(wide);
+      cap = 0;
+      err = cudaMalloc(&wide, need * sizeof(float));
+      if (err != cudaSuccess) return err;
+      cap = need;
+    }
+    widen_hp_kernel<<<grid_for(need, sms), 256, 0, st>>>(hp_f, hp_b, wide, (size_t)M * H);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    a.hps[0] = wide;
+    a.hps[1] = wide + (size_t)M * H;
+  } else {
+""" + _HPS + "  }\n"),
+]
 # name -> [(text in beam_decode.cu or a header it includes, its replacement)]
 VARIANTS = {
     "base": [],
@@ -280,36 +326,6 @@ def parent_ab(parent: str, dev, card: str) -> None:
                 raise AssertionError(f"K5f T={T} B={B} disagrees with its plain version")
         return launch, check
 
-    def k3_layer(d, n_parts, T, B, fused):
-        # K3 through its wrapper, with the library to time swapped in for the call
-        from tpu_slu_torch.ops.bigru_shared import (_shift_hp, bigru_shared, bigru_shared_bwd,
-                                                    bigru_shared_bwd_reference, bigru_trainpool)
-
-        params, parts = cs.k1_case(rng, n_parts, d, T, B, 128, dev)
-        kw = {"pool": 2, "drop_p": 0.5, "seed": int(rng.integers(2**32))} if fused else {}
-        if fused:
-            hp_f, hp_b, o_f, _ = bigru_trainpool(params, parts, **kw)
-        else:
-            o_f, o_b = bigru_shared(params, parts)[:2]
-            hp_f, hp_b = _shift_hp(o_f, o_b)
-        dy = [torch.from_numpy(rng.standard_normal(tuple(o_f.shape)).astype(np.float32)).to(dev) for _ in range(2)]
-        got = {}
-
-        def launch(lib):
-            real, _build._lib = _build._lib, lib
-            try:
-                got["v"] = bigru_shared_bwd(params, parts, hp_f, hp_b, *dy, **kw)
-            finally:
-                _build._lib = real
-            return 0
-
-        def check():
-            (dxs, grads), (rdxs, rgrads) = got["v"], bigru_shared_bwd_reference(params, parts, hp_f, hp_b, *dy, **kw)
-            pairs = list(zip(dxs, rdxs)) + [(grads[k][n], rgrads[k][n]) for k in grads for n in grads[k]]
-            if not all(cs.rel_err(g, r) <= cs.GRAD_TOL for g, r in pairs):
-                raise AssertionError(f"K3 T={T} B={B} disagrees with its plain version")
-        return launch, check
-
     def k8_alone(B):
         filt, x, out, ref = k8_case(rng, B, dev)
         shape = (B, 64000, 80, 401, 80, 200, 2, 1)
@@ -343,8 +359,12 @@ def parent_ab(parent: str, dev, card: str) -> None:
         f"K4f five layers B={cs.SERVE_BATCH} mixed lengths": (
             [cs.k4f_layer(rng, dev, n * d, T, cs.SERVE_BATCH) for _, d, n, T, _ in cs.FLAGSHIP_LAYERS], cs.K1_STEPS),
         "K5f five layers B=16": ([k5f_layer(D, T, 16) for _, D, T in cs.UNI_SHAPES], sum(T for *_, T in cs.UNI_SHAPES)),
-        "K3 five layers B=64": ([k3_layer(d, n, T, 64, name != cs.INTENT_SHAPE[0])
+        "K3 five layers B=64": ([cs.k3_layer(rng, dev, d, n, T, 64, name != cs.INTENT_SHAPE[0])
                                  for name, d, n, T in cs.ENC_SHAPES + [cs.INTENT_SHAPE]], cs.K1_STEPS),
+        "K3 bf16 five layers B=64": ([cs.k3_layer(rng, dev, d, n, T, 64, name != cs.INTENT_SHAPE[0], bf16=True)
+                                      for name, d, n, T in cs.ENC_SHAPES + [cs.INTENT_SHAPE]], cs.K1_STEPS),
+        "K3 ASR four layers B=64": ([cs.k3_layer(rng, dev, d, n, T, 64, True) for _, d, n, T in cs.asr_shapes()],
+                                    sum(T for *_, T in cs.asr_shapes())),
         "K4b seq2seq encoder layer B=64": ([cs.bwd_layer(rng, dev, 2, 256, 25, 64)], 25),
         "K5b five layers B=64": ([cs.bwd_layer(rng, dev, 1, D, T, 64) for _, D, T in cs.UNI_SHAPES],
                                  sum(T for *_, T in cs.UNI_SHAPES)),
@@ -377,12 +397,61 @@ def parent_ab(parent: str, dev, card: str) -> None:
                   f"{turns['this'][0]:.5f}, {turns['this'][1]:.5f}, parent {turns['parent'][1]:.5f} ms{per_step}"
                   f"{extra} on {card}")
         if what.startswith(("K3", "K4b", "K5b")):  # by phase, each tree's chain under its own name
-            phases = (cs.K3_PHASES if what.startswith("K3") else
-                      {**cs.K4B_PHASES, "chain": (cs.K4B_PHASES["chain"], PARENT_CHAIN)})
+            phases = (cs.K3_BF16_PHASES if what.startswith("K3 bf16") else cs.K3_PHASES if what.startswith("K3")
+                      else cs.K4B_PHASES)
+            phases = {**phases, "chain": (phases["chain"], *PARENT_CHAINS)}
             for k in ("parent", "this", "this", "parent"):
                 split = cs.device_split(run(libs[k]), phases)
                 print(f"[parent] {what} by phase, {k} (profiler, device ms a call): "
                       + ", ".join(f"{p} {v:.4f}" for p, v in split.items()) + f"; sum {sum(split.values()):.4f}")
+
+
+def k3_hp_ab(dev, card: str) -> None:
+    """``[k3-hp]``: K3 at bf16 as the library runs it (the chain reads the
+    bf16 h_prev as it is) against the ``k3_wide_hp`` variant (h_prev widened
+    to f32 first), the flagship's five layers and the ASR encoder's four at
+    B = 64 (``chip_smoke.bf16_layer``: each held against its plain version
+    first), the two outputs equal bit for bit, device time (profiler) in
+    turns library, variant, variant, library, and by phase."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from tpu_slu_torch.ops import _build
+
+    libs = {"as is": _build.library(), "widened": cs.load_variant("k3_wide_hp", *cs.start_variant(
+        "k3_wide_hp", "bigru_shared_bwd.cu", K3_WIDE_HP, []))}
+    rng = np.random.default_rng(0)
+    sets = {"five flagship layers": cs.ENC_SHAPES + [cs.INTENT_SHAPE], "ASR's four layers": cs.asr_shapes()}
+    for what, shapes in sets.items():
+        held = [cs.bf16_layer(rng, dev, name, d, n, T, 64, ("K3",)) for name, d, n, T in shapes]
+        calls = [cs.bf16_layer_call("K3", h, "bf16") for h in held]
+
+        def run(lib):
+            def f():
+                real, _build._lib = _build._lib, lib
+                try:
+                    return [c() for c in calls]
+                finally:
+                    _build._lib = real
+            return f
+
+        outs = {k: run(lib)() for k, lib in libs.items()}
+        for (dxs, grads), (wdxs, wgrads) in zip(outs["as is"], outs["widened"]):
+            pairs = list(zip(dxs, wdxs)) + [(grads[d][n], wgrads[d][n]) for d in grads for n in grads[d]]
+            if not all(torch.equal(a, b) for a, b in pairs):
+                raise AssertionError(f"K3 bf16 {what}: h_prev as is and widened give different outputs")
+        turns = {k: [] for k in libs}
+        for k in ("as is", "widened", "widened", "as is"):
+            turns[k].append(cs.device_ms(run(libs[k]), reps=5))
+        print(f"[k3-hp] K3 bf16 {what} B=64, outputs equal bit for bit; device time (profiler) in turns: h_prev as "
+              f"is {turns['as is'][0]:.4f}, widened {turns['widened'][0]:.4f}, {turns['widened'][1]:.4f}, as is "
+              f"{turns['as is'][1]:.4f} ms on {card}")
+        phases = {**cs.K3_BF16_PHASES, "widen": "widen_hp_kernel"}
+        for k in ("as is", "widened", "widened", "as is"):
+            split = cs.device_split(run(libs[k]), phases, reps=5)
+            print(f"[k3-hp] K3 bf16 {what} by phase, h_prev {k} (profiler, device ms a call): "
+                  + ", ".join(f"{p} {v:.4f}" for p, v in split.items()) + f"; sum {sum(split.values()):.4f}")
 
 
 def bf16_ab(dev, card: str) -> None:
@@ -448,6 +517,8 @@ def main() -> None:
     ap.add_argument("--k4f-batches", type=int, nargs="*", default=[])
     ap.add_argument("--k4b-batches", type=int, nargs="*", default=[])
     ap.add_argument("--k5b-batches", type=int, nargs="*", default=[])
+    ap.add_argument("--k3-batches", type=int, nargs="*", default=[])
+    ap.add_argument("--k3-hp", action="store_true", help="K3 at bf16: h_prev as it is against widened")
     ap.add_argument("--parent", help="a checkout whose kernel library to time against this tree's")
     ap.add_argument("--bf16", action="store_true", help="K1-K6 at bf16 beside f32, device time")
     ap.add_argument("--k8-plans", nargs="*", default=[], help="shapes B (4 s) or B:T")
@@ -477,6 +548,12 @@ def main() -> None:
         for what, batches in (("K4b", args.k4b_batches), ("K5b", args.k5b_batches)):
             if batches:
                 cs.bwd_cluster_ab(what, dev, card, np.random.default_rng(0), other, tuple(batches))
+    if args.k3_batches:
+        other = cs.load_variant("k3_other_c", *cs.start_variant("k3_other_c", *cs.VARIANTS["k3_other_c"]))
+        for asr in (False, True):
+            cs.k3_cluster_ab(dev, card, np.random.default_rng(0), other, tuple(args.k3_batches), asr=asr)
+    if args.k3_hp:
+        k3_hp_ab(dev, card)
     if args.parent:
         parent_ab(args.parent, dev, card)
     if args.bf16:

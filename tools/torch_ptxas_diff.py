@@ -9,9 +9,11 @@ DIR (for example the parent commit unpacked with ``git archive``) with the
 flags of ``tpu_slu_torch/ops/_build.py`` and ``-Xptxas -v``, all files of
 both trees at once, and prints, for every kernel of the parent, whether this
 tree's kernel of the same name has the same four numbers, then the kernels
-only this tree has. A kernel that gained a template argument defaulting to
-``false`` is matched to its parent's name without it. Needs ``nvcc`` (the
-card machine's CUDA toolkit), not a GPU.
+only this tree has. Kernels are matched by name and template arguments,
+not by their parameter lists (a parameter whose type became an alias
+demangles otherwise), and a kernel that gained a template argument
+defaulting to ``false`` is matched to its parent's name without it. Needs
+``nvcc`` (the card machine's CUDA toolkit), not a GPU.
 """
 
 from __future__ import annotations
@@ -56,6 +58,19 @@ def report(tree: str, out_dir: str, flags: list[str], nvcc: str) -> dict[str, tu
     return kernels
 
 
+def without_params(name: str) -> str:
+    """A demangled kernel name without its parameter list: the text before
+    the parentheses that close it."""
+    if not name.endswith(")"):
+        return name
+    depth = 0
+    for i in range(len(name) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(name[i], 0)
+        if depth == 0:
+            return name[:i]
+    return name
+
+
 def without_false(name: str) -> str:
     """A demangled kernel name without a last template argument ``false``
     (``(bool)0``), as it reads before that argument was added."""
@@ -84,7 +99,7 @@ def main() -> None:
             os.makedirs(d)
         got = {k: report(tree, dirs[k], _build.ARCH_FLAGS, nvcc)
                for k, tree in (("parent", os.path.abspath(args.parent)), ("this", HERE))}
-    names = {k: demangle(list(v), filt) for k, v in got.items()}
+    names = {k: {m: without_params(n) for m, n in demangle(list(v), filt).items()} for k, v in got.items()}
     this_by_name = {n: got["this"][m] for m, n in names["this"].items()}
     for m, n in names["this"].items():  # a template argument that defaults to false, as the parent named it
         this_by_name.setdefault(without_false(n), got["this"][m])

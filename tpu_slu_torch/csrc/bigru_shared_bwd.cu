@@ -17,11 +17,15 @@
 //      b_hh for all T (the GEMM core, one launch), then the gate tensor
 //      [gh_n r(1-r), z, n, r] (2, T, B, 4H) and, in fused mode, the
 //      expanded dY (2, T, B, H). The logistic sigmoid, as K1 and K2 use.
-//   2. The serial dh chain: one CTA per (batch tile, direction), W_hh
-//      resident in shared memory (192 KiB at H = 128). The forward
-//      direction's gradient walks t = T-1..0, the backward direction's t =
-//      0..T-1; each step is dh <- dgh W_hh + dh z and writes dgi and dgh =
-//      [dgi_rz, dgi_n r] (2, T, B, 3H), over the phase-1 buffers.
+//   2. The serial dh chain, on the backward cluster recurrence of
+//      gru_cluster_bwd.cuh (K4b's and K5b's, with its SPLIT flag: each
+//      direction's h_prev and cotangent at a base of its own): a
+//      thread-block cluster of C CTAs per (batch tile, direction), each
+//      holding its hidden units' columns of W_hh in registers and sending
+//      each step's dgh to the others by st.async. The forward direction's
+//      gradient walks t = T-1..0, the backward direction's t = 0..T-1; each
+//      step is dh <- dgh W_hh + dh z and writes dgi and dgh = [dgi_rz,
+//      dgi_n r] (2, T, B, 3H), over the phase-1 buffers.
 //   3. Products (parallel): dX = sum_dir dgi W_ih; dW_ih = dgi^T x and
 //      dW_hh = dgh^T hp; db the column sums of dgi and dgh. All of them, and
 //      phase 1's gi and gh, are the one f32 GEMM core of bigru_gemm.cuh;
@@ -39,8 +43,8 @@
 //     with too few CTAs for dW and a ones column for db;
 //   * the rest: the serial chain of 2T steps (T per direction, side by
 //     side) of (NB, 3H) x (3H, H) products, latency-bound as K1's forward
-//     (~1.9 ms over the five layers); the gate and reduce passes are a few
-//     bandwidth-bound sweeps.
+//     (~1.1 ms over the five layers at B = 64, ~1.45 us a step); the gate
+//     and reduce passes are a few bandwidth-bound sweeps.
 // What the design does about it: everything without a serial dependence
 // (gate math and transcendentals, the cotangent expansion and the mask
 // hash, every product but dh's) leaves the chain, which keeps only the
@@ -48,244 +52,27 @@
 // take the GEMM core: 128 x 128 tiles of 8 x 8 accumulators a thread fed
 // from a 3-stage cp.async ring, phase 1's four products (gi and gh of both
 // directions) in one launch, dW split into as many row chunks as give every
-// SM two CTAs, db summed from the tiles already in shared memory.
+// SM two CTAs, db summed from the tiles already in shared memory. The chain
+// runs a step on C SMs with W_hh in registers and no CTA barrier.
 //
 // At compute_dtype=bfloat16 (`tsl_bigru_shared_bwd_bf16`) x, h_prev, the
 // cotangents and dX are bf16, the f32 weights are rounded to bf16 as they
 // are read, and the TPU kernel's rounding points (pallas_gru.py:1384-1441)
 // are kept: phase 1 recomputes the gates from bf16 x and h_prev against the
-// rounded weights, and widens the (pooled
-// or full-rate) cotangents to an f32 dY; the chain holds W_hh as bf16 in
-// shared memory (96 KB at H = 128, half the f32 chain's) and rounds dgh to
-// bf16 before each product with it, its dh carry and dgi and dgh f32; dX
-// reads the f32 dgi rounded to bf16, each direction's stored as bf16 and
+// rounded weights, and widens the (pooled or full-rate) cotangents to an
+// f32 dY; the chain (gru_cluster_bwd.cuh's BF) holds its units' columns of
+// W_hh rounded to bf16 and rounds the dgh it sends for the next step's
+// product, its dh carry and dgi and dgh f32, and reads the bf16 h_prev as it
+// is (the ring copies the 4-byte word that holds a value); dX reads the f32
+// dgi rounded to bf16, each direction's stored as bf16 and
 // their sum rounded again, as the TPU kernel and XLA do; dW_ih = x^T dgi
 // and dW_hh = h_prev^T dgh take the f32 dgi and dgh, and every weight and
 // bias gradient is f32.
 
 #include "bigru_bwd_common.cuh"
+#include "gru_cluster_bwd.cuh"
 
 namespace {
-
-// Phase 2: one CTA per (batch tile of NB rows, direction), blockDim.x >= 3H.
-// Thread e < NB*H (kIt per thread) owns element (b, i) of dh through all T
-// steps and keeps its carry in registers; thread tid < 3H owns output
-// column j = tid % H of the group g = tid / H of W_hh's rows in the
-// recurrent product dgh W_hh, and the three groups' partial sums meet in
-// shared memory.
-template <int NB>
-__global__ void bwd_chain_kernel(const float* __restrict__ gates,
-                                 const float* __restrict__ hp_f, const float* __restrict__ hp_b,
-                                 const float* __restrict__ dy_f, const float* __restrict__ dy_b,
-                                 const float* __restrict__ whh_f, const float* __restrict__ whh_b,
-                                 float* __restrict__ dgi, float* __restrict__ dgh, int T, int B,
-                                 int H) {
-  extern __shared__ __align__(16) float smem[];
-  const int H3 = 3 * H;
-  float* w_s = smem;                // [3H][H], torch layout
-  float* dgh_s = w_s + H3 * H;      // [NB][3H]
-  float* part_s = dgh_s + NB * H3;  // [3][NB][H]
-
-  const int dir = blockIdx.y;
-  const int b0 = blockIdx.x * NB;
-  const int nb = min(NB, B - b0);
-  const size_t M = (size_t)T * B;
-  const float* __restrict__ whh = dir == 0 ? whh_f : whh_b;
-  const float* __restrict__ hp = dir == 0 ? hp_f : hp_b;
-  const float* __restrict__ dy = dir == 0 ? dy_f : dy_b;
-  const float* __restrict__ gd = gates + dir * M * 4 * H;
-  float* __restrict__ dgi_d = dgi + dir * M * H3;
-  float* __restrict__ dgh_d = dgh + dir * M * H3;
-  const int tid = threadIdx.x, nt = blockDim.x;
-
-  for (int e = tid; e < H3 * H; e += nt) w_s[e] = whh[e];
-  constexpr int kIt = (NB + 2) / 3;
-  float dh[kIt];
-#pragma unroll
-  for (int it = 0; it < kIt; ++it) dh[it] = 0.0f;
-  const int g = tid / H, j = tid % H;
-  __syncthreads();
-
-  for (int s = 0; s < T; ++s) {
-    const int t = dir == 0 ? T - 1 - s : s;
-#pragma unroll
-    for (int it = 0; it < kIt; ++it) {
-      const int e = tid + it * nt;
-      if (e < nb * H) {
-        const int b = e / H, i = e % H;
-        const size_t row = (size_t)t * B + b0 + b;
-        const float* gr = gd + row * 4 * H;
-        const float rfac = gr[i], z = gr[H + i], n = gr[2 * H + i], r = gr[3 * H + i];
-        const float d = dh[it] + dy[row * H + i];
-        const float h_prev = hp[row * H + i];
-        const float dn = d * (1.0f - z) * (1.0f - n * n);
-        const float dz = d * (h_prev - n) * z * (1.0f - z);
-        const float dr = dn * rfac;
-        const float dnr = dn * r;
-        float* o = dgi_d + row * H3;
-        o[i] = dr;
-        o[H + i] = dz;
-        o[2 * H + i] = dn;
-        o = dgh_d + row * H3;
-        o[i] = dr;
-        o[H + i] = dz;
-        o[2 * H + i] = dnr;
-        float* sd = dgh_s + b * H3;
-        sd[i] = dr;
-        sd[H + i] = dz;
-        sd[2 * H + i] = dnr;
-        dh[it] = d * z;
-      }
-    }
-    __syncthreads();
-    if (tid < H3) {
-      float acc[NB];
-#pragma unroll
-      for (int b = 0; b < NB; ++b) acc[b] = 0.0f;
-      const float* wcol = w_s + (size_t)g * H * H + j;
-      const float* dg = dgh_s + g * H;
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float wv = wcol[(size_t)k * H];
-#pragma unroll
-        for (int b = 0; b < NB; ++b) acc[b] = fmaf(dg[b * H3 + k], wv, acc[b]);
-      }
-#pragma unroll
-      for (int b = 0; b < NB; ++b)
-        if (b < nb) part_s[(g * NB + b) * H + j] = acc[b];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int it = 0; it < kIt; ++it) {
-      const int e = tid + it * nt;
-      if (e < nb * H) {
-        const int b = e / H, i = e % H;
-        dh[it] += part_s[b * H + i] + part_s[(NB + b) * H + i] + part_s[(2 * NB + b) * H + i];
-      }
-    }
-  }
-}
-
-// bwd_chain_kernel at bf16 (its own copy, so that the f32 kernel's code
-// stays as it was): h_prev bf16, W_hh rounded to bf16 into shared memory
-// (96 KB at H = 128, half the f32 kernel's), the dgh of the recurrent
-// product rounded to bf16; dY, the dh carry, dgi and dgh f32.
-template <int NB>
-__global__ void bwd_chain_kernel_bf16(const float* __restrict__ gates,
-                                      const __nv_bfloat16* __restrict__ hp_f,
-                                      const __nv_bfloat16* __restrict__ hp_b,
-                                      const float* __restrict__ dy_f, const float* __restrict__ dy_b,
-                                      const float* __restrict__ whh_f,
-                                      const float* __restrict__ whh_b, float* __restrict__ dgi,
-                                      float* __restrict__ dgh, int T, int B, int H) {
-  extern __shared__ __align__(16) unsigned char chain_smem[];
-  const int H3 = 3 * H;
-  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(chain_smem);  // [3H][H], torch layout
-  float* dgh_s = reinterpret_cast<float*>(chain_smem + sizeof(__nv_bfloat16) * H3 * H);  // [NB][3H]
-  float* part_s = dgh_s + NB * H3;  // [3][NB][H]
-
-  const int dir = blockIdx.y;
-  const int b0 = blockIdx.x * NB;
-  const int nb = min(NB, B - b0);
-  const size_t M = (size_t)T * B;
-  const float* __restrict__ whh = dir == 0 ? whh_f : whh_b;
-  const __nv_bfloat16* __restrict__ hp = dir == 0 ? hp_f : hp_b;
-  const float* __restrict__ dy = dir == 0 ? dy_f : dy_b;
-  const float* __restrict__ gd = gates + dir * M * 4 * H;
-  float* __restrict__ dgi_d = dgi + dir * M * H3;
-  float* __restrict__ dgh_d = dgh + dir * M * H3;
-  const int tid = threadIdx.x, nt = blockDim.x;
-
-  for (int e = tid; e < H3 * H; e += nt) w_s[e] = __float2bfloat16_rn(whh[e]);
-  constexpr int kIt = (NB + 2) / 3;
-  float dh[kIt];
-#pragma unroll
-  for (int it = 0; it < kIt; ++it) dh[it] = 0.0f;
-  const int g = tid / H, j = tid % H;
-  __syncthreads();
-
-  for (int s = 0; s < T; ++s) {
-    const int t = dir == 0 ? T - 1 - s : s;
-#pragma unroll
-    for (int it = 0; it < kIt; ++it) {
-      const int e = tid + it * nt;
-      if (e < nb * H) {
-        const int b = e / H, i = e % H;
-        const size_t row = (size_t)t * B + b0 + b;
-        const float* gr = gd + row * 4 * H;
-        const float rfac = gr[i], z = gr[H + i], n = gr[2 * H + i], r = gr[3 * H + i];
-        const float d = dh[it] + dy[row * H + i];
-        const float h_prev = to_f32(hp[row * H + i]);
-        const float dn = d * (1.0f - z) * (1.0f - n * n);
-        const float dz = d * (h_prev - n) * z * (1.0f - z);
-        const float dr = dn * rfac;
-        const float dnr = dn * r;
-        float* o = dgi_d + row * H3;
-        o[i] = dr;
-        o[H + i] = dz;
-        o[2 * H + i] = dn;
-        o = dgh_d + row * H3;
-        o[i] = dr;
-        o[H + i] = dz;
-        o[2 * H + i] = dnr;
-        float* sd = dgh_s + b * H3;  // the recurrent product's operand
-        sd[i] = bf16_round(dr);
-        sd[H + i] = bf16_round(dz);
-        sd[2 * H + i] = bf16_round(dnr);
-        dh[it] = d * z;
-      }
-    }
-    __syncthreads();
-    if (tid < H3) {
-      float acc[NB];
-#pragma unroll
-      for (int b = 0; b < NB; ++b) acc[b] = 0.0f;
-      const __nv_bfloat16* wcol = w_s + (size_t)g * H * H + j;
-      const float* dg = dgh_s + g * H;
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float wv = to_f32(wcol[(size_t)k * H]);
-#pragma unroll
-        for (int b = 0; b < NB; ++b) acc[b] = fmaf(dg[b * H3 + k], wv, acc[b]);
-      }
-#pragma unroll
-      for (int b = 0; b < NB; ++b)
-        if (b < nb) part_s[(g * NB + b) * H + j] = acc[b];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int it = 0; it < kIt; ++it) {
-      const int e = tid + it * nt;
-      if (e < nb * H) {
-        const int b = e / H, i = e % H;
-        dh[it] += part_s[b * H + i] + part_s[(NB + b) * H + i] + part_s[(2 * NB + b) * H + i];
-      }
-    }
-  }
-}
-
-template <int NB, typename TS>
-cudaError_t launch_chain(const float* gates, const TS* hp_f, const TS* hp_b, const float* dy_f,
-                         const float* dy_b, const float* whh_f, const float* whh_b, float* dgi,
-                         float* dgh, int T, int B, int H, cudaStream_t st) {
-  const size_t smem = sizeof(TS) * (size_t)3 * H * H +
-                      sizeof(float) * ((size_t)NB * 3 * H + (size_t)3 * NB * H);
-  const int threads = (3 * H + 31) / 32 * 32;
-  const dim3 grid((B + NB - 1) / NB, 2);
-  auto run = [&](auto kernel) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, threads, smem, st>>>(gates, hp_f, hp_b, dy_f, dy_b, whh_f, whh_b, dgi, dgh, T,
-                                        B, H);
-    return cudaGetLastError();
-  };
-  if constexpr (std::is_same_v<TS, float>) {
-    return run(bwd_chain_kernel<NB>);
-  } else {
-    return run(bwd_chain_kernel_bf16<NB>);
-  }
-}
 
 // The three phases on streams of type TS (f32, or bf16; see the top).
 template <typename TS>
@@ -316,26 +103,38 @@ cudaError_t shared_bwd(const TS* x1, int d1, const TS* x2, int d2, const TS* hp_
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  // 2. the serial dh chain; dgi and dgh overwrite gi and gh
+  // 2. the serial dh chain on the backward cluster recurrence; dgi and dgh
+  // overwrite gi and gh. Time-major (T, B, .) buffers, direction d's d * M
+  // rows into each of phase 1's (2, T, B, .) ones; h_prev and the cotangent
+  // at each direction's own base: the caller's tensors (h_prev bf16 at bf16),
+  // or, widened, the two halves of dyx. The int strides hold: the wrapper
+  // bounds 2 M 4H below 2^31.
   const bool widened = fused || kBF;
-  const float* cf = widened ? dyx : reinterpret_cast<const float*>(dy_f);
-  const float* cb = widened ? dyx + (size_t)M * H : reinterpret_cast<const float*>(dy_b);
-  int nb = 8;
-  err = pick_batch_tile(B, &nb);
-  if (err != cudaSuccess) return err;
-  switch (nb) {
-    case 1:
-      err = launch_chain<1>(gates, hp_f, hp_b, cf, cb, whh_f, whh_b, buf_a, buf_b, T, B, H, st);
-      break;
-    case 2:
-      err = launch_chain<2>(gates, hp_f, hp_b, cf, cb, whh_f, whh_b, buf_a, buf_b, T, B, H, st);
-      break;
-    case 4:
-      err = launch_chain<4>(gates, hp_f, hp_b, cf, cb, whh_f, whh_b, buf_a, buf_b, T, B, H, st);
-      break;
-    default:
-      err = launch_chain<8>(gates, hp_f, hp_b, cf, cb, whh_f, whh_b, buf_a, buf_b, T, B, H, st);
-  }
+  ClusterBwdArgs<true, kBF> a = {};
+  a.gates = gates;
+  a.dgi = buf_a;
+  a.dgh = buf_b;
+  a.whh[0] = whh_f;
+  a.whh[1] = whh_b;
+  a.hps[0] = hp_f;
+  a.hps[1] = hp_b;
+  a.dys[0] = widened ? dyx : reinterpret_cast<const float*>(dy_f);
+  a.dys[1] = widened ? dyx + (size_t)M * H : reinterpret_cast<const float*>(dy_b);
+  a.gates_dir = M * 4 * H;
+  a.dg_dir = M * H3;
+  a.gates_b = 4 * H;
+  a.gates_t = B * 4 * H;
+  a.hp_b = H;
+  a.hp_t = B * H;
+  a.dy_b = H;
+  a.dy_t = B * H;
+  a.dg_b = H3;
+  a.dg_t = B * H3;
+  a.T = T;
+  a.B = B;
+  a.H = H;
+  a.up = 2;  // the forward direction's gradient walks t = T-1..0, the backward's t = 0..T-1
+  err = gru_cluster_bwd<kBF, true>(a, 2, st);
   if (err != cudaSuccess) return err;
 
   // 3. products; at bf16 each direction's dX goes through `pair` first

@@ -1,9 +1,11 @@
 // The backward cluster recurrence of a GRU layer, for sm_90a: the serial dh
-// chain (phase 2) of K4b and K5b (bigru_masked_bwd.cu), beside the forward
-// one of gru_cluster.cuh, whose plumbing it shares: the cluster layout, the
-// st.async exchange on per-buffer mbarriers (cluster_sync.cuh) and the
-// cp.async ring. Layouts and each direction's walk are parameters, so K3's
-// time-major chain (bigru_shared_bwd.cu) can take the same kernel.
+// chain (phase 2) of every GRU backward of the port, K3 (bigru_shared_bwd.cu:
+// two directions, time-major, the SPLIT flag), K4b and K5b
+// (bigru_masked_bwd.cu: two directions or one, batch-major, valid lengths),
+// beside the forward one of gru_cluster.cuh, whose plumbing it shares: the
+// cluster layout, the st.async exchange on per-buffer mbarriers
+// (cluster_sync.cuh) and the cp.async ring. Layouts and each direction's walk
+// are parameters.
 //
 // A direction's chain, for batch row b at step s of its walk, frame t: with
 // phase 1's gate tensor [gh_n r(1-r), z, n, r], h_prev and the cotangent dy
@@ -13,10 +15,11 @@
 //   dh <- dgh W_hh + d z
 // Frames t >= n_b get exact zeros in dgi and dgh.
 //
-// What bounds a step of the one-CTA chain this replaces (one CTA a batch
-// tile and direction): the CTA read all of a direction's W_hh (192 KB at H =
-// 128) from shared memory every step and crossed two CTA barriers, ~3.1 us a
-// step at B = 64 on an H100 (this design: ~1.1 us). The design is the
+// What bounds a step of the one-CTA chains this replaced (one CTA a batch
+// tile and direction, first K4b's and K5b's, then K3's): the CTA read all of
+// a direction's W_hh (192 KB at H = 128, 96 KB as bf16) from shared memory
+// every step and crossed two CTA barriers, ~2.4-3.1 us a step at B = 64 on
+// an H100 (this design: ~1.1 us at K5b's shapes). The design is the
 // forward's, transposed:
 //   * a thread-block cluster of C CTAs runs each (batch tile, direction): CTA
 //     c owns hidden units [c H/C, (c+1) H/C) and, for each of its units col,
@@ -40,13 +43,16 @@
 // H <= 128 (the column's registers are sized for it), H % 4 == 0. f32
 // operands and accumulation.
 //
-// BF (K4b and K5b at compute_dtype=bfloat16, the TPU kernels' points,
-// pallas_gru.py:471 and :233): each unit's column of W_hh is rounded to
-// bf16 as it is read into its registers (kept as f32 words, so the dot is
-// the f32 one), and the dgh values a lane sends to the cluster for the next
-// step's product are rounded to bf16; the dgi and dgh it stores for phase
-// 3's dW, the carry and the element math stay f32. The f32 instantiation
-// keeps the registers and the time it had.
+// BF (K3, K4b and K5b at compute_dtype=bfloat16, the TPU kernels' points,
+// pallas_gru.py:1384-1441, :471 and :233): each unit's column of W_hh is
+// rounded to bf16 as it is read into its registers (kept as f32 words, so
+// the dot is the f32 one), and the dgh values a lane sends to the cluster
+// for the next step's product are rounded to bf16; the dgi and dgh it stores
+// for phase 3's dW, the carry and the element math stay f32. The f32
+// instantiation keeps the registers and the time it had.
+//
+// SPLIT (K3): each direction's h_prev and cotangent are tensors of their own
+// (ClusterBwdSplitRec); at bf16 h_prev stays bf16 (see there).
 
 #pragma once
 
@@ -73,6 +79,33 @@ struct ClusterBwdRec {
   int T, B, H;
   int up;  // bit d set: direction d's gradient walks t = 0..n_b-1 (its forward ran n_b-1..0); else n_b-1..0
 };
+static_assert(sizeof(ClusterBwdRec) == 128, "K4b's and K5b's parameter stays within 128 bytes");
+
+// K3's chain (SPLIT): its caller's h_prev and cotangent of each direction are
+// tensors of their own, so the record carries a base for each direction, in
+// place of ClusterBwdRec's hp, dy, hp_dir and dy_dir (unused). TH is h_prev's
+// type: f32, or bf16 (K3 at bf16 keeps the caller's bf16 h_prev: the ring
+// copies the 4-byte word that holds a unit's value, and the lane takes its
+// half; hp_b and hp_t count TH elements). Its own parameter, as
+// ClusterTrainRec is the train forward's, so that ClusterBwdRec keeps its
+// 128 bytes.
+template <typename TH>
+struct ClusterBwdSplitRec : ClusterBwdRec {
+  const TH* hps[2];    // h_prev of each direction: H values a (row, frame)
+  const float* dys[2]; // the cotangent of each direction: H floats a (row, frame)
+};
+
+// h_prev's type in the ring's source: bf16 for K3's bf16 chain, else f32
+template <bool SPLIT, bool BF>
+using BwdHp = std::conditional_t<SPLIT && BF, __nv_bfloat16, float>;
+template <bool SPLIT, bool BF>
+using ClusterBwdArgs = std::conditional_t<SPLIT, ClusterBwdSplitRec<BwdHp<SPLIT, BF>>, ClusterBwdRec>;
+
+// The bf16 value at byte offset 2 hi of a 4-byte word read as a float
+__device__ __forceinline__ float bf16_half(float word, unsigned hi) {
+  const unsigned w = __float_as_uint(word);
+  return __uint_as_float(hi ? w & 0xffff0000u : w << 16);
+}
 
 // Floats of a ring row: a CTA's units, padded to 4 past a multiple of 32 so
 // that the 4 units x 8 rows of a warp fall in 32 different banks.
@@ -93,9 +126,13 @@ __host__ __device__ constexpr int bwd_smem_floats() {
 // Step s reads the rows' dgh of step s - 1 from dg_s[s & 1]; the lanes that
 // run the element math send the step's dgh to every CTA's dg_s[(s + 1) & 1]
 // by st.async, whose bytes complete that buffer's mbarrier there.
-template <int C, int NB, bool BF = false>
+// SPLIT: K3's record (ClusterBwdSplitRec), each direction's h_prev and
+// cotangent at its own base, h_prev bf16 at BF.
+template <int C, int NB, bool BF = false, bool SPLIT = false>
 __global__ void __launch_bounds__(kGruMaxH / C * kUnitLanes)
-    gru_cluster_bwd_kernel(const ClusterBwdRec a) {
+    gru_cluster_bwd_kernel(const ClusterBwdArgs<SPLIT, BF> a) {
+  using TH = BwdHp<SPLIT, BF>;
+  constexpr bool kHp16 = !std::is_same_v<TH, float>;
   static_assert(NB <= kUnitLanes, "one lane of a unit per batch row");
   constexpr int kJ = 3 * kGruMaxH / 4 / kUnitLanes;  // float4 chunks of the column a lane holds
   constexpr int kRow = 3 * kGruMaxH;                 // floats of a row's dgh in dg_s
@@ -165,8 +202,20 @@ __global__ void __launch_bounds__(kGruMaxH / C * kUnitLanes)
   const int n_mine = mine ? n_s[lane] : 0;
   const size_t row = (size_t)(b0 + (mine ? lane : 0));
   const float* gb = a.gates + (size_t)dir * a.gates_dir + row * a.gates_b + col;
-  const float* yb = a.dy + (size_t)dir * a.dy_dir + row * a.dy_b + col;
-  const float* hb = a.hp + (size_t)dir * a.hp_dir + row * a.hp_b + col;
+  const float* yb;
+  const TH* hb;
+  unsigned hp_hi = 0;  // bf16 h_prev: the half of its 4-byte word that holds it
+  if constexpr (SPLIT) {
+    yb = (dir == 0 ? a.dys[0] : a.dys[1]) + row * a.dy_b + col;
+    hb = (dir == 0 ? a.hps[0] : a.hps[1]) + row * a.hp_b + col;
+    if constexpr (kHp16) {  // every frame's word lies at the same offset: 2 hp_t bytes is 4-aligned
+      hp_hi = (reinterpret_cast<size_t>(hb) >> 1) & 1;
+      hb -= hp_hi;
+    }
+  } else {
+    yb = a.dy + (size_t)dir * a.dy_dir + row * a.dy_b + col;
+    hb = a.hp + (size_t)dir * a.hp_dir + row * a.hp_b + col;
+  }
   const size_t dg_row = (size_t)dir * a.dg_dir + row * a.dg_b + col;
   auto frame = [&](int s) { return up ? s : n_mine - 1 - s; };  // of step s < n_mine
   auto slot = [&](int s) { return ring + ((s % kRing) * kBwdVals * NB + lane) * kPitch + u; };
@@ -179,7 +228,7 @@ __global__ void __launch_bounds__(kGruMaxH / C * kUnitLanes)
 #pragma unroll
       for (int k = 0; k < 4; ++k) cp_async4(v + k * NB * kPitch, g + k * H, ok);
       cp_async4(v + 4 * NB * kPitch, yb + (size_t)t * a.dy_t, ok);
-      cp_async4(v + 5 * NB * kPitch, hb + (size_t)t * a.hp_t, ok);
+      cp_async4(v + 5 * NB * kPitch, reinterpret_cast<const float*>(hb + (size_t)t * a.hp_t), ok);
     }
     cp_async_commit();
   };
@@ -231,7 +280,8 @@ __global__ void __launch_bounds__(kGruMaxH / C * kUnitLanes)
         const int vs = NB * kPitch;
         const float rfac = v[0], z = v[vs], ng = v[2 * vs], r = v[3 * vs];
         const float d = carry + prod + v[4 * vs];
-        const float h_prev = v[5 * vs];
+        float h_prev = v[5 * vs];
+        if constexpr (kHp16) h_prev = bf16_half(h_prev, hp_hi);
         const float dn = d * (1.0f - z) * (1.0f - ng * ng);
         dz = d * (h_prev - ng) * z * (1.0f - z);
         dr = dn * rfac;
@@ -284,10 +334,10 @@ __global__ void __launch_bounds__(kGruMaxH / C * kUnitLanes)
   cluster.sync();  // no CTA leaves while a peer may still address its shared memory
 }
 
-template <int C, int NB, bool BF>
-cudaError_t launch_gru_cluster_bwd(const ClusterBwdRec& a, int ndir, cudaStream_t st) {
+template <int C, int NB, bool BF, bool SPLIT>
+cudaError_t launch_gru_cluster_bwd(const ClusterBwdArgs<SPLIT, BF>& a, int ndir, cudaStream_t st) {
   const int smem = (int)sizeof(float) * bwd_smem_floats<C, NB>();
-  cudaError_t err = cudaFuncSetAttribute(gru_cluster_bwd_kernel<C, NB, BF>,
+  cudaError_t err = cudaFuncSetAttribute(gru_cluster_bwd_kernel<C, NB, BF, SPLIT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
@@ -302,7 +352,7 @@ cudaError_t launch_gru_cluster_bwd(const ClusterBwdRec& a, int ndir, cudaStream_
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, gru_cluster_bwd_kernel<C, NB, BF>, a);
+  err = cudaLaunchKernelEx(&cfg, gru_cluster_bwd_kernel<C, NB, BF, SPLIT>, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -313,25 +363,27 @@ cudaError_t launch_gru_cluster_bwd(const ClusterBwdRec& a, int ndir, cudaStream_
 // row. The forward's rule won at each shape of an A/B on an H100
 // (tools/torch_cluster_ab.py): K5b's five layers at B = 64, C = 2 by 15%;
 // K4b's layer at B = 64, C = 2 by 9%, and at B = 8 with mixed lengths,
-// C = 4 by 5%. BF: the bf16 instantiation (see the top).
-template <bool BF = false>
-cudaError_t gru_cluster_bwd(const ClusterBwdRec& a, int ndir, cudaStream_t st) {
+// C = 4 by 5%; K3's five layers at B = 64, C = 2 by 26% (the ASR encoder's
+// four by 21%), and at B = 16 within 4% either way. BF: the bf16
+// instantiation, SPLIT: K3's record (see the top).
+template <bool BF = false, bool SPLIT = false>
+cudaError_t gru_cluster_bwd(const ClusterBwdArgs<SPLIT, BF>& a, int ndir, cudaStream_t st) {
   if (a.H % 4 != 0 || a.H > kGruMaxH || (ndir != 1 && ndir != 2)) return cudaErrorInvalidValue;
   int C = 2, nb = 8;
   cudaError_t err = gru_cluster_size(a.B, ndir, &C);
   if (err != cudaSuccess) return err;
   err = pick_batch_tile(a.B, &nb, ndir * C);
   if (err != cudaSuccess) return err;
-  if (C == 4) return nb == 1 ? launch_gru_cluster_bwd<4, 1, BF>(a, ndir, st) : cudaErrorInvalidValue;
+  if (C == 4) return nb == 1 ? launch_gru_cluster_bwd<4, 1, BF, SPLIT>(a, ndir, st) : cudaErrorInvalidValue;
   switch (nb) {
     case 1:
-      return launch_gru_cluster_bwd<2, 1, BF>(a, ndir, st);
+      return launch_gru_cluster_bwd<2, 1, BF, SPLIT>(a, ndir, st);
     case 2:
-      return launch_gru_cluster_bwd<2, 2, BF>(a, ndir, st);
+      return launch_gru_cluster_bwd<2, 2, BF, SPLIT>(a, ndir, st);
     case 4:
-      return launch_gru_cluster_bwd<2, 4, BF>(a, ndir, st);
+      return launch_gru_cluster_bwd<2, 4, BF, SPLIT>(a, ndir, st);
     default:
-      return launch_gru_cluster_bwd<2, 8, BF>(a, ndir, st);
+      return launch_gru_cluster_bwd<2, 8, BF, SPLIT>(a, ndir, st);
   }
 }
 

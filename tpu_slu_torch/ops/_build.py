@@ -26,13 +26,13 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tpu_slu_torch")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-# The widest hidden size the card's recurrent kernels take: each holds a
-# direction's W_hh (3H x H floats), or its cluster's slice of it, in one SM's
-# shared memory or registers (K1, K2, K4f, K5f and K6, the cluster recurrence
-# of csrc/gru_cluster.cuh, and K4b's and K5b's chain, its backward in
-# csrc/gru_cluster_bwd.cuh: registers sized for 128; K3's chain: 3H rows in
-# 227 KB of shared memory). The JAX package takes any H; no config in
-# experiments/ uses one past 128.
+# The widest hidden size the card's recurrent kernels take: each holds its
+# cluster's slice of a direction's W_hh (3H x H floats) in registers sized
+# for H <= 128: the forward cluster recurrence of csrc/gru_cluster.cuh (K1,
+# K2, K4f, K5f and K6) and the backward one of csrc/gru_cluster_bwd.cuh (the
+# dh chain of K3, K4b and K5b). Only this register limit is left: no kernel
+# holds a whole W_hh in one SM's shared memory any more. The JAX package
+# takes any H; no config in experiments/ uses one past 128.
 MAX_H = 128
 
 _lock = threading.Lock()

@@ -344,8 +344,7 @@ def _check_cuda(what: str, params: dict, parts: tuple, extra=()) -> tuple[int, i
         raise ValueError(f"{what}: kernel needs T, B >= 1 and H % 4 == 0 (T={T}, B={B}, H={H})")
     if H > _build.MAX_H:
         raise ValueError(f"{what}: the card's kernels hold W_hh's cluster slices in registers (K1, K2, "
-                         f"K6) and K3's chain a direction's W_hh in one SM's shared memory, for H <= "
-                         f"{_build.MAX_H}, got H={H}")
+                         f"K6 and K3's chain), for H <= {_build.MAX_H}, got H={H}")
     if 2 * T * B * 4 * H >= 2**31 or T * B * max(D, H) >= 2**31:
         raise ValueError(f"{what}: T*B*H too large for the kernel's int indexing (T={T}, B={B}, H={H})")
     return T, B, H
