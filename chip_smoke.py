@@ -186,7 +186,20 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    each rank; ``[profile-dir]`` epoch 0 of ``Trainer.train`` with
    ``profile_dir`` set: its trace's CUDA kernel events name K1, K2 and K3
    as often as their launch counters count, and epoch 1 writes no trace;
-14. ``compute_dtype=bfloat16`` (``[bf16]``): K1, K2 and K3's bf16
+14. ``compute_dtype=bfloat16`` (``[bf16]``): first ``[bf16-core]``, the
+   bf16 GEMM core on the tensor cores (``gemm_kernel_tc``: bf16 ``mma.sync``,
+   f32 accumulation) in each mode at the flagship's shapes, K3's gi and gh
+   (both directions) and dX at its five layers (B = 64) and K6's row-stacked
+   gi at its five (B = 16), each product within (K + 2) 2^-23 sum|a||b| of
+   the f64 product of its bf16 operands (dX also within a bf16 spacing of
+   each rounding, 99% of it equal to the plain version's), a second call
+   equal bit for bit; timed beside its plain version, one ``torch.mm`` a
+   product on the same bf16 operands and the bound (the kernels line's
+   ``bigru_gemm_bf16``, whose launches are the fixed-slot trainer's below;
+   the ASR, seq2seq, unidirectional and row-stacked trainers' beside them);
+   and the f32 core (``gemm_kernel``) by mode, gi/gh, dX and dW, on f32
+   copies of the same operands beside one f32 ``torch.mm`` a product.
+   Then K1, K2 and K3's bf16
    instantiations against their plain versions on the card (K1 at the five
    flagship layers, B = 16, 4 s; K2 at the four encoder layers and K3 at
    the five, B = 64, 4 s; all three at the ASR encoder's four, B = 64,
@@ -207,7 +220,12 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    B = 64) at bf16 beside f32 in turns, with the bf16 plain version, cuDNN's
    bf16 ``nn.GRU`` and the bf16 bound (``bound_bf16``: the products at the
    bf16 tensor-core peak, the gate math at the f32 one, the streams at 2
-   bytes a value); the kernels line gains the three bf16 entries. Its
+   bytes a value); the kernels line gains the three bf16 entries. Each
+   bf16 trainer launches the bf16 core once for each bf16 GRU kernel's
+   projections and once more for each backward's dX, 15 a step (ASR 12),
+   counted where the library launches it (``ops/bigru_gemm.py``
+   ``tc_launches``), and each bf16 step's trace names it so often by mode
+   and holds no FMA product but dW's. Its
    second half (``phase_bf16_more``) does the same for K6, K4f, K4b, K5f
    and K5b: ``[bf16-k6]`` K6 at the five flagship layers (B = 16) and the
    train intent layer (B = 64), ``[bf16-k4f]`` K4f at the served (8, 4 s)
@@ -323,13 +341,13 @@ K5B_PHASES = K4B_PHASES
 # K3's kernels by phase at bf16: the same, the products on the core's mixed kernel, and dX's
 # rounded sum of the two directions
 K3_BF16_PHASES = {"gates": "bwd_gates_kernel", "chain": "gru_cluster_bwd_kernel",
-                  "core gi/gh": "gemm_kernel_mixed<0, 0",
-                  "core dX": "gemm_kernel_mixed<0, 1", "dX sum": "dx_pair_sum_kernel",
+                  "core gi/gh": "gemm_kernel_tc<0, 0",
+                  "core dX": "gemm_kernel_tc<0, 1", "dX sum": "dx_pair_sum_kernel",
                   "core dW": "gemm_kernel_mixed<1, 1", "reduce": "dw_reduce_kernel"}
 # K4b's and K5b's kernels by phase at bf16: the same, the products on the core's mixed kernel
 # (dW_hh's on the f32 one: it reads the widened h_prev), and K4b's rounded dX sum
 K4B_BF16_PHASES = {"h_prev": "masked_hprev_kernel", "gates": "bwd_gates_kernel", "chain": "gru_cluster_bwd_kernel",
-                   "core gi/gh": "gemm_kernel_mixed<0, 0", "core dX": "gemm_kernel_mixed<0, 1",
+                   "core gi/gh": "gemm_kernel_tc<0, 0", "core dX": "gemm_kernel_tc<0, 1",
                    "dX sum": "dx_pair_sum_kernel", "core dW_ih": "gemm_kernel_mixed<1, 1",
                    "core dW_hh": "gemm_kernel<1, 1", "reduce": "dw_reduce_kernel"}
 K5F_SOURCE = "tpu_slu_torch/csrc/bigru_masked_fwd.cu"
@@ -3884,15 +3902,261 @@ def bf16_step_vs_cpu(dev, rng, kind: str, B: int = 16) -> dict:
     return {"ratio": d / gap, "floor": fl / gap, "ratio_by_gradient": ratio[worst], "loss": (l_card, l_cpu, l32)}
 
 
-def phase_bf16(dev, card: str, rng) -> list[dict]:
+CORE_BF16_SOURCE = "tpu_slu_torch/csrc/bigru_gemm.cuh"
+CORE_BF16_REPLACES = "tpu_slu/ops/pallas_gru.py:85"  # _mxu: jnp.dot(bf16, bf16, preferred_element_type=f32)
+
+
+def tc_bound_holds(what: str, got, ref64, K: int, scale64, extra64=0.0) -> float:
+    """``got`` (a product of the tensor-core kernel) within (K + 2) 2^-23 of
+    the f64 sum of |a_k b_k| (``scale64``; plus ``extra64``) of the f64
+    product ``ref64`` of its bf16-rounded operands: the first-order bound of
+    a K-term f32 sum, doubled for the tensor cores' truncation (the card
+    tests' bound, ``tests/test_torch_cuda.py``). Returns the largest share
+    of the bound used."""
+    err = (got.double() - ref64).abs()
+    bound = (K + 2) * 2.0**-23 * scale64 + extra64
+    share = (err / bound.clamp_min(1e-30)).max().item()
+    if not share <= 1.0:
+        raise AssertionError(f"{what}: {share:.3g} of its bound from the f64 product of its bf16 operands")
+    return share
+
+
+def core_counts(bf16_launches: dict) -> dict:
+    """The bf16 core's launches (``gemm_kernel_tc``) that the bf16 GRU
+    kernels' launches make, by mode: each makes one projection (gi, and in
+    a backward gh too), each backward (K3, K4b, K5b) one dX."""
+    return {"proj": sum(bf16_launches.values()),
+            "dX": sum(v for k, v in bf16_launches.items() if k in ("K3", "K4b", "K5b"))}
+
+
+def core_trace(table: dict, reps: int = 3) -> dict:
+    """The bf16 core's launches over ``reps`` traced calls in a
+    ``kernel_table``, by mode: "proj" (``gemm_kernel_tc`` with B along k: gi
+    and gh), "dX" (B along n), and "fma" the FMA core's bf16 products other
+    than dW's (``gemm_kernel_mixed`` in a layout other than dW's <1, 1>),
+    which must be none."""
+    out = {"proj": 0, "dX": 0, "fma": 0}
+    for key, (n, _) in table.items():
+        mode = ("proj" if "gemm_kernel_tc<0, 0" in key else "dX" if "gemm_kernel_tc<0, 1" in key
+                else "fma" if "gemm_kernel_mixed<" in key and "gemm_kernel_mixed<1, 1" not in key else None)
+        if mode:
+            out[mode] += round(reps * n)
+    return out
+
+
+def phase_bf16_core(dev, card: str, rng) -> dict:
+    """Phase 14's first part, ``[bf16-core]``: the bf16 GEMM core on the
+    tensor cores (``gemm_kernel_tc``) in each of its modes at the flagship's
+    shapes against its plain version and an f64 product of its bf16
+    operands, and timed beside it and one ``torch.mm`` a product on the
+    same bf16 operands; the f32 core by mode beside f32 ``torch.mm``.
+    Returns the kernels line's ``bigru_gemm_bf16`` entry (its main-path
+    launches are counted in phase 14's trainers)."""
+    import numpy as np
+    import torch
+
+    from tpu_slu_torch.ops.bigru_gemm import (gemm_dw, gemm_dx, gemm_dx_bf16, gemm_dx_bf16_reference, gemm_proj,
+                                              gemm_proj_bf16, gemm_proj_bf16_reference, gemm_proj_rs_bf16,
+                                              gemm_proj_rs_bf16_reference, tc_launches)
+
+    bf, H, N = torch.bfloat16, 128, 384
+
+    def f32(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+
+    # K3's products at its five flagship layers, B = 64 on 4 s (K1's and K2's projections are the
+    # same mode on the same shapes): gi and gh of both directions (phase 1) and dX (phase 3); K6's
+    # row-stacked gi at its decode's five layers, B = 16
+    modes = {"proj": [], "dx": [], "rs": []}
+    for name, d, n_parts, T in ENC_SHAPES + [INTENT_SHAPE]:
+        M, D = T * 64, d * n_parts
+        parts = [f32(M, d).to(bf) for _ in range(n_parts)]
+        hp = f32(M, H).to(bf)
+        for _ in range(2):
+            wih, bih, whh, bhh = f32(N, D, scale=0.1), f32(N, scale=0.1), f32(N, H, scale=0.1), f32(N, scale=0.1)
+            modes["proj"].append((f"{name} gi", (parts[0], parts[1] if n_parts > 1 else None, wih, bih), D))
+            modes["proj"].append((f"{name} gh", (hp, None, whh, bhh), H))
+        dgi = f32(2, M, N)
+        modes["dx"].append((f"{name} dX", (dgi, (f32(N, D, scale=0.1), f32(N, D, scale=0.1)), d), N))
+    for name, d, n_parts, T, _ in FLAGSHIP_LAYERS:
+        parts = [f32(T * 16, d).to(bf) for _ in range(n_parts)]
+        ws, bs, folds = ([f32(N, d * n_parts, scale=0.1) for _ in range(2)], [f32(N, scale=0.1) for _ in range(2)],
+                         [f32(N, scale=0.1) for _ in range(2)])
+        modes["rs"].append((f"{name} K6 gi", (parts[0], parts[1] if n_parts > 1 else None, ws, bs, folds, T, 16),
+                            d * n_parts))
+    kernel = {"proj": gemm_proj_bf16, "dx": gemm_dx_bf16, "rs": gemm_proj_rs_bf16}
+    plain = {"proj": gemm_proj_bf16_reference, "dx": gemm_dx_bf16_reference, "rs": gemm_proj_rs_bf16_reference}
+
+    def cat(x1, x2):
+        return x1 if x2 is None else torch.cat([x1, x2], 1)
+
+    # each mode against the f64 product of its bf16 operands and its plain version
+    errs, shares = {}, {}
+    before = tc_launches()
+    for mode, cases in modes.items():
+        errs[mode] = shares[mode] = 0.0
+        for what, args, K in cases:
+            got = kernel[mode](*args)
+            ref = plain[mode](*args)
+            torch.cuda.synchronize()
+            if mode == "proj":
+                x, w, b = cat(*args[:2]).double(), args[2].to(bf).double(), args[3].double()
+                share = tc_bound_holds(what, got, x @ w.t() + b, K, x.abs() @ w.abs().t() + b.abs())
+            elif mode == "rs":
+                x, (ws, bs, folds, T, B) = cat(*args[:2]).double(), args[2:]
+                keep = (torch.arange(N, device=dev) < 2 * N // 3).double()
+                share = 0.0
+                for dd in range(2):
+                    w, extra = ws[dd].to(bf).double(), bs[dd].double() + keep * folds[dd].double()
+                    r64, s64 = (x @ w.t() + extra).view(T, B, N), (x.abs() @ w.abs().t() + extra.abs()).view(T, B, N)
+                    if dd:
+                        r64, s64 = r64.flip(0), s64.flip(0)
+                    share = max(share, tc_bound_holds(what, got[:, dd * B:(dd + 1) * B], r64, K + 2, s64))
+            else:
+                a, ws, d1 = args
+                exact = [a[i].to(bf).double() @ w.to(bf).double() for i, w in enumerate(ws)]
+                spacing = 2.0**-7 * (exact[0].abs() + exact[1].abs() + (exact[0] + exact[1]).abs())
+                scale = sum(a[i].to(bf).double().abs() @ w.to(bf).double().abs() for i, w in enumerate(ws))
+                got, ref = torch.cat(got, 1), torch.cat(ref, 1)
+                share = tc_bound_holds(what, got, exact[0] + exact[1], K, scale, spacing)
+                same = (got == ref).double().mean().item()
+                if same < 0.99:
+                    raise AssertionError(f"{what}: {same:.4f} of dX's elements equal the plain version's, want 0.99")
+            errs[mode] = max(errs[mode], (got.float() - ref.float()).abs().max().item())
+            shares[mode] = max(shares[mode], share)
+            again = kernel[mode](*args)
+            again = torch.cat(again, 1) if mode == "dx" else again
+            if not torch.equal(again, got):
+                raise AssertionError(f"{what}: a second call differs from the first")
+        print(f"[bf16-core] {mode}: {len(cases)} products against the f64 product of their bf16 operands, at most "
+              f"{shares[mode]:.3g} of the bound (K + 2) 2^-23 sum|a||b|; max abs err against the plain version "
+              f"{errs[mode]:.3g}; a second call equal bit for bit")
+    torch.cuda.synchronize()
+    if tc_launches() - before != 2 * sum(len(c) for c in modes.values()):
+        raise AssertionError(f"[bf16-core] {tc_launches() - before} tensor-core launches for "
+                             f"{2 * sum(len(c) for c in modes.values())} calls")
+
+    # times: the kernel and its plain version in turns, one torch.matmul a product on the same bf16
+    # operands (f32 out where this torch's mm takes out_dtype, else bf16), the bound
+    a16, b16 = f32(64, 64).to(bf), f32(64, 64).to(bf)
+    try:
+        torch.mm(a16, b16, out_dtype=torch.float32)
+        lib_out = "f32 (out_dtype=torch.float32)"
+
+        def mm(a, b):
+            return torch.mm(a, b, out_dtype=torch.float32)
+    except (TypeError, RuntimeError):
+        lib_out = "bf16 (this torch's mm takes no out_dtype)"
+
+        def mm(a, b):
+            return torch.mm(a, b)
+    entry = {"name": "bigru_gemm_bf16", "route": "cuda", "source": CORE_BF16_SOURCE, "replaces": CORE_BF16_REPLACES,
+             "launches": None, "max_abs_err": max(errs.values()), "library_output": lib_out, "by_mode": {}}
+    for mode, cases in modes.items():
+        flops = nbytes = 0.0
+        lib_args = []
+        for _, args, K in cases:
+            if mode == "dx":
+                a, ws, _ = args
+                M, D = a.shape[1], ws[0].shape[1]
+                flops += 2 * 2 * M * N * D
+                nbytes += 4 * (2 * M * N + 2 * N * D) + 2 * M * D
+                lib_args.append((torch.cat([a[0], a[1]], 1).to(bf), torch.cat(list(ws), 0).to(bf)))
+            else:
+                x = cat(*args[:2])
+                M = x.shape[0]
+                nd = 2 if mode == "rs" else 1
+                flops += nd * 2 * M * N * K
+                nbytes += 2 * M * K + nd * (4 * (N * K + nd * N) + 4 * M * N)  # rs: the fold too
+                for w in (args[2] if mode == "rs" else [args[2]]):
+                    lib_args.append((x, w.to(bf).t().contiguous()))
+
+        def run(fn=kernel[mode], cases=cases):
+            for _, args, _ in cases:
+                fn(*args)
+
+        def lib(lib_args=lib_args):
+            for a, b in lib_args:
+                mm(a, b)
+
+        k_ms, p_ms = in_turns(lambda: run(plain[mode]), run)
+        l_ms = cuda_ms(lib, reps=10)
+        b_ms, b_by = bound_bf16(flops, 0.0, nbytes)
+        entry["by_mode"][mode] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
+                                  "bound_by": b_by, "products": len(lib_args), "flops": flops, "bytes": nbytes,
+                                  "max_abs_err": errs[mode], "max_bound_share": shares[mode]}
+        print(f"[bf16-core] [time] {mode} ({len(cases)} calls, {len(lib_args)} products"
+              f"{', K3 five layers B=64' if mode != 'rs' else ', K6 five layers B=16'}): kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.3f} ms, torch.mm {l_ms:.4f} ms ({lib_out}), bound {b_ms:.4f} ms ({b_by}), "
+              f"{flops / k_ms / 1e9:.1f} TFLOP/s, {nbytes / k_ms / 1e6:.0f} GB/s on {card}")
+    # the f32 core (gemm_kernel) by mode on f32 copies of the same operands, and dW (f32 at either
+    # dtype: at bf16 the same FMA loop on the parts widened, gemm_kernel_mixed), each beside one
+    # torch.mm a product in f32 (TF32 off, torch's default) and its bound at the f32 peak
+    f32_cases = {"proj": [(gemm_proj, (args[0].float(), None if args[1] is None else args[1].float(), *args[2:]))
+                          for _, args, _ in modes["proj"]],
+                 "dx": [(gemm_dx, args) for _, args, _ in modes["dx"]], "dw": []}
+    for (_, (x1, x2, *_), _), (_, (hp, *_), _), (_, (dgi, *_), _) in zip(modes["proj"][::4], modes["proj"][1::4],
+                                                                         modes["dx"]):
+        for i in range(2):  # each direction's dW_ih and dW_hh, the gate gradients standing in for dgh
+            f32_cases["dw"].append((gemm_dw, (dgi[i], x1.float(), None if x2 is None else x2.float())))
+            f32_cases["dw"].append((gemm_dw, (dgi[i], hp.float(), None)))
+    entry["f32_by_mode"] = {}
+    for mode, cases in f32_cases.items():
+        flops = nbytes = 0.0
+        lib_args = []
+        for fn, args in cases:
+            if mode == "proj":
+                x, w = cat(args[0], args[1]), args[2]
+                lib_args.append((x, w.t()))
+                flops += 2 * x.shape[0] * N * x.shape[1]
+                nbytes += 4 * (x.numel() + w.numel() + N + x.shape[0] * N)
+            elif mode == "dx":
+                a, ws, _ = args
+                lib_args.append((torch.cat([a[0], a[1]], 1), torch.cat(list(ws), 0)))
+                flops += 2 * 2 * a.shape[1] * N * ws[0].shape[1]
+                nbytes += 4 * (a.numel() + 2 * ws[0].numel() + a.shape[1] * ws[0].shape[1])
+            else:
+                a, x = args[0], cat(args[1], args[2])
+                lib_args.append((a.t(), x))
+                flops += 2 * a.shape[0] * N * x.shape[1]
+                nbytes += 4 * (a.numel() + x.numel() + N * x.shape[1] + N)
+
+        def run(cases=cases):
+            for fn, args in cases:
+                fn(*args)
+
+        def lib(lib_args=lib_args):
+            for a, b in lib_args:
+                torch.mm(a, b)
+
+        k_ms, l_ms = cuda_ms(run, reps=10), cuda_ms(lib, reps=10)
+        b_ms, b_by = bound(flops, nbytes)
+        entry["f32_by_mode"][mode] = {"ms": k_ms, "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
+                                      "products": len(cases)}
+        print(f"[bf16-core] [time] f32 core {mode} ({len(cases)} calls, K3 five layers B=64): gemm_kernel "
+              f"{k_ms:.4f} ms, torch.mm f32 {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{flops / k_ms / 1e9:.1f} TFLOP/s on {card}")
+
+    # the kernels line's numbers: K3's bf16 products, gi/gh and dX, at its five layers
+    k3 = [entry["by_mode"][m] for m in ("proj", "dx")]
+    for key in ("ms", "plain_ms", "library_ms"):
+        entry[key] = sum(m[key] for m in k3)
+    entry["bound_ms"], entry["bound_by"] = bound_bf16(sum(m["flops"] for m in k3), 0.0, sum(m["bytes"] for m in k3))
+    return entry
+
+
+def phase_bf16(dev, card: str, rng, core: dict) -> list[dict]:
     """Phase 14: ``compute_dtype=bfloat16``. Returns the kernels line's
-    entries of K1, K2 and K3's bf16 instantiations."""
+    entries of K1, K2 and K3's bf16 instantiations; sets ``core``'s (the
+    ``bigru_gemm_bf16`` entry's) launches from the fixed-slot and ASR
+    trainers' main paths."""
     import numpy as np
     import torch
 
     from tpu_slu_torch import read_config
     from tpu_slu_torch.models.encoder import PretrainedModel
     from tpu_slu_torch.models.flagship import FLAGSHIP_CFG, TRAIN_CFG, flagship_model
+    from tpu_slu_torch.ops.bigru_gemm import tc_launches, zero_tc_launches
     from tpu_slu_torch.ops.bigru_shared import (
         bigru_shared,
         bigru_shared_bwd,
@@ -3946,12 +4210,16 @@ def phase_bf16(dev, card: str, rng) -> list[dict]:
         data = Batches(synthetic_batches(rng, 3, config.training_batch_size, model.values_per_slot))
         for c in counters.values():
             c.launches = c.launches_bf16 = 0
+        zero_tc_launches()
         acc, loss = trainer.train(data)
         torch.cuda.synchronize()
         launches = {k: (c.launches_bf16, c.launches) for k, c in counters.items()}
+        tc = tc_launches()
         n = len(data.loader)
         if launches != {"K1": (n, n), "K2": (4 * n, 4 * n), "K3": (5 * n, 5 * n)} or not np.isfinite(loss):
             raise AssertionError(f"bf16 Trainer.train over {n} steps: (bf16, all) launches {launches}, loss {loss}")
+        if tc != 15 * n:  # the bf16 core: 1 K1, 4 K2 and 5 K3 projections, 5 K3 dX a step
+            raise AssertionError(f"bf16 Trainer.train over {n} steps: {tc} launches of the bf16 core, want {15 * n}")
         for c in counters.values():
             c.launches = c.launches_bf16 = 0
         t_acc, t_loss = trainer.test(data)
@@ -3960,8 +4228,10 @@ def phase_bf16(dev, card: str, rng) -> list[dict]:
             raise AssertionError(f"bf16 Trainer.test over {n} batches: launches {test_launches}, loss {t_loss}")
         print(f"[bf16-trainer] Trainer.train at no_pretraining.cfg width and compute_dtype=bfloat16, "
               f"B={config.training_batch_size}, {n} steps: loss {loss:.4f} acc {acc:.3f}; (bf16, all) launches "
-              f"{launches}; Trainer.test loss {t_loss:.4f}, launches {test_launches}")
+              f"{launches}, the bf16 core (gemm_kernel_tc) {tc}; Trainer.test loss {t_loss:.4f}, launches "
+              f"{test_launches}")
         main_launches = {k: v[0] for k, v in launches.items()}
+        core["launches"] = tc
 
         asr_cfg = read_config(FLAGSHIP_CFG, make_dirs=False)
         asr_cfg.folder, asr_cfg.num_phonemes, asr_cfg.compute_dtype = os.path.join(tmp, "asr"), 42, "bfloat16"
@@ -3971,16 +4241,21 @@ def phase_bf16(dev, card: str, rng) -> list[dict]:
                                        asr_cfg.phone_downsample_factor, asr_cfg.word_downsample_factor))
         for c in counters.values():
             c.launches = c.launches_bf16 = 0
+        zero_tc_launches()
         asr_out = asr_trainer.train(asr_data)
         torch.cuda.synchronize()
         asr_launches = {k: (c.launches_bf16, c.launches) for k, c in counters.items()}
+        tc = tc_launches()
         n = len(asr_data.loader)
         if asr_launches != {"K1": (0, 0), "K2": (4 * n, 4 * n), "K3": (4 * n, 4 * n)} or not np.isfinite(asr_out[1]):
             raise AssertionError(f"bf16 ASR Trainer.train over {n} steps: launches {asr_launches}, {asr_out}")
+        if tc != 12 * n:  # 4 K2 and 4 K3 projections, 4 K3 dX a step
+            raise AssertionError(f"bf16 ASR Trainer.train over {n} steps: {tc} launches of the bf16 core, want {12 * n}")
+        core["launches_asr_train"] = tc
         asr_test = asr_trainer.test(asr_data)
         print(f"[bf16-trainer] ASR Trainer.train at compute_dtype=bfloat16, B={asr_cfg.pretraining_batch_size}, "
               f"{n} steps: phone loss {asr_out[1]:.4f} word loss {asr_out[3]:.4f}; (bf16, all) launches "
-              f"{asr_launches}; Trainer.test phone loss {asr_test[1]:.4f}")
+              f"{asr_launches}, the bf16 core {tc}; Trainer.test phone loss {asr_test[1]:.4f}")
 
         # 14.4 the warm steps at bf16 beside f32, in turns f32, bf16, bf16, f32; each bf16 step's profile
         # names the bf16 instantiations of K1, K2 and K3 as often as their counters count
@@ -4000,6 +4275,7 @@ def phase_bf16(dev, card: str, rng) -> list[dict]:
             def reset():
                 for c in counters.values():
                     c.launches = c.launches_bf16 = 0
+                zero_tc_launches()
 
             def check(table):
                 # kernel_table makes one warm call before it traces its reps
@@ -4009,10 +4285,16 @@ def phase_bf16(dev, card: str, rng) -> list[dict]:
                     if step_kernel(key):
                         named[f"{step_kernel(key)}{' bf16' if 'bfloat16' in key else ''}"] += round(3 * n)
                 got = {k: named[f"{k} bf16"] for k in counters}
-                if got == want and not any(named[k] for k in counters):
+                # the bf16 core: each counted launch in the trace, in its mode, and no FMA product but dW
+                core_want, core_seen = core_counts(want), core_trace(table)
+                if sum(core_counts({k: c.launches_bf16 for k, c in counters.items()}).values()) != tc_launches():
+                    return f"the bf16 core's count {tc_launches()} is not its kernels' launches' share", False
+                if got == want and not any(named[k] for k in counters) and core_seen == {**core_want, "fma": 0}:
                     return None
                 return (f"bf16 instantiations {got}, f32 ones { {k: named[k] for k in counters} }, counted {want} "
-                        f"over 3 steps", not any(named[k] for k in counters) and all(got[k] <= want[k] for k in got))
+                        f"over 3 steps; the bf16 core {core_seen}, counted {core_want}",
+                        not any(named[k] for k in counters) and all(got[k] <= want[k] for k in got)
+                        and not core_seen["fma"] and all(core_seen[m] <= core_want[m] for m in core_want))
 
             wall, table, traces = counted_trace(lambda: t16.train_step(batch), reset, check,
                                                 f"bf16 {kind} step profile")
@@ -4029,7 +4311,9 @@ def phase_bf16(dev, card: str, rng) -> list[dict]:
                   f"{st['bf16_ms']:.3f} ms, f32 {st['f32_ms']:.3f} ms; profiler: bf16 busy {busy:.3f} ms, idle share "
                   f"{st['bf16_idle_share']:.3f}, {n_launch} launches a step; f32 busy {busy32:.3f} ms, idle share "
                   f"{st['f32_idle_share']:.3f}, {n32} launches; the bf16 step's trace (of {traces} taken) names the "
-                  f"bf16 K1, K2, K3 {got} times over 3 steps, as counted, and no f32 one, on {card}")
+                  f"bf16 K1, K2, K3 {got} times over 3 steps, as counted, and no f32 one, and the bf16 core "
+                  f"(gemm_kernel_tc) {core_counts(got)} times by mode, as counted, with no FMA product but dW's, "
+                  f"on {card}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4199,15 +4483,17 @@ def recurrence_of(name: str) -> tuple[str, bool] | None:
     return None
 
 
-def phase_bf16_more(dev, card: str, rng) -> tuple[list[dict], dict]:
+def phase_bf16_more(dev, card: str, rng, core: dict) -> tuple[list[dict], dict]:
     """Phase 14, second half: K6, K4f, K4b, K5f and K5b on bf16 streams.
     Returns the kernels line's entries of their bf16 instantiations, and the
     bf16 errors of each (largest share of the gap, max abs error) by the
-    name of its f32 entry."""
+    name of its f32 entry; sets ``core``'s launches on the three trainers'
+    main paths."""
     import numpy as np
     import torch
 
     from tpu_slu_torch.models.flagship import TRAIN_CFG, UNIDIRECTIONAL, flagship_model, flagship_seq2seq_model
+    from tpu_slu_torch.ops.bigru_gemm import tc_launches, zero_tc_launches
     from tpu_slu_torch.ops.bigru_masked import bigru_masked, bigru_masked_bwd
     from tpu_slu_torch.ops.bigru_shared import bigru_shared, bigru_shared_bwd, bigru_trainpool
     from tpu_slu_torch.ops.gru1 import gru1, gru1_bwd
@@ -4268,6 +4554,7 @@ def phase_bf16_more(dev, card: str, rng) -> tuple[list[dict], dict]:
         for c in counters.values():
             c.launches = c.launches_bf16 = 0
         bigru_shared.launches_rowstack = 0
+        zero_tc_launches()
 
     def counts() -> dict:
         """(bf16 launches, all launches) of each kernel that launched; K1's
@@ -4298,6 +4585,11 @@ def phase_bf16_more(dev, card: str, rng) -> tuple[list[dict], dict]:
             zero()
             _, loss = trainer.train(data)
             train_launches = counts()
+            tc = tc_launches()
+            if tc != 15 * n:  # every model here: 15 bf16 core launches a step (core_counts)
+                raise AssertionError(f"bf16 {kind} Trainer.train over {n} steps: {tc} launches of the bf16 core, "
+                                     f"want {15 * n}")
+            core[f"launches_{kind}_train"] = tc
             zero()
             _, t_loss = trainer.test(data)
             test_launches = counts()
@@ -4310,8 +4602,8 @@ def phase_bf16_more(dev, card: str, rng) -> tuple[list[dict], dict]:
                 raise AssertionError(f"bf16 {kind} Trainer over {n} batches: (bf16, all) launches train "
                                      f"{train_launches}, test {test_launches}, want {want}; losses {loss}, {t_loss}")
             print(f"[bf16-trainer] {kind} Trainer.train at compute_dtype=bfloat16, B={B}, 4 s, {n} steps: loss "
-                  f"{loss:.4f}, (bf16, all) launches {train_launches}; Trainer.test loss {t_loss:.4f}, launches "
-                  f"{test_launches}")
+                  f"{loss:.4f}, (bf16, all) launches {train_launches}, the bf16 core {tc}; Trainer.test loss "
+                  f"{t_loss:.4f}, launches {test_launches}")
             for k, (bf16_n, _) in train_launches.items():
                 main_launches.setdefault(k, bf16_n)
             trainers[kind] = (trainer, data.loader[0])
@@ -4339,10 +4631,18 @@ def phase_bf16_more(dev, card: str, rng) -> tuple[list[dict], dict]:
                     if recurrence_of(key):
                         seen[recurrence_of(key)] += round(3 * n)
                 f32 = seen["forward", False] or seen["chain", False]
-                if {r: seen[r, True] for r in want} == want and not f32:
+                # the bf16 core: each counted launch in the trace, in its mode, and no FMA product but dW
+                bf16_n = {k: c.launches_bf16 for k, c in counters.items()}
+                core_want = {m: v * 3 // 4 for m, v in core_counts(bf16_n).items()}
+                core_seen = core_trace(table)
+                if sum(core_counts(bf16_n).values()) != tc_launches():
+                    return f"the bf16 core's count {tc_launches()} is not its kernels' launches' share", False
+                if {r: seen[r, True] for r in want} == want and not f32 and core_seen == {**core_want, "fma": 0}:
                     return None
-                return (f"recurrences (kind, bf16) {seen} over 3 steps, counted bf16 {want}",
-                        not f32 and all(seen[r, True] <= want[r] for r in want))
+                return (f"recurrences (kind, bf16) {seen} over 3 steps, counted bf16 {want}; the bf16 core "
+                        f"{core_seen}, counted {core_want}",
+                        not f32 and all(seen[r, True] <= want[r] for r in want) and not core_seen["fma"]
+                        and all(core_seen[m] <= core_want[m] for m in core_want))
 
             wall, table, traces = counted_trace(lambda: t16.train_step(batch), zero, check,
                                                 f"bf16 {kind} step profile")
@@ -4359,7 +4659,8 @@ def phase_bf16_more(dev, card: str, rng) -> tuple[list[dict], dict]:
                   f"{st['f32_ms']:.3f} ms; profiler: bf16 busy {busy:.3f} ms, idle share {st['bf16_idle_share']:.3f}, "
                   f"{n_launch} launches a step; f32 busy {busy32:.3f} ms, idle share {st['f32_idle_share']:.3f}, "
                   f"{n32} launches; the bf16 step's trace (of {traces} taken) holds {want} bf16 recurrences over 3 "
-                  f"steps, as counted, and no f32 one, on {card}")
+                  f"steps, as counted, and no f32 one, and the bf16 core as counted, with no FMA product but dW's, "
+                  f"on {card}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4880,9 +5181,11 @@ def main() -> None:
     # 13. data-parallel training and evaluation, and the first-epoch trace
     dp = phase_dp(dev, card, rng)
 
-    # 14. compute_dtype=bfloat16: K1, K2 and K3 on bf16 streams, then K6, K4f, K4b, K5f and K5b
-    bf16 = phase_bf16(dev, card, rng)
-    bf16_more, bf16_errs = phase_bf16_more(dev, card, rng)
+    # 14. compute_dtype=bfloat16: the bf16 GEMM core on the tensor cores; K1, K2 and K3 on bf16 streams,
+    # then K6, K4f, K4b, K5f and K5b
+    core = phase_bf16_core(dev, card, rng)
+    bf16 = phase_bf16(dev, card, rng, core)
+    bf16_more, bf16_errs = phase_bf16_more(dev, card, rng, core)
 
     # 15. model parallelism: a (data, model) grid of ranks, the vocab heads column-sharded
     mp = phase_mp(dev, card, rng)
@@ -4904,7 +5207,7 @@ def main() -> None:
         entry.update(dp.get(entry["name"], {}))
         entry.update(mp.get(entry["name"], {}))
         entry.update(bf16_errs.get(entry["name"], {}))
-    kernels += bf16 + bf16_more
+    kernels += bf16 + bf16_more + [core]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -114,6 +114,23 @@ def test_k3_wide_hp_edits_apply_to_one_source():
         assert [fn for fn, t in texts.items() if old in t] in (["bigru_shared_bwd.cu"], ["gru_cluster_bwd.cuh"]), old
 
 
+@pytest.mark.parametrize("name", ["no128", "bk64"])
+def test_tc_variant_edits_apply_to_one_source(name):
+    """``tools/torch_cluster_ab.py --tc-variants``'s copies of the bf16
+    tensor-core GEMM kernel edit texts that occur in one source only,
+    ``bigru_gemm.cuh``, the header every kernel source includes."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_cluster_ab", os.path.join(os.path.dirname(_build.CSRC), "..", "tools", "torch_cluster_ab.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    texts = _sources()
+    for old, new in tool.TC_VARIANTS[name]:
+        assert old != new
+        assert [fn for fn, t in texts.items() if old in t] == ["bigru_gemm.cuh"], old
+
+
 def test_k6_runs_the_cluster_recurrence():
     """K6's recurrence is K1's cluster kernel with the row-stacked flag, at
     the parts' stream type (f32, or bf16 since K6 has a bf16 form); the

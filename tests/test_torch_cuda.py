@@ -35,7 +35,8 @@ from tpu_slu_torch.ops.bigru_shared import (
 from tpu_slu_torch.ops.conv import conv1d
 from tpu_slu_torch.ops.dropout import DIR_SALT_B, DIR_SALT_F, keep_mask, keep_threshold
 from tpu_slu_torch.ops.frontend_fused import sinc_frontend_fused, sinc_frontend_reference
-from tpu_slu_torch.ops.bigru_gemm import gemm_dw, gemm_dx, gemm_proj
+from tpu_slu_torch.ops.bigru_gemm import (gemm_dw, gemm_dx, gemm_dx_bf16, gemm_dx_bf16_reference, gemm_proj,
+                                          gemm_proj_bf16, gemm_proj_rs_bf16, tc_launches)
 from tpu_slu_torch.ops.gru1 import (gru1, gru1_bwd, gru1_bwd_reference, gru1_cluster_size, gru1_fwd,
                                      gru1_reference)
 
@@ -1873,6 +1874,122 @@ def test_gemm_core_dw_layout_matches_f64_and_repeats_bit_for_bit(dev, M, K, d1, 
     _close_to_f64(dw, a.double().t() @ x, a.double().abs().t() @ x.abs())
     _close_to_f64(db, a.double().sum(0), a.double().abs().sum(0))
     assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
+
+
+# The bf16 core on the tensor cores (gemm_kernel_tc: bf16 mma.sync, f32 accumulation), held against
+# an f64 product of the bf16-rounded operands. An f32 output within (K + 2) 2^-23 of sum_k |a_k b_k|
+# (plus |bias| and |fold|): the first-order bound of a K-term f32 sum (u = 2^-24), doubled because
+# the tensor cores may truncate where an f32 add rounds. A bf16 dX element also within one bf16
+# spacing (2^-7 of the value) of each rounded value it went through: each direction's product and,
+# with two, their sum. Each call repeats bit for bit; operands that the kernel must read value by
+# value (parts at an odd 2-byte offset, f32 operands 4 bytes past a 16-byte boundary) give the bits
+# of aligned copies.
+
+
+def _shifted(t, shift: int):
+    """A contiguous copy of ``t`` that starts ``shift`` elements into its buffer."""
+    buf = torch.empty(t.numel() + shift, device=t.device, dtype=t.dtype)
+    view = buf[shift:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _bf64(t):
+    return t.to(torch.bfloat16).double()
+
+
+def _within_tc_bound(got, ref64, K: int, scale64, extra64=0.0):
+    err = (got.double() - ref64).abs()
+    bound = (K + 2) * 2.0**-23 * scale64 + extra64
+    assert (err <= bound).all(), (err / bound.clamp_min(1e-30)).max().item()
+
+
+# M = T*B rows of the flagship's layers (1,600 to 25,600) and rows no multiple of a tile; K in
+# {60, 120 = 60 | 60, 128, 256 = 128 | 128} and the golden model's 12 | 20; N = 3H
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,d1,d2,N", [(1600, 60, 0, 384), (75, 60, 60, 384), (1601, 128, 0, 384),
+                                       (25600, 60, 0, 384), (201, 256, 0, 384), (77, 128, 128, 384),
+                                       (75, 12, 20, 36)])
+@pytest.mark.parametrize("shift", ["none", "x", "w"])
+def test_gemm_core_bf16_proj_matches_f64_and_repeats(dev, M, d1, d2, N, shift):
+    """gi and gh at bf16 (launch_proj<bf16>): bf16 parts, f32 weights
+    rounded to bf16 as read, f32 out; one and two k segments."""
+    rng = np.random.default_rng(M + d1 + d2 + N)
+    x1 = _f32(rng, M, d1, dev=dev).to(torch.bfloat16)
+    x2 = _f32(rng, M, d2, dev=dev).to(torch.bfloat16) if d2 else None
+    w, b = 0.1 * _f32(rng, N, d1 + d2, dev=dev), 0.1 * _f32(rng, N, dev=dev)
+    before = tc_launches()
+    got = gemm_proj_bf16(x1, x2, w, b)
+    torch.cuda.synchronize()
+    assert tc_launches() == before + 1
+    x = x1 if x2 is None else torch.cat([x1, x2], 1)
+    _within_tc_bound(got, x.double() @ _bf64(w).t() + b.double(), d1 + d2,
+                     x.double().abs() @ _bf64(w).abs().t() + b.double().abs())
+    assert torch.equal(gemm_proj_bf16(x1, x2, w, b), got)
+    if shift == "x":  # the parts at an odd 2-byte offset
+        moved = [_shifted(x1, 1), None if x2 is None else _shifted(x2, 1), w]
+        assert moved[0].data_ptr() % 4 == 2
+    elif shift == "w":  # the weights 4 bytes past a 16-byte boundary
+        moved = [x1, x2, _shifted(w, 1)]
+        assert moved[2].data_ptr() % 16 == 4
+    else:
+        return
+    assert torch.equal(gemm_proj_bf16(*moved, b), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,d1,d2", [(25, 3, 60, 0), (50, 16, 128, 128), (25, 64, 256, 0), (7, 5, 12, 20)])
+def test_gemm_core_bf16_rowstack_matches_f64_and_repeats(dev, T, B, d1, d2):
+    """K6's row-stacked gi at bf16 (launch_gi_proj_rs<bf16>): both
+    directions in one launch, row (t, dir B + b) from input row (s, b), s = t
+    forward and T - 1 - t backward, b_hh folded into the first 2N/3 columns."""
+    rng = np.random.default_rng(T * B + d1)
+    N = 384 if d1 > 12 else 36
+    x1 = _f32(rng, T * B, d1, dev=dev).to(torch.bfloat16)
+    x2 = _f32(rng, T * B, d2, dev=dev).to(torch.bfloat16) if d2 else None
+    ws = [0.1 * _f32(rng, N, d1 + d2, dev=dev) for _ in range(2)]
+    bs = [0.1 * _f32(rng, N, dev=dev) for _ in range(2)]
+    folds = [0.1 * _f32(rng, N, dev=dev) for _ in range(2)]
+    got = gemm_proj_rs_bf16(x1, x2, ws, bs, folds, T, B)
+    torch.cuda.synchronize()
+    x = (x1 if x2 is None else torch.cat([x1, x2], 1)).double()
+    keep = (torch.arange(N, device=dev) < 2 * N // 3).double()
+    for d in range(2):
+        extra = bs[d].double() + keep * folds[d].double()
+        ref = (x @ _bf64(ws[d]).t() + extra).view(T, B, N)
+        scale = (x.abs() @ _bf64(ws[d]).abs().t() + extra.abs()).view(T, B, N)
+        rows = got[:, d * B:(d + 1) * B]
+        if d:
+            ref, scale = ref.flip(0), scale.flip(0)
+        _within_tc_bound(rows, ref, d1 + d2 + 2, scale)
+    assert torch.equal(gemm_proj_rs_bf16(x1, x2, ws, bs, folds, T, B), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndir,M,K,d1,d2", [(2, 1600, 384, 256, 0), (2, 25600, 384, 60, 0), (1, 1601, 384, 60, 0),
+                                            (1, 3200, 384, 128, 0), (2, 201, 384, 128, 128), (2, 75, 36, 12, 20)])
+@pytest.mark.parametrize("shift", [0, 1])
+def test_gemm_core_bf16_dx_matches_f64_and_repeats(dev, ndir, M, K, d1, d2, shift):
+    """dX at bf16 (launch_dx_bf16): each direction's dgi and W_ih rounded to
+    bf16 as read, its product rounded to bf16 (OBF), the two directions'
+    sum rounded again; shift 1 puts dgi and W_ih 4 bytes past a 16-byte
+    boundary. At least 99% of the elements equal the plain version's."""
+    rng = np.random.default_rng(M + K + d1 + d2 + ndir)
+    a = _f32(rng, ndir, M, K, dev=dev)
+    ws = [0.1 * _f32(rng, K, d1 + d2, dev=dev) for _ in range(ndir)]
+    got = torch.cat(gemm_dx_bf16(a, ws, d1), 1)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    exact = [_bf64(a[i]) @ _bf64(w) for i, w in enumerate(ws)]
+    scale = sum(_bf64(a[i]).abs() @ _bf64(w).abs() for i, w in enumerate(ws))
+    spacing = 2.0**-7 * (sum(p.abs() for p in exact) + (sum(exact).abs() if ndir == 2 else 0.0))
+    _within_tc_bound(got, sum(exact), K, scale, spacing)
+    plain = torch.cat(gemm_dx_bf16_reference(a, ws, d1), 1)
+    assert (got == plain).double().mean().item() >= 0.99
+    assert torch.equal(torch.cat(gemm_dx_bf16(a, ws, d1), 1), got)
+    if shift:
+        moved = torch.cat(gemm_dx_bf16(_shifted(a, 1), [_shifted(w, 1) for w in ws], d1), 1)
+        assert torch.equal(moved, got)
 
 
 def _assert_grads_equal(a, b):

@@ -9,6 +9,7 @@ K8's launch plans.
         [--k5b-batches 64] [--k3-batches 16 64] [--k3-hp] [--parent DIR]
         [--k8-plans 1 16 128 8:16000 ...] [--k8-launch] [--bf16]
         [--k7-sizes] [--k7-variants base skip_gi skip_gh no_kv no_cache ...]
+        [--tc-variants no128 bk64]
 
 ``--k1-batches``, ``--k2-batches``, ``--k4f-batches``: the kernel's
 flagship layers (K4f's with mixed lengths) on clusters of 2 and of 4 CTAs
@@ -46,7 +47,9 @@ launches and held against the plain version, ranked by time beside the
 model's cost and the plan ``frontend_plan`` picks, and the fastest plan of
 two families alone (the whole list in ``build/k8_plans_B<B>_T<T>.txt``).
 ``--k8-launch``: what a graph replay of one call measures (``k8_launch``).
-``--bf16``: K1-K6 at bf16 beside f32 by device time (``bf16_ab``).
+``--bf16``: K1-K6 at bf16 beside f32 by device time (``bf16_ab``); with
+``--parent``, also each bf16 kernel on the parent's library and this
+tree's in turns, whole and by phase (``parent_bf16_ab``).
 ``--k7-sizes``: the cluster size K7 takes at each batch at the flagship
 decoder, W = 4, 4 s. ``--k7-variants``:
 each variant is ``tpu_slu_torch/csrc/beam_decode.cu`` with one text edit
@@ -57,8 +60,11 @@ kernel library's K7 entry points; K7's whole search at the flagship decoder
 then the list reversed), with its step split by phase at B = 1 from its
 trace. Every variant, ``base`` too, carries the trace's clock reads, so
 the variants compare with each other, not with the served kernel. A
-variant that skips work gives wrong tokens: it measures time only. Run
-from the root of a checkout.
+variant that skips work gives wrong tokens: it measures time only.
+``--tc-variants``: K3 at bf16 (five layers, B = 64) on copies of its
+source whose GEMM core's tensor-core kernel changes one choice
+(``TC_VARIANTS``), against the library, whole and by phase
+(``tc_variants_ab``). Run from the root of a checkout.
 """
 
 from __future__ import annotations
@@ -288,11 +294,105 @@ def k8_launch(dev, card: str) -> None:
                   f"torch.profiler {prof:.5f} on {card}")
 
 
+def parent_library(parent: str):
+    """The kernel library of the checkout at ``parent``, built by that
+    checkout's own ``_build.py``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "parent_build", os.path.join(os.path.abspath(parent), "tpu_slu_torch", "ops", "_build.py"))
+    parent_build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(parent_build)
+    return parent_build.library()
+
+
+# The bf16 kernels' launches by phase, under the names of either tree: the GEMM core's bf16 products
+# on the tensor cores (gemm_kernel_tc) or, in a parent before it, on the FMA core (gemm_kernel_mixed)
+BF16_PHASES = {"h_prev": "masked_hprev_kernel", "gates": "bwd_gates_kernel", "chain": "gru_cluster_bwd_kernel",
+               "recurrence": "gru_cluster_kernel", "core gi/gh": ("gemm_kernel_tc<0, 0", "gemm_kernel_mixed<0, 0"),
+               "core dX": ("gemm_kernel_tc<0, 1", "gemm_kernel_mixed<0, 1"), "dX sum": "dx_pair_sum_kernel",
+               "core dW": ("gemm_kernel_mixed<1, 1", "gemm_kernel<1, 1"), "reduce": "dw_reduce_kernel"}
+
+
+def bf16_layers() -> dict:
+    """K1 (five flagship layers, B = 16), K2 (four, B = 64) and K3 (five, B =
+    64): (B, shapes) as ``chip_smoke.bf16_layer`` takes them."""
+    import chip_smoke as cs
+
+    return {"K1": (16, [s[:4] for s in cs.FLAGSHIP_LAYERS]), "K2": (64, cs.ENC_SHAPES),
+            "K3": (64, cs.ENC_SHAPES + [cs.INTENT_SHAPE])}
+
+
+def bf16_more_shapes(rng) -> dict:
+    """The shapes of PERF.md's table for K6 (five layers, B = 16), K4f (five,
+    B = 8, seeded mixed lengths), K4b (the seq2seq encoder layer, B = 64),
+    K5f (five unidirectional layers, B = 16) and K5b (five, B = 64), as
+    ``chip_smoke.bf16_more_case`` takes them."""
+    import chip_smoke as cs
+
+    more = {"K6": [(name, d * n, T, 16, {"n_parts": n, "pool": pool}) for name, d, n, T, pool in cs.FLAGSHIP_LAYERS],
+            "K4f": [], "K4b": [(*cs.S2S_LAYER, 64, {})],
+            "K5f": [(name, D, T, 16, {}) for name, D, T in cs.UNI_SHAPES],
+            "K5b": [(name, D, T, 64, {}) for name, D, T in cs.UNI_SHAPES]}
+    for name, d, n, T, _ in cs.FLAGSHIP_LAYERS:
+        lengths = rng.integers(1, T + 1, cs.SERVE_BATCH)
+        lengths[0], lengths[-1] = T, 0
+        more["K4f"].append((name, d * n, T, cs.SERVE_BATCH, {"lengths": lengths.tolist()}))
+    return more
+
+
+def parent_bf16_ab(parent: str, dev, card: str) -> None:
+    """``[parent-bf16]``: the bf16 instantiations of K1 (five layers, B =
+    16), K2 (four, B = 64), K3 (five, B = 64), K6 (five, B = 16), K4f (five,
+    B = 8, mixed lengths), K4b (the seq2seq encoder layer, B = 64), K5f
+    (five, B = 16) and K5b (five, B = 64), the shapes of ``bf16_ab``, through
+    this tree's wrappers on the library of the checkout at ``parent`` and on
+    this tree's (``_build._lib`` swapped), by device time (profiler) in
+    turns parent, this, this, parent, and by phase (``BF16_PHASES``: the
+    core's gi/gh, dX and dW, the chain, the recurrence, ...). Each case is
+    held against its plain version first."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from tpu_slu_torch.ops import _build
+
+    libs = {"parent": parent_library(parent), "this": _build.library()}
+    rng = np.random.default_rng(0)
+    sets = {}
+    for k, (B, shapes) in bf16_layers().items():
+        held = [cs.bf16_layer(rng, dev, name, d, n, T, B, (k,)) for name, d, n, T in shapes]
+        sets[f"{k} {len(shapes)} layers B={B}"] = [cs.bf16_layer_call(k, h, "bf16") for h in held]
+    for k, shapes in bf16_more_shapes(rng).items():
+        held = [cs.bf16_more_case(rng, dev, k, name, D, T, B, **kw) for name, D, T, B, kw in shapes]
+        sets[f"{k} {len(shapes)} layer{'s' * (len(shapes) > 1)} B={shapes[0][3]}"] = [
+            h["calls"]["bf16"] for h in held]
+
+    def run(lib, fns):
+        def f():
+            real, _build._lib = _build._lib, lib
+            try:
+                for fn in fns:
+                    fn()
+            finally:
+                _build._lib = real
+        return f
+
+    for what, fns in sets.items():
+        turns = {k: [] for k in libs}
+        for k in ("parent", "this", "this", "parent"):
+            turns[k].append(cs.device_ms(run(libs[k], fns), reps=5))
+        print(f"[parent-bf16] {what} at bf16, device time (profiler) in turns: parent {turns['parent'][0]:.4f}, "
+              f"this {turns['this'][0]:.4f}, {turns['this'][1]:.4f}, parent {turns['parent'][1]:.4f} ms on {card}")
+        for k in ("parent", "this", "this", "parent"):
+            split = cs.device_split(run(libs[k], fns), BF16_PHASES, reps=5)
+            print(f"[parent-bf16] {what} by phase, {k} (profiler, device ms a call): "
+                  + ", ".join(f"{p} {v:.4f}" for p, v in split.items() if v) + f"; sum {sum(split.values()):.4f}")
+
+
 def parent_ab(parent: str, dev, card: str) -> None:
     """``[parent]``: this tree's K1, K2, K4f, K5f, K3, K4b, K5b, K6 and K8
     against the library of the checkout at ``parent``, through the same C
     entry points, in turns."""
-    import importlib.util
     import statistics
 
     import numpy as np
@@ -303,11 +403,7 @@ def parent_ab(parent: str, dev, card: str) -> None:
     from tpu_slu_torch.ops.frontend_fused import PLAN_ARGS, frontend_plan
     from tpu_slu_torch.ops.gru1 import gru1_reference
 
-    spec = importlib.util.spec_from_file_location(
-        "parent_build", os.path.join(os.path.abspath(parent), "tpu_slu_torch", "ops", "_build.py"))
-    parent_build = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(parent_build)
-    libs = {"parent": parent_build.library(), "this": _build.library()}
+    libs = {"parent": parent_library(parent), "this": _build.library()}
     rng = np.random.default_rng(0)
 
     def k5f_layer(D, T, B):
@@ -397,7 +493,7 @@ def parent_ab(parent: str, dev, card: str) -> None:
                   f"{turns['this'][0]:.5f}, {turns['this'][1]:.5f}, parent {turns['parent'][1]:.5f} ms{per_step}"
                   f"{extra} on {card}")
         if what.startswith(("K3", "K4b", "K5b")):  # by phase, each tree's chain under its own name
-            phases = (cs.K3_BF16_PHASES if what.startswith("K3 bf16") else cs.K3_PHASES if what.startswith("K3")
+            phases = (BF16_PHASES if what.startswith("K3 bf16") else cs.K3_PHASES if what.startswith("K3")
                       else cs.K4B_PHASES)
             phases = {**phases, "chain": (phases["chain"], *PARENT_CHAINS)}
             for k in ("parent", "this", "this", "parent"):
@@ -454,6 +550,64 @@ def k3_hp_ab(dev, card: str) -> None:
                   + ", ".join(f"{p} {v:.4f}" for p, v in split.items()) + f"; sum {sum(split.values()):.4f}")
 
 
+# gemm_kernel_tc (csrc/bigru_gemm.cuh) with one design choice changed, compiled into K3's library
+_TC_NO128 = [("for (int t = 0; t < 3; ++t) {", "for (int t = 1; t < 3; ++t) {"),
+             # the 128 x 64 instantiation, never chosen now, at 64 x 64 (its 64-deep ring would pass 48 KB)
+             ("gemm_kernel_tc<LA, LB, MA, MB, OBF, 128, 64>", "gemm_kernel_tc<LA, LB, MA, MB, OBF, 64, 64>")]
+TC_VARIANTS = {
+    "no128": _TC_NO128,  # the tile rule starts at 64 x 64
+    # ... and 64-deep k slices: half the barriers and ring stores, twice the loads in flight
+    "bk64": _TC_NO128 + [("constexpr int kTcBK = 32;", "constexpr int kTcBK = 64;")],
+}
+
+
+def tc_variants_ab(names: list[str], dev, card: str) -> None:
+    """``[tc-variants]``: K3 at bf16, the flagship's five layers at B = 64
+    (``chip_smoke.bf16_layer``, held against its plain version first), on
+    the library and on each ``TC_VARIANTS`` copy of ``bigru_shared_bwd.cu``,
+    by device time (profiler) in turns (the list, then the list reversed)
+    and by phase: what the tensor-core kernel's slice depth and tile rule
+    are worth."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from tpu_slu_torch.ops import _build
+
+    builds = {n: cs.start_variant(f"tc_{n}", "bigru_shared_bwd.cu", TC_VARIANTS[n], []) for n in names}
+    libs = {"library": _build.library(), **{n: cs.load_variant(f"tc_{n}", *b) for n, b in builds.items()}}
+    rng = np.random.default_rng(0)
+    held = [cs.bf16_layer(rng, dev, name, d, n, T, 64, ("K3",)) for name, d, n, T in cs.ENC_SHAPES + [cs.INTENT_SHAPE]]
+    calls = [cs.bf16_layer_call("K3", h, "bf16") for h in held]
+
+    def run(lib):
+        def f():
+            real, _build._lib = _build._lib, lib
+            try:
+                return [c() for c in calls]
+            finally:
+                _build._lib = real
+        return f
+
+    want = run(libs["library"])()
+    for name in names:
+        for (dxs, grads), (vdxs, vgrads) in zip(want, run(libs[name])()):
+            pairs = list(zip(dxs, vdxs)) + [(grads[d][n], vgrads[d][n]) for d in grads for n in grads[d]]
+            err = max((a.float() - b.float()).abs().max().item() / max(a.float().abs().max().item(), 1e-30)
+                      for a, b in pairs)
+            if not err <= 2.0**-6:  # another order of the f32 sums, within 4 bf16 ulps of the largest
+                raise AssertionError(f"tc variant {name}: K3 bf16 off the library's by {err:.3g}")
+    order = list(libs) + list(libs)[::-1]
+    turns = {k: [] for k in libs}
+    for k in order:
+        turns[k].append(cs.device_ms(run(libs[k]), reps=5))
+    print(f"[tc-variants] K3 bf16 five layers B=64, device time (profiler) in turns {order}: "
+          + "; ".join(f"{k} {', '.join(f'{v:.4f}' for v in t)}" for k, t in turns.items()) + f" ms on {card}")
+    for k in order:
+        split = cs.device_split(run(libs[k]), BF16_PHASES, reps=5)
+        print(f"[tc-variants] K3 bf16 by phase, {k} (profiler, device ms a call): "
+              + ", ".join(f"{p} {v:.4f}" for p, v in split.items() if v) + f"; sum {sum(split.values()):.4f}")
+
+
 def bf16_ab(dev, card: str) -> None:
     """``[bf16]``: K1 (five layers, B = 16), K2 (four, B = 64) and K3 (five,
     B = 64) at bf16 beside f32 on the same values (``chip_smoke.bf16_layer``,
@@ -468,15 +622,7 @@ def bf16_ab(dev, card: str) -> None:
     import chip_smoke as cs
 
     rng = np.random.default_rng(0)
-    more = {"K6": [(name, d * n, T, 16, {"n_parts": n, "pool": pool}) for name, d, n, T, pool in cs.FLAGSHIP_LAYERS],
-            "K4f": [], "K4b": [(*cs.S2S_LAYER, 64, {})],
-            "K5f": [(name, D, T, 16, {}) for name, D, T in cs.UNI_SHAPES],
-            "K5b": [(name, D, T, 64, {}) for name, D, T in cs.UNI_SHAPES]}
-    for name, d, n, T, _ in cs.FLAGSHIP_LAYERS:
-        lengths = rng.integers(1, T + 1, cs.SERVE_BATCH)
-        lengths[0], lengths[-1] = T, 0
-        more["K4f"].append((name, d * n, T, cs.SERVE_BATCH, {"lengths": lengths.tolist()}))
-    for k, shapes in more.items():
+    for k, shapes in bf16_more_shapes(rng).items():
         held = [cs.bf16_more_case(rng, dev, k, name, D, T, B, **kw) for name, D, T, B, kw in shapes]
         calls = {which: [h["calls"][which] for h in held] for which in ("f32", "bf16")}
         turns = {"f32": [], "bf16": []}
@@ -492,9 +638,7 @@ def bf16_ab(dev, card: str) -> None:
                                         cs.K4B_BF16_PHASES if which == "bf16" else cs.K4B_PHASES, reps=5)
                 print(f"[bf16] {k} {which} by phase (profiler, device ms a call): "
                       + ", ".join(f"{p} {v:.4f}" for p, v in split.items()) + f"; sum {sum(split.values()):.4f}")
-    plan = {"K1": (16, [s[:4] for s in cs.FLAGSHIP_LAYERS]), "K2": (64, cs.ENC_SHAPES),
-            "K3": (64, cs.ENC_SHAPES + [cs.INTENT_SHAPE])}
-    for k, (B, shapes) in plan.items():
+    for k, (B, shapes) in bf16_layers().items():
         held = [cs.bf16_layer(rng, dev, name, d, n, T, B, (k,)) for name, d, n, T in shapes]
         calls = {which: [cs.bf16_layer_call(k, h, which) for h in held] for which in ("f32", "bf16")}
         turns = {"f32": [], "bf16": []}
@@ -525,6 +669,7 @@ def main() -> None:
     ap.add_argument("--k8-launch", action="store_true")
     ap.add_argument("--k7-sizes", action="store_true")
     ap.add_argument("--k7-variants", nargs="*", default=[], choices=sorted(VARIANTS))
+    ap.add_argument("--tc-variants", nargs="*", default=[], choices=sorted(TC_VARIANTS))
     args = ap.parse_args()
     sys.path.insert(0, HERE)
     import numpy as np
@@ -558,6 +703,8 @@ def main() -> None:
         parent_ab(args.parent, dev, card)
     if args.bf16:
         bf16_ab(dev, card)
+    if args.parent and args.bf16:
+        parent_bf16_ab(args.parent, dev, card)
     if args.k8_plans:
         k8_plans(args.k8_plans, dev, card)
     if args.k8_launch:
@@ -570,6 +717,8 @@ def main() -> None:
         print(f"[k7-sizes] flagship decoder, W=4, 4 s: cluster size by B {sizes} on {card}")
     if args.k7_variants:
         k7_variants(args.k7_variants, dev, card)
+    if args.tc_variants:
+        tc_variants_ab(args.tc_variants, dev, card)
 
 
 if __name__ == "__main__":

@@ -18,14 +18,23 @@ layer of the fixed-slot model one direction (``UNIDIRECTIONAL``), and
 can be timed with and without its host-drawn dropout masks. With
 ``--host-ops N`` it also lists the traced run's N operators that took the
 most host time (self CPU time). ``--repo`` imports the port from another
-checkout, so that one call on the card can time two trees in turns. Run
-from the root of a checkout:
+checkout, so that one call on the card can time two trees in turns.
+``--train --models`` times each listed model's step in one process, at
+B = 64 as ``chip_smoke.py`` phase 14 trains them: ``fixed-slot``, ``asr``
+(the ``no_unfreezing.cfg`` encoder at ``pretraining_type`` 2 on 2.25 s),
+``seq2seq`` (``all_real_seq2seq.cfg``, U = 32), ``unidirectional`` and
+``rowstack`` (the fixed-slot model with ``gru_layout="rowstack"``), each on
+the batches of ``chip_smoke.py``'s helpers (imported from ``--repo``);
+``--compute-dtype bfloat16`` trains them at bf16. Run from the root of a
+checkout:
 
     python3 tools/torch_decode_profile.py --batch 1 16
     python3 tools/torch_decode_profile.py --train --batch 64
     python3 tools/torch_decode_profile.py --exact --batch 8
     python3 tools/torch_decode_profile.py --train --unidirectional --no-dropout --host-ops 12
     python3 tools/torch_decode_profile.py --seq2seq --batch 16 --seconds 30
+    python3 tools/torch_decode_profile.py --train --compute-dtype bfloat16 \
+        --models fixed-slot asr seq2seq unidirectional rowstack --repo build/parent
 """
 
 from __future__ import annotations
@@ -38,6 +47,88 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TRAIN_MODELS = ("fixed-slot", "asr", "seq2seq", "unidirectional", "rowstack")
+
+
+def step_profile(call, reps: int):
+    """(untraced wall median ms, traced wall ms a call, device busy ms a call,
+    launches a call, [(ms, launches, name)] by kernel) of ``reps`` warm
+    calls of ``call``, after 5 to warm up."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        call()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+        traced_wall = (time.perf_counter() - t0) * 1e3 / reps
+    # a user annotation (e.g. Optimizer.step) spans kernels listed on their own
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    rows = [(e.self_device_time_total / reps / 1e3, e.count / reps, e.key) for e in kernels]
+    return (float(np.median(walls)), traced_wall, sum(r[0] for r in rows), sum(r[1] for r in rows), rows)
+
+
+def train_models(args) -> None:
+    """``--train --models``: each model's warm ``Trainer.train_step`` at B =
+    64 and ``--compute-dtype``, its busy time, idle share and launches."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from tpu_slu_torch import read_config
+    from tpu_slu_torch.models.encoder import PretrainedModel
+    from tpu_slu_torch.models.flagship import (FLAGSHIP_CFG, TRAIN_CFG, UNIDIRECTIONAL, flagship_model,
+                                               flagship_seq2seq_model)
+    from tpu_slu_torch.training import Trainer
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    card = cs.smi()
+    print(f"tpu_slu_torch from {os.path.dirname(os.path.dirname(sys.modules['tpu_slu_torch'].__file__))}, "
+          f"compute_dtype {args.compute_dtype}")
+    for kind in args.models:
+        rng = np.random.default_rng(1)
+        if kind == "asr":
+            config = read_config(FLAGSHIP_CFG, make_dirs=False)
+            config.num_phonemes = 42
+            model = PretrainedModel(config, generator=torch.Generator().manual_seed(1)).to(dev)
+            batch = cs.asr_batches(rng, 1, 64, cs.ASR_T, 42, config.vocabulary_size,
+                                   config.phone_downsample_factor, config.word_downsample_factor)[0]
+        else:
+            model = (flagship_seq2seq_model(dev, seed=1) if kind == "seq2seq" else
+                     flagship_model(dev, cfg=TRAIN_CFG, seed=1, **(UNIDIRECTIONAL if kind == "unidirectional" else {})))
+            if kind == "rowstack":
+                model.pretrained_model.gru_layout = "rowstack"
+            config = model.config
+            B = config.training_batch_size
+            batch = (cs.s2s_batches(rng, 1, B, model.Sy_intent) if kind == "seq2seq"
+                     else cs.synthetic_batches(rng, 1, B, model.values_per_slot))[0]
+        config.folder = tempfile.mkdtemp(prefix="train_profile_")
+        config.compute_dtype = args.compute_dtype
+        trainer = Trainer(model, config, generator=torch.Generator().manual_seed(7))
+        dbatch = trainer._to_device(batch)
+        wall, traced, busy, launches, rows = step_profile(lambda: trainer.train_step(dbatch), args.reps)
+        print(f"{kind}: warm Trainer.train_step B={len(batch['x'])} at {args.compute_dtype}: wall median "
+              f"{wall:.3f} ms of {args.reps} (host clock, synchronised); traced: wall {traced:.3f} ms a step, "
+              f"device busy {busy:.3f} ms, idle share {1 - busy / traced:.3f}, {launches:.0f} launches a step; "
+              f"{card}")
+        for ms, n, key in rows[:12]:
+            print(f"  {ms:8.4f} ms  {n:5.1f} launches  {key[:90]}")
 
 
 def main() -> None:
@@ -52,8 +143,16 @@ def main() -> None:
     ap.add_argument("--no-dropout", action="store_true", help="the GRU layers' dropout at 0")
     ap.add_argument("--host-ops", type=int, default=0, help="list the N operators of most host time")
     ap.add_argument("--repo", default=HERE, help="the checkout whose tpu_slu_torch to import")
+    ap.add_argument("--models", nargs="+", choices=list(TRAIN_MODELS), help="--train: these models' steps")
+    ap.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="--train --models: the trainers' compute_dtype")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.repo))
+    if args.models:
+        if not args.train:
+            raise SystemExit("--models times train steps: add --train")
+        train_models(args)
+        return
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile

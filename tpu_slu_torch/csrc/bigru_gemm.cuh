@@ -1,5 +1,6 @@
-// The one f32 GEMM core of the bi-GRU kernels (K1-K6), for sm_90a: every
-// product off the recurrent chain goes through `gemm_kernel`.
+// The GEMM core of the bi-GRU kernels (K1-K6), for sm_90a: every product
+// off the recurrent chain goes through it, `gemm_kernel` at f32 (below) and
+// `gemm_kernel_tc` or `gemm_kernel_mixed` at bf16 (further below).
 //
 //   * gi = [x1 | x2] W_ih^T + b_ih (K1, K2, K4f, K5f, K6 and phase 1 of K3,
 //     K4b, K5b; K6's row-stacked rows and bias fold in the epilogue), and
@@ -15,7 +16,7 @@
 //     is taken from the shared-memory tiles by the CTAs of the first column
 //     tile. No float atomics: repeated runs agree bit for bit.
 //
-// What bounds the products on this card: f32 FMAs. K3 at the flagship's five
+// What bounds the f32 products on this card: FMAs. K3 at the flagship's five
 // layers and B = 64 runs ~55 GFLOP of them (dW 21.7, dX 11.8, the recomputed
 // gi 11.8 and gh 9.75), 0.82 ms at the 67 TFLOP/s f32 peak; the bytes are a
 // small fraction of that at 3.35 TB/s. What the design does about it:
@@ -39,16 +40,39 @@
 // may be read as bf16 (the parts, h_prev), or as f32 rounded to bf16 on the
 // way (the f32 master weights W_ih and W_hh, and dX's dgi, as the TPU
 // kernel rounds them before its products), and dX may be written as bf16.
-// Such an operand is not copied by cp.async: each thread loads its elements
-// of the slice two slices ahead into registers, widens them to f32 (exact),
-// multiplies the current slice, then stores them into the ring's f32 tile,
-// so the loads are in flight during the products and the inner loop is the
-// f32 one. A bf16 x bf16 product is exact in f32, so this is a bf16 MMA
-// with f32 accumulation up to the order of the sums. The f32 products keep
-// their own kernel, `gemm_kernel`, the code it was; the bf16 ones run
-// `gemm_kernel_mixed`, its copy with the register path (one template for
-// both moved the f32 instantiations' registers on an H100: gi/gh and dW
-// spilled, and K4b's and K5b's core phases ran 4-7% slower).
+// The products whose operands are both bf16 (gi, gh and dX at bf16: the TPU
+// kernel's `jnp.dot(bf16, bf16, preferred_element_type=f32)`, pallas_gru.py
+// `_mxu`) run on the tensor cores, `gemm_kernel_tc`: bf16 `mma.sync`
+// m16n8k16 with f32 accumulators. What bounds them is bytes, not
+// operations: K3's at the flagship's five layers and B = 64 are 33 GFLOP
+// (0.034 ms at 989 TFLOP/s) but move ~0.5 GB (the f32 gi, gh and dgi of M =
+// 49,600 rows by 768 columns), ~0.15 ms at 3.35 TB/s. What the design does:
+//   * both operands stored in shared memory as bf16, never widened: A
+//     [row][k], B [n][k] (gi, gh) or [k][n] (dX, read by `ldmatrix.trans`),
+//     rows padded by 8 values so that each `ldmatrix` phase reads 8 rows
+//     without a bank conflict; 32-deep k slices (two mma k steps), zeros
+//     past every edge, so any K (60, two segments) is taken;
+//   * the operands reach the tile through registers, 4 values a load (8
+//     bytes bf16, 16 bytes f32) where the segment's base and row pitch
+//     allow it, else value by value (parts and h_prev at any 2-byte
+//     offset): slice q + 2 is loaded while slice q is multiplied, and
+//     stored (an f32 operand rounded to bf16 on the way) after the next
+//     barrier into a 2-stage ring, one barrier a slice;
+//   * 256 threads, 8 warps of 16-32 x 16-32 outputs each; the tile, 128 x
+//     64, 64 x 64 or 64 x 32, the largest that gives every SM two CTAs
+//     (`tc_tile`), so that the flagship's smallest layers still fill the
+//     card;
+//   * the epilogue of the FMA kernels (bias, K6's fold and row map,
+//     n_split/out2, bf16 dX), on 4-column blocks gathered from the mma
+//     fragments by one shuffle; no split of k, no atomics, so repeated runs
+//     agree bit for bit.
+// dW stays on the FMA path, `gemm_kernel_mixed`: the TPU kernel takes it in
+// f32 from the unrounded f32 dgi and dgh (pallas_gru.py:1441-1443), which a
+// bf16 mma would round. Its bf16 operand goes through registers two slices
+// ahead and is widened to f32 (exact) into the ring's f32 tile. The f32
+// products keep their own kernel, `gemm_kernel`, the code it was (one
+// template for both moved the f32 instantiations' registers on an H100:
+// gi/gh and dW spilled, and K4b's and K5b's core phases ran 4-7% slower).
 //
 // Included by bigru_common.cuh; the anonymous namespace gives each source
 // its own copy.
@@ -65,6 +89,14 @@
 
 #include "cp_async.cuh"
 
+// Launches of gemm_kernel_tc since the library was loaded or the count was
+// last zeroed (ops/bigru_gemm.py `tc_launches`): every source that includes
+// this header adds to the one count of the library, the linker merging the
+// weak definitions.
+extern "C" {
+__attribute__((weak)) unsigned long long tsl_gemm_tc_launches = 0;
+}
+
 namespace {
 
 constexpr int kBK = 8;          // depth of a k slice
@@ -74,9 +106,9 @@ constexpr int kMaxProblems = 4;
 constexpr int kLayK = 0;        // element (r, k) at p[r * ld + k]
 constexpr int kLayR = 1;        // element (r, k) at p[k * ld + r]
 // how the core reads an operand
-constexpr int kOpF32 = 0;       // f32, by cp.async
-constexpr int kOpBF16 = 1;      // bf16, through registers, widened to f32
-constexpr int kOpRound = 2;     // f32 rounded to bf16 (round to nearest even), through registers
+constexpr int kOpF32 = 0;       // f32, by cp.async (the FMA kernels)
+constexpr int kOpBF16 = 1;      // bf16 (gemm_kernel_tc; gemm_kernel_mixed widens it to f32)
+constexpr int kOpRound = 2;     // f32 rounded to bf16, round to nearest even
 
 template <int MODE>
 struct OpElem {
@@ -228,7 +260,7 @@ __device__ __forceinline__ void put_slice(float* s, const float (&v)[R * kBK / N
   }
 }
 
-// store4 for bf16 outputs (gemm_kernel_mixed's OBF): v rounded to the
+// store4 for bf16 outputs (OBF): v rounded to the
 // nearest even bf16, out and out2 holding bf16 addresses.
 __device__ __forceinline__ void store4_bf16(const GemmProblem& P, size_t row, size_t shift, int n,
                                             const float (&v)[4]) {
@@ -571,6 +603,287 @@ __global__ void __launch_bounds__((BM / 8) * (BN / TN), 2)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 tensor-core core: gemm_kernel_tc
+// ---------------------------------------------------------------------------
+
+constexpr int kTcBK = 32;       // depth of a k slice: two m16n8k16 steps
+constexpr int kTcPad = 8;       // bf16 values of padding after each row of a tile
+constexpr int kTcThreads = 256;
+
+// Four consecutive values of an operand in mode MODE as loaded: 4 bf16 in
+// 8 bytes (kOpBF16) or 4 f32 in 16 bytes (kOpRound).
+template <int MODE>
+using TcRaw = std::conditional_t<MODE == kOpBF16, uint2, float4>;
+
+// The values src[0..n) of an operand, zeros from n on (n <= 0: nothing is
+// read); one load where `vec` (src aligned to the four values) and n = 4.
+template <int MODE>
+__device__ __forceinline__ TcRaw<MODE> tc_load4(const typename OpElem<MODE>::T* src, int n,
+                                                 bool vec) {
+  if (vec && n >= 4) return *reinterpret_cast<const TcRaw<MODE>*>(src);
+  if constexpr (MODE == kOpBF16) {
+    const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+    unsigned e[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) e[j] = j < n ? s[j] : 0u;
+    return make_uint2(e[0] | (e[1] << 16), e[2] | (e[3] << 16));
+  } else {
+    float e[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) e[j] = j < n ? src[j] : 0.0f;
+    return make_float4(e[0], e[1], e[2], e[3]);
+  }
+}
+
+// tc_load4's values as 4 bf16 (f32 rounded to the nearest even bf16).
+template <int MODE>
+__device__ __forceinline__ uint2 tc_pack(const TcRaw<MODE>& v) {
+  if constexpr (MODE == kOpBF16) {
+    return v;
+  } else {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+    return make_uint2(*reinterpret_cast<const unsigned*>(&lo), *reinterpret_cast<const unsigned*>(&hi));
+  }
+}
+
+// A segment may be read 4 values a load: its base aligned to them, its row
+// pitch a multiple of 4.
+template <typename T>
+__device__ __forceinline__ bool tc_vec(const T* p, int ld) {
+  return (reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T))) == 0 && ld % 4 == 0;
+}
+
+// One operand's R x kTcBK slice (rows r0.., k0..) in the registers of this
+// thread: R * kTcBK / 4 chunks of 4 values along the operand's contiguous
+// index, chunk tid + j * kTcThreads for j < kChunks, consecutive threads on
+// consecutive addresses. Stored into a stage as [r][k] (pitch kTcBK + kTcPad)
+// for kLayK, [k][r] (pitch R + kTcPad) for kLayR.
+template <int L, int R, int MODE>
+struct TcSlice {
+  static constexpr int kChunks = R * kTcBK / 4 / kTcThreads;
+  static constexpr int kPitch = L == kLayK ? kTcBK + kTcPad : R + kTcPad;
+  static constexpr int kStage = L == kLayK ? R * kPitch : kTcBK * kPitch;  // bf16 values
+  static_assert(kChunks >= 1 && kChunks * 4 * kTcThreads == R * kTcBK, "tile and threads do not divide");
+  TcRaw<MODE> v[kChunks];
+
+  // (row, k) offsets in the tile of chunk j, for kLayK / kLayR
+  __device__ __forceinline__ static void at(int j, int tid, int* r, int* k) {
+    const int c = tid + j * kTcThreads;
+    if constexpr (L == kLayK) {
+      *r = c / (kTcBK / 4);
+      *k = c % (kTcBK / 4) * 4;
+    } else {
+      *k = c / (R / 4);
+      *r = c % (R / 4) * 4;
+    }
+  }
+
+  __device__ __forceinline__ void fetch(const typename OpElem<MODE>::T* p, int ld, bool vec, int r0,
+                                        int rmax, int k0, int kmax, int tid) {
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      int r, k;
+      at(j, tid, &r, &k);
+      const int gr = r0 + r, gk = k0 + k;
+      int n;
+      size_t off = 0;
+      if constexpr (L == kLayK) {
+        n = gr < rmax ? kmax - gk : 0;
+        if (n > 0) off = (size_t)gr * ld + gk;
+      } else {
+        n = gk < kmax ? rmax - gr : 0;
+        if (n > 0) off = (size_t)gk * ld + gr;
+      }
+      v[j] = tc_load4<MODE>(p + off, n, vec);
+    }
+  }
+
+  __device__ __forceinline__ void store(__nv_bfloat16* s, int tid) const {
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      int r, k;
+      at(j, tid, &r, &k);
+      *reinterpret_cast<uint2*>(s + (L == kLayK ? r * kPitch + k : k * kPitch + r)) = tc_pack<MODE>(v[j]);
+    }
+  }
+};
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const __nv_bfloat16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const __nv_bfloat16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// d += a b: a 16 x 16 bf16 tile of A (row-major fragments), b a 16 x 8 tile
+// of B (column-major), d 16 x 8 f32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The FMA kernels' epilogue on one 4-column block of output (m, n..n + 3):
+// bias and fold, K6's row map, store4 (f32) or store4_bf16 (OBF).
+template <bool OBF>
+__device__ __forceinline__ void tc_epilogue4(const GemmProblem& P, int m, int n, float (&v)[4]) {
+  if (m >= P.M || n >= P.N) return;
+  size_t row = m;
+  if (P.rs_B > 0) {
+    const int T = P.M / P.rs_B, t = m / P.rs_B, b = m % P.rs_B;
+    row = (size_t)(P.rs_dir ? T - 1 - t : t) * 2 * P.rs_B + (size_t)P.rs_dir * P.rs_B + b;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = n + j;
+    if (P.bias != nullptr && c < P.N) {
+      v[j] += P.bias[c];
+      if (c < P.fold_n) v[j] += P.fold[c];
+    }
+  }
+  if constexpr (OBF) {
+    store4_bf16(P, row, 0, n, v);
+  } else {
+    store4(P, row, 0, n, v);
+  }
+}
+
+// The core on the tensor cores, for A read in mode MA (kOpBF16 or kOpRound)
+// and B in mode MB = kOpRound, in layouts LA = kLayK and LB (kLayK for gi
+// and gh, kLayR for dX), bf16 outputs with OBF; GemmProblem's fields but
+// db and the row chunks (kchunk). Grid: x column tiles, y row tiles (of the
+// largest problem), z problem; 256 threads in WARPS_M x WARPS_N warps, warp
+// (wm, wn) owning the WM x WN block (wm WM.., wn WN..) of the BM x BN tile as
+// MI x NI mma tiles of 16 x 8.
+template <int LA, int LB, int MA, int MB, bool OBF, int BM, int BN>
+__global__ void __launch_bounds__(kTcThreads, 2) gemm_kernel_tc(const __grid_constant__ GemmArgs args) {
+  static_assert(LA == kLayK && MA != kOpF32 && MB == kOpRound, "gemm_kernel_tc: A along k, both bf16");
+  constexpr int WARPS_M = 4, WARPS_N = kTcThreads / 32 / WARPS_M;
+  constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N, MI = WM / 16, NI = WN / 8;
+  static_assert(MI >= 1 && NI % 2 == 0 && MI * 16 * WARPS_M == BM && NI * 8 * WARPS_N == BN, "warp tiles");
+  using SA = TcSlice<LA, BM, MA>;
+  using SB = TcSlice<LB, BN, MB>;
+  using TA = typename OpElem<MA>::T;
+  using TB = typename OpElem<MB>::T;
+  __shared__ __align__(16) __nv_bfloat16 As[2][SA::kStage];
+  __shared__ __align__(16) __nv_bfloat16 Bs[2][SB::kStage];
+
+  const GemmProblem& P = args.p[blockIdx.z];
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  if (m0 >= P.M || n0 >= P.N) return;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+
+  const TA* a0 = reinterpret_cast<const TA*>(P.a0);
+  const TA* a1 = reinterpret_cast<const TA*>(P.a1);
+  const TB* b0 = reinterpret_cast<const TB*>(P.b0);
+  const TB* b1 = reinterpret_cast<const TB*>(P.b1);
+  const bool va0 = tc_vec(a0, P.lda0), vb0 = tc_vec(b0, P.ldb0);
+  const bool va1 = P.K1 > 0 && tc_vec(a1, P.lda1), vb1 = P.K1 > 0 && tc_vec(b1, P.ldb1);
+  const int nt0 = (P.K0 + kTcBK - 1) / kTcBK;
+  const int ntiles = nt0 + (P.K1 + kTcBK - 1) / kTcBK;
+
+  SA ra;
+  SB rb;
+  auto fetch = [&](int q) {
+    const bool s1 = q >= nt0;
+    const int k0 = (s1 ? q - nt0 : q) * kTcBK, K = s1 ? P.K1 : P.K0;
+    ra.fetch(s1 ? a1 : a0, s1 ? P.lda1 : P.lda0, s1 ? va1 : va0, m0, P.M, k0, K, tid);
+    rb.fetch(s1 ? b1 : b0, s1 ? P.ldb1 : P.ldb0, s1 ? vb1 : vb0, n0, P.N, k0, K, tid);
+  };
+
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  if (ntiles > 0) {
+    fetch(0);
+    ra.store(As[0], tid);
+    rb.store(Bs[0], tid);
+  }
+  if (ntiles > 1) fetch(1);
+  for (int q = 0; q < ntiles; ++q) {
+    // slice q's stage is complete; slice q + 1's stage was last read in iteration q - 1
+    __syncthreads();
+    if (q + 1 < ntiles) {
+      ra.store(As[(q + 1) % 2], tid);
+      rb.store(Bs[(q + 1) % 2], tid);
+    }
+    if (q + 2 < ntiles) fetch(q + 2);
+    const __nv_bfloat16* as = As[q % 2];
+    const __nv_bfloat16* bs = Bs[q % 2];
+#pragma unroll
+    for (int ks = 0; ks < kTcBK; ks += 16) {
+      unsigned af[MI][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        ldmatrix_x4(af[i], as + (wm * WM + i * 16 + lane % 16) * SA::kPitch + ks + lane / 16 * 8);
+#pragma unroll
+      for (int j = 0; j < NI; j += 2) {
+        // b[0], b[1]: the k halves of n tile j; b[2], b[3]: of n tile j + 1
+        unsigned b[4];
+        if constexpr (LB == kLayK) {
+          ldmatrix_x4(b, bs + (wn * WN + j * 8 + lane % 8 + lane / 16 * 8) * SB::kPitch + ks +
+                             lane / 8 % 2 * 8);
+        } else {
+          ldmatrix_x4_trans(b, bs + (ks + lane % 8 + lane / 8 % 2 * 8) * SB::kPitch + wn * WN + j * 8 +
+                                   lane / 16 * 8);
+        }
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          mma_bf16(acc[i][j], af[i], b[0], b[1]);
+          mma_bf16(acc[i][j + 1], af[i], b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  // Lane (g, c) = (lane / 4, lane % 4) holds rows g and g + 8, columns 2c and
+  // 2c + 1 of each mma tile; an exchange with lane c ^ 1 leaves the even lane
+  // row g and the odd lane row g + 8, each at columns 4 (c / 2) .. + 3.
+  const int g = lane / 4, c = lane % 4;
+  const bool odd = c & 1;
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+      const float* a = acc[i][j];
+      const float x0 = __shfl_xor_sync(0xffffffffu, odd ? a[0] : a[2], 1);
+      const float x1 = __shfl_xor_sync(0xffffffffu, odd ? a[1] : a[3], 1);
+      float v[4] = {odd ? x0 : a[0], odd ? x1 : a[1], odd ? a[2] : x0, odd ? a[3] : x1};
+      tc_epilogue4<OBF>(P, m0 + wm * WM + i * 16 + g + (odd ? 8 : 0), n0 + wn * WN + j * 8 + c / 2 * 4,
+                        v);
+    }
+  }
+}
+
+// The tile of gemm_kernel_tc for nprob problems of at most M x N: 0 (128 x
+// 64), 1 (64 x 64) or 2 (64 x 32), the largest whose grid gives every SM
+// two CTAs; else the smallest.
+inline int tc_tile(int nprob, int M, int N, int sms) {
+  constexpr int kBM[3] = {128, 64, 64}, kBN[3] = {64, 64, 32};
+  for (int t = 0; t < 3; ++t) {
+    if ((long long)nprob * ((M + kBM[t] - 1) / kBM[t]) * ((N + kBN[t] - 1) / kBN[t]) >= 2LL * sms) return t;
+  }
+  return 2;
+}
+
 inline cudaError_t sm_count(int* sms) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -578,31 +891,70 @@ inline cudaError_t sm_count(int* sms) {
   return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
-// Launches the core over args' problems and `nchunks` row chunks, with the
-// 128 x BN tile (BN 64 or 128): gemm_kernel, or gemm_kernel_mixed with the
-// operands read in modes MA and MB and bf16 outputs with OBF.
-template <int LA, int LB, int MA = kOpF32, int MB = kOpF32, bool OBF = false>
-cudaError_t launch_gemm(const GemmArgs& args, int nchunks, int bn, cudaStream_t st) {
+// gemm_kernel_tc over args' problems on the tile tc_tile picks; refuses
+// row chunks and db, which it does not take.
+template <int LA, int LB, int MA, int MB, bool OBF>
+cudaError_t launch_gemm_tc(const GemmArgs& args, int nchunks, cudaStream_t st) {
   int M = 0, N = 0;
   for (int i = 0; i < args.nprob; ++i) {
+    if (args.p[i].db != nullptr) return cudaErrorInvalidValue;
     M = std::max(M, args.p[i].M);
     N = std::max(N, args.p[i].N);
   }
+  if (nchunks != 1 || args.kchunk != 0) return cudaErrorInvalidValue;
   if (M == 0 || N == 0) return cudaSuccess;
-  const unsigned z = (unsigned)(args.nprob * nchunks);
-  const dim3 g64((N + 63) / 64, (M + 127) / 128, z), g128((N + 127) / 128, (M + 127) / 128, z);
-  if constexpr (MA == kOpF32 && MB == kOpF32 && !OBF) {
-    if (bn == 64) {
-      gemm_kernel<LA, LB, 128, 64, 4><<<g64, 256, 0, st>>>(args);
-    } else {
-      gemm_kernel<LA, LB, 128, 128, 8><<<g128, 256, 0, st>>>(args);
-    }
-  } else if (bn == 64) {
-    gemm_kernel_mixed<LA, LB, 128, 64, 4, MA, MB, OBF><<<g64, 256, 0, st>>>(args);
-  } else {
-    gemm_kernel_mixed<LA, LB, 128, 128, 8, MA, MB, OBF><<<g128, 256, 0, st>>>(args);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const unsigned z = (unsigned)args.nprob;
+  __atomic_fetch_add(&tsl_gemm_tc_launches, 1ULL, __ATOMIC_RELAXED);
+  switch (tc_tile(args.nprob, M, N, sms)) {
+    case 0:
+      gemm_kernel_tc<LA, LB, MA, MB, OBF, 128, 64>
+          <<<dim3((N + 63) / 64, (M + 127) / 128, z), kTcThreads, 0, st>>>(args);
+      break;
+    case 1:
+      gemm_kernel_tc<LA, LB, MA, MB, OBF, 64, 64>
+          <<<dim3((N + 63) / 64, (M + 63) / 64, z), kTcThreads, 0, st>>>(args);
+      break;
+    default:
+      gemm_kernel_tc<LA, LB, MA, MB, OBF, 64, 32>
+          <<<dim3((N + 31) / 32, (M + 63) / 64, z), kTcThreads, 0, st>>>(args);
   }
   return cudaGetLastError();
+}
+
+// Launches the core over args' problems and `nchunks` row chunks: the
+// products whose operands are both bf16 (MA kOpBF16 or kOpRound, MB
+// kOpRound) on the tensor cores, gemm_kernel_tc on its own tile; the others
+// with the 128 x BN tile (BN 64 or 128): gemm_kernel (f32), or
+// gemm_kernel_mixed (dW at bf16: MA kOpF32, MB kOpBF16).
+template <int LA, int LB, int MA = kOpF32, int MB = kOpF32, bool OBF = false>
+cudaError_t launch_gemm(const GemmArgs& args, int nchunks, int bn, cudaStream_t st) {
+  if constexpr (MA != kOpF32 && MB == kOpRound) {
+    return launch_gemm_tc<LA, LB, MA, MB, OBF>(args, nchunks, st);
+  } else {
+    int M = 0, N = 0;
+    for (int i = 0; i < args.nprob; ++i) {
+      M = std::max(M, args.p[i].M);
+      N = std::max(N, args.p[i].N);
+    }
+    if (M == 0 || N == 0) return cudaSuccess;
+    const unsigned z = (unsigned)(args.nprob * nchunks);
+    const dim3 g64((N + 63) / 64, (M + 127) / 128, z), g128((N + 127) / 128, (M + 127) / 128, z);
+    if constexpr (MA == kOpF32 && MB == kOpF32 && !OBF) {
+      if (bn == 64) {
+        gemm_kernel<LA, LB, 128, 64, 4><<<g64, 256, 0, st>>>(args);
+      } else {
+        gemm_kernel<LA, LB, 128, 128, 8><<<g128, 256, 0, st>>>(args);
+      }
+    } else if (bn == 64) {
+      gemm_kernel_mixed<LA, LB, 128, 64, 4, MA, MB, OBF><<<g64, 256, 0, st>>>(args);
+    } else {
+      gemm_kernel_mixed<LA, LB, 128, 128, 8, MA, MB, OBF><<<g128, 256, 0, st>>>(args);
+    }
+    return cudaGetLastError();
+  }
 }
 
 // The column tile of an unsplit product: 64 where the output is narrow or

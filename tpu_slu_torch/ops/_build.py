@@ -81,6 +81,9 @@ _SIGNATURES = {
     "tsl_gemm_proj": (_I, [_P, _I, _P, _I, _P, _P, _P, _I, _I, _P]),
     "tsl_gemm_dx": (_I, [_P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P]),
     "tsl_gemm_dw": (_I, [_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _P]),
+    "tsl_gemm_proj_bf16": (_I, [_P, _I, _P, _I, _P, _P, _P, _I, _I, _P]),
+    "tsl_gemm_proj_rs_bf16": (_I, [_P, _I, _P, _I] + [_P] * 7 + [_I] * 3 + [_P]),
+    "tsl_gemm_dx_bf16": (_I, [_P, _I, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P]),
     "tsl_error_string": (ctypes.c_char_p, [_I]),
 }
 
