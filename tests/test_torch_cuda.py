@@ -2261,3 +2261,22 @@ def test_bf16_k3_takes_h_prev_at_an_odd_offset(dev, fused):
     torch.cuda.synchronize()
     assert hp_f.data_ptr() % 4 == 0 and hp_b.data_ptr() % 4 == 0
     _assert_grads_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_the_step_timer_waits_for_the_device_only_in_its_summary(dev):
+    """``StepTimer`` on the card: each step records an event and returns
+    while the device still runs it; ``summary`` synchronises once and reads
+    each step's device time from the events."""
+    from tpu_slu_torch.utils.profiling import StepTimer
+
+    cycles = 40_000_000  # 20 ms at 2 GHz, more at lower clocks
+    timer = StepTimer(dev)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with timer.step():
+            torch.cuda._sleep(cycles)
+    assert not timer._end.query()  # the host did not wait for the steps
+    got = timer.summary()
+    assert got["steps"] == 3 and timer._end.query()
+    assert 10.0 <= got["step_ms_p50"] <= got["step_ms_p99"] and got["step_ms_mean"] >= 10.0

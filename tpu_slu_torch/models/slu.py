@@ -46,6 +46,7 @@ from tpu_slu_torch.ops.beam import decoder_cells
 from tpu_slu_torch.ops.beam_fused import beam_decode
 from tpu_slu_torch.ops.bigru_masked import bigru_masked
 from tpu_slu_torch.ops.gru import gru_cell_step
+from tpu_slu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -329,9 +330,12 @@ def seq2seq_beam_infer(encoder: Seq2SeqEncoder, decoder: Seq2SeqDecoder, arch: S
     """Beam-search decode of encoder features: (scores (W, B), tokens (W,
     B, max_decode_len)). ``n_valid`` (B,) counts the frames attention sees
     (a prefix; None: all); ``n_frames`` as :func:`seq2seq_encode`. The
-    search is K7 on the card, one launch (:func:`beam_decode`)."""
-    keys, values = attention_kv(decoder.attention, seq2seq_encode(encoder, arch, feats, n_frames))
-    return beam_decode(decoder, keys, values, n_valid, beam_width, arch.max_decode_len)
+    search is K7 on the card, one launch (:func:`beam_decode`). Spans
+    ``decode.encode`` and ``decode.search`` while a profiler runs."""
+    with span("decode.encode"):
+        keys, values = attention_kv(decoder.attention, seq2seq_encode(encoder, arch, feats, n_frames))
+    with span("decode.search"):
+        return beam_decode(decoder, keys, values, n_valid, beam_width, arch.max_decode_len)
 
 
 # ---------------------------------------------------------------------------
@@ -574,61 +578,77 @@ class Model(nn.Module):
           equal to its example decoded alone at its exact shape;
         * with the config's ``mask_padding=False`` the exact path is off
           (strict reference emulation: the padding leaks).
+
+        While a profiler runs, its parts are spans one after another:
+        ``decode.h2d`` (the input's copy to the device), ``decode.frontend``
+        (the features and their valid frames), ``decode.encode`` (the intent
+        encoder, the seq2seq head's keys and values, or the fixed-slot head)
+        and the seq2seq head's ``decode.search``.
         """
         dev = self.device
-        x = torch.as_tensor(np.asarray(x, np.float32) if not torch.is_tensor(x) else x,
-                            dtype=torch.float32, device=dev)
-        if x.dim() == 1:
-            x = x[None, :]
-        exact = lengths is not None
-        if lengths is None:
-            lengths = torch.full((x.shape[0],), x.shape[1], dtype=torch.int64, device=dev)
-        else:
-            lengths = torch.as_tensor(np.asarray(lengths) if not torch.is_tensor(lengths) else lengths,
-                                      dtype=torch.int64, device=dev)
-        if bucket:
-            t_pad = pad_to_bucket(x.shape[1], WAVE_BUCKET_QUANT)
-            if t_pad != x.shape[1]:
-                x = F.pad(x, (0, t_pad - x.shape[1]))
-            exact = True
+        with span("decode.h2d"):
+            x = torch.as_tensor(np.asarray(x, np.float32) if not torch.is_tensor(x) else x,
+                                dtype=torch.float32, device=dev)
+            if x.dim() == 1:
+                x = x[None, :]
+            exact = lengths is not None
+            if lengths is None:
+                lengths = torch.full((x.shape[0],), x.shape[1], dtype=torch.int64, device=dev)
+            else:
+                lengths = torch.as_tensor(np.asarray(lengths) if not torch.is_tensor(lengths) else lengths,
+                                          dtype=torch.int64, device=dev)
+            if bucket:
+                t_pad = pad_to_bucket(x.shape[1], WAVE_BUCKET_QUANT)
+                if t_pad != x.shape[1]:
+                    x = F.pad(x, (0, t_pad - x.shape[1]))
+                exact = True
         mask_padding = getattr(self.config, "mask_padding", True)
         exact = exact and mask_padding
         if self.seq2seq:
-            feats = encoder_features(self.pretrained_model, x, lengths=lengths if exact else None)
-            n_valid = valid_frames(self.encoder_arch, lengths, feats.shape[1]) if mask_padding else None
-            return seq2seq_beam_infer(
-                self.encoder, self.decoder, self.seq2seq_arch, feats, beam_width, n_valid=n_valid,
-                n_frames=self.encoder_arch.num_frames(lengths) if exact else None)
-        if exact:
-            feats = encoder_features(self.pretrained_model, x, lengths=lengths)
-            logits = intent_logits(self.intent_layers, self.intent_arch, feats,
-                                   n_frames=self.encoder_arch.num_frames(lengths))
-        else:
-            feats = encoder_features(self.pretrained_model, x)
-            fm = None
-            if mask_padding:
-                t_out = frames_through(self.intent_arch.layers, feats.shape[1])
-                fm = frame_mask_from_lengths(self.encoder_arch, lengths, t_out, self.intent_arch)
-            logits = intent_logits(self.intent_layers, self.intent_arch, feats, frame_mask=fm,
-                                   gru_layout=self.pretrained_model.gru_layout)
-        return logits, intent_predictions(logits, self.values_per_slot)
+            with span("decode.frontend"):
+                feats = encoder_features(self.pretrained_model, x, lengths=lengths if exact else None)
+                n_valid = valid_frames(self.encoder_arch, lengths, feats.shape[1]) if mask_padding else None
+                n_frames = self.encoder_arch.num_frames(lengths) if exact else None
+            return seq2seq_beam_infer(self.encoder, self.decoder, self.seq2seq_arch, feats, beam_width,
+                                      n_valid=n_valid, n_frames=n_frames)
+        with span("decode.frontend"):
+            if exact:
+                feats = encoder_features(self.pretrained_model, x, lengths=lengths)
+                head = {"n_frames": self.encoder_arch.num_frames(lengths)}
+            else:
+                feats = encoder_features(self.pretrained_model, x)
+                fm = None
+                if mask_padding:
+                    t_out = frames_through(self.intent_arch.layers, feats.shape[1])
+                    fm = frame_mask_from_lengths(self.encoder_arch, lengths, t_out, self.intent_arch)
+                head = {"frame_mask": fm, "gru_layout": self.pretrained_model.gru_layout}
+        with span("decode.encode"):
+            logits = intent_logits(self.intent_layers, self.intent_arch, feats, **head)
+            return logits, intent_predictions(logits, self.values_per_slot)
 
     def decode_intents(self, x, bucket: bool = False, lengths=None) -> list:
         """Waveform(s) -> one list of slot-value strings per example, or for
         the seq2seq head one semantics string per example, from the best
-        beam (``bucket``/``lengths`` as :meth:`predict_intents`)."""
-        _, predicted = self.predict_intents(x, bucket=bucket, lengths=lengths)
-        if self.seq2seq:
-            return [self.ids_to_string(ids, self.Sy_intent) for ids in predicted[0].cpu().numpy()]
-        intents = []
-        for prediction in predicted.cpu().numpy():
-            intent = []
-            for idx, slot in enumerate(self.Sy_intent):
-                for value in self.Sy_intent[slot]:
-                    if prediction[idx] == self.Sy_intent[slot][value]:
-                        intent.append(value)
-            intents.append(intent)
-        return intents
+        beam (``bucket``/``lengths`` as :meth:`predict_intents`). A
+        ``decode`` span while a profiler runs, over those of
+        :meth:`predict_intents`, ``decode.readback`` (the answer's copy to
+        the host) and ``decode.strings``."""
+        with span("decode"):
+            _, predicted = self.predict_intents(x, bucket=bucket, lengths=lengths)
+            with span("decode.readback"):
+                predicted = (predicted[0] if self.seq2seq else predicted).cpu().numpy()
+            with span("decode.strings"):
+                if self.seq2seq:
+                    return [self.ids_to_string(ids, self.Sy_intent) for ids in predicted]
+                intents = []
+                for prediction in predicted:
+                    intent = []
+                    for idx, slot in enumerate(self.Sy_intent):
+                        for value in self.Sy_intent[slot]:
+                            if prediction[idx] == self.Sy_intent[slot][value]:
+                                intent.append(value)
+                    intents.append(intent)
+                return intents
 
     @staticmethod
     def ids_to_string(ids, S) -> str:

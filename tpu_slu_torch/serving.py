@@ -24,6 +24,7 @@ from __future__ import annotations
 import argparse
 import collections
 import concurrent.futures as cf
+import itertools
 import json
 import os
 import queue
@@ -37,6 +38,7 @@ from tpu_slu_torch.data.audio import decode_wav_bytes
 from tpu_slu_torch.data.loader import WAVE_BUCKET_QUANT, pad_to_bucket
 from tpu_slu_torch.device import entry_device
 from tpu_slu_torch.models.slu import Model
+from tpu_slu_torch.utils.profiling import record_span, recording, span
 
 __all__ = ["WAVE_BUCKET_QUANT", "IntentServer", "load_trained_model", "make_http_server"]
 
@@ -73,7 +75,15 @@ class IntentServer:
     """Queue + worker thread turning concurrent decode requests into batched
     device calls. Thread-safe; one device call in flight at a time.
     ``batch_sizes`` counts the device calls by the number of requests each
-    carried."""
+    carried.
+
+    While a profiler runs (:mod:`tpu_slu_torch.utils.profiling`) each
+    request gets an id ``rid`` and a ``serve.queue`` span from its submit
+    until the worker takes it, and each device call a ``serve.batch`` span
+    (with the ``rids`` it carried) from its first request taken until its
+    last answer is set, over ``serve.drain``, ``serve.pad``, the model's
+    ``decode`` and ``serve.resolve`` (``set_result`` and the done-callbacks
+    it runs on the worker)."""
 
     def __init__(self, model, max_batch: int = 8, batch_window_ms: float = 5.0,
                  max_seconds: float = 16.0, fs: int = 16000):
@@ -84,6 +94,7 @@ class IntentServer:
         self.fs = fs
         self.batch_sizes: collections.Counter = collections.Counter()
         self._queue: queue.Queue = queue.Queue()
+        self._rids = itertools.count()
         self._stop = threading.Event()
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
@@ -102,7 +113,8 @@ class IntentServer:
                 f"({self.max_samples} samples)"
             )
         fut: cf.Future = cf.Future()
-        self._queue.put((wav, fut))
+        stamp = (next(self._rids), time.time_ns()) if recording() else None
+        self._queue.put((wav, fut, stamp))
         return fut
 
     def decode(self, wav: np.ndarray):
@@ -120,13 +132,18 @@ class IntentServer:
 
     # -- worker ---------------------------------------------------------------
 
-    def _drain(self):
-        """Block for one request, then gather up to max_batch within the
+    def _take(self, timeout: float):
+        """The next request, waiting up to ``timeout`` (raises
+        ``queue.Empty``); ends its ``serve.queue`` span."""
+        item = self._queue.get(timeout=timeout)
+        if item[2] is not None:
+            rid, t_submit = item[2]
+            record_span("serve.queue", t_submit, time.time_ns(), rid=rid)
+        return item
+
+    def _drain(self, first):
+        """Gather up to max_batch requests, ``first`` among them, within the
         batching window."""
-        try:
-            first = self._queue.get(timeout=0.1)
-        except queue.Empty:
-            return []
         items = [first]
         deadline = time.time() + self.batch_window_s
         while len(items) < self.max_batch:
@@ -134,33 +151,41 @@ class IntentServer:
             if remaining <= 0:
                 break
             try:
-                items.append(self._queue.get(timeout=remaining))
+                items.append(self._take(remaining))
             except queue.Empty:
                 break
         return items
 
     def _run(self):
         while not self._stop.is_set():
-            items = self._drain()
-            if not items:
-                continue
             try:
-                results = self._decode_batch([w for w, _ in items])
-                for (_, fut), res in zip(items, results):
-                    fut.set_result(res)
-            except Exception as e:
-                for _, fut in items:
-                    if not fut.done():
-                        fut.set_exception(e)
+                first = self._take(0.1)
+            except queue.Empty:
+                continue
+            with span("serve.batch") as batch:
+                with span("serve.drain"):
+                    items = self._drain(first)
+                if batch:
+                    batch.set(rids=[stamp[0] for _, _, stamp in items if stamp is not None])
+                try:
+                    results = self._decode_batch([w for w, _, _ in items])
+                    with span("serve.resolve"):
+                        for (_, fut, _), res in zip(items, results):
+                            fut.set_result(res)
+                except Exception as e:
+                    for _, fut, _ in items:
+                        if not fut.done():
+                            fut.set_exception(e)
 
     def _decode_batch(self, waves):
         """Pad to (max_batch, bucket) and run ONE length-exact decode."""
-        t_pad = pad_to_bucket(max(len(w) for w in waves), WAVE_BUCKET_QUANT)
-        x = np.zeros((self.max_batch, t_pad), np.float32)
-        lengths = np.zeros((self.max_batch,), np.int64)
-        for i, w in enumerate(waves):
-            x[i, : len(w)] = w
-            lengths[i] = len(w)
+        with span("serve.pad"):
+            t_pad = pad_to_bucket(max(len(w) for w in waves), WAVE_BUCKET_QUANT)
+            x = np.zeros((self.max_batch, t_pad), np.float32)
+            lengths = np.zeros((self.max_batch,), np.int64)
+            for i, w in enumerate(waves):
+                x[i, : len(w)] = w
+                lengths[i] = len(w)
         self.batch_sizes[len(waves)] += 1
         decoded = self.model.decode_intents(x, lengths=lengths)
         return decoded[: len(waves)]
