@@ -54,10 +54,11 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    K4f (the length-masked bi-GRU) against its plain version at the five
    layer shapes, B = 8, seeded mixed lengths with exact zeros past each; a
    ``predict_intents(lengths=)`` of an (8, 4 s) padded batch against each
-   example's exact-shape decode (the K1 path), 5 K4f and 0 K1 launches a
-   call; an ``IntentServer(max_batch=8)`` answering 32 seeded requests of
-   1.0-4.0 s from 8 threads, each answer equal to its exact-shape decode,
-   5 K4f launches per device call; ``make_http_server`` on the golden
+   example's exact-shape decode (the K1 path), 5 K4f and 0 K1 launches on
+   the shape's first call (its CUDA graph's eager warm pass); an
+   ``IntentServer(max_batch=8)`` answering 32 seeded requests of 1.0-4.0 s
+   from 8 threads, each answer equal to its exact-shape decode, each device
+   call a graph's replay, 5 K4f launches a capture; ``make_http_server`` on the golden
    checkpoint decoding every golden wav; warm timings of K4f (its us a
    step), ``[k4f-batch]`` its five layers with mixed lengths on clusters of
    2 and of 4 CTAs in turns at B = 1, 8 and 64 (``k4f_other_c``), of the
@@ -82,7 +83,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    and plan, and its step split by phase from a traced build of the kernel
    (the ``k7_trace`` variant), and at W = 16, 20 (smem plan) and 32 (global
    plan), the warm decode, its device time by kernel; ``[serve]`` the seq2seq ``IntentServer`` with the traffic
-   of phase 7, one K7 and five K4f launches per device call, p50/p90;
+   of phase 7, each device call a graph's replay, one K7 and five K4f
+   launches a capture, p50/p90;
 9. seq2seq train step at the width of ``all_real_seq2seq.cfg``: ``[k4b]``
    K4b (the length-masked bi-GRU backward) against its plain version at the
    seq2seq encoder layer (B = 64, T = 25, D = 256, every row T), at B = 8
@@ -182,8 +184,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    Adam step's sign is settled; ``[dp-test]`` a 2-rank ``Trainer.test`` of
    the ``all_real_seq2seq.cfg`` model at ``decode_acc_from_epoch`` 0 on 32
    utterances of 1.0-4.0 s against the one-process test: the loss within
-   1e-5 relative, every decoded string equal, K4f and one K7 a batch on
-   each rank; ``[profile-dir]`` epoch 0 of ``Trainer.train`` with
+   1e-5 relative, every decoded string equal, each batch's decode a CUDA
+   graph's replay, one K7 launch a capture (its eager warm pass) on each
+   rank; ``[profile-dir]`` epoch 0 of ``Trainer.train`` with
    ``profile_dir`` set: its trace's CUDA kernel events name K1, K2 and K3
    as often as their launch counters count, and epoch 1 writes no trace;
 14. ``compute_dtype=bfloat16`` (``[bf16]``): first ``[bf16-core]``, the
@@ -724,6 +727,13 @@ class Batches:
 
     def __init__(self, batches):
         self.loader = batches
+
+
+def graph_counts(model) -> tuple[int, int]:
+    """(captures, replays) of the model's length-exact decode graphs
+    (``models/decode_graph.py``): a served call replays its shape's graph,
+    and the wrappers count the launches of a capture's eager warm pass."""
+    return model.decode_graphs.captures, model.decode_graphs.replays
 
 
 def serve_requests(server, reqs, threads: int = 8) -> tuple[list, dict]:
@@ -1468,14 +1478,17 @@ def phase_serve(dev, card: str, rng, golden, expected, k4f_other) -> dict:
     try:
         server.warmup()
         bigru_masked.launches = bigru_shared.launches = 0
+        graphs = graph_counts(model)
         answers, sizes = serve_requests(server, reqs)
         k4_launches, k1_launches = bigru_masked.launches, bigru_shared.launches
+        captured, replayed = (b - a for a, b in zip(graphs, graph_counts(model)))
     finally:
         server.close()
     calls = sum(sizes.values())
-    if k4_launches != 5 * calls or k1_launches != 0:
-        raise AssertionError(f"served run: {calls} device calls launched K4f {k4_launches} and K1 "
-                             f"{k1_launches} times; want 5 per call and 0")
+    if replayed != calls or k4_launches != 5 * captured or k1_launches != 0:
+        raise AssertionError(f"served run: {calls} device calls, {replayed} graph replays, {captured} captures; "
+                             f"K4f launched {k4_launches} and K1 {k1_launches} times; want a replay a call, 5 "
+                             "K4f a capture (its eager warm pass) and 0 K1")
     if sum(k * v for k, v in sizes.items()) != 32 or max(sizes) < 2:
         raise AssertionError(f"served run: device calls by requests carried {sizes}")
     for i, got, _ in answers:
@@ -1485,8 +1498,9 @@ def phase_serve(dev, card: str, rng, golden, expected, k4f_other) -> dict:
     lat = sorted(ms for *_, ms in answers)
     p50, p90 = lat[len(lat) // 2], lat[int(0.9 * len(lat))]
     print(f"[serve] IntentServer(max_batch={SERVE_BATCH}) after warmup: 32 requests of 1.0-4.0 s from 8 "
-          f"threads in {calls} device calls (by requests carried: {sizes}); K4f launches {k4_launches}, K1 "
-          f"{k1_launches}; every answer equals its exact-shape decode")
+          f"threads in {calls} device calls (by requests carried: {sizes}), each a CUDA graph's replay ({captured} "
+          f"captured in the run); K4f launches {k4_launches}, K1 {k1_launches}; every answer equals its exact-shape "
+          f"decode")
     print(f"[time] served latency (submit to answer, host clock): p50 {p50:.3f} ms, p90 {p90:.3f} ms, "
           f"max {lat[-1]:.3f} ms on {card}")
 
@@ -1896,14 +1910,18 @@ def phase_seq2seq(dev, card: str, rng, trace_lib) -> dict:
     try:
         server.warmup()
         beam_decode.launches = bigru_masked.launches = bigru_shared.launches = 0
+        graphs = graph_counts(model)
         answers, sizes = serve_requests(server, reqs)
         launches = {"K7": beam_decode.launches, "K4f": bigru_masked.launches, "K1": bigru_shared.launches}
+        captured, replayed = (b - a for a, b in zip(graphs, graph_counts(model)))
     finally:
         server.close()
     calls = sum(sizes.values())
-    if launches != {"K7": calls, "K4f": 5 * calls, "K1": 0} or sum(k * v for k, v in sizes.items()) != 32:
-        raise AssertionError(f"served seq2seq run: {calls} device calls ({sizes}) launched {launches}; want 1 "
-                             "K7, 5 K4f and 0 K1 a call")
+    if (replayed != calls or launches != {"K7": captured, "K4f": 5 * captured, "K1": 0}
+            or sum(k * v for k, v in sizes.items()) != 32):
+        raise AssertionError(f"served seq2seq run: {calls} device calls ({sizes}), {replayed} graph replays, "
+                             f"{captured} captures, launched {launches}; want a replay a call, 1 K7, 5 K4f and 0 "
+                             "K1 a capture (its eager warm pass)")
     for i, got, _ in answers:
         want = model.decode_intents(reqs[i])[0]
         if got != want:
@@ -1911,8 +1929,8 @@ def phase_seq2seq(dev, card: str, rng, trace_lib) -> dict:
                                  f"{want!r}")
     lat = sorted(ms for *_, ms in answers)
     print(f"[serve] seq2seq IntentServer(max_batch={SERVE_BATCH}) after warmup: 32 requests of 1.0-4.0 s from "
-          f"8 threads in {calls} device calls (by requests carried: {sizes}); launches {launches}; every answer "
-          f"equals its exact-shape decode")
+          f"8 threads in {calls} device calls (by requests carried: {sizes}), each a CUDA graph's replay "
+          f"({captured} captured in the run); launches {launches}; every answer equals its exact-shape decode")
     print(f"[time] seq2seq served latency (submit to answer, host clock): p50 {lat[len(lat) // 2]:.3f} ms, "
           f"p90 {lat[int(0.9 * len(lat))]:.3f} ms, max {lat[-1]:.3f} ms on {card}")
     return {"name": "beam_decode", "route": "cuda", "source": K7_SOURCE, "replaces": K7_REPLACES,
@@ -2337,20 +2355,25 @@ def phase_uni(dev, card: str, rng, bwd_other) -> list[dict]:
     try:
         server.warmup()
         zero()
+        graphs = graph_counts(model)
         answers, sizes = serve_requests(server, reqs)
         served = counts()
+        captured, replayed = (b - a for a, b in zip(graphs, graph_counts(model)))
     finally:
         server.close()
     calls = sum(sizes.values())
-    if served != {"K5f": 5 * calls, "K5b": 0, **{k: 0 for k in others}} or sum(k * v for k, v in sizes.items()) != 32:
-        raise AssertionError(f"served uni run: {calls} device calls ({sizes}) launched {served}; want 5 K5f a call")
+    if (replayed != calls or served != {"K5f": 5 * captured, "K5b": 0, **{k: 0 for k in others}}
+            or sum(k * v for k, v in sizes.items()) != 32):
+        raise AssertionError(f"served uni run: {calls} device calls ({sizes}), {replayed} graph replays, "
+                             f"{captured} captures, launched {served}; want a replay a call and 5 K5f a capture")
     for i, got, _ in answers:
         want = model.decode_intents(reqs[i])[0]
         if got != want:
             raise AssertionError(f"served uni request {i} ({len(reqs[i])} samples): {got}, exact-shape {want}")
     lat = sorted(ms for *_, ms in answers)
     print(f"[serve] unidirectional IntentServer(max_batch={SERVE_BATCH}): 32 requests of 1.0-4.0 s from 8 threads in "
-          f"{calls} device calls ({sizes}), {served['K5f']} K5f launches and no other GRU kernel; every answer equals "
+          f"{calls} device calls ({sizes}), each a CUDA graph's replay ({captured} captured in the run), "
+          f"{served['K5f']} K5f launches and no other GRU kernel; every answer equals "
           f"its exact-shape decode; p50 {lat[len(lat) // 2]:.3f} ms, p90 {lat[int(0.9 * len(lat))]:.3f} ms (host "
           f"clock) on {card}")
 
@@ -3318,10 +3341,12 @@ def dp_test_run(trainer, items, labels: list, B: int) -> dict:
     for c in counters:
         c.launches = 0
     model.decode_intents = recording
+    graphs = graph_counts(model)
     try:
         acc, loss = trainer.test(data)
     finally:
         del model.decode_intents
+    captured, replayed = (b - a for a, b in zip(graphs, graph_counts(model)))
     torch.cuda.synchronize()
     # a batch decodes all its rows; its real rows come first
     strings, k = {}, 0
@@ -3331,7 +3356,7 @@ def dp_test_run(trainer, items, labels: list, B: int) -> dict:
         k += len(b["w"])
     return {"acc": acc, "loss": loss, "strings": strings,
             "launches": dict(zip(("K1", "K8", "K4f", "K7"), (c.launches for c in counters))),
-            "batches": len(data.loader)}
+            "batches": len(data.loader), "captured": captured, "replayed": replayed}
 
 
 def start_ranks(flag: str, args_path: str, world: int, tmp: str) -> list:
@@ -3599,14 +3624,18 @@ def phase_dp(dev, card: str, rng) -> dict:
             if g["acc"] != want["acc"] or not abs(g["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"]):
                 raise AssertionError(f"[dp-test] acc {g['acc']} loss {float(g['loss'])!r} against {want['acc']} "
                                      f"{float(want['loss'])!r}")
-            if not (g["launches"]["K4f"] > 0 and g["launches"]["K7"] == g["batches"]):
-                raise AssertionError(f"[dp-test] a rank launched {g['launches']} over {g['batches']} batches")
+            # each batch's decode replays its padded shape's CUDA graph; K7 runs eagerly in a capture's warm pass
+            if not (g["launches"]["K4f"] > 0 and g["replayed"] == g["batches"]
+                    and g["launches"]["K7"] == g["captured"] > 0):
+                raise AssertionError(f"[dp-test] a rank launched {g['launches']} over {g['batches']} batches, "
+                                     f"{g['replayed']} graph replays, {g['captured']} captures")
         print(f"[dp-test] all_real_seq2seq.cfg model, Trainer.test at decode_acc_from_epoch 0 on {DP_TEST_N} "
               f"utterances of 1.0-4.0 s, {DP_TEST_B} a batch on each of 2 ranks (gloo, one card) and in one "
               f"process: loss {float(got[0]['loss'])!r} against {float(want['loss'])!r} (limit 1e-5 relative), acc "
               f"{got[0]['acc']}, all {len(strings)} decoded strings equal; launches a rank "
-              f"{[g['launches'] for g in got]} over {got[0]['batches']} batches (one process: "
-              f"{want['launches']}); the two ranks and the references took {took:.1f} s")
+              f"{[g['launches'] for g in got]} over {got[0]['batches']} batches, each decode a CUDA graph's "
+              f"replay ({[g['captured'] for g in got]} captured; one process: {want['launches']}); the two "
+              f"ranks and the references took {took:.1f} s")
 
         # 13.5 [profile-dir]: epoch 0 of Trainer.train under profile_dir, its trace against the counters
         model = flagship_model(dev, seed=4)

@@ -25,6 +25,7 @@ from torch.nn.utils import skip_init
 
 from tpu_slu_torch.data.loader import WAVE_BUCKET_QUANT, pad_to_bucket
 from tpu_slu_torch.models.convert import params_from_jax, read_npz
+from tpu_slu_torch.models.decode_graph import DecodeGraphs, check_lengths
 from tpu_slu_torch.models.encoder import (
     DEFAULT_FRONTEND,
     DEFAULT_GRU_LAYOUT,
@@ -109,6 +110,27 @@ def intent_logits(layers: nn.ModuleList, arch: IntentArch, feats: torch.Tensor,
     if frame_mask is not None:
         out = out.masked_fill(~frame_mask[:, :, None], float("-inf"))
     return out.amax(dim=1)
+
+
+def exact_inputs(x, lengths, bucket: bool) -> tuple[torch.Tensor, np.ndarray, int]:
+    """The length-exact route's inputs on the host side: (x (B, T) float32
+    as given, or a CPU tensor of a host array; the (B,) int64 lengths on the
+    host, T where None; T_pad, the next 0.5 s boundary with ``bucket``, else
+    T). Raises ``ValueError`` unless every length lies in [0, T_pad]: the one
+    range check of the route, before any device work (a CUDA ``lengths`` is
+    read back for it)."""
+    x = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x, np.float32))
+    if x.dim() == 1:
+        x = x[None, :]
+    B, T = x.shape
+    t_pad = pad_to_bucket(T, WAVE_BUCKET_QUANT) if bucket else T
+    if lengths is None:
+        n = np.full((B,), T, np.int64)
+    else:
+        n = lengths.detach().cpu().numpy() if torch.is_tensor(lengths) else np.asarray(lengths)
+        n = n.astype(np.int64)
+    check_lengths(n, B, t_pad)
+    return x, n, t_pad
 
 
 def valid_frames(encoder_arch, lengths: torch.Tensor, t_frames: int,
@@ -396,6 +418,7 @@ class Model(nn.Module):
         self._unfrozen_count = 0
         self._frozen_base = config.pretraining_type != 0
         self._generator = torch.Generator().manual_seed(config.seed)  # forward(training=True)
+        self.decode_graphs = DecodeGraphs()  # the length-exact decode's CUDA graphs
         gen = torch.Generator().manual_seed(config.seed if seed is None else seed)
         self.pretrained_model = PretrainedModel(config, generator=gen, frontend=frontend,
                                                 gru_layout=gru_layout)
@@ -575,56 +598,94 @@ class Model(nn.Module):
         * ``lengths=`` (B,) true sample counts of an already padded batch, or
           ``bucket=True`` (zero-pads the input to the next 0.5 s boundary
           after taking its true length): the length-exact path, each row
-          equal to its example decoded alone at its exact shape;
+          equal to its example decoded alone at its exact shape. Its lengths
+          are checked on the host before any device work (``ValueError``
+          unless each lies in [0, T_pad]). On a CUDA model the call replays
+          its padded shape's CUDA graph (:mod:`~tpu_slu_torch.models.decode_graph`,
+          ``self.decode_graphs``), captured on the shape's first call: the same
+          kernels on the same data, so the same answers;
         * with the config's ``mask_padding=False`` the exact path is off
           (strict reference emulation: the padding leaks).
 
         While a profiler runs, its parts are spans one after another:
-        ``decode.h2d`` (the input's copy to the device), ``decode.frontend``
-        (the features and their valid frames), ``decode.encode`` (the intent
-        encoder, the seq2seq head's keys and values, or the fixed-slot head)
-        and the seq2seq head's ``decode.search``.
+        ``decode.h2d`` (the input's copy to the device), then on the graph
+        route ``decode.replay`` (or ``decode.capture``), else
+        ``decode.frontend`` (the features and their valid frames),
+        ``decode.encode`` (the intent encoder, the seq2seq head's keys and
+        values, or the fixed-slot head) and the seq2seq head's
+        ``decode.search``.
         """
         dev = self.device
+        mask_padding = getattr(self.config, "mask_padding", True)
+        if (lengths is not None or bucket) and mask_padding:
+            x, n, t_pad = exact_inputs(x, lengths, bucket)
+            if dev.type == "cuda":
+                out = self.decode_graphs.run(lambda xs, ns: self._decode_exact(xs, ns, beam_width),
+                                             self._graph_key(x.shape[0], t_pad, beam_width),
+                                             tuple(p.data_ptr() for p in self.parameters()), x, n, t_pad, dev)
+                if out is not None:
+                    return out
+            with span("decode.h2d"):
+                x = x.to(dev, torch.float32)
+                if t_pad != x.shape[1]:
+                    x = F.pad(x, (0, t_pad - x.shape[1]))
+                n = torch.as_tensor(n, device=dev)
+            return self._decode_exact(x, n, beam_width)
         with span("decode.h2d"):
             x = torch.as_tensor(np.asarray(x, np.float32) if not torch.is_tensor(x) else x,
                                 dtype=torch.float32, device=dev)
             if x.dim() == 1:
                 x = x[None, :]
-            exact = lengths is not None
-            if lengths is None:
-                lengths = torch.full((x.shape[0],), x.shape[1], dtype=torch.int64, device=dev)
-            else:
-                lengths = torch.as_tensor(np.asarray(lengths) if not torch.is_tensor(lengths) else lengths,
-                                          dtype=torch.int64, device=dev)
+            full = torch.full((x.shape[0],), x.shape[1], dtype=torch.int64, device=dev)
             if bucket:
                 t_pad = pad_to_bucket(x.shape[1], WAVE_BUCKET_QUANT)
                 if t_pad != x.shape[1]:
                     x = F.pad(x, (0, t_pad - x.shape[1]))
-                exact = True
-        mask_padding = getattr(self.config, "mask_padding", True)
-        exact = exact and mask_padding
         if self.seq2seq:
             with span("decode.frontend"):
-                feats = encoder_features(self.pretrained_model, x, lengths=lengths if exact else None)
-                n_valid = valid_frames(self.encoder_arch, lengths, feats.shape[1]) if mask_padding else None
-                n_frames = self.encoder_arch.num_frames(lengths) if exact else None
+                feats = encoder_features(self.pretrained_model, x)
+                n_valid = valid_frames(self.encoder_arch, full, feats.shape[1]) if mask_padding else None
+            return seq2seq_beam_infer(self.encoder, self.decoder, self.seq2seq_arch, feats, beam_width,
+                                      n_valid=n_valid)
+        with span("decode.frontend"):
+            feats = encoder_features(self.pretrained_model, x)
+            fm = None
+            if mask_padding:
+                t_out = frames_through(self.intent_arch.layers, feats.shape[1])
+                fm = frame_mask_from_lengths(self.encoder_arch, full, t_out, self.intent_arch)
+        with span("decode.encode"):
+            logits = intent_logits(self.intent_layers, self.intent_arch, feats, frame_mask=fm,
+                                   gru_layout=self.pretrained_model.gru_layout)
+            return logits, intent_predictions(logits, self.values_per_slot)
+
+    def _decode_exact(self, x: torch.Tensor, n: torch.Tensor, beam_width: int) -> tuple:
+        """The length-exact decode's device work: x (B, T_pad) float32 and n
+        (B,) int64 sample counts on the model's device -> the outputs of
+        :meth:`predict_intents`. The one definition both the eager route and
+        a graph's capture run."""
+        with span("decode.frontend"):
+            feats = encoder_features(self.pretrained_model, x, lengths=n)
+            n_frames = self.encoder_arch.num_frames(n)
+            if self.seq2seq:
+                n_valid = valid_frames(self.encoder_arch, n, feats.shape[1])
+        if self.seq2seq:
             return seq2seq_beam_infer(self.encoder, self.decoder, self.seq2seq_arch, feats, beam_width,
                                       n_valid=n_valid, n_frames=n_frames)
-        with span("decode.frontend"):
-            if exact:
-                feats = encoder_features(self.pretrained_model, x, lengths=lengths)
-                head = {"n_frames": self.encoder_arch.num_frames(lengths)}
-            else:
-                feats = encoder_features(self.pretrained_model, x)
-                fm = None
-                if mask_padding:
-                    t_out = frames_through(self.intent_arch.layers, feats.shape[1])
-                    fm = frame_mask_from_lengths(self.encoder_arch, lengths, t_out, self.intent_arch)
-                head = {"frame_mask": fm, "gru_layout": self.pretrained_model.gru_layout}
         with span("decode.encode"):
-            logits = intent_logits(self.intent_layers, self.intent_arch, feats, **head)
+            logits = intent_logits(self.intent_layers, self.intent_arch, feats, n_frames=n_frames)
             return logits, intent_predictions(logits, self.values_per_slot)
+
+    def _graph_key(self, B: int, t_pad: int, beam_width: int) -> tuple:
+        """The key of a length-exact decode's CUDA graph: (the head's arch,
+        B, T_pad, the beam width (None for the fixed-slot head), the
+        parameters' dtype, the float32 matmul precision): what the captured
+        work reads besides the inputs and the parameters' storage. The arch
+        holds the search's step count, which a caller may change."""
+        dtype = next(self.parameters()).dtype
+        precision = torch.get_float32_matmul_precision()
+        if self.seq2seq:
+            return self.seq2seq_arch, B, t_pad, beam_width, dtype, precision
+        return self.intent_arch, B, t_pad, None, dtype, precision
 
     def decode_intents(self, x, bucket: bool = False, lengths=None) -> list:
         """Waveform(s) -> one list of slot-value strings per example, or for

@@ -2,7 +2,8 @@
 
 Port of ``tpu_slu/ops/pallas_beam.py`` (``beam_decode_pallas``, the TPU
 kernel ``_mk_beam_kernel``): the whole width-W, ``max_len``-step search in
-one launch of ``csrc/beam_decode.cu``, counted on ``beam_decode.launches``.
+one launch of ``csrc/beam_decode.cu``, counted on ``beam_decode.launches``
+(a call that a CUDA graph captures is no launch).
 Each utterance runs on a thread-block cluster of C CTAs (1 to 8, the
 largest whose clusters of the batch fit on the card at once:
 :func:`beam_cluster_size`), the decoder's weights split between them by
@@ -23,6 +24,7 @@ import torch.nn.functional as F
 
 from tpu_slu_torch.ops import _build
 from tpu_slu_torch.ops.beam import beam_search_reference, decoder_cells
+from tpu_slu_torch.ops.bigru_masked import capturing
 
 # Bytes of shared memory one block may use on Hopper (227 KB): a plan whose
 # shared memory (``tsl_beam_decode_smem_bytes``: the plan and a one-CTA
@@ -123,9 +125,12 @@ def _check_cuda(dec, keys: torch.Tensor, values: torch.Tensor, n_valid: torch.Te
             or tuple(n_valid.shape) != (B,):
         raise TypeError(f"beam_decode: n_valid must be an int tensor of shape ({B},) on {keys.device}, "
                         f"got {n_valid.dtype} {tuple(n_valid.shape)} on {n_valid.device}")
-    lo, hi = (int(v) for v in torch.aminmax(n_valid))
-    if lo < 1 or hi > T:
-        raise ValueError(f"beam_decode: valid frame counts must lie in [1, T={T}], got [{lo}, {hi}]")
+    # a CUDA graph's capture reads nothing back: the length-exact decode's
+    # n_valid lies in [1, T] by construction (valid_frames clamps it)
+    if not capturing(keys):
+        lo, hi = (int(v) for v in torch.aminmax(n_valid))
+        if lo < 1 or hi > T:
+            raise ValueError(f"beam_decode: valid frame counts must lie in [1, T={T}], got [{lo}, {hi}]")
     return {"B": B, "T": T, "W": beam_width, "nl": nl, "H": H, "K": K, "V": V, "L": L, "U": max_len}
 
 
@@ -139,7 +144,8 @@ def beam_decode(dec, keys: torch.Tensor, values: torch.Tensor, n_valid: torch.Te
     ``attention_kv``; ``n_valid`` (B,) each row's valid frames, a prefix in
     [1, T] (None: all T). CPU tensors take the plain version. CUDA tensors
     launch the kernel on the current stream, with the weights laid out anew
-    for the call (the range check of ``n_valid`` reads it on the host) and
+    for the call (the range check of ``n_valid`` reads it on the host,
+    except while the stream captures a CUDA graph) and
     the plan in shared memory if it fits a block, else in a workspace of B x
     C plans in device memory; anything the kernel does not take raises, and so
     does a call with grad mode on and a weight or input that requires grad:
@@ -173,11 +179,11 @@ def beam_decode(dec, keys: torch.Tensor, values: torch.Tensor, n_valid: torch.Te
     )
     _build.check(err, f"beam_decode (B={d['B']}, T={d['T']}, W={d['W']}, U={d['U']}, "
                       f"{'global' if ws is not None else 'smem'} plan of {plan} bytes)")
-    beam_decode.launches += 1
-    if ws is not None:
-        beam_decode.launches_global += 1
+    if not capturing(keys):
+        beam_decode.launches += 1
+        beam_decode.launches_global += ws is not None
     return scores, tokens
 
 
-beam_decode.launches = 0  # wrapper calls that launched K7, either plan
+beam_decode.launches = 0  # wrapper calls that launched K7, either plan (a graph's capture not)
 beam_decode.launches_global = 0  # ... of them with the plan in device memory

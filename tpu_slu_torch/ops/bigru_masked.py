@@ -9,7 +9,8 @@ layer on that example alone at T = n_b, zeros at t >= n_b. With every
 n_b = T it is the unmasked ``gru_apply`` of the seq2seq encoder.
 
 Each kernel has a wrapper, which launches it on a CUDA tensor and runs its
-plain PyTorch version on a CPU tensor, and keeps a count of its launches:
+plain PyTorch version on a CPU tensor, and keeps a count of its launches
+(a call that a CUDA graph captures is no launch: :func:`capturing`):
 
 * K4f, the forward: :func:`bigru_masked_fwd`, counted on
   ``bigru_masked.launches`` (``csrc/bigru_masked_fwd.cu``: the cluster
@@ -129,13 +130,24 @@ def bigru_masked_bwd_reference(params: dict, x: torch.Tensor, out: torch.Tensor,
     return dx.reshape(B, T, D).to(dtype), grads  # bf16: their sum rounded
 
 
+def capturing(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a CUDA tensor and the current stream is capturing a
+    CUDA graph (the length-exact decode's, ``models/decode_graph.py``): a
+    wrapper then reads nothing back to the host and counts no launch, since
+    the kernel runs only when the graph is replayed."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
 def check_layer(what: str, params: dict, x: torch.Tensor, n: torch.Tensor | None,
                 extra=()) -> tuple[int, int, int, int]:
     """(B, T, D, H) of a CUDA call of the masked layer kernels (K4f, K4b with
     ``params`` of both directions; K5f, K5b with ``{"fwd"}``), or raise with
     the reason the kernel cannot take it; ``extra`` are (name, tensor)
     pairs shaped as the output. ``n`` None: every row has T frames. x and
-    ``extra`` are float32, or all bfloat16; the weights float32."""
+    ``extra`` are float32, or all bfloat16; the weights float32. The range
+    of ``n``, [0, T], is read back and checked on the host, except while
+    the current stream captures a CUDA graph (the length-exact decode's,
+    whose lengths ``Model.predict_intents`` checked on the host)."""
     if x.dim() != 3:
         raise ValueError(f"{what}: x has shape {tuple(x.shape)}, want (B, T, D)")
     B, T, D = x.shape
@@ -177,6 +189,8 @@ def check_layer(what: str, params: dict, x: torch.Tensor, n: torch.Tensor | None
     if n.dtype not in (torch.int32, torch.int64) or tuple(n.shape) != (B,):
         raise TypeError(f"{what}: n must be an int32/int64 tensor of shape ({B},), "
                         f"got {n.dtype} {tuple(n.shape)}")
+    if capturing(x):
+        return B, T, D, H  # a CUDA graph's capture reads nothing back: its caller checked n on the host
     lo, hi = (int(v) for v in torch.aminmax(n))
     if lo < 0 or hi > T:
         raise ValueError(f"{what}: lengths must lie in [0, T={T}], got [{lo}, {hi}]")
@@ -205,7 +219,8 @@ def bigru_masked_fwd(params: dict, x: torch.Tensor, n: torch.Tensor) -> torch.Te
     D), ``weight_hh`` (3H, H), ``bias_ih`` and ``bias_hh`` (3H,), torch
     layout. CPU tensors take the plain version. CUDA tensors launch the
     kernel on the current stream without synchronising (the range check of
-    ``n`` reads it on the host); anything the kernel does not take raises,
+    ``n`` reads it on the host, except while the stream captures a CUDA
+    graph: :func:`check_layer`); anything the kernel does not take raises,
     H past 128 too. Its recurrence runs both directions on thread-block
     clusters whose size follows the batch as K1's does
     (``bigru_shared.bigru_cluster_size``); each batch tile steps to its
@@ -226,8 +241,9 @@ def bigru_masked_fwd(params: dict, x: torch.Tensor, n: torch.Tensor) -> torch.Te
         gi.data_ptr(), out.data_ptr(), T, B, H, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, f"bigru_masked ({x.dtype}, B={B}, T={T}, H={H})")
-    bigru_masked.launches += 1
-    bigru_masked.launches_bf16 += bf
+    if not capturing(x):
+        bigru_masked.launches += 1
+        bigru_masked.launches_bf16 += bf
     return out
 
 
@@ -326,5 +342,5 @@ def bigru_masked(params: dict, x: torch.Tensor, n: torch.Tensor) -> torch.Tensor
     return bigru_masked_fwd(params, x, n)
 
 
-bigru_masked.launches = 0  # wrapper calls that launched K4f (bigru_masked_fwd)
+bigru_masked.launches = 0  # wrapper calls that launched K4f (bigru_masked_fwd), a graph's capture not
 bigru_masked.launches_bf16 = 0  # ... its bf16 instantiation (counted in launches too)

@@ -10,7 +10,8 @@ layer on that example alone at T = n_b, zeros at t >= n_b. Without ``n``
 every row has T frames, the TPU kernel's function.
 
 Each kernel has a wrapper, which launches it on a CUDA tensor and runs its
-plain PyTorch version on a CPU tensor, and keeps a count of its launches:
+plain PyTorch version on a CPU tensor, and keeps a count of its launches
+(a call that a CUDA graph captures is no launch: ``bigru_masked.capturing``):
 
 * K5f, the forward: :func:`gru1_fwd`, counted on ``gru1.launches``
   (``csrc/bigru_masked_fwd.cu`` ``gru1_cluster_kernel``: a thread-block
@@ -37,6 +38,7 @@ from tpu_slu_torch.ops.bigru_masked import (
     bigru_masked_bwd_reference,
     bigru_masked_reference,
     bwd_scratch,
+    capturing,
     check_layer,
     device_of,
 )
@@ -93,9 +95,10 @@ def gru1_fwd(params: dict, x: torch.Tensor, n: torch.Tensor | None = None) -> to
     ``bias_hh`` (3H,), torch layout. CPU tensors take the plain version.
     CUDA tensors launch the kernel on the current stream without
     synchronising; ``n`` None reads nothing on the host, a given ``n`` is
-    range-checked there. Anything the kernel does not take raises, H past
-    128 too. Records no autograd graph on CUDA. A bf16 x gives a bf16
-    output.
+    range-checked there (except while the stream captures a CUDA graph:
+    ``bigru_masked.check_layer``). Anything the kernel does not take
+    raises, H past 128 too. Records no autograd graph on CUDA. A bf16 x
+    gives a bf16 output.
     """
     if device_of("gru1", x).type == "cpu":
         return gru1_reference(params, x, n)
@@ -114,8 +117,9 @@ def gru1_fwd(params: dict, x: torch.Tensor, n: torch.Tensor | None = None) -> to
         gi.data_ptr(), out.data_ptr(), T, B, H, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, f"gru1 ({x.dtype}, B={B}, T={T}, H={H})")
-    gru1.launches += 1
-    gru1.launches_bf16 += bf
+    if not capturing(x):
+        gru1.launches += 1
+        gru1.launches_bf16 += bf
     return out
 
 
@@ -200,5 +204,5 @@ def gru1(params: dict, x: torch.Tensor, n: torch.Tensor | None = None) -> torch.
     return gru1_fwd(params, x, n)
 
 
-gru1.launches = 0  # wrapper calls that launched K5f (gru1_fwd)
+gru1.launches = 0  # wrapper calls that launched K5f (gru1_fwd), a graph's capture not
 gru1.launches_bf16 = 0  # ... its bf16 instantiation (counted in launches too)
